@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero):
 
 1. Device: the card's name and power limit from nvidia-smi.
-2. Build: nvcc compiles the MSDA forward kernel from
-   semi_detr_tpu_torch/csrc (timed; ptxas register report printed).
+2. Build: nvcc compiles the MSDA forward and backward kernels from
+   semi_detr_tpu_torch/csrc, one nvcc per source started together (timed;
+   ptxas register report printed).
 3. Kernel against its plain version, at the main path's shapes (encoder
    Lq = S = 22,323 and decoder Lq = 900, N=1, M=8, D=32, L=4, P=4) and on
    an out-of-bounds case, each in float32 (TF32 off) and bfloat16: max abs
@@ -24,9 +25,36 @@ Phases (any failure exits non-zero):
    request runs in float32 (TF32 off) through the kernel and through the
    plain version, and the two are compared; the coordinates must differ
    (they depend on the decoder's MSDA) but stay within tolerance.
+3b. Backward kernel against its plain version (autograd through the plain
+   forward), at the training step's shapes (batch 2: encoder Lq = S =
+   22,323, decoder Lq = 900 + 200 CDN slots = 1,100) and on an
+   out-of-bounds/NaN/lower-edge case, each in float32 (TF32 off) and bfloat16: the max
+   abs error of d_value, d_loc and d_attn against tolerances scaled to
+   each output's magnitude, kernel ms, plain ms, the bound, and the
+   backward of the grid_sample composite as a yardstick.
+5. Training path: the supervised step at full width (`init_train_state`
+   of the config above: bfloat16 compute, float32 parameters, seeded
+   weights, the config's optimizer, EMA teacher), batch 2 per step,
+   `synthetic_batch`'s seeded uint8 images through `pack` and `stack` in
+   both bucket orientations, seeded GT counts including an
+   image with 0 GT (fake CDN) and one with 100: 2 warm-up steps (O2M +
+   task-aligned focal loss), then 3 Hungarian steps. Every loss and the
+   grad norm finite, every trainable parameter moved, the frozen stem and
+   layer1 unchanged bit for bit, and exactly 12 MSDA forward and 12
+   backward launches per step. Step times, images/s and the peak device
+   memory are printed.
+5b. Both kernels inside the model, float32 (TF32 off), one 599x401 image:
+   the parameter gradients of a seeded projection of the encoder memory
+   through the kernels and through the plain versions; then each kernel
+   alone (forward kernel with the plain backward, and the backward kernel
+   under either forward), the kernels twice (the noise floor of the
+   atomic scatter) and the plain version with its output moved by one
+   float32 rounding (how far the model carries a rounding of the forward);
+   then the decoder's hs, both runs decoding one shared encoder output.
+   Each leaf within a relative L2 tolerance.
 
-The line before the last is a JSON object with the kernel's numbers; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with the kernels' numbers and the
+training record; the last line is {"ok": true, "device": {...}}.
 """
 import json
 import subprocess
@@ -42,9 +70,15 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from semi_detr_tpu_torch.api import Predictor, init_detector  # noqa: E402
+from semi_detr_tpu_torch.data.pipeline import (  # noqa: E402
+    synthetic_batch, to_device)
 from semi_detr_tpu_torch.models import transformer as tr  # noqa: E402
 from semi_detr_tpu_torch.ops import ms_deform_attn_cuda as msda  # noqa: E402
-from semi_detr_tpu_torch.ops.ms_deform_attn import ms_deform_attn  # noqa: E402
+from semi_detr_tpu_torch.ops.ms_deform_attn import (  # noqa: E402
+    ms_deform_attn, ms_deform_attn_backward)
+from semi_detr_tpu_torch.train.state import init_train_state  # noqa: E402
+from semi_detr_tpu_torch.train.supervised import (  # noqa: E402
+    make_supervised_train_step)
 
 CONFIG = "configs/dino_detr/dino_detr_r50_coco.py"
 # main-path levels of the 800x1344 bucket
@@ -64,6 +98,30 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 # 6 decoder layers (TF32 off)
 TOL_MEMORY, TOL_LOGITS, TOL_COORDS = 1e-3, 1e-3, 1e-4
 REQUESTS = ((480, 640), (640, 427), (427, 641), (599, 401))
+# backward, kernel vs plain: each output's max abs error within GRAD_RTOL
+# times its largest magnitude (float32 sums in another order; d_value's
+# scatter in atomic order, which is not fixed); a bfloat16 d_value adds
+# one bf16 rounding (2**-8 relative). The bfloat16 kernel is held against
+# the plain backward of value.float() and grad.float(): it reads the same
+# bf16 numbers and sums in float32.
+GRAD_RTOL, BF16_ROUNDING = 1e-5, 2 ** -8
+TRAIN_BATCH, TRAIN_LQ = 2, 900 + 200
+# the training steps: (warm_up, bucket, GT counts of the two images)
+TRAIN_STEPS = ((True, (800, 1344), (0, 7)), (True, (1344, 800), (100, 3)),
+               (False, (800, 1344), (12, 0)), (False, (1344, 800), (100, 0)),
+               (False, (800, 1344), (25, 60)))
+# 5b, float32 gradients through kernels vs plain versions: relative L2 per
+# leaf (float32 sums in other orders through 6 layers and the backbone);
+# leaves whose gradient is below 1e-5 of the global norm on both sides are
+# a true zero (a conv bias before GroupNorm, the key bias) and skipped.
+# Where the two forwards differ, the model carries their rounding far: one
+# float32 rounding of the plain MSDA output moves the encoder's leaves by
+# up to ~1e-3 (phase 5b's witness), so TOL_GRAD_LEAF holds those
+# comparisons. With one forward shared, only the backward kernel's sum
+# order differs: TOL_BWD_ONLY is 5x the kernel-vs-kernel floor (~2e-6).
+# The decoder, on one shared encoder output, reads ~2e-5.
+TOL_GRAD_LEAF, TOL_BWD_ONLY, TOL_DECODER_LEAF = 1e-3, 1e-5, 1e-4
+NEGLIGIBLE = 1e-5
 
 
 def log(msg):
@@ -91,17 +149,35 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def msda_inputs(lq, dtype, seed, oob=False):
+def edge_coord(extent):
+    """A float32 location whose pixel coordinate, loc * extent - 0.5 as the
+    kernels round it, is exactly -1: the map's lower edge, where a tap adds
+    0 to the output but has a one-sided derivative."""
+    f32 = np.float32
+    x = f32(-0.5 / extent)
+    for step in range(64):
+        for cand in (x + f32(step) * np.spacing(x), x - f32(step) *
+                     np.spacing(x)):
+            cand = f32(cand)
+            if f32(f32(cand * f32(extent)) - f32(0.5)) == f32(-1):
+                return float(cand)
+    raise ValueError(f"no float32 edge location for extent {extent}")
+
+
+def msda_inputs(lq, dtype, seed, oob=False, n=1):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    value = torch.randn(1, S, M, D, device="cuda", generator=g).to(dtype)
-    loc = torch.rand(1, lq, M, len(SHAPES), P, 2, device="cuda", generator=g)
+    value = torch.randn(n, S, M, D, device="cuda", generator=g).to(dtype)
+    loc = torch.rand(n, lq, M, len(SHAPES), P, 2, device="cuda", generator=g)
     if oob:
         loc = loc * 3.0 - 1.0                     # two thirds off the maps
         loc[:, ::7, :, :, 0, 0] = float("nan")
         loc[:, 1::7, :, :, 1, 1] = 1e30
         loc[:, 2::7, :, :, 2, 0] = -1e30
-    attn = torch.randn(1, lq, M, len(SHAPES) * P, device="cuda",
-                       generator=g).softmax(-1).view(1, lq, M, len(SHAPES), P)
+        for lvl, (h, w) in enumerate(SHAPES):     # exactly on the lower edge
+            loc[:, 3::7, :, lvl, 3, 0] = edge_coord(w)
+            loc[:, 4::7, :, lvl, 3, 1] = edge_coord(h)
+    attn = torch.randn(n, lq, M, len(SHAPES) * P, device="cuda",
+                       generator=g).softmax(-1).view(n, lq, M, len(SHAPES), P)
     return value, loc, attn
 
 
@@ -112,6 +188,23 @@ def bound(lq, dtype):
     taps = lq * M * len(SHAPES) * P
     nbytes = S * M * D * esize + taps * 2 * 4 + taps * 4 + lq * M * D * esize
     flops = taps * D * 8
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_bwd(n, lq, dtype):
+    """(ms, 'bytes'|'operations') of the backward: read value, loc, attn
+    and g; write d_value (in value's dtype), d_loc and d_attn, each once.
+    The kernel's float32 d_value scratch buffer is its own design's cost,
+    not the function's, and is not counted. 16 flops per channel per tap
+    (4 corners: a dot multiply-add, a scale and an add into d_value)."""
+    esize = torch.finfo(dtype).bits // 8
+    taps = n * lq * M * len(SHAPES) * P
+    v_elems, g_elems = n * S * M * D, n * lq * M * D
+    nbytes = (2 * v_elems * esize + g_elems * esize + 2 * (taps * 2 * 4)
+              + 2 * (taps * 4))
+    flops = taps * D * 16
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -209,6 +302,7 @@ def main_path_phase():
               for hw in REQUESTS]
 
     msda.ms_deform_attn_cuda.launches = 0
+    msda.ms_deform_attn_bwd_cuda.launches = 0
     forwards = 0
     for pred in (topk, nms):                  # warm-up, checked too
         for img in images:
@@ -282,6 +376,302 @@ def float32_phase():
     return errs
 
 
+def grid_sample_bwd_ms(value, loc, attn, g, reps):
+    """Device ms of the backward of the grid_sample composite (value, loc
+    and attn), timed alone: a yardstick, not an MSDA of the library."""
+    ins = [t.detach().requires_grad_(True) for t in (value, loc, attn)]
+    out = grid_sample_msda(*ins)
+    return cuda_ms(lambda: torch.autograd.grad(
+        out, ins, g.to(out.dtype), retain_graph=True), reps)
+
+
+def grad_errors(got, ref, dtype):
+    """[(max abs err, tol)] of d_value, d_loc, d_attn where the plain result
+    is finite; the kernel must give exactly 0 where it is not."""
+    rows = []
+    for i, (a, b) in enumerate(zip(got, ref)):
+        fin = torch.isfinite(b)
+        if not torch.equal(a.float()[~fin], torch.zeros_like(a.float()[~fin])):
+            raise AssertionError("kernel gradient not 0 at a NaN location")
+        scale = max(1.0, b[fin].abs().max().item())
+        tol = GRAD_RTOL * scale + (BF16_ROUNDING * scale
+                                   if i == 0 and dtype == torch.bfloat16
+                                   else 0.0)
+        err = (a.float() - b.float())[fin].abs().max().item()
+        if not torch.isfinite(a).all():
+            raise AssertionError("non-finite kernel gradient")
+        rows.append((err, tol))
+    return rows
+
+
+def backward_kernel_phase():
+    log("== phase 3b: MSDA backward kernel against its plain version")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    n = TRAIN_BATCH
+    for name, lq, oob in (("encoder", S, False), ("decoder", TRAIN_LQ, False),
+                          ("out_of_bounds", TRAIN_LQ, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            seed = 100 + len(rows)
+            value, loc, attn = msda_inputs(lq, dtype, seed, oob=oob, n=n)
+            g = torch.randn(n, lq, M * D, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(
+                                seed)).to(dtype)
+            got = msda.ms_deform_attn_bwd_cuda(value, SHAPES, loc, attn, g)
+            ref = ms_deform_attn_backward(value.float(), SHAPES, loc, attn,
+                                          g.float())
+            torch.cuda.synchronize()
+            errs = grad_errors(got, ref, dtype)
+            del got, ref
+            for (err, tol), out in zip(errs, ("d_value", "d_loc", "d_attn")):
+                if not err <= tol:
+                    raise AssertionError(f"{name} {dtype} {out}: max abs err "
+                                         f"{err} > {tol}")
+            k_ms = cuda_ms(lambda: msda.ms_deform_attn_bwd_cuda(
+                value, SHAPES, loc, attn, g), 20)
+            p_ms = cuda_ms(lambda: ms_deform_attn_backward(
+                value, SHAPES, loc, attn, g), 3)
+            y_ms = (grid_sample_bwd_ms(value, loc, attn, g, 3)
+                    if dtype == torch.float32 and not oob else None)
+            b_ms, b_by = bound_bwd(n, lq, dtype)
+            rows.append(dict(case=name, dtype=str(dtype).split(".")[-1],
+                             n=n, lq=lq,
+                             max_abs_err={o: e for o, (e, _) in zip(
+                                 ("d_value", "d_loc", "d_attn"), errs)},
+                             tol={o: t for o, (_, t) in zip(
+                                 ("d_value", "d_loc", "d_attn"), errs)},
+                             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, grid_sample_bwd_ms=y_ms))
+            log(f"  {name:13s} {rows[-1]['dtype']:8s} N={n} Lq={lq:6d} err "
+                + " ".join(f"{o}={e:.3e}(tol {t:.1e})" for o, (e, t) in zip(
+                    ("d_value", "d_loc", "d_attn"), errs))
+                + f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound "
+                f"{b_ms:.4f} ms ({b_by})  grid_sample bwd yardstick {y_ms} ms")
+            del value, loc, attn, g
+            torch.cuda.empty_cache()
+    return rows
+
+
+def train_phase(card):
+    log("== phase 5: training path (full width, bfloat16 compute, float32 "
+        "parameters, seeded weights, batch 2)")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(CONFIG, device="cuda", seed=0)
+    model = state.model
+    log(f"  compute dtype {model.compute_dtype}, parameter dtypes "
+        f"{sorted({str(p.dtype) for p in model.parameters()})}")
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    steps = {wu: make_supervised_train_step(warm_up=wu, seed=0)
+             for wu in (True, False)}
+    rng = np.random.RandomState(5)
+    batches = [to_device(synthetic_batch(rng, bucket, counts,
+                                         model.cfg.max_gt), "cuda")
+               for _, bucket, counts in TRAIN_STEPS]
+    records = []
+    fwd_total = bwd_total = 0
+    for (warm_up, bucket, counts), batch in zip(TRAIN_STEPS, batches):
+        msda.ms_deform_attn_cuda.launches = 0
+        msda.ms_deform_attn_bwd_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = steps[warm_up](state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        fwd = msda.ms_deform_attn_cuda.launches
+        bwd = msda.ms_deform_attn_bwd_cuda.launches
+        fwd_total += fwd
+        bwd_total += bwd
+        vals = {k: float(v) for k, v in metrics.items()}
+        bad = [k for k, v in vals.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"step {state.step}: non-finite {bad}")
+        if (fwd, bwd) != (12, 12):
+            raise AssertionError(f"step {state.step}: {fwd} forward and "
+                                 f"{bwd} backward MSDA launches, not 12 + 12")
+        records.append(dict(step=state.step - 1, warm_up=warm_up,
+                            bucket=list(bucket), gt_counts=list(counts),
+                            ms=dt * 1e3, total_loss=vals["total_loss"],
+                            grad_norm=vals["grad_norm"],
+                            launches_fwd=fwd, launches_bwd=bwd))
+        log(f"  step {state.step - 1} {'O2M+TAL' if warm_up else 'Hungarian'}"
+            f" bucket {bucket} GT {counts}: {dt * 1e3:.1f} ms, total_loss "
+            f"{vals['total_loss']:.4f}, grad_norm {vals['grad_norm']:.4f}, "
+            f"MSDA launches {fwd} fwd + {bwd} bwd")
+    peak = torch.cuda.max_memory_allocated()
+    frozen_moved = [k for k, p in model.named_parameters()
+                    if not p.requires_grad and not torch.equal(p, before[k])]
+    still = [k for k, p in model.named_parameters()
+             if p.requires_grad and torch.equal(p, before[k])]
+    n_frozen = sum(not p.requires_grad for p in model.parameters())
+    if frozen_moved or still or n_frozen == 0:
+        raise AssertionError(f"frozen moved: {frozen_moved[:5]}; trainable "
+                             f"unmoved: {still[:5]}; frozen {n_frozen}")
+    warm = [r["ms"] for r in records[1:]]
+    warm_ms = float(np.median(warm))
+    log(f"  {len(records)} steps; every trainable parameter moved, the "
+        f"{n_frozen} frozen stem/layer1 tensors did not; warm step (median "
+        f"of steps 1-4) {warm_ms:.1f} ms, "
+        f"{TRAIN_BATCH / warm_ms * 1e3:.3f} images/s; peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    log("  " + card)
+    del state, model, batches
+    torch.cuda.empty_cache()
+    return dict(steps=records, warm_step_ms=warm_ms,
+                images_per_s=TRAIN_BATCH / warm_ms * 1e3,
+                peak_memory_bytes=peak, launches_fwd=fwd_total,
+                launches_bwd=bwd_total, card=card)
+
+
+def leaf_errors(grads_k, grads_p):
+    gnorm = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                 for g in grads_p.values())))
+    errs = {}
+    for k, gp in grads_p.items():
+        gk = grads_k[k]
+        if (gp.norm() < NEGLIGIBLE * gnorm
+                and gk.norm() < NEGLIGIBLE * gnorm):
+            continue
+        errs[k] = float((gk.double() - gp.double()).norm()
+                        / gp.double().norm().clamp(min=1e-30))
+    return errs
+
+
+class MixedMSDA(torch.autograd.Function):
+    """MSDA whose forward and backward each come from the kernel or from
+    the plain version: phase 5b's witnesses that isolate one kernel."""
+
+    @staticmethod
+    def forward(ctx, value, shapes, loc, attn, fwd_kernel, bwd_kernel):
+        ctx.shapes, ctx.bwd_kernel = tuple(shapes), bwd_kernel
+        ctx.save_for_backward(value, loc, attn)
+        fwd = msda.ms_deform_attn_cuda if fwd_kernel else ms_deform_attn
+        return fwd(value, shapes, loc, attn)
+
+    @staticmethod
+    def backward(ctx, g):
+        value, loc, attn = ctx.saved_tensors
+        bwd = (msda.ms_deform_attn_bwd_cuda if ctx.bwd_kernel
+               else ms_deform_attn_backward)
+        d_value, d_loc, d_attn = bwd(value, ctx.shapes, loc, attn,
+                                     g.contiguous())
+        return d_value, None, d_loc, d_attn, None, None
+
+
+def model_grad_phase():
+    log("== phase 5b: both kernels inside the model, float32 gradients")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pred = init_detector(CONFIG, None, device="cuda", use_nms=False, seed=1,
+                         cfg_options={"model.dtype": "float32"})
+    det = refine_boxes(pred.detector, seed=2)
+    img = np.random.RandomState(2).randint(0, 256, (599, 401, 3)).astype(
+        np.uint8)
+    images, hw, _ = pred.preprocess(img)
+    params = {k: p for k, p in det.named_parameters()}
+    gen = torch.Generator("cuda").manual_seed(3)
+    noise_gen = torch.Generator("cuda").manual_seed(4)
+    kernels = tr.ms_deform_attn_auto
+
+    def rounded(value, shapes, loc, attn):
+        """The plain version with its output moved by about one float32
+        rounding (a relative 2**-24 draw, added in float32)."""
+        out = ms_deform_attn(value, shapes, loc, attn)
+        r = torch.rand(out.shape, device="cuda", generator=noise_gen)
+        return out + out.detach() * ((2 * r - 1) * 2 ** -24)
+
+    dispatch = {
+        "kernels": kernels,
+        "plain": ms_deform_attn,
+        "kernel_fwd_plain_bwd": lambda v, s, lc, a: MixedMSDA.apply(
+            v, s, lc, a, True, False),
+        "plain_fwd_kernel_bwd": lambda v, s, lc, a: MixedMSDA.apply(
+            v, s, lc, a, False, True),
+        "plain_rounded": rounded,
+    }
+
+    def grads_of(loss_fn, name):
+        det.zero_grad(set_to_none=True)
+        tr.ms_deform_attn_auto = dispatch[name]
+        try:
+            loss_fn().backward()
+        finally:
+            tr.ms_deform_attn_auto = kernels
+        return {k: p.grad.detach().clone() for k, p in params.items()
+                if p.grad is not None}
+
+    proj_mem = None
+
+    def enc_loss():
+        nonlocal proj_mem
+        mem = det.encode_images(images, hw)["memory"]
+        if proj_mem is None:
+            proj_mem = torch.randn(mem.shape, device="cuda", generator=gen)
+        return (mem.float() * proj_mem).sum()
+
+    bwd0 = msda.ms_deform_attn_bwd_cuda.launches
+    g = {"kernels": grads_of(enc_loss, "kernels")}
+    if msda.ms_deform_attn_bwd_cuda.launches - bwd0 != 6:
+        raise AssertionError("the encoder backward did not run the kernel")
+    for name in dispatch:
+        if name != "kernels":
+            g[name] = grads_of(enc_loss, name)
+    # the kernels against themselves: the d_value scatter's atomic order
+    # is not fixed, so this is the noise floor of every comparison
+    g["kernels_again"] = grads_of(enc_loss, "kernels")
+    # (name, got, reference, limit): the comparison of record (both
+    # kernels against both plain versions), then each kernel alone, then
+    # the witnesses with no limit of their own
+    comparisons = [
+        ("encoder", "kernels", "plain", TOL_GRAD_LEAF),
+        ("encoder_bwd_kernel_on_kernel_fwd", "kernels",
+         "kernel_fwd_plain_bwd", TOL_BWD_ONLY),
+        ("encoder_bwd_kernel_on_plain_fwd", "plain_fwd_kernel_bwd", "plain",
+         TOL_BWD_ONLY),
+        ("encoder_fwd_kernel", "kernel_fwd_plain_bwd", "plain",
+         TOL_GRAD_LEAF),
+        ("encoder_kernel_vs_kernel", "kernels_again", "kernels", None),
+        ("encoder_plain_vs_rounded_plain", "plain_rounded", "plain", None),
+    ]
+    errs = {part: (leaf_errors(g[a], g[b]), tol)
+            for part, a, b, tol in comparisons}
+    del g
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        enc = det.encode_images(images, hw)         # one shared selection
+    proj_hs = None
+
+    def dec_loss():
+        nonlocal proj_hs
+        hs = det.decode_queries(enc)["hs"]
+        if proj_hs is None:
+            proj_hs = torch.randn(hs.shape, device="cuda", generator=gen)
+        return (hs.float() * proj_hs).sum()
+
+    bwd0 = msda.ms_deform_attn_bwd_cuda.launches
+    gk = grads_of(dec_loss, "kernels")
+    if msda.ms_deform_attn_bwd_cuda.launches - bwd0 != 6:
+        raise AssertionError("the decoder backward did not run the kernel")
+    errs["decoder"] = (leaf_errors(gk, grads_of(dec_loss, "plain")),
+                       TOL_DECODER_LEAF)
+    summary = {}
+    for part, (e, tol) in errs.items():
+        worst = max(e, key=e.get)
+        summary[part] = dict(leaves=len(e), worst_leaf=worst,
+                             worst_rel_l2=e[worst],
+                             median_rel_l2=float(np.median(list(
+                                 e.values()))), tol=tol)
+        log(f"  {part}: {len(e)} leaves, worst relative L2 {e[worst]:.3e} "
+            f"({worst}), median {summary[part]['median_rel_l2']:.3e} "
+            f"(tol {tol})")
+        if len(e) < 20 or (tol is not None and e[worst] > tol):
+            raise AssertionError(f"{part} gradients: {summary[part]}")
+    del det, pred, enc, gk
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main():
     log("== phase 1: device")
     card = card_line()
@@ -290,29 +680,52 @@ def main():
 
     log("== phase 2: build")
     t0 = time.perf_counter()
-    path, build_log = msda.build()
+    paths, build_log = msda.build()
     build_s = time.perf_counter() - t0
-    log(f"  built {path} in {build_s:.1f} s")
+    log(f"  built {', '.join(paths)} in {build_s:.1f} s")
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
 
-    rows = kernel_phase()
-    launches, latency = main_path_phase()
-    errs = float32_phase()
+    phase_s = {"2": build_s}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[phase] = time.perf_counter() - t0
+        log(f"  phase {phase}: {phase_s[phase]:.1f} s")
+        return out
+
+    rows = timed("3", kernel_phase)
+    bwd_rows = timed("3b", backward_kernel_phase)
+    launches, latency = timed("4", main_path_phase)
+    if msda.ms_deform_attn_bwd_cuda.launches != 0:
+        raise AssertionError("the serving path launched the backward kernel")
+    errs = timed("4b", float32_phase)
+    train = timed("5", train_phase, card)
+    grad_check = timed("5b", model_grad_phase)
 
     main_rows = [r for r in rows if r["dtype"] == "bfloat16"
                  and r["case"] in ("encoder", "decoder")]
     per_image = {k: sum(6 * r[k] for r in main_rows)
                  for k in ("ms", "plain_ms", "bound_ms")}
+    bwd_main = [r for r in bwd_rows if r["dtype"] == "bfloat16"
+                and r["case"] in ("encoder", "decoder")]
+    per_step = {k: sum(6 * r[k] for r in bwd_main)
+                for k in ("ms", "plain_ms", "bound_ms")}
     record = {"kernels": [{
         "name": "ms_deform_attn_fwd",
         "route": "cuda",
         "source": "semi_detr_tpu_torch/csrc/ms_deform_attn_fwd.cu",
         "replaces": "semi_detr_tpu/ops/ms_deform_attn_pallas.py:277",
-        "launches": launches,
+        # the training path's run (phase 5); the serving path's in
+        # launches_by_path
+        "launches": train["launches_fwd"],
+        "launches_by_path": {"serve": launches,
+                             "train": train["launches_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
-        # per image on the main path (bfloat16): 6 encoder + 6 decoder calls
+        # per image on the serving path (bfloat16, N=1): 6 encoder + 6
+        # decoder calls
         "ms": per_image["ms"],
         "plain_ms": per_image["plain_ms"],
         "bound_ms": per_image["bound_ms"],
@@ -320,9 +733,26 @@ def main():
                                    for r in main_rows) else "operations",
         "library_ms": None,
         "cases": rows,
-    }], "card": card, "build_s": build_s,
+    }, {
+        "name": "ms_deform_attn_bwd",
+        "route": "cuda",
+        "source": "semi_detr_tpu_torch/csrc/ms_deform_attn_bwd.cu",
+        "replaces": "semi_detr_tpu/ops/ms_deform_attn_pallas.py:521",
+        "launches": train["launches_bwd"],
+        "launches_by_path": {"serve": 0, "train": train["launches_bwd"]},
+        "max_abs_err": max(max(r["max_abs_err"].values()) for r in bwd_main),
+        # per training step (batch 2, bfloat16): 6 encoder + 6 decoder calls
+        "ms": per_step["ms"],
+        "plain_ms": per_step["plain_ms"],
+        "bound_ms": per_step["bound_ms"],
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                   for r in bwd_main) else "operations",
+        "library_ms": None,
+        "cases": bwd_rows,
+    }], "card": card, "build_s": build_s, "phase_s": phase_s,
         "request_ms": {k: v * 1e3 for k, v in latency.items()},
-        "float32_request_err": errs}
+        "float32_request_err": errs, "train": train,
+        "float32_grad_check": grad_check}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,4 +1,4 @@
-"""Host-side packing into a fixed bucket (the uint8 subset of
+"""Host-side packing into a fixed bucket, and batching (the uint8 subset of
 `semi_detr_tpu/data/pipeline.py`).
 
 Images are padded with zeros to a fixed bucket (H, W) and shipped as raw
@@ -10,11 +10,12 @@ mask, as normalized cxcywh over the valid extent.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
+import torch
 
-from .augment import Sample
+from .augment import Sample, make_sample
 
 
 @dataclass
@@ -58,3 +59,55 @@ def pack(sample: Sample, bucket: Tuple[int, int], max_gt: int,
         labels=labels, valid=valid,
         matrix=sample.matrix.astype(np.float32), image_id=image_id,
         scale_factor=sample.scale_factor)
+
+
+def stack(packed: List[PackedImage]) -> Dict[str, Any]:
+    """Packed images of one bucket -> a batch dict of numpy arrays shaped
+    like the JAX package's: images, img_hw, gt {boxes, labels, valid},
+    tmat, image_ids."""
+    return {
+        "images": np.stack([p.image for p in packed]),
+        "img_hw": np.stack([p.hw for p in packed]),
+        "gt": {
+            "boxes": np.stack([p.boxes for p in packed]),
+            "labels": np.stack([p.labels for p in packed]),
+            "valid": np.stack([p.valid for p in packed]),
+        },
+        "tmat": np.stack([p.matrix for p in packed]),
+        "image_ids": np.asarray([p.image_id for p in packed], np.int64),
+    }
+
+
+def to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
+    """A `stack` batch as tensors on `device` (labels as int64, for
+    indexing)."""
+    def put(x):
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if t.dtype == torch.int32:
+            t = t.long()
+        return t.to(device)
+    return put(batch)
+
+
+def synthetic_batch(rng: np.random.RandomState, bucket: Tuple[int, int],
+                    counts, max_gt: int, num_classes: int = 80
+                    ) -> Dict[str, Any]:
+    """One seeded batch of random uint8 images inside `bucket` (each side
+    3/4 to all of the bucket's), image i with counts[i] random GT boxes of
+    at least 8 pixels, through `make_sample`, `pack` and `stack`."""
+    packed = []
+    bh, bw = bucket
+    for n in counts:
+        h = rng.randint(bh * 3 // 4, bh + 1)
+        w = rng.randint(bw * 3 // 4, bw + 1)
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        x0 = rng.uniform(0, w * 0.8, n)
+        y0 = rng.uniform(0, h * 0.8, n)
+        x1 = np.minimum(x0 + rng.uniform(8, w * 0.5, n), w)
+        y1 = np.minimum(y0 + rng.uniform(8, h * 0.5, n), h)
+        boxes = np.stack([x0, y0, x1, y1], 1).astype(np.float32)
+        labels = rng.randint(0, num_classes, n).astype(np.int32)
+        packed.append(pack(make_sample(img, boxes, labels), bucket, max_gt))
+    return stack(packed)

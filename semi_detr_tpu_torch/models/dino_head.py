@@ -1,6 +1,6 @@
 """DINO detector: backbone, input projections, transformer, shared heads.
 
-Counterpart of `semi_detr_tpu/models/dino_head.py` (inference path):
+Counterpart of `semi_detr_tpu/models/dino_head.py`:
 
 * input_proj: 1x1 conv + GroupNorm(32) for the 3 backbone levels, plus a
   3x3 stride-2 conv + GN on C5 for the 4th level
@@ -10,6 +10,11 @@ Counterpart of `semi_detr_tpu/models/dino_head.py` (inference path):
 * label_enc Embedding(dn_labelbook_size+1, C) for denoising queries
 * per-layer outputs: coord = sigmoid(fc_reg(hs_l) + inv_sigmoid(ref_l)),
   class = fc_cls(hs_l)
+* with ground truth, the CDN block (`models/dn.py`) is prepended to the
+  matching queries under its attention mask, and its outputs come back as
+  `front_cls` / `front_coord` beside the `cdn` layout
+* parameters are float32; every layer computes in `cfg.dtype`
+  (`models/layers.py`), as flax's `dtype` / `param_dtype` split does
 
 The module tree is the reference's (`backbone.*`, `bbox_head.*`), so a
 reference state dict, or `utils.torch_weights.state_dict_from_jax` of the
@@ -28,6 +33,8 @@ import torch.nn as nn
 
 from ..data.augment import IMG_MEAN, IMG_STD
 from ..ops.ms_deform_attn import sampling_offsets_init_bias
+from .dn import CdnBatch, build_cdn_queries, cdn_attn_mask, draw_cdn_noise
+from .layers import CastMixin, Conv2d, GroupNorm, Linear
 from .resnet import FrozenBN, ResNet
 from .transformer import (DINOTransformer, Mlp, MSDeformAttention,
                           MultiheadSelfAttention, inverse_sigmoid)
@@ -51,7 +58,8 @@ class DinoConfig:
     backbone_depth: int = 50
     backbone_channels: Tuple[int, ...] = (512, 1024, 2048)
     dn_labelbook_size: int = 81
-    # denoising-query settings: read by training, kept so configs load
+    # CDN slot budget: 2*dn_single_pad*dn_groups static slots (the
+    # reference's 2*dn_number); the partition adapts per batch (models/dn.py)
     dn_single_pad: int = 100
     dn_groups: int = 1
     dn_label_noise_ratio: float = 0.5
@@ -67,6 +75,10 @@ class DinoConfig:
     def __post_init__(self):
         if isinstance(self.dtype, str):
             object.__setattr__(self, "dtype", _DTYPES[self.dtype])
+
+    @property
+    def dn_pad_size(self) -> int:
+        return 2 * self.dn_single_pad * self.dn_groups
 
 
 def prepare_images(images, img_hw):
@@ -116,7 +128,7 @@ def backbone_spatial_shapes(input_hw, n_levels: int = 4):
     return tuple(shapes[:n_levels])
 
 
-class ClsHead(nn.Linear):
+class ClsHead(Linear):
     """Class Linear with the prior-0.01 bias init."""
     PRIOR = 0.01
 
@@ -130,12 +142,12 @@ class DINOHead(nn.Module):
         projs = []
         for i in range(c.n_levels):
             if i < n_bb:
-                conv = nn.Conv2d(c.backbone_channels[i], c.d_model, 1)
+                conv = Conv2d(c.backbone_channels[i], c.d_model, 1)
             else:
-                conv = nn.Conv2d(c.backbone_channels[-1] if i == n_bb
-                                 else c.d_model, c.d_model, 3, 2, 1)
-            projs.append(nn.Sequential(conv, nn.GroupNorm(32, c.d_model,
-                                                          eps=1e-5)))
+                conv = Conv2d(c.backbone_channels[-1] if i == n_bb
+                              else c.d_model, c.d_model, 3, 2, 1)
+            projs.append(nn.Sequential(conv, GroupNorm(32, c.d_model,
+                                                       eps=1e-5)))
         self.input_proj = nn.ModuleList(projs)
         cls = ClsHead(c.d_model, c.num_classes)
         reg = Mlp(c.d_model, c.d_model, 4, 3)
@@ -165,20 +177,19 @@ class DINODetector(nn.Module):
         self.set_compute_dtype(cfg.dtype)
 
     def set_compute_dtype(self, dtype):
-        """Store the weights of every compute layer in `dtype`. FrozenBN,
-        the embeddings, and the sampling-offset and attention-logit
-        projections keep float32 (see models/transformer.py)."""
+        """Make every layer compute in `dtype`; the parameters stay as they
+        are stored (float32). FrozenBN follows its input, and the
+        sampling-offset and attention-logit projections compute in float32
+        (see models/transformer.py)."""
         for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d, nn.LayerNorm,
-                              nn.GroupNorm, MultiheadSelfAttention)) \
-                    and not getattr(m, "keep_float32", False):
-                for p in m.parameters(recurse=False):
-                    p.data = p.data.to(dtype)
+            if isinstance(m, CastMixin):
+                m.compute_dtype = (torch.float32 if getattr(
+                    m, "keep_float32", False) else dtype)
         return self
 
     @property
     def compute_dtype(self):
-        return self.backbone.conv1.weight.dtype
+        return self.backbone.conv1.compute_dtype
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0):
@@ -307,18 +318,54 @@ class DINODetector(nn.Module):
             out["front_coord"] = all_coord[:, :, :n_front]
         return out
 
-    def forward(self, images, img_hw, extra_queries=None, enc=None):
-        """Full forward, without ground truth (inference).
+    def build_cdn(self, gt, generator: torch.Generator) -> CdnBatch:
+        """The CDN block for `gt` (dict of boxes (B,G,4) cxcywh-normalized,
+        labels (B,G), valid (B,G)), its noise drawn from `generator`."""
+        c = self.cfg
+        noise = draw_cdn_noise(generator, gt["valid"].shape[0],
+                               c.dn_pad_size, c.num_classes,
+                               gt["boxes"].device)
+        return build_cdn_queries(
+            noise, gt["boxes"], gt["labels"], gt["valid"],
+            self.bbox_head.label_enc.weight, c.num_classes, c.dn_single_pad,
+            c.dn_groups, c.dn_label_noise_ratio, c.dn_box_noise_scale)
+
+    def forward(self, images, img_hw, gt=None,
+                generator: Optional[torch.Generator] = None,
+                extra_queries=None, enc=None):
+        """Full forward.
 
         images: (B, H, W, 3) uint8 or normalized float; img_hw: (B, 2)
-        valid (h, w). extra_queries: optional dict(content (B,Q1,C),
-        bbox_unsig (B,Q1,4), attn_mask (T,T) bool True=blocked) of
-        prepended front queries. enc: optional precomputed
-        `encode_images` dict."""
+        valid (h, w). gt: optional dict(boxes (B,G,4) cxcywh-normalized,
+        labels (B,G), valid (B,G)): builds the CDN block, whose noise is
+        drawn from `generator` (required with gt). extra_queries: optional
+        dict(content (B,Q1,C), bbox_unsig (B,Q1,4), attn_mask (T,T) bool
+        True=blocked, optional cdn) of prepended front queries, used
+        instead of gt. enc: optional precomputed `encode_images` dict.
+
+        Returns per-decoder-layer class/coord for the matching block, the
+        front block (front_cls/front_coord), the encoder's interim outputs
+        and, with gt or a cdn entry, the CdnBatch under "cdn"."""
         if enc is None:
             enc = self.encode_images(images, img_hw)
-        if extra_queries is None:
-            return self.decode_queries(enc)
-        return self.decode_queries(enc, extra_queries["content"],
-                                   extra_queries["bbox_unsig"],
-                                   extra_queries["attn_mask"])
+        cdn = None
+        if extra_queries is not None:
+            cdn = extra_queries.get("cdn")
+            out = self.decode_queries(enc, extra_queries["content"],
+                                      extra_queries["bbox_unsig"],
+                                      extra_queries["attn_mask"])
+        elif gt is not None:
+            if generator is None:
+                raise ValueError("a forward with gt needs a generator for "
+                                 "the CDN noise")
+            cdn = self.build_cdn(gt, generator)
+            mask = cdn_attn_mask(cdn.single_pad, cdn.groups,
+                                 self.cfg.num_queries,
+                                 capacity=self.cfg.dn_pad_size)
+            out = self.decode_queries(enc, cdn.query_label, cdn.query_bbox,
+                                      mask)
+        else:
+            out = self.decode_queries(enc)
+        if cdn is not None:
+            out["cdn"] = cdn
+        return out

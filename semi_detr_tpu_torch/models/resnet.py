@@ -14,13 +14,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .layers import Conv2d
+
 
 class FrozenBN(nn.Module):
     """BatchNorm with permanently frozen running stats (norm_eval=True).
 
     The affine fold is computed in float32 and applied in the input's
-    dtype, as the JAX package does; the module keeps float32 storage when
-    the rest of the model is cast to a lower precision."""
+    dtype, as the JAX package does."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -39,7 +40,7 @@ class FrozenBN(nn.Module):
 
 
 def _conv(cin, cout, k, stride=1, padding=0):
-    return nn.Conv2d(cin, cout, k, stride, padding, bias=False)
+    return Conv2d(cin, cout, k, stride, padding, bias=False)
 
 
 class Bottleneck(nn.Module):

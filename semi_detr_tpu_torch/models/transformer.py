@@ -11,9 +11,10 @@ Module and parameter names are the reference's
 (`bbox_head.transformer.*` of a DINO state dict). No dropout: the reference
 config runs with dropout 0.
 
-Dtype policy (as in the JAX package): every layer computes in the model's
-compute dtype, except the sampling offsets and attention logits, which stay
-float32 because sampling coordinates are precision-sensitive.
+Dtype policy (as in the JAX package): parameters are stored in float32 and
+every layer computes in the model's compute dtype (`models/layers.py`),
+except the sampling offsets and attention logits, which compute in float32
+because sampling coordinates are precision-sensitive.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.ms_deform_attn_cuda import ms_deform_attn_auto
+from .layers import CastMixin, LayerNorm, Linear
 
 
 def inverse_sigmoid(x, eps: float = 1e-5):
@@ -82,11 +84,10 @@ class Mlp(nn.Module):
     def __init__(self, din: int, hidden: int, out: int, num_layers: int = 3):
         super().__init__()
         dims = [din] + [hidden] * (num_layers - 1) + [out]
-        self.layers = nn.ModuleList(nn.Linear(a, b)
+        self.layers = nn.ModuleList(Linear(a, b)
                                     for a, b in zip(dims[:-1], dims[1:]))
 
     def forward(self, x):
-        x = x.to(self.layers[0].weight.dtype)
         for i, lin in enumerate(self.layers):
             x = lin(x)
             if i < len(self.layers) - 1:
@@ -104,13 +105,13 @@ class MSDeformAttention(nn.Module):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
         self.n_levels, self.n_points = n_levels, n_points
-        self.sampling_offsets = nn.Linear(d_model,
-                                          n_heads * n_levels * n_points * 2)
-        self.attention_weights = nn.Linear(d_model,
-                                           n_heads * n_levels * n_points)
-        self.value_proj = nn.Linear(d_model, d_model)
-        self.output_proj = nn.Linear(d_model, d_model)
-        # float32 whatever the compute dtype (see module docstring)
+        self.sampling_offsets = Linear(d_model,
+                                       n_heads * n_levels * n_points * 2)
+        self.attention_weights = Linear(d_model,
+                                        n_heads * n_levels * n_points)
+        self.value_proj = Linear(d_model, d_model)
+        self.output_proj = Linear(d_model, d_model)
+        # computed in float32 whatever the compute dtype (module docstring)
         self.sampling_offsets.keep_float32 = True
         self.attention_weights.keep_float32 = True
 
@@ -145,7 +146,7 @@ class MSDeformAttention(nn.Module):
         return self.output_proj(out)
 
 
-class MultiheadSelfAttention(nn.Module):
+class MultiheadSelfAttention(CastMixin, nn.Module):
     """Multi-head attention with the parameter names of
     `torch.nn.MultiheadAttention` (`in_proj_weight` rows [q; k; v],
     `out_proj`), written out in plain ops. A masked logit takes the
@@ -157,14 +158,16 @@ class MultiheadSelfAttention(nn.Module):
         self.n_heads = n_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = Linear(d_model, d_model)
 
     def forward(self, q_in, k_in, v_in, attn_mask=None):
         """attn_mask: (Lq, Lk) bool, True = blocked."""
         B, Lq, C = q_in.shape
         H = self.n_heads
-        wq, wk, wv = self.in_proj_weight.chunk(3)
-        bq, bk, bv = self.in_proj_bias.chunk(3)
+        dt = self._dtype(self.in_proj_weight)
+        q_in, k_in, v_in = q_in.to(dt), k_in.to(dt), v_in.to(dt)
+        wq, wk, wv = self.in_proj_weight.to(dt).chunk(3)
+        bq, bk, bv = self.in_proj_bias.to(dt).chunk(3)
         q = F.linear(q_in, wq, bq).view(B, Lq, H, -1).transpose(1, 2)
         k = F.linear(k_in, wk, bk).view(B, -1, H, C // H).transpose(1, 2)
         v = F.linear(v_in, wv, bv).view(B, -1, H, C // H).transpose(1, 2)
@@ -186,10 +189,10 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.self_attn = MSDeformAttention(d_model, n_heads, n_levels,
                                            n_points)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = nn.Linear(d_model, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Linear(d_model, d_ffn)
+        self.linear2 = Linear(d_ffn, d_model)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, src, pos, reference_points, spatial_shapes,
                 key_padding_mask):
@@ -247,13 +250,13 @@ class DecoderLayer(nn.Module):
                  n_points=4):
         super().__init__()
         self.self_attn = MultiheadSelfAttention(d_model, n_heads)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.cross_attn = MSDeformAttention(d_model, n_heads, n_levels,
                                             n_points)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = nn.Linear(d_model, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Linear(d_model, d_ffn)
+        self.linear2 = Linear(d_ffn, d_model)
+        self.norm3 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, tgt, query_pos, reference_points_input, memory,
                 spatial_shapes, memory_key_padding_mask, self_attn_mask):
@@ -279,7 +282,7 @@ class _Decoder(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(DecoderLayer(d_model, **kw)
                                     for _ in range(n_layers))
-        self.norm = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm = LayerNorm(d_model, eps=1e-5)
         self.ref_point_head = Mlp(2 * d_model, d_model, d_model, 2)
 
 
@@ -302,12 +305,12 @@ class DINOTransformer(nn.Module):
         self.decoder = _Decoder(num_decoder_layers, d_model, d_ffn=d_ffn,
                                 n_heads=n_heads, n_levels=n_levels,
                                 n_points=dec_n_points)
-        self.enc_output = nn.Linear(d_model, d_model)
-        self.enc_output_norm = nn.LayerNorm(d_model, eps=1e-5)
+        self.enc_output = Linear(d_model, d_model)
+        self.enc_output_norm = LayerNorm(d_model, eps=1e-5)
 
     @property
     def compute_dtype(self):
-        return self.enc_output.weight.dtype
+        return self.enc_output.compute_dtype or self.enc_output.weight.dtype
 
     def encode(self, srcs: List[torch.Tensor], valid_masks, spatial_shapes,
                fc_enc_reg, fc_enc_cls):

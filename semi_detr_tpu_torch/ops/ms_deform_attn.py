@@ -11,8 +11,10 @@ sampling follows `grid_sample(align_corners=False, padding_mode='zeros')`:
 pixel = loc * extent - 0.5, corners outside the map read 0.
 
 This is the gather-based mirror of the JAX oracle. It is what a CPU tensor
-runs, and what the hand-written CUDA kernel
-(`ops/ms_deform_attn_cuda.py`) is held against on the card.
+runs, and what the hand-written CUDA kernels
+(`ops/ms_deform_attn_cuda.py`) are held against on the card: the forward
+against `ms_deform_attn`, the backward against `ms_deform_attn_backward`,
+autograd through it (the mirror of the JAX oracle vjp).
 """
 from __future__ import annotations
 
@@ -91,6 +93,27 @@ def ms_deform_attn(value: torch.Tensor,
     out = (sampled.float().reshape(N, M, Lq, L * P * 4, D)
            * flat_w).sum(3)                                    # (N,M,Lq,D)
     return out.permute(0, 2, 1, 3).reshape(N, Lq, M * D).to(value.dtype)
+
+
+def ms_deform_attn_backward(value: torch.Tensor,
+                            spatial_shapes: Tuple[Tuple[int, int], ...],
+                            sampling_locations: torch.Tensor,
+                            attention_weights: torch.Tensor,
+                            grad_out: torch.Tensor
+                            ) -> Tuple[torch.Tensor, ...]:
+    """(d_value, d_loc, d_attn) of `ms_deform_attn` for the cotangent
+    grad_out (N, Lq, M*D), by autograd through the plain version.
+
+    Out-of-range corners add nothing. A NaN (or infinite) location gives
+    NaN in its d_loc here, where the CUDA kernel gives 0; compare the two
+    only where this result is finite. With bfloat16 value the gather's
+    backward scatters in bfloat16: pass value.float() for a float32 sum.
+    """
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(True) for t in
+                  (value, sampling_locations, attention_weights)]
+        out = ms_deform_attn(inputs[0], spatial_shapes, inputs[1], inputs[2])
+        return torch.autograd.grad(out, inputs, grad_out.to(out.dtype))
 
 
 def sampling_offsets_init_bias(n_heads: int, n_levels: int,

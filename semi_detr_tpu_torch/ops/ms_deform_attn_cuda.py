@@ -1,15 +1,19 @@
-"""MSDA forward on the card: build, bind and dispatch.
+"""MSDA on the card: build, bind and dispatch, forward and backward.
 
-Counterpart of `semi_detr_tpu/ops/ms_deform_attn_pallas.py` (forward
-only). The kernel is `csrc/ms_deform_attn_fwd.cu`, compiled at first use
-by `nvcc` for sm_90a into a shared library with a plain C interface,
-kept under `_build/<hash of the sources>/` inside the package, and bound
-with ctypes.
+Counterpart of `semi_detr_tpu/ops/ms_deform_attn_pallas.py`. The kernels
+are `csrc/ms_deform_attn_fwd.cu` and `csrc/ms_deform_attn_bwd.cu`,
+compiled at first use by `nvcc` for sm_90a, each into a shared library
+with a plain C interface, kept under `_build/<hash of the sources>/`
+inside the package, and bound with ctypes.
 
-`ms_deform_attn_auto` takes the place of the JAX package's dispatch: a
-CUDA tensor launches the kernel, a CPU tensor takes the plain version
-(`ops/ms_deform_attn.py`), anything else raises. There is no fallback: a
-kernel that does not build or launch raises.
+`MSDeformAttnFunction` takes the place of the JAX `custom_vjp` pair
+(`ms_deform_attn_fused` / `ms_deform_attn_fused_tiled`): the forward
+kernel, and the backward kernel for its gradient. `ms_deform_attn_auto`
+takes the place of the JAX package's dispatch: a CUDA tensor goes through
+the Function (so its output keeps the graph, with or without grad), a CPU
+tensor takes the plain version (`ops/ms_deform_attn.py`), anything else
+raises. There is no fallback: a kernel that does not build or launch
+raises.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from .ms_deform_attn import level_start_index, ms_deform_attn
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("ms_deform_attn_fwd.cu",)
+SOURCES = ("ms_deform_attn_fwd.cu", "ms_deform_attn_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,56 +43,79 @@ def _nvcc() -> str:
     for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the MSDA kernel needs the CUDA "
+    raise RuntimeError("nvcc not found: the MSDA kernels need the CUDA "
                        "toolkit (set CUDA_HOME)")
 
 
-def library_path() -> str:
-    """Path of the built library, keyed by a hash of the sources and flags."""
+def library_paths() -> Tuple[str, ...]:
+    """Paths of the built libraries, one per source, in a directory keyed
+    by a hash of the sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
-    return os.path.join(_PKG, "_build", h.hexdigest()[:16], "libmsda.so")
+    out_dir = os.path.join(_PKG, "_build", h.hexdigest()[:16])
+    return tuple(os.path.join(out_dir, name[:-3] + ".so")
+                 for name in SOURCES)
 
 
-def build() -> Tuple[str, str]:
-    """Compile the kernel sources if the library is missing.
+def build() -> Tuple[Tuple[str, ...], str]:
+    """Compile each kernel source into its own library if missing, one
+    nvcc per source, all started together.
 
-    Returns (library path, nvcc's log; empty when the library existed).
-    The library is written under a temporary name and renamed into
-    place, so concurrent builders never load a half-written file."""
-    out = library_path()
-    if os.path.exists(out):
-        return out, ""
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    os.replace(tmp, out)
-    with open(out + ".log", "w") as f:
+    Returns (library paths, nvcc's log; empty when the libraries existed).
+    Each library is written under a temporary name and renamed into place,
+    so concurrent builders never load a half-written file."""
+    outs = library_paths()
+    todo = [(src, out) for src, out in zip(SOURCES, outs)
+            if not os.path.exists(out)]
+    if not todo:
+        return outs, ""
+    os.makedirs(os.path.dirname(outs[0]), exist_ok=True)
+    nvcc, procs = _nvcc(), []
+    for src, out in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
+        os.close(fd)
+        procs.append((src, out, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for src, out, tmp, proc in procs:
+        log += f"== {src}\n{proc.communicate()[0]}"
+        if proc.returncode != 0:
+            failed.append(src)
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    with open(os.path.join(os.path.dirname(outs[0]), "build.log"), "w") as f:
         f.write(log)
-    return out, log
+    return outs, log
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()[0])
-    for fn in (lib.msda_fwd_f32, lib.msda_fwd_bf16):
+def _library() -> dict:
+    """The kernels' entry points by name."""
+    fwd, bwd = (ctypes.CDLL(path) for path in build()[0])
+    fns = {}
+    for name in _KERNELS.values():
+        fn = fns[name] = getattr(fwd, name)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib
+    for name in _BWD_KERNELS.values():
+        fn = fns[name] = getattr(bwd, name)
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fns
 
 
 _META_CACHE: Dict[Tuple, torch.Tensor] = {}
 _KERNELS = {torch.float32: "msda_fwd_f32", torch.bfloat16: "msda_fwd_bf16"}
+_BWD_KERNELS = {torch.float32: "msda_bwd_f32",
+                torch.bfloat16: "msda_bwd_bf16"}
 
 
 def _meta(spatial_shapes, device) -> torch.Tensor:
@@ -103,17 +130,9 @@ def _meta(spatial_shapes, device) -> torch.Tensor:
     return t
 
 
-def ms_deform_attn_cuda(value: torch.Tensor,
-                        spatial_shapes: Tuple[Tuple[int, int], ...],
-                        sampling_locations: torch.Tensor,
-                        attention_weights: torch.Tensor) -> torch.Tensor:
-    """Launch the hand-written MSDA forward kernel.
-
-    value (N, S, M, D) float32 or bfloat16; sampling_locations
-    (N, Lq, M, L, P, 2) float32; attention_weights (N, Lq, M, L, P)
-    float32; all contiguous and on one CUDA device. Returns (N, Lq, M*D)
-    in value's dtype. Counts each launch in `ms_deform_attn_cuda.launches`.
-    """
+def _check_inputs(value, spatial_shapes, sampling_locations,
+                  attention_weights):
+    """Validate what the kernels take; returns (N, S, M, D, Lq, L, P)."""
     if value.dim() != 4 or sampling_locations.dim() != 6 \
             or attention_weights.dim() != 5:
         raise ValueError("expected value (N,S,M,D), loc (N,Lq,M,L,P,2), "
@@ -139,10 +158,26 @@ def ms_deform_attn_cuda(value: torch.Tensor,
         raise ValueError("all inputs must lie on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("inputs must be contiguous")
+    return N, S, M, D, Lq, L, P
 
+
+def ms_deform_attn_cuda(value: torch.Tensor,
+                        spatial_shapes: Tuple[Tuple[int, int], ...],
+                        sampling_locations: torch.Tensor,
+                        attention_weights: torch.Tensor) -> torch.Tensor:
+    """Launch the hand-written MSDA forward kernel.
+
+    value (N, S, M, D) float32 or bfloat16; sampling_locations
+    (N, Lq, M, L, P, 2) float32; attention_weights (N, Lq, M, L, P)
+    float32; all contiguous and on one CUDA device. Returns (N, Lq, M*D)
+    in value's dtype. Counts each launch in `ms_deform_attn_cuda.launches`.
+    """
+    N, S, M, D, Lq, L, P = _check_inputs(value, spatial_shapes,
+                                          sampling_locations,
+                                          attention_weights)
     out = torch.empty((N, Lq, M * D), dtype=value.dtype, device=value.device)
     meta = _meta(spatial_shapes, value.device)
-    fn = getattr(_library(), _KERNELS[value.dtype])
+    fn = _library()[_KERNELS[value.dtype]]
     stream = torch.cuda.current_stream(value.device).cuda_stream
     err = fn(value.data_ptr(), meta.data_ptr(),
              sampling_locations.data_ptr(), attention_weights.data_ptr(),
@@ -157,13 +192,88 @@ def ms_deform_attn_cuda(value: torch.Tensor,
 ms_deform_attn_cuda.launches = 0
 
 
+def ms_deform_attn_bwd_cuda(value: torch.Tensor,
+                            spatial_shapes: Tuple[Tuple[int, int], ...],
+                            sampling_locations: torch.Tensor,
+                            attention_weights: torch.Tensor,
+                            grad_out: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Launch the hand-written MSDA backward kernel.
+
+    Inputs as for `ms_deform_attn_cuda`, plus grad_out (N, Lq, M*D) in
+    value's dtype, contiguous. Returns (d_value in value's dtype, d_loc
+    float32, d_attn float32). d_value is summed in float32 (for bfloat16 in
+    a float32 scratch buffer, then cast). Counts each launch in
+    `ms_deform_attn_bwd_cuda.launches`.
+    """
+    N, S, M, D, Lq, L, P = _check_inputs(value, spatial_shapes,
+                                          sampling_locations,
+                                          attention_weights)
+    if tuple(grad_out.shape) != (N, Lq, M * D) \
+            or grad_out.dtype != value.dtype:
+        raise ValueError(f"grad_out must be {(N, Lq, M * D)} in "
+                         f"{value.dtype}, got {tuple(grad_out.shape)} in "
+                         f"{grad_out.dtype}")
+    if grad_out.device != value.device or not grad_out.is_contiguous():
+        raise ValueError("grad_out must be contiguous on value's device")
+    dev = value.device
+    d_value = torch.empty_like(value)
+    dv_acc = (d_value if value.dtype == torch.float32
+              else torch.empty(value.shape, dtype=torch.float32, device=dev))
+    d_loc = torch.empty_like(sampling_locations)
+    d_attn = torch.empty_like(attention_weights)
+    meta = _meta(spatial_shapes, dev)
+    fn = _library()[_BWD_KERNELS[value.dtype]]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(value.data_ptr(), meta.data_ptr(),
+             sampling_locations.data_ptr(), attention_weights.data_ptr(),
+             grad_out.data_ptr(), dv_acc.data_ptr(), d_value.data_ptr(),
+             d_loc.data_ptr(), d_attn.data_ptr(), N, S, M, D, Lq, L, P,
+             stream)
+    if err != 0:
+        raise RuntimeError(f"MSDA backward kernel launch failed: CUDA error "
+                           f"{err}")
+    ms_deform_attn_bwd_cuda.launches += 1
+    return d_value, d_loc, d_attn
+
+
+ms_deform_attn_bwd_cuda.launches = 0
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """MSDA through the hand-written kernels: the forward kernel, and the
+    backward kernel for the gradients of value, sampling locations and
+    attention weights (spatial_shapes is static)."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations,
+                attention_weights):
+        ctx.spatial_shapes = tuple(spatial_shapes)
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
+                                   attention_weights)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        value, loc, attn = ctx.saved_tensors
+        d_value, d_loc, d_attn = ms_deform_attn_bwd_cuda(
+            value, ctx.spatial_shapes, loc, attn, grad_out.contiguous())
+        need = ctx.needs_input_grad
+        return (d_value if need[0] else None, None,
+                d_loc if need[2] else None, d_attn if need[3] else None)
+
+
 def ms_deform_attn_auto(value, spatial_shapes, sampling_locations,
                         attention_weights) -> torch.Tensor:
-    """Device dispatch: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors; any other device raises."""
+    """Device dispatch: CUDA tensors go through `MSDeformAttnFunction`
+    (the kernels, output attached to the graph), CPU tensors through the
+    plain version (differentiable by autograd); any other device raises."""
     if value.is_cuda:
-        return ms_deform_attn_cuda(value, spatial_shapes,
-                                   sampling_locations, attention_weights)
+        return MSDeformAttnFunction.apply(value, spatial_shapes,
+                                          sampling_locations,
+                                          attention_weights)
     if value.device.type == "cpu":
         return ms_deform_attn(value, spatial_shapes, sampling_locations,
                               attention_weights)

@@ -1,0 +1,101 @@
+"""Train state: the student model, its optimizer, an optional EMA teacher
+copy, and the step.
+
+Counterpart of `semi_detr_tpu/train/state.py`:
+* the teacher is an EMA copy of the student, updated before every train
+  iteration (`detr_ssod/utils/hooks/mean_teacher.py:37-64`) with the
+  momentum ramp m = min(momentum, 1 - (1 + warm) / (step + 1 + warm));
+* at step 0 the ramp gives m = 0, so the teacher becomes an exact clone.
+The update runs in place on the teacher's float32 parameters.
+"""
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..models.dino_head import DinoConfig, DINODetector
+from ..utils.config import load_config
+from .optim import GroupedAdamW, make_optimizer
+
+
+@dataclass
+class TrainState:
+    step: int                         # curr_step of the reference
+    model: nn.Module                  # the student
+    optimizer: GroupedAdamW
+    teacher: Optional[nn.Module] = None   # EMA copy; None when unused
+
+    @classmethod
+    def create(cls, model: nn.Module, optimizer: GroupedAdamW,
+               with_teacher: bool = True) -> "TrainState":
+        teacher = None
+        if with_teacher:
+            teacher = copy.deepcopy(model)
+            teacher.requires_grad_(False)
+        return cls(step=0, model=model, optimizer=optimizer,
+                   teacher=teacher)
+
+
+def init_train_state(config: str, device="cuda", seed: int = 0,
+                     with_teacher: bool = True,
+                     cfg_options: Optional[Dict[str, Any]] = None
+                     ) -> TrainState:
+    """The supervised train state of a config file of the repo's
+    `configs/`: the detector with the JAX package's seeded init (float32
+    parameters, computing in the config's dtype) on `device`, the
+    optimizer from the config's `optimizer` section and
+    `schedule.lr_boundaries`, and the EMA teacher."""
+    cfg = load_config(config, cfg_options)
+    m = {k: v for k, v in cfg["model"].items() if k != "type"}
+    model = DINODetector(DinoConfig(**m)).init_weights(seed=seed).to(device)
+    o = cfg["optimizer"]
+    opt = make_optimizer(model, base_lr=o["lr"],
+                         weight_decay=o["weight_decay"],
+                         backbone_lr_mult=o["backbone_lr_mult"],
+                         clip_norm=o["clip_norm"],
+                         lr_boundaries=cfg["schedule"]["lr_boundaries"])
+    return TrainState.create(model, opt, with_teacher)
+
+
+def ema_momentum(step: int, momentum: float = 0.999, warm_up: int = 0,
+                 decay_intervals: Sequence[int] = (),
+                 decay_factor: float = 0.1) -> np.float32:
+    """Reference `MeanTeacher` momentum at `step`, in float32 as the JAX
+    package computes it: min(momentum, 1 - (1+warm)/(step+1+warm)).
+
+    `decay_intervals`/`decay_factor` reproduce `after_train_iter`
+    (`mean_teacher.py:52-57`), which divides 1 - m by
+    f^bisect_right(intervals, step) every iteration, cumulatively; closed
+    form 1 - m(t) = (1 - m0) / f^E(t), E(t) = sum_i max(0, t - interval_i).
+    """
+    f32 = np.float32
+    stepf = f32(step)
+    m0 = f32(momentum)
+    if decay_intervals:
+        iv = np.asarray(decay_intervals, np.float32)
+        exponent = np.maximum(stepf - iv, f32(0)).sum(dtype=np.float32)
+        m0 = f32(1) - (f32(1) - m0) * f32(decay_factor) ** (-exponent)
+    ramp = f32(1) - f32(1.0 + warm_up) / (stepf + f32(1) + f32(warm_up))
+    return min(m0, ramp)
+
+
+@torch.no_grad()
+def ema_update(teacher: nn.Module, student: nn.Module, step: int,
+               momentum: float = 0.999, warm_up: int = 0,
+               decay_intervals: Sequence[int] = (),
+               decay_factor: float = 0.1) -> np.float32:
+    """teacher <- m * teacher + (1 - m) * student, parameter by parameter
+    (`mean_teacher.py:60-64`). Returns m."""
+    m = ema_momentum(step, momentum, warm_up, decay_intervals, decay_factor)
+    one_minus = float(np.float32(1) - m)
+    t_params = list(teacher.parameters())
+    s_params = [s.detach().to(t.dtype) for s, t in
+                zip(student.parameters(), t_params)]
+    torch._foreach_mul_(t_params, float(m))
+    torch._foreach_add_(t_params, torch._foreach_mul(s_params, one_minus))
+    return m

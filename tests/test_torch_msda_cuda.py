@@ -1,24 +1,35 @@
-"""The hand-written MSDA forward kernel against its plain version, on the
-card. Skips without a CUDA device.
+"""The hand-written MSDA kernels against their plain versions, on the card:
+the forward against `ms_deform_attn`, the backward against
+`ms_deform_attn_backward` (autograd through the plain version), and the
+gradient through `ms_deform_attn_auto`. Skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only the port's dependencies:
 
     python -m pytest --noconftest tests/test_torch_msda_cuda.py -q
 
-Tolerances: float32 1e-5 (the same products summed in another order);
-bfloat16 2**-6, one bf16 rounding apart at |out| < 4.
+Tolerances, forward: float32 1e-5 (the same products summed in another
+order); bfloat16 2**-6, one bf16 rounding apart at |out| < 4. Backward:
+each gradient within GRAD_RTOL times the largest magnitude of its plain
+counterpart (float32 sums in another order, d_value's scatter in atomic
+order); bfloat16 d_value adds one bf16 rounding (2**-8 relative) to that.
+The bfloat16 backward is held against the plain backward of value.float()
+and grad.float(): the kernel reads the same bf16 numbers and sums in
+float32, where the plain bf16 autograd would scatter in bf16.
 """
 import numpy as np
 import pytest
 import torch
 
 from semi_detr_tpu_torch.ops import ms_deform_attn_cuda as cuda_mod
-from semi_detr_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+from semi_detr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
+                                                    ms_deform_attn_backward)
 
 SHAPES = ((12, 16), (6, 8), (3, 4))
 S = sum(h * w for h, w in SHAPES)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+GRAD_RTOL = 1e-5
+BF16_ROUNDING = 2 ** -8
 
 
 @pytest.fixture
@@ -86,3 +97,119 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="spatial_shapes"):
         cuda_mod.ms_deform_attn_cuda(value, SHAPES[:2], loc[:, :, :, :2],
                                      w[:, :, :, :2].contiguous())
+
+
+def _grads_close(got, ref, dtype):
+    """Each of (d_value, d_loc, d_attn) within its scaled tolerance, where
+    the plain result is finite."""
+    for i, (a, b) in enumerate(zip(got, ref)):
+        fin = torch.isfinite(b)
+        scale = max(1.0, b[fin].abs().max().item())
+        tol = GRAD_RTOL * scale
+        if i == 0 and dtype == torch.bfloat16:
+            tol += BF16_ROUNDING * scale
+        err = (a.float() - b.float())[fin].abs().max().item()
+        assert err <= tol, (("d_value", "d_loc", "d_attn")[i], err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_backward_kernel_matches_plain_version(cuda, case, dtype):
+    value, loc, w = _inputs(cuda, 3, **CASES[case])
+    value = value.to(dtype)
+    g = torch.randn(value.shape[0], loc.shape[1],
+                    value.shape[2] * value.shape[3], device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(0)).to(dtype)
+    before = cuda_mod.ms_deform_attn_bwd_cuda.launches
+    got = cuda_mod.ms_deform_attn_bwd_cuda(value, SHAPES, loc, w, g)
+    assert cuda_mod.ms_deform_attn_bwd_cuda.launches == before + 1
+    ref = ms_deform_attn_backward(value.float(), SHAPES, loc, w, g.float())
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype \
+        == torch.float32
+    assert [t.shape for t in got] == [value.shape, loc.shape, w.shape]
+    _grads_close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+def test_backward_nonfinite_and_far_locations_get_zero(cuda):
+    value, loc, w = _inputs(cuda, 4, lq=11)
+    loc[..., 0, 0] = float("nan")
+    loc[..., 1, 1] = 1e30
+    loc[..., 2, 0] = -1e30
+    loc[..., 3, :] = float("inf")
+    g = torch.randn(2, 11, value.shape[2] * value.shape[3], device=cuda)
+    d_value, d_loc, d_attn = cuda_mod.ms_deform_attn_bwd_cuda(
+        value, SHAPES, loc, w, g)
+    torch.cuda.synchronize()
+    for t in (d_value, d_loc, d_attn):
+        assert torch.equal(t, torch.zeros_like(t))
+    # the plain version: NaN in d_loc for the NaN and inf taps, 0 elsewhere
+    ref = ms_deform_attn_backward(value, SHAPES, loc, w, g)
+    assert not torch.isfinite(ref[1]).all()
+    _grads_close((d_value, d_loc, d_attn), ref, torch.float32)
+
+
+@pytest.mark.cuda
+def test_backward_taps_on_pixel_edges(cuda):
+    """Taps exactly on pixel centres and edges, -1 included (the output
+    gets 0 there, the gradient the one-sided derivative): the kernel
+    follows autograd of the plain version."""
+    value, loc, w = _inputs(cuda, 7, lq=40)
+    rng = np.random.RandomState(7)
+    for lvl, (h, wd) in enumerate(SHAPES):
+        px = rng.randint(-1, wd, loc.shape[:3] + (loc.shape[4],))
+        py = rng.randint(-1, h, loc.shape[:3] + (loc.shape[4],))
+        loc[:, :, :, lvl, :, 0] = torch.from_numpy(
+            ((px + 0.5) / wd).astype(np.float32))
+        loc[:, :, :, lvl, :, 1] = torch.from_numpy(
+            ((py + 0.5) / h).astype(np.float32))
+    edge = (loc[..., 0, :, 0] * SHAPES[0][1] - 0.5 == -1)
+    assert edge.sum() > 10
+    g = torch.randn(2, 40, value.shape[2] * value.shape[3], device=cuda)
+    got = cuda_mod.ms_deform_attn_bwd_cuda(value, SHAPES, loc, w, g)
+    ref = ms_deform_attn_backward(value, SHAPES, loc, w, g)
+    torch.cuda.synchronize()
+    assert ref[1][..., 0, :, 0][edge].abs().max() > 1e-3
+    _grads_close(got, ref, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gradient_flows_through_auto(cuda, dtype):
+    """The dispatch keeps the kernel's output on the graph: every input
+    gets its gradient, from the backward kernel."""
+    value, loc, w = _inputs(cuda, 5, lq=37)
+    value = value.to(dtype).requires_grad_(True)
+    loc.requires_grad_(True)
+    w.requires_grad_(True)
+    proj = torch.randn(2, 37, value.shape[2] * value.shape[3], device=cuda)
+    fwd = cuda_mod.ms_deform_attn_cuda.launches
+    bwd = cuda_mod.ms_deform_attn_bwd_cuda.launches
+    out = cuda_mod.ms_deform_attn_auto(value, SHAPES, loc, w)
+    assert out.grad_fn is not None
+    (out.float() * proj).sum().backward()
+    assert cuda_mod.ms_deform_attn_cuda.launches == fwd + 1
+    assert cuda_mod.ms_deform_attn_bwd_cuda.launches == bwd + 1
+    got = (value.grad, loc.grad, w.grad)
+    assert all(t is not None for t in got)
+    ref = ms_deform_attn_backward(value.detach().float(), SHAPES,
+                                  loc.detach(), w.detach(),
+                                  proj.to(dtype).float())
+    torch.cuda.synchronize()
+    _grads_close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+def test_auto_under_no_grad_launches_forward_only(cuda):
+    value, loc, w = _inputs(cuda, 6, lq=9)
+    bwd = cuda_mod.ms_deform_attn_bwd_cuda.launches
+    with torch.no_grad():
+        got = cuda_mod.ms_deform_attn_auto(value, SHAPES, loc, w)
+    ref = ms_deform_attn(value, SHAPES, loc, w)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= TOL[torch.float32]
+    assert cuda_mod.ms_deform_attn_bwd_cuda.launches == bwd

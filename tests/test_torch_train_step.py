@@ -1,0 +1,407 @@
+"""One supervised train step of the port against the JAX package's.
+
+Tiny DINO (d_model 32, 2 heads, 2+2 layers, 20 queries, 5 classes, CDN
+budget 16 slots, max_gt 8), float32, two 64x64 images with 3 and 2 GT.
+Weights are random, drawn with numpy, carried into flax by the JAX
+package's converter and into the port by `state_dict_from_jax`.
+
+Both sides build one CDN layout from the same noise (the JAX key's draws,
+`test_torch_dn.jax_noise`) inside the loss, from their own `label_enc`,
+and feed it to the detector as `extra_queries`, as
+tests/test_train_parity.py:402-444 does: the dn loss then trains
+`label_enc` on both sides, and its gradient is compared too.
+
+Bounds: loss dict 1e-4 relative; gradients, relative L2 per leaf, worst
+<= 5e-3 and median <= 5e-4 (test_train_parity's bounds: float32 op order
+through a ResNet-50 and the transformer). Left out of the per-leaf
+bounds: the frozen leaves (stem and layer1; the port has no gradient for
+them, by design), leaves whose gradient is negligible on both sides (a
+true zero, e.g. the decoder's key bias or a conv bias before GroupNorm),
+and the three leaves into the GroupNorm of the 1x1 stride-64 level: at
+d_model 32 each group holds one value there, the true gradient is 0, the
+JAX side gets exactly 0, and torch's group_norm backward gets rounding
+noise amplified by rstd**3; those must stay below 1e-4 of the global
+gradient norm. After one clip + AdamW update the parameters must agree
+within the UPDATE bounds (below); with equal gradients fed to both
+optimizers, to float32 rounding.
+"""
+import copy
+
+import numpy as np
+import optax
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from semi_detr_tpu.models import dn as jdn
+from semi_detr_tpu.models.criterion import detection_loss as jax_loss
+from semi_detr_tpu.train import optim as joptim
+from semi_detr_tpu.train import schedules as jschedules
+from semi_detr_tpu.train.state import ema_update as jax_ema_update
+from semi_detr_tpu.utils.torch_weights import convert_dino_detector
+from semi_detr_tpu_torch.models import dn
+from semi_detr_tpu_torch.train import optim, schedules
+from semi_detr_tpu_torch.train.state import (TrainState, ema_momentum,
+                                             ema_update)
+from semi_detr_tpu_torch.train.supervised import (
+    loss_and_grads, make_supervised_train_step)
+from semi_detr_tpu_torch.utils.torch_weights import state_dict_from_jax
+
+from test_torch_detector import TINY, build_pair
+from test_torch_dn import jax_noise
+
+CFG = dict(TINY, dn_single_pad=4, dn_groups=2, max_gt=8)
+K, NQ, N_DEC = CFG["num_classes"], CFG["num_queries"], CFG[
+    "num_decoder_layers"]
+CAP = 2 * CFG["dn_single_pad"] * CFG["dn_groups"]
+LR = 1e-4
+# one clip + AdamW step from gradients that agree to ~1e-4: Adam's first
+# step is lr * g / (|g| + eps), so an element whose clipped gradient is
+# near eps (1e-8) moves by anything in [-lr, lr] on either side. Per leaf,
+# the updates' relative L2 difference: worst <= 0.1, median <= 1e-3; no
+# element off by more than lr.
+UPDATE_WORST, UPDATE_MEDIAN, UPDATE_ABS = 0.1, 1e-3, LR
+
+
+def _batch():
+    h = w = 64
+    rs = np.random.RandomState(1)
+    images = rs.randint(0, 256, (2, h, w, 3)).astype(np.uint8)
+    img_hw = np.array([[h, w], [56, w]], np.int32)
+    gts = [np.array([[4., 8., 30., 40.], [20., 10., 60., 50.],
+                     [10., 30., 44., 50.]], np.float32),
+           np.array([[6., 6., 28., 50.], [32., 16., 60., 44.]], np.float32)]
+    labels = [np.array([1, 3, 0]), np.array([2, 4])]
+    g = CFG["max_gt"]
+    boxes = np.zeros((2, g, 4), np.float32)
+    lab = np.zeros((2, g), np.int32)
+    valid = np.zeros((2, g), bool)
+    for i, (bx, lb) in enumerate(zip(gts, labels)):
+        hh, ww = img_hw[i]
+        n = len(lb)
+        boxes[i, :n] = np.stack([(bx[:, 0] + bx[:, 2]) / 2 / ww,
+                                 (bx[:, 1] + bx[:, 3]) / 2 / hh,
+                                 (bx[:, 2] - bx[:, 0]) / ww,
+                                 (bx[:, 3] - bx[:, 1]) / hh], -1)
+        lab[i, :n] = lb
+        valid[i, :n] = True
+    return {"images": images, "img_hw": img_hw,
+            "gt": {"boxes": boxes, "labels": lab, "valid": valid}}
+
+
+def _to(batch, fn):
+    return {k: _to(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in batch.items()}
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jdet, jvars, port = build_pair(seed=0, cfg_kw=CFG)
+    port.train()
+    return jdet, jvars, port, _batch(), jax.random.PRNGKey(5)
+
+
+def _port_cdn(model, tb, key):
+    cdn = dn.build_cdn_queries(
+        jax_noise(key, 2, CAP, K), tb["gt"]["boxes"], tb["gt"]["labels"],
+        tb["gt"]["valid"], model.bbox_head.label_enc.weight, K,
+        CFG["dn_single_pad"], CFG["dn_groups"])
+    mask = dn.cdn_attn_mask(cdn.single_pad, cdn.groups, NQ, capacity=CAP)
+    return {"content": cdn.query_label, "bbox_unsig": cdn.query_bbox,
+            "attn_mask": mask, "cdn": cdn}
+
+
+def _jax_step(jdet, jvars, batch, key, warm_up):
+    jb = _to(batch, jnp.asarray)
+
+    def loss_fn(params):
+        cdn = jdn.build_cdn_queries(
+            key, jb["gt"]["boxes"], jb["gt"]["labels"], jb["gt"]["valid"],
+            params["label_enc"], K, CFG["dn_single_pad"], CFG["dn_groups"])
+        mask = jdn.cdn_attn_mask(cdn.single_pad, cdn.groups, NQ,
+                                 capacity=CAP)
+        extra = {"content": cdn.query_label, "bbox_unsig": cdn.query_bbox,
+                 "attn_mask": mask, "cdn": cdn}
+        out = jdet.apply({"params": params,
+                          "batch_stats": jvars["batch_stats"]},
+                         jb["images"], jb["img_hw"], extra_queries=extra)
+        losses = jax_loss(out, jb["gt"], K, warm_up)
+        return losses["total"], losses
+
+    (_, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        jvars["params"])
+    tx = joptim.make_optimizer(jvars["params"])
+    updates, _ = jax.jit(tx.update)(grads, tx.init(jvars["params"]),
+                                    jvars["params"])
+    return losses, grads, optax.apply_updates(jvars["params"], updates)
+
+
+def _as_jax_tree(model, what):
+    """The port's parameters ("param") or gradients ("grad") in the JAX
+    package's variables layout (frozen leaves' missing grads as 0)."""
+    sd = {}
+    for k, v in model.state_dict(keep_vars=True).items():
+        t = v.grad if what == "grad" and isinstance(
+            v, torch.nn.Parameter) else v
+        sd[k] = (np.zeros(v.shape, np.float32) if t is None
+                 else t.detach().float().numpy())
+    return convert_dino_detector(sd, n_heads=CFG["n_heads"])["params"]
+
+
+def _leaves(tree):
+    return {joptim._path_str(p): np.asarray(v) for p, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _rel_l2(a, b):
+    d = np.linalg.norm(a.astype(np.float64) - b.astype(np.float64))
+    return d / max(np.linalg.norm(b.astype(np.float64)), 1e-12)
+
+
+@pytest.mark.parametrize("warm_up", [False, True], ids=["hungarian", "o2m"])
+def test_step_matches_jax(setup, warm_up):
+    jdet, jvars, port0, batch, key = setup
+    ref_losses, ref_grads, ref_params = _jax_step(jdet, jvars, batch, key,
+                                                  warm_up)
+
+    port = copy.deepcopy(port0)
+    opt = optim.make_optimizer(port)
+    tb = _to(batch, torch.from_numpy)
+    tb["gt"]["labels"] = tb["gt"]["labels"].long()
+    losses = loss_and_grads(port, tb, warm_up,
+                            extra_queries=_port_cdn(port, tb, key))
+    # loss dict
+    assert set(losses) == set(ref_losses)
+    for k in ref_losses:
+        a, b = float(losses[k].detach()), float(ref_losses[k])
+        assert abs(a - b) <= 1e-4 * max(abs(b), 1e-6), (k, a, b)
+
+    # gradients, leaf by leaf
+    got, ref = _leaves(_as_jax_tree(port, "grad")), _leaves(ref_grads)
+    gnorm = np.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                        for g in ref.values()))
+    errs, skip = {}, set()
+    for path, rg in ref.items():
+        tg = got[path]
+        if joptim.is_frozen(path):
+            skip.add(path)
+        elif not rg.any():           # GroupNorm over one value (docstring)
+            assert path.startswith(("input_proj_3/", "input_proj_gn_3/")), \
+                path
+            assert np.linalg.norm(tg) < 1e-4 * gnorm, path
+            skip.add(path)
+        elif (np.linalg.norm(rg) < 1e-6 * gnorm
+              and np.linalg.norm(tg) < 1e-6 * gnorm):
+            skip.add(path)           # a true zero, as float noise on both
+        else:
+            errs[path] = _rel_l2(tg, rg)
+    assert "label_enc" in errs and len(errs) > 100
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 5e-3, (worst, errs[worst])
+    assert float(np.median(list(errs.values()))) <= 5e-4
+
+    # one clip + AdamW update
+    before = _leaves(jvars["params"])
+    opt.step(0)
+    after = _leaves(_as_jax_tree(port, "param"))
+    ref_after = _leaves(ref_params)
+    upd = {}
+    for path, p0 in before.items():
+        du, dr = after[path] - p0, ref_after[path] - p0
+        if joptim.is_frozen(path):
+            assert not du.any() and not dr.any(), path
+        elif path not in skip:
+            assert np.abs(du - dr).max() <= UPDATE_ABS, path
+            upd[path] = _rel_l2(du, dr)
+    worst = max(upd, key=upd.get)
+    assert upd[worst] <= UPDATE_WORST, (worst, upd[worst])
+    assert float(np.median(list(upd.values()))) <= UPDATE_MEDIAN
+
+
+def test_optimizer_matches_optax_on_equal_gradients(setup):
+    """The same gradients into both optimizers, two updates across an lr
+    boundary: the parameters agree to float32 rounding."""
+    _, jvars, port0, _, _ = setup
+    params = jvars["params"]
+    rs = np.random.RandomState(3)
+    grads = [jax.tree.map(lambda p: jnp.asarray(
+        rs.randn(*p.shape).astype(np.float32) * s), params)
+        for s in (1e-2, 3.0)]          # under and over the clip norm
+    tx = joptim.make_optimizer(params, lr_boundaries=(1,))
+    st = tx.init(params)
+    ref = params
+    for g in grads:
+        upd, st = tx.update(g, st, ref)
+        ref = optax.apply_updates(ref, upd)
+
+    port = copy.deepcopy(port0)
+    opt = optim.make_optimizer(port, lr_boundaries=(1,))
+    named = dict(port.named_parameters())
+    for count, g in enumerate(grads):
+        sd = state_dict_from_jax({"params": jax.tree.map(np.asarray, g),
+                                  "batch_stats": jvars["batch_stats"]},
+                                 N_DEC)
+        for name, p in named.items():
+            p.grad = sd[name].clone() if p.requires_grad else None
+        norm = opt.step(count)
+        trainable = [sd[n] for n, p in named.items() if p.requires_grad]
+        np.testing.assert_allclose(
+            float(norm), float(torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(t) for t in trainable]))),
+            rtol=1e-6)
+    got, want = _leaves(_as_jax_tree(port, "param")), _leaves(ref)
+    for path in want:
+        np.testing.assert_allclose(got[path], want[path], rtol=1e-6,
+                                   atol=1e-8, err_msg=path)
+
+
+def test_param_groups_match_jax_labels(setup):
+    """frozen / backbone / head over the port's names equals the JAX
+    package's labels over its param tree, leaf for leaf."""
+    _, jvars, port, _, _ = setup
+    code = {"frozen": 0.0, "backbone": 1.0, "head": 2.0}
+    labels = jax.tree_util.tree_map_with_path(
+        lambda p, v: np.full(v.shape, code[
+            "frozen" if joptim.is_frozen(joptim._path_str(p))
+            else "backbone" if joptim.is_backbone(joptim._path_str(p))
+            else "head"], np.float32), jvars["params"])
+    sd = state_dict_from_jax({"params": labels,
+                              "batch_stats": jvars["batch_stats"]}, N_DEC)
+    for name, _ in port.named_parameters():
+        vals = np.unique(sd[name].numpy())
+        assert vals.tolist() == [code[optim.param_group(name)]], name
+    fresh = copy.deepcopy(port)
+    optim.make_optimizer(fresh)
+    for name, p in fresh.named_parameters():
+        assert p.requires_grad == (optim.param_group(name) != "frozen")
+
+
+def test_ema_matches_jax():
+    rs = np.random.RandomState(4)
+    student = torch.nn.Sequential(torch.nn.Linear(3, 4),
+                                  torch.nn.Linear(4, 2))
+    teacher = copy.deepcopy(student)
+    with torch.no_grad():
+        for p in student.parameters():
+            p.copy_(torch.from_numpy(rs.randn(*p.shape).astype(np.float32)))
+    for step, kw in ((0, {}), (5, {}), (3000, {}), (7, dict(warm_up=3)),
+                     (40, dict(decay_intervals=(30, 35)))):
+        t_tree = [p.detach().numpy().copy() for p in teacher.parameters()]
+        s_tree = [p.detach().numpy().copy() for p in student.parameters()]
+        ref = jax_ema_update(t_tree, s_tree, jnp.int32(step), 0.999, **kw)
+        m = ema_update(teacher, student, step, 0.999, **kw)
+        assert m == float(jnp.minimum(
+            0.999, 1 - (1 + kw.get("warm_up", 0))
+            / (step + 1 + kw.get("warm_up", 0)))) or "decay_intervals" in kw
+        for p, r in zip(teacher.parameters(), ref):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(r),
+                                       rtol=1e-7, atol=1e-8)
+    # step 0 makes the teacher an exact clone
+    fresh = copy.deepcopy(student)
+    with torch.no_grad():
+        for p in fresh.parameters():
+            p.add_(1.0)
+    ema_update(fresh, student, 0)
+    assert all(torch.equal(a, b) for a, b in
+               zip(fresh.parameters(), student.parameters()))
+    assert ema_momentum(0) == 0.0
+
+
+def test_schedules_match_jax():
+    for c in range(8):
+        assert optim.step_lr(1e-4, (3, 5))(c) == float(
+            joptim.step_lr(1e-4, (3, 5))(jnp.int32(c)))
+        assert schedules.step_schedule((1.0, 2.0, 0.5), (2, 6))(c) == float(
+            jschedules.step_schedule((1.0, 2.0, 0.5), (2, 6))(jnp.int32(c)))
+        assert schedules.linear_warmup(4.0, 5)(c) == float(
+            jschedules.linear_warmup(4.0, 5)(jnp.int32(c)))
+        assert schedules.constant(0.3)(c) == float(
+            jschedules.constant(0.3)(jnp.int32(c)))
+
+
+def test_step_function_composes_ema_loss_clip_adamw(setup):
+    """`make_supervised_train_step` = EMA before the update, CDN from the
+    generator, loss and grads, clip + AdamW at the step's lr, step + 1."""
+    _, _, port0, batch, _ = setup
+    tb = _to(batch, torch.from_numpy)
+    tb["gt"]["labels"] = tb["gt"]["labels"].long()
+
+    a, b = copy.deepcopy(port0), copy.deepcopy(port0)
+    state = TrainState.create(a, optim.make_optimizer(a))
+    with torch.no_grad():                     # a teacher that differs
+        for p in state.teacher.parameters():
+            p.mul_(0.5)
+    teacher_b = copy.deepcopy(state.teacher)
+    state.step = 4
+    metrics = make_supervised_train_step(warm_up=True)(
+        state, tb, torch.Generator().manual_seed(9))
+
+    opt_b = optim.make_optimizer(b)
+    ema_update(teacher_b, b, 4)
+    losses = loss_and_grads(b, tb, True, torch.Generator().manual_seed(9))
+    norm = opt_b.step(4)
+    assert state.step == 5
+    assert set(metrics) == (set(losses) - {"total"}) | {"total_loss",
+                                                        "grad_norm"}
+    assert float(metrics["total_loss"]) == float(losses["total"].detach())
+    assert float(metrics["grad_norm"]) == float(norm)
+    for x, y in ((a, b), (state.teacher, teacher_b)):
+        for (n, p), q in zip(x.named_parameters(), y.parameters()):
+            assert torch.equal(p, q), n
+
+
+def test_gt_forward_builds_the_cdn_from_the_generator(setup):
+    """forward(gt=..., generator=g) equals the same forward fed the CDN
+    block that `build_cdn` draws from an equal generator."""
+    _, _, port, batch, _ = setup
+    tb = _to(batch, torch.from_numpy)
+    tb["gt"]["labels"] = tb["gt"]["labels"].long()
+    with torch.no_grad():
+        got = port(tb["images"], tb["img_hw"], gt=tb["gt"],
+                   generator=torch.Generator().manual_seed(2))
+        cdn = port.build_cdn(tb["gt"], torch.Generator().manual_seed(2))
+        mask = dn.cdn_attn_mask(cdn.single_pad, cdn.groups, NQ,
+                                capacity=CAP)
+        ref = port(tb["images"], tb["img_hw"], extra_queries={
+            "content": cdn.query_label, "bbox_unsig": cdn.query_bbox,
+            "attn_mask": mask, "cdn": cdn})
+    assert got["n_front"] == CAP and "cdn" in got
+    for k in ("cls", "coord", "front_cls", "front_coord"):
+        assert torch.equal(got[k], ref[k]), k
+    with pytest.raises(ValueError, match="generator"):
+        port(tb["images"], tb["img_hw"], gt=tb["gt"])
+
+
+def test_stack_matches_jax():
+    """Packed images with GT batch into the JAX package's batch layout,
+    array for array; `to_device` keeps the values (labels as int64)."""
+    from semi_detr_tpu.data import augment as jaug
+    from semi_detr_tpu.data import pipeline as jpipe
+    from semi_detr_tpu_torch.data import augment, pipeline
+
+    rs = np.random.RandomState(6)
+    port_p, jax_p = [], []
+    for i, n in enumerate((0, 3, 8)):
+        img = rs.randint(0, 256, (40 + 7 * i, 60 - 5 * i, 3)).astype(
+            np.uint8)
+        xy = rs.uniform(0, 30, (n, 2))
+        boxes = np.concatenate([xy, xy + rs.uniform(2, 9, (n, 2))], 1)
+        labels = rs.randint(0, 80, n)
+        port_p.append(pipeline.pack(augment.make_sample(img, boxes, labels),
+                                    (64, 64), 6, image_id=i))
+        jax_p.append(jpipe.pack(jaug.make_sample(img, boxes, labels),
+                                (64, 64), 6, image_id=i))
+    got, ref = pipeline.stack(port_p), jpipe._stack(jax_p)
+    assert sorted(got) == sorted(ref) and sorted(got["gt"]) == sorted(
+        ref["gt"])
+    for k in ("images", "img_hw", "tmat", "image_ids"):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    for k in ("boxes", "labels", "valid"):
+        np.testing.assert_array_equal(got["gt"][k], ref["gt"][k], err_msg=k)
+    dev = pipeline.to_device(got, "cpu")
+    assert dev["gt"]["labels"].dtype == torch.int64
+    assert dev["images"].dtype == torch.uint8
+    np.testing.assert_array_equal(dev["gt"]["boxes"].numpy(),
+                                  ref["gt"]["boxes"])

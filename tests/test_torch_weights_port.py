@@ -85,19 +85,42 @@ def test_seeded_init_follows_the_jax_initializers():
 
 
 def test_compute_dtype_keeps_sampling_projections_float32():
+    """Parameters stay float32 (flax's param_dtype); layers compute in the
+    compute dtype, except the sampling-offset and attention-logit
+    projections, which compute in float32."""
     det = DINODetector(DinoConfig(**TINY, dtype="bfloat16"))
     msda = det.bbox_head.transformer.decoder.layers[0].cross_attn
     assert det.compute_dtype == torch.bfloat16
-    assert msda.value_proj.weight.dtype == torch.bfloat16
-    assert msda.sampling_offsets.weight.dtype == torch.float32
-    assert msda.attention_weights.weight.dtype == torch.float32
+    assert all(p.dtype == torch.float32 for p in det.parameters())
+    assert msda.value_proj.compute_dtype == torch.bfloat16
+    assert msda.sampling_offsets.compute_dtype == torch.float32
+    assert msda.attention_weights.compute_dtype == torch.float32
     assert det.backbone.bn1.running_var.dtype == torch.float32
+    x = torch.randn(2, 3, TINY["d_model"])
+    assert msda.value_proj(x).dtype == torch.bfloat16
+    assert msda.sampling_offsets(x).dtype == torch.float32
+    # a bfloat16 layer equals float32 math on bf16-rounded inputs/weights
+    ref = torch.nn.functional.linear(
+        x.bfloat16().float(), msda.value_proj.weight.bfloat16().float(),
+        msda.value_proj.bias.bfloat16().float())
+    torch.testing.assert_close(msda.value_proj(x).float(), ref,
+                               rtol=2 ** -7, atol=1e-2)
 
 
 def test_port_imports_no_jax():
     code = ("import sys, semi_detr_tpu_torch, semi_detr_tpu_torch.api, "
             "semi_detr_tpu_torch.models.inference, "
             "semi_detr_tpu_torch.ops.ms_deform_attn_cuda, "
+            "semi_detr_tpu_torch.ops.hungarian, "
+            "semi_detr_tpu_torch.models.dn, "
+            "semi_detr_tpu_torch.models.losses, "
+            "semi_detr_tpu_torch.models.assign, "
+            "semi_detr_tpu_torch.models.criterion, "
+            "semi_detr_tpu_torch.train.optim, "
+            "semi_detr_tpu_torch.train.state, "
+            "semi_detr_tpu_torch.train.schedules, "
+            "semi_detr_tpu_torch.train.supervised, "
+            "semi_detr_tpu_torch.data.pipeline, "
             "semi_detr_tpu_torch.utils.torch_weights\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'semi_detr_tpu')]\n"
