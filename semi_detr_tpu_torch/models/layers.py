@@ -54,7 +54,21 @@ class LayerNorm(CastMixin, nn.LayerNorm):
 
 
 class GroupNorm(CastMixin, nn.GroupNorm):
+    """`F.group_norm`, except where a group holds one value (C / G * H * W
+    == 1: batch 1, one channel per group, a 1x1 map), which torch refuses
+    in training. There the statistics are taken here, as the JAX GroupNorm
+    takes them: x - mean is exactly 0, and so is its gradient into x and
+    the weight (torch's own backward there gives rounding noise amplified
+    by rstd**3)."""
+
     def forward(self, x):
         dt = self._dtype(self.weight)
-        return F.group_norm(x.to(dt), self.num_groups, self.weight.to(dt),
-                            self.bias.to(dt), self.eps)
+        x, w, b = x.to(dt), self.weight.to(dt), self.bias.to(dt)
+        if x[0].numel() != self.num_groups:
+            return F.group_norm(x, self.num_groups, w, b, self.eps)
+        groups = x.reshape(x.shape[0], self.num_groups, -1)
+        var, mean = torch.var_mean(groups, dim=-1, unbiased=False,
+                                   keepdim=True)
+        y = ((groups - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return y * w.reshape(shape) + b.reshape(shape)

@@ -1,10 +1,16 @@
 """MSDA on the card: build, bind and dispatch, forward and backward.
 
 Counterpart of `semi_detr_tpu/ops/ms_deform_attn_pallas.py`. The kernels
-are `csrc/ms_deform_attn_fwd.cu` and `csrc/ms_deform_attn_bwd.cu`,
+are `csrc/ms_deform_attn_fwd.cu` and `csrc/ms_deform_attn_bwd.cu` (with `csrc/ms_deform_attn_common.cuh`),
 compiled at first use by `nvcc` for sm_90a, each into a shared library
 with a plain C interface, kept under `_build/<hash of the sources>/`
 inside the package, and bound with ctypes.
+
+Each kernel comes in instances by channels per lane (`kernel_width`): the
+vector instances move 16 bytes of the value dtype per lane and load (8
+bf16 or 4 float32 channels), the element instance one channel, for any D
+and any alignment. Each wrapper counts its launches in `.launches` and, by
+the width taken, in `.launches_by_width`.
 
 `MSDeformAttnFunction` takes the place of the JAX `custom_vjp` pair
 (`ms_deform_attn_fused` / `ms_deform_attn_fused_tiled`): the forward
@@ -17,6 +23,7 @@ raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -34,6 +41,7 @@ from .ms_deform_attn import level_start_index, ms_deform_attn
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("ms_deform_attn_fwd.cu", "ms_deform_attn_bwd.cu")
+HEADERS = ("ms_deform_attn_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,7 +59,7 @@ def library_paths() -> Tuple[str, ...]:
     """Paths of the built libraries, one per source, in a directory keyed
     by a hash of the sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
     out_dir = os.path.join(_PKG, "_build", h.hexdigest()[:16])
@@ -101,12 +109,12 @@ def _library() -> dict:
     fns = {}
     for name in _KERNELS.values():
         fn = fns[name] = getattr(fwd, name)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for name in _BWD_KERNELS.values():
         fn = fns[name] = getattr(bwd, name)
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fns
@@ -128,6 +136,27 @@ def _meta(spatial_shapes, device) -> torch.Tensor:
                           zip(spatial_shapes, starts)], np.int32)
         t = _META_CACHE[key] = torch.from_numpy(arr).to(device)
     return t
+
+
+def kernel_width(d: int, dtype: torch.dtype, *data_ptrs: int) -> int:
+    """Channels per lane of the kernel instance for head width d.
+
+    A vector instance (16 bytes of dtype per lane: 8 bfloat16 or 4
+    float32 channels) needs d to fill whole 16-byte chunks, d / width lanes
+    per row to divide the warp's 32, and every pointer 16-byte aligned;
+    anything else takes the element instance (1).
+    """
+    width = 128 // torch.finfo(dtype).bits
+    lanes = d // width
+    if (d % width == 0 and lanes in (1, 2, 4, 8, 16, 32)
+            and all(p % 16 == 0 for p in data_ptrs)):
+        return width
+    return 1
+
+
+def _count(wrapper, width: int):
+    wrapper.launches += 1
+    wrapper.launches_by_width[width] += 1
 
 
 def _check_inputs(value, spatial_shapes, sampling_locations,
@@ -170,26 +199,30 @@ def ms_deform_attn_cuda(value: torch.Tensor,
     value (N, S, M, D) float32 or bfloat16; sampling_locations
     (N, Lq, M, L, P, 2) float32; attention_weights (N, Lq, M, L, P)
     float32; all contiguous and on one CUDA device. Returns (N, Lq, M*D)
-    in value's dtype. Counts each launch in `ms_deform_attn_cuda.launches`.
+    in value's dtype. Counts each launch in `ms_deform_attn_cuda.launches`
+    and, by the instance's width (`kernel_width`), in
+    `ms_deform_attn_cuda.launches_by_width`.
     """
     N, S, M, D, Lq, L, P = _check_inputs(value, spatial_shapes,
                                           sampling_locations,
                                           attention_weights)
     out = torch.empty((N, Lq, M * D), dtype=value.dtype, device=value.device)
+    width = kernel_width(D, value.dtype, value.data_ptr(), out.data_ptr())
     meta = _meta(spatial_shapes, value.device)
     fn = _library()[_KERNELS[value.dtype]]
     stream = torch.cuda.current_stream(value.device).cuda_stream
     err = fn(value.data_ptr(), meta.data_ptr(),
              sampling_locations.data_ptr(), attention_weights.data_ptr(),
-             out.data_ptr(), N, S, M, D, Lq, L, P, stream)
+             out.data_ptr(), N, S, M, D, Lq, L, P, width, stream)
     if err != 0:
         raise RuntimeError(f"MSDA forward kernel launch failed: CUDA error "
                            f"{err}")
-    ms_deform_attn_cuda.launches += 1
+    _count(ms_deform_attn_cuda, width)
     return out
 
 
 ms_deform_attn_cuda.launches = 0
+ms_deform_attn_cuda.launches_by_width = collections.Counter()
 
 
 def ms_deform_attn_bwd_cuda(value: torch.Tensor,
@@ -205,7 +238,8 @@ def ms_deform_attn_bwd_cuda(value: torch.Tensor,
     value's dtype, contiguous. Returns (d_value in value's dtype, d_loc
     float32, d_attn float32). d_value is summed in float32 (for bfloat16 in
     a float32 scratch buffer, then cast). Counts each launch in
-    `ms_deform_attn_bwd_cuda.launches`.
+    `ms_deform_attn_bwd_cuda.launches` and, by the instance's width, in
+    `ms_deform_attn_bwd_cuda.launches_by_width`.
     """
     N, S, M, D, Lq, L, P = _check_inputs(value, spatial_shapes,
                                           sampling_locations,
@@ -223,6 +257,8 @@ def ms_deform_attn_bwd_cuda(value: torch.Tensor,
               else torch.empty(value.shape, dtype=torch.float32, device=dev))
     d_loc = torch.empty_like(sampling_locations)
     d_attn = torch.empty_like(attention_weights)
+    width = kernel_width(D, value.dtype, value.data_ptr(),
+                         grad_out.data_ptr(), dv_acc.data_ptr())
     meta = _meta(spatial_shapes, dev)
     fn = _library()[_BWD_KERNELS[value.dtype]]
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -230,15 +266,16 @@ def ms_deform_attn_bwd_cuda(value: torch.Tensor,
              sampling_locations.data_ptr(), attention_weights.data_ptr(),
              grad_out.data_ptr(), dv_acc.data_ptr(), d_value.data_ptr(),
              d_loc.data_ptr(), d_attn.data_ptr(), N, S, M, D, Lq, L, P,
-             stream)
+             width, stream)
     if err != 0:
         raise RuntimeError(f"MSDA backward kernel launch failed: CUDA error "
                            f"{err}")
-    ms_deform_attn_bwd_cuda.launches += 1
+    _count(ms_deform_attn_bwd_cuda, width)
     return d_value, d_loc, d_attn
 
 
 ms_deform_attn_bwd_cuda.launches = 0
+ms_deform_attn_bwd_cuda.launches_by_width = collections.Counter()
 
 
 class MSDeformAttnFunction(torch.autograd.Function):

@@ -24,6 +24,7 @@ import torch
 from semi_detr_tpu_torch.ops import ms_deform_attn_cuda as cuda_mod
 from semi_detr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
                                                     ms_deform_attn_backward)
+from semi_detr_tpu_torch.tools.msda_bench import edge_coord
 
 SHAPES = ((12, 16), (6, 8), (3, 4))
 S = sum(h * w for h, w in SHAPES)
@@ -50,9 +51,61 @@ def _inputs(dev, seed, lq, m=4, d=32, p=4, lo=0.0, hi=1.0):
     return value.to(dev), loc.to(dev), w.to(dev)
 
 
+# L = 3 levels; "lp9" has L * P = 9 taps, not a multiple of the taps a
+# warp has in flight (4 at float32, 8 at bfloat16 for D = 32); D = 8 and 16
+# give row groups of 1, 2 and 4 lanes; D = 5 and 40 take the element
+# instance
 CASES = {"encoder": dict(lq=S), "decoder": dict(lq=37),
          "odd_d": dict(lq=9, d=5), "wide_d": dict(lq=9, d=40),
-         "out_of_bounds": dict(lq=21, lo=-1.5, hi=2.5)}
+         "out_of_bounds": dict(lq=21, lo=-1.5, hi=2.5),
+         "lp9": dict(lq=21, p=3), "d8": dict(lq=21, d=8),
+         "d16": dict(lq=21, d=16)}
+VECTOR = {torch.float32: 4, torch.bfloat16: 8}
+
+
+def _width(case, dtype):
+    """The instance a case must take: 16-byte chunks where D fills a row
+    group of 1, 2 or 4 lanes (bf16) or 2, 4 or 8 (float32), else 1."""
+    return VECTOR[dtype] if CASES[case].get("d", 32) in (8, 16, 32) else 1
+
+
+def _launched(wrapper, width, run):
+    """run(), asserting it launched the wrapper's kernel once, through the
+    instance of the given width."""
+    before = wrapper.launches, dict(wrapper.launches_by_width)
+    out = run()
+    assert wrapper.launches == before[0] + 1
+    by_width = dict(wrapper.launches_by_width)
+    assert by_width.pop(width) == before[1].pop(width, 0) + 1
+    assert by_width == {k: v for k, v in before[1].items() if v}
+    return out
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def _mixed_taps(dev, seed):
+    """Taps of one warp that differ by row group: tap t % 4 == 0 NaN,
+    1 far off the map, 2 exactly on pixel coordinate -1 (x on even points,
+    y on odd ones), 3 inside; every row group of a warp holds one kind."""
+    value, loc, w = _inputs(dev, seed, lq=13)
+    lp = loc.shape[3] * loc.shape[4]
+    flat = loc.view(2, 13, loc.shape[2], lp, 2)
+    flat[:, :, :, 0::4, 0] = float("nan")
+    flat[:, :, :, 1::4, 1] = 1e30
+    for t in range(2, lp, 4):
+        lvl = t // loc.shape[4]
+        h, wd = SHAPES[lvl]
+        axis = t // 4 % 2                      # 0: x, 1: y
+        flat[:, :, :, t, axis] = edge_coord(wd if axis == 0 else h)
+    return value, loc, w
 
 
 @pytest.mark.cuda
@@ -62,9 +115,9 @@ CASES = {"encoder": dict(lq=S), "decoder": dict(lq=37),
 def test_kernel_matches_plain_version(cuda, case, dtype):
     value, loc, w = _inputs(cuda, 0, **CASES[case])
     value = value.to(dtype)
-    before = cuda_mod.ms_deform_attn_cuda.launches
-    got = cuda_mod.ms_deform_attn_auto(value, SHAPES, loc, w)
-    assert cuda_mod.ms_deform_attn_cuda.launches == before + 1
+    got = _launched(cuda_mod.ms_deform_attn_cuda, _width(case, dtype),
+                    lambda: cuda_mod.ms_deform_attn_auto(value, SHAPES, loc,
+                                                         w))
     ref = ms_deform_attn(value, SHAPES, loc, w)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == ref.shape
@@ -101,9 +154,10 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda):
 
 def _grads_close(got, ref, dtype):
     """Each of (d_value, d_loc, d_attn) within its scaled tolerance, where
-    the plain result is finite."""
+    the plain result is finite, and exactly 0 where it is not."""
     for i, (a, b) in enumerate(zip(got, ref)):
         fin = torch.isfinite(b)
+        assert not a.float()[~fin].any()
         scale = max(1.0, b[fin].abs().max().item())
         tol = GRAD_RTOL * scale
         if i == 0 and dtype == torch.bfloat16:
@@ -122,9 +176,9 @@ def test_backward_kernel_matches_plain_version(cuda, case, dtype):
     g = torch.randn(value.shape[0], loc.shape[1],
                     value.shape[2] * value.shape[3], device=cuda,
                     generator=torch.Generator(cuda).manual_seed(0)).to(dtype)
-    before = cuda_mod.ms_deform_attn_bwd_cuda.launches
-    got = cuda_mod.ms_deform_attn_bwd_cuda(value, SHAPES, loc, w, g)
-    assert cuda_mod.ms_deform_attn_bwd_cuda.launches == before + 1
+    got = _launched(cuda_mod.ms_deform_attn_bwd_cuda, _width(case, dtype),
+                    lambda: cuda_mod.ms_deform_attn_bwd_cuda(value, SHAPES,
+                                                             loc, w, g))
     ref = ms_deform_attn_backward(value.float(), SHAPES, loc, w, g.float())
     torch.cuda.synchronize()
     assert got[0].dtype == dtype and got[1].dtype == got[2].dtype \
@@ -213,3 +267,59 @@ def test_auto_under_no_grad_launches_forward_only(cuda):
     torch.cuda.synchronize()
     assert (got - ref).abs().max().item() <= TOL[torch.float32]
     assert cuda_mod.ms_deform_attn_bwd_cuda.launches == bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_misaligned_inputs_take_the_element_instance(cuda, dtype):
+    """value (and g) starting off a 16-byte boundary: the wrappers take the
+    element instance, and both kernels still match their plain versions."""
+    value, loc, w = _inputs(cuda, 8, lq=37)
+    value = _misaligned(value.to(dtype))
+    got = _launched(cuda_mod.ms_deform_attn_cuda, 1,
+                    lambda: cuda_mod.ms_deform_attn_cuda(value, SHAPES, loc,
+                                                         w))
+    ref = ms_deform_attn(value, SHAPES, loc, w)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    g = torch.randn(2, 37, value.shape[2] * value.shape[3], device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1)).to(dtype)
+    for v_in, g_in in ((value, g),
+                       (value.contiguous().clone(), _misaligned(g))):
+        got = _launched(cuda_mod.ms_deform_attn_bwd_cuda, 1,
+                        lambda: cuda_mod.ms_deform_attn_bwd_cuda(
+                            v_in, SHAPES, loc, w, g_in))
+        ref = ms_deform_attn_backward(v_in.float(), SHAPES, loc, w,
+                                      g_in.float())
+        torch.cuda.synchronize()
+        _grads_close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_taps_that_differ_between_row_groups(cuda, dtype):
+    """One warp's row groups hold NaN, far, exactly-on-edge and inside taps
+    side by side: each group's result is its own, forward and backward."""
+    value, loc, w = _mixed_taps(cuda, 9)
+    value = value.to(dtype)
+    got = _launched(cuda_mod.ms_deform_attn_cuda, VECTOR[dtype],
+                    lambda: cuda_mod.ms_deform_attn_cuda(value, SHAPES, loc,
+                                                         w))
+    ref = ms_deform_attn(value, SHAPES, loc, w)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    g = torch.randn(2, 13, value.shape[2] * value.shape[3], device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2)).to(dtype)
+    got = _launched(cuda_mod.ms_deform_attn_bwd_cuda, VECTOR[dtype],
+                    lambda: cuda_mod.ms_deform_attn_bwd_cuda(value, SHAPES,
+                                                             loc, w, g))
+    ref = ms_deform_attn_backward(value.float(), SHAPES, loc, w, g.float())
+    torch.cuda.synchronize()
+    # the edge taps have a one-sided derivative, the NaN taps none
+    lp = loc.shape[3] * loc.shape[4]
+    d_loc = ref[1].view(2, 13, loc.shape[2], lp, 2)
+    assert d_loc[:, :, :, 2::4].abs().max() > 1e-3
+    assert not torch.isfinite(d_loc[:, :, :, 0::4]).all()
+    _grads_close(got, ref, dtype)

@@ -121,6 +121,7 @@ def test_port_imports_no_jax():
             "semi_detr_tpu_torch.train.schedules, "
             "semi_detr_tpu_torch.train.supervised, "
             "semi_detr_tpu_torch.data.pipeline, "
+            "semi_detr_tpu_torch.tools.msda_bench, "
             "semi_detr_tpu_torch.utils.torch_weights\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'semi_detr_tpu')]\n"
