@@ -61,9 +61,27 @@ Phases (any failure exits non-zero):
    then the decoder's hs, both runs decoding one shared encoder output,
    with the same witnesses. Each leaf within a relative L2 tolerance.
 
+6. SSOD path: the Semi-DETR teacher-student step at full width
+   (`init_ssod_state` of configs/detr_ssod/semi_detr_r50_coco_120k.py:
+   DINO-R50, 900 queries, CDN budget 200, max_pseudo 32, 5 consistency
+   groups, bfloat16 compute, float32 parameters, seeded weights with the
+   box MLPs' last layers filled), 1 supervised + 4 unlabeled 800x1344
+   images from `synthetic_ssod_batch`, the student view the teacher view
+   flipped: 2 warm-up steps (the second at score_thr 0, so the supervision
+   set is not empty), then 2 Hungarian steps. Each step: every loss finite;
+   48 (warm-up) or 42 forward and 24 backward MSDA launches, all through the
+   vector instances; the projector moved (after the warm-up on a zero
+   gradient); the frozen stem and layer1 unchanged bit for bit; the teacher
+   moved by the EMA. Step ms, images/s, peak memory, the pseudo-label,
+   supervision-set and consistency-set sizes and gmm_thr are printed.
+   Phases 3 and 3b also hold both kernels at this path's new shapes (N=4
+   encoder; decoder Lq 1,260 = 160 consistency + 200 CDN + 900, N=4), in
+   bfloat16.
+
 The line before the last is a JSON object with the kernels' numbers and the
-training record; the last line is {"ok": true, "device": {...}}.
+training records; the last line is {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -79,12 +97,14 @@ if not torch.cuda.is_available():
 
 from semi_detr_tpu_torch.api import Predictor, init_detector  # noqa: E402
 from semi_detr_tpu_torch.data.pipeline import (  # noqa: E402
-    synthetic_batch, to_device)
+    synthetic_batch, synthetic_ssod_batch, to_device)
 from semi_detr_tpu_torch.models import transformer as tr  # noqa: E402
 from semi_detr_tpu_torch.ops import ms_deform_attn_cuda as msda  # noqa: E402
 from semi_detr_tpu_torch.ops.ms_deform_attn import (  # noqa: E402
     ms_deform_attn, ms_deform_attn_backward)
-from semi_detr_tpu_torch.train.state import init_train_state  # noqa: E402
+from semi_detr_tpu_torch.train.ssod import make_ssod_train_step  # noqa: E402
+from semi_detr_tpu_torch.train.state import (  # noqa: E402
+    init_ssod_state, init_train_state, refine_boxes)
 from semi_detr_tpu_torch.train.supervised import (  # noqa: E402
     make_supervised_train_step)
 # the yardstick: the main-path levels of the 800x1344 bucket, M = 8,
@@ -94,6 +114,17 @@ from semi_detr_tpu_torch.tools.msda_bench import (  # noqa: E402
     msda_inputs, ptxas_summary)
 
 CONFIG = "configs/dino_detr/dino_detr_r50_coco.py"
+SSOD_CONFIG = "configs/detr_ssod/semi_detr_r50_coco_120k.py"
+# the SSOD recipe's batch: 1 supervised + 4 unlabeled images per card
+SSOD_SUP, SSOD_UNSUP, SSOD_BUCKET = 1, 4, (800, 1344)
+# the SSOD steps: (warm_up, score_thr override or None for the recipe's)
+SSOD_STEPS = ((True, None), (True, 0.0), (False, None), (False, None))
+# MSDA launches per SSOD step (forward, backward): sup encoder + decoder,
+# teacher encoder + matching decode, student encoder + matching decode +
+# training decode, and in warm-up the teacher's consistency decode; 6 each
+SSOD_LAUNCHES = {True: (48, 24), False: (42, 24)}
+# the SSOD path's shapes that no earlier row covers: (case, N, Lq)
+SSOD_FWD_CASES = (("encoder_n4", 4, S), ("decoder_ssod", 4, 160 + 200 + 900))
 # the main path runs bfloat16: 16-byte chunks of 8 channels per lane
 MAIN_WIDTH = 8
 # kernel vs plain: float32 sums in another order (1e-5); bfloat16 output
@@ -189,10 +220,16 @@ def kernel_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = []
-    for name, lq, oob in (("encoder", S, False), ("decoder", 900, False),
-                          ("out_of_bounds", 900, True)):
-        for dtype in (torch.float32, torch.bfloat16):
-            value, loc, attn = msda_inputs(lq, dtype, seed=len(rows), oob=oob)
+    cases = [(name, 1, lq, oob, dtypes) for name, lq, oob in (
+        ("encoder", S, False), ("decoder", 900, False),
+        ("out_of_bounds", 900, True))
+        for dtypes in [(torch.float32, torch.bfloat16)]]
+    cases += [(name, n, lq, False, (torch.bfloat16,))
+              for name, n, lq in SSOD_FWD_CASES]
+    for name, n, lq, oob, dtypes in cases:
+        for dtype in dtypes:
+            value, loc, attn = msda_inputs(lq, dtype, seed=len(rows),
+                                           oob=oob, n=n)
             got, widths = widths_of(msda.ms_deform_attn_cuda,
                                     lambda: msda.ms_deform_attn_cuda(
                                         value, SHAPES, loc, attn))
@@ -215,34 +252,23 @@ def kernel_phase():
             p_ms = cuda_ms(lambda: ms_deform_attn(value, SHAPES, loc, attn), 5)
             y_ms = (cuda_ms(lambda: grid_sample_msda(value, loc, attn), 5)
                     if dtype == torch.float32 else None)
-            b_ms, b_by = bound(lq, dtype)
-            rate = gathered_bytes(1, lq, dtype) / (k_ms * 1e-3)
+            b_ms, b_by = bound(lq, dtype, n)
+            rate = gathered_bytes(n, lq, dtype) / (k_ms * 1e-3)
             rows.append(dict(case=name, dtype=str(dtype).split(".")[-1],
-                             lq=lq, width=widths, max_abs_err=err,
+                             n=n, lq=lq, width=widths, max_abs_err=err,
                              bit_equal_share=same,
                              tol=TOL[dtype], ms=k_ms, plain_ms=p_ms,
                              bound_ms=b_ms, bound_by=b_by,
                              gathered_bytes_per_s=rate, grid_sample_ms=y_ms))
-            log(f"  {name:13s} {rows[-1]['dtype']:8s} Lq={lq:6d} "
+            log(f"  {name:13s} {rows[-1]['dtype']:8s} N={n} Lq={lq:6d} "
                 f"err={err:.3e} (tol {TOL[dtype]:.1e}, bit-equal share "
                 f"{same:.4f})  width {widths}  "
                 f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound "
                 f"{b_ms:.4f} ms ({b_by})  gathered rows {rate / 1e12:.3f} "
                 f"TB/s  grid_sample yardstick {y_ms} ms")
+            del value, loc, attn, got, ref
+            torch.cuda.empty_cache()
     return rows
-
-
-def refine_boxes(det, seed):
-    """Fill the last layer of both box MLPs, which the seeded init zeroes,
-    from a seeded draw: every box then goes through the decoder's
-    refinement instead of staying an encoder proposal."""
-    g = torch.Generator().manual_seed(seed)
-    head = det.bbox_head
-    with torch.no_grad():
-        for reg in (head.fc_reg[0], head.fc_enc_reg):
-            for p in (reg.layers[-1].weight, reg.layers[-1].bias):
-                p.copy_(0.05 * torch.randn(p.shape, generator=g))
-    return det
 
 
 def check_answer(img, answer):
@@ -384,10 +410,14 @@ def backward_kernel_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = []
-    n = TRAIN_BATCH
-    for name, lq, oob in (("encoder", S, False), ("decoder", TRAIN_LQ, False),
-                          ("out_of_bounds", TRAIN_LQ, True)):
-        for dtype in (torch.float32, torch.bfloat16):
+    both = (torch.float32, torch.bfloat16)
+    cases = [(name, TRAIN_BATCH, lq, oob, both) for name, lq, oob in (
+        ("encoder", S, False), ("decoder", TRAIN_LQ, False),
+        ("out_of_bounds", TRAIN_LQ, True))]
+    cases += [(name, n, lq, False, (torch.bfloat16,))
+              for name, n, lq in SSOD_FWD_CASES]
+    for name, n, lq, oob, dtypes in cases:
+        for dtype in dtypes:
             seed = 100 + len(rows)
             value, loc, attn = msda_inputs(lq, dtype, seed, oob=oob, n=n)
             g = torch.randn(n, lq, M * D, device="cuda",
@@ -501,6 +531,104 @@ def train_phase(card):
     torch.cuda.empty_cache()
     return dict(steps=records, warm_step_ms=warm_ms,
                 images_per_s=TRAIN_BATCH / warm_ms * 1e3,
+                peak_memory_bytes=peak, launches_fwd=fwd_total,
+                launches_bwd=bwd_total, card=card)
+
+
+def ssod_phase(card):
+    log("== phase 6: SSOD path (full width, 1 + 4 images at 800x1344, "
+        "bfloat16 compute, float32 parameters, seeded weights)")
+    torch.cuda.reset_peak_memory_stats()
+    state, cfg = init_ssod_state(SSOD_CONFIG, device="cuda", seed=0)
+    model, projector, teacher = state.model, state.projector, state.teacher
+    refine_boxes(model, seed=3)
+    log(f"  compute dtype {model.compute_dtype}; max_pseudo {cfg.max_pseudo},"
+        f" cons_groups {cfg.cons_groups}, score_thr {cfg.score_thr}")
+    batch = to_device(synthetic_ssod_batch(
+        SSOD_SUP, SSOD_UNSUP, *SSOD_BUCKET, model.cfg.max_gt,
+        gt_per_image=12, seed=0, student_flip=True), "cuda")
+    frozen = {k: p.detach().clone() for k, p in model.named_parameters()
+              if not p.requires_grad}
+    if not frozen:
+        raise AssertionError("no frozen parameters")
+    records = []
+    fwd_total = bwd_total = 0
+    for i, (warm_up, thr) in enumerate(SSOD_STEPS):
+        step_cfg = cfg if thr is None else dataclasses.replace(
+            cfg, score_thr=thr)
+        step = make_ssod_train_step(step_cfg, warm_up)
+        proj_before = [p.detach().clone() for p in projector.parameters()]
+        teacher_before = [p.detach().clone() for p in teacher.parameters()]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        fwd = msda.ms_deform_attn_cuda.launches
+        bwd = msda.ms_deform_attn_bwd_cuda.launches
+        fwd_total += fwd
+        bwd_total += bwd
+        vals = {k: float(v) for k, v in metrics.items()
+                if k not in ("pseudo_vis", "pseudo_sets")}
+        bad = [k for k, v in vals.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"SSOD step {i}: non-finite {bad}")
+        if (fwd, bwd) != SSOD_LAUNCHES[warm_up]:
+            raise AssertionError(f"SSOD step {i}: {fwd} forward and {bwd} "
+                                 f"backward MSDA launches, not "
+                                 f"{SSOD_LAUNCHES[warm_up]}")
+        assert_vector(msda.ms_deform_attn_cuda, f"SSOD step {i} forward")
+        assert_vector(msda.ms_deform_attn_bwd_cuda, f"SSOD step {i} backward")
+        # the projector moves every step: after the warm-up on a zero
+        # gradient, by Adam's momentum and the weight decay
+        if any(torch.equal(p, q) for p, q in zip(projector.parameters(),
+                                                 proj_before)):
+            raise AssertionError(f"SSOD step {i}: a projector tensor did not "
+                                 "move")
+        moved = [k for k, p in model.named_parameters()
+                 if k in frozen and not torch.equal(p, frozen[k])]
+        if moved:
+            raise AssertionError(f"SSOD step {i}: frozen moved: {moved[:5]}")
+        # step 0's momentum is 0: the teacher becomes the student it was
+        # copied from; from step 1 the EMA moves it
+        t_moved = sum(not torch.equal(p, q) for p, q in
+                      zip(teacher.parameters(), teacher_before))
+        if i and t_moved == 0:
+            raise AssertionError(f"SSOD step {i}: the teacher did not move")
+        if thr is not None and not vals["sup_set_per_img"] > 0:
+            raise AssertionError(f"SSOD step {i}: empty supervision set at "
+                                 f"score_thr {thr}")
+        rec = dict(step=i, warm_up=warm_up, score_thr=step_cfg.score_thr,
+                   ms=dt * 1e3, launches_fwd=fwd, launches_bwd=bwd,
+                   teacher_tensors_moved=t_moved,
+                   **{k: vals[k] for k in (
+                       "total_loss", "grad_norm", "ema_momentum",
+                       "pseudo_per_img", "sup_set_per_img",
+                       "cons_set_per_img", "gmm_thr")})
+        records.append(rec)
+        log(f"  step {i} {'warm-up' if warm_up else 'Hungarian'} score_thr "
+            f"{step_cfg.score_thr}: {dt * 1e3:.1f} ms, total_loss "
+            f"{rec['total_loss']:.4f}, grad_norm {rec['grad_norm']:.4f}, "
+            f"pseudo/img {rec['pseudo_per_img']:.2f}, sup set/img "
+            f"{rec['sup_set_per_img']:.2f}, cons set/img "
+            f"{rec['cons_set_per_img']:.2f}, gmm_thr {rec['gmm_thr']:.4f}, "
+            f"MSDA launches {fwd} fwd + {bwd} bwd")
+    peak = torch.cuda.max_memory_allocated()
+    n_img = SSOD_SUP + SSOD_UNSUP
+    # step 0 of each stage carries its first-call costs; the second is warm
+    warm = {stage: records[k]["ms"] for stage, k in (("warm_up", 1),
+                                                     ("hungarian", 3))}
+    log(f"  warm step ms: warm-up {warm['warm_up']:.1f}, Hungarian "
+        f"{warm['hungarian']:.1f}; images/s: warm-up "
+        f"{n_img / warm['warm_up'] * 1e3:.3f}, Hungarian "
+        f"{n_img / warm['hungarian'] * 1e3:.3f}; peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    log("  " + card)
+    del state, model, projector, teacher, batch
+    torch.cuda.empty_cache()
+    return dict(steps=records, warm_step_ms=warm,
+                images_per_s={k: n_img / v * 1e3 for k, v in warm.items()},
                 peak_memory_bytes=peak, launches_fwd=fwd_total,
                 launches_bwd=bwd_total, card=card)
 
@@ -698,6 +826,7 @@ def main():
     errs = timed("4b", float32_phase)
     train = timed("5", train_phase, card)
     grad_check = timed("5b", model_grad_phase)
+    ssod = timed("6", ssod_phase, card)
 
     main_rows = [r for r in rows if r["dtype"] == "bfloat16"
                  and r["case"] in ("encoder", "decoder")]
@@ -719,7 +848,8 @@ def main():
         # launches_by_path
         "launches": train["launches_fwd"],
         "launches_by_path": {"serve": launches,
-                             "train": train["launches_fwd"]},
+                             "train": train["launches_fwd"],
+                             "ssod": ssod["launches_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
         # per image on the serving path (bfloat16, N=1): 6 encoder + 6
         # decoder calls
@@ -736,7 +866,8 @@ def main():
         "source": "semi_detr_tpu_torch/csrc/ms_deform_attn_bwd.cu",
         "replaces": "semi_detr_tpu/ops/ms_deform_attn_pallas.py:521",
         "launches": train["launches_bwd"],
-        "launches_by_path": {"serve": 0, "train": train["launches_bwd"]},
+        "launches_by_path": {"serve": 0, "train": train["launches_bwd"],
+                             "ssod": ssod["launches_bwd"]},
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in bwd_main),
         # per training step (batch 2, bfloat16): 6 encoder + 6 decoder calls
         "ms": per_step["ms"],
@@ -749,7 +880,7 @@ def main():
     }], "card": card, "build_s": build_s, "phase_s": phase_s,
         "request_ms": {k: v * 1e3 for k, v in latency.items()},
         "float32_request_err": errs, "train": train,
-        "float32_grad_check": grad_check}
+        "float32_grad_check": grad_check, "ssod": ssod}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

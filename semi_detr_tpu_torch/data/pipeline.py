@@ -111,3 +111,52 @@ def synthetic_batch(rng: np.random.RandomState, bucket: Tuple[int, int],
         labels = rng.randint(0, num_classes, n).astype(np.int32)
         packed.append(pack(make_sample(img, boxes, labels), bucket, max_gt))
     return stack(packed)
+
+
+def synthetic_ssod_batch(n_sup: int, n_unsup: int, h: int, w: int,
+                         max_gt: int, gt_per_image: int = 8, seed: int = 0,
+                         student_flip: bool = False) -> Dict[str, Any]:
+    """A seeded SSOD batch of numpy arrays (the counterpart of the JAX
+    package's `data/synthetic.synthetic_ssod_batch`, equal to it array for
+    array by default): float32 images of N(0, 0.25) noise, already
+    normalized; the supervised images with `gt_per_image` packed random
+    boxes; the unlabeled teacher (weak) and student (strong) views with
+    identity transform matrices.
+
+    student_flip: the student view is the teacher view flipped left to
+    right, and its matrix the flip's, so the cross-view box transform does
+    real work."""
+    rs = np.random.RandomState(seed)
+
+    def imgs(n):
+        return rs.randn(n, h, w, 3).astype(np.float32) * 0.5
+
+    def hws(n):
+        return np.tile(np.asarray([[h, w]], np.int32), (n, 1))
+
+    g = max_gt
+    cxy = rs.uniform(0.3, 0.7, (n_sup, g, 2)).astype(np.float32)
+    wh = rs.uniform(0.1, 0.3, (n_sup, g, 2)).astype(np.float32)
+    eye = np.tile(np.eye(3, dtype=np.float32)[None], (n_unsup, 1, 1))
+    batch = {
+        "sup": {
+            "images": imgs(n_sup), "img_hw": hws(n_sup),
+            "gt": {"boxes": np.concatenate([cxy, wh], -1),
+                   "labels": rs.randint(0, 80, (n_sup, g)).astype(np.int32),
+                   "valid": np.tile(np.arange(g)[None] < gt_per_image,
+                                    (n_sup, 1))},
+        },
+        "unsup": {
+            "student_images": imgs(n_unsup), "student_hw": hws(n_unsup),
+            "student_tmat": eye,
+            "teacher_images": imgs(n_unsup), "teacher_hw": hws(n_unsup),
+            "teacher_tmat": eye.copy(),
+        },
+    }
+    if student_flip:
+        un = batch["unsup"]
+        flip = np.asarray([[-1, 0, w], [0, 1, 0], [0, 0, 1]], np.float32)
+        un["student_images"] = np.ascontiguousarray(
+            un["teacher_images"][:, :, ::-1])
+        un["student_tmat"] = flip @ un["teacher_tmat"]
+    return batch

@@ -1,6 +1,7 @@
-"""Where a supervised training step's time goes, on the card.
+"""Where a training step's time goes, on the card: the supervised step, or
+with --ssod the Semi-DETR SSOD step.
 
-    python -m semi_detr_tpu_torch.tools.profile_train [--out DIR]
+    python -m semi_detr_tpu_torch.tools.profile_train [--ssod] [--out DIR]
 
 Builds the full-width training setup of `chip_smoke.py` phase 5 with the
 same helpers (`train.state.init_train_state` of
@@ -18,8 +19,19 @@ O2M + task-aligned focal loss; Hungarian):
   share), the MSDA forward and backward kernels' shares of device time,
   and the top kernels.
 
+--ssod: the setup of `chip_smoke.py` phase 6 instead (`init_ssod_state` of
+configs/detr_ssod/semi_detr_r50_coco_120k.py with the box MLPs' last layers
+filled by `refine_boxes`; 1 supervised + 4 unlabeled 800x1344 images of
+`data.pipeline.synthetic_ssod_batch`, the student view flipped), both
+stages (warm-up with the consistency block; Hungarian), with the SSOD
+spans too: ssod.teacher, ssod.pseudo_labels, ssod.gmm, ssod.student and
+ssod.consistency. Spans nest (hungarian.solve_batch runs inside
+ssod.student and train.forward_loss; ssod.consistency in part inside
+ssod.student's decode): each span's host time is its own total.
+
 Prints a JSON summary as its last line and, with --out, writes it with the
-top-kernel tables to DIR/profile_train.json. Needs a CUDA card.
+top-kernel tables to DIR/profile_train.json (profile_train_ssod.json with
+--ssod). Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -32,16 +44,20 @@ import time
 import numpy as np
 import torch
 
-from ..data.pipeline import synthetic_batch, to_device
-from ..train.state import init_train_state
+from ..data.pipeline import synthetic_batch, synthetic_ssod_batch, to_device
+from ..train.ssod import make_ssod_train_step
+from ..train.state import init_ssod_state, init_train_state, refine_boxes
 from ..train.supervised import make_supervised_train_step
 
 CONFIG = "configs/dino_detr/dino_detr_r50_coco.py"
+SSOD_CONFIG = "configs/detr_ssod/semi_detr_r50_coco_120k.py"
 BUCKET = (800, 1344)
 GT_COUNTS = ((7, 20), (3, 12), (30, 5), (15, 9))
 STEPS = 4                 # timed, then traced, warm steps per branch
 SPANS = ("train.ema", "train.forward_loss", "train.backward",
-         "train.optimizer", "hungarian.solve_batch")
+         "train.optimizer", "hungarian.solve_batch", "ssod.teacher",
+         "ssod.pseudo_labels", "ssod.gmm", "ssod.student",
+         "ssod.consistency")
 
 
 def _card():
@@ -87,23 +103,45 @@ def _device_summary(prof, n_steps):
     }
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default=None,
-                    help="directory for profile_train.json")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_train needs a CUDA card")
-    from torch.profiler import ProfilerActivity, profile
-
+def _supervised():
+    """(state, batches, step maker, images per step) of the supervised
+    setup."""
     state = init_train_state(CONFIG, device="cuda", seed=0)
     rng = np.random.RandomState(0)
     batches = [to_device(synthetic_batch(rng, BUCKET, c,
                                          state.model.cfg.max_gt), "cuda")
                for c in GT_COUNTS]
-    summary = {"card": _card(), "batch": 2, "bucket": list(BUCKET)}
+    return state, batches, lambda wu: make_supervised_train_step(
+        warm_up=wu), 2
+
+
+def _ssod():
+    """The same for the SSOD setup of chip_smoke.py phase 6."""
+    state, cfg = init_ssod_state(SSOD_CONFIG, device="cuda", seed=0)
+    refine_boxes(state.model, seed=3)
+    batches = [to_device(synthetic_ssod_batch(
+        1, 4, *BUCKET, state.model.cfg.max_gt, gt_per_image=12, seed=s,
+        student_flip=True), "cuda") for s in range(2)]
+    return state, batches, lambda wu: make_ssod_train_step(cfg, wu), 5
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ssod", action="store_true",
+                    help="profile the SSOD step instead")
+    ap.add_argument("--out", default=None,
+                    help="directory for profile_train[_ssod].json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
+
+    state, batches, make_step, n_img = (_ssod if args.ssod
+                                        else _supervised)()
+    summary = {"card": _card(), "images_per_step": n_img,
+               "bucket": list(BUCKET), "ssod": args.ssod}
     for warm_up in (True, False):
-        step = make_supervised_train_step(warm_up=warm_up)
+        step = make_step(warm_up)
         for b in batches:                     # warm this branch
             step(state, b)
         times = []
@@ -121,7 +159,7 @@ def main(argv=None):
         d = _device_summary(prof, STEPS)
         step_ms = float(np.median(times))
         d.update(step_ms=times, median_step_ms=step_ms,
-                 images_per_s=2 / step_ms * 1e3,
+                 images_per_s=n_img / step_ms * 1e3,
                  device_busy_share=d["device_busy_ms_per_step"] / step_ms)
         if d["device_kernel_ms_per_step"] == 0:
             raise SystemExit("the profiler recorded no device time")
@@ -129,7 +167,8 @@ def main(argv=None):
     summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "profile_train.json"), "w") as f:
+        name = "profile_train_ssod.json" if args.ssod else "profile_train.json"
+        with open(os.path.join(args.out, name), "w") as f:
             json.dump(summary, f, indent=1)
     print(json.dumps({k: ({kk: vv for kk, vv in v.items()
                            if kk != "top_kernels_ms_per_step"}

@@ -10,7 +10,9 @@ reference's parameter names:
 * frozen: `backbone.conv1`, `backbone.bn1`, `backbone.layer1.*`; these get
   `requires_grad=False`, so they have no gradient at all;
 * backbone: the rest of `backbone.*`, at lr x backbone_lr_mult;
-* head: everything else, `label_enc` included.
+* head: everything else, `label_enc` included, and every parameter of
+  the `head_modules` (the SSOD projector, as the JAX package labels its
+  `projector` subtree), whose names the rules above never see.
 
 optax's chain (scale_by_adam, add_decayed_weights, scale_by_learning_rate)
 is the same update as `torch.optim.AdamW`: p <- p - lr * (adam(g) + wd * p).
@@ -19,7 +21,10 @@ max_norm / norm only when norm >= max_norm, with no eps (`clip_grad_norm_`
 adds 1e-6). The norm is over the trainable gradients only, as the JAX
 package's clip sees them (it zeroes the frozen ones first); the JAX step's
 logged `grad_norm` also counts the frozen leaves' gradients, which the
-port does not compute.
+port does not compute. A trainable parameter that got no gradient (the
+projector after the SSOD warm-up) gets a zero one: optax still applies
+Adam's moments and the weight decay to it, and `torch.optim.AdamW` would
+skip it.
 """
 from __future__ import annotations
 
@@ -77,11 +82,14 @@ class GroupedAdamW:
 
     def __init__(self, model: nn.Module, base_lr: float = 1e-4,
                  weight_decay: float = 1e-4, backbone_lr_mult: float = 0.1,
-                 clip_norm: float = 0.1, lr_boundaries: Sequence[int] = ()):
+                 clip_norm: float = 0.1, lr_boundaries: Sequence[int] = (),
+                 head_modules: Sequence[nn.Module] = ()):
         groups: Dict[str, List[nn.Parameter]] = {
             "head": [], "backbone": [], "frozen": []}
         for name, p in model.named_parameters():
             groups[param_group(name)].append(p)
+        for m in head_modules:
+            groups["head"].extend(m.parameters())
         for p in groups["frozen"]:
             p.requires_grad_(False)
         self.adamw = torch.optim.AdamW(
@@ -98,8 +106,11 @@ class GroupedAdamW:
     def step(self, count: int) -> torch.Tensor:
         """Clip, then update at the learning rate of update `count` (0 for
         the first). Returns the trainable gradients' norm before the clip."""
-        grads = [p.grad for g in self.adamw.param_groups
-                 for p in g["params"] if p.grad is not None]
+        params = [p for g in self.adamw.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
         norm = clip_by_global_norm_(grads, self.clip_norm)
         lr = self.sched(count)
         for g in self.adamw.param_groups:

@@ -1,5 +1,5 @@
 """Train state: the student model, its optimizer, an optional EMA teacher
-copy, and the step.
+copy, the SSOD projector when there is one, and the step.
 
 Counterpart of `semi_detr_tpu/train/state.py`:
 * the teacher is an EMA copy of the student, updated before every train
@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from ..models.dino_head import DinoConfig, DINODetector
+from ..models.ssod import Projector, SsodConfig
 from ..utils.config import load_config
 from .optim import GroupedAdamW, make_optimizer
 
@@ -29,16 +30,35 @@ class TrainState:
     model: nn.Module                  # the student
     optimizer: GroupedAdamW
     teacher: Optional[nn.Module] = None   # EMA copy; None when unused
+    projector: Optional[nn.Module] = None  # SSOD consistency projector
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: GroupedAdamW,
-               with_teacher: bool = True) -> "TrainState":
+               with_teacher: bool = True,
+               projector: Optional[nn.Module] = None) -> "TrainState":
+        """The teacher is a copy of the detector only."""
         teacher = None
         if with_teacher:
             teacher = copy.deepcopy(model)
             teacher.requires_grad_(False)
         return cls(step=0, model=model, optimizer=optimizer,
-                   teacher=teacher)
+                   teacher=teacher, projector=projector)
+
+
+def _optimizer(cfg, model, head_modules=()) -> GroupedAdamW:
+    """The config's `optimizer` section and `schedule.lr_boundaries`."""
+    o = cfg["optimizer"]
+    return make_optimizer(model, base_lr=o["lr"],
+                          weight_decay=o["weight_decay"],
+                          backbone_lr_mult=o["backbone_lr_mult"],
+                          clip_norm=o["clip_norm"],
+                          lr_boundaries=cfg["schedule"]["lr_boundaries"],
+                          head_modules=head_modules)
+
+
+def _detector(cfg, device, seed: int) -> DINODetector:
+    m = {k: v for k, v in cfg["model"].items() if k != "type"}
+    return DINODetector(DinoConfig(**m)).init_weights(seed=seed).to(device)
 
 
 def init_train_state(config: str, device="cuda", seed: int = 0,
@@ -51,15 +71,39 @@ def init_train_state(config: str, device="cuda", seed: int = 0,
     optimizer from the config's `optimizer` section and
     `schedule.lr_boundaries`, and the EMA teacher."""
     cfg = load_config(config, cfg_options)
-    m = {k: v for k, v in cfg["model"].items() if k != "type"}
-    model = DINODetector(DinoConfig(**m)).init_weights(seed=seed).to(device)
-    o = cfg["optimizer"]
-    opt = make_optimizer(model, base_lr=o["lr"],
-                         weight_decay=o["weight_decay"],
-                         backbone_lr_mult=o["backbone_lr_mult"],
-                         clip_norm=o["clip_norm"],
-                         lr_boundaries=cfg["schedule"]["lr_boundaries"])
-    return TrainState.create(model, opt, with_teacher)
+    model = _detector(cfg, device, seed)
+    return TrainState.create(model, _optimizer(cfg, model), with_teacher)
+
+
+def init_ssod_state(config: str, device="cuda", seed: int = 0,
+                    cfg_options: Optional[Dict[str, Any]] = None):
+    """The SSOD train state of a `configs/detr_ssod` file: the detector as
+    in `init_train_state`, the Projector (float32, the JAX package's
+    initializers, drawn from seed + 1), the optimizer over both (the
+    projector in the head group) and the EMA teacher, a copy of the
+    detector. Returns (state, SsodConfig)."""
+    cfg = load_config(config, cfg_options)
+    model = _detector(cfg, device, seed)
+    scfg = SsodConfig(dino=model.cfg, **cfg.get("ssod", {}))
+    projector = Projector(model.cfg.d_model).init_weights(
+        torch.Generator().manual_seed(seed + 1)).to(device)
+    state = TrainState.create(model, _optimizer(cfg, model, (projector,)),
+                              projector=projector)
+    return state, scfg
+
+
+def refine_boxes(det: DINODetector, seed: int) -> DINODetector:
+    """Fill the last layer of both box MLPs, which the seeded init zeroes,
+    from a seeded draw: every box then goes through the decoder's
+    refinement instead of staying an encoder proposal (the setup of
+    `chip_smoke.py` and `tools/profile_train.py`)."""
+    g = torch.Generator().manual_seed(seed)
+    head = det.bbox_head
+    with torch.no_grad():
+        for reg in (head.fc_reg[0], head.fc_enc_reg):
+            for p in (reg.layers[-1].weight, reg.layers[-1].bias):
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    return det
 
 
 def ema_momentum(step: int, momentum: float = 0.999, warm_up: int = 0,

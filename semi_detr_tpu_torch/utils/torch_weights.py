@@ -13,6 +13,10 @@ importing it (the port imports nothing of the JAX package):
 * the scanned `enc` / `dec` parameters lose their leading layer axis, one
   entry per layer;
 * the shared `fc_cls` / `fc_reg` are written at every decoder index.
+
+`projector_state_dict_from_jax` inverts the JAX package's
+`convert_projector` (the SSOD Projector), and `ssod_state_dicts_from_jax`
+carries a whole SSOD state: student, teacher and projector.
 """
 from __future__ import annotations
 
@@ -143,6 +147,55 @@ def state_dict_from_jax(variables: Dict[str, Any],
         for k in ("linear1", "linear2"):
             put_lin(f"{lp}.{k}", node[k])
     return sd
+
+
+def projector_state_dict_from_jax(params: Dict[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """JAX `Projector` params -> the reference Projector's state dict
+    (`conv1`, `bn1`, `conv2`, `bn2`, `fc1`, `bn`, `fc2`; no BN running
+    statistics: the module runs on batch statistics only). fc1's input
+    rows go from flax's HWC flatten back to the reference's NCHW flatten
+    (c * 49 + h * 7 + w)."""
+    def conv(node):
+        return _t(np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)))
+
+    k1 = np.asarray(params["fc1"]["kernel"])            # (hw*hw*c, 1024)
+    c = np.asarray(params["conv2"]["kernel"]).shape[3]
+    hw = int(round(np.sqrt(k1.shape[0] // c)))
+    w1 = (k1.T.reshape(k1.shape[1], hw, hw, c).transpose(0, 3, 1, 2)
+          .reshape(k1.shape[1], -1))
+    return {
+        "conv1.weight": conv(params["conv1"]),
+        "bn1.weight": _t(params["bn1_scale"]),
+        "bn1.bias": _t(params["bn1_bias"]),
+        "conv2.weight": conv(params["conv2"]),
+        "bn2.weight": _t(params["bn2_scale"]),
+        "bn2.bias": _t(params["bn2_bias"]),
+        "fc1.weight": _t(w1),
+        "fc1.bias": _t(params["fc1"]["bias"]),
+        "bn.weight": _t(params["fc_bn_scale"]),
+        "bn.bias": _t(params["fc_bn_bias"]),
+        "fc2.weight": _t(np.asarray(params["fc2"]["kernel"]).T),
+        "fc2.bias": _t(params["fc2"]["bias"]),
+    }
+
+
+def ssod_state_dicts_from_jax(params: Dict[str, Any], batch_stats,
+                              teacher_params: Dict[str, Any],
+                              num_decoder_layers: int = 6
+                              ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX SSOD state's {"detector", "projector"} params, batch_stats and
+    teacher params -> the port's state dicts: {"student", "teacher",
+    "projector"}."""
+    return {
+        "student": state_dict_from_jax(
+            {"params": params["detector"], "batch_stats": batch_stats},
+            num_decoder_layers),
+        "teacher": state_dict_from_jax(
+            {"params": teacher_params, "batch_stats": batch_stats},
+            num_decoder_layers),
+        "projector": projector_state_dict_from_jax(params["projector"]),
+    }
 
 
 def split_teacher_student(state_dict: Dict[str, Any]
