@@ -77,14 +77,40 @@ Phases (any failure exits non-zero):
    Phases 3 and 3b also hold both kernels at this path's new shapes (N=4
    encoder; decoder Lq 1,260 = 160 consistency + 200 CDN + 900, N=4), in
    bfloat16.
+7. Trainer path, in a temporary directory removed at the end: the port's
+   `write_synthetic_coco` writes 8 labelled, 16 unlabelled and 8 val PNG
+   images of 480x640 (up to 3 boxes and 2 distractors each, class
+   "person"); the SSOD CLI (`tools.train_detr_ssod.main`, in-process) runs
+   configs/detr_ssod/semi_detr_r50_coco_120k.py at full width (80 classes,
+   1 + 4 images at 800x1344, the 11 COCO scales, bfloat16) from those files
+   for 4 steps, with warm_up_step, eval, checkpoint and render intervals
+   of 2. Asserted: steps 0-3 ran (2 in the warm-up); 48 / 42 forward and
+   24 backward MSDA launches per step and 12 forward per eval batch
+   (teacher and student), all through the vector instances; checkpoints
+   2 and 4 on disk; Eval[teacher] and Eval[student] lines with every AP in
+   [0, 1] (NaN only for the small and medium ranges, which hold no GT);
+   a finite total_loss at step 0 in metrics.jsonl; the pseudo renders.
+   Then the CLI runs again to step 5: "resumed from step 4", one step. The
+   eval CLI (`tools.test.main`) scores the last checkpoint's teacher; the
+   supervised CLI (`tools.train_detr_od.main`) takes 2 steps of batch 2
+   (the config says 16) with 12 + 12 launches each. Printed: warm step ms
+   and train.data_wait ms per step, augmentation ms per weak and strong
+   view, eval ms per image, checkpoint save s and bytes, peak memory. Phase
+   3 also holds the forward kernel at the eval batch's decoder shape (N=4,
+   Lq 900, bfloat16).
 
 The line before the last is a JSON object with the kernels' numbers and the
 training records; the last line is {"ok": true, "device": {...}}.
 """
 import dataclasses
 import json
+import math
+import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -96,12 +122,20 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from semi_detr_tpu_torch.api import Predictor, init_detector  # noqa: E402
+from semi_detr_tpu_torch.data import augment  # noqa: E402
 from semi_detr_tpu_torch.data.pipeline import (  # noqa: E402
     synthetic_batch, synthetic_ssod_batch, to_device)
 from semi_detr_tpu_torch.models import transformer as tr  # noqa: E402
 from semi_detr_tpu_torch.ops import ms_deform_attn_cuda as msda  # noqa: E402
 from semi_detr_tpu_torch.ops.ms_deform_attn import (  # noqa: E402
     ms_deform_attn, ms_deform_attn_backward)
+from semi_detr_tpu_torch.data.synthetic import (  # noqa: E402
+    write_synthetic_coco)
+from semi_detr_tpu_torch.tools import test as test_cli  # noqa: E402
+from semi_detr_tpu_torch.tools import train_detr_od  # noqa: E402
+from semi_detr_tpu_torch.tools import train_detr_ssod  # noqa: E402
+from semi_detr_tpu_torch.train import checkpoint as ckpt_mod  # noqa: E402
+from semi_detr_tpu_torch.train.loop import SsodTrainer  # noqa: E402
 from semi_detr_tpu_torch.train.ssod import make_ssod_train_step  # noqa: E402
 from semi_detr_tpu_torch.train.state import (  # noqa: E402
     init_ssod_state, init_train_state, refine_boxes)
@@ -125,6 +159,8 @@ SSOD_STEPS = ((True, None), (True, 0.0), (False, None), (False, None))
 SSOD_LAUNCHES = {True: (48, 24), False: (42, 24)}
 # the SSOD path's shapes that no earlier row covers: (case, N, Lq)
 SSOD_FWD_CASES = (("encoder_n4", 4, S), ("decoder_ssod", 4, 160 + 200 + 900))
+# the eval batch's decoder (4 images, 900 queries), forward only
+EVAL_FWD_CASES = (("decoder_eval", 4, 900),)
 # the main path runs bfloat16: 16-byte chunks of 8 channels per lane
 MAIN_WIDTH = 8
 # kernel vs plain: float32 sums in another order (1e-5); bfloat16 output
@@ -159,10 +195,32 @@ TRAIN_STEPS = ((True, (800, 1344), (0, 7)), (True, (1344, 800), (100, 3)),
 # The decoder, on one shared encoder output, reads ~2e-5.
 TOL_GRAD_LEAF, TOL_BWD_ONLY, TOL_DECODER_LEAF = 1e-3, 1e-5, 1e-4
 NEGLIGIBLE = 1e-5
+# phase 7: the synthetic COCO set (labelled, unlabelled, val images of
+# 480x640, up to 3 boxes and 2 distractors each, class "person") and the
+# SSOD CLI's overrides of the recipe; everything else is the recipe's
+TRAINER_SET = dict(hw=(480, 640), max_boxes=3, distractors=2,
+                   class_name="person")
+TRAINER_SPLITS = {"sup": range(0, 8), "unsup": range(8, 24),
+                  "val": range(24, 32)}
+TRAINER_STEPS, TRAINER_WARM_UP = 4, 2
+EVAL_BATCH = 4
+OD_STEPS, OD_BATCH = 2, 2
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def json_safe(x):
+    """NaN (an AP over an area range without GT) as null: the record line
+    stays strict JSON."""
+    if isinstance(x, dict):
+        return {k: json_safe(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [json_safe(v) for v in x]
+    if isinstance(x, float) and not math.isfinite(x):
+        return None
+    return x
 
 
 def card_line():
@@ -225,7 +283,7 @@ def kernel_phase():
         ("out_of_bounds", 900, True))
         for dtypes in [(torch.float32, torch.bfloat16)]]
     cases += [(name, n, lq, False, (torch.bfloat16,))
-              for name, n, lq in SSOD_FWD_CASES]
+              for name, n, lq in SSOD_FWD_CASES + EVAL_FWD_CASES]
     for name, n, lq, oob, dtypes in cases:
         for dtype in dtypes:
             value, loc, attn = msda_inputs(lq, dtype, seed=len(rows),
@@ -633,6 +691,244 @@ def ssod_phase(card):
                 launches_bwd=bwd_total, card=card)
 
 
+def read_evals(log_path):
+    """{(tag, step): {metric: value}} from the trainer's Eval lines."""
+    out = {}
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Eval\[(\w+)\] iter (\d+): (.*)$", line)
+            if m:
+                out[(m.group(1), int(m.group(2)))] = {
+                    k: float(v) for k, v in (kv.split("=") for kv in
+                                             m.group(3).split())}
+    return out
+
+
+def check_aps(res, what):
+    """Every AP and AR in [0, 1]; NaN only for the small and medium area
+    ranges, which hold no GT box of the synthetic set (all boxes are
+    larger than 96 x 96 pixels)."""
+    for k, v in res.items():
+        if not isinstance(v, float):
+            continue
+        if math.isnan(v) and k in ("mAP_s", "mAP_m", "AR_s", "AR_m"):
+            continue
+        if not 0.0 <= v <= 1.0:
+            raise AssertionError(f"{what}: {k} = {v}")
+
+
+def augment_ms(dataset, reps=8):
+    """Host ms per weak and per strong view of the set's images at the
+    recipe's 11 scales (the prefetch worker's work per view)."""
+    rng = np.random.default_rng(0)
+    imgs = [dataset.load_image(i) for i in range(4)]
+    out = {}
+    for name, fn in (("weak", augment.weak_augment),
+                     ("strong", augment.strong_augment)):
+        t0 = time.perf_counter()
+        for r in range(reps):
+            fn(rng, augment.make_sample(imgs[r % len(imgs)]))
+        out[name] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def trainer_phase(card):
+    log("== phase 7: trainer path (SSOD CLI at full width from COCO files: "
+        "4 steps, eval, checkpoints, resume; eval CLI; supervised CLI)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        return run_trainers(card, tmp)
+    finally:
+        shutil.rmtree(tmp)
+
+
+def run_trainers(card, tmp):
+    n_img = max(max(r) for r in TRAINER_SPLITS.values()) + 1
+    t0 = time.perf_counter()
+    paths, img_dir = write_synthetic_coco(tmp, n=n_img, seed=0,
+                                          splits=TRAINER_SPLITS,
+                                          **TRAINER_SET)
+    log(f"  wrote {n_img} PNG images and {len(paths)} annotation files in "
+        f"{time.perf_counter() - t0:.1f} s")
+    data_opts = [f"data.train_sup_ann={paths['sup']}",
+                 f"data.train_unsup_ann={paths['unsup']}",
+                 f"data.val_ann={paths['val']}",
+                 f"data.train_prefix={img_dir}", f"data.val_prefix={img_dir}"]
+    work = os.path.join(tmp, "ssod")
+    ssod_args = [SSOD_CONFIG, "--work-dir", work, "--cfg-options",
+                 *data_opts, f"ssod.warm_up_step={TRAINER_WARM_UP}",
+                 "eval_interval=2", "ckpt_interval=2", "image_log_interval=2"]
+
+    # per-step launch counts, eval and checkpoint times: the trainer's own
+    # methods, wrapped for the length of this phase
+    per_step, evals, saves, step_ms = [], [], [], {}
+    run_step, evaluate = SsodTrainer._run_step, SsodTrainer.evaluate
+    maybe_save = ckpt_mod.CheckpointManager.maybe_save
+
+    def counted_step(self, step, batch, vis_img):
+        # timed as phase 6 times a step: host clock around the step and a
+        # synchronise (the trainer itself does not wait for the device)
+        f0 = msda.ms_deform_attn_cuda.launches
+        b0 = msda.ms_deform_attn_bwd_cuda.launches
+        t0 = time.perf_counter()
+        out = run_step(self, step, batch, vis_img)
+        torch.cuda.synchronize()
+        step_ms[step] = (time.perf_counter() - t0) * 1e3
+        per_step.append((step, msda.ms_deform_attn_cuda.launches - f0,
+                         msda.ms_deform_attn_bwd_cuda.launches - b0))
+        return out
+
+    def timed_eval(self, step, warm_up):
+        f0 = msda.ms_deform_attn_cuda.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate(self, step, warm_up)
+        evals.append(dict(step=step, s=time.perf_counter() - t0,
+                          launches=msda.ms_deform_attn_cuda.launches - f0,
+                          images=len(self.val_dataset)))
+        return out
+
+    def timed_save(self, state, force=False):
+        t0 = time.perf_counter()
+        saved = maybe_save(self, state, force)
+        if saved:
+            saves.append(dict(step=state.step, s=time.perf_counter() - t0,
+                              bytes=os.path.getsize(self.path(state.step))))
+        return saved
+
+    SsodTrainer._run_step, SsodTrainer.evaluate = counted_step, timed_eval
+    ckpt_mod.CheckpointManager.maybe_save = timed_save
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_detr_ssod.main(
+            ssod_args + ["--max-steps", str(TRAINER_STEPS)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        fwd = msda.ms_deform_attn_cuda.launches
+        bwd = msda.ms_deform_attn_bwd_cuda.launches
+        assert_vector(msda.ms_deform_attn_cuda, "trainer forward")
+        assert_vector(msda.ms_deform_attn_bwd_cuda, "trainer backward")
+        peak = torch.cuda.max_memory_allocated()
+        steps_run = [t["step"] for t in trainer.timings]
+        if steps_run != list(range(TRAINER_STEPS)):
+            raise AssertionError(f"steps run: {steps_run}")
+        for step, f, b in per_step:
+            want = SSOD_LAUNCHES[step < TRAINER_WARM_UP]
+            if (f, b) != want:
+                raise AssertionError(f"trainer step {step}: {f} forward and "
+                                     f"{b} backward MSDA launches, not {want}")
+        n_batches = -(-len(trainer.val_dataset) // EVAL_BATCH)
+        for e in evals:
+            # teacher and student: 12 forward launches per eval batch
+            if e["launches"] != 2 * n_batches * 12:
+                raise AssertionError(f"eval at step {e['step']}: "
+                                     f"{e['launches']} launches, not "
+                                     f"{2 * n_batches * 12}")
+        want_fwd = sum(f for _, f, _ in per_step) + sum(
+            e["launches"] for e in evals)
+        want_bwd = sum(b for _, _, b in per_step)
+        if (fwd, bwd) != (want_fwd, want_bwd) or not evals:
+            raise AssertionError(f"trainer run: {fwd} forward / {bwd} "
+                                 f"backward launches, evals {evals}")
+        ckpts = trainer.ckpt.all_steps()
+        if ckpts != [2, 4]:
+            raise AssertionError(f"checkpoints on disk: {ckpts}")
+        evals_logged = read_evals(os.path.join(work, "train.log"))
+        for tag in ("teacher", "student"):
+            if (tag, 2) not in evals_logged:
+                raise AssertionError(f"no Eval[{tag}] line at step 2")
+            check_aps(evals_logged[(tag, 2)], f"Eval[{tag}]")
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            first = json.loads(f.readline())
+        if first["step"] != 0 or not math.isfinite(first["total_loss"]):
+            raise AssertionError(f"metrics.jsonl starts with {first}")
+        for step in (0, 2):
+            if not os.path.isfile(os.path.join(work, "pseudo_vis",
+                                               f"step_{step}.png")):
+                raise AssertionError(f"no pseudo render at step {step}")
+        timings = trainer.timings
+        val_dataset, unsup = trainer.val_dataset, trainer.unsup_dataset
+        del trainer
+        torch.cuda.empty_cache()
+
+        # resume: the run goes on from the last checkpoint for one step
+        reset_counts()
+        resumed = train_detr_ssod.main(
+            ssod_args + ["--max-steps", str(TRAINER_STEPS + 1)])
+        with open(os.path.join(work, "train.log")) as f:
+            resumed_line = f"resumed from step {TRAINER_STEPS}" in f.read()
+        if (not resumed_line or [t["step"] for t in resumed.timings]
+                != [TRAINER_STEPS]):
+            raise AssertionError(f"resume: log line {resumed_line}, steps "
+                                 f"{[t['step'] for t in resumed.timings]}")
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        SsodTrainer._run_step, SsodTrainer.evaluate = run_step, evaluate
+        ckpt_mod.CheckpointManager.maybe_save = maybe_save
+
+    # the eval CLI on the last checkpoint, on the teacher (the default)
+    t0 = time.perf_counter()
+    res = test_cli.main([SSOD_CONFIG, "--work-dir", work, "--cfg-options",
+                         *data_opts])
+    test_s = time.perf_counter() - t0
+    check_aps(res, "eval CLI")
+    if not math.isfinite(res["mAP"]):
+        raise AssertionError(f"eval CLI mAP {res['mAP']}")
+
+    # the supervised CLI: 2 steps of batch 2 from the labelled set
+    reset_counts()
+    od = train_detr_od.main([
+        CONFIG, "--work-dir", os.path.join(tmp, "od"), "--max-steps",
+        str(OD_STEPS), "--cfg-options", f"data.train_ann={paths['sup']}",
+        "data.val_ann=", f"data.train_prefix={img_dir}",
+        f"schedule.batch_size={OD_BATCH}"])
+    od_launches = (msda.ms_deform_attn_cuda.launches,
+                   msda.ms_deform_attn_bwd_cuda.launches)
+    if (od_launches != (12 * OD_STEPS, 12 * OD_STEPS)
+            or [t["step"] for t in od.timings] != list(range(OD_STEPS))
+            or od.ckpt.all_steps() != [OD_STEPS]):
+        raise AssertionError(f"supervised CLI: launches {od_launches}, steps "
+                             f"{od.timings}, ckpts {od.ckpt.all_steps()}")
+    assert_vector(msda.ms_deform_attn_cuda, "supervised CLI forward")
+    od_timings = od.timings
+    del od
+    torch.cuda.empty_cache()
+
+    aug = augment_ms(unsup)
+    eval_ms = [e["s"] * 1e3 / (2 * e["images"]) for e in evals]
+    wait_ms = [t["data_wait_s"] * 1e3 for t in timings]
+    # step 0 of each stage carries its first-call costs; the second is warm
+    warm = {"warm_up": step_ms[1], "hungarian": step_ms[3]}
+    log(f"  SSOD CLI: {TRAINER_STEPS} steps ({TRAINER_WARM_UP} warm-up) in "
+        f"{run_s:.1f} s with eval and checkpoints; MSDA launches per step "
+        f"{[(f, b) for _, f, b in per_step]}, per eval {evals[0]['launches']}"
+        f" ({len(val_dataset)} images, teacher and student)")
+    log(f"  warm step ms (host clock around the step and a synchronise): "
+        f"warm-up {warm['warm_up']:.1f}, Hungarian "
+        f"{warm['hungarian']:.1f}; train.data_wait ms per step "
+        f"{[round(w, 1) for w in wait_ms]}")
+    log(f"  augmentation ms per view at the 11 COCO scales: weak "
+        f"{aug['weak']:.1f}, strong {aug['strong']:.1f}")
+    log(f"  eval ms per image per model {[round(e, 1) for e in eval_ms]}; "
+        f"eval CLI {test_s:.1f} s, teacher mAP {res['mAP']:.4f}")
+    log("  checkpoint saves (step, s, bytes) "
+        f"{[(c['step'], round(c['s'], 2), c['bytes']) for c in saves]}; "
+        f"peak device memory {peak / 2 ** 30:.2f} GiB")
+    log(f"  supervised CLI: {OD_STEPS} steps of batch {OD_BATCH}, step s "
+        f"{[round(t['step_s'], 3) for t in od_timings]}")
+    log("  " + card)
+    return dict(steps=timings, launches_per_step=per_step, evals=evals,
+                step_ms=step_ms, warm_step_ms=warm, data_wait_ms=wait_ms,
+                augment_ms=aug,
+                eval_ms_per_image=eval_ms, checkpoint_saves=saves,
+                peak_memory_bytes=peak, run_s=run_s, eval_cli_s=test_s,
+                eval_cli=res, od_steps=od_timings,
+                launches_fwd=fwd, launches_bwd=bwd, card=card)
+
+
 def leaf_errors(grads_k, grads_p):
     gnorm = float(torch.sqrt(sum((g.double() ** 2).sum()
                                  for g in grads_p.values())))
@@ -827,6 +1123,7 @@ def main():
     train = timed("5", train_phase, card)
     grad_check = timed("5b", model_grad_phase)
     ssod = timed("6", ssod_phase, card)
+    trainer = timed("7", trainer_phase, card)
 
     main_rows = [r for r in rows if r["dtype"] == "bfloat16"
                  and r["case"] in ("encoder", "decoder")]
@@ -849,7 +1146,8 @@ def main():
         "launches": train["launches_fwd"],
         "launches_by_path": {"serve": launches,
                              "train": train["launches_fwd"],
-                             "ssod": ssod["launches_fwd"]},
+                             "ssod": ssod["launches_fwd"],
+                             "trainer": trainer["launches_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
         # per image on the serving path (bfloat16, N=1): 6 encoder + 6
         # decoder calls
@@ -867,7 +1165,8 @@ def main():
         "replaces": "semi_detr_tpu/ops/ms_deform_attn_pallas.py:521",
         "launches": train["launches_bwd"],
         "launches_by_path": {"serve": 0, "train": train["launches_bwd"],
-                             "ssod": ssod["launches_bwd"]},
+                             "ssod": ssod["launches_bwd"],
+                             "trainer": trainer["launches_bwd"]},
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in bwd_main),
         # per training step (batch 2, bfloat16): 6 encoder + 6 decoder calls
         "ms": per_step["ms"],
@@ -880,8 +1179,8 @@ def main():
     }], "card": card, "build_s": build_s, "phase_s": phase_s,
         "request_ms": {k: v * 1e3 for k, v in latency.items()},
         "float32_request_err": errs, "train": train,
-        "float32_grad_check": grad_check, "ssod": ssod}
-    print(json.dumps(record), flush=True)
+        "float32_grad_check": grad_check, "ssod": ssod, "trainer": trainer}
+    print(json.dumps(json_safe(record), allow_nan=False), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,21 +1,78 @@
-"""Host-side packing into a fixed bucket, and batching (the uint8 subset of
-`semi_detr_tpu/data/pipeline.py`).
+"""Host-side batching: bucketed padding, GT packing and the train/test
+batches.
 
-Images are padded with zeros to a fixed bucket (H, W) and shipped as raw
-uint8; the model normalizes them on the device
-(`models/dino_head.prepare_images`) and re-zeroes the padding through the
-per-image valid extent. GT is packed to `max_gt` slots with a validity
-mask, as normalized cxcywh over the valid extent.
+Counterpart of `semi_detr_tpu/data/pipeline.py`, uint8 only. Images are
+padded with zeros to a fixed bucket (H, W) and shipped as raw uint8; the
+model normalizes them on the device (`models/dino_head.prepare_images`)
+and re-zeroes the padding through the per-image valid extent. GT is packed
+to `max_gt` slots with a validity mask, as normalized cxcywh over the valid
+extent. The batch dicts keep the JAX package's keys, which the port's
+steps consume.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .augment import Sample, make_sample
+from .augment import (COCO_SCALES, Sample, make_sample, strong_augment,
+                      sup_augment, test_resize, weak_augment)
+
+# buckets covering the 11 training scales x max long side 1333 (H, W and
+# W, H orientations); every resized image fits with < 13 % padding
+DEFAULT_BUCKETS: Tuple[Tuple[int, int], ...] = (
+    (512, 672), (672, 512),
+    (544, 912), (912, 544),
+    (704, 1184), (1184, 704),
+    (800, 1344), (1344, 800),
+)
+
+# training bucket short sides for multi-bucket mode: the 11 reference
+# scales (480..800 x 1333) quantize onto 3 bucket heights
+BUCKET_SHORTS: Tuple[int, ...] = (544, 672, 800)
+
+
+def _quantize_short(short: int, base_bucket) -> int:
+    """Bucket short side for a scale's short side; the configured bucket's
+    short side is the fallback, so a custom scale above max(BUCKET_SHORTS)
+    still gets a bucket that fits its resize."""
+    bh = next((s for s in BUCKET_SHORTS if s >= short), min(base_bucket))
+    return min(bh, min(base_bucket))
+
+
+def pick_step_bucket(bucket_rng, scales, base_bucket, flag):
+    """Multi-bucket training: draw one scale for this step, quantize it to
+    a bucket, and return every scale of that bucket's quantization class
+    (each image then draws its own scale from the class, so the per-image
+    scale marginal stays the reference's uniform one). `bucket_rng`
+    advances exactly once per step.
+
+    Returns (class_scales, (H, W) bucket), the bucket oriented by `flag`
+    (1 = landscape)."""
+    scale = tuple(scales[int(bucket_rng.integers(len(scales)))])
+    long_side = max(base_bucket)
+    bh = _quantize_short(min(scale), base_bucket)
+    class_scales = [tuple(s) for s in scales
+                    if _quantize_short(min(s), base_bucket) == bh]
+    bucket = (bh, long_side) if flag == 1 else (long_side, bh)
+    return class_scales, bucket
+
+
+def pick_bucket(h: int, w: int,
+                buckets: Sequence[Tuple[int, int]] = DEFAULT_BUCKETS
+                ) -> Tuple[int, int]:
+    """Smallest bucket that contains (h, w); the largest when none does."""
+    best = None
+    for bh, bw in buckets:
+        if bh >= h and bw >= w:
+            area = bh * bw
+            if best is None or area < best[0]:
+                best = (area, (bh, bw))
+    if best is None:
+        return max(buckets, key=lambda b: b[0] * b[1])
+    return best[1]
 
 
 @dataclass
@@ -78,17 +135,90 @@ def stack(packed: List[PackedImage]) -> Dict[str, Any]:
     }
 
 
-def to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
-    """A `stack` batch as tensors on `device` (labels as int64, for
+def make_sup_batch(rng: np.random.Generator, dataset, indices,
+                   bucket: Tuple[int, int], max_gt: int = 100,
+                   augment=sup_augment, scales=None) -> Dict:
+    """Supervised batch: one shared bucket per batch."""
+    scales = COCO_SCALES if scales is None else scales
+    packed = []
+    for i in indices:
+        rec = dataset[i]
+        s = make_sample(dataset.load_image(i), rec.boxes, rec.labels)
+        s = augment(rng, s, scales)
+        packed.append(pack(s, bucket, max_gt, rec.id))
+    out = stack(packed)
+    return {"images": out["images"], "img_hw": out["img_hw"],
+            "gt": out["gt"], "image_ids": out["image_ids"]}
+
+
+def make_unsup_batch(rng: np.random.Generator, dataset, indices,
+                     bucket: Tuple[int, int], max_gt: int = 100,
+                     scales=None) -> Dict:
+    """Two views of the same images (reference MultiBranch,
+    `rand_aug.py:952-965`): weak for the teacher, strong for the student,
+    each with its transform matrix."""
+    scales = COCO_SCALES if scales is None else scales
+    weak_p, strong_p = [], []
+    for i in indices:
+        rec = dataset[i]
+        s0 = make_sample(dataset.load_image(i))  # unlabeled: no GT
+        weak_p.append(pack(weak_augment(rng, s0, scales), bucket, max_gt,
+                           rec.id))
+        strong_p.append(pack(strong_augment(rng, s0, scales), bucket,
+                             max_gt, rec.id))
+    wk, st = stack(weak_p), stack(strong_p)
+    return {
+        "teacher_images": wk["images"], "teacher_hw": wk["img_hw"],
+        "teacher_tmat": wk["tmat"],
+        "student_images": st["images"], "student_hw": st["img_hw"],
+        "student_tmat": st["tmat"],
+        "image_ids": wk["image_ids"],
+    }
+
+
+def make_test_batch(dataset, indices, bucket: Tuple[int, int] = (800, 1344),
+                    max_gt: int = 100, scale=None) -> Dict:
+    """Test-resized images of one bucket, with their per-axis scale
+    factors (to map boxes back to the original frame)."""
+    packed = []
+    for i in indices:
+        rec = dataset[i]
+        s = make_sample(dataset.load_image(i), rec.boxes, rec.labels)
+        s = test_resize(s) if scale is None else test_resize(s, scale)
+        packed.append(pack(s, bucket, max_gt, rec.id))
+    out = stack(packed)
+    out["scale_factors"] = np.asarray(
+        [p.scale_factor for p in packed], np.float32)
+    return out
+
+
+def _tensor(x) -> torch.Tensor:
+    """A numpy array or CPU tensor as a tensor, int32 as int64 (for
     indexing)."""
-    def put(x):
-        if isinstance(x, dict):
-            return {k: put(v) for k, v in x.items()}
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if t.dtype == torch.int32:
-            t = t.long()
-        return t.to(device)
-    return put(batch)
+    t = (x if isinstance(x, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(x)))
+    return t.long() if t.dtype == torch.int32 else t
+
+
+def _tree(batch, fn):
+    return ({k: _tree(v, fn) for k, v in batch.items()}
+            if isinstance(batch, dict) else fn(batch))
+
+
+def to_device(batch: Dict[str, Any], device, non_blocking: bool = False
+              ) -> Dict[str, Any]:
+    """A `stack` batch (numpy arrays or CPU tensors) as tensors on
+    `device`. With `non_blocking`, each copy from pinned memory is queued
+    on the current stream and the host goes on; the step that reads the
+    batch runs later on the same stream, so it reads the copied data."""
+    return _tree(batch, lambda x: _tensor(x).to(device,
+                                                non_blocking=non_blocking))
+
+
+def pin_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """A batch of numpy arrays as page-locked CPU tensors, ready for a
+    non-blocking copy to the card."""
+    return _tree(batch, lambda x: _tensor(x).pin_memory())
 
 
 def synthetic_batch(rng: np.random.RandomState, bucket: Tuple[int, int],

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -61,6 +61,15 @@ class SsodConfig:
     cons_groups: int = 5            # dn_number_1 (`dino_detr_ssod.py:533`)
     consistency_weight: float = 10.0
     ema_momentum: float = 0.999
+    # the reference MeanTeacher hook's decay schedule
+    # (`mean_teacher.py:52-57`); unused (empty) in every reference config
+    ema_decay_intervals: tuple = ()
+    ema_decay_factor: float = 0.1
+    # opt-in reference-exact per-GPU cls avg factor (the reference runs
+    # sync_cls_avg_factor=False): images per reference GPU for the (sup,
+    # unsup) branches, the recipe's sample_ratio, e.g. (1, 4). None keeps
+    # the global factor (the default)
+    cls_avg_groups: Optional[tuple] = None
 
     @property
     def cons_pad(self) -> int:

@@ -1,1 +1,2 @@
-"""Measurement scripts for the port (need a CUDA card)."""
+"""Command-line entry points of the port: the trainers, the eval CLI and
+the measurement scripts (the measurement scripts need a CUDA card)."""

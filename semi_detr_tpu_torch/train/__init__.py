@@ -1,1 +1,2 @@
-"""Training: optimizer, state and EMA, schedules, the supervised step."""
+"""Training: optimizer, state and EMA, schedules, the supervised and SSOD
+steps, checkpoints and the trainers."""

@@ -162,7 +162,8 @@ def unsup_forward_and_loss(model, projector, teacher, un: Dict[str, Any],
             crit_out["front_cls"] = s_out["front_cls"][:, :, n_cons:]
             crit_out["front_coord"] = s_out["front_coord"][:, :, n_cons:]
         losses = detection_loss(
-            crit_out, unsup_gt, c.num_classes, warm_up, is_pseudo_label=True)
+            crit_out, unsup_gt, c.num_classes, warm_up, is_pseudo_label=True,
+            cls_group=cfg.cls_avg_groups[1] if cfg.cls_avg_groups else None)
         losses.pop("total")
 
     if warm_up:
@@ -247,13 +248,17 @@ def make_ssod_train_step(cfg: SsodConfig, warm_up: bool, seed: int = 0):
                                 un["student_images"].shape[0])]
         noise_sup, noise_student, noise_teacher = noises
         with record_function("train.ema"):
-            m = ema_update(teacher, model, state.step, cfg.ema_momentum)
+            m = ema_update(teacher, model, state.step, cfg.ema_momentum,
+                           decay_intervals=cfg.ema_decay_intervals,
+                           decay_factor=cfg.ema_decay_factor)
         state.optimizer.zero_grad()
 
         cdn = _cdn(cfg, noise_sup, sup["gt"],
                    model.bbox_head.label_enc.weight)
         sup_losses = loss_and_grads(
-            model, sup, warm_up, extra_queries={
+            model, sup, warm_up, cls_group=(cfg.cls_avg_groups[0]
+                                            if cfg.cls_avg_groups else None),
+            extra_queries={
                 "content": cdn.query_label, "bbox_unsig": cdn.query_bbox,
                 "attn_mask": cdn_attn_mask(cdn.single_pad, cdn.groups,
                                            c.num_queries,

@@ -1,1 +1,1 @@
-"""Config loading and weight carriers."""
+"""Config loading, weight carriers and logging."""
