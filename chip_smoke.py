@@ -7,7 +7,9 @@ Phases (any failure exits non-zero):
 1. Device: the card's name and power limit from nvidia-smi.
 2. Build: nvcc compiles the MSDA forward and backward kernels from
    semi_detr_tpu_torch/csrc, one nvcc per source started together (timed;
-   ptxas register report printed).
+   ptxas register report printed), and g++ the host library from
+   semi_detr_tpu_torch/native at the same time (timed; phases 4-7 use its
+   resize, decode and augmentation ops).
 3. Kernel against its plain version, at the main path's shapes (encoder
    Lq = S = 22,323 and decoder Lq = 900, N=1, M=8, D=32, L=4, P=4) and on
    an out-of-bounds case, each in float32 (TF32 off) and bfloat16: max abs
@@ -67,8 +69,9 @@ Phases (any failure exits non-zero):
    groups, bfloat16 compute, float32 parameters, seeded weights with the
    box MLPs' last layers filled), 1 supervised + 4 unlabeled 800x1344
    images from `synthetic_ssod_batch`, the student view the teacher view
-   flipped: 2 warm-up steps (the second at score_thr 0, so the supervision
-   set is not empty), then 2 Hungarian steps. Each step: every loss finite;
+   flipped: 5 warm-up steps (the second at score_thr 0, so the supervision
+   set is not empty), then 4 Hungarian steps; the warm step time is the
+   median of the last three of each stage. Each step: every loss finite;
    48 (warm-up) or 42 forward and 24 backward MSDA launches, all through the
    vector instances; the projector moved (after the warm-up on a zero
    gradient); the frozen stem and layer1 unchanged bit for bit; the teacher
@@ -77,31 +80,53 @@ Phases (any failure exits non-zero):
    Phases 3 and 3b also hold both kernels at this path's new shapes (N=4
    encoder; decoder Lq 1,260 = 160 consistency + 200 CDN + 900, N=4), in
    bfloat16.
+7a. Host library on the card: what the build probe found (g++, CPU
+   architecture, zlib, libjpeg, nvJPEG), the JPEG route and `decoders()`.
+   The committed fixtures (native/fixtures: a 4:2:0 colour JPEG of odd
+   size and a grayscale one) decode to their committed libjpeg pixels:
+   equal on the libjpeg route, within NVJPEG_TOL on the nvJPEG route. The
+   library's JPEG encode + decode of both fixture pictures and a 480x640
+   noise picture against cv2's quality-95 round trip of each (committed in
+   native/fixtures/cv2_q95_roundtrip.json): equal on the libjpeg route,
+   within ROUND_TRIP_SLACK on the nvJPEG route. A truncated copy of the
+   colour fixture and one with a bad Huffman code raise ImageDecodeError
+   naming the file. Every
+   op equals its numpy plain version bit for bit on this host: a 480x640
+   source resized to all 11 COCO scales, the six warps (translate x / y,
+   rotate +-30, shear x / y) at 800x1066, the 81 colour op x magnitude
+   cases at 800x1066, the PNG row filters; ms per op for C++ and numpy,
+   and JPEG / PNG encode and decode ms at 480x640 (and the JPEG check alone).
 7. Trainer path, in a temporary directory removed at the end: the port's
-   `write_synthetic_coco` writes 8 labelled, 16 unlabelled and 8 val PNG
-   images of 480x640 (up to 3 boxes and 2 distractors each, class
-   "person"); the SSOD CLI (`tools.train_detr_ssod.main`, in-process) runs
+   `write_synthetic_coco` writes 8 labelled, 16 unlabelled and 8 val JPEG
+   images of 480x640 through the host library (up to 3 boxes and 2
+   distractors each, class "person"); the SSOD CLI
+   (`tools.train_detr_ssod.main`, in-process) runs
    configs/detr_ssod/semi_detr_r50_coco_120k.py at full width (80 classes,
    1 + 4 images at 800x1344, the 11 COCO scales, bfloat16) from those files
-   for 4 steps, with warm_up_step, eval, checkpoint and render intervals
-   of 2. Asserted: steps 0-3 ran (2 in the warm-up); 48 / 42 forward and
-   24 backward MSDA launches per step and 12 forward per eval batch
-   (teacher and student), all through the vector instances; checkpoints
-   2 and 4 on disk; Eval[teacher] and Eval[student] lines with every AP in
+   for 8 steps, with warm_up_step, eval and render intervals of 4 and a
+   checkpoint at the end. Asserted: steps 0-7 ran (4 in the warm-up); 48 /
+   42 forward and 24 backward MSDA launches per step and 12 forward per
+   eval batch (teacher and student), all through the vector instances;
+   checkpoint 8 on disk; Eval[teacher] and Eval[student] lines with every AP in
    [0, 1] (NaN only for the small and medium ranges, which hold no GT);
    a finite total_loss at step 0 in metrics.jsonl; the pseudo renders.
-   Then the CLI runs again to step 5: "resumed from step 4", one step. The
+   Then the CLI runs again to step 9: "resumed from step 8", one step. The
    eval CLI (`tools.test.main`) scores the last checkpoint's teacher; the
    supervised CLI (`tools.train_detr_od.main`) takes 2 steps of batch 2
    (the config says 16) with 12 + 12 launches each. Printed: warm step ms
-   and train.data_wait ms per step, augmentation ms per weak and strong
-   view, eval ms per image, checkpoint save s and bytes, peak memory. Phase
-   3 also holds the forward kernel at the eval batch's decoder shape (N=4,
-   Lq 900, bfloat16).
+   (median of steps 1-3 and of 5-7) beside phase 6's bare step of this
+   call and beside the same steps (3 warm-up, 3 Hungarian) on the
+   trainer's next batches built beforehand (no prefetch thread running), train.data_wait ms per step,
+   augmentation ms per weak and strong view through the host library and
+   through the numpy plain versions, decode ms per image, eval ms per
+   image, checkpoint save s and bytes, peak memory. Phase 3 also holds the
+   forward kernel at the eval batch's decoder shape (N=4, Lq 900,
+   bfloat16).
 
 The line before the last is a JSON object with the kernels' numbers and the
 training records; the last line is {"ok": true, "device": {...}}.
 """
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -121,8 +146,9 @@ if not torch.cuda.is_available():
           file=sys.stderr)
     sys.exit(1)
 
+from semi_detr_tpu_torch import native  # noqa: E402
 from semi_detr_tpu_torch.api import Predictor, init_detector  # noqa: E402
-from semi_detr_tpu_torch.data import augment  # noqa: E402
+from semi_detr_tpu_torch.data import augment, image_io  # noqa: E402
 from semi_detr_tpu_torch.data.pipeline import (  # noqa: E402
     synthetic_batch, synthetic_ssod_batch, to_device)
 from semi_detr_tpu_torch.models import transformer as tr  # noqa: E402
@@ -151,8 +177,14 @@ CONFIG = "configs/dino_detr/dino_detr_r50_coco.py"
 SSOD_CONFIG = "configs/detr_ssod/semi_detr_r50_coco_120k.py"
 # the SSOD recipe's batch: 1 supervised + 4 unlabeled images per card
 SSOD_SUP, SSOD_UNSUP, SSOD_BUCKET = 1, 4, (800, 1344)
-# the SSOD steps: (warm_up, score_thr override or None for the recipe's)
-SSOD_STEPS = ((True, None), (True, 0.0), (False, None), (False, None))
+# the SSOD steps: (warm_up, score_thr override or None for the recipe's);
+# the first of each stage carries its first-call costs, the second warm-up
+# step checks a non-empty supervision set, and the warm steps (median of
+# three per stage, at the recipe's score_thr as the trainer runs them) are
+# SSOD_WARM's
+SSOD_STEPS = ((True, None), (True, 0.0)) + ((True, None),) * 3 \
+    + ((False, None),) * 4
+SSOD_WARM = {"warm_up": (2, 3, 4), "hungarian": (6, 7, 8)}
 # MSDA launches per SSOD step (forward, backward): sup encoder + decoder,
 # teacher encoder + matching decode, student encoder + matching decode +
 # training decode, and in warm-up the teacher's consistency decode; 6 each
@@ -202,9 +234,31 @@ TRAINER_SET = dict(hw=(480, 640), max_boxes=3, distractors=2,
                    class_name="person")
 TRAINER_SPLITS = {"sup": range(0, 8), "unsup": range(8, 24),
                   "val": range(24, 32)}
-TRAINER_STEPS, TRAINER_WARM_UP = 4, 2
+# the trainer's steps; warm-up steps 1-3 and Hungarian steps 5-7 are warm
+# (median of each, against phase 6's); eval and render every
+# TRAINER_INTERVAL steps and one checkpoint at the end, so none of them
+# (nor a checkpoint's write-back) falls on a warm step
+TRAINER_STEPS, TRAINER_WARM_UP, TRAINER_INTERVAL = 8, 4, 4
+TRAINER_WARM = {"warm_up": (1, 2, 3), "hungarian": (5, 6, 7)}
+# then the trainer's steps on its next batches, built beforehand (no
+# prefetch thread beside them): QUIET_STEPS of each stage
+QUIET_STEPS = 3
 EVAL_BATCH = 4
 OD_STEPS, OD_BATCH = 2, 2
+# phase 7a: the committed JPEG fixtures against their libjpeg pixels. The
+# nvJPEG route's IDCT is not libjpeg's (the library finishes its planes
+# with libjpeg's upsampling and colour tables): it read max abs 2, mean abs
+# 0.039 grey levels on the colour fixture and 1 / 0.021 on the gray one
+# (NVIDIA H100 80GB HBM3, 700.00 W; libnvjpeg.so.12.4.0.76);
+# the limit on (max abs, mean abs) leaves a level for another IDCT build
+NVJPEG_TOL = (3, 0.1)
+# the card's JPEG encode + decode against cv2's quality-95 round trip of
+# the same picture (native/fixtures/cv2_q95_roundtrip.json): grey levels
+# added to cv2's (max abs, mean abs). Another DCT moves the mean by a small
+# part of a level; nvJPEG's own RGB input, which truncates its luma, added
+# more than half a level on the colour fixture's picture, and fails here
+ROUND_TRIP_SLACK = (8, 0.25)
+HOST_SRC, HOST_VIEW = (480, 640), (800, 1066)
 
 
 def log(msg):
@@ -674,10 +728,10 @@ def ssod_phase(card):
             f"MSDA launches {fwd} fwd + {bwd} bwd")
     peak = torch.cuda.max_memory_allocated()
     n_img = SSOD_SUP + SSOD_UNSUP
-    # step 0 of each stage carries its first-call costs; the second is warm
-    warm = {stage: records[k]["ms"] for stage, k in (("warm_up", 1),
-                                                     ("hungarian", 3))}
-    log(f"  warm step ms: warm-up {warm['warm_up']:.1f}, Hungarian "
+    warm = {stage: float(np.median([records[k]["ms"] for k in ks]))
+            for stage, ks in SSOD_WARM.items()}
+    log(f"  warm step ms (median of steps {SSOD_WARM['warm_up']} / "
+        f"{SSOD_WARM['hungarian']}): warm-up {warm['warm_up']:.1f}, Hungarian "
         f"{warm['hungarian']:.1f}; images/s: warm-up "
         f"{n_img / warm['warm_up'] * 1e3:.3f}, Hungarian "
         f"{n_img / warm['hungarian'] * 1e3:.3f}; peak device memory "
@@ -717,39 +771,301 @@ def check_aps(res, what):
             raise AssertionError(f"{what}: {k} = {v}")
 
 
-def augment_ms(dataset, reps=8):
-    """Host ms per weak and per strong view of the set's images at the
-    recipe's 11 scales (the prefetch worker's work per view)."""
-    rng = np.random.default_rng(0)
-    imgs = [dataset.load_image(i) for i in range(4)]
-    out = {}
-    for name, fn in (("weak", augment.weak_augment),
-                     ("strong", augment.strong_augment)):
+def best_ms(fn, reps=3):
+    """The fastest of `reps` host-clock runs of fn(), in ms."""
+    times = []
+    for _ in range(reps):
         t0 = time.perf_counter()
-        for r in range(reps):
-            fn(rng, augment.make_sample(imgs[r % len(imgs)]))
-        out[name] = (time.perf_counter() - t0) / reps * 1e3
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times)
+
+
+def host_picture(h, w, seed):
+    """Seeded noise over gradients at a photo's size."""
+    rs = np.random.RandomState(seed)
+    ys, xs = np.mgrid[0:h, 0:w]
+    base = (xs // 3 + ys // 2)[..., None] + 60 * np.arange(3)
+    return ((base + rs.randint(0, 40, (h, w, 3))) % 256).astype(np.uint8)
+
+
+class OneOp:
+    """A generator stand-in that hands apply_color_op (op, magnitude)."""
+
+    def __init__(self, op, mag):
+        self.values = [op, mag]
+
+    def integers(self, *args):
+        return self.values.pop(0)
+
+
+def host_library_phase(host_build_s):
+    log("== phase 7a: host library on the card (decode, resize, warp, "
+        "colour ops, each against its numpy plain version)")
+    found = native.probe()
+    route = found["route"]
+    log(f"  probe: {found}")
+    log(f"  decoders {native.decoders()}; g++ build {host_build_s:.1f} s "
+        "(phase 2)")
+    fixtures = {}
+    for name in ("colour_420", "gray"):
+        jpg = os.path.join(native.FIXTURES, f"{name}.jpg")
+        with open(jpg, "rb") as f:
+            buf = f.read()
+        with open(os.path.join(native.FIXTURES, f"{name}.png"), "rb") as f:
+            png = f.read()
+        ref = image_io.decode_png(png)
+        if not np.array_equal(native.decode_image(png), ref):
+            raise AssertionError(f"{name}.png: the library's PNG decode "
+                                 "differs from the numpy decoder's")
+        got = native.decode_image(buf, jpg)
+        diff = np.abs(got.astype(int) - ref.astype(int))
+        fixtures[name] = dict(shape=list(got.shape), max_abs=int(diff.max()),
+                              mean_abs=float(diff.mean()),
+                              share_differing=float((diff > 0).mean()),
+                              ms=best_ms(lambda: native.decode_image(buf)))
+        log(f"  fixture {name} ({route}): max abs {diff.max()}, mean abs "
+            f"{diff.mean():.4f}, share differing {(diff > 0).mean():.4f}, "
+            f"{fixtures[name]['ms']:.3f} ms")
+        tol = (0, 0.0) if route == "libjpeg" else NVJPEG_TOL
+        if got.shape != ref.shape or diff.max() > tol[0] \
+                or diff.mean() > tol[1]:
+            raise AssertionError(f"fixture {name}: {fixtures[name]} beyond "
+                                 f"(max, mean) {tol} on the {route} route")
+
+    ops = {}
+
+    def held(name, args, reps=3):
+        """native.name(*args) against NumpyPixels.name(*args): bit-equal,
+        and the ms of each."""
+        got = getattr(native, name)(*args)
+        ref = getattr(augment.NumpyPixels, name)(*args)
+        if got.shape != ref.shape or not np.array_equal(got, ref):
+            raise AssertionError(f"{name}: the library differs from numpy")
+        row = ops.setdefault(name, dict(cases=0, cpp_ms=0.0, numpy_ms=0.0))
+        row["cases"] += 1
+        row["cpp_ms"] += best_ms(lambda: getattr(native, name)(*args), reps)
+        row["numpy_ms"] += best_ms(
+            lambda: getattr(augment.NumpyPixels, name)(*args), 1)
+
+    src = host_picture(*HOST_SRC, seed=0)
+    for scale in augment.COCO_SCALES:
+        held("resize_bilinear", (src, *augment.rescale_size(*HOST_SRC,
+                                                            scale)[:2]))
+    view = native.resize_bilinear(src, *HOST_VIEW)
+    h, w = HOST_VIEW
+    c, t = ((w - 1) * 0.5, (h - 1) * 0.5), math.tan(math.radians(30))
+    for t2x3 in (np.array([[1, 0, 0.1 * w], [0, 1, 0]]),
+                 np.array([[1, 0, 0], [0, 1, -0.1 * h]]),
+                 augment.rotation_matrix_2d(c, 30.0, 1.0),
+                 augment.rotation_matrix_2d(c, -30.0, 1.0),
+                 np.array([[1, t, 0], [0, 1, 0]]),
+                 np.array([[1, 0, 0], [-t, 1, 0]])):
+        held("warp_affine", (view, augment._inverse_affine(t2x3).astype(
+            np.float32), augment.FILL))
+    colour = {}
+    for op in range(9):
+        cpp = numpy_ms = 0.0
+        for mag in range(1, 10):
+            sample = augment.make_sample(view)
+            t0 = time.perf_counter()
+            got = augment.apply_color_op(OneOp(op, mag), sample).img
+            cpp += time.perf_counter() - t0
+            augment.px = augment.NumpyPixels
+            try:
+                t0 = time.perf_counter()
+                ref = augment.apply_color_op(OneOp(op, mag), sample).img
+                numpy_ms += time.perf_counter() - t0
+            finally:
+                augment.px = native
+            if not np.array_equal(got, ref):
+                raise AssertionError(f"colour op {op} magnitude {mag}: the "
+                                     "library differs from numpy")
+        colour[op] = dict(cpp_ms=cpp * 1e3 / 9, numpy_ms=numpy_ms * 1e3 / 9)
+    # the PNG row filters: random rows under all five filter types
+    rs = np.random.RandomState(1)
+    rows = rs.randint(0, 256, (HOST_SRC[0], HOST_SRC[1] * 3 + 1)).astype(
+        np.uint8)
+    rows[:, 0] = np.arange(HOST_SRC[0]) % 5
+    raw = rows.tobytes()
+    args = (raw, HOST_SRC[0], HOST_SRC[1] * 3, 3)
+    if not np.array_equal(native.png_unfilter(*args),
+                          image_io._unfilter(*args)):
+        raise AssertionError("PNG row filters: the library differs")
+    ops["png_unfilter"] = dict(cases=1, cpp_ms=best_ms(
+        lambda: native.png_unfilter(*args)), numpy_ms=best_ms(
+        lambda: image_io._unfilter(*args), 1))
+    round_trip = jpeg_round_trips(route)
+    damaged = damaged_jpegs()
+    jpg = native.encode_jpeg(src)
+    png = image_io.encode_png(src)
+    codec = dict(jpeg_encode_ms=best_ms(lambda: native.encode_jpeg(src)),
+                 jpeg_decode_ms=best_ms(lambda: native.decode_image(jpg)),
+                 jpeg_check_ms=best_ms(lambda: native.jpeg_check(jpg)),
+                 png_decode_ms=best_ms(lambda: native.decode_image(png)),
+                 png_decode_numpy_ms=best_ms(
+                     lambda: image_io.decode_png(png), 1),
+                 jpeg_bytes=len(jpg))
+    for name, row in ops.items():
+        log(f"  {name:16s} {row['cases']:2d} cases bit-equal; ms per case: "
+            f"C++ {row['cpp_ms'] / row['cases']:.3f}, numpy "
+            f"{row['numpy_ms'] / row['cases']:.3f}")
+    log("  colour ops, 9 magnitudes each bit-equal; ms per call at "
+        f"{HOST_VIEW[0]}x{HOST_VIEW[1]} (C++ / numpy): " + ", ".join(
+            f"{op}: {r['cpp_ms']:.2f} / {r['numpy_ms']:.2f}"
+            for op, r in colour.items()))
+    log(f"  {HOST_SRC[0]}x{HOST_SRC[1]} codecs (ms): " + ", ".join(
+        f"{k} {v:.3f}" if k.endswith("ms") else f"{k} {v}"
+        for k, v in codec.items()))
+    return dict(probe=found, decoders=native.decoders(),
+                build_s=host_build_s, fixtures=fixtures, ops=ops,
+                colour_ops=colour, codecs=codec, round_trip=round_trip,
+                damaged=damaged)
+
+
+def jpeg_round_trips(route):
+    """The library's JPEG encode and decode of each picture of the
+    committed cv2 reference (native/fixtures/cv2_q95_roundtrip.json),
+    against cv2's quality-95 round trip of the same picture: equal on the
+    libjpeg route (the same library, the same settings), within
+    ROUND_TRIP_SLACK on the nvJPEG route."""
+    with open(os.path.join(native.FIXTURES, "cv2_q95_roundtrip.json")) as f:
+        refs = json.load(f)["pictures"]
+    pics = {}
+    for name in ("colour_420", "gray"):
+        with open(os.path.join(native.FIXTURES, f"{name}.png"), "rb") as f:
+            pics[name] = image_io.decode_png(f.read())
+    pics["noise_480x640"] = host_picture(*HOST_SRC, seed=0)
+    out = {}
+    for name, pic in pics.items():
+        back = native.decode_image(native.encode_jpeg(pic))
+        diff = np.abs(back.astype(int) - pic.astype(int))
+        ref = refs[name]
+        row = out[name] = dict(max_abs=int(diff.max()),
+                               mean_abs=float(diff.mean()),
+                               cv2_max_abs=ref["max_abs"],
+                               cv2_mean_abs=ref["mean_abs"])
+        log(f"  JPEG round trip {name} ({route}): max abs {row['max_abs']}, "
+            f"mean abs {row['mean_abs']:.4f}; cv2 quality 95: "
+            f"{ref['max_abs']}, {ref['mean_abs']:.4f}")
+        if route == "libjpeg":
+            ok = (row["max_abs"] == ref["max_abs"]
+                  and math.isclose(row["mean_abs"], ref["mean_abs"],
+                                   rel_tol=1e-12))
+        else:
+            ok = (row["max_abs"] <= ref["max_abs"] + ROUND_TRIP_SLACK[0]
+                  and row["mean_abs"] <= ref["mean_abs"]
+                  + ROUND_TRIP_SLACK[1])
+        if back.shape != pic.shape or not ok:
+            raise AssertionError(f"JPEG round trip {name}: {row} beyond cv2's "
+                                 f"with slack {ROUND_TRIP_SLACK} ({route})")
     return out
 
 
-def trainer_phase(card):
+def damaged_jpegs():
+    """Damaged copies of the fixtures, each decoded under its own file
+    name: the colour one truncated, and each with a run of 64 one bits in
+    its entropy-coded data (no Huffman code is all ones; nvJPEG decodes
+    both without complaint, the library's jpeg_check catches them). Each
+    must raise ImageDecodeError naming the file."""
+    cases = {}
+    for name in ("colour_420", "gray"):
+        with open(os.path.join(native.FIXTURES, f"{name}.jpg"), "rb") as f:
+            buf = f.read()
+        sos = buf.index(b"\xff\xda")
+        mid = (sos + 2 + (buf[sos + 2] << 8 | buf[sos + 3]) + len(buf)
+               - 2) // 2
+        if name == "colour_420":
+            cases[f"{name}_truncated"] = buf[:mid]
+        cases[f"{name}_bad_code"] = buf[:mid] + b"\xff\x00" * 8 \
+            + buf[mid + 16:]
+    out = {}
+    for kind, data in cases.items():
+        name = f"{kind}.jpg"
+        try:
+            native.decode_image(data, name)
+        except native.ImageDecodeError as err:
+            if name not in str(err):
+                raise AssertionError(f"{kind}: the error does not name the "
+                                     f"file: {err}")
+            out[kind] = str(err)
+            log(f"  {kind} copy raises: {err}")
+            continue
+        raise AssertionError(f"{name}: decoded without an error")
+    return out
+
+
+def augment_ms(dataset, reps=16):
+    """Host ms per weak and per strong view of the set's images at the
+    recipe's 11 scales (the prefetch worker's work per view), with the
+    pixel work of the host library and of the numpy plain versions (the
+    same draws), and ms per image decode (read_image)."""
+    imgs = [dataset.load_image(i) for i in range(4)]
+    out = {}
+    for pixels, label in ((native, "cpp"), (augment.NumpyPixels, "numpy")):
+        augment.px = pixels
+        try:
+            rng = np.random.default_rng(0)
+            for name, fn in (("weak", augment.weak_augment),
+                             ("strong", augment.strong_augment)):
+                t0 = time.perf_counter()
+                for r in range(reps):
+                    fn(rng, augment.make_sample(imgs[r % len(imgs)]))
+                out.setdefault(name, {})[label] = (
+                    time.perf_counter() - t0) / reps * 1e3
+        finally:
+            augment.px = native
+    t0 = time.perf_counter()
+    for i in range(len(dataset)):
+        dataset.load_image(i)
+    out["decode_per_image"] = (time.perf_counter() - t0) / len(dataset) * 1e3
+    return out
+
+
+def quiet_steps(trainer):
+    """{stage: ms of QUIET_STEPS steps} of the trainer's own step functions
+    (warm-up, then Hungarian) on its own next batches, all built
+    beforehand, so no prefetch thread works beside them: the step on the
+    trainer's data without the host data path running (the state trains
+    on; the resume below reads the checkpoint)."""
+    gen = trainer.batches(start_step=trainer.state.step)
+    out = {}
+    for stage, warm_up in (("warm_up", True), ("hungarian", False)):
+        hosts = [trainer._host_batch(next(gen))[0]
+                 for _ in range(QUIET_STEPS)]
+        step_fn = trainer._get_step(warm_up)
+        out[stage] = []
+        for host in hosts:
+            batch = to_device(host, trainer.device, non_blocking=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn(trainer.state, batch)
+            torch.cuda.synchronize()
+            out[stage].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def trainer_phase(card, bare_ms):
     log("== phase 7: trainer path (SSOD CLI at full width from COCO files: "
         "4 steps, eval, checkpoints, resume; eval CLI; supervised CLI)")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     try:
-        return run_trainers(card, tmp)
+        return run_trainers(card, tmp, bare_ms)
     finally:
         shutil.rmtree(tmp)
 
 
-def run_trainers(card, tmp):
+def run_trainers(card, tmp, bare_ms):
     n_img = max(max(r) for r in TRAINER_SPLITS.values()) + 1
     t0 = time.perf_counter()
     paths, img_dir = write_synthetic_coco(tmp, n=n_img, seed=0,
                                           splits=TRAINER_SPLITS,
                                           **TRAINER_SET)
-    log(f"  wrote {n_img} PNG images and {len(paths)} annotation files in "
-        f"{time.perf_counter() - t0:.1f} s")
+    names = sorted(os.listdir(img_dir))
+    if len(names) != n_img or not all(n.endswith(".jpg") for n in names):
+        raise AssertionError(f"synthetic set: {names[:4]} ...")
+    log(f"  wrote {n_img} JPEG images ({native.decoders()['jpeg']}) and "
+        f"{len(paths)} annotation files in {time.perf_counter() - t0:.1f} s")
     data_opts = [f"data.train_sup_ann={paths['sup']}",
                  f"data.train_unsup_ann={paths['unsup']}",
                  f"data.val_ann={paths['val']}",
@@ -757,7 +1073,9 @@ def run_trainers(card, tmp):
     work = os.path.join(tmp, "ssod")
     ssod_args = [SSOD_CONFIG, "--work-dir", work, "--cfg-options",
                  *data_opts, f"ssod.warm_up_step={TRAINER_WARM_UP}",
-                 "eval_interval=2", "ckpt_interval=2", "image_log_interval=2"]
+                 f"eval_interval={TRAINER_INTERVAL}",
+                 f"ckpt_interval={TRAINER_STEPS}",
+                 f"image_log_interval={TRAINER_INTERVAL}"]
 
     # per-step launch counts, eval and checkpoint times: the trainer's own
     # methods, wrapped for the length of this phase
@@ -833,23 +1151,25 @@ def run_trainers(card, tmp):
             raise AssertionError(f"trainer run: {fwd} forward / {bwd} "
                                  f"backward launches, evals {evals}")
         ckpts = trainer.ckpt.all_steps()
-        if ckpts != [2, 4]:
+        if ckpts != [TRAINER_STEPS]:
             raise AssertionError(f"checkpoints on disk: {ckpts}")
         evals_logged = read_evals(os.path.join(work, "train.log"))
         for tag in ("teacher", "student"):
-            if (tag, 2) not in evals_logged:
-                raise AssertionError(f"no Eval[{tag}] line at step 2")
-            check_aps(evals_logged[(tag, 2)], f"Eval[{tag}]")
+            if (tag, TRAINER_INTERVAL) not in evals_logged:
+                raise AssertionError(f"no Eval[{tag}] line at step "
+                                     f"{TRAINER_INTERVAL}")
+            check_aps(evals_logged[(tag, TRAINER_INTERVAL)], f"Eval[{tag}]")
         with open(os.path.join(work, "metrics.jsonl")) as f:
             first = json.loads(f.readline())
         if first["step"] != 0 or not math.isfinite(first["total_loss"]):
             raise AssertionError(f"metrics.jsonl starts with {first}")
-        for step in (0, 2):
+        for step in (0, TRAINER_INTERVAL):
             if not os.path.isfile(os.path.join(work, "pseudo_vis",
                                                f"step_{step}.png")):
                 raise AssertionError(f"no pseudo render at step {step}")
         timings = trainer.timings
         val_dataset, unsup = trainer.val_dataset, trainer.unsup_dataset
+        quiet = quiet_steps(trainer)
         del trainer
         torch.cuda.empty_cache()
 
@@ -901,17 +1221,29 @@ def run_trainers(card, tmp):
     eval_ms = [e["s"] * 1e3 / (2 * e["images"]) for e in evals]
     wait_ms = [t["data_wait_s"] * 1e3 for t in timings]
     # step 0 of each stage carries its first-call costs; the second is warm
-    warm = {"warm_up": step_ms[1], "hungarian": step_ms[3]}
+    warm = {stage: float(np.median([step_ms[k] for k in ks]))
+            for stage, ks in TRAINER_WARM.items()}
     log(f"  SSOD CLI: {TRAINER_STEPS} steps ({TRAINER_WARM_UP} warm-up) in "
         f"{run_s:.1f} s with eval and checkpoints; MSDA launches per step "
         f"{[(f, b) for _, f, b in per_step]}, per eval {evals[0]['launches']}"
         f" ({len(val_dataset)} images, teacher and student)")
-    log(f"  warm step ms (host clock around the step and a synchronise): "
-        f"warm-up {warm['warm_up']:.1f}, Hungarian "
-        f"{warm['hungarian']:.1f}; train.data_wait ms per step "
+    log(f"  warm step ms (host clock around the step and a synchronise, "
+        f"median of steps {TRAINER_WARM['warm_up']} / "
+        f"{TRAINER_WARM['hungarian']}): warm-up {warm['warm_up']:.1f}, "
+        f"Hungarian "
+        f"{warm['hungarian']:.1f}, against phase 6's bare step "
+        f"{bare_ms['warm_up']:.1f} / {bare_ms['hungarian']:.1f} in this "
+        f"call; train.data_wait ms per step "
         f"{[round(w, 1) for w in wait_ms]}")
-    log(f"  augmentation ms per view at the 11 COCO scales: weak "
-        f"{aug['weak']:.1f}, strong {aug['strong']:.1f}")
+    log("  the same steps on the trainer's next batches, built beforehand "
+        "(no prefetch thread beside them), ms: " + "; ".join(
+            f"{stage} {[round(q, 1) for q in ms]}, median "
+            f"{float(np.median(ms)):.1f}" for stage, ms in quiet.items()))
+    log(f"  augmentation ms per view at the 11 COCO scales (host library "
+        f"/ numpy plain versions): weak {aug['weak']['cpp']:.1f} / "
+        f"{aug['weak']['numpy']:.1f}, strong {aug['strong']['cpp']:.1f} / "
+        f"{aug['strong']['numpy']:.1f}; decode {aug['decode_per_image']:.2f}"
+        f" ms per {TRAINER_SET['hw'][0]}x{TRAINER_SET['hw'][1]} JPEG")
     log(f"  eval ms per image per model {[round(e, 1) for e in eval_ms]}; "
         f"eval CLI {test_s:.1f} s, teacher mAP {res['mAP']:.4f}")
     log("  checkpoint saves (step, s, bytes) "
@@ -921,7 +1253,9 @@ def run_trainers(card, tmp):
         f"{[round(t['step_s'], 3) for t in od_timings]}")
     log("  " + card)
     return dict(steps=timings, launches_per_step=per_step, evals=evals,
-                step_ms=step_ms, warm_step_ms=warm, data_wait_ms=wait_ms,
+                step_ms=step_ms, warm_step_ms=warm, bare_step_ms=bare_ms,
+                quiet_step_ms=quiet,
+                data_wait_ms=wait_ms,
                 augment_ms=aug,
                 eval_ms_per_image=eval_ms, checkpoint_saves=saves,
                 peak_memory_bytes=peak, run_s=run_s, eval_cli_s=test_s,
@@ -1098,10 +1432,20 @@ def main():
     name = torch.cuda.get_device_name(0)
 
     log("== phase 2: build")
-    t0 = time.perf_counter()
-    paths, build_log = msda.build()
-    build_s = time.perf_counter() - t0
-    log(f"  built {', '.join(paths)} in {build_s:.1f} s")
+
+    def timed_build(build):
+        t0 = time.perf_counter()
+        out = build()
+        return out, time.perf_counter() - t0
+
+    # nvcc (one process per kernel source) and g++ (the host library),
+    # all started together
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        host = pool.submit(timed_build, native.build)
+        (paths, build_log), build_s = timed_build(msda.build)
+        (host_path, _), host_build_s = host.result()
+    log(f"  built {', '.join(paths)} in {build_s:.1f} s; {host_path} in "
+        f"{host_build_s:.1f} s")
     for line in ptxas_summary(build_log):
         log("  ptxas: " + line)
 
@@ -1123,7 +1467,8 @@ def main():
     train = timed("5", train_phase, card)
     grad_check = timed("5b", model_grad_phase)
     ssod = timed("6", ssod_phase, card)
-    trainer = timed("7", trainer_phase, card)
+    host_lib = timed("7a", host_library_phase, host_build_s)
+    trainer = timed("7", trainer_phase, card, ssod["warm_step_ms"])
 
     main_rows = [r for r in rows if r["dtype"] == "bfloat16"
                  and r["case"] in ("encoder", "decoder")]
@@ -1179,7 +1524,8 @@ def main():
     }], "card": card, "build_s": build_s, "phase_s": phase_s,
         "request_ms": {k: v * 1e3 for k, v in latency.items()},
         "float32_request_err": errs, "train": train,
-        "float32_grad_check": grad_check, "ssod": ssod, "trainer": trainer}
+        "float32_grad_check": grad_check, "ssod": ssod,
+        "host_library": host_lib, "trainer": trainer}
     print(json.dumps(json_safe(record), allow_nan=False), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -128,19 +128,19 @@ def inference_detector(predictor: Predictor, image, **kw):
 
 def save_result(image: np.ndarray, result, class_names, out_file: str,
                 score_thr: float = 0.3):
-    """Render detections onto the image and save (reference save_result).
-    Needs cv2, which only this function imports."""
-    import cv2
-    boxes, scores, labels = result
-    img = cv2.cvtColor(image, cv2.COLOR_RGB2BGR).copy()
-    for b, s, l in zip(boxes, scores, labels):
-        if s < score_thr:
-            continue
-        x0, y0, x1, y1 = map(int, b)
-        cv2.rectangle(img, (x0, y0), (x1, y1), (0, 255, 0), 2)
-        cv2.putText(img, f"{class_names[int(l)]}:{s:.2f}",
-                    (x0, max(y0 - 4, 0)), cv2.FONT_HERSHEY_SIMPLEX, 0.5,
-                    (0, 255, 0), 1)
+    """Render detections onto the image and save it (reference
+    save_result): each box above score_thr outlined in green, 2 pixels
+    thick, in numpy. The label and score text of the reference's render
+    is left out: there is no font renderer without cv2 (`class_names` is
+    kept for the reference's signature). The file is encoded by its
+    extension: .jpg / .jpeg through the host library, .png by
+    `data.image_io`."""
+    from .data.image_io import write_image
+    from .utils.logging import draw_rect
+    boxes, scores, _ = result
+    img = np.array(image, np.uint8)
+    for b, s in zip(boxes, scores):
+        if s >= score_thr:
+            draw_rect(img, *map(int, b), color=(0, 255, 0))
     os.makedirs(os.path.dirname(out_file) or ".", exist_ok=True)
-    cv2.imwrite(out_file, img)
-    return out_file
+    return write_image(out_file, img)

@@ -17,14 +17,18 @@ T @ old), which the SSOD step uses to carry pseudo boxes between views.
 Neither cv2 nor PIL is needed (the card's machine has neither). Every
 function takes the JAX package's `np.random.Generator` and draws from it
 in the same order with the same methods, so one seed gives the same ops,
-magnitudes, angles and patches in both packages. The pixel work:
+magnitudes, angles and patches in both packages. The draws stay here; the
+pixel work goes to `px`, the port's host library (`native/`, C++, the GIL
+released), whose every function equals its numpy plain version in
+`NumpyPixels` bit for bit:
 
-* resize: `torch.nn.functional.interpolate` (bilinear, align_corners
-  False, no antialias): within one grey level of cv2's INTER_LINEAR;
-* colour ops: numpy versions of Pillow's algorithms (`ImageOps`
-  autocontrast / equalize / posterize, `ImageEnhance` Color / Contrast /
-  Brightness / Sharpness as `Image.blend(degenerate, image, v)` in single
-  precision, truncated and clipped), equal to Pillow's bit for bit;
+* resize: bilinear with half-pixel centres, the JAX package's native
+  formula (`sdt_resize_bilinear`): within one grey level of cv2's
+  INTER_LINEAR;
+* colour ops: Pillow's algorithms (`ImageOps` autocontrast / equalize /
+  posterize, `ImageEnhance` Color / Contrast / Brightness / Sharpness as
+  `Image.blend(degenerate, image, v)` in single precision, truncated and
+  clipped), equal to Pillow's bit for bit;
 * geometric ops: a bilinear affine warp through the inverse matrix at
   integer pixel centres, taps outside the image reading the border value
   FILL, as `cv2.warpAffine(..., borderValue=FILL)` does.
@@ -36,8 +40,8 @@ from dataclasses import dataclass, field, replace
 from typing import Tuple
 
 import numpy as np
-import torch
-import torch.nn.functional as F
+
+from .. import native
 
 COCO_SCALES: Tuple[Tuple[int, int], ...] = tuple(
     (s, 1333) for s in (480, 512, 544, 576, 608, 640, 672, 704, 736, 768,
@@ -46,6 +50,9 @@ TEST_SCALE = (800, 1333)
 IMG_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
 IMG_STD = np.array([58.395, 57.12, 57.375], np.float32)
 FILL = 125
+# the pixel work of every function below: the host library; a measurement
+# may set it to NumpyPixels (chip_smoke.py times both)
+px = native
 
 
 @dataclass
@@ -109,25 +116,45 @@ def rescale_size(h: int, w: int, scale: Tuple[int, int]
     return int(h * f + 0.5), int(w * f + 0.5), f
 
 
-def _resize_image(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
-    """Bilinear (align_corners=False) resize of an (H, W, C) uint8 image."""
-    x = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None]
-    y = F.interpolate(x.float(), size=(nh, nw), mode="bilinear",
-                      align_corners=False, antialias=False)
-    y = y.round().clamp(0, 255).to(torch.uint8)
-    return y[0].permute(1, 2, 0).contiguous().numpy()
+def resize_bilinear_np(img: np.ndarray, dh: int, dw: int) -> np.ndarray:
+    """numpy version of `native.resize_bilinear`: half-pixel centres, taps
+    clamped to the image, float32 throughout, + 0.5 and truncated."""
+    sh, sw = img.shape[:2]
+    one, half = np.float32(1), np.float32(0.5)
+
+    def taps(n_out, n_in):
+        f = np.float32(n_in) / np.float32(n_out)
+        s = np.maximum((np.arange(n_out, dtype=np.float32) + half) * f - half,
+                       np.float32(0))
+        i0 = np.minimum(s.astype(np.int64), n_in - 1)
+        return i0, np.minimum(i0 + 1, n_in - 1), s - i0.astype(np.float32)
+
+    y0, y1, wy = taps(dh, sh)
+    x0, x1, wx = taps(dw, sw)
+    x = img.astype(np.float32)
+    wx, wy = wx[None, :, None], wy[:, None, None]
+    top = x[y0][:, x0] * (one - wx) + x[y0][:, x1] * wx
+    bot = x[y1][:, x0] * (one - wx) + x[y1][:, x1] * wx
+    return (top * (one - wy) + bot * wy + half).astype(np.uint8)
 
 
-def resize(sample: Sample, scale: Tuple[int, int]) -> Sample:
-    h, w = sample.img.shape[:2]
-    nh, nw, _ = rescale_size(h, w, scale)
-    img = _resize_image(sample.img, nh, nw)
+def resized(sample: Sample, img: np.ndarray, src_hw) -> Sample:
+    """`sample`, of size src_hw, with `img` (its image resized) in its
+    place: boxes, matrix and scale factor follow the resize."""
+    h, w = src_hw
+    nh, nw = img.shape[:2]
     fx, fy = nw / w, nh / h
     t = np.array([[fx, 0, 0], [0, fy, 0], [0, 0, 1]], np.float64)
     boxes = sample.boxes * np.array([fx, fy, fx, fy], np.float32)
     return replace(sample, img=img, boxes=boxes, matrix=_compose(sample, t),
                    scale_factor=sample.scale_factor
                    * np.array([fx, fy], np.float32))
+
+
+def resize(sample: Sample, scale: Tuple[int, int]) -> Sample:
+    h, w = sample.img.shape[:2]
+    nh, nw, _ = rescale_size(h, w, scale)
+    return resized(sample, px.resize_bilinear(sample.img, nh, nw), (h, w))
 
 
 def rand_resize(rng: np.random.Generator, sample: Sample,
@@ -153,17 +180,27 @@ def rand_flip(rng, sample: Sample, p: float = 0.5) -> Sample:
 
 
 # ---------------------------------------------------------------- colour ops
-# numpy versions of Pillow's algorithms (PIL/ImageOps.py, ImageEnhance.py,
-# libImaging Blend.c, Filter.c, Convert.c), bit for bit
+# Pillow's algorithms (PIL/ImageOps.py, ImageEnhance.py, libImaging
+# Blend.c, Filter.c, Convert.c), bit for bit; the numpy versions of the
+# pixel loops below are the plain versions of the host library's
 
 def _per_band_lut(img: np.ndarray, make_lut) -> np.ndarray:
     """Apply a 256-entry table per channel, built from its histogram
     (Pillow `_lut` -> `Image.point`, which clips entries to 0..255)."""
+    luts = [np.clip(make_lut(h), 0, 255).astype(np.uint8)
+            for h in px.histogram(img)]
+    return px.apply_lut(img, np.stack(luts))
+
+
+def _histogram_np(img: np.ndarray) -> np.ndarray:
+    return np.stack([np.bincount(img[..., c].ravel(), minlength=256)
+                     for c in range(img.shape[2])])
+
+
+def _apply_lut_np(img: np.ndarray, luts: np.ndarray) -> np.ndarray:
     out = np.empty_like(img)
     for c in range(img.shape[2]):
-        band = img[..., c]
-        lut = make_lut(np.bincount(band.ravel(), minlength=256))
-        out[..., c] = np.clip(lut, 0, 255).astype(np.uint8)[band]
+        out[..., c] = luts[c][img[..., c]]
     return out
 
 
@@ -235,6 +272,14 @@ def _smooth(img: np.ndarray) -> np.ndarray:
     return out
 
 
+def _solarize_np(img: np.ndarray, thr: int) -> np.ndarray:
+    return np.where(img < thr, img, 255 - img).astype(img.dtype)
+
+
+def _posterize_np(img: np.ndarray, mask: int) -> np.ndarray:
+    return img & np.uint8(mask)
+
+
 def apply_color_op(rng: np.random.Generator, sample: Sample) -> Sample:
     """OneOf the 9 colour ops (Identity included), magnitude ~ U{1..9} on a
     0-10 scale (`rand_aug.py:59-61`)."""
@@ -250,21 +295,20 @@ def apply_color_op(rng: np.random.Generator, sample: Sample) -> Sample:
     elif op == 2:
         out = _per_band_lut(img, _equalize_lut)
     elif op == 3:
-        thr = min(int(mag * 256 / 10), 255)
-        out = np.where(img < thr, img, 255 - img).astype(img.dtype)
+        out = px.solarize(img, min(int(mag * 256 / 10), 255))
     elif op == 4:                       # Color: blend with the gray image
-        out = _blend(_gray(img)[..., None], img, v)
+        out = px.blend(px.gray(img)[..., None], img, v)
     elif op == 5:                       # Contrast: with the mean gray
-        g = _gray(img)
+        g = px.gray(img)
         mean = int(int(g.astype(np.int64).sum()) / g.size + 0.5)
-        out = _blend(np.full((1, 1, 1), mean, np.uint8), img, v)
+        out = px.blend(np.full((1, 1, 1), mean, np.uint8), img, v)
     elif op == 6:                       # Brightness: with black
-        out = _blend(np.zeros((1, 1, 1), np.uint8), img, v)
+        out = px.blend(np.zeros((1, 1, 1), np.uint8), img, v)
     elif op == 7:                       # Sharpness: with the smoothed image
-        out = _blend(_smooth(img), img, v)
+        out = px.blend(px.smooth(img), img, v)
     else:
         bits = 4 - int(mag * 4 / 10)
-        out = img & np.uint8(~(2 ** (8 - bits) - 1) & 0xFF)
+        out = px.posterize(img, ~(2 ** (8 - bits) - 1) & 0xFF)
     return replace(sample, img=out)
 
 
@@ -289,8 +333,14 @@ def warp_affine(img: np.ndarray, t2x3: np.ndarray, fill: int = FILL
     """Bilinear affine warp of an (H, W, C) uint8 image into the same size:
     each destination pixel (x, y) samples the source at inv @ (x, y, 1);
     taps outside the image read `fill`."""
+    return px.warp_affine(img, _inverse_affine(t2x3).astype(np.float32), fill)
+
+
+def _warp_affine_np(img: np.ndarray, inv: np.ndarray, fill: int
+                    ) -> np.ndarray:
+    """numpy version of `native.warp_affine` (inv: the float32
+    destination -> source map)."""
     h, w, c = img.shape
-    inv = _inverse_affine(t2x3).astype(np.float32)
     xs = np.arange(w, dtype=np.float32)[None]
     ys = np.arange(h, dtype=np.float32)[:, None]
     sx = inv[0, 0] * xs + (inv[0, 1] * ys + inv[0, 2])
@@ -314,6 +364,21 @@ def warp_affine(img: np.ndarray, t2x3: np.ndarray, fill: int = FILL
     top = lerp_x(0)
     out = top + fy * (lerp_x(1) - top)
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+class NumpyPixels:
+    """The numpy plain versions of the host library's pixel functions,
+    with its signatures: the tests and chip_smoke.py hold the library to
+    them (and chip_smoke.py times the views with them as `px`)."""
+    resize_bilinear = staticmethod(resize_bilinear_np)
+    warp_affine = staticmethod(_warp_affine_np)
+    histogram = staticmethod(_histogram_np)
+    apply_lut = staticmethod(_apply_lut_np)
+    gray = staticmethod(_gray)
+    blend = staticmethod(_blend)
+    smooth = staticmethod(_smooth)
+    solarize = staticmethod(_solarize_np)
+    posterize = staticmethod(_posterize_np)
 
 
 def _warp(sample: Sample, t2x3: np.ndarray) -> Sample:

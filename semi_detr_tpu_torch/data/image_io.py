@@ -1,21 +1,20 @@
-"""Image files without cv2 or PIL: a PNG reader and writer in numpy and
-zlib, and JPEG through cv2 where it can be imported.
+"""Image files without cv2 or PIL.
 
 Stands in for `CocoDataset.load_image` of `semi_detr_tpu/data/coco.py`
-(the native libjpeg/libpng loader, or else `cv2.imread`), which the card's
-machine cannot run: it has neither cv2 nor PIL.
+(the native libjpeg/libpng loader, or else `cv2.imread`): `read_image`
+decodes JPEG and PNG through the port's host library (`native/`), on the
+card's machine too, which has neither cv2 nor PIL. A file it cannot decode
+raises an error that names it; it never returns a blank or substitute
+image. `write_image` encodes by the file's extension: JPEG through the
+library, PNG here.
 
-PNG: 8-bit gray, gray + alpha, RGB, RGBA and palette images,
-non-interlaced, with all five row filters (None, Sub, Up, Average, Paeth).
-Alpha is dropped, as `cv2.imread(path, cv2.IMREAD_COLOR)` drops it, and
-gray is repeated over three channels. Sub and Up rows decode as numpy
-operations; Average and Paeth rows depend on the pixel to their left, so
-they decode pixel by pixel in Python (slow on large images; the writer
-here uses filter 0 only, so the port's own files never take that path).
-
-JPEG: decoded by cv2 when it is importable, else `read_image` raises an
-error that names the file and the missing decoder; it never returns a
-blank or substitute image.
+The PNG reader and writer here, in numpy and zlib, are the plain versions
+the library's PNG decoder is held to: 8-bit gray, gray + alpha, RGB, RGBA
+and palette images, non-interlaced, with all five row filters (None, Sub,
+Up, Average, Paeth). Alpha is dropped, as `cv2.imread(path,
+cv2.IMREAD_COLOR)` drops it, and gray is repeated over three channels.
+Sub and Up rows decode as numpy operations; Average and Paeth rows depend
+on the pixel to their left, so they decode pixel by pixel in Python.
 """
 from __future__ import annotations
 
@@ -24,8 +23,9 @@ import zlib
 
 import numpy as np
 
+from .. import native
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-JPEG_SIGNATURE = b"\xff\xd8\xff"
 # colour type -> samples per pixel (PNG spec 11.2.2)
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
@@ -141,21 +141,23 @@ def write_png(path: str, img: np.ndarray) -> str:
 
 
 def read_image(path: str) -> np.ndarray:
-    """An image file -> (H, W, 3) uint8 RGB. PNG is decoded here; any other
-    format goes to cv2, and raises when cv2 cannot be imported."""
+    """A JPEG or PNG file -> (H, W, 3) uint8 RGB, by the host library;
+    `native.ImageDecodeError` naming the file for anything else."""
     with open(path, "rb") as f:
         buf = f.read()
-    if buf.startswith(PNG_SIGNATURE):
-        return decode_png(buf)
-    kind = "JPEG" if buf.startswith(JPEG_SIGNATURE) else "non-PNG"
-    try:
-        import cv2
-    except ImportError:
-        raise RuntimeError(
-            f"{path}: {kind} image, and no decoder for it: the port decodes "
-            "PNG itself and needs cv2 (not importable here) for "
-            "anything else") from None
-    img = cv2.imread(path, cv2.IMREAD_COLOR)
-    if img is None:
-        raise ValueError(f"{path}: cv2 could not decode this {kind} image")
-    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    return native.decode_image(buf, path)
+
+
+def write_image(path: str, img: np.ndarray) -> str:
+    """(H, W, 3) uint8 RGB -> a file encoded by its extension: .jpg / .jpeg
+    through the host library (quality 95, cv2's default), .png here."""
+    ext = path.lower().rsplit(".", 1)[-1]
+    if ext in ("jpg", "jpeg"):
+        buf = native.encode_jpeg(img)
+    elif ext == "png":
+        buf = encode_png(img)
+    else:
+        raise ValueError(f"{path}: writes .jpg, .jpeg or .png, not .{ext}")
+    with open(path, "wb") as f:
+        f.write(buf)
+    return path

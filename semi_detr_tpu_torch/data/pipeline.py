@@ -11,14 +11,17 @@ steps consume.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .augment import (COCO_SCALES, Sample, make_sample, strong_augment,
-                      sup_augment, test_resize, weak_augment)
+from .. import native
+from .augment import (COCO_SCALES, TEST_SCALE, Sample, make_sample,
+                      rescale_size, resized, strong_augment, sup_augment,
+                      test_resize, weak_augment)
 
 # buckets covering the 11 training scales x max long side 1333 (H, W and
 # W, H orientations); every resized image fits with < 13 % padding
@@ -32,6 +35,10 @@ DEFAULT_BUCKETS: Tuple[Tuple[int, int], ...] = (
 # training bucket short sides for multi-bucket mode: the 11 reference
 # scales (480..800 x 1333) quantize onto 3 bucket heights
 BUCKET_SHORTS: Tuple[int, ...] = (544, 672, 800)
+
+# the eval reader's loader: threads, and images in flight beyond the batch
+# being packed
+PREFETCH_THREADS, PREFETCH_AHEAD = 4, 8
 
 
 def _quantize_short(short: int, base_bucket) -> int:
@@ -176,20 +183,72 @@ def make_unsup_batch(rng: np.random.Generator, dataset, indices,
     }
 
 
-def make_test_batch(dataset, indices, bucket: Tuple[int, int] = (800, 1344),
-                    max_gt: int = 100, scale=None) -> Dict:
-    """Test-resized images of one bucket, with their per-axis scale
-    factors (to map boxes back to the original frame)."""
-    packed = []
-    for i in indices:
-        rec = dataset[i]
-        s = make_sample(dataset.load_image(i), rec.boxes, rec.labels)
-        s = test_resize(s) if scale is None else test_resize(s, scale)
-        packed.append(pack(s, bucket, max_gt, rec.id))
+def _test_batch(samples: List[Sample], ids, bucket, max_gt: int = 100
+                ) -> Dict:
+    packed = [pack(s, bucket, max_gt, i) for s, i in zip(samples, ids)]
     out = stack(packed)
     out["scale_factors"] = np.asarray(
         [p.scale_factor for p in packed], np.float32)
     return out
+
+
+def make_test_batch(dataset, indices, bucket: Tuple[int, int] = (800, 1344),
+                    max_gt: int = 100, scale=None) -> Dict:
+    """Test-resized images of one bucket, with their per-axis scale
+    factors (to map boxes back to the original frame)."""
+    samples = []
+    for i in indices:
+        rec = dataset[i]
+        s = make_sample(dataset.load_image(i), rec.boxes, rec.labels)
+        samples.append(test_resize(s) if scale is None
+                       else test_resize(s, scale))
+    return _test_batch(samples, [dataset[i].id for i in indices], bucket,
+                       max_gt)
+
+
+def prefetched_test_batches(dataset, groups, scale=None):
+    """`make_test_batch(dataset, indices, bucket, scale=scale)` for each
+    (indices, bucket) of `groups`, in order, equal to it array for array,
+    with the images read, decoded and test-resized ahead by a
+    `native.PrefetchLoader` of PREFETCH_THREADS threads, at most
+    PREFETCH_AHEAD images beyond the batch being packed. The order is
+    known ahead, and so are the target sizes: from the records' width and
+    height (the annotation file's); an image file of another size raises.
+    `dataset` is a `CocoDataset` (records with `file_name`, and
+    `img_prefix`)."""
+    scale = TEST_SCALE if scale is None else scale
+    order = [i for indices, _ in groups for i in indices]
+    loader = native.PrefetchLoader(PREFETCH_THREADS)
+    ready, submitted, done = {}, 0, 0
+    try:
+        for indices, bucket in groups:
+            while submitted < min(done + len(indices) + PREFETCH_AHEAD,
+                                  len(order)):
+                rec = dataset[order[submitted]]
+                nh, nw, _ = rescale_size(rec.height, rec.width, scale)
+                loader.submit(submitted, os.path.join(dataset.img_prefix,
+                                                      rec.file_name),
+                              (nh, nw))
+                submitted += 1
+            samples = []
+            for pos in range(done, done + len(indices)):
+                while pos not in ready:
+                    got = loader.next()
+                    ready[got.index] = got
+                got, rec = ready.pop(pos), dataset[order[pos]]
+                if got.src_hw != (rec.height, rec.width):
+                    raise ValueError(
+                        f"{rec.file_name}: image of {got.src_hw[0]}x"
+                        f"{got.src_hw[1]} pixels, the annotation file says "
+                        f"{rec.height}x{rec.width}")
+                samples.append(resized(
+                    make_sample(got.image, rec.boxes, rec.labels), got.image,
+                    got.src_hw))
+            done += len(indices)
+            yield _test_batch(samples, [dataset[i].id for i in indices],
+                              bucket)
+    finally:
+        loader.close()
 
 
 def _tensor(x) -> torch.Tensor:

@@ -2,11 +2,11 @@
 
 Counterpart of `semi_detr_tpu/data/synthetic.py:write_synthetic_coco`
 without cv2: the same `np.random.RandomState` draws in the same order, so
-the annotation JSON equals the JAX writer's apart from the file extension;
-ellipses and bars are drawn in numpy and the images written as PNG
-(lossless, so every reader sees the same pixels). The JAX writer hands its
-arrays to cv2, which stores them as BGR; this writer stores the same
-channel order, so both sets show the same colours.
+the annotation JSON equals the JAX writer's, file names included; ellipses
+and bars are drawn in numpy and the images written as JPEG at quality 95,
+as cv2.imwrite writes them, through the host library (`native/`). The JAX
+writer hands its arrays to cv2, which stores them as BGR; this writer
+stores the same channel order, so both sets show the same colours.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
-from .image_io import write_png
+from .image_io import write_image
 
 
 def _fill_ellipse(img, center, axes, angle_deg, color):
@@ -110,9 +110,9 @@ def write_synthetic_coco(root: str, n: int = 8,
                          "bbox": [x, y, bw, bh], "area": bw * bh,
                          "iscrowd": 0})
         # the array is BGR (as cv2 would store it): the file holds RGB
-        write_png(os.path.join(img_dir, f"{i}.png"),
-                  np.ascontiguousarray(img[..., ::-1]))
-        images.append({"id": i, "file_name": f"{i}.png", "width": w,
+        write_image(os.path.join(img_dir, f"{i}.jpg"),
+                    np.ascontiguousarray(img[..., ::-1]))
+        images.append({"id": i, "file_name": f"{i}.jpg", "width": w,
                        "height": h})
     cats = [{"id": c + 1, "name": class_name if c == 0 else f"class{c}"}
             for c in range(n_classes)]

@@ -143,22 +143,23 @@ def evaluate_detector(detector, dataset, batch_size: int = 4,
     """COCO mAP of one detector over a CocoDataset. Images are batched by
     aspect-ratio flag (portrait ones into the transposed bucket); a short
     last batch repeats its last image, whose duplicate results land on the
-    same image id."""
+    same image id. The images are read, decoded and resized ahead by the
+    host library's prefetch loader (`data.pipeline.prefetched_test_batches`)
+    while the detector runs."""
     from ..data.coco_eval import coco_map
-    from ..data.pipeline import make_test_batch
+    from ..data.pipeline import prefetched_test_batches
 
-    def batches():
-        h, w = bucket
-        land = (h, w) if w >= h else (w, h)
-        flags = np.asarray(dataset.flags)
-        for f, bkt in ((1, land), (0, (land[1], land[0]))):
-            ids = np.nonzero(flags == f)[0]
-            for s in range(0, len(ids), batch_size):
-                idx = [int(i) for i in ids[s:s + batch_size]]
-                idx = idx + [idx[-1]] * (batch_size - len(idx))
-                yield make_test_batch(dataset, idx, bkt, scale=test_scale)
-
-    dets = run_eval(detector, batches(), use_nms)
+    h, w = bucket
+    land = (h, w) if w >= h else (w, h)
+    flags = np.asarray(dataset.flags)
+    groups = []
+    for f, bkt in ((1, land), (0, (land[1], land[0]))):
+        ids = np.nonzero(flags == f)[0]
+        for s in range(0, len(ids), batch_size):
+            idx = [int(i) for i in ids[s:s + batch_size]]
+            groups.append((idx + [idx[-1]] * (batch_size - len(idx)), bkt))
+    dets = run_eval(detector, prefetched_test_batches(
+        dataset, groups, scale=test_scale), use_nms)
     return coco_map(dets, _groundtruth(dataset), num_classes, class_names)
 
 

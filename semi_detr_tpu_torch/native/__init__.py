@@ -1,0 +1,514 @@
+"""The port's host library: image decode and encode, resize, affine warp,
+the colour ops' pixel loops and a threaded prefetch loader, in C++.
+
+Counterpart of `semi_detr_tpu/native/` (`dataloader.cpp`), plus the pixel
+work the JAX package leaves to cv2 and Pillow. The sources beside this
+file are compiled by g++ at first use (`-O3 -shared -fPIC -std=c++17
+-ffp-contract=off`, no `-march`, no `-ffast-math`) into
+`semi_detr_tpu_torch/_build/<hash of sources and flags>/` and bound with
+`ctypes.CDLL`, which releases the GIL for every call: a prefetch thread
+decoding and augmenting no longer holds up the thread that launches the
+step.
+
+* Decode: PNG (8-bit gray, gray + alpha, RGB, RGBA, palette;
+  non-interlaced) by zlib's inflate and the row filters in C++; JPEG
+  through libjpeg where the machine has it (`jpeg_libjpeg.cpp`: the pixels
+  of `semi_detr_tpu.native.decode_image` and `cv2.imread`), else through
+  the CUDA toolkit's nvJPEG (`jpeg_nvjpeg.cpp`: decoded on the card,
+  within a few grey levels of libjpeg). `decoders()` says which. Before
+  either decodes, `jpeg_check` walks the stream and decodes a sequential
+  Huffman stream's codes as libjpeg does. A truncated, CMYK or unknown
+  file, a bad Huffman code or a restart marker out of order raises
+  `ImageDecodeError` on both routes; it never comes back blank. (JPEG
+  has no checksum: damage that still decodes to valid codes is not
+  seen.)
+* Encode: JPEG through the same back end (4:2:0 at quality 95, cv2's
+  default); on the nvJPEG route libjpeg's colour conversion and
+  downsampling run here (`rgb_to_ycc420`) and the card does the rest.
+* Pixels: `resize_bilinear` (half-pixel centres, the formula of the JAX
+  package's `sdt_resize_bilinear`), `warp_affine`, and the colour ops'
+  `histogram`, `apply_lut`, `gray`, `blend`, `smooth`, `solarize`,
+  `posterize`. Each equals its numpy plain version
+  (`data.augment.NumpyPixels`) bit for bit: the same float32 operations in
+  the same order, none fused.
+* `PrefetchLoader`: read, decode and resize in a pool of C++ threads.
+
+The JAX library's `sdt_normalize_pad` is left out: the port's `pack`
+ships uint8 and the model normalizes on the device, as the JAX package's
+default `_DEVICE_NORMALIZE` path does.
+
+Nothing falls back: a build or link failure raises with the compiler's
+log. The random draws of the augmentations stay in Python; this library
+does only pixels.
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import platform
+import shutil
+import subprocess
+import tempfile
+import threading
+from collections import namedtuple
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(_DIR)
+FIXTURES = os.path.join(_DIR, "fixtures")
+SOURCES = ("host.cpp",)
+HEADERS = ("host.h",)
+JPEG_SOURCES = {"libjpeg": "jpeg_libjpeg.cpp", "nvjpeg": "jpeg_nvjpeg.cpp"}
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off",
+             "-pthread")
+# larger images are refused before any pixel buffer is allocated
+MAX_PIXELS = 8192 * 8192
+_STATUS = {1: "unknown format", 2: "damaged data", 3: "unsupported kind",
+           4: "too large", 6: "size mismatch", 7: "device error",
+           10: "cannot open", 11: "cannot read"}
+
+
+class ImageDecodeError(ValueError):
+    """An image file or stream that the library cannot decode."""
+
+
+def _cuda_home() -> str:
+    return os.environ.get("CUDA_HOME", "/usr/local/cuda")
+
+
+def _compiles(header: str, *flags: str) -> bool:
+    src = f"#include <cstddef>\n#include <cstdio>\n#include <{header}>\n"
+    try:
+        return subprocess.run(
+            ["g++", "-std=c++17", "-fsyntax-only", "-x", "c++", "-", *flags],
+            input=src, capture_output=True, text=True,
+            timeout=120).returncode == 0
+    except FileNotFoundError:
+        raise RuntimeError("g++ not found: the host library is compiled "
+                           "with g++ at first use") from None
+
+
+@functools.lru_cache(maxsize=None)
+def probe() -> Dict[str, object]:
+    """What the machine offers the library: the compiler, the CPU
+    architecture, and which headers compile (zlib; libjpeg; the CUDA
+    toolkit's nvJPEG). `route` is the JPEG back end the build takes:
+    libjpeg where it compiles, else nvJPEG, else None (no build)."""
+    out = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout if shutil.which("g++") else ""
+    cuda_inc = os.path.join(_cuda_home(), "include")
+    found = {
+        "gxx": out.splitlines()[0] if out else None,
+        "machine": platform.machine(),
+        "zlib": bool(out) and _compiles("zlib.h"),
+        "libjpeg": bool(out) and _compiles("jpeglib.h"),
+        "nvjpeg": bool(out) and os.path.isfile(
+            os.path.join(cuda_inc, "nvjpeg.h")) and _compiles(
+                "nvjpeg.h", f"-I{cuda_inc}"),
+    }
+    found["route"] = ("libjpeg" if found["libjpeg"] else
+                      "nvjpeg" if found["nvjpeg"] else None)
+    return found
+
+
+def _build_plan() -> Tuple[list, list, str]:
+    """(sources, compiler and linker flags, library path) of this
+    machine's build."""
+    found = probe()
+    if not found["gxx"]:
+        raise RuntimeError("g++ not found: the host library is compiled "
+                           "with g++ at first use")
+    if not found["zlib"]:
+        raise RuntimeError("zlib.h does not compile: the host library needs "
+                           "zlib to decode PNG")
+    route = found["route"]
+    if route is None:
+        raise RuntimeError("neither libjpeg (jpeglib.h) nor the CUDA "
+                           "toolkit's nvJPEG (nvjpeg.h) found: the host "
+                           "library needs one to read and write JPEG")
+    sources = [os.path.join(_DIR, s)
+               for s in SOURCES + (JPEG_SOURCES[route],)]
+    flags, libs = list(CXX_FLAGS), ["-lz"]
+    if route == "libjpeg":
+        libs.append("-ljpeg")
+    elif route == "nvjpeg":
+        cuda = _cuda_home()
+        lib_dir = os.path.join(cuda, "lib64")
+        flags.append(f"-I{os.path.join(cuda, 'include')}")
+        libs += [f"-L{lib_dir}", f"-Wl,-rpath,{lib_dir}", "-lnvjpeg",
+                 "-lcudart_static", "-ldl", "-lrt"]
+    h = hashlib.sha256(" ".join(flags + libs).encode())
+    for path in sources + [os.path.join(_DIR, s) for s in HEADERS]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    out = os.path.join(_PKG, "_build", h.hexdigest()[:16], "libsdt_host.so")
+    return sources, flags + libs, out
+
+
+def build() -> Tuple[str, str]:
+    """Compile the library if it is missing. Returns (library path, g++'s
+    log; empty when the library existed). Builders in other processes wait
+    on a file lock; the library is written under a temporary name and
+    renamed into place."""
+    sources, flags, out = _build_plan()
+    if os.path.exists(out):
+        return out, ""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(out):
+            return out, ""
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
+        os.close(fd)
+        cmd = ["g++", *sources, "-o", tmp, *flags]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"g++ failed to build the host library:\n{log}")
+        os.replace(tmp, out)
+    return out, log
+
+
+_P = ctypes.c_void_p
+_I, _L, _F = ctypes.c_int, ctypes.c_long, ctypes.c_float
+_SIGNATURES = {
+    "sdt_last_error": ([], ctypes.c_char_p),
+    "sdt_jpeg_backend": ([], ctypes.c_char_p),
+    "sdt_image_info": ([_P, _L, _P, _P], _I),
+    "sdt_decode": ([_P, _L, _P, _I, _I], _I),
+    "sdt_png_unfilter": ([_P, _I, _L, _I, _P], _I),
+    "sdt_encode_jpeg": ([_P, _I, _I, _P, _P], _I),
+    "sdt_free": ([_P], None),
+    "sdt_jpeg_check": ([_P, _L], _I),
+    "sdt_rgb_to_ycc420": ([_P, _I, _I, _P, _P, _P], None),
+    "sdt_ycc_to_rgb": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], None),
+    "sdt_resize_bilinear": ([_P, _I, _I, _I, _P, _I, _I], None),
+    "sdt_warp_affine": ([_P, _I, _I, _I, _P, _I, _P], None),
+    "sdt_histogram": ([_P, _L, _I, _P], None),
+    "sdt_apply_lut": ([_P, _L, _I, _P, _P], None),
+    "sdt_gray": ([_P, _L, _P], None),
+    "sdt_blend": ([_P, _L, _L, _P, _L, _I, _F, _P], None),
+    "sdt_smooth": ([_P, _I, _I, _I, _P], None),
+    "sdt_solarize": ([_P, _L, _I, _P], None),
+    "sdt_posterize": ([_P, _L, _I, _P], None),
+    "sdt_loader_create": ([_I, _L], _P),
+    "sdt_loader_submit": ([_P, _L, ctypes.c_char_p, _I, _I], None),
+    "sdt_loader_next": ([_P, _P, _P, _P, _P, _P, ctypes.c_char_p, _I], _I),
+    "sdt_loader_copy": ([_P, _P], None),
+    "sdt_loader_destroy": ([_P], None),
+}
+_lock = threading.Lock()
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    with _lock:
+        lib = ctypes.CDLL(build()[0])
+    for name, (args, res) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
+    return lib
+
+
+def decoders() -> Dict[str, str]:
+    """The decoders the library was built with, by format."""
+    return {"png": "zlib inflate + C++ row filters",
+            "jpeg": _library().sdt_jpeg_backend().decode()}
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def _image(img: np.ndarray, what: str = "image") -> np.ndarray:
+    """A C-contiguous (H, W, C) uint8 array (a copy only where needed)."""
+    if not isinstance(img, np.ndarray) or img.dtype != np.uint8 \
+            or img.ndim != 3 or min(img.shape) < 1:
+        raise ValueError(f"{what}: expected a non-empty (H, W, C) uint8 "
+                         f"array, got {getattr(img, 'shape', None)} "
+                         f"{getattr(img, 'dtype', type(img))}")
+    return np.ascontiguousarray(img)
+
+
+def _error(status: int, name: str, detail: str) -> ImageDecodeError:
+    return ImageDecodeError(f"{name}: {detail or _STATUS.get(status, status)}")
+
+
+# ---------------------------------------------------------------- decode
+
+def image_size(buf: bytes, name: str = "<bytes>") -> Tuple[int, int]:
+    """(H, W) of a JPEG or PNG stream; raises ImageDecodeError naming
+    `name`."""
+    lib = _library()
+    buf = bytes(buf)
+    h, w = ctypes.c_int(), ctypes.c_int()
+    st = lib.sdt_image_info(buf, len(buf), ctypes.byref(h), ctypes.byref(w))
+    if st:
+        raise _error(st, name, lib.sdt_last_error().decode())
+    if h.value * w.value > MAX_PIXELS:
+        raise ImageDecodeError(f"{name}: {h.value}x{w.value} pixels, more "
+                               f"than {MAX_PIXELS}")
+    return h.value, w.value
+
+
+def decode_image(buf: bytes, name: str = "<bytes>") -> np.ndarray:
+    """JPEG or PNG bytes -> (H, W, 3) uint8 RGB; raises ImageDecodeError
+    naming `name` (the file) on anything it cannot decode."""
+    buf = bytes(buf)
+    h, w = image_size(buf, name)
+    out = np.empty((h, w, 3), np.uint8)
+    lib = _library()
+    st = lib.sdt_decode(buf, len(buf), _ptr(out), h, w)
+    if st:
+        raise _error(st, name, lib.sdt_last_error().decode())
+    return out
+
+
+def png_unfilter(raw: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
+    """The row filters of an inflated PNG stream undone: (h, row_bytes)
+    uint8, as `data.image_io._unfilter`."""
+    raw = bytes(raw)
+    if len(raw) != h * (row_bytes + 1):
+        raise ValueError(f"PNG data holds {len(raw)} bytes, expected "
+                         f"{h * (row_bytes + 1)}")
+    out = np.empty((h, row_bytes), np.uint8)
+    lib = _library()
+    if lib.sdt_png_unfilter(raw, h, row_bytes, bpp, _ptr(out)):
+        raise ValueError(lib.sdt_last_error().decode())
+    return out
+
+
+def jpeg_check(buf: bytes) -> Optional[str]:
+    """None for a JPEG stream that runs whole from SOI to EOI, else its
+    fault: the check `decode_image` makes before either back end decodes
+    (the markers walked, and a sequential Huffman stream's entropy-coded
+    data decoded as libjpeg decodes it)."""
+    buf = bytes(buf)
+    lib = _library()
+    return lib.sdt_last_error().decode() if lib.sdt_jpeg_check(
+        buf, len(buf)) else None
+
+
+def encode_jpeg(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> JPEG bytes (4:2:0, quality 95)."""
+    img = _image(img)
+    if img.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes RGB, got {img.shape}")
+    lib = _library()
+    buf, size = ctypes.c_void_p(), ctypes.c_long()
+    st = lib.sdt_encode_jpeg(_ptr(img), img.shape[0], img.shape[1],
+                             ctypes.byref(buf), ctypes.byref(size))
+    if st:
+        raise RuntimeError(f"JPEG encode: {lib.sdt_last_error().decode()}")
+    try:
+        return ctypes.string_at(buf.value, size.value)
+    finally:
+        lib.sdt_free(buf)
+
+
+def rgb_to_ycc420(img: np.ndarray) -> Tuple[np.ndarray, np.ndarray,
+                                            np.ndarray]:
+    """libjpeg's input stage for a 4:2:0 stream, which the nvJPEG route
+    encodes: (H, W, 3) RGB -> y (H, W), cb and cr ((H + 1) // 2,
+    (W + 1) // 2)."""
+    img = _image(img)
+    h, w, c = img.shape
+    if c != 3:
+        raise ValueError(f"rgb_to_ycc420 takes RGB, got {img.shape}")
+    y = np.empty((h, w), np.uint8)
+    cb = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
+    cr = np.empty_like(cb)
+    _library().sdt_rgb_to_ycc420(_ptr(img), h, w, _ptr(y), _ptr(cb), _ptr(cr))
+    return y, cb, cr
+
+
+def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int,
+               vs: int) -> np.ndarray:
+    """libjpeg's output stage on decoded planes: y (H, W), cb and cr
+    subsampled by hs x vs (1 or 2 each) -> (H, W, 3) RGB, by fancy
+    upsampling and the fixed-point YCbCr -> RGB tables (the nvJPEG route
+    finishes its planes so)."""
+    y, cb, cr = (np.ascontiguousarray(p, np.uint8) for p in (y, cb, cr))
+    h, w = y.shape
+    ch, cw = cb.shape
+    if hs not in (1, 2) or vs not in (1, 2) or cr.shape != cb.shape \
+            or (ch, cw) != (-(-h // vs), -(-w // hs)):
+        raise ValueError(f"planes {y.shape}, {cb.shape}, {cr.shape} for "
+                         f"factors {hs}x{vs}")
+    out = np.empty((h, w, 3), np.uint8)
+    _library().sdt_ycc_to_rgb(_ptr(y), _ptr(cb), _ptr(cr), h, w, ch, cw, hs,
+                              vs, _ptr(out))
+    return out
+
+
+# ---------------------------------------------------------------- pixels
+
+def resize_bilinear(img: np.ndarray, dh: int, dw: int) -> np.ndarray:
+    """Bilinear resize (half-pixel centres) of an (H, W, C) uint8 image."""
+    img = _image(img)
+    if dh < 1 or dw < 1:
+        raise ValueError(f"resize to {dh}x{dw}")
+    out = np.empty((dh, dw, img.shape[2]), np.uint8)
+    _library().sdt_resize_bilinear(_ptr(img), img.shape[0], img.shape[1],
+                                   img.shape[2], _ptr(out), dh, dw)
+    return out
+
+
+def warp_affine(img: np.ndarray, inv: np.ndarray, fill: int) -> np.ndarray:
+    """Bilinear warp into the same size: destination (x, y) samples the
+    source at inv @ (x, y, 1) (inv: the (2, 3) destination -> source map,
+    taken in float32); taps outside the image read `fill`."""
+    img = _image(img)
+    m = np.ascontiguousarray(inv, np.float32).reshape(6)
+    out = np.empty_like(img)
+    h, w, c = img.shape
+    _library().sdt_warp_affine(_ptr(img), h, w, c, _ptr(m), int(fill),
+                               _ptr(out))
+    return out
+
+
+def histogram(img: np.ndarray) -> np.ndarray:
+    """(C, 256) int64 counts of each value in each channel."""
+    img = _image(img)
+    c = img.shape[2]
+    out = np.empty((c, 256), np.int64)
+    _library().sdt_histogram(_ptr(img), img.shape[0] * img.shape[1], c,
+                             _ptr(out))
+    return out
+
+
+def apply_lut(img: np.ndarray, luts: np.ndarray) -> np.ndarray:
+    """out[..., k] = luts[k][img[..., k]], luts (C, 256) uint8."""
+    img = _image(img)
+    luts = np.ascontiguousarray(luts, np.uint8)
+    if luts.shape != (img.shape[2], 256):
+        raise ValueError(f"luts {luts.shape} for {img.shape[2]} channels")
+    out = np.empty_like(img)
+    _library().sdt_apply_lut(_ptr(img), img.shape[0] * img.shape[1],
+                             img.shape[2], _ptr(luts), _ptr(out))
+    return out
+
+
+def gray(img: np.ndarray) -> np.ndarray:
+    """RGB -> (H, W) luma as Pillow's convert("L")."""
+    img = _image(img)
+    if img.shape[2] != 3:
+        raise ValueError(f"gray takes RGB, got {img.shape}")
+    out = np.empty(img.shape[:2], np.uint8)
+    _library().sdt_gray(_ptr(img), img.shape[0] * img.shape[1], _ptr(out))
+    return out
+
+
+def blend(degenerate: np.ndarray, img: np.ndarray, factor: float
+          ) -> np.ndarray:
+    """Pillow's Image.blend(degenerate, img, factor), degenerate of shape
+    (H, W, C), (H, W, 1) or (1, 1, 1) (broadcast over img)."""
+    img = _image(img)
+    deg = _image(degenerate, "degenerate")
+    h, w, c = img.shape
+    if deg.shape[2] not in (1, c) or deg.shape[:2] not in ((1, 1), (h, w)):
+        raise ValueError(f"degenerate {deg.shape} does not broadcast over "
+                         f"{img.shape}")
+    px = 0 if deg.shape[:2] == (1, 1) else deg.shape[2]
+    ch = 0 if deg.shape[2] == 1 else 1
+    out = np.empty_like(img)
+    _library().sdt_blend(_ptr(deg), px, ch, _ptr(img), h * w, c,
+                         float(np.float32(factor)), _ptr(out))
+    return out
+
+
+def smooth(img: np.ndarray) -> np.ndarray:
+    """Pillow's ImageFilter.SMOOTH, border pixels kept."""
+    img = _image(img)
+    out = np.empty_like(img)
+    _library().sdt_smooth(_ptr(img), *img.shape, _ptr(out))
+    return out
+
+
+def solarize(img: np.ndarray, thr: int) -> np.ndarray:
+    """Values below thr kept, the others inverted."""
+    img = _image(img)
+    out = np.empty_like(img)
+    _library().sdt_solarize(_ptr(img), img.size, int(thr), _ptr(out))
+    return out
+
+
+def posterize(img: np.ndarray, mask: int) -> np.ndarray:
+    """Each value AND mask."""
+    img = _image(img)
+    out = np.empty_like(img)
+    _library().sdt_posterize(_ptr(img), img.size, int(mask), _ptr(out))
+    return out
+
+
+# ---------------------------------------------------------------- loader
+
+Loaded = namedtuple("Loaded", "index image src_hw")
+
+
+class PrefetchLoader:
+    """Read, decode and resize image files in a pool of C++ threads.
+
+    `submit(index, path, target_hw)` queues a file; `next()` returns the
+    next finished one as `Loaded(index, image, src_hw)`, in completion
+    order: `image` (H, W, 3) uint8 RGB at `target_hw` (bilinear, as
+    `resize_bilinear`) or at its own size, `src_hw` the file's own size.
+    A file that cannot be read or decoded raises ImageDecodeError naming
+    it, from the `next()` that reaches it; the other results stay queued.
+    `next()` with nothing outstanding raises instead of blocking forever.
+    Not for concurrent use from several threads."""
+
+    def __init__(self, n_threads: int = 4):
+        self._lib = _library()
+        self._handle = self._lib.sdt_loader_create(n_threads, MAX_PIXELS)
+        self._paths: Dict[int, str] = {}
+
+    def submit(self, index: int, path: str,
+               target_hw: Optional[Tuple[int, int]] = None):
+        if self._handle is None:
+            raise RuntimeError("PrefetchLoader is closed")
+        if index in self._paths:
+            raise ValueError(f"index {index} is already outstanding")
+        th, tw = target_hw if target_hw else (0, 0)
+        self._paths[index] = path
+        self._lib.sdt_loader_submit(self._handle, index,
+                                    os.fsencode(path), th, tw)
+
+    @property
+    def outstanding(self) -> int:
+        return len(self._paths)
+
+    def next(self) -> Loaded:
+        if self._handle is None:
+            raise RuntimeError("PrefetchLoader is closed")
+        if not self._paths:
+            raise RuntimeError("PrefetchLoader.next: no task outstanding")
+        idx, h, w, sh, sw = (ctypes.c_long(), ctypes.c_int(), ctypes.c_int(),
+                             ctypes.c_int(), ctypes.c_int())
+        msg = ctypes.create_string_buffer(512)
+        st = self._lib.sdt_loader_next(
+            self._handle, ctypes.byref(idx), ctypes.byref(h),
+            ctypes.byref(w), ctypes.byref(sh), ctypes.byref(sw), msg,
+            len(msg))
+        path = self._paths.pop(idx.value)
+        if st:
+            raise _error(st, path, msg.value.decode(errors="replace"))
+        img = np.empty((h.value, w.value, 3), np.uint8)
+        self._lib.sdt_loader_copy(self._handle, _ptr(img))
+        return Loaded(idx.value, img, (sh.value, sw.value))
+
+    def close(self):
+        if self._handle is not None:
+            self._lib.sdt_loader_destroy(self._handle)
+            self._handle = None
+            self._paths.clear()
+
+    def __del__(self):
+        if getattr(self, "_handle", None) is not None:
+            self.close()

@@ -133,7 +133,7 @@ class MetricsLogger:
             self.tb.close()
 
 
-def _draw_rect(img: np.ndarray, x0, y0, x1, y1, color, thickness: int = 2):
+def draw_rect(img: np.ndarray, x0, y0, x1, y1, color, thickness: int = 2):
     """Box outline, `thickness` pixels inward, clipped to the image."""
     h, w = img.shape[:2]
     x0, x1 = sorted((int(x0), int(x1)))
@@ -170,7 +170,7 @@ def log_image_with_boxes(work_dir: str, tag: str, step: int,
     keep = np.ones(len(boxes), bool) if keep is None else np.asarray(keep)
     for b, k in zip(np.asarray(boxes), keep):
         if k:
-            _draw_rect(img, *b, color=(0, 255, 0))
+            draw_rect(img, *b, color=(0, 255, 0))
     out_dir = os.path.join(work_dir, tag)
     os.makedirs(out_dir, exist_ok=True)
     return write_png(os.path.join(out_dir, f"step_{step}.png"), img)

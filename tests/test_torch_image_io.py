@@ -3,7 +3,8 @@
 The PNG reader must give `cv2.imread(path, IMREAD_COLOR)` (converted to
 RGB, as the JAX package's `CocoDataset.load_image` does) bit for bit: on
 files cv2 writes with each of the five row filters, in gray, RGB and RGBA,
-and on files the port writes. A JPEG without cv2 raises, naming the file.
+and on files the port writes. JPEG decodes without cv2 (through the host
+library), as cv2.imread does; a damaged one raises, naming the file.
 """
 import builtins
 import os
@@ -82,8 +83,14 @@ def test_jpeg_without_cv2_raises_naming_the_file(tmp_path, monkeypatch):
             raise ImportError("no cv2")
         return real_import(name, *args, **kw)
 
+    ref = _cv2_rgb(path)
+    damaged = str(tmp_path / "damaged.jpg")
+    with open(path, "rb") as f, open(damaged, "wb") as g:
+        g.write(f.read()[:300])
     monkeypatch.setattr(builtins, "__import__", no_cv2)
-    with pytest.raises(RuntimeError) as err:
-        image_io.read_image(path)
-    assert os.path.basename(path) in str(err.value)
-    assert "JPEG" in str(err.value) and "cv2" in str(err.value)
+    # without cv2 the JPEG decodes all the same, to cv2.imread's pixels
+    np.testing.assert_array_equal(image_io.read_image(path), ref)
+    with pytest.raises(ValueError) as err:
+        image_io.read_image(damaged)
+    assert os.path.basename(damaged) in str(err.value)
+    assert "JPEG" in str(err.value)
