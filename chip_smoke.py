@@ -123,6 +123,35 @@ Phases (any failure exits non-zero):
    forward kernel at the eval batch's decoder shape (N=4, Lq 900,
    bfloat16).
 
+8a. Data parallel, two ranks spawned over gloo on the one card (one rank
+   per card over NCCL where there are two; `parallel.dist.run_local`, each
+   rank joined within DDP_TIMEOUT seconds or killed, every exit code
+   checked). The float32 equality run (TF32 off, full-width DINO-R50 of
+   the SSOD recipe, phase 6's seeded weights, 1 + 2 images per rank at
+   800x1344 from one seeded global batch): a warm-up step at score_thr 0
+   and a Hungarian step; rank 0 saves the state before each. One process
+   then takes each step on the global batch (2 + 4 images) from that
+   state, as do its witnesses: the same with every image value moved by
+   one float32 rounding, up and down. The ranks must agree with each other
+   exactly (metrics, parameters to the bit); their kept sets, GMM element
+   and Hungarian columns must equal one process's; their loss terms,
+   grad_norm, gmm_thr and per-leaf update errors must lie within
+   WITNESS_FACTOR times the witnesses' largest distance from one process.
+   The bfloat16 timing run: the recipe's 1 + 4 images
+   per rank, 2 warm-up and 2 Hungarian steps; per rank the step ms, the
+   gradient all-reduce's ms (span `dist.grad_allreduce`, synchronised on
+   both sides), the MSDA launches per step (48 / 42 + 24, vector
+   instances, asserted) and the peak memory, beside phase 6's one-process
+   step. Two processes share the card: no scaling figure.
+8b. The SSOD CLI under `python -m torch.distributed.run --standalone
+   --nproc-per-node 1` (NCCL, world 1) on phase 7's synthetic JPEG set:
+   this script re-enters as the launcher's rank (its TORCHRUN_FLAG
+   argument), counts the MSDA launches of each step and eval, and calls
+   the CLI's `main`: 2 warm-up and 2 Hungarian steps, eval after step 2,
+   a checkpoint at the end. Asserted: the log names backend nccl, rank 0
+   wrote the checkpoint, the launches per step equal phase 7's, the eval
+   lines hold valid APs.
+
 The line before the last is a JSON object with the kernels' numbers and the
 training records; the last line is {"ok": true, "device": {...}}.
 """
@@ -152,9 +181,11 @@ from semi_detr_tpu_torch.data import augment, image_io  # noqa: E402
 from semi_detr_tpu_torch.data.pipeline import (  # noqa: E402
     synthetic_batch, synthetic_ssod_batch, to_device)
 from semi_detr_tpu_torch.models import transformer as tr  # noqa: E402
+from semi_detr_tpu_torch.ops import hungarian  # noqa: E402
 from semi_detr_tpu_torch.ops import ms_deform_attn_cuda as msda  # noqa: E402
 from semi_detr_tpu_torch.ops.ms_deform_attn import (  # noqa: E402
     ms_deform_attn, ms_deform_attn_backward)
+from semi_detr_tpu_torch.parallel import dist  # noqa: E402
 from semi_detr_tpu_torch.data.synthetic import (  # noqa: E402
     write_synthetic_coco)
 from semi_detr_tpu_torch.tools import test as test_cli  # noqa: E402
@@ -245,6 +276,35 @@ TRAINER_WARM = {"warm_up": (1, 2, 3), "hungarian": (5, 6, 7)}
 QUIET_STEPS = 3
 EVAL_BATCH = 4
 OD_STEPS, OD_BATCH = 2, 2
+# phase 8a: two ranks (gloo on the one card; NCCL, one per card, where
+# there are two). The float32 equality run (TF32 off in the ranks and in
+# the parent): DDP_EQ_IMAGES (sup, unsup) per rank, a warm-up step at
+# phase 6's lowered score_thr (a non-empty supervision set) and a
+# Hungarian step, against one process on the global batch, each step from
+# the state the ranks started it from. The ranks' kept sets, GMM element
+# and Hungarian columns must equal one process's. Its continuous limits
+# come from witnesses: the same one-process step with every image value
+# moved by one float32 rounding, up and down. One process is not stable
+# under them at full width with random weights (the two-stage top-k over
+# 22,323 tokens, NMS, the solves and the GMM pick flip; NVIDIA H100 80GB
+# HBM3, 700.00 W: one rounding moved total_loss by 0.17 % and picked
+# another GMM element), so a loss term, the total, grad_norm, gmm_thr or
+# the per-leaf update errors (worst and median) may move by WITNESS_FACTOR
+# times the witnesses' largest distance from one process, plus DDP_FLOOR
+# of the total loss (a term) or of the value itself. The timing run: the
+# recipe's 1 + 4 per rank in bfloat16, 2 warm-up and 2 Hungarian steps.
+# Every rank is joined within DDP_TIMEOUT seconds or killed.
+DDP_WORLD, DDP_EQ_IMAGES = 2, (1, 2)
+DDP_EQ_STEPS = ((True, 0.0), (False, None))
+DDP_TIME_STEPS = ((True, None),) * 2 + ((False, None),) * 2
+WITNESS_FACTOR, DDP_FLOOR, DDP_TIMEOUT = 4.0, 1e-6, 420
+WITNESS_NUDGES = (1, -1)
+# phase 8b: the SSOD CLI under torch.distributed.run (NCCL, world 1) on
+# phase 7's set: 2 warm-up and 2 Hungarian steps, eval after step 2, a
+# checkpoint at the end; killed after TORCHRUN_TIMEOUT seconds
+TORCHRUN_STEPS, TORCHRUN_WARM_UP, TORCHRUN_TIMEOUT = 4, 2, 300
+# the argument that makes this script phase 8b's rank under the launcher
+TORCHRUN_FLAG = "--torchrun-ssod-cli"
 # phase 7a: the committed JPEG fixtures against their libjpeg pixels. The
 # nvJPEG route's IDCT is not libjpeg's (the library finishes its planes
 # with libjpeg's upsampling and colour tables): it read max abs 2, mean abs
@@ -1263,6 +1323,516 @@ def run_trainers(card, tmp, bare_ms):
                 launches_fwd=fwd, launches_bwd=bwd, card=card)
 
 
+
+# --------------------------------------------------------------------------
+# phase 8: data parallel
+# --------------------------------------------------------------------------
+
+def ddp_state(dtype, device):
+    """Phase 6's seeded full-width SSOD state in `dtype` on `device`."""
+    state, cfg = init_ssod_state(SSOD_CONFIG, device=device, seed=0,
+                                 cfg_options={"model.dtype": dtype})
+    refine_boxes(state.model, seed=3)
+    return state, cfg
+
+
+def ddp_batch(n_sup, n_unsup, device, nudge=0):
+    """This rank's shard of the seeded global batch (W * n_sup + W *
+    n_unsup images; the whole of it without a group); `nudge` moves every
+    image value by that many float32 roundings, up or down by its sign
+    (phase 8a's witnesses)."""
+    world = dist.world()
+    glob = synthetic_ssod_batch(world * n_sup, world * n_unsup,
+                                *SSOD_BUCKET, 100, gt_per_image=12, seed=0,
+                                student_flip=True)
+    batch = to_device(dist.shard_batch(glob, dist.rank(), world), device)
+    for part, key in (("sup", "images"), ("unsup", "student_images"),
+                      ("unsup", "teacher_images")):
+        x = batch[part][key]
+        for _ in range(abs(nudge)):
+            x = torch.nextafter(x, torch.full_like(
+                x, 1e30 if nudge > 0 else -1e30))
+        batch[part][key] = x
+    return batch
+
+
+def state_blob(state):
+    """A copy of what a step changes: student, teacher, projector, the
+    optimizer's state and the step."""
+    return {"student": state.model.state_dict(),
+            "teacher": state.teacher.state_dict(),
+            "projector": state.projector.state_dict(),
+            "optimizer": state.optimizer.adamw.state_dict(),
+            "step": state.step}
+
+
+def recorded_ssod_steps(state, cfg, batch, steps, width, on_step=None):
+    """The SSOD steps `steps` ((warm_up, score_thr or None)) on `batch`,
+    each with its metrics, kept sets, matching costs, the columns of every
+    Hungarian solve, MSDA launches (all through the `width` instance) and
+    host-clock ms around the step and a synchronise. `on_step(i)` runs
+    after each step."""
+    calls = []
+    solve = hungarian.solve_batch
+
+    def recording_solve(costs, valid):
+        cols = solve(costs, valid)
+        calls.append(cols.cpu().tolist())
+        return cols
+
+    records = []
+    hungarian.solve_batch = recording_solve
+    try:
+        for i, (warm_up, thr) in enumerate(steps):
+            step_cfg = cfg if thr is None else dataclasses.replace(
+                cfg, score_thr=thr)
+            step = make_ssod_train_step(step_cfg, warm_up)
+            calls.clear()
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            fwd = msda.ms_deform_attn_cuda.launches
+            bwd = msda.ms_deform_attn_bwd_cuda.launches
+            for wrapper, n in ((msda.ms_deform_attn_cuda, fwd),
+                               (msda.ms_deform_attn_bwd_cuda, bwd)):
+                if wrapper.launches_by_width.get(width, 0) != n:
+                    raise AssertionError(
+                        f"rank {dist.rank()} step {i}: launches by width "
+                        f"{dict(wrapper.launches_by_width)}, not all {width}")
+            if (fwd, bwd) != SSOD_LAUNCHES[warm_up]:
+                raise AssertionError(
+                    f"rank {dist.rank()} step {i}: {fwd} forward and {bwd} "
+                    f"backward MSDA launches, not {SSOD_LAUNCHES[warm_up]}")
+            vals = {k: float(v) for k, v in metrics.items()
+                    if k not in ("pseudo_vis", "pseudo_sets")}
+            bad = [k for k, v in vals.items() if not math.isfinite(v)]
+            if bad:
+                raise AssertionError(f"rank {dist.rank()} step {i}: "
+                                     f"non-finite {bad}")
+            dist.assert_replicated(
+                [p for m in (state.model, state.teacher, state.projector)
+                 for p in m.parameters()], f"step {i}'s parameters")
+            records.append(dict(
+                step=i, warm_up=warm_up, ms=ms, fwd=fwd, bwd=bwd,
+                metrics=vals, cols=list(calls),
+                sets={k: v.cpu().tolist() for k, v in
+                      metrics["pseudo_sets"].items()}))
+            if on_step is not None:
+                on_step(i)
+    finally:
+        hungarian.solve_batch = solve
+    return records
+
+
+def ddp_rank(rank, world, init_method, backend, out_dir):
+    """One rank of phase 8a: the float32 equality run (rank 0 saves its
+    student and projector after each step), then the bfloat16 timing run
+    with the gradient all-reduce timed; its records to rank<r>.json."""
+    t0 = time.perf_counter()
+    parts_s = {}
+
+    def part(name):
+        parts_s[name] = round(time.perf_counter() - t0, 2)
+
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    dist.init_distributed(backend, device, rank, world, init_method)
+    done = False
+    try:
+        part("group")
+        # TF32 off, as in the parent since phase 3
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        state, cfg = ddp_state("float32", device)
+        dist.broadcast_state(state)
+        batch = ddp_batch(*DDP_EQ_IMAGES, device)
+        part("float32 state")
+
+        def save(i):
+            # the state after step i: where one process starts step i + 1
+            if dist.is_main():
+                torch.save(state_blob(state), os.path.join(
+                    out_dir, f"eq_state{i + 1}.pt"))
+
+        save(-1)
+        equality = recorded_ssod_steps(state, cfg, batch, DDP_EQ_STEPS, 4,
+                                       save)
+        del state, batch
+        torch.cuda.empty_cache()
+        part("float32 steps")
+
+        # TF32 stays off, as in the parent since phase 3 (phase 6's step)
+        state, cfg = ddp_state("bfloat16", device)
+        dist.broadcast_state(state)
+        batch = ddp_batch(SSOD_SUP, SSOD_UNSUP, device)
+        grad_bytes = sum(p.numel() * 4 for g in
+                         state.optimizer.adamw.param_groups
+                         for p in g["params"])
+        allreduce_ms = []
+        all_sum_ = dist.all_sum_
+        part("bfloat16 state")
+
+        def timed_all_sum_(tensors):
+            # synchronised on both sides, so the span holds the reduction
+            # alone (this adds two synchronisations to each timed step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_sum_(tensors)
+            torch.cuda.synchronize()
+            allreduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+        dist.all_sum_ = timed_all_sum_
+        torch.cuda.reset_peak_memory_stats(device)
+        try:
+            timing = recorded_ssod_steps(state, cfg, batch, DDP_TIME_STEPS,
+                                         MAIN_WIDTH)
+        finally:
+            dist.all_sum_ = all_sum_
+        part("bfloat16 steps")
+        for rec, ms in zip(timing, allreduce_ms):
+            rec["allreduce_ms"] = ms
+            del rec["cols"], rec["sets"]
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "device": str(device),
+                       "parts_s": parts_s,
+                       "backend": dist.backend(), "equality": equality,
+                       "timing": timing, "grad_bytes": grad_bytes,
+                       "peak_memory_bytes": torch.cuda.max_memory_allocated(
+                           device)}, f)
+        done = True
+    finally:
+        dist.destroy()
+    if done:
+        # the work is written and the group left: nothing is left to tear
+        # down, so the rank ends at once, without the interpreter's exit
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
+
+
+def leaf_update_errors(before, after, ref_before, ref_after):
+    """{leaf: relative L2 of (after - before) against (ref_after -
+    ref_before)} over the leaves the reference moved."""
+    out = {}
+    for k, r1 in ref_after.items():
+        du = ref_after[k].float() - ref_before[k].float()
+        if not du.any():
+            continue
+        d = (after[k].float() - before[k].float()) - du
+        out[k] = float(d.norm() / du.norm())
+    return out
+
+
+def single_process_run(state, cfg, nudge, blob_path, step):
+    """Phase 8a's reference: one process (no group) on the global batch,
+    images moved by `nudge` float32 roundings, takes equality step `step`
+    in `state` reset to what rank 0 saved before it, TF32 off as in the
+    ranks (cuDNN's default TF32 moved one process's total_loss by ~5 % and
+    every discrete choice). Returns its record and its student and
+    projector after the step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    blob = torch.load(blob_path, map_location="cuda", weights_only=True)
+    state.model.load_state_dict(blob["student"])
+    state.teacher.load_state_dict(blob["teacher"])
+    state.projector.load_state_dict(blob["projector"])
+    state.optimizer.adamw.load_state_dict(blob["optimizer"])
+    state.step = blob["step"]
+    del blob
+    batch = ddp_batch(DDP_WORLD * DDP_EQ_IMAGES[0],
+                      DDP_WORLD * DDP_EQ_IMAGES[1], "cuda", nudge=nudge)
+    rec, = recorded_ssod_steps(state, cfg, batch, DDP_EQ_STEPS[step:step + 1],
+                               4)
+    after = params_of(state)
+    del batch
+    return rec, after
+
+
+def params_of(state):
+    return {f"{m}.{k}": v.detach().clone() for m, mod in (
+        ("student", state.model), ("projector", state.projector))
+        for k, v in mod.state_dict().items()}
+
+
+def ddp_phase(card, bare_ms):
+    backend = "nccl" if torch.cuda.device_count() >= DDP_WORLD else "gloo"
+    log(f"== phase 8a: data parallel, two ranks over {backend} "
+        f"({'one per card' if backend == 'nccl' else 'on the one card'}): "
+        "float32 equality run against one process on the global batch, "
+        "bfloat16 timing run at 1 + 4 per rank")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    try:
+        t0 = time.perf_counter()
+        dist.run_local(ddp_rank, DDP_WORLD, (backend, tmp),
+                       timeout=DDP_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DDP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for r in ranks:
+            log(f"  rank {r['rank']} on {r['device']} ({r['backend']}), "
+                f"bfloat16 1 + 4: step ms "
+                f"{[round(t['ms'], 1) for t in r['timing']]}, gradient "
+                "all-reduce ms "
+                f"{[round(t['allreduce_ms'], 1) for t in r['timing']]} "
+                f"({r['grad_bytes']} bytes), MSDA launches per step "
+                f"{[(t['fwd'], t['bwd']) for t in r['timing']]}, peak "
+                f"memory {r['peak_memory_bytes'] / 2 ** 30:.2f} GiB; "
+                f"seconds since its start, by part {r['parts_s']}")
+        log(f"  phase 6's one-process step in this call: warm-up "
+            f"{bare_ms['warm_up']:.1f} ms, Hungarian "
+            f"{bare_ms['hungarian']:.1f} ms"
+            + (" (two processes share one card here: no scaling figure)"
+               if backend == "gloo" else ""))
+        t1 = time.perf_counter()
+        checks, failures = [], []
+        state, cfg = ddp_state("float32", "cuda")
+        for i in range(len(DDP_EQ_STEPS)):
+            start = os.path.join(tmp, f"eq_state{i}.pt")
+            before = params_of_blob(start)
+            after = params_of_blob(os.path.join(tmp, f"eq_state{i + 1}.pt"))
+            runs = [single_process_run(state, cfg, n, start, i)
+                    for n in (0,) + WITNESS_NUDGES]
+            c, f = ddp_compare(i, [r["equality"][i] for r in ranks],
+                               before, after, runs)
+            checks.append(c)
+            failures += f
+        single_s = time.perf_counter() - t1
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp)
+    for c in checks:
+        log(f"  equality step {c['step']}: {c}")
+    log(f"  ranks {ranks_s:.1f} s, one process and its witnesses "
+        f"{single_s:.1f} s")
+    log("  " + card)
+    if failures:
+        raise AssertionError("phase 8a: " + "; ".join(failures))
+    launches = {kind: [sum(t[kind] for run in ("equality", "timing")
+                           for t in r[run]) for r in ranks]
+                for kind in ("fwd", "bwd")}
+    return dict(backend=backend, ranks=[{k: v for k, v in r.items()
+                                         if k != "equality"} for r in ranks],
+                equality=checks, launches=launches, bare_step_ms=bare_ms,
+                ranks_s=ranks_s, card=card)
+
+
+def params_of_blob(path):
+    blob = torch.load(path, map_location="cuda", weights_only=True)
+    return {f"{m}.{k}": v for m in ("student", "projector")
+            for k, v in blob[m].items()}
+
+
+def ddp_compare(i, recs, before, after, runs):
+    """Phase 8a's checks of equality step i, all runs from one state: the
+    ranks' records `recs` and parameters `after` against one process on
+    the global batch and its witnesses (`runs`: one process, then the
+    same with the images moved by WITNESS_NUDGES float32 roundings). The
+    ranks agree with each other exactly; their kept sets, GMM element and
+    Hungarian columns equal one process's; each loss term, the total,
+    grad_norm and gmm_thr, and the per-leaf update errors (worst and
+    median) lie within WITNESS_FACTOR times the witnesses' largest distance
+    from one process, plus DDP_FLOOR of the total loss (a term) or of the
+    value. Returns (the readings, the failures)."""
+    (ref, ref_after), wits = runs[0], runs[1:]
+    failures = []
+
+    def fail(msg):
+        failures.append(f"equality step {i}: {msg}")
+
+    if any(r["metrics"] != recs[0]["metrics"] for r in recs):
+        fail("rank metrics differ")
+    readings = dict(step=i, warm_up=ref["warm_up"])
+    for key in ("valid", "keep_sup", "keep_cons"):
+        same = [row for r in recs for row in r["sets"][key]] == \
+            ref["sets"][key]
+        readings[key] = same
+        if not same:
+            fail(f"{key} differs from one process's")
+    # the GMM threshold is one cost of the pool: the same pseudo box
+    valid = np.asarray(ref["sets"]["valid"]).reshape(-1)
+
+    def picked(costs, thr):
+        return [int(k) for k in np.flatnonzero(valid & (np.asarray(
+            costs, np.float32).reshape(-1) == np.float32(thr)))]
+    got = picked([row for r in recs for row in r["sets"]["costs"]],
+                 recs[0]["metrics"]["gmm_thr"])
+    ones = [picked(w["sets"]["costs"], w["metrics"]["gmm_thr"])
+            for w, _ in runs]
+    readings["gmm_element"] = (got, ones)
+    if got != ones[0] or len(got) != 1:
+        fail(f"GMM element {got}, one process {ones[0]}")
+    # Hungarian columns: rank r's rows of each solve (batch axis -2), and
+    # whether every witness kept one process's
+    cols_same = []
+    for k, cols in enumerate(ref["cols"]):
+        full = np.asarray(cols)
+        parts = np.concatenate([np.asarray(r["cols"][k]) for r in recs],
+                               axis=full.ndim - 2)
+        cols_same.append((bool(np.array_equal(parts, full)), all(
+            np.array_equal(np.asarray(w["cols"][k]), full)
+            for w, _ in wits)))
+        if not np.array_equal(parts, full):
+            fail(f"Hungarian solve {k} columns differ")
+    readings["hungarian"] = cols_same
+    m, rm = recs[0]["metrics"], ref["metrics"]
+    total = abs(rm["total_loss"])
+    terms = {}
+    for k in [k for k in rm if "loss" in k] + ["grad_norm", "gmm_thr"]:
+        got_d = abs(m[k] - rm[k])
+        wit_d = max(abs(w["metrics"][k] - rm[k]) for w, _ in wits)
+        floor = DDP_FLOOR * (total if "loss" in k and k != "total_loss"
+                             else abs(rm[k]))
+        terms[k] = (got_d, wit_d)
+        if got_d > WITNESS_FACTOR * wit_d + floor:
+            fail(f"{k} {m[k]} vs one process {rm[k]} (witnesses "
+                 f"{[w['metrics'][k] for w, _ in wits]})")
+    upd = leaf_update_errors(before, after, before, ref_after)
+    wupd = [leaf_update_errors(before, a, before, ref_after)
+            for _, a in wits]
+    worst, med = max(upd.values()), float(np.median(list(upd.values())))
+    wworst = max(max(u.values()) for u in wupd)
+    wmed = max(float(np.median(list(u.values()))) for u in wupd)
+    if worst > WITNESS_FACTOR * wworst + DDP_FLOOR or \
+            med > WITNESS_FACTOR * wmed + DDP_FLOOR:
+        fail(f"update errors worst {worst} median {med}, witnesses "
+             f"{wworst} / {wmed}")
+    readings.update(
+        {k: (m[k], rm[k], [w["metrics"][k] for w, _ in wits])
+         for k in ("total_loss", "grad_norm", "gmm_thr")},
+        worst_loss_term=max(((k, v) for k, v in terms.items()
+                             if "loss" in k and k != "total_loss"),
+                            key=lambda kv: kv[1][0]),
+        update_worst=(worst, wworst), update_median=(med, wmed),
+        sup_set_per_img=recs[0]["metrics"]["sup_set_per_img"],
+        ms=([r["ms"] for r in recs], ref["ms"]))
+    return readings, failures
+
+
+def torchrun_cli_rank(out, argv):
+    """Phase 8b's rank, started by torch.distributed.run: the SSOD CLI's
+    `main` on `argv`, with the MSDA launches of each step and each eval
+    counted in this process; rank 0 writes them to `out` as JSON."""
+    per_step, evals = [], []
+    run_step, evaluate = SsodTrainer._run_step, SsodTrainer.evaluate
+
+    def counted_step(self, step, batch, vis_img):
+        reset_counts()
+        result = run_step(self, step, batch, vis_img)
+        per_step.append((step, msda.ms_deform_attn_cuda.launches,
+                         msda.ms_deform_attn_bwd_cuda.launches))
+        assert_vector(msda.ms_deform_attn_cuda, f"step {step} forward")
+        assert_vector(msda.ms_deform_attn_bwd_cuda, f"step {step} backward")
+        return result
+
+    def counted_eval(self, step, warm_up):
+        reset_counts()
+        result = evaluate(self, step, warm_up)
+        evals.append((step, msda.ms_deform_attn_cuda.launches,
+                      len(self.val_dataset)))
+        return result
+
+    SsodTrainer._run_step, SsodTrainer.evaluate = counted_step, counted_eval
+    try:
+        trainer = train_detr_ssod.main(argv)
+        record = dict(backend=dist.backend(), world=dist.world(),
+                      rank=dist.rank(), device=str(trainer.device),
+                      per_step=per_step, evals=evals,
+                      steps=[t["step"] for t in trainer.timings],
+                      ckpts=trainer.ckpt.all_steps())
+        if dist.is_main():
+            with open(out, "w") as f:
+                json.dump(record, f)
+    finally:
+        SsodTrainer._run_step, SsodTrainer.evaluate = run_step, evaluate
+        dist.destroy()
+    # as phase 8a's ranks: written and out of the group, it ends at once
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def torchrun_phase(card, trainer_per_step):
+    log("== phase 8b: the SSOD CLI under torch.distributed.run (NCCL, world "
+        f"1): {TORCHRUN_STEPS} steps, eval, a checkpoint")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_torchrun_")
+    try:
+        n_img = max(max(r) for r in TRAINER_SPLITS.values()) + 1
+        paths, img_dir = write_synthetic_coco(tmp, n=n_img, seed=0,
+                                              splits=TRAINER_SPLITS,
+                                              **TRAINER_SET)
+        work, out = os.path.join(tmp, "ssod"), os.path.join(tmp, "rank.json")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", os.path.abspath(__file__),
+               TORCHRUN_FLAG, out, SSOD_CONFIG, "--work-dir", work,
+               "--max-steps", str(TORCHRUN_STEPS), "--cfg-options",
+               f"data.train_sup_ann={paths['sup']}",
+               f"data.train_unsup_ann={paths['unsup']}",
+               f"data.val_ann={paths['val']}",
+               f"data.train_prefix={img_dir}", f"data.val_prefix={img_dir}",
+               f"ssod.warm_up_step={TORCHRUN_WARM_UP}",
+               f"eval_interval={TORCHRUN_WARM_UP}",
+               f"ckpt_interval={TORCHRUN_STEPS}",
+               f"image_log_interval={TORCHRUN_WARM_UP}"]
+        t0 = time.perf_counter()
+        # a session of its own, so a timeout kills the launcher's worker too
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                cwd=os.path.dirname(os.path.abspath(
+                                    __file__)), start_new_session=True)
+        try:
+            output = proc.communicate(timeout=TORCHRUN_TIMEOUT)[0]
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+            raise AssertionError(f"torch.distributed.run did not end within "
+                                 f"{TORCHRUN_TIMEOUT} s")
+        run_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"torch.distributed.run exited "
+                                 f"{proc.returncode}:\n{output[-4000:]}")
+        with open(out) as f:
+            rec = json.load(f)
+        with open(os.path.join(work, "train.log")) as f:
+            train_log = f.read()
+        if "data parallel: backend nccl, world 1, rank 0" not in train_log:
+            raise AssertionError("the run's log does not name backend nccl")
+        if (rec["backend"], rec["world"]) != ("nccl", 1):
+            raise AssertionError(f"process group {rec}")
+        if rec["steps"] != list(range(TORCHRUN_STEPS)):
+            raise AssertionError(f"steps run: {rec['steps']}")
+        if not os.path.isfile(os.path.join(work, "ckpt",
+                                           f"step_{TORCHRUN_STEPS}.pt")):
+            raise AssertionError(f"no checkpoint by rank 0: {rec['ckpts']}")
+        # per step as phase 7's steps of the same stage
+        phase7 = {step < TRAINER_WARM_UP: (f, b)
+                  for step, f, b in trainer_per_step}
+        for step, f, b in rec["per_step"]:
+            warm_up = step < TORCHRUN_WARM_UP
+            if (f, b) != SSOD_LAUNCHES[warm_up] or (f, b) != phase7[warm_up]:
+                raise AssertionError(f"torchrun step {step}: {f} forward and "
+                                     f"{b} backward MSDA launches, phase 7 "
+                                     f"{phase7[warm_up]}")
+        n_batches = -(-len(TRAINER_SPLITS["val"]) // EVAL_BATCH)
+        if [e[1] for e in rec["evals"]] != [2 * n_batches * 12]:
+            raise AssertionError(f"torchrun evals {rec['evals']}")
+        evals_logged = read_evals(os.path.join(work, "train.log"))
+        for tag in ("teacher", "student"):
+            check_aps(evals_logged[(tag, TORCHRUN_WARM_UP)],
+                      f"torchrun Eval[{tag}]")
+    finally:
+        shutil.rmtree(tmp)
+    log(f"  torch.distributed.run: {run_s:.1f} s (process start included); "
+        f"backend {rec['backend']} on {rec['device']}; MSDA launches per "
+        f"step {[(f, b) for _, f, b in rec['per_step']]}, per eval "
+        f"{[e[1] for e in rec['evals']]}; checkpoint {rec['ckpts']}")
+    log("  " + card)
+    return dict(rec, run_s=run_s, card=card)
+
 def leaf_errors(grads_k, grads_p):
     gnorm = float(torch.sqrt(sum((g.double() ** 2).sum()
                                  for g in grads_p.values())))
@@ -1426,6 +1996,9 @@ def model_grad_phase():
 
 
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == TORCHRUN_FLAG:
+        torchrun_cli_rank(sys.argv[2], sys.argv[3:])
+        return
     log("== phase 1: device")
     card = card_line()
     log(card)
@@ -1469,6 +2042,8 @@ def main():
     ssod = timed("6", ssod_phase, card)
     host_lib = timed("7a", host_library_phase, host_build_s)
     trainer = timed("7", trainer_phase, card, ssod["warm_step_ms"])
+    ddp = timed("8a", ddp_phase, card, ssod["warm_step_ms"])
+    torchrun = timed("8b", torchrun_phase, card, trainer["launches_per_step"])
 
     main_rows = [r for r in rows if r["dtype"] == "bfloat16"
                  and r["case"] in ("encoder", "decoder")]
@@ -1492,7 +2067,9 @@ def main():
         "launches_by_path": {"serve": launches,
                              "train": train["launches_fwd"],
                              "ssod": ssod["launches_fwd"],
-                             "trainer": trainer["launches_fwd"]},
+                             "trainer": trainer["launches_fwd"],
+                             # per rank, phase 8a's two runs
+                             "ddp": ddp["launches"]["fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
         # per image on the serving path (bfloat16, N=1): 6 encoder + 6
         # decoder calls
@@ -1511,7 +2088,8 @@ def main():
         "launches": train["launches_bwd"],
         "launches_by_path": {"serve": 0, "train": train["launches_bwd"],
                              "ssod": ssod["launches_bwd"],
-                             "trainer": trainer["launches_bwd"]},
+                             "trainer": trainer["launches_bwd"],
+                             "ddp": ddp["launches"]["bwd"]},
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in bwd_main),
         # per training step (batch 2, bfloat16): 6 encoder + 6 decoder calls
         "ms": per_step["ms"],
@@ -1525,7 +2103,8 @@ def main():
         "request_ms": {k: v * 1e3 for k, v in latency.items()},
         "float32_request_err": errs, "train": train,
         "float32_grad_check": grad_check, "ssod": ssod,
-        "host_library": host_lib, "trainer": trainer}
+        "host_library": host_lib, "trainer": trainer, "ddp": ddp,
+        "torchrun": torchrun}
     print(json.dumps(json_safe(record), allow_nan=False), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -15,11 +15,13 @@ Counterpart of `semi_detr_tpu/models/criterion.py`, which reproduces
 * the reference returns loss_bbox / loss_bbox_xy / loss_bbox_hw as
   separate entries that mmcv sums, doubling the L1 weight; kept.
 
-The port trains on one card, so the avg factors are this batch's own: the
-JAX package's cross-device `pmean` has no counterpart. The loss keys are
-the JAX package's, letter for letter. After the warm-up, the costs of all
-decoder layers and the encoder go to the host in one copy and come back
-solved in one copy (`ops/hungarian.solve_batch`).
+The avg factors are the global batch's, as in the JAX package's
+global-view step: under data parallelism each rank's loss is its images'
+sum over the global factor (`parallel.dist.all_sum`), so the ranks' losses
+add up to the global batch's loss and their gradients to its gradient.
+The loss keys are the JAX package's, letter for letter. After the warm-up,
+the costs of all decoder layers and the encoder go to the host in one copy
+and come back solved in one copy (`ops/hungarian.solve_batch`).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 
 from ..core import boxes as box_ops
 from ..ops import hungarian
+from ..parallel import dist
 from . import assign, losses
 from .dn import CdnBatch
 
@@ -40,20 +43,26 @@ DN_KEYS = ("dn_loss_cls", "dn_loss_bbox", "dn_loss_iou", "dn_loss_bbox_xy",
 def _grouped_cls_weights(num_pos_per_img, cls_group: Optional[int]):
     """Per-image loss scales for the reference's unsynced cls avg factor
     (sync_cls_avg_factor=False, dino_detr_ssod_head.py:86, :763-770): each
-    group of `cls_group` consecutive images stands for one reference GPU,
-    normalized by its own positive count, and the per-GPU losses are
-    averaged. Returns w (B,) with sum_i(l_i * w_i) ==
-    mean_g(sum_{i in g} l_i / max(pos_g, 1)), or None when cls_group is
-    None/0 or does not divide the batch (the caller keeps the global
-    factor)."""
+    group of `cls_group` consecutive images of the global batch stands for
+    one reference GPU, normalized by its own positive count, and the
+    per-GPU losses are averaged. Returns this rank's w (B,) with
+    sum_i(l_i * w_i) == mean_g(sum_{i in g} l_i / max(pos_g, 1)) over the
+    global batch, or None when cls_group is None/0 or does not divide the
+    global batch (the caller keeps the global factor). A group that lies
+    inside this rank's images needs only their counts; groups that span
+    ranks take the global batch's counts."""
     if not cls_group:
         return None
     b = num_pos_per_img.shape[0]
-    if b % cls_group != 0:
+    if (b * dist.world()) % cls_group != 0:
         return None
-    n = b // cls_group
-    chunk = num_pos_per_img.reshape(n, cls_group).sum(1).clamp(min=1.0)
-    return (1.0 / (chunk * n)).repeat_interleave(cls_group)
+    n = b * dist.world() // cls_group
+    if b % cls_group == 0:
+        chunk = num_pos_per_img.reshape(-1, cls_group).sum(1).clamp(min=1.0)
+        return (1.0 / (chunk * n)).repeat_interleave(cls_group)
+    chunk = dist.all_cat(num_pos_per_img).reshape(n, cls_group).sum(
+        1).clamp(min=1.0)
+    return dist.rank_rows((1.0 / (chunk * n)).repeat_interleave(cls_group))
 
 
 def _layer_loss(cls_scores, bbox_preds, gt, warm_up: bool, num_classes: int,
@@ -69,17 +78,17 @@ def _layer_loss(cls_scores, bbox_preds, gt, warm_up: bool, num_classes: int,
         tg = assign.one_to_one_targets(cls_scores, bbox_preds, gt["boxes"],
                                        gt["labels"], gt["valid"],
                                        num_classes, cols)
-    num_total_pos = tg.num_pos.sum()
+    num_total_pos = dist.all_sum(tg.num_pos.sum())
     pred_xyxy = box_ops.cxcywh_to_xyxy(bbox_preds)
     tgt_xyxy = box_ops.cxcywh_to_xyxy(tg.bbox_targets)
 
     out = {}
     if warm_up:
-        sum_metrics = tg.norm_metrics.sum().clamp(min=1.0)
+        sum_metrics = dist.all_sum(tg.norm_metrics.sum()).clamp(min=1.0)
         out[f"{prefix}loss_cls"] = CLS_W * losses.task_aligned_focal_loss(
             cls_scores, tg.labels, tg.norm_metrics, tg.label_weights,
             sum_metrics, num_classes)
-        reg_avg = tg.bbox_weights[..., 0].sum().clamp(min=1.0)
+        reg_avg = dist.all_sum(tg.bbox_weights[..., 0].sum()).clamp(min=1.0)
     else:
         # default: the global positive count for both factors (official
         # DETR / sync_cls_avg_factor=True semantics, the JAX package's
@@ -127,7 +136,7 @@ def _dn_layer_loss(cls_scores, bbox_preds, gt, cdn: CdnBatch,
     bbox_targets = gt["boxes"][:, gt_idx] * pos_mask[..., None]
     bbox_weights = pos_mask[..., None].expand(B, pad, 4)
 
-    num_total_pos = pos_mask.sum()
+    num_total_pos = dist.all_sum(pos_mask.sum())
     reg_avg = num_total_pos.clamp(min=1.0)
     gw = _grouped_cls_weights(pos_mask.sum(1), cls_group)
     if gw is not None:

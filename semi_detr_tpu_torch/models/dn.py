@@ -25,6 +25,11 @@ sign * u * half-extent * box_noise_scale, u in [0, 1) for positives and
 [1, 2) for negatives, then clamp to [0, 1]. The random numbers come from
 one `torch.Generator` (`draw_cdn_noise`), so a run is reproducible from
 its seed; `build_cdn_queries` is a plain function of them.
+
+Data parallel: the batch is the global batch of the JAX package's step. Each
+rank draws the noise of all W * B images from the shared (seed, step)
+generator and keeps its rows, and single_pad is the largest GT count over
+all ranks (`parallel.dist.all_max`).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel import dist
 from .transformer import inverse_sigmoid
 
 
@@ -58,17 +64,19 @@ class CdnNoise(NamedTuple):
 
 def draw_cdn_noise(generator: torch.Generator, batch: int, capacity: int,
                    num_classes: int, device) -> CdnNoise:
-    """Draw one step's CDN noise from `generator` (on `device`)."""
-    g, dev = generator, device
-    return CdnNoise(
-        fake_label=torch.randint(0, num_classes, (batch,), generator=g,
+    """Draw one step's CDN noise from `generator` (on `device`) for this
+    rank's `batch` images: the global batch's draw, this rank's rows."""
+    g, dev, n = generator, device, batch * dist.world()
+    noise = CdnNoise(
+        fake_label=torch.randint(0, num_classes, (n,), generator=g,
                                  device=dev),
-        relabel_u=torch.rand((batch, capacity), generator=g, device=dev),
-        new_label=torch.randint(0, num_classes, (batch, capacity),
+        relabel_u=torch.rand((n, capacity), generator=g, device=dev),
+        new_label=torch.randint(0, num_classes, (n, capacity),
                                 generator=g, device=dev),
-        sign=torch.randint(0, 2, (batch, capacity, 4), generator=g,
+        sign=torch.randint(0, 2, (n, capacity, 4), generator=g,
                            device=dev).float() * 2.0 - 1.0,
-        part=torch.rand((batch, capacity, 4), generator=g, device=dev))
+        part=torch.rand((n, capacity, 4), generator=g, device=dev))
+    return CdnNoise(*map(dist.rank_rows, noise))
 
 
 def dn_slot_groups(single_pad, groups, capacity: int, device=None):
@@ -157,9 +165,9 @@ def build_cdn_queries(noise: CdnNoise, gt_boxes: torch.Tensor,
         gt_labels.dtype), gt_labels)
     valid = gt_valid | inject
 
-    # adaptive partition (reference `:164-180`)
+    # adaptive partition (reference `:164-180`), over the global batch
     counts = valid.sum(1)                                        # >= 1
-    sp = counts.max().clamp(1, min(capacity // 2, G))
+    sp = dist.all_max(counts.max()).clamp(1, min(capacity // 2, G))
     n_groups = torch.div(capacity, 2 * sp, rounding_mode="floor")
 
     s = torch.arange(capacity, device=dev)

@@ -10,8 +10,11 @@ Counterpart of the decode half of `semi_detr_tpu/models/inference.py`:
 * `run_eval` / `evaluate_detector` / `evaluate_teacher_and_student`: the
   batched COCO-mAP evaluation over a dataset, boxes rescaled to the
   original frame (rescale=True), teacher and student over one loader
-  (`SubModulesDistEvalHook`, `submodules_evaluation.py:71-101`).
-  `gather_results` (multi-process eval) waits for the multi-GPU slice.
+  (`SubModulesDistEvalHook`, `submodules_evaluation.py:71-101`);
+* data parallel: rank r infers the eval batches i with i % W == r, and
+  `gather_results` gives every rank the union (the JAX package's
+  rank-sliced eval, `semi_detr_tpu/models/inference.py:135-175, 208-215`),
+  so every rank scores the same detections.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from ..core import boxes as box_ops
 from ..ops.nms import multiclass_nms
+from ..parallel import dist
 
 
 def _extent(img_hw):
@@ -112,6 +116,42 @@ def run_eval(detector, batches: Iterable[Dict], use_nms: bool = False,
     return results
 
 
+def gather_results(results: Dict[int, Tuple], max_dets: int = 300
+                   ) -> Dict[int, Tuple]:
+    """All-gather per-image eval results across the ranks (the reference's
+    `collect_results_gpu`, `detr_od/apis/test.py:152-191`, as the JAX
+    package's one all-gather of padded fixed-shape arrays). Every rank
+    passes its images' {image_id: (boxes, scores, labels)} and gets the
+    union, merged in rank order (a later rank's entry for an id replaces an
+    earlier one). A no-op without a process group."""
+    if dist.backend() is None:
+        return results
+    dev = dist.collective_device()
+    ids = sorted(results)
+    m = int(dist.all_max(torch.tensor(len(ids), device=dev)))
+    img_ids = np.full((m,), -1, np.int64)
+    ndet = np.zeros((m,), np.int64)
+    boxes = np.zeros((m, max_dets, 4), np.float32)
+    scores = np.zeros((m, max_dets), np.float32)
+    labels = np.zeros((m, max_dets), np.int32)
+    for i, iid in enumerate(ids):
+        b, s, lab = results[iid]
+        k = min(len(s), max_dets)
+        img_ids[i], ndet[i] = iid, k
+        boxes[i, :k], scores[i, :k], labels[i, :k] = b[:k], s[:k], lab[:k]
+    g = [dist.all_gather(torch.from_numpy(a).to(dev)).cpu().numpy()
+         for a in (img_ids, ndet, boxes, scores, labels)]
+    gi, gn, gb, gs, gl = g
+    merged: Dict[int, Tuple] = {}
+    for p in range(gi.shape[0]):
+        for r in range(gi.shape[1]):
+            if gi[p, r] >= 0:
+                k = gn[p, r]
+                merged[int(gi[p, r])] = (gb[p, r, :k], gs[p, r, :k],
+                                         gl[p, r, :k])
+    return merged
+
+
 def _groundtruth(dataset) -> Dict[int, Tuple]:
     """{image_id: (boxes, labels, ignore[, areas])}: crowd/ignore regions
     appended as ignored GT, COCO areas where the records carry them."""
@@ -145,7 +185,8 @@ def evaluate_detector(detector, dataset, batch_size: int = 4,
     last batch repeats its last image, whose duplicate results land on the
     same image id. The images are read, decoded and resized ahead by the
     host library's prefetch loader (`data.pipeline.prefetched_test_batches`)
-    while the detector runs."""
+    while the detector runs. Under data parallelism each rank infers every
+    W-th batch and every rank scores the gathered union."""
     from ..data.coco_eval import coco_map
     from ..data.pipeline import prefetched_test_batches
 
@@ -158,8 +199,9 @@ def evaluate_detector(detector, dataset, batch_size: int = 4,
         for s in range(0, len(ids), batch_size):
             idx = [int(i) for i in ids[s:s + batch_size]]
             groups.append((idx + [idx[-1]] * (batch_size - len(idx)), bkt))
-    dets = run_eval(detector, prefetched_test_batches(
-        dataset, groups, scale=test_scale), use_nms)
+    mine = groups[dist.rank()::dist.world()]
+    dets = gather_results(run_eval(detector, prefetched_test_batches(
+        dataset, mine, scale=test_scale), use_nms))
     return coco_map(dets, _groundtruth(dataset), num_classes, class_names)
 
 

@@ -26,6 +26,12 @@ the same queries from the same pseudo labels:
 
 Adaptive sizes (the partitions' group sizes) stay 0-d tensors on the
 device, as in `models/dn.py`: building the block syncs nothing.
+
+Data parallel: the batch is the JAX step's global batch. The consistency
+group size is a max over all ranks, the consistency loss's denominator and
+the Projector's masked batch statistics are sums over all ranks (the
+statistics through `parallel.dist.all_sum_grad`, so their gradient reaches
+every rank); pseudo labels, NMS and the matching costs stay per image.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ import torch.nn.functional as F
 from ..core import boxes as box_ops
 from ..ops import hungarian
 from ..ops.nms import multiclass_nms
+from ..parallel import dist
 from . import losses
 from .dino_head import DinoConfig
 from .dn import dn_slot_groups, front_attn_mask
@@ -88,7 +95,8 @@ class PseudoLabels(NamedTuple):
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over the real RoIs only (a (R,) weight mask), always with
     batch statistics: the reference runs its Projector only in training.
-    Channels on axis 1; the statistics are biased, eps 1e-5."""
+    Channels on axis 1; the statistics are biased, eps 1e-5, and taken over
+    every rank's RoIs (`denom` is their global count)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -99,8 +107,9 @@ class MaskedBatchNorm(nn.Module):
         axes = (0,) + tuple(range(2, h.dim()))
         wb = w.reshape((-1,) + (1,) * (h.dim() - 1))
         n = denom * math.prod(h.shape[2:])
-        mean = (h * wb).sum(axes, keepdim=True) / n
-        var = (((h - mean) ** 2) * wb).sum(axes, keepdim=True) / n
+        mean = dist.all_sum_grad((h * wb).sum(axes, keepdim=True)) / n
+        var = dist.all_sum_grad((((h - mean) ** 2) * wb).sum(
+            axes, keepdim=True)) / n
         shape = (1, -1) + (1,) * (h.dim() - 2)
         return ((h - mean) * torch.rsqrt(var + 1e-5)
                 * self.weight.reshape(shape) + self.bias.reshape(shape))
@@ -150,7 +159,7 @@ class Projector(nn.Module):
         """x: (R, C, 7, 7); mask: (R,) bool, the RoIs of the BN statistics.
         Returns (R, features) float32."""
         w = mask.float()
-        denom = w.sum().clamp(min=1.0)
+        denom = dist.all_sum(w.sum()).clamp(min=1.0)
         h = F.relu(self.bn1(self.conv1(x.float()), w, denom))
         h = F.relu(self.bn2(self.conv2(h), w, denom))
         h = F.relu(self.bn(self.fc1(h.flatten(1)), w, denom))
@@ -285,14 +294,15 @@ def inject_fake_consistency_roi(keep_cons, boxes_t, boxes_s, teacher_hw,
 
 def consistency_partition(packed_valid, cons_groups: int, capacity: int):
     """The adaptive consistency partition (reference single_pad_1 =
-    max(known_num), :537): group size = the batch's largest kept count,
-    clipped to [1, capacity // cons_groups]; `cons_groups` groups; slots
-    past cons_groups * size are inactive.
+    max(known_num), :537): group size = the global batch's largest kept
+    count, clipped to [1, capacity // cons_groups]; `cons_groups` groups;
+    slots past cons_groups * size are inactive.
 
     packed_valid: (B, P) prefix-packed kept mask. Returns (size () tensor,
     slot_idx (capacity,) slot -> packed pseudo index, slot weights
     (B, capacity) bool)."""
-    size = packed_valid.sum(1).max().clamp(1, capacity // cons_groups)
+    size = dist.all_max(packed_valid.sum(1).max()).clamp(
+        1, capacity // cons_groups)
     s = torch.arange(capacity, device=packed_valid.device)
     slot_idx = s % size
     active = s < cons_groups * size
@@ -347,10 +357,12 @@ def consistency_loss(hs_student, hs_teacher, cons_weights, cons_counts,
 
     hs_*: (n_dec, B, cons_pad, C); cons_weights: (B, cons_pad) per-slot
     weights; cons_counts: (B,) known slots per image (>= 1: an empty image's
-    fake slot enters the denominator). Float32 losses."""
+    fake slot enters the denominator, which counts the global batch).
+    Float32 losses."""
     n_dec, _, _, c = hs_student.shape
     w = cons_weights.float()
-    denom = (cons_counts.sum() * cfg.cons_groups * c).float().clamp(min=1.0)
+    denom = (dist.all_sum(cons_counts.sum()) * cfg.cons_groups * c).float(
+        ).clamp(min=1.0)
 
     def unit(h):
         return h / torch.linalg.vector_norm(h, dim=-1, keepdim=True).clamp(

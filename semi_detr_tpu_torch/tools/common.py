@@ -1,8 +1,11 @@
 """Shared CLI plumbing: config -> datasets and model configs.
 
 Counterpart of `tools/common.py`: the same flags, plus `--device` (the
-card by default; `cpu` runs the same path on the CPU). One process, one
-device: no distributed initialisation.
+card by default; `cpu` runs the same path on the CPU). Launched by
+`python -m torch.distributed.run --nproc-per-node N -m
+semi_detr_tpu_torch.tools.<cli> ...`, `load_cfg` joins the process group
+first (as the JAX CLIs join the multi-host runtime): rank r runs on
+cuda:LOCAL_RANK over NCCL, or with `--device cpu` on the CPU over gloo.
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import argparse
 from ..data.coco import COCO_CLASSES, VOC_CLASSES, CocoDataset
 from ..models.dino_head import DinoConfig
 from ..models.ssod import SsodConfig
+from ..parallel.dist import maybe_initialize_distributed
 from ..utils.config import load_config, parse_cfg_options
 
 
@@ -33,6 +37,12 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
 
 
 def load_cfg(args) -> dict:
+    # the process group forms before any work, from torch.distributed.run's
+    # environment (a no-op without it); a device without an index becomes
+    # this rank's card
+    device = maybe_initialize_distributed(args.device)
+    if device is not None:
+        args.device = str(device)
     cfg = load_config(args.config, parse_cfg_options(args.cfg_options))
     if args.work_dir:
         cfg["work_dir"] = args.work_dir

@@ -9,7 +9,8 @@ default (the reference forces inference_on='teacher', tools/test.py:
 195-200). A checkpoint of this package decodes with NMS while its step is
 below `ssod.warm_up_step` and with top-k after (`:235-241`); a
 reference-layout `.pth` is taken as fully trained (top-k). Prints the
-summary JSON and the classwise AP table.
+summary JSON and the classwise AP table. Under `torch.distributed.run`
+the ranks share the eval (rank-sliced) and rank 0 prints and writes.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 
 from ..models.dino_head import DINODetector
 from ..models.inference import evaluate_detector
+from ..parallel import dist
 from ..train.checkpoint import CheckpointManager, load_warm_start
 from .common import (base_parser, build_dataset, class_names, load_cfg,
                      scales_of, ssod_config)
@@ -63,6 +65,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         bucket=tuple(cfg.get("bucket", (800, 1344))),
         test_scale=(max(scales_of(cfg)) if cfg.get("scales") else None),
         num_classes=scfg.dino.num_classes, class_names=names)
+    if not dist.is_main():          # every rank scored the same union
+        return res
     print(json.dumps({k: v for k, v in res.items()
                       if k != "AP_per_class"}, indent=2))
     # classwise AP table (the reference prints one, mmdet classwise=True)

@@ -15,7 +15,10 @@ Counterpart of `semi_detr_tpu/train/checkpoint.py` on `torch.save` /
   optimizer, when the saved optimizer state does not fit (the reference's
   `resume_optimizer=False` retry, `detr_ssod/apis/train.py:210-222`);
 * a plain detector checkpoint warm-starts the student and the teacher (the
-  reference's duplication rule, `dino_detr_ssod.py:953-978`).
+  reference's duplication rule, `dino_detr_ssod.py:953-978`);
+* data parallel: rank 0 alone writes (and creates the directory), every
+  rank waits for the save at a barrier, and every rank reads the same
+  files on resume (the trainer then broadcasts rank 0's state).
 
 Reading the JAX package's orbax directories is not supported.
 """
@@ -27,6 +30,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..parallel import dist
 from ..utils.torch_weights import split_teacher_student
 from .state import TrainState
 
@@ -42,7 +46,8 @@ class CheckpointManager:
     def __init__(self, directory: str, interval: int = 4000,
                  max_keep: int = 5):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        if dist.is_main():
+            os.makedirs(self.directory, exist_ok=True)
         self.interval = interval
         self.max_keep = max_keep
 
@@ -50,6 +55,8 @@ class CheckpointManager:
         return os.path.join(self.directory, f"step_{step}.pt")
 
     def all_steps(self):
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(m.group(1)) for m in map(
             _FILE_RE.fullmatch, os.listdir(self.directory)) if m)
 
@@ -58,21 +65,25 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def maybe_save(self, state: TrainState, force: bool = False) -> bool:
+        """Save when the step is due (every rank calls this at the same
+        steps); returns whether this rank wrote a file."""
         step = int(state.step)
         if not force and (step == 0 or step % self.interval != 0):
             return False
-        if step in self.all_steps():
-            return False
-        blob = {"step": step, "student": _state_dict(state.model),
-                "teacher": _state_dict(state.teacher),
-                "projector": _state_dict(state.projector),
-                "optimizer": state.optimizer.adamw.state_dict()}
-        tmp = self.path(step) + ".tmp"
-        torch.save(blob, tmp)
-        os.replace(tmp, self.path(step))
-        for old in self.all_steps()[:-self.max_keep]:
-            os.remove(self.path(old))
-        return True
+        saved = False
+        if dist.is_main() and step not in self.all_steps():
+            blob = {"step": step, "student": _state_dict(state.model),
+                    "teacher": _state_dict(state.teacher),
+                    "projector": _state_dict(state.projector),
+                    "optimizer": state.optimizer.adamw.state_dict()}
+            tmp = self.path(step) + ".tmp"
+            torch.save(blob, tmp)
+            os.replace(tmp, self.path(step))
+            for old in self.all_steps()[:-self.max_keep]:
+                os.remove(self.path(old))
+            saved = True
+        dist.barrier()
+        return saved
 
     def load(self, step: Optional[int] = None) -> dict:
         step = self.latest_step() if step is None else step

@@ -19,8 +19,17 @@ current stream, the stream the step then runs on, so the step reads the
 copied data. Taking the next batch runs under the host span
 `train.data_wait`, and its wall time is kept per step in `timings`.
 
-The mesh, FSDP, TP and buffer-donation arguments of the JAX trainers belong
-to the multi-GPU slice: values other than the single-device ones raise.
+Data parallel (`parallel.dist`, launched by `torch.distributed.run`): each
+rank takes its shard of every global step's draws (the sampler's
+`num_shards` / `shard_id`, the supervised stream's slice of batch_size * W
+indices), as the JAX trainers' processes do, and the steps compute the
+global batch's update on every rank. The state is broadcast from rank 0
+after init, warm starts and resume, and the ranks' student and teacher are
+checked against each other every `logger.interval` steps. Rank 0 alone
+writes the log, `metrics.jsonl`, the render and the checkpoints (the ranks
+wait for a save at a barrier); eval is rank-sliced and every rank gets the
+same mAP. FSDP, TP and buffer donation belong to later parts of the
+multi-GPU slice: values other than the data-parallel ones raise.
 """
 from __future__ import annotations
 
@@ -42,22 +51,24 @@ from ..data.sampler import SemiBalanceSampler
 from ..models.dino_head import DinoConfig, DINODetector
 from ..models.inference import evaluate_teacher_and_student
 from ..models.ssod import Projector, SsodConfig
+from ..parallel import dist
 from ..utils.logging import (MetricsLogger, device_memory_summary,
                              get_logger, log_image_with_boxes, weight_summary)
 from .checkpoint import (CheckpointManager, apply_backbone_init,
                          apply_warm_start, load_warm_start)
 from .optim import make_optimizer
 from .ssod import make_ssod_train_step
-from .state import TrainState
+from .state import TrainState, check_replicas
 from .supervised import make_supervised_train_step
 
 
-def _single_device_only(fsdp: bool, tp: int, donate: bool):
+def _data_parallel_only(fsdp: bool, tp: int, donate: bool):
     if fsdp or tp != 1 or donate:
         raise ValueError(
-            f"fsdp={fsdp}, tp={tp}, donate={donate}: sharded and donated "
-            "training belongs to the multi-GPU slice of the port; this "
-            "trainer runs on one device (fsdp=False, tp=1, donate=False)")
+            f"fsdp={fsdp}, tp={tp}, donate={donate}: FSDP, tensor-parallel "
+            "and donated training belong to later parts of the multi-GPU "
+            "slice of the port; the trainers run data parallel (fsdp=False,"
+            " tp=1, donate=False)")
 
 
 def _pad_indices(idx, n):
@@ -133,6 +144,11 @@ class _Trainer:
                 apply_backbone_init(self.state, backbone_init)
             if load_from:
                 apply_warm_start(self.state, load_warm_start(load_from))
+        dist.broadcast_state(self.state)
+        if dist.backend() is not None:
+            self.logger.logger.info(
+                f"data parallel: backend {dist.backend()}, world "
+                f"{dist.world()}, rank {dist.rank()}, device {self.device}")
         self._steps = {}
         # per step: {"step", "data_wait_s", "step_s"} (host clock)
         self.timings = []
@@ -143,6 +159,7 @@ class _Trainer:
         mgr = self.ckpt if path is None else CheckpointManager(path)
         if mgr.latest_step() is not None:
             mgr.restore(self.state)
+            dist.broadcast_state(self.state)
             self.logger.logger.info(f"resumed from step {self.state.step}")
         elif path is not None:
             raise FileNotFoundError(f"--resume-from: no checkpoint in {path}")
@@ -172,6 +189,8 @@ class _Trainer:
                                      "step_s": time.perf_counter() - t0})
                 metrics["data_wait"] = wait
                 self.logger.log_step(step, metrics)
+                if step % self.logger.interval == 0:
+                    check_replicas(self.state)
                 if step % 1000 == 0:
                     mem = device_memory_summary(self.device)
                     if mem:
@@ -214,7 +233,7 @@ class SsodTrainer(_Trainer):
                  fsdp: bool = False, tp: int = 1,
                  donate: bool = False,
                  by_prob: bool = False, device="cuda"):
-        _single_device_only(fsdp, tp, donate)
+        _data_parallel_only(fsdp, tp, donate)
         self.cfg = cfg
         # reference multinomial batch mixing (semi_sampler.py:113-135)
         self.by_prob = by_prob
@@ -279,7 +298,10 @@ class SsodTrainer(_Trainer):
             self.sup_dataset.flags, self.unsup_dataset.flags,
             self.samples_per_batch, (n_sup, n_unsup),
             epoch_length=self.epoch_length, seed=self.seed,
-            by_prob=self.by_prob)
+            by_prob=self.by_prob,
+            # this rank's disjoint slice of each global step's draw, as the
+            # JAX trainer's processes take theirs
+            num_shards=dist.world(), shard_id=dist.rank())
         ep0, off = divmod(start_step, self.epoch_length)
         for ep in itertools.count(ep0):
             for i, (sup_idx, unsup_idx, flag) in enumerate(sampler.epoch(ep)):
@@ -313,7 +335,8 @@ class SsodTrainer(_Trainer):
         metrics = self._get_step(self._warm_up(step))(self.state, batch)
         vis = metrics.pop("pseudo_vis")
         metrics.pop("pseudo_sets")
-        if self.image_log_interval and step % self.image_log_interval == 0:
+        if (self.image_log_interval and step % self.image_log_interval == 0
+                and dist.is_main()):
             log_image_with_boxes(self.work_dir, "pseudo_vis", step, vis_img,
                                  vis["boxes"].cpu().numpy(),
                                  vis["keep"].cpu().numpy())
@@ -342,7 +365,7 @@ class SupervisedTrainer(_Trainer):
                  fsdp: bool = False, tp: int = 1,
                  donate: bool = False,
                  cls_avg_group=None, device="cuda"):
-        _single_device_only(fsdp, tp, donate)
+        _data_parallel_only(fsdp, tp, donate)
         self.cfg = cfg
         self.device = torch.device(device)
         self.cls_avg_group = cls_avg_group
@@ -382,9 +405,12 @@ class SupervisedTrainer(_Trainer):
         `start_step` replays the cheap bookkeeping (flag draw, cursors,
         bucket draw) without loading images, so a resumed run continues the
         exact schedule of an uninterrupted one; the augment generator is
-        seeded per global step for the same reason."""
+        seeded per global step for the same reason. `batch_size` is per
+        rank: each step draws batch_size * W indices and rank r keeps the
+        r-th slice, as the JAX trainer's processes do."""
         order_rng = np.random.default_rng(self.seed)
         bucket_rng = np.random.default_rng(self.seed + 99)
+        n_shards, shard = dist.world(), dist.rank()
         flags = np.asarray(self.dataset.flags)
         groups = {f: np.nonzero(flags == f)[0] for f in (0, 1)
                   if (flags == f).any()}
@@ -398,12 +424,13 @@ class SupervisedTrainer(_Trainer):
         while True:
             f = int(order_rng.choice(fl, p=weights))
             idx = []
-            for _ in range(self.batch_size):
+            for _ in range(self.batch_size * n_shards):
                 if cursors[f] >= len(groups[f]):
                     perms[f] = order_rng.permutation(groups[f])
                     cursors[f] = 0
                 idx.append(int(perms[f][cursors[f]]))
                 cursors[f] += 1
+            idx = idx[shard * self.batch_size:(shard + 1) * self.batch_size]
             scales = self.scales
             if self.multi_bucket:
                 scales, bucket = pick_step_bucket(

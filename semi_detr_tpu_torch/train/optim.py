@@ -25,6 +25,14 @@ port does not compute. A trainable parameter that got no gradient (the
 projector after the SSOD warm-up) gets a zero one: optax still applies
 Adam's moments and the weight decay to it, and `torch.optim.AdamW` would
 skip it.
+
+Data parallel: each rank's backward leaves the gradient of its share of
+the global loss, and the step sums the trainable gradients over the ranks
+(`parallel.dist.all_sum_`, flat buckets, span `dist.grad_allreduce`) before
+the clip, so the norm and the clip are global as `optax.global_norm` of the
+JAX step's gradient is, and every rank applies the same update. The sum runs
+after the step's last backward (the SSOD step's two backwards add first);
+overlapping it with the backward is later work.
 """
 from __future__ import annotations
 
@@ -33,6 +41,9 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
+
+from ..parallel import dist
 
 FROZEN_PREFIXES = ("backbone.conv1.", "backbone.bn1.", "backbone.layer1.")
 
@@ -104,13 +115,16 @@ class GroupedAdamW:
         self.adamw.zero_grad(set_to_none=True)
 
     def step(self, count: int) -> torch.Tensor:
-        """Clip, then update at the learning rate of update `count` (0 for
-        the first). Returns the trainable gradients' norm before the clip."""
+        """Sum the gradients over the ranks, clip, then update at the
+        learning rate of update `count` (0 for the first). Returns the
+        trainable gradients' global norm before the clip."""
         params = [p for g in self.adamw.param_groups for p in g["params"]]
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        with record_function("dist.grad_allreduce"):
+            dist.all_sum_(grads)
         norm = clip_by_global_norm_(grads, self.clip_norm)
         lr = self.sched(count)
         for g in self.adamw.param_groups:

@@ -33,6 +33,15 @@ Randomness: the three CDN draws of a step (supervised, unlabeled student,
 unlabeled teacher) come from a generator seeded by (seed, step), or from
 the caller as three prebuilt `CdnNoise`s.
 
+Data parallel (`parallel.dist`): with W ranks of B images the step computes
+the JAX step's result on the global batch of W * B images. The CDN draws
+are the global batch's (each rank keeps its rows), the GMM fits the pool of
+every rank's costs in rank order (a fixed-capacity all-gather), the loss
+factors, partitions and Projector statistics are global (`models/`), each
+rank's loss is its share of the global loss, the gradients are summed
+before the clip (`train/optim.py`), and the logged losses and per-image
+counts are the global batch's.
+
 Spans (`torch.profiler.record_function`): train.ema, train.forward_loss,
 train.backward, train.optimizer, ssod.teacher, ssod.pseudo_labels,
 ssod.gmm, ssod.student, ssod.consistency and hungarian.solve_batch, which
@@ -56,8 +65,9 @@ from ..models.ssod import (SsodConfig, combined_attn_mask, consistency_loss,
                            transform_pseudo_to_student)
 from ..ops.gmm import fit_gmm_threshold
 from ..ops.roi_align import multi_level_roi_align
+from ..parallel import dist
 from .state import TrainState, ema_update
-from .supervised import loss_and_grads
+from .supervised import global_losses, loss_and_grads
 
 
 def _cdn(cfg: SsodConfig, noise: CdnNoise, gt, label_enc):
@@ -104,8 +114,12 @@ def unsup_forward_and_loss(model, projector, teacher, un: Dict[str, Any],
                                           s_match["coord"][-1], pl_norm_s,
                                           pl.labels, pl.valid)
     with record_function("ssod.gmm"):
-        # the reference all-gathers the costs: here the batch is the pool
-        gmm_thr = fit_gmm_threshold(costs.reshape(-1), pl.valid.reshape(-1))
+        # the reference all-gathers the costs: the pool is the global
+        # batch's (B * W, P) costs and validity, in rank order
+        pool = dist.all_cat(torch.stack([costs.float(), pl.valid.float()],
+                                        -1))
+        gmm_thr = fit_gmm_threshold(pool[..., 0].reshape(-1),
+                                    pool[..., 1].reshape(-1) > 0)
     keep_sup, keep_cons = dual_filter(costs, pl.scores, pl.valid, gmm_thr,
                                       cfg.score_thr)
 
@@ -194,11 +208,13 @@ def unsup_forward_and_loss(model, projector, teacher, un: Dict[str, Any],
                 loss_w, keep_cons.sum(-1).clamp(min=1), cfg,
                 cfg.consistency_weight))
 
-    b = pl.valid.shape[0]
+    b = pl.valid.shape[0] * dist.world()
+    counts = dist.all_sum(torch.stack([pl.valid.sum(), keep_sup.sum(),
+                                       keep_cons.sum()]))
     metrics = {
-        "pseudo_per_img": pl.valid.sum() / b,
-        "sup_set_per_img": keep_sup.sum() / b,
-        "cons_set_per_img": keep_cons.sum() / b,
+        "pseudo_per_img": counts[0] / b,
+        "sup_set_per_img": counts[1] / b,
+        "cons_set_per_img": counts[2] / b,
         "gmm_thr": torch.tensor(gmm_thr, dtype=torch.float32),
         # the first image's pseudo labels in the student frame, for the
         # reference's throttled visualization (`log_image_with_boxes`)
@@ -277,9 +293,9 @@ def make_ssod_train_step(cfg: SsodConfig, warm_up: bool, seed: int = 0):
             grad_norm = state.optimizer.step(state.step)
         state.step += 1
 
-        losses = {f"sup_{k}": v.detach() for k, v in sup_losses.items()}
-        losses.update({f"unsup_{k}": v.detach()
-                       for k, v in unsup_losses.items()})
+        losses = {f"sup_{k}": v for k, v in sup_losses.items()}
+        losses.update({f"unsup_{k}": v for k, v in unsup_losses.items()})
+        losses = global_losses(losses)
         metrics.update(losses)
         metrics["total_loss"] = sum(v for k, v in losses.items()
                                     if "loss" in k)

@@ -6,7 +6,9 @@ Counterpart of `semi_detr_tpu/train/state.py`:
   iteration (`detr_ssod/utils/hooks/mean_teacher.py:37-64`) with the
   momentum ramp m = min(momentum, 1 - (1 + warm) / (step + 1 + warm));
 * at step 0 the ramp gives m = 0, so the teacher becomes an exact clone.
-The update runs in place on the teacher's float32 parameters.
+The update runs in place on the teacher's float32 parameters. Under data
+parallelism every rank updates its teacher from identical parameters;
+`check_replicas` holds the ranks to that cheaply.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch.nn as nn
 
 from ..models.dino_head import DinoConfig, DINODetector
 from ..models.ssod import Projector, SsodConfig
+from ..parallel import dist
 from ..utils.config import load_config
 from .optim import GroupedAdamW, make_optimizer
 
@@ -143,3 +146,15 @@ def ema_update(teacher: nn.Module, student: nn.Module, step: int,
     torch._foreach_mul_(t_params, float(m))
     torch._foreach_add_(t_params, torch._foreach_mul(s_params, one_minus))
     return m
+
+
+def check_replicas(state: TrainState):
+    """Raise unless every rank holds the same student and teacher: the bit
+    checksums of their first, middle and last parameters, compared across
+    the ranks (a no-op in one process)."""
+    leaves = []
+    for module in (state.model, state.teacher):
+        if module is not None:
+            params = list(module.parameters())
+            leaves += [params[0], params[len(params) // 2], params[-1]]
+    dist.assert_replicated(leaves, f"the train state at step {state.step}")

@@ -10,6 +10,12 @@ global-norm clip, AdamW. `warm_up` picks O2M + task-aligned focal loss
 The CDN noise of step t comes from a generator seeded by (seed, t), as the
 JAX step folds the step into its key, unless the caller passes one.
 
+Data parallel (`parallel.dist`): with W ranks of B images the step computes
+the JAX step's result on the global batch of W * B images: each rank draws
+the global batch's CDN noise and keeps its rows, the CDN partition and the
+loss factors are global, the gradients are summed before the clip, and
+the logged losses are the global batch's.
+
 Each part of a step runs under a `torch.profiler.record_function` span
 (train.ema, train.forward_loss, train.backward, train.optimizer; the
 Hungarian solve adds hungarian.solve_batch), which
@@ -25,7 +31,18 @@ import torch
 from torch.profiler import record_function
 
 from ..models.criterion import detection_loss
+from ..parallel import dist
 from .state import TrainState, ema_update
+
+
+def global_losses(losses: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """Detached float32 losses summed over the ranks in one collective:
+    each rank's loss is its share of the global batch's."""
+    keys = list(losses)
+    vals = dist.all_sum(torch.stack([losses[k].detach().float()
+                                     for k in keys]))
+    return dict(zip(keys, vals.unbind(0)))
 
 
 def loss_and_grads(model, batch: Dict[str, Any], warm_up: bool,
@@ -79,7 +96,7 @@ def make_supervised_train_step(warm_up: bool = False,
         with record_function("train.optimizer"):
             grad_norm = state.optimizer.step(state.step)
         state.step += 1
-        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics = global_losses(losses)
         metrics["total_loss"] = metrics.pop("total")
         metrics["grad_norm"] = grad_norm
         return metrics

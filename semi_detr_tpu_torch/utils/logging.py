@@ -4,7 +4,9 @@ the weight summary, device memory and the pseudo-label render.
 Counterpart of `semi_detr_tpu/utils/logging.py` (the reference's mmcv
 TextLoggerHook + TensorboardLoggerHook, `base_dino_detr_ssod_coco.py:
 254-271`, and `WeightSummary`, `weights_summary.py:61-101`). Wandb is left
-out: no config of the repo turns it on.
+out: no config of the repo turns it on. Under data parallelism rank 0
+alone logs and writes files: the other ranks' logger keeps warnings only,
+and their `MetricsLogger` writes nothing.
 """
 from __future__ import annotations
 
@@ -19,22 +21,23 @@ import numpy as np
 import torch
 
 from ..data.image_io import write_png
+from ..parallel import dist
 
 
 def get_logger(name: str = "semi_detr_tpu_torch",
                log_file: Optional[str] = None) -> logging.Logger:
     """The package's logger, to stdout and, when given, to `log_file` (a
     second trainer in the process moves the file handler to its own
-    work dir)."""
+    work dir). On a rank other than 0: warnings only, and no file."""
     logger = logging.getLogger(name)
     fmt = logging.Formatter(
         "%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     if not logger.handlers:
-        logger.setLevel(logging.INFO)
         sh = logging.StreamHandler(sys.stdout)
         sh.setFormatter(fmt)
         logger.addHandler(sh)
-    if log_file:
+    logger.setLevel(logging.INFO if dist.is_main() else logging.WARNING)
+    if log_file and dist.is_main():
         path = os.path.abspath(log_file)
         have = [h for h in logger.handlers
                 if isinstance(h, logging.FileHandler)]
@@ -69,17 +72,20 @@ def _scalar(v) -> Optional[float]:
 
 class MetricsLogger:
     """Text + JSONL + optional TensorBoard metric sink: `train.log` and
-    `metrics.jsonl` under `work_dir`."""
+    `metrics.jsonl` under `work_dir`, written by rank 0 only."""
 
     def __init__(self, work_dir: str, use_tensorboard: bool = True,
                  interval: int = 50):
         self.work_dir = work_dir
-        os.makedirs(work_dir, exist_ok=True)
+        self.enabled = dist.is_main()
         self.logger = get_logger(
             log_file=os.path.join(work_dir, "train.log"))
         self.interval = interval
+        self.jsonl = self.tb = None
+        if not self.enabled:
+            return
+        os.makedirs(work_dir, exist_ok=True)
         self.jsonl = open(os.path.join(work_dir, "metrics.jsonl"), "a")
-        self.tb = None
         if use_tensorboard:
             try:
                 from tensorboardX import SummaryWriter
@@ -93,7 +99,7 @@ class MetricsLogger:
                  lr: Optional[float] = None, prefix: str = "train"):
         """Every `interval`-th step: the scalar metrics (one host sync),
         the mean step time since the last logged step, to all sinks."""
-        if step % self.interval != 0:
+        if not self.enabled or step % self.interval != 0:
             return
         now = time.perf_counter()
         dt = (now - self._t_last) / max(step - self._step_last, 1)
@@ -118,6 +124,8 @@ class MetricsLogger:
 
     def log_eval(self, step: int, results: Dict[str, Any],
                  tag: str = "teacher"):
+        if not self.enabled:
+            return
         msg = f"Eval[{tag}] iter {step}: " + " ".join(
             f"{k}={v:.4f}" for k, v in results.items()
             if isinstance(v, float))
@@ -128,7 +136,8 @@ class MetricsLogger:
                     self.tb.add_scalar(f"eval_{tag}/{k}", v, step)
 
     def close(self):
-        self.jsonl.close()
+        if self.jsonl:
+            self.jsonl.close()
         if self.tb:
             self.tb.close()
 

@@ -23,7 +23,9 @@ asks the port for a norm below 5e-15: the three leaves into the GroupNorm
 of the 1x1 stride-64 level, where at d_model 32 each group holds one
 value and the true gradient is 0. After one clip + AdamW update the
 parameters must agree within the UPDATE bounds (below); with equal
-gradients fed to both optimizers, to float32 rounding.
+gradients fed to both optimizers, to float32 rounding. The same step on 2
+gloo ranks of 1 image is held to the same JAX step (the block at the end
+of this file).
 """
 import copy
 
@@ -49,6 +51,7 @@ from semi_detr_tpu_torch.train.supervised import (
     loss_and_grads, make_supervised_train_step)
 from semi_detr_tpu_torch.utils.torch_weights import state_dict_from_jax
 
+import torch_dist_workers as workers
 from test_torch_detector import TINY, build_pair
 from test_torch_dn import jax_noise
 
@@ -160,11 +163,17 @@ def _rel_l2(a, b):
     return d / max(np.linalg.norm(b.astype(np.float64)), 1e-12)
 
 
+@pytest.fixture(scope="module")
+def jax_steps(setup):
+    """The JAX step of each branch, {warm_up: (losses, grads, params)}."""
+    jdet, jvars, _, batch, key = setup
+    return {w: _jax_step(jdet, jvars, batch, key, w) for w in (False, True)}
+
+
 @pytest.mark.parametrize("warm_up", [False, True], ids=["hungarian", "o2m"])
-def test_step_matches_jax(setup, warm_up):
+def test_step_matches_jax(setup, jax_steps, warm_up):
     jdet, jvars, port0, batch, key = setup
-    ref_losses, ref_grads, ref_params = _jax_step(jdet, jvars, batch, key,
-                                                  warm_up)
+    ref_losses, ref_grads, ref_params = jax_steps[warm_up]
 
     port = copy.deepcopy(port0)
     opt = optim.make_optimizer(port)
@@ -403,3 +412,109 @@ def test_stack_matches_jax():
     assert dev["images"].dtype == torch.uint8
     np.testing.assert_array_equal(dev["gt"]["boxes"].numpy(),
                                   ref["gt"]["boxes"])
+
+
+# --------------------------------------------------------------------------
+# the same step on 2 gloo ranks of 1 image (data parallel)
+# --------------------------------------------------------------------------
+# Each rank builds its CDN block from its rows of the JAX key's draws; the
+# partition's single_pad is the largest GT count over both ranks (3), so
+# rank 1 pads its 2 GT to the global layout. The ranks' losses are their
+# shares of the global loss; their gradients are summed, as the optimizer
+# sums them before the clip. Held to the JAX step by test_step_matches_jax's
+# bounds, and to the port's one-process step: the total loss, grad_norm and
+# the whole gradient within 1e-5 relative, each loss term within 1e-5 of
+# the total loss (the two round differently: each rank's kernels see a
+# batch of 1; the O2M case's d0.loss_iou, 1 - giou near giou = 1, read
+# 2.1e-5 relative on a term of 6.9e-4 while the total moved by 2e-7). The
+# ranks' parameters after the update are equal to the bit.
+RTOL_ONE_PROCESS = 1e-5
+
+
+@pytest.fixture(scope="module")
+def ranks(setup, tmp_path_factory):
+    _, _, port, batch, key = setup
+    tb = _to(batch, torch.from_numpy)
+    tb["gt"]["labels"] = tb["gt"]["labels"].long()
+    spec = {"cfg": CFG, "capacity": CAP, "cases": [False, True],
+            "state": {k: v.detach().clone()
+                      for k, v in port.state_dict().items()},
+            "batch": tb, "noise": list(jax_noise(key, 2, CAP, K))}
+    one = dict(zip((False, True), workers.run_supervised_cases(spec)))
+    got = workers.spawn(tmp_path_factory.mktemp("sup"), "supervised", spec)
+    return {"one": one, "ranks": [dict(zip((False, True), r)) for r in got]}
+
+
+def _sd_jax_layout(sd):
+    return convert_dino_detector({k: v.float().numpy() for k, v in
+                                  sd.items()}, n_heads=CFG["n_heads"])[
+        "params"]
+
+
+@pytest.mark.parametrize("warm_up", [False, True], ids=["hungarian", "o2m"])
+def test_two_ranks_agree_and_equal_one_process(ranks, warm_up):
+    r0, r1 = (r[warm_up] for r in ranks["ranks"])
+    assert r0["losses"] == r1["losses"]
+    assert r0["grad_norm"] == r1["grad_norm"]
+    assert r0["replicated"] and r1["replicated"]
+    ref = ranks["one"][warm_up]
+    assert r0["losses"].keys() == ref["losses"].keys()
+    total = ref["losses"]["total"]
+    assert abs(r0["losses"]["total"] - total) <= RTOL_ONE_PROCESS * total
+    for k, b in ref["losses"].items():
+        assert abs(r0["losses"][k] - b) <= RTOL_ONE_PROCESS * total, (
+            k, r0["losses"][k], b)
+    assert abs(r0["grad_norm"] - ref["grad_norm"]) <= (
+        RTOL_ONE_PROCESS * ref["grad_norm"])
+    flat = [torch.cat([g.flatten() for g in r["grads"].values()])
+            for r in (r0, ref)]
+    assert _rel_l2(flat[0].numpy(), flat[1].numpy()) <= RTOL_ONE_PROCESS
+
+
+@pytest.mark.parametrize("warm_up", [False, True], ids=["hungarian", "o2m"])
+def test_two_ranks_match_jax(setup, jax_steps, ranks, warm_up):
+    """test_step_matches_jax's checks, on the ranks' global losses and
+    summed gradients, and rank 0's update."""
+    ref_losses, ref_grads, ref_params = jax_steps[warm_up]
+    r = ranks["ranks"][0][warm_up]
+    assert set(r["losses"]) == set(ref_losses)
+    for k in ref_losses:
+        a, b = r["losses"][k], float(ref_losses[k])
+        assert abs(a - b) <= 1e-4 * max(abs(b), 1e-6), (k, a, b)
+
+    grads = {k: r["grads"].get(k, torch.zeros_like(v))
+             for k, v in r["params"].items()}
+    got, ref = _leaves(_sd_jax_layout(grads)), _leaves(ref_grads)
+    gnorm = np.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                        for g in ref.values()))
+    errs, skip = {}, set()
+    for path, rg in ref.items():
+        tg = got[path]
+        if joptim.is_frozen(path):
+            skip.add(path)
+        elif (rg.any() and np.linalg.norm(rg) < 1e-6 * gnorm
+              and np.linalg.norm(tg) < 1e-6 * gnorm):
+            skip.add(path)
+        else:
+            assert rg.any() or path.startswith(
+                ("input_proj_3/", "input_proj_gn_3/")), path
+            errs[path] = _rel_l2(tg, rg)
+    assert "label_enc" in errs and len(errs) > 100
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 5e-3, (worst, errs[worst])
+    assert float(np.median(list(errs.values()))) <= 5e-4
+
+    before = _leaves(setup[1]["params"])
+    after, ref_after = (_leaves(_sd_jax_layout(r["params"])),
+                        _leaves(ref_params))
+    upd = {}
+    for path, p0 in before.items():
+        du, dr = after[path] - p0, ref_after[path] - p0
+        if joptim.is_frozen(path):
+            assert not du.any() and not dr.any(), path
+        elif path not in skip:
+            assert np.abs(du - dr).max() <= UPDATE_ABS, path
+            upd[path] = _rel_l2(du, dr)
+    worst = max(upd, key=upd.get)
+    assert upd[worst] <= UPDATE_WORST, (worst, upd[worst])
+    assert float(np.median(list(upd.values()))) <= UPDATE_MEDIAN
