@@ -152,10 +152,46 @@ Phases (any failure exits non-zero):
    wrote the checkpoint, the launches per step equal phase 7's, the eval
    lines hold valid APs.
 
+9. The serving program exported: `tools.export_model.export_program`
+   traces phase 4's detector (full-width DINO-R50, bfloat16, seeded
+   weights, box layers filled) with `torch.export` at batch 1 in the
+   landscape bucket 800x1344, with the top-k and with the NMS decode, and
+   saves both. A fresh process (this script with EXPORT_FLAG, importing
+   only the port) loads them and runs them on phase 4's packed landscape
+   requests (480x640 and 427x641; the portrait ones need an export of
+   their own bucket), counting the MSDA launches of each run from 0.
+   Asserted: top-k boxes, scores and labels equal eager `predict`'s to the
+   bit; the NMS kept sets equal; 300 finite detections inside the image;
+   exactly 12 forward launches per run, all through the vector instance.
+   Printed: export s, artifact bytes, load s, warm ms per request of the
+   loaded program beside eager `predict`.
+10. Remat: phase 6's SSOD step (its state, seeded weights and batch;
+   a warm-up step at score_thr 0, then a Hungarian step) and phase 5's
+   supervised step (an O2M and a Hungarian step), each run from one state
+   REMAT_ROUNDS times in turns without and with remat. Asserted: the loss
+   terms bit-equal; the MSDA launches unchanged (48 or 42 + 24, 12 + 12,
+   vector instances), so the forward kernel is saved, not replayed; per
+   leaf, the gradient and update errors of remat against no remat at the
+   atomic-order floor (no remat against no remat, remat against remat):
+   the medians at the floor, each leaf within one bfloat16 rounding beyond
+   its floor (remat reorders bfloat16 gradient sums), the update leaves
+   that Adam's first steps turn to noise within a multiple of their floor.
+   Printed: the warm step ms with and without remat (medians of the runs
+   in turns) and the peak memory.
+11. The recipe rehearsal, short: `tools.recipe_rehearsal` at full width
+   on a 40-image synthetic set, 16 steps, the warm-up boundary at 8, leg
+   1 to step 10, leg 2 resumed to 16, eval every 6 steps, every step
+   logged. Asserted: both legs exit 0; leg 2 resumed from leg 1's last
+   checkpoint; Eval[teacher] and Eval[student] at steps 6 and 12 with
+   valid APs; a finite loss on every step; the report under the work dir;
+   each leg's MSDA launches (the trainer's log line) as its steps and
+   evals require, all through the vector instances.
+
 The line before the last is a JSON object with the kernels' numbers and the
 training records; the last line is {"ok": true, "device": {...}}.
 """
 import concurrent.futures
+import copy
 import dataclasses
 import json
 import math
@@ -181,13 +217,16 @@ from semi_detr_tpu_torch.data import augment, image_io  # noqa: E402
 from semi_detr_tpu_torch.data.pipeline import (  # noqa: E402
     synthetic_batch, synthetic_ssod_batch, to_device)
 from semi_detr_tpu_torch.models import transformer as tr  # noqa: E402
+from semi_detr_tpu_torch.models.inference import predict  # noqa: E402
 from semi_detr_tpu_torch.ops import hungarian  # noqa: E402
 from semi_detr_tpu_torch.ops import ms_deform_attn_cuda as msda  # noqa: E402
 from semi_detr_tpu_torch.ops.ms_deform_attn import (  # noqa: E402
-    ms_deform_attn, ms_deform_attn_backward)
+    ms_deform_attn, ms_deform_attn_backward_autograd)
 from semi_detr_tpu_torch.parallel import dist  # noqa: E402
 from semi_detr_tpu_torch.data.synthetic import (  # noqa: E402
     write_synthetic_coco)
+from semi_detr_tpu_torch.tools import export_model  # noqa: E402
+from semi_detr_tpu_torch.tools import recipe_rehearsal  # noqa: E402
 from semi_detr_tpu_torch.tools import test as test_cli  # noqa: E402
 from semi_detr_tpu_torch.tools import train_detr_od  # noqa: E402
 from semi_detr_tpu_torch.tools import train_detr_ssod  # noqa: E402
@@ -319,6 +358,42 @@ NVJPEG_TOL = (3, 0.1)
 # more than half a level on the colour fixture's picture, and fails here
 ROUND_TRIP_SLACK = (8, 0.25)
 HOST_SRC, HOST_VIEW = (480, 640), (800, 1066)
+# phase 9: the serving program exported by tools.export_model at batch 1 in
+# the landscape bucket (a portrait request needs an export of its own
+# bucket, 1344x800), top-k and NMS, loaded and run by a fresh process (this
+# script with EXPORT_FLAG) on phase 4's packed landscape requests, timed
+# over EXPORT_REPS warm runs each; the process is killed after
+# EXPORT_TIMEOUT seconds
+EXPORT_BUCKET, EXPORT_REPS, EXPORT_TIMEOUT = (800, 1344), 5, 300
+EXPORT_FLAG = "--run-exported"
+# phase 10: remat against no remat from one state, per path and stage,
+# REMAT_ROUNDS times in turns (no remat, remat, ...): the loss terms
+# bit-equal in every run; per leaf, the relative L2 errors of the
+# trainable gradients and of the parameter updates between neighbouring
+# runs of the two modes against the floor, the largest error between
+# consecutive runs of one mode (d_value's atomic order, and for the
+# updates the clip and Adam after it). Medians within REMAT_FACTOR times
+# the floor's median plus REMAT_FLOOR. Remat also changes the order in
+# which autograd adds the gradient contributions of a tensor that several
+# checkpointed regions read (the encoder memory feeds six decoder steps
+# and the two-stage head), and in bfloat16 those sums round: a leaf whose
+# gradient is a cancelling sum over the tokens moves by up to one
+# bfloat16 rounding (encoder layer 3's linear2.bias read 7.4e-4 against a
+# floor of 1.3e-5 in the SSOD warm-up step, layer 5's norm2.bias 3.6e-5
+# against 3.1e-7 in the supervised step; NVIDIA H100 80GB HBM3, 700.00 W),
+# so each leaf is held within REMAT_FACTOR times its own floor plus
+# BF16_ROUNDING. An update leaf whose floor exceeds NOISE_LEAF (Adam's
+# first steps turn a gradient element's rounding around zero into a full
+# step of the other sign: one such element of a 256x256 weight reads
+# 8e-3) is held within REMAT_FACTOR times its floor, with no slack; its
+# gradient is held like every other. The warm step times are the medians
+# of the runs of each mode after its first.
+REMAT_ROUNDS = 4
+REMAT_FACTOR, REMAT_FLOOR, NOISE_LEAF = 4.0, 1e-4, 1e-3
+# phase 11: tools.recipe_rehearsal at full width on a small set: 16 steps,
+# the warm-up boundary at 8, the kill (end of leg 1) at 10, eval every 6
+# steps (once in each leg), every step logged
+REHEARSAL_STEPS, REHEARSAL_IMGS, REHEARSAL_EVAL = 16, 40, 6
 
 
 def log(msg):
@@ -598,8 +673,8 @@ def backward_kernel_phase():
             got, widths = widths_of(msda.ms_deform_attn_bwd_cuda,
                                     lambda: msda.ms_deform_attn_bwd_cuda(
                                         value, SHAPES, loc, attn, g))
-            ref = ms_deform_attn_backward(value.float(), SHAPES, loc, attn,
-                                          g.float())
+            ref = ms_deform_attn_backward_autograd(value.float(), SHAPES,
+                                                   loc, attn, g.float())
             torch.cuda.synchronize()
             errs = grad_errors(got, ref, dtype)
             del got, ref
@@ -609,7 +684,7 @@ def backward_kernel_phase():
                                          f"{err} > {tol}")
             k_ms = cuda_ms(lambda: msda.ms_deform_attn_bwd_cuda(
                 value, SHAPES, loc, attn, g), 20)
-            p_ms = cuda_ms(lambda: ms_deform_attn_backward(
+            p_ms = cuda_ms(lambda: ms_deform_attn_backward_autograd(
                 value, SHAPES, loc, attn, g), 3)
             y_ms = (grid_sample_bwd_ms(value, loc, attn, g, 3)
                     if dtype == torch.float32 and not oob else None)
@@ -1862,7 +1937,7 @@ class MixedMSDA(torch.autograd.Function):
     def backward(ctx, g):
         value, loc, attn = ctx.saved_tensors
         bwd = (msda.ms_deform_attn_bwd_cuda if ctx.bwd_kernel
-               else ms_deform_attn_backward)
+               else ms_deform_attn_backward_autograd)
         d_value, d_loc, d_attn = bwd(value, ctx.shapes, loc, attn,
                                      g.contiguous())
         return d_value, None, d_loc, d_attn, None, None
@@ -1995,7 +2070,466 @@ def model_grad_phase():
     return summary
 
 
+# --------------------------------------------------------------------------
+# phase 9: the exported serving program
+# --------------------------------------------------------------------------
+
+
+def warm_ms(fn, args, reps):
+    """ms per call of fn(*a) over `reps` rounds of `args`, after one."""
+    for a in args:
+        fn(*a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for a in args:
+            fn(*a)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (reps * len(args))
+
+
+def run_exported(tmp):
+    """Phase 9's loading process: load each artifact, run it on the packed
+    requests with the MSDA counts set to 0 before each run and read after,
+    time it, and write the outputs and numbers into `tmp`."""
+    inputs = np.load(os.path.join(tmp, "inputs.npz"))
+    keys = sorted({k.split("_", 1)[1] for k in inputs.files})
+    reqs = [(k, torch.from_numpy(inputs[f"images_{k}"]).cuda(),
+             torch.from_numpy(inputs[f"hw_{k}"]).cuda()) for k in keys]
+    outs, res = {}, {}
+    for name in ("topk", "nms"):
+        t0 = time.perf_counter()
+        program = export_model.load_program(os.path.join(tmp, f"{name}.pt2"))
+        load_s = time.perf_counter() - t0
+        runs = []
+        with torch.inference_mode():
+            for k, im, hw in reqs:
+                reset_counts()
+                got = program(im, hw)
+                torch.cuda.synchronize()
+                runs.append(dict(request=k,
+                                 launches=msda.ms_deform_attn_cuda.launches,
+                                 by_width=dict(msda.ms_deform_attn_cuda
+                                               .launches_by_width),
+                                 bwd=msda.ms_deform_attn_bwd_cuda.launches))
+                for part, t in zip(("boxes", "scores", "labels"), got):
+                    outs[f"{name}_{part}_{k}"] = t.cpu().numpy()
+            ms = warm_ms(program, [(im, hw) for _, im, hw in reqs],
+                         EXPORT_REPS)
+        res[name] = dict(load_s=load_s, runs=runs, warm_ms=ms)
+    np.savez(os.path.join(tmp, "outputs.npz"), **outs)
+    with open(os.path.join(tmp, "loaded.json"), "w") as f:
+        json.dump(res, f)
+
+
+def kept_set(boxes, scores, labels):
+    return {(int(lab), tuple(b.tolist())) for b, s, lab in
+            zip(boxes, scores, labels) if s > 0}
+
+
+def export_phase(card):
+    log(f"== phase 9: the serving program exported by tools.export_model "
+        f"(torch.export, batch 1, bucket {EXPORT_BUCKET}), loaded and run by "
+        f"a fresh process")
+    pred = init_detector(CONFIG, None, device="cuda", use_nms=False, seed=0)
+    det = refine_boxes(pred.detector, seed=0)
+    rng = np.random.RandomState(0)
+    images = [rng.randint(0, 256, hw + (3,)).astype(np.uint8)
+              for hw in REQUESTS]
+    packed = {str(i): (img,) + pred.preprocess(img)
+              for i, img in enumerate(images)}
+    land = {k: v for k, v in packed.items()
+            if tuple(v[1].shape[1:3]) == EXPORT_BUCKET}
+    log(f"  requests {[REQUESTS[int(k)] for k in land]} fill the exported "
+        f"landscape bucket; the portrait ones "
+        f"{[REQUESTS[int(k)] for k in packed if k not in land]} need an "
+        f"export of {EXPORT_BUCKET[::-1]}, not made here")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        np.savez(os.path.join(tmp, "inputs.npz"), **{
+            f"{part}_{k}": t.cpu().numpy() for k, (_, im, hw, _) in
+            land.items() for part, t in (("images", im), ("hw", hw))})
+        record, eager = {}, {}
+        for use_nms in (False, True):
+            name = "nms" if use_nms else "topk"
+            t0 = time.perf_counter()
+            exported = export_model.export_program(det, 1, EXPORT_BUCKET,
+                                                   use_nms)
+            path = os.path.join(tmp, f"{name}.pt2")
+            torch.export.save(exported, path)
+            export_s = time.perf_counter() - t0
+            del exported
+            for k, (_, im, hw, _) in land.items():
+                eager[(name, k)] = [t.cpu().numpy() for t in predict(
+                    det, im, hw, use_nms)]
+            ms = warm_ms(lambda im, hw: predict(det, im, hw, use_nms),
+                         [(v[1], v[2]) for v in land.values()], EXPORT_REPS)
+            record[name] = dict(export_s=export_s,
+                                bytes=os.path.getsize(path), eager_ms=ms)
+        del pred, det
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               EXPORT_FLAG, tmp], capture_output=True,
+                              text=True, timeout=EXPORT_TIMEOUT)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"loading process exited {proc.returncode}:"
+                                 f"\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        with open(os.path.join(tmp, "loaded.json")) as f:
+            loaded = json.load(f)
+        outs = np.load(os.path.join(tmp, "outputs.npz"))
+        launches = 0
+        for name, rec in record.items():
+            rec.update(loaded[name])
+            for run in rec["runs"]:
+                if (run["launches"] != 12 or run["bwd"] != 0
+                        or run["by_width"] != {str(MAIN_WIDTH): 12}):
+                    raise AssertionError(f"{name} request {run['request']}: "
+                                         f"MSDA launches {run}, not 12 "
+                                         f"through width {MAIN_WIDTH}")
+                launches += run["launches"]
+            for k, (img, _, _, sf) in land.items():
+                got = [outs[f"{name}_{part}_{k}"]
+                       for part in ("boxes", "scores", "labels")]
+                want = eager[(name, k)]
+                if name == "topk":
+                    bad = [part for part, g, w in zip(
+                        ("boxes", "scores", "labels"), got, want)
+                        if not np.array_equal(g, w)]
+                    if bad:
+                        raise AssertionError(
+                            f"top-k request {k}: {bad} differ from eager "
+                            f"predict, max abs "
+                            f"{[float(np.abs(g.astype(np.float64) - w).max())
+                                for g, w in zip(got, want)]}")
+                else:
+                    if kept_set(*(a[0] for a in got)) != kept_set(
+                            *(a[0] for a in want)):
+                        raise AssertionError(f"NMS request {k}: kept sets "
+                                             "differ from eager predict")
+                check_answer(img, Predictor.postprocess(
+                    [torch.from_numpy(a) for a in got], sf, -1.0))
+            log(f"  {name}: export {rec['export_s']:.1f} s, "
+                f"{rec['bytes']:,} bytes; load {rec['load_s']:.1f} s; warm "
+                f"ms per request, loaded program {rec['warm_ms']:.2f} against "
+                f"eager predict {rec['eager_ms']:.2f}; MSDA launches per run "
+                f"{[r['launches'] for r in rec['runs']]} (width "
+                f"{MAIN_WIDTH})")
+        log(f"  top-k outputs equal eager predict's to the bit, NMS kept sets"
+            f" equal; loading process {child_s:.1f} s")
+        log("  " + card)
+        return dict(record, launches=launches, child_s=child_s,
+                    requests=[REQUESTS[int(k)] for k in land], card=card)
+    finally:
+        shutil.rmtree(tmp)
+
+
+# --------------------------------------------------------------------------
+# phase 10: remat
+# --------------------------------------------------------------------------
+
+
+def snapshot(state):
+    def copy_of(m):
+        return None if m is None else {
+            k: v.detach().clone() for k, v in m.state_dict().items()}
+    return dict(model=copy_of(state.model), teacher=copy_of(state.teacher),
+                projector=copy_of(state.projector), step=state.step,
+                opt=copy.deepcopy(state.optimizer.adamw.state_dict()))
+
+
+def restore(state, snap):
+    for key in ("model", "teacher", "projector"):
+        if snap[key] is not None:
+            getattr(state, key).load_state_dict(snap[key])
+    state.optimizer.adamw.load_state_dict(copy.deepcopy(snap["opt"]))
+    state.step = snap["step"]
+
+
+def remat_runs(state, step_fn, batch, want_launches, what):
+    """One step from one state REMAT_ROUNDS times in turns: no remat, remat,
+    no remat, remat, ... Returns the runs (losses, launches, ms, the step's
+    own peak memory, trainable parameter updates and gradients) and the
+    state after the first."""
+    start = snapshot(state)
+    params = {k: p for k, p in state.model.named_parameters()
+              if p.requires_grad}
+    if state.projector is not None:
+        params.update({"projector." + k: p for k, p in
+                       state.projector.named_parameters()})
+    before = {k: p.detach().clone() for k, p in params.items()}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()      # state, snapshot, batch
+    runs, after_first = [], None
+    for remat in (False, True) * REMAT_ROUNDS:
+        restore(state, start)
+        state.model.bbox_head.transformer.remat = remat
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        fwd = msda.ms_deform_attn_cuda.launches
+        bwd = msda.ms_deform_attn_bwd_cuda.launches
+        if (fwd, bwd) != want_launches:
+            raise AssertionError(f"{what} remat={remat}: {fwd} forward and "
+                                 f"{bwd} backward MSDA launches, not "
+                                 f"{want_launches}")
+        assert_vector(msda.ms_deform_attn_cuda, f"{what} forward")
+        assert_vector(msda.ms_deform_attn_bwd_cuda, f"{what} backward")
+        runs.append(dict(
+            remat=remat, ms=ms, launches=(fwd, bwd),
+            peak=held + torch.cuda.max_memory_allocated() - base,
+            losses={k: float(v) for k, v in metrics.items()
+                    if "loss" in k and isinstance(v, torch.Tensor)
+                    and v.dim() == 0},
+            update={k: p.detach() - before[k] for k, p in params.items()},
+            grad={k: p.grad.detach().clone() for k, p in params.items()
+                  if p.grad is not None}))
+        if after_first is None:
+            after_first = snapshot(state)
+    state.model.bbox_head.transformer.remat = False
+    return runs, after_first
+
+
+def rel_errors(pairs, key):
+    """Per leaf, the largest relative L2 of y[key] against x[key] over the
+    pairs of runs (x, y); leaves where x's tensor is all zero are left
+    out."""
+    out = {}
+    for x, y in pairs:
+        for k, a in x[key].items():
+            if not a.any():
+                continue
+            e = float((y[key][k].double() - a.double()).norm()
+                      / a.double().norm())
+            out[k] = max(out.get(k, 0.0), e)
+    return out
+
+
+def check_remat(runs, what):
+    """Loss terms bit-equal in every run. Per leaf, the floor is the largest
+    error between consecutive runs of one mode (no remat twice, remat
+    twice), the error the largest between neighbouring runs of the two
+    modes. Gradients: every leaf within REMAT_FACTOR times its floor plus
+    BF16_ROUNDING, the median within REMAT_FACTOR times the floor's median
+    plus REMAT_FLOOR. Updates: the same for the leaves whose floor is at
+    most NOISE_LEAF; the noise leaves within REMAT_FACTOR times their
+    floor."""
+    a = runs[0]
+    for other in runs[1:]:
+        if other["losses"] != a["losses"]:
+            diff = {k: (a["losses"][k], other["losses"][k])
+                    for k in a["losses"]
+                    if other["losses"].get(k) != a["losses"][k]}
+            raise AssertionError(f"{what}: loss terms of remat="
+                                 f"{other['remat']} differ: {diff}")
+    off, on = runs[0::2], runs[1::2]
+    same = list(zip(off, off[1:])) + list(zip(on, on[1:]))
+    cross = list(zip(runs, runs[1:]))
+    out = dict(losses=a["losses"], launches=a["launches"], runs=len(runs))
+    failures = []
+    for key in ("grad", "update"):
+        floor = rel_errors(same, key)
+        err = rel_errors(cross, key)
+        floor = {k: floor.get(k, 0.0) for k in err}
+        noise = ([k for k in err if floor[k] > NOISE_LEAF]
+                 if key == "update" else [])
+        kept = {k: err[k] for k in err if k not in noise}
+        bad = {k: (kept[k], floor[k]) for k in kept
+               if kept[k] > REMAT_FACTOR * floor[k] + BF16_ROUNDING}
+        med_err = float(np.median(list(kept.values())))
+        med_floor = float(np.median([floor[k] for k in kept]))
+        bad_noise = {k: (err[k], floor[k]) for k in noise
+                     if err[k] > REMAT_FACTOR * floor[k]}
+        worst = max(kept, key=kept.get)
+        worst_ratio = (max(noise, key=lambda k: err[k] / floor[k])
+                       if noise else None)
+        out[key] = dict(
+            leaves=len(kept), worst_leaf=worst, worst=kept[worst],
+            floor_of_worst=floor[worst], median=med_err,
+            floor_median=med_floor, noise_leaves=len(noise),
+            noise_worst_ratio=(err[worst_ratio] / floor[worst_ratio]
+                               if noise else None),
+            noise_worst_leaf=worst_ratio)
+        if (bad or bad_noise
+                or med_err > REMAT_FACTOR * med_floor + REMAT_FLOOR):
+            failures.append(f"{key}: leaves (error, floor) "
+                            f"{list(bad.items())[:5]}, noise leaves "
+                            f"{list(bad_noise.items())[:5]}; {out[key]}")
+    warm_off, warm_on = off[1:], on[1:]
+    out["ms"] = {"no_remat": float(np.median([r["ms"] for r in warm_off])),
+                 "remat": float(np.median([r["ms"] for r in warm_on]))}
+    out["ms_runs"] = {"no_remat": [r["ms"] for r in off],
+                      "remat": [r["ms"] for r in on]}
+    out["peak_memory_bytes"] = {"no_remat": max(r["peak"] for r in off),
+                                "remat": max(r["peak"] for r in on)}
+    if failures:
+        raise AssertionError(f"{what}: remat errors out of bounds: "
+                             + " | ".join(failures))
+    return out
+
+
+def remat_case(state, step_fn, batch, want_launches, what, out, launches):
+    """Phase 10 for one step: the runs in turns, their check into
+    out[what], the remat runs' launches added up; the state left as the
+    first no-remat run left it (the next step's start)."""
+    runs, after = remat_runs(state, step_fn, batch, want_launches, what)
+    out[what] = check_remat(runs, what)
+    for r in runs:
+        if r["remat"]:
+            launches["fwd"] += r["launches"][0]
+            launches["bwd"] += r["launches"][1]
+    del runs
+    restore(state, after)
+
+
+def remat_phase(card):
+    log("== phase 10: remat (selective activation checkpointing, the MSDA "
+        "output saved) against no remat, from one state")
+    out, launches = {}, {"fwd": 0, "bwd": 0}
+    state, cfg = init_ssod_state(SSOD_CONFIG, device="cuda", seed=0)
+    refine_boxes(state.model, seed=3)
+    batch = to_device(synthetic_ssod_batch(
+        SSOD_SUP, SSOD_UNSUP, *SSOD_BUCKET, state.model.cfg.max_gt,
+        gt_per_image=12, seed=0, student_flip=True), "cuda")
+    # the warm-up step at phase 6's lowered score_thr (a supervision set),
+    # then a Hungarian step from the state the first no-remat run left
+    for warm_up, step_cfg in ((True, dataclasses.replace(cfg, score_thr=0.0)),
+                              (False, cfg)):
+        remat_case(state, make_ssod_train_step(step_cfg, warm_up), batch,
+                   SSOD_LAUNCHES[warm_up],
+                   f"ssod_{'warm_up' if warm_up else 'hungarian'}", out,
+                   launches)
+    del state, batch
+    torch.cuda.empty_cache()
+
+    state = init_train_state(CONFIG, device="cuda", seed=0)
+    rng = np.random.RandomState(5)
+    batches = [to_device(synthetic_batch(rng, bucket, counts,
+                                         state.model.cfg.max_gt), "cuda")
+               for _, bucket, counts in TRAIN_STEPS]
+    for warm_up, i in ((True, 0), (False, 2)):
+        remat_case(state, make_supervised_train_step(warm_up=warm_up, seed=0),
+                   batches[i], (12, 12),
+                   f"supervised_{'warm_up' if warm_up else 'hungarian'}",
+                   out, launches)
+    del state, batches
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        g, u = r["grad"], r["update"]
+        log(f"  {name}: loss terms bit-equal ({len(r['losses'])}) over "
+            f"{r['runs']} runs; MSDA launches {r['launches']} with and "
+            f"without remat; gradient error over {g['leaves']} leaves: worst "
+            f"{g['worst']:.3e} ({g['worst_leaf']}, its floor "
+            f"{g['floor_of_worst']:.3e}), median {g['median']:.3e} against "
+            f"the floor's {g['floor_median']:.3e}; update error over "
+            f"{u['leaves']} leaves: worst {u['worst']:.3e} ({u['worst_leaf']}"
+            f", its floor {u['floor_of_worst']:.3e}), median "
+            f"{u['median']:.3e} against the floor's {u['floor_median']:.3e}"
+            f"; {u['noise_leaves']} noise leaves, worst error / floor "
+            f"{u['noise_worst_ratio']} ({u['noise_worst_leaf']}); warm step "
+            f"(median of {REMAT_ROUNDS - 1} in turns) "
+            f"{r['ms']['no_remat']:.1f} ms without, "
+            f"{r['ms']['remat']:.1f} ms with remat (runs "
+            f"{[round(x, 1) for x in r['ms_runs']['no_remat']]} / "
+            f"{[round(x, 1) for x in r['ms_runs']['remat']]}); peak memory "
+            f"{r['peak_memory_bytes']['no_remat'] / 2 ** 30:.2f} GiB without,"
+            f" {r['peak_memory_bytes']['remat'] / 2 ** 30:.2f} GiB with")
+    log("  " + card)
+    return dict(out, launches=launches, card=card)
+
+
+# --------------------------------------------------------------------------
+# phase 11: the recipe rehearsal, short
+# --------------------------------------------------------------------------
+
+
+def rehearsal_launches(steps, boundary, evals, n_val):
+    """The MSDA launches a CLI run of `steps` step indices must make: 48
+    (warm-up) or 42 forward and 24 backward per step, 12 forward per eval
+    batch per model (teacher and student)."""
+    fwd = sum(SSOD_LAUNCHES[s < boundary][0] for s in steps)
+    fwd += evals * 2 * 12 * -(-n_val // EVAL_BATCH)
+    return fwd, 24 * len(steps)
+
+
+def rehearsal_phase(card):
+    n, boundary = REHEARSAL_STEPS, REHEARSAL_STEPS // 2
+    kill = REHEARSAL_STEPS // 2 + REHEARSAL_STEPS // 8
+    log(f"== phase 11: tools.recipe_rehearsal at full width: {n} steps, "
+        f"warm-up boundary {boundary}, leg 1 to {kill}, then resumed, eval "
+        f"every {REHEARSAL_EVAL}, {REHEARSAL_IMGS} synthetic images")
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rehearsal_")
+    try:
+        t0 = time.perf_counter()
+        res = recipe_rehearsal.main([
+            "--steps", str(n), "--imgs", str(REHEARSAL_IMGS), "--workdir",
+            tmp, "--eval-interval", str(REHEARSAL_EVAL), "--cfg-options",
+            "log_interval=1"])
+        wall = time.perf_counter() - t0
+        if res["leg1_last_checkpoint"] != kill or res["resumed_from"] != [
+                kill]:
+            raise AssertionError(f"leg 1 saved {res['leg1_last_checkpoint']}"
+                                 f", leg 2 resumed from "
+                                 f"{res['resumed_from']}, not {kill}")
+        if res["steps_logged"] != list(range(n)) or not all(
+                v is not None and math.isfinite(v)
+                for v in res["losses_logged"]):
+            raise AssertionError(f"logged steps {res['steps_logged']}, "
+                                 f"losses {res['losses_logged']}")
+        want_evals = list(range(REHEARSAL_EVAL, n, REHEARSAL_EVAL))
+        if sorted(res["evals"]) != want_evals:
+            raise AssertionError(f"evals at {sorted(res['evals'])}, not "
+                                 f"{want_evals}")
+        for step, tags in res["evals"].items():
+            for tag in ("teacher", "student"):
+                if tag not in tags:
+                    raise AssertionError(f"no Eval[{tag}] at step {step}")
+                check_aps(tags[tag], f"Eval[{tag}] iter {step}")
+        if not os.path.isfile(os.path.join(tmp, "REHEARSAL.md")):
+            raise AssertionError("no report under the work dir")
+        n_val = len(recipe_rehearsal.rehearsal_splits(REHEARSAL_IMGS)["val"])
+        legs = (range(0, kill), range(kill, n))
+        if len(res["msda_launches"]) != 2:
+            raise AssertionError(f"launch lines {res['msda_launches']}")
+        launches = {"fwd": 0, "bwd": 0}
+        for leg, got in zip(legs, res["msda_launches"]):
+            n_ev = sum(1 for s in want_evals if s in leg)
+            want = rehearsal_launches(leg, boundary, n_ev, n_val)
+            width = {str(MAIN_WIDTH): want[0]}, {str(MAIN_WIDTH): want[1]}
+            if ((got["fwd"], got["bwd"]) != want
+                    or (got["fwd_by_width"], got["bwd_by_width"]) != width):
+                raise AssertionError(f"leg {leg}: MSDA launches {got}, not "
+                                     f"{want} through width {MAIN_WIDTH}")
+            launches["fwd"] += got["fwd"]
+            launches["bwd"] += got["bwd"]
+        log(f"  both legs exit 0 ({res['wall_leg1_s']:.1f} s, "
+            f"{res['wall_leg2_s']:.1f} s); leg 2 resumed from {kill}; "
+            f"median logged step {res['median_step_s'] * 1e3:.1f} ms, "
+            f"{res['images_per_s']:.3f} images/s; peak memory "
+            f"{res['peak_memory']}; MSDA launches per leg "
+            f"{[(g['fwd'], g['bwd']) for g in res['msda_launches']]}")
+        for step, tags in sorted(res["evals"].items()):
+            log(f"  eval at {step}: teacher mAP "
+                f"{tags['teacher']['mAP']:.4f}, student mAP "
+                f"{tags['student']['mAP']:.4f}")
+        log("  " + card)
+        return dict(res, launches=launches, wall_s=wall, card=card)
+    finally:
+        shutil.rmtree(tmp)
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == EXPORT_FLAG:
+        run_exported(sys.argv[2])
+        return
     if len(sys.argv) > 1 and sys.argv[1] == TORCHRUN_FLAG:
         torchrun_cli_rank(sys.argv[2], sys.argv[3:])
         return
@@ -2044,6 +2578,9 @@ def main():
     trainer = timed("7", trainer_phase, card, ssod["warm_step_ms"])
     ddp = timed("8a", ddp_phase, card, ssod["warm_step_ms"])
     torchrun = timed("8b", torchrun_phase, card, trainer["launches_per_step"])
+    exported = timed("9", export_phase, card)
+    remat = timed("10", remat_phase, card)
+    rehearsal = timed("11", rehearsal_phase, card)
 
     main_rows = [r for r in rows if r["dtype"] == "bfloat16"
                  and r["case"] in ("encoder", "decoder")]
@@ -2069,7 +2606,13 @@ def main():
                              "ssod": ssod["launches_fwd"],
                              "trainer": trainer["launches_fwd"],
                              # per rank, phase 8a's two runs
-                             "ddp": ddp["launches"]["fwd"]},
+                             "ddp": ddp["launches"]["fwd"],
+                             # the loaded program's runs (phase 9)
+                             "export": exported["launches"],
+                             # the remat runs of phase 10
+                             "remat": remat["launches"]["fwd"],
+                             # both CLI legs of phase 11
+                             "rehearsal": rehearsal["launches"]["fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
         # per image on the serving path (bfloat16, N=1): 6 encoder + 6
         # decoder calls
@@ -2089,7 +2632,10 @@ def main():
         "launches_by_path": {"serve": 0, "train": train["launches_bwd"],
                              "ssod": ssod["launches_bwd"],
                              "trainer": trainer["launches_bwd"],
-                             "ddp": ddp["launches"]["bwd"]},
+                             "ddp": ddp["launches"]["bwd"],
+                             "export": 0,
+                             "remat": remat["launches"]["bwd"],
+                             "rehearsal": rehearsal["launches"]["bwd"]},
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in bwd_main),
         # per training step (batch 2, bfloat16): 6 encoder + 6 decoder calls
         "ms": per_step["ms"],
@@ -2104,7 +2650,8 @@ def main():
         "float32_request_err": errs, "train": train,
         "float32_grad_check": grad_check, "ssod": ssod,
         "host_library": host_lib, "trainer": trainer, "ddp": ddp,
-        "torchrun": torchrun}
+        "torchrun": torchrun, "export": exported,
+        "remat": remat, "rehearsal": rehearsal}
     print(json.dumps(json_safe(record), allow_nan=False), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -25,16 +25,18 @@ def init_detector(config: str, checkpoint: Optional[str] = None,
     """Build the detector and load its weights. Returns a `Predictor`.
 
     checkpoint: a reference-layout `.pth` (plain detector or SSOD wrapper;
-      the teacher is loaded), or None for a seeded init with the JAX
+      the teacher is loaded), a checkpoint file or directory of this
+      package (its teacher), or None for a seeded init with the JAX
       package's initializers.
-    use_nms: decode mode; None picks NMS while a checkpoint's step
-      (parsed from an "iter_XXXX" file name) is below the SSOD warm-up
-      step, as the reference's tools/test.py does, and top-k otherwise.
+    use_nms: decode mode; None picks NMS while a checkpoint's step (this
+      package's saved step, or parsed from an "iter_XXXX" file name) is
+      below the SSOD warm-up step, as the reference's tools/test.py does,
+      and top-k otherwise.
     """
     from .data.coco import COCO_CLASSES, VOC_CLASSES
     from .models.dino_head import DinoConfig, DINODetector
+    from .train.checkpoint import load_warm_start
     from .utils.config import load_config
-    from .utils.torch_weights import load_teacher_state_dict
 
     cfg = load_config(config, cfg_options)
     m = dict(cfg["model"])
@@ -46,19 +48,22 @@ def init_detector(config: str, checkpoint: Optional[str] = None,
     step = warm_up
     if checkpoint is None:
         detector.init_weights(seed)
-    elif checkpoint.endswith((".pth", ".pt")):
+    elif checkpoint.endswith((".pth", ".pt")) or os.path.isdir(checkpoint):
+        loaded = load_warm_start(checkpoint)
         # keys the port has no module for (wrapper aliases) are ignored,
         # as the JAX package's converter ignores them; a missing one raises
         missing, _ = detector.load_state_dict(
-            load_teacher_state_dict(checkpoint), strict=False)
+            loaded["teacher"] or loaded["student"], strict=False)
         if missing:
             raise KeyError(f"checkpoint lacks {len(missing)} keys, e.g. "
                            f"{missing[:3]}")
         it = re.search(r"iter_(\d+)", os.path.basename(checkpoint))
-        step = int(it.group(1)) if it else warm_up
+        step = (int(loaded["step"]) if "step" in loaded
+                else int(it.group(1)) if it else warm_up)
     else:
         raise ValueError(f"unsupported checkpoint {checkpoint!r}: the port "
-                         "reads reference-layout .pth files")
+                         "reads reference-layout .pth files and its own "
+                         "checkpoints")
     detector.to(device).eval()
     if use_nms is None:
         use_nms = step < warm_up

@@ -66,9 +66,11 @@ class DinoConfig:
     dn_box_noise_scale: float = 0.4
     max_gt: int = 100
     dtype: Any = torch.float32   # compute dtype (torch dtype or its name)
+    # activation checkpointing per encoder layer and decoder step, the
+    # MSDA output kept (models/transformer.py)
+    remat: bool = False
     # TPU layout and compile knobs of the JAX package; accepted so the
     # configs load, ignored (they do not change the numbers)
-    remat: bool = False
     tiled_tokens: bool = True
     scan_unroll: int = 6
 
@@ -162,7 +164,7 @@ class DINOHead(nn.Module):
             num_encoder_layers=c.num_encoder_layers,
             num_decoder_layers=c.num_decoder_layers, d_ffn=c.d_ffn,
             n_levels=c.n_levels, enc_n_points=c.enc_n_points,
-            dec_n_points=c.dec_n_points)
+            dec_n_points=c.dec_n_points, remat=c.remat)
 
 
 class DINODetector(nn.Module):

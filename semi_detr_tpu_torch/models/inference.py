@@ -68,6 +68,12 @@ def decode_nms(cls_logits, coords, img_hw, max_dets: int = 300):
     return torch.stack(out_b), torch.stack(out_s), torch.stack(out_l)
 
 
+def _forward_decode(detector, images, img_hw, use_nms, max_dets):
+    decode = decode_nms if use_nms else decode_topk
+    out = detector(images, img_hw)
+    return decode(out["cls"][-1], out["coord"][-1], img_hw, max_dets)
+
+
 @torch.inference_mode()
 def predict(detector, images, img_hw, use_nms: bool = False,
             max_dets: int = 300):
@@ -76,9 +82,23 @@ def predict(detector, images, img_hw, use_nms: bool = False,
     images: (B, H, W, 3) uint8 or normalized float; img_hw: (B, 2) int,
     both on the detector's device. Teacher and student go through this one
     function."""
-    decode = decode_nms if use_nms else decode_topk
-    out = detector(images, img_hw)
-    return decode(out["cls"][-1], out["coord"][-1], img_hw, max_dets)
+    return _forward_decode(detector, images, img_hw, use_nms, max_dets)
+
+
+class ServingProgram(torch.nn.Module):
+    """`predict` as a module, the program `tools/export_model.py` exports
+    with `torch.export` (at the batch and bucket of its example inputs, as
+    the JAX export fixes them): forward(images, img_hw) -> (boxes, scores,
+    labels)."""
+
+    def __init__(self, detector, use_nms: bool = False, max_dets: int = 300):
+        super().__init__()
+        self.detector = detector
+        self.use_nms, self.max_dets = use_nms, max_dets
+
+    def forward(self, images, img_hw):
+        return _forward_decode(self.detector, images, img_hw, self.use_nms,
+                               self.max_dets)
 
 
 def make_predict_fn(detector, use_nms: bool = False, max_dets: int = 300):

@@ -109,3 +109,65 @@ def pair_l1_cost(pred_cxcywh, gt_cxcywh):
 
 def giou_cost(pred_xyxy, gt_xyxy):
     return -box_ops.pairwise_giou(pred_xyxy, gt_xyxy)
+
+
+# The reference's registered losses that no live config selects
+# (`semi_detr_tpu/models/losses.py:110-179`), for custom configs.
+
+def _kl(log_q, t, eps: float = 1e-12):
+    """torch F.kl_div(log_q, t) elementwise: t * (log t - log_q), with
+    0 log 0 = 0."""
+    return torch.where(t > 0, t * (torch.log(t.clamp(min=eps)) - log_q),
+                       torch.zeros_like(t))
+
+
+def softmax_focal_loss(logits, labels, gamma: float = 1.5,
+                       class_weight=None, reduction: str = "sum"):
+    """Multi-class focal loss over softmax cross entropy
+    (`detr_od/models/losses/softmax_focal_loss.py:9-76`):
+    (1 - exp(-CE))**gamma * CE. logits (N, K); labels (N,) int;
+    reduction none | sum | mean."""
+    logp = F.log_softmax(logits, -1)
+    ce = -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
+    if class_weight is not None:
+        ce = ce * torch.as_tensor(class_weight, dtype=ce.dtype,
+                                  device=ce.device)[labels.long()]
+    loss = (1.0 - torch.exp(-ce)) ** gamma * ce
+    if reduction == "none":
+        return loss
+    return loss.mean() if reduction == "mean" else loss.sum()
+
+
+def binary_kl_div_loss(logits, target, binary: bool = False,
+                       eps: float = 1e-12):
+    """Per-box KL (or, with binary, symmetric JS over each class's
+    Bernoulli) divergence between sigmoid scores and a soft target
+    (`detr_od/models/losses/binary_kl_div_loss.py:14-82`). Returns (N,)."""
+    p = torch.sigmoid(logits)
+    if not binary:
+        return _kl(torch.log(p + eps), target, eps).sum(-1)
+    pb = torch.stack([p, 1.0 - p], -1)
+    tb = torch.stack([target, 1.0 - target], -1)
+    m = 0.5 * (pb + tb)
+    loss = _kl(torch.log(pb + eps), m, eps) + _kl(torch.log(tb + eps), m,
+                                                    eps)
+    return 0.5 * loss.sum(-1).sum(-1)
+
+
+def focal_kl_loss(logits, target, gamma: float = 0.5, weight=None,
+                  avg_factor=None):
+    """Focal-modulated symmetric binary KL
+    (`detr_od/models/losses/soft_label_focal_loss.py:27-105`, use_sigmoid):
+    KL(t || sigmoid) + KL(1 - t || 1 - sigmoid) per class, times
+    ((t - sigmoid)^2 + 1e-6)**(gamma / 2); the mean, or the sum over
+    avg_factor, with an optional per-box weight."""
+    logp = F.logsigmoid(logits)
+    logn = -logits + logp                       # log(1 - sigmoid)
+    loss = _kl(logp, target) + _kl(logn, 1.0 - target)
+    p = torch.sigmoid(logits)
+    loss = ((target - p) ** 2 + 1e-6) ** (0.5 * gamma) * loss
+    if weight is not None:
+        loss = loss * weight.reshape(-1, 1)
+    if avg_factor is not None:
+        return loss.sum() / avg_factor
+    return loss.mean()

@@ -15,9 +15,18 @@ Dtype policy (as in the JAX package): parameters are stored in float32 and
 every layer computes in the model's compute dtype (`models/layers.py`),
 except the sampling offsets and attention logits, which compute in float32
 because sampling coordinates are precision-sensitive.
+
+Activation checkpointing (`remat`, the JAX package's `nn.remat` with the
+`save_only_these_names("msda_out")` policy): with grad enabled, each
+encoder layer and each decoder step (refinement included) runs under a
+non-reentrant `torch.utils.checkpoint` whose selective policy saves the
+output of `semi_detr::ms_deform_attn` and recomputes everything else, so
+the backward replays the projections, norms and FFNs but not the MSDA
+forward kernel.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -25,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.ms_deform_attn_cuda import ms_deform_attn_auto
 from .layers import CastMixin, LayerNorm, Linear
@@ -270,6 +281,18 @@ class DecoderLayer(nn.Module):
         return self.norm3(tgt + f)
 
 
+def _msda_out_policy(ctx, op, *args, **kwargs):
+    """Keep the MSDA forward's output, recompute the rest (the JAX
+    package's `save_only_these_names("msda_out")`)."""
+    if op is torch.ops.semi_detr.ms_deform_attn.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_MSDA_SAVED = functools.partial(create_selective_checkpoint_contexts,
+                                _msda_out_policy)
+
+
 class _Encoder(nn.Module):
     def __init__(self, n_layers, **kw):
         super().__init__()
@@ -294,9 +317,11 @@ class DINOTransformer(nn.Module):
 
     def __init__(self, d_model=256, n_heads=8, num_queries=900,
                  num_encoder_layers=6, num_decoder_layers=6, d_ffn=2048,
-                 n_levels=4, enc_n_points=4, dec_n_points=4):
+                 n_levels=4, enc_n_points=4, dec_n_points=4,
+                 remat: bool = False):
         super().__init__()
         self.d_model, self.num_queries = d_model, num_queries
+        self.remat = remat
         self.level_embed = nn.Parameter(torch.zeros(n_levels, d_model))
         self.tgt_embed = nn.Embedding(num_queries, d_model)
         self.encoder = _Encoder(num_encoder_layers, d_model=d_model,
@@ -311,6 +336,14 @@ class DINOTransformer(nn.Module):
     @property
     def compute_dtype(self):
         return self.enc_output.compute_dtype or self.enc_output.weight.dtype
+
+    def _run(self, fn, *args):
+        """fn(*args), under the MSDA-saving checkpoint when remat is on and
+        a graph is being recorded."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=_MSDA_SAVED)
+        return fn(*args)
 
     def encode(self, srcs: List[torch.Tensor], valid_masks, spatial_shapes,
                fc_enc_reg, fc_enc_cls):
@@ -339,8 +372,8 @@ class DINOTransformer(nn.Module):
         enc_ref = encoder_reference_points(spatial_shapes, vr)
         memory = src_flat
         for layer in self.encoder.layers:
-            memory = layer(memory, pos_flat, enc_ref, spatial_shapes,
-                           pad_mask)
+            memory = self._run(layer, memory, pos_flat, enc_ref,
+                               spatial_shapes, pad_mask)
 
         proposals = make_proposals(spatial_shapes, vr)         # (B, S, 4)
         prop_valid = ((proposals > 0.01) & (proposals < 0.99)).all(-1)
@@ -384,14 +417,24 @@ class DINOTransformer(nn.Module):
         vr4 = torch.cat([valid_ratios, valid_ratios], -1)      # (B, L, 4)
         hs_raw, refs = [], [reference]
         for layer in self.decoder.layers:
-            ref_input = reference[:, :, None] * vr4[:, None]   # (B,nq,L,4)
-            qse = sine_embed(ref_input[:, :, 0, :], self.d_model // 2)
-            query_pos = self.decoder.ref_point_head(qse)
-            output = layer(output, query_pos, ref_input, memory,
-                           spatial_shapes, pad_mask, attn_mask)
-            new_ref = (fc_reg(output) + inverse_sigmoid(reference)).sigmoid()
+            output, new_ref = self._run(
+                functools.partial(self._decoder_step, layer), output,
+                reference, vr4, memory, spatial_shapes, pad_mask, attn_mask,
+                fc_reg)
             reference = new_ref.detach()
             hs_raw.append(output)
             refs.append(new_ref)
         hs = self.decoder.norm(torch.stack(hs_raw))
         return hs, torch.stack(refs)
+
+    def _decoder_step(self, layer, output, reference, vr4, memory,
+                      spatial_shapes, pad_mask, attn_mask, fc_reg):
+        """One decoder layer and its box refinement (the JAX package's
+        `DecoderStep`): returns (output, refined reference)."""
+        ref_input = reference[:, :, None] * vr4[:, None]       # (B,nq,L,4)
+        qse = sine_embed(ref_input[:, :, 0, :], self.d_model // 2)
+        query_pos = self.decoder.ref_point_head(qse)
+        output = layer(output, query_pos, ref_input, memory, spatial_shapes,
+                       pad_mask, attn_mask)
+        new_ref = (fc_reg(output) + inverse_sigmoid(reference)).sigmoid()
+        return output, new_ref

@@ -13,8 +13,13 @@ pixel = loc * extent - 0.5, corners outside the map read 0.
 This is the gather-based mirror of the JAX oracle. It is what a CPU tensor
 runs, and what the hand-written CUDA kernels
 (`ops/ms_deform_attn_cuda.py`) are held against on the card: the forward
-against `ms_deform_attn`, the backward against `ms_deform_attn_backward`,
-autograd through it (the mirror of the JAX oracle vjp).
+against `ms_deform_attn`, the backward against
+`ms_deform_attn_backward_autograd` (autograd through the plain forward,
+the mirror of the JAX oracle's vjp). `ms_deform_attn_backward` is the same
+backward written out in tensor ops, which the operator's CPU
+implementation runs (autograd does not run below the operator's
+dispatch); the tests hold it to the autograd version and to the JAX
+oracle's vjp.
 """
 from __future__ import annotations
 
@@ -102,13 +107,87 @@ def ms_deform_attn_backward(value: torch.Tensor,
                             grad_out: torch.Tensor
                             ) -> Tuple[torch.Tensor, ...]:
     """(d_value, d_loc, d_attn) of `ms_deform_attn` for the cotangent
-    grad_out (N, Lq, M*D), by autograd through the plain version.
+    grad_out (N, Lq, M*D): the plain backward, written out (what autograd
+    through the plain forward computes, in tensor ops that also run inside
+    an operator's kernel, below the autograd dispatch).
 
-    Out-of-range corners add nothing. A NaN (or infinite) location gives
-    NaN in its d_loc here, where the CUDA kernel gives 0; compare the two
-    only where this result is finite. With bfloat16 value the gather's
-    backward scatters in bfloat16: pass value.float() for a float32 sum.
+    Per tap, with c the four corners, w_c the bilinear weights and v_c the
+    corner's value row (zero off the map):
+      d_value[row of c] += attn * w_c * g       (scattered in value's dtype)
+      d_attn = sum_c w_c <v_c, g>
+      d_loc  = attn * sum_c <v_c, g> * (dw_c/dfx * W, dw_c/dfy * H)
+    Out-of-range corners add nothing, and a NaN (or infinite) location
+    gets 0, as in the CUDA kernel. With bfloat16 value the d_value scatter
+    accumulates in bfloat16: pass value.float() for a float32 sum.
     """
+    N, S, M, D = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    dev = value.device
+    loc = sampling_locations.float()
+    attn = attention_weights.float()
+    hw = torch.tensor(spatial_shapes, dtype=torch.float32, device=dev)
+    Hs, Ws = hw[:, 0, None], hw[:, 1, None]                    # (L, 1)
+    starts = torch.as_tensor(level_start_index(spatial_shapes),
+                             dtype=torch.int64, device=dev)[:, None]
+    px = loc[..., 0] * Ws - 0.5                                # (N,Lq,M,L,P)
+    py = loc[..., 1] * Hs - 0.5
+    x0 = torch.floor(px)
+    y0 = torch.floor(py)
+    fx = px - x0
+    fy = py - y0
+    Wl, Hl = Ws.long(), Hs.long()
+    # corners (dx, dy) in the forward's order, with w_c, dw_c/dfx, dw_c/dfy
+    corners = ((0, 0, (1 - fx) * (1 - fy), -(1 - fy), -(1 - fx)),
+               (1, 0, fx * (1 - fy), 1 - fy, -fx),
+               (0, 1, (1 - fx) * fy, -fy, 1 - fx),
+               (1, 1, fx * fy, fy, fx))
+    idx, w, dwx, dwy = [], [], [], []
+    for dx, dy, wc, wx, wy in corners:
+        xf, yf = x0 + dx, y0 + dy
+        valid = (xf >= 0) & (xf < Ws) & (yf >= 0) & (yf < Hs)
+        xi = torch.where(valid, xf, 0.0).long()
+        yi = torch.where(valid, yf, 0.0).long()
+        idx.append(starts + yi * Wl + xi)
+        w.append(torch.where(valid, wc, 0.0))
+        dwx.append(torch.where(valid, wx, 0.0))
+        dwy.append(torch.where(valid, wy, 0.0))
+    idx, w, dwx, dwy = (torch.stack(t, -1) for t in (idx, w, dwx, dwy))
+
+    K = Lq * L * P * 4
+    v = value.permute(0, 2, 1, 3)                              # (N, M, S, D)
+    flat_idx = idx.permute(0, 2, 1, 3, 4, 5).reshape(N, M, K, 1)
+    sampled = torch.gather(v, 2, flat_idx.expand(N, M, K, D))  # (N,M,K,D)
+    g = grad_out.to(value.dtype).float().reshape(N, Lq, M, D).permute(
+        0, 2, 1, 3)                                            # (N,M,Lq,D)
+    # <v_c, g> per tap and corner, back in (N, Lq, M, L, P, 4)
+    dots = (sampled.float().reshape(N, M, Lq, L * P * 4, D)
+            * g[:, :, :, None, :]).sum(-1)
+    dots = dots.reshape(N, M, Lq, L, P, 4).permute(0, 2, 1, 3, 4, 5)
+    d_attn = (dots * w).sum(-1)
+    d_loc = torch.stack([(dots * dwx).sum(-1) * attn * Ws,
+                         (dots * dwy).sum(-1) * attn * Hs], -1)
+    cw = (w * attn[..., None]).permute(0, 2, 1, 3, 4, 5).reshape(
+        N, M, Lq, L * P * 4, 1)
+    contrib = (g[:, :, :, None, :] * cw).reshape(N, M, K, D).to(value.dtype)
+    d_value = torch.zeros_like(v).scatter_add_(
+        2, flat_idx.expand(N, M, K, D), contrib)
+    return (d_value.permute(0, 2, 1, 3).contiguous(), d_loc,
+            d_attn.to(attention_weights.dtype))
+
+
+def ms_deform_attn_backward_autograd(value: torch.Tensor,
+                                     spatial_shapes: Tuple[Tuple[int, int],
+                                                           ...],
+                                     sampling_locations: torch.Tensor,
+                                     attention_weights: torch.Tensor,
+                                     grad_out: torch.Tensor
+                                     ) -> Tuple[torch.Tensor, ...]:
+    """(d_value, d_loc, d_attn) of `ms_deform_attn` by autograd through
+    the plain forward: the yardstick of the backward kernel, independent of
+    its conventions. A NaN (or infinite) location gives NaN in its d_loc
+    here, where the kernel and `ms_deform_attn_backward` give 0; compare
+    them only where this result is finite. With bfloat16 value the gather's
+    backward scatters in bfloat16: pass value.float() for a float32 sum."""
     with torch.enable_grad():
         inputs = [t.detach().requires_grad_(True) for t in
                   (value, sampling_locations, attention_weights)]

@@ -12,14 +12,18 @@ bf16 or 4 float32 channels), the element instance one channel, for any D
 and any alignment. Each wrapper counts its launches in `.launches` and, by
 the width taken, in `.launches_by_width`.
 
-`MSDeformAttnFunction` takes the place of the JAX `custom_vjp` pair
-(`ms_deform_attn_fused` / `ms_deform_attn_fused_tiled`): the forward
-kernel, and the backward kernel for its gradient. `ms_deform_attn_auto`
-takes the place of the JAX package's dispatch: a CUDA tensor goes through
-the Function (so its output keeps the graph, with or without grad), a CPU
-tensor takes the plain version (`ops/ms_deform_attn.py`), anything else
-raises. There is no fallback: a kernel that does not build or launch
-raises.
+Two registered operators take the place of the JAX `custom_vjp` pair
+(`ms_deform_attn_fused` / `ms_deform_attn_fused_tiled`):
+`semi_detr::ms_deform_attn` (the forward kernel on the card, the plain
+version on the CPU) and `semi_detr::ms_deform_attn_bwd` (the backward
+kernel on the card; autograd through the plain forward on the CPU), joined
+by the forward's autograd formula, with fake implementations for tracing.
+Being operators, they survive `torch.export` (importing this module
+registers them, so a saved program needs it imported to load) and are
+what the selective activation checkpoint keeps (`models/transformer.py`).
+`ms_deform_attn_auto` takes the place of the JAX package's dispatch: CUDA
+and CPU tensors go through the op, anything else raises. There is no
+fallback: a kernel that does not build or launch raises.
 """
 from __future__ import annotations
 
@@ -31,12 +35,13 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from .ms_deform_attn import level_start_index, ms_deform_attn
+from .ms_deform_attn import (level_start_index, ms_deform_attn,
+                             ms_deform_attn_backward)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -278,41 +283,104 @@ ms_deform_attn_bwd_cuda.launches = 0
 ms_deform_attn_bwd_cuda.launches_by_width = collections.Counter()
 
 
-class MSDeformAttnFunction(torch.autograd.Function):
-    """MSDA through the hand-written kernels: the forward kernel, and the
-    backward kernel for the gradients of value, sampling locations and
-    attention weights (spatial_shapes is static)."""
+def _pairs(spatial_shapes: List[int]) -> Tuple[Tuple[int, int], ...]:
+    """The ops' flat [H0, W0, H1, W1, ...] as ((H0, W0), (H1, W1), ...)."""
+    return tuple(zip(spatial_shapes[0::2], spatial_shapes[1::2]))
 
-    @staticmethod
-    def forward(ctx, value, spatial_shapes, sampling_locations,
-                attention_weights):
-        ctx.spatial_shapes = tuple(spatial_shapes)
-        ctx.save_for_backward(value, sampling_locations, attention_weights)
-        return ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
-                                   attention_weights)
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad_out):
-        value, loc, attn = ctx.saved_tensors
-        d_value, d_loc, d_attn = ms_deform_attn_bwd_cuda(
-            value, ctx.spatial_shapes, loc, attn, grad_out.contiguous())
-        need = ctx.needs_input_grad
-        return (d_value if need[0] else None, None,
-                d_loc if need[2] else None, d_attn if need[3] else None)
+def flat_shapes(spatial_shapes) -> List[int]:
+    """((H0, W0), ...) as the ops' flat [H0, W0, ...]."""
+    return [int(v) for hw in spatial_shapes for v in hw]
+
+
+@torch.library.custom_op("semi_detr::ms_deform_attn", mutates_args=(),
+                         device_types="cpu")
+def ms_deform_attn_op(value: torch.Tensor, spatial_shapes: List[int],
+                      sampling_locations: torch.Tensor,
+                      attention_weights: torch.Tensor) -> torch.Tensor:
+    """MSDA as a registered operator; spatial_shapes flat (`flat_shapes`).
+    On the CPU the plain version, on the card the forward kernel
+    (`ms_deform_attn_fwd_cuda_impl`)."""
+    return ms_deform_attn(value, _pairs(spatial_shapes), sampling_locations,
+                          attention_weights)
+
+
+def ms_deform_attn_fwd_cuda_impl(value, spatial_shapes, sampling_locations,
+                                 attention_weights):
+    """`semi_detr::ms_deform_attn` on a CUDA device: the forward kernel."""
+    return ms_deform_attn_cuda(value, _pairs(spatial_shapes),
+                               sampling_locations, attention_weights)
+
+
+ms_deform_attn_op.register_kernel("cuda", ms_deform_attn_fwd_cuda_impl)
+
+
+@ms_deform_attn_op.register_fake
+def _(value, spatial_shapes, sampling_locations, attention_weights):
+    n, _, m, d = value.shape
+    return value.new_empty((n, sampling_locations.shape[1], m * d))
+
+
+@torch.library.custom_op("semi_detr::ms_deform_attn_bwd", mutates_args=(),
+                         device_types="cpu")
+def ms_deform_attn_bwd_op(value: torch.Tensor, spatial_shapes: List[int],
+                          sampling_locations: torch.Tensor,
+                          attention_weights: torch.Tensor,
+                          grad_out: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """(d_value, d_loc, d_attn) of `semi_detr::ms_deform_attn` for
+    grad_out. On the CPU by autograd through the plain forward, on the
+    card the backward kernel (`ms_deform_attn_bwd_cuda_impl`)."""
+    return ms_deform_attn_backward(value, _pairs(spatial_shapes),
+                                   sampling_locations, attention_weights,
+                                   grad_out)
+
+
+def ms_deform_attn_bwd_cuda_impl(value, spatial_shapes, sampling_locations,
+                                 attention_weights, grad_out):
+    """`semi_detr::ms_deform_attn_bwd` on a CUDA device: the backward
+    kernel."""
+    return ms_deform_attn_bwd_cuda(value, _pairs(spatial_shapes),
+                                   sampling_locations, attention_weights,
+                                   grad_out.contiguous())
+
+
+ms_deform_attn_bwd_op.register_kernel("cuda", ms_deform_attn_bwd_cuda_impl)
+
+
+@ms_deform_attn_bwd_op.register_fake
+def _(value, spatial_shapes, sampling_locations, attention_weights,
+      grad_out):
+    return (torch.empty_like(value), torch.empty_like(sampling_locations),
+            torch.empty_like(attention_weights))
+
+
+def _setup_context(ctx, inputs, output):
+    value, spatial_shapes, sampling_locations, attention_weights = inputs
+    ctx.spatial_shapes = spatial_shapes
+    ctx.save_for_backward(value, sampling_locations, attention_weights)
+
+
+def _backward(ctx, grad_out):
+    value, loc, attn = ctx.saved_tensors
+    d_value, d_loc, d_attn = ms_deform_attn_bwd_op(
+        value, ctx.spatial_shapes, loc, attn, grad_out)
+    need = ctx.needs_input_grad
+    return (d_value if need[0] else None, None,
+            d_loc if need[2] else None, d_attn if need[3] else None)
+
+
+ms_deform_attn_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def ms_deform_attn_auto(value, spatial_shapes, sampling_locations,
                         attention_weights) -> torch.Tensor:
-    """Device dispatch: CUDA tensors go through `MSDeformAttnFunction`
-    (the kernels, output attached to the graph), CPU tensors through the
-    plain version (differentiable by autograd); any other device raises."""
-    if value.is_cuda:
-        return MSDeformAttnFunction.apply(value, spatial_shapes,
-                                          sampling_locations,
-                                          attention_weights)
-    if value.device.type == "cpu":
-        return ms_deform_attn(value, spatial_shapes, sampling_locations,
-                              attention_weights)
+    """Device dispatch through `semi_detr::ms_deform_attn`: CUDA tensors
+    launch the kernels, CPU tensors take the plain version (both
+    differentiable through the op's backward); any other device raises."""
+    if value.is_cuda or value.device.type == "cpu":
+        return ms_deform_attn_op(value, flat_shapes(spatial_shapes),
+                                 sampling_locations, attention_weights)
     raise RuntimeError(f"MSDA has no implementation for device "
                        f"{value.device}")

@@ -13,7 +13,10 @@ Suppression is the exact greedy result, computed as the fixpoint of
 
 over candidates in descending score order: each sweep is one (k, k) masked
 reduction, and the loop ends when keep stops changing (the longest
-suppression chain, single digits on real detections).
+suppression chain, single digits on real detections). Eagerly the loop
+is Python's, ending on `torch.equal`; under `torch.export` the same sweeps
+run in a `while_loop` (the JAX package's `lax.while_loop`), which the
+exported program carries with its data-dependent end.
 """
 from __future__ import annotations
 
@@ -52,12 +55,7 @@ def multiclass_nms(boxes_xyxy: torch.Tensor, scores: torch.Tensor,
     idx = torch.arange(k, device=scores.device)
     overlap = (iou > iou_thr) & (idx[None, :] < idx[:, None])
 
-    keep = alive
-    for _ in range(k):
-        new = alive & ~(overlap & keep[None, :]).any(1)
-        if torch.equal(new, keep):
-            break
-        keep = new
+    keep = _fixpoint(alive, overlap)
 
     sel_scores = torch.where(keep, top_scores, torch.full_like(top_scores,
                                                                -1.0))
@@ -69,3 +67,29 @@ def multiclass_nms(boxes_xyxy: torch.Tensor, scores: torch.Tensor,
         "box_idx": box_idx[order].to(torch.int32),
         "valid": keep[order] & (sel_scores[order] > 0),
     }
+
+
+def _fixpoint(alive, overlap):
+    """The greedy keep set: sweeps of keep = alive & ~any(overlap & keep)
+    from keep = alive until a sweep changes nothing (at most k sweeps)."""
+    k = alive.shape[0]
+    if torch.compiler.is_exporting():
+        from torch._higher_order_ops.while_loop import while_loop
+
+        def cond(i, keep, changed):
+            return changed & (i < k)
+
+        def body(i, keep, changed):
+            new = alive & ~(overlap & keep[None, :]).any(1)
+            return i + 1, new, (new != keep).any()
+
+        start = (torch.zeros((), dtype=torch.int64, device=alive.device),
+                 alive, torch.ones((), dtype=torch.bool, device=alive.device))
+        return while_loop(cond, body, start)[1]
+    keep = alive
+    for _ in range(k):
+        new = alive & ~(overlap & keep[None, :]).any(1)
+        if torch.equal(new, keep):
+            break
+        keep = new
+    return keep

@@ -16,8 +16,13 @@ take: bytes over the HBM rate or flops over the float32 rate, whichever
 is larger), the ratio, the rate of gathered value rows (4 corner rows of
 D channels per tap) and, for the backward, the device time by kernel
 (torch.profiler: the backward kernel, the bf16 cast, the scratch memset).
-Also the ptxas register and spill lines of the build. The last line is a
-JSON object of all of it.
+Also the ptxas register and spill lines of the build, and the host cost
+of the dispatch: microseconds per call of `ms_deform_attn_auto` (the
+model's entry: the registered operator `semi_detr::ms_deform_attn`, or in
+a tree before it the autograd Function), with and without inputs that
+require grad, and of the bare wrapper `ms_deform_attn_cuda`, in bfloat16
+at the decoder's shape (the host clock around CALLS calls, synchronised
+before and after). The last line is a JSON object of all of it.
 
 Compare two trees on one card in one call by running this for each in
 turns (parent, new, new, parent): every run builds its tree's kernels
@@ -36,6 +41,7 @@ import json
 import os
 import re
 import sys
+import time
 
 import numpy as np
 
@@ -51,6 +57,7 @@ PEAK_F32_FLOPS = 67e12
 FWD_CASES = (("encoder", 1, S), ("decoder", 1, 900))
 BWD_CASES = (("encoder", 2, S), ("decoder", 2, 900 + 200))
 REPS = 50           # timed runs per forward call; the backward takes half
+CALLS = 2000        # calls per dispatch timing
 
 
 def edge_coord(extent):
@@ -196,6 +203,32 @@ def ptxas_summary(log):
     return out
 
 
+def dispatch_us(msda):
+    """Host us per call of the model's dispatch (`ms_deform_attn_auto`,
+    without and with inputs that require grad) and of the bare wrapper."""
+    import torch
+    value, loc, attn = msda_inputs(900, torch.bfloat16, seed=0)
+    grads = [t.detach().clone().requires_grad_(True)
+             for t in (value, loc, attn)]
+    out = {}
+    for name, fn, args in (("auto", msda.ms_deform_attn_auto,
+                            (value, loc, attn)),
+                           ("auto_grad", msda.ms_deform_attn_auto, grads),
+                           ("wrapper", msda.ms_deform_attn_cuda,
+                            (value, loc, attn))):
+        v, lo, a = args
+        for _ in range(50):
+            fn(v, SHAPES, lo, a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            fn(v, SHAPES, lo, a)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out[name] = host / CALLS * 1e6
+    return out
+
+
 def run(msda):
     import torch
     rows = []
@@ -264,8 +297,12 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"== {tree}  ({card})", flush=True)
     rows = run(msda)
+    dispatch = dispatch_us(msda)
+    print("  dispatch us per call: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in dispatch.items()), flush=True)
     print(json.dumps({"tree": tree, "card": card, "libraries": list(paths),
-                      "ptxas": ptxas, "rows": rows}), flush=True)
+                      "ptxas": ptxas, "rows": rows,
+                      "dispatch_us": dispatch}), flush=True)
 
 
 if __name__ == "__main__":

@@ -48,7 +48,9 @@ def main(argv: Optional[Sequence[str]] = None) -> SupervisedTrainer:
         # opt-in reference-exact per-GPU cls avg factor (its
         # samples_per_gpu); default None = the global factor
         cls_avg_group=cfg.get("cls_avg_group"),
-        device=args.device)
+        device=args.device,
+        log_interval=int(cfg.get("log_interval", 50)),
+        use_wandb=bool(cfg.get("use_wandb", False)))
     if args.resume_from:
         trainer.resume(args.resume_from)
     elif trainer.ckpt.latest_step() is not None:

@@ -52,7 +52,9 @@ def main(argv: Optional[Sequence[str]] = None) -> SsodTrainer:
         fsdp=bool(cfg.get("fsdp", False)),
         tp=int(cfg.get("tp", 1)),
         donate=bool(cfg.get("donate", False)),
-        device=args.device)
+        device=args.device,
+        log_interval=int(cfg.get("log_interval", 50)),
+        use_wandb=bool(cfg.get("use_wandb", False)))
     if args.resume_from:
         trainer.resume(args.resume_from)
     elif trainer.ckpt.latest_step() is not None:

@@ -7,8 +7,10 @@ IterBasedRunner and hooks, inlined into a plain loop):
 * eval every `eval_interval` steps on the teacher and the student
   (SubModulesDistEvalHook), NMS decode in the warm-up and top-k after it;
   checkpoint every `ckpt_interval` steps, keep 5; a step logged every
-  `interval` steps; device memory every 1,000 steps; the weight summary at
-  the start; the pseudo-label render every `image_log_interval` steps;
+  `log_interval` steps (to wandb too with `use_wandb`, where it can be
+  imported); device memory every 1,000 steps and at the end of the run;
+  the weight summary at the start; the pseudo-label render every
+  `image_log_interval` steps;
 * the warm-up -> Hungarian switch takes a second step function
   (`make_ssod_train_step(cfg, warm_up=...)`, one per stage, cached).
 
@@ -34,6 +36,7 @@ multi-GPU slice: values other than the data-parallel ones raise.
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import queue
 import threading
@@ -51,6 +54,7 @@ from ..data.sampler import SemiBalanceSampler
 from ..models.dino_head import DinoConfig, DINODetector
 from ..models.inference import evaluate_teacher_and_student
 from ..models.ssod import Projector, SsodConfig
+from ..ops import ms_deform_attn_cuda as msda
 from ..parallel import dist
 from ..utils.logging import (MetricsLogger, device_memory_summary,
                              get_logger, log_image_with_boxes, weight_summary)
@@ -91,27 +95,33 @@ def prefetch(iterator, depth: int = 2, transform=None):
     pack with the device's steps. `transform` runs on each item in the
     worker (the trainers pin the batch there). A worker exception re-raises
     in the consumer (a swallowed loader error would end training as a clean
-    end of stream), and closing the generator stops the worker."""
+    end of stream), and closing the generator stops the worker and waits
+    for it: a worker left inside a torch call (the pinning) when the
+    interpreter exits is ended there, and the process aborts
+    ("terminate called without an active exception")."""
     q = queue.Queue(maxsize=depth)
     stop = threading.Event()
     end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
 
     def worker():
         try:
             for item in iterator:
                 if transform is not None:
                     item = transform(item)
-                while not stop.is_set():
-                    try:
-                        q.put(item, timeout=0.5)
-                        break
-                    except queue.Full:
-                        continue
-                if stop.is_set():
+                if not put(item):
                     return
-            q.put(end)
+            put(end)
         except BaseException as e:                      # noqa: BLE001
-            q.put(e)
+            put(e)
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()
@@ -125,6 +135,7 @@ def prefetch(iterator, depth: int = 2, transform=None):
             yield item
     finally:
         stop.set()
+        t.join()
 
 
 class _Trainer:
@@ -132,10 +143,12 @@ class _Trainer:
     the host -> device path and the loop."""
 
     def _setup(self, state: TrainState, work_dir: str, ckpt_interval: int,
-               backbone_init, load_from):
+               backbone_init, load_from, log_interval: int = 50,
+               use_wandb: bool = False):
         self.state = state
         self.work_dir = work_dir
-        self.logger = MetricsLogger(work_dir)
+        self.logger = MetricsLogger(work_dir, interval=log_interval,
+                                    use_wandb=use_wandb)
         self.ckpt = CheckpointManager(os.path.join(work_dir, "ckpt"),
                                       interval=ckpt_interval)
         # warm starts only on a fresh run: resume() overwrites them anyway
@@ -202,6 +215,15 @@ class _Trainer:
         finally:
             gen.close()
         self.ckpt.maybe_save(self.state, force=True)
+        mem = device_memory_summary(self.device)
+        if mem:
+            self.logger.logger.info(f"device memory: {mem}")
+        # the process's MSDA kernel launches: the run went through them
+        fwd, bwd = msda.ms_deform_attn_cuda, msda.ms_deform_attn_bwd_cuda
+        self.logger.logger.info("msda launches: " + json.dumps(
+            {"fwd": fwd.launches, "bwd": bwd.launches,
+             "fwd_by_width": fwd.launches_by_width,
+             "bwd_by_width": bwd.launches_by_width}))
         return self.state
 
     def evaluate(self, step: int, warm_up: bool):
@@ -232,7 +254,8 @@ class SsodTrainer(_Trainer):
                  image_log_interval: int = 2000,
                  fsdp: bool = False, tp: int = 1,
                  donate: bool = False,
-                 by_prob: bool = False, device="cuda"):
+                 by_prob: bool = False, device="cuda",
+                 log_interval: int = 50, use_wandb: bool = False):
         _data_parallel_only(fsdp, tp, donate)
         self.cfg = cfg
         # reference multinomial batch mixing (semi_sampler.py:113-135)
@@ -270,7 +293,8 @@ class SsodTrainer(_Trainer):
                                    lr_boundaries=lr_boundaries,
                                    head_modules=(projector,))
         self._setup(TrainState.create(model, optimizer, projector=projector),
-                    work_dir, ckpt_interval, backbone_init, load_from)
+                    work_dir, ckpt_interval, backbone_init, load_from,
+                    log_interval, use_wandb)
 
     def _warm_up(self, step: int) -> bool:
         return step < self.cfg.warm_up_step
@@ -364,7 +388,8 @@ class SupervisedTrainer(_Trainer):
                  multi_bucket: bool = False,
                  fsdp: bool = False, tp: int = 1,
                  donate: bool = False,
-                 cls_avg_group=None, device="cuda"):
+                 cls_avg_group=None, device="cuda",
+                 log_interval: int = 50, use_wandb: bool = False):
         _data_parallel_only(fsdp, tp, donate)
         self.cfg = cfg
         self.device = torch.device(device)
@@ -385,7 +410,8 @@ class SupervisedTrainer(_Trainer):
         optimizer = make_optimizer(model, base_lr=lr,
                                    lr_boundaries=lr_boundaries)
         self._setup(TrainState.create(model, optimizer, with_teacher),
-                    work_dir, ckpt_interval, backbone_init, load_from)
+                    work_dir, ckpt_interval, backbone_init, load_from,
+                    log_interval, use_wandb)
 
     def _warm_up(self, step: int) -> bool:
         return step < self.warm_up_step

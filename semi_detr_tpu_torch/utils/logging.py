@@ -2,11 +2,13 @@
 the weight summary, device memory and the pseudo-label render.
 
 Counterpart of `semi_detr_tpu/utils/logging.py` (the reference's mmcv
-TextLoggerHook + TensorboardLoggerHook, `base_dino_detr_ssod_coco.py:
-254-271`, and `WeightSummary`, `weights_summary.py:61-101`). Wandb is left
-out: no config of the repo turns it on. Under data parallelism rank 0
-alone logs and writes files: the other ranks' logger keeps warnings only,
-and their `MetricsLogger` writes nothing.
+TextLoggerHook + TensorboardLoggerHook + WandbLoggerHook,
+`base_dino_detr_ssod_coco.py:254-271`, and `WeightSummary`,
+`weights_summary.py:61-101`). The wandb sink, like TensorBoard, is used
+only where its package can be imported (`use_wandb`, config key of the
+same name). Under data parallelism rank 0 alone logs and writes files: the
+other ranks' logger keeps warnings only, and their `MetricsLogger` writes
+nothing.
 """
 from __future__ import annotations
 
@@ -75,13 +77,13 @@ class MetricsLogger:
     `metrics.jsonl` under `work_dir`, written by rank 0 only."""
 
     def __init__(self, work_dir: str, use_tensorboard: bool = True,
-                 interval: int = 50):
+                 interval: int = 50, use_wandb: bool = False):
         self.work_dir = work_dir
         self.enabled = dist.is_main()
         self.logger = get_logger(
             log_file=os.path.join(work_dir, "train.log"))
         self.interval = interval
-        self.jsonl = self.tb = None
+        self.jsonl = self.tb = self.wandb = None
         if not self.enabled:
             return
         os.makedirs(work_dir, exist_ok=True)
@@ -92,6 +94,16 @@ class MetricsLogger:
                 self.tb = SummaryWriter(os.path.join(work_dir, "tb"))
             except ImportError:
                 self.logger.warning("tensorboardX unavailable; TB disabled")
+        # the reference's WandbLoggerHook (`base_dino_detr_ssod_coco.py:
+        # 258-268`), gated on the package being importable
+        if use_wandb:
+            try:
+                import wandb
+            except ImportError:
+                self.logger.warning("wandb unavailable; wandb disabled")
+            else:
+                wandb.init(dir=work_dir)
+                self.wandb = wandb
         self._t_last = time.perf_counter()
         self._step_last = 0
 
@@ -121,6 +133,9 @@ class MetricsLogger:
         if self.tb:
             for k, v in scalars.items():
                 self.tb.add_scalar(f"{prefix}/{k}", v, step)
+        if self.wandb:
+            self.wandb.log({f"{prefix}/{k}": v for k, v in scalars.items()},
+                           step=step)
 
     def log_eval(self, step: int, results: Dict[str, Any],
                  tag: str = "teacher"):
@@ -134,12 +149,17 @@ class MetricsLogger:
             for k, v in results.items():
                 if isinstance(v, float):
                     self.tb.add_scalar(f"eval_{tag}/{k}", v, step)
+        if self.wandb:
+            self.wandb.log({f"eval_{tag}/{k}": v for k, v in results.items()
+                            if isinstance(v, float)}, step=step)
 
     def close(self):
         if self.jsonl:
             self.jsonl.close()
         if self.tb:
             self.tb.close()
+        if self.wandb:
+            self.wandb.finish()
 
 
 def draw_rect(img: np.ndarray, x0, y0, x1, y1, color, thickness: int = 2):

@@ -220,15 +220,3 @@ def split_teacher_student(state_dict: Dict[str, Any]
     rest = {k: v for k, v in state_dict.items()
             if not k.startswith(("teacher.", "student."))}
     return teacher, student, rest
-
-
-def load_teacher_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A reference `.pth` (detector or SSOD wrapper) -> the teacher's
-    detector state dict, without BN's `num_batches_tracked` counters."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if "state_dict" in sd:
-        sd = sd["state_dict"]
-    teacher, _, _ = split_teacher_student(
-        {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)})
-    return {k: v for k, v in teacher.items()
-            if not k.endswith("num_batches_tracked")}

@@ -1,7 +1,7 @@
 """The hand-written MSDA kernels against their plain versions, on the card:
 the forward against `ms_deform_attn`, the backward against
-`ms_deform_attn_backward` (autograd through the plain version), and the
-gradient through `ms_deform_attn_auto`. Skips without a CUDA device.
+`ms_deform_attn_backward_autograd` (autograd through the plain version),
+and the gradient through `ms_deform_attn_auto`. Skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only the port's dependencies:
@@ -22,8 +22,8 @@ import pytest
 import torch
 
 from semi_detr_tpu_torch.ops import ms_deform_attn_cuda as cuda_mod
-from semi_detr_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
-                                                    ms_deform_attn_backward)
+from semi_detr_tpu_torch.ops.ms_deform_attn import (
+    ms_deform_attn, ms_deform_attn_backward_autograd)
 from semi_detr_tpu_torch.tools.msda_bench import edge_coord
 
 SHAPES = ((12, 16), (6, 8), (3, 4))
@@ -179,7 +179,8 @@ def test_backward_kernel_matches_plain_version(cuda, case, dtype):
     got = _launched(cuda_mod.ms_deform_attn_bwd_cuda, _width(case, dtype),
                     lambda: cuda_mod.ms_deform_attn_bwd_cuda(value, SHAPES,
                                                              loc, w, g))
-    ref = ms_deform_attn_backward(value.float(), SHAPES, loc, w, g.float())
+    ref = ms_deform_attn_backward_autograd(value.float(), SHAPES, loc, w,
+                                           g.float())
     torch.cuda.synchronize()
     assert got[0].dtype == dtype and got[1].dtype == got[2].dtype \
         == torch.float32
@@ -201,7 +202,7 @@ def test_backward_nonfinite_and_far_locations_get_zero(cuda):
     for t in (d_value, d_loc, d_attn):
         assert torch.equal(t, torch.zeros_like(t))
     # the plain version: NaN in d_loc for the NaN and inf taps, 0 elsewhere
-    ref = ms_deform_attn_backward(value, SHAPES, loc, w, g)
+    ref = ms_deform_attn_backward_autograd(value, SHAPES, loc, w, g)
     assert not torch.isfinite(ref[1]).all()
     _grads_close((d_value, d_loc, d_attn), ref, torch.float32)
 
@@ -224,7 +225,7 @@ def test_backward_taps_on_pixel_edges(cuda):
     assert edge.sum() > 10
     g = torch.randn(2, 40, value.shape[2] * value.shape[3], device=cuda)
     got = cuda_mod.ms_deform_attn_bwd_cuda(value, SHAPES, loc, w, g)
-    ref = ms_deform_attn_backward(value, SHAPES, loc, w, g)
+    ref = ms_deform_attn_backward_autograd(value, SHAPES, loc, w, g)
     torch.cuda.synchronize()
     assert ref[1][..., 0, :, 0][edge].abs().max() > 1e-3
     _grads_close(got, ref, torch.float32)
@@ -250,9 +251,9 @@ def test_gradient_flows_through_auto(cuda, dtype):
     assert cuda_mod.ms_deform_attn_bwd_cuda.launches == bwd + 1
     got = (value.grad, loc.grad, w.grad)
     assert all(t is not None for t in got)
-    ref = ms_deform_attn_backward(value.detach().float(), SHAPES,
-                                  loc.detach(), w.detach(),
-                                  proj.to(dtype).float())
+    ref = ms_deform_attn_backward_autograd(value.detach().float(), SHAPES,
+                                           loc.detach(), w.detach(),
+                                           proj.to(dtype).float())
     torch.cuda.synchronize()
     _grads_close(got, ref, dtype)
 
@@ -290,8 +291,8 @@ def test_misaligned_inputs_take_the_element_instance(cuda, dtype):
         got = _launched(cuda_mod.ms_deform_attn_bwd_cuda, 1,
                         lambda: cuda_mod.ms_deform_attn_bwd_cuda(
                             v_in, SHAPES, loc, w, g_in))
-        ref = ms_deform_attn_backward(v_in.float(), SHAPES, loc, w,
-                                      g_in.float())
+        ref = ms_deform_attn_backward_autograd(v_in.float(), SHAPES, loc,
+                                               w, g_in.float())
         torch.cuda.synchronize()
         _grads_close(got, ref, dtype)
 
@@ -315,7 +316,8 @@ def test_taps_that_differ_between_row_groups(cuda, dtype):
     got = _launched(cuda_mod.ms_deform_attn_bwd_cuda, VECTOR[dtype],
                     lambda: cuda_mod.ms_deform_attn_bwd_cuda(value, SHAPES,
                                                              loc, w, g))
-    ref = ms_deform_attn_backward(value.float(), SHAPES, loc, w, g.float())
+    ref = ms_deform_attn_backward_autograd(value.float(), SHAPES, loc, w,
+                                           g.float())
     torch.cuda.synchronize()
     # the edge taps have a one-sided derivative, the NaN taps none
     lp = loc.shape[3] * loc.shape[4]

@@ -197,7 +197,8 @@ def test_cpu_dispatch_is_differentiable():
 
 def test_kernel_paths_reject_cpu_tensors():
     v, loc, aw, g = (torch.from_numpy(a) for a in _inputs(6))
+    flat = cuda_mod.flat_shapes(SHAPES)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_mod.MSDeformAttnFunction.apply(v, SHAPES, loc, aw)
+        cuda_mod.ms_deform_attn_fwd_cuda_impl(v, flat, loc, aw)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_mod.ms_deform_attn_bwd_cuda(v, SHAPES, loc, aw, g)
+        cuda_mod.ms_deform_attn_bwd_cuda_impl(v, flat, loc, aw, g)

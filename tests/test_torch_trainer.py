@@ -310,3 +310,35 @@ def test_trainer_refuses_multi_gpu_arguments_and_warns(recorded, caplog,
                      t.sup_dataset, t.unsup_dataset, by_prob=True,
                      work_dir=str(tmp_path), device="cpu")
     assert "cls_avg_groups with by_prob=True" in caplog.text
+
+
+def test_prefetch_close_waits_for_its_worker():
+    """Closing the prefetch generator ends its worker before returning: a
+    worker left inside a torch call when the interpreter exits aborts the
+    process. The worker here is mid-transform when the consumer closes."""
+    import threading
+    import time
+
+    workers = []
+
+    def slow(item):
+        workers.append(threading.current_thread())
+        time.sleep(0.2)
+        return item
+
+    gen = loop.prefetch(iter(range(100)), depth=1, transform=slow)
+    assert next(gen) == 0
+    gen.close()
+    assert workers and not workers[-1].is_alive()
+
+
+def test_prefetch_reraises_a_worker_error_and_ends_the_worker():
+    def broken():
+        yield 1
+        raise OSError("unreadable image")
+
+    gen = loop.prefetch(broken())
+    assert next(gen) == 1
+    with pytest.raises(OSError, match="unreadable image"):
+        next(gen)
+    gen.close()
