@@ -83,8 +83,10 @@ Phases (any failure exits non-zero):
 7a. Host library on the card: what the build probe found (g++, CPU
    architecture, zlib, libjpeg, nvJPEG), the JPEG route and `decoders()`.
    The committed fixtures (native/fixtures: a 4:2:0 colour JPEG of odd
-   size and a grayscale one) decode to their committed libjpeg pixels:
-   equal on the libjpeg route, within NVJPEG_TOL on the nvJPEG route. The
+   size and a grayscale one) decode to their committed libjpeg pixels
+   exactly on either route (sequential streams take the host library's
+   decoder where the back end is nvJPEG), and the back end's own decode
+   within NVJPEG_TOL on the nvJPEG route; ms per image of both. The
    library's JPEG encode + decode of both fixture pictures and a 480x640
    noise picture against cv2's quality-95 round trip of each (committed in
    native/fixtures/cv2_q95_roundtrip.json): equal on the libjpeg route,
@@ -142,7 +144,12 @@ Phases (any failure exits non-zero):
    gradient all-reduce's ms (span `dist.grad_allreduce`, synchronised on
    both sides), the MSDA launches per step (48 / 42 + 24, vector
    instances, asserted) and the peak memory, beside phase 6's one-process
-   step. Two processes share the card: no scaling figure.
+   step. Then two more warm-up steps with rank 0's allocator history
+   recorded and the second replayed to its peak: the bytes live there by
+   the step part that allocated them (the passes and backwards marked),
+   and what was held from before by owner (the state, the batch, FSDP's
+   module state); 8c's FSDP leg reads its own beside it. Two processes
+   share the card: no scaling figure.
 8b. The SSOD CLI under `python -m torch.distributed.run --standalone
    --nproc-per-node 1` (NCCL, world 1) on phase 7's synthetic JPEG set:
    this script re-enters as the launcher's rank (its TORCHRUN_FLAG
@@ -152,6 +159,36 @@ Phases (any failure exits non-zero):
    wrote the checkpoint, the launches per step equal phase 7's, the eval
    lines hold valid APs.
 
+8c. FSDP, tensor parallelism and donation (`parallel.sharding`), each leg
+   spawned as 8a's ranks (gloo on the one card; NCCL, one rank per card,
+   where the machine has as many cards): FSDP at W = 2, TP at tp = 2 (W =
+   2, data 1), FSDP + TP at W = 4 (data 2 x model 2). Each leg runs 8a's
+   float32 equality run on its layout: the first step against 8a's one
+   process and witnesses (the same seeded start), the second against one
+   process from the leg's own state within 8a's witness limits; kept sets,
+   GMM element and Hungarian columns equal; frozen leaves bit-unchanged;
+   the teacher moved. Under TP each rank's gradients before the model
+   group's broadcast (`dist.align_model_group_`) are held, per leaf, to
+   ALIGN_FACTOR times the floor of one process taking the first step twice
+   from the same state (the backward's atomic order). Then 8a's bfloat16
+   timing run: per rank the step ms, the all-reduce's and the broadcast's
+   ms, the MSDA launches (48 / 42 + 24, vector instances, asserted), the
+   peak memory per step and the local state bytes (parameters, a gradient
+   per trainable parameter, moments, teacher), held to at most
+   LAYOUT_STATE_SHARE of 8a's data-parallel rank under FSDP, and the FFN
+   pairs split by tp under TP. The FSDP leg then takes a warm-up and a
+   Hungarian step with one reduce-scatter after the second backward (the
+   step reduce-scatters after each), step ms and peak beside the timing
+   run's, and 8a's recorded warm-up steps. Donation: every step
+   updates in place in chunks of `optim.UPDATE_CHUNK` elements; one EMA
+   and optimizer update so from one state and one set of seeded gradients
+   against the whole state in one call, in turns: bit-equal, every state
+   tensor in its storage, the peak no higher, the ms of each; then a
+   whole step keeps the storage. Last, the SSOD CLI with fsdp=True tp=2
+   donate=True over 4 ranks on a synthetic JPEG set (2 steps, an eval and
+   a checkpoint at the end), and that checkpoint resumed in one process
+   for one step.
+   Ranks sharing one card give no scaling figure, and none is claimed.
 9. The serving program exported: `tools.export_model.export_program`
    traces phase 4's detector (full-width DINO-R50, bfloat16, seeded
    weights, box layers filled) with `torch.export` at batch 1 in the
@@ -179,10 +216,10 @@ Phases (any failure exits non-zero):
    Printed: the warm step ms with and without remat (medians of the runs
    in turns) and the peak memory.
 11. The recipe rehearsal, short: `tools.recipe_rehearsal` at full width
-   on a 40-image synthetic set, 16 steps, the warm-up boundary at 8, leg
-   1 to step 10, leg 2 resumed to 16, eval every 6 steps, every step
+   on a 40-image synthetic set, 8 steps, the warm-up boundary at 4, leg
+   1 to step 5, leg 2 resumed to 8, eval every 3 steps, every step
    logged. Asserted: both legs exit 0; leg 2 resumed from leg 1's last
-   checkpoint; Eval[teacher] and Eval[student] at steps 6 and 12 with
+   checkpoint; Eval[teacher] and Eval[student] at steps 3 and 6 with
    valid APs; a finite loss on every step; the report under the work dir;
    each leg's MSDA launches (the trainer's log line) as its steps and
    evals require, all through the vector instances.
@@ -190,9 +227,12 @@ Phases (any failure exits non-zero):
 The line before the last is a JSON object with the kernels' numbers and the
 training records; the last line is {"ok": true, "device": {...}}.
 """
+import bisect
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -222,7 +262,7 @@ from semi_detr_tpu_torch.ops import hungarian  # noqa: E402
 from semi_detr_tpu_torch.ops import ms_deform_attn_cuda as msda  # noqa: E402
 from semi_detr_tpu_torch.ops.ms_deform_attn import (  # noqa: E402
     ms_deform_attn, ms_deform_attn_backward_autograd)
-from semi_detr_tpu_torch.parallel import dist  # noqa: E402
+from semi_detr_tpu_torch.parallel import dist, sharding  # noqa: E402
 from semi_detr_tpu_torch.data.synthetic import (  # noqa: E402
     write_synthetic_coco)
 from semi_detr_tpu_torch.tools import export_model  # noqa: E402
@@ -232,9 +272,11 @@ from semi_detr_tpu_torch.tools import train_detr_od  # noqa: E402
 from semi_detr_tpu_torch.tools import train_detr_ssod  # noqa: E402
 from semi_detr_tpu_torch.train import checkpoint as ckpt_mod  # noqa: E402
 from semi_detr_tpu_torch.train.loop import SsodTrainer  # noqa: E402
+from semi_detr_tpu_torch.train import optim  # noqa: E402
+from semi_detr_tpu_torch.train import ssod as ssod_mod  # noqa: E402
 from semi_detr_tpu_torch.train.ssod import make_ssod_train_step  # noqa: E402
 from semi_detr_tpu_torch.train.state import (  # noqa: E402
-    init_ssod_state, init_train_state, refine_boxes)
+    ema_update, init_ssod_state, init_train_state, refine_boxes)
 from semi_detr_tpu_torch.train.supervised import (  # noqa: E402
     make_supervised_train_step)
 # the yardstick: the main-path levels of the 800x1344 bucket, M = 8,
@@ -338,18 +380,45 @@ DDP_EQ_STEPS = ((True, 0.0), (False, None))
 DDP_TIME_STEPS = ((True, None),) * 2 + ((False, None),) * 2
 WITNESS_FACTOR, DDP_FLOOR, DDP_TIMEOUT = 4.0, 1e-6, 420
 WITNESS_NUDGES = (1, -1)
+# phase 8c: the layouts, (name, fsdp, tp, world): gloo ranks on the one
+# card (NCCL, one per card, where there are as many); each leg's float32
+# equality run and bfloat16 timing run are phase 8a's. An FSDP leg's local
+# state (parameters, gradients, moments, teacher) is at most
+# LAYOUT_STATE_SHARE of the data-parallel rank's (half, and the leaves too
+# small to shard); a TP rank holds 1 / tp of the FFN pairs but their 12
+# linear2 biases (TP_REPLICATED_FFN parameters). The SSOD CLI with
+# fsdp=True tp=2 donate=True over LAYOUT_CLI_WORLD ranks: LAYOUT_CLI_STEPS
+# steps on phase 7's set (a warm-up step, a Hungarian step), an eval and a
+# checkpoint at the end.
+LAYOUT_LEGS = (("fsdp", True, 1, 2), ("tp", False, 2, 2),
+               ("fsdp_tp", True, 2, 4))
+# the FSDP leg's steps with one reduce-scatter after the second backward
+# (warm-up, Hungarian; the timing run's steps 1 and 3 are their
+# counterparts)
+LAYOUT_ONE_RS_STEPS = ((True, None), (False, None))
+# under TP: each rank's gradients before the model group's broadcast
+# against its first rank's, per leaf, held to ALIGN_FACTOR times the
+# floor of one process taking the same step twice (the atomic order of
+# the backward's sums), worst leaf and median
+ALIGN_FACTOR = 4.0
+# the update in chunks against the whole state in one call, in turns
+DONATION_ROUNDS = 5
+LAYOUT_STATE_SHARE, TP_REPLICATED_FFN = 0.55, 12 * 256
+LAYOUT_CLI_WORLD, LAYOUT_CLI_STEPS, LAYOUT_TIMEOUT = 4, 2, 480
 # phase 8b: the SSOD CLI under torch.distributed.run (NCCL, world 1) on
 # phase 7's set: 2 warm-up and 2 Hungarian steps, eval after step 2, a
 # checkpoint at the end; killed after TORCHRUN_TIMEOUT seconds
 TORCHRUN_STEPS, TORCHRUN_WARM_UP, TORCHRUN_TIMEOUT = 4, 2, 300
 # the argument that makes this script phase 8b's rank under the launcher
 TORCHRUN_FLAG = "--torchrun-ssod-cli"
-# phase 7a: the committed JPEG fixtures against their libjpeg pixels. The
-# nvJPEG route's IDCT is not libjpeg's (the library finishes its planes
-# with libjpeg's upsampling and colour tables): it read max abs 2, mean abs
-# 0.039 grey levels on the colour fixture and 1 / 0.021 on the gray one
-# (NVIDIA H100 80GB HBM3, 700.00 W; libnvjpeg.so.12.4.0.76);
-# the limit on (max abs, mean abs) leaves a level for another IDCT build
+# phase 7a: the committed JPEG fixtures against their libjpeg pixels.
+# Sequential streams (the fixtures, COCO's files) decode in the host
+# library on either route, libjpeg-exact: tolerance (0, 0). The back end's
+# own decode is held too: nvJPEG's IDCT is not libjpeg's (it read max abs
+# 2, mean abs 0.039 grey levels on the colour fixture and 1 / 0.021 on the
+# gray one; NVIDIA H100 80GB HBM3, 700.00 W; libnvjpeg.so.12.4.0.76), and
+# it still decodes progressive and arithmetic streams; the limit on (max
+# abs, mean abs) leaves a level for another IDCT build
 NVJPEG_TOL = (3, 0.1)
 # the card's JPEG encode + decode against cv2's quality-95 round trip of
 # the same picture (native/fixtures/cv2_q95_roundtrip.json): grey levels
@@ -390,10 +459,10 @@ EXPORT_FLAG = "--run-exported"
 # of the runs of each mode after its first.
 REMAT_ROUNDS = 4
 REMAT_FACTOR, REMAT_FLOOR, NOISE_LEAF = 4.0, 1e-4, 1e-3
-# phase 11: tools.recipe_rehearsal at full width on a small set: 16 steps,
-# the warm-up boundary at 8, the kill (end of leg 1) at 10, eval every 6
+# phase 11: tools.recipe_rehearsal at full width on a small set: 8 steps,
+# the warm-up boundary at 4, the kill (end of leg 1) at 5, eval every 3
 # steps (once in each leg), every step logged
-REHEARSAL_STEPS, REHEARSAL_IMGS, REHEARSAL_EVAL = 16, 40, 6
+REHEARSAL_STEPS, REHEARSAL_IMGS, REHEARSAL_EVAL = 8, 40, 3
 
 
 def log(msg):
@@ -953,20 +1022,36 @@ def host_library_phase(host_build_s):
         if not np.array_equal(native.decode_image(png), ref):
             raise AssertionError(f"{name}.png: the library's PNG decode "
                                  "differs from the numpy decoder's")
+        if not native.jpeg_sequential(buf):
+            raise AssertionError(f"{name}.jpg: not a sequential stream")
         got = native.decode_image(buf, jpg)
         diff = np.abs(got.astype(int) - ref.astype(int))
-        fixtures[name] = dict(shape=list(got.shape), max_abs=int(diff.max()),
-                              mean_abs=float(diff.mean()),
-                              share_differing=float((diff > 0).mean()),
-                              ms=best_ms(lambda: native.decode_image(buf)))
-        log(f"  fixture {name} ({route}): max abs {diff.max()}, mean abs "
-            f"{diff.mean():.4f}, share differing {(diff > 0).mean():.4f}, "
-            f"{fixtures[name]['ms']:.3f} ms")
+        # the back end's own decode (nvJPEG on the card), which sequential
+        # streams no longer take, beside it
+        back = native.decode_jpeg_backend(buf, jpg)
+        bdiff = np.abs(back.astype(int) - ref.astype(int))
+        fixtures[name] = dict(
+            shape=list(got.shape), route=native.decoders()["jpeg_sequential"],
+            max_abs=int(diff.max()), mean_abs=float(diff.mean()),
+            share_differing=float((diff > 0).mean()),
+            ms=best_ms(lambda: native.decode_image(buf)),
+            backend=native.decoders()["jpeg"],
+            backend_max_abs=int(bdiff.max()),
+            backend_mean_abs=float(bdiff.mean()),
+            backend_ms=best_ms(lambda: native.decode_jpeg_backend(buf)))
+        log(f"  fixture {name} ({fixtures[name]['route']}): max abs "
+            f"{diff.max()}, mean abs {diff.mean():.4f}, "
+            f"{fixtures[name]['ms']:.3f} ms; the back end's decode "
+            f"({fixtures[name]['backend']}): max abs {bdiff.max()}, mean abs "
+            f"{bdiff.mean():.4f}, {fixtures[name]['backend_ms']:.3f} ms")
+        # sequential streams decode libjpeg-exact on either route
+        if got.shape != ref.shape or diff.max() > 0:
+            raise AssertionError(f"fixture {name}: {fixtures[name]} not "
+                                 "libjpeg's pixels")
         tol = (0, 0.0) if route == "libjpeg" else NVJPEG_TOL
-        if got.shape != ref.shape or diff.max() > tol[0] \
-                or diff.mean() > tol[1]:
-            raise AssertionError(f"fixture {name}: {fixtures[name]} beyond "
-                                 f"(max, mean) {tol} on the {route} route")
+        if bdiff.max() > tol[0] or bdiff.mean() > tol[1]:
+            raise AssertionError(f"fixture {name}: the {route} back end "
+                                 f"beyond (max, mean) {tol}")
 
     ops = {}
 
@@ -1036,6 +1121,8 @@ def host_library_phase(host_build_s):
     png = image_io.encode_png(src)
     codec = dict(jpeg_encode_ms=best_ms(lambda: native.encode_jpeg(src)),
                  jpeg_decode_ms=best_ms(lambda: native.decode_image(jpg)),
+                 jpeg_decode_backend_ms=best_ms(
+                     lambda: native.decode_jpeg_backend(jpg)),
                  jpeg_check_ms=best_ms(lambda: native.jpeg_check(jpg)),
                  png_decode_ms=best_ms(lambda: native.decode_image(png)),
                  png_decode_numpy_ms=best_ms(
@@ -1444,9 +1531,10 @@ def state_blob(state):
 def recorded_ssod_steps(state, cfg, batch, steps, width, on_step=None):
     """The SSOD steps `steps` ((warm_up, score_thr or None)) on `batch`,
     each with its metrics, kept sets, matching costs, the columns of every
-    Hungarian solve, MSDA launches (all through the `width` instance) and
-    host-clock ms around the step and a synchronise. `on_step(i)` runs
-    after each step."""
+    Hungarian solve, MSDA launches (all through the `width` instance),
+    host-clock ms around the step and a synchronise, and the step's peak
+    device memory (all of it allocated, the state included). `on_step(i)`
+    runs after each step."""
     calls = []
     solve = hungarian.solve_batch
 
@@ -1465,10 +1553,12 @@ def recorded_ssod_steps(state, cfg, batch, steps, width, on_step=None):
             calls.clear()
             reset_counts()
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             metrics = step(state, batch)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
             fwd = msda.ms_deform_attn_cuda.launches
             bwd = msda.ms_deform_attn_bwd_cuda.launches
             for wrapper, n in ((msda.ms_deform_attn_cuda, fwd),
@@ -1487,11 +1577,9 @@ def recorded_ssod_steps(state, cfg, batch, steps, width, on_step=None):
             if bad:
                 raise AssertionError(f"rank {dist.rank()} step {i}: "
                                      f"non-finite {bad}")
-            dist.assert_replicated(
-                [p for m in (state.model, state.teacher, state.projector)
-                 for p in m.parameters()], f"step {i}'s parameters")
+            assert_state_replicated(state, f"step {i}'s parameters")
             records.append(dict(
-                step=i, warm_up=warm_up, ms=ms, fwd=fwd, bwd=bwd,
+                step=i, warm_up=warm_up, ms=ms, fwd=fwd, bwd=bwd, peak=peak,
                 metrics=vals, cols=list(calls),
                 sets={k: v.cpu().tolist() for k, v in
                       metrics["pseudo_sets"].items()}))
@@ -1500,6 +1588,300 @@ def recorded_ssod_steps(state, cfg, batch, steps, width, on_step=None):
     finally:
         hungarian.solve_batch = solve
     return records
+
+
+def assert_state_replicated(state, what):
+    """Every rank holds what it should of the student, teacher and
+    projector, to the bit: the whole of a replicated leaf, and the ranks of
+    one shard the same shard."""
+    mods = (state.model, state.teacher, state.projector)
+    sharding.reshard(*mods)
+    leaves = [p for m in mods for p in m.parameters()]
+    dist.assert_replicated([sharding.local(p) for p in leaves], what,
+                           [sharding.shard_key(p) for p in leaves])
+
+
+# --------------------------------------------------------------------------
+# the peak memory of one step, from the allocator's history
+# --------------------------------------------------------------------------
+
+# allocator events kept for the replay (a warm-up SSOD step makes about
+# 90,000)
+SNAPSHOT_ENTRIES = 4_000_000
+# a marker allocation at the start of the SSOD step's supervised pass and
+# at the start and end of each backward (bytes, a multiple of the
+# allocator's 512-byte rounding that no tensor of the step has). Two steps
+# are recorded and the second's peak replayed; the markers split them
+# into STEP_PARTS, so what the second step holds from the first shows the
+# part of the first that allocated it. The history is kept without
+# stacks: with Python stacks, the allocator's recording failed inside the
+# remat recompute on the card ("SystemError: error return without
+# exception set" from a checkpointed decoder step).
+MARK_BYTES = 12_345 * 512
+STEP_PARTS = ("previous step: before its supervised pass",
+              "previous step: supervised forward",
+              "previous step: supervised backward",
+              "previous step: unlabeled forwards",
+              "previous step: unlabeled backward",
+              "previous step: update; EMA",
+              "supervised forward", "supervised backward",
+              "unlabeled forwards", "unlabeled backward", "update")
+# the parts of the second step, where its peak is looked for
+PEAK_FROM = 6
+
+
+@contextlib.contextmanager
+def marked_step_parts():
+    """A MARK_BYTES allocation, made and freed, at the start of the SSOD
+    step's supervised pass and at the start and end of every backward."""
+    inner, backward = ssod_mod.loss_and_grads, torch.Tensor.backward
+
+    def mark():
+        torch.empty(MARK_BYTES, dtype=torch.uint8, device="cuda")
+
+    def marked(*args, **kw):
+        mark()
+        return inner(*args, **kw)
+
+    def marked_backward(self, *args, **kw):
+        mark()
+        try:
+            return backward(self, *args, **kw)
+        finally:
+            mark()
+
+    ssod_mod.loss_and_grads = marked
+    torch.Tensor.backward = marked_backward
+    try:
+        yield
+    finally:
+        ssod_mod.loss_and_grads = inner
+        torch.Tensor.backward = backward
+
+
+def peak_breakdown(fn, known=None):
+    """fn() (two SSOD steps, their parts marked) under the allocator's
+    history, replayed: the second step's peak, the part it falls in, the
+    bytes live there by the part that allocated them, and the ten largest
+    live blocks. What was live before fn and is still live at the peak
+    counts as held, by the first group of `known` ({name: data pointers},
+    in order) with a pointer in the block; the rest is listed as
+    unattributed. Returns (fn's result, the readings)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    dev = torch.cuda.current_device()
+    before = {b["address"]: b["size"]
+              for seg in torch.cuda.memory._snapshot()["segments"]
+              if seg.get("device", dev) == dev for b in seg["blocks"]
+              if b["state"] == "active_allocated"}
+    names = list(known or {})
+    ptrs = sorted((p, i) for i, ps in enumerate((known or {}).values())
+                  for p in ps if p)
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context=None, max_entries=SNAPSHOT_ENTRIES)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"][dev]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    last = len(STEP_PARTS) - 1
+
+    def replay(stop):
+        live, cur, peak, at, part, marks = {}, held, 0, 0, 0, set()
+        freed = set()
+        for i, e in enumerate(trace[:stop]):
+            if e["action"] == "alloc" and e["size"] == MARK_BYTES:
+                part = min(part + 1, last)
+                marks.add(e["addr"])
+            elif e["action"] == "alloc":
+                live[e["addr"]] = (e["size"], part)
+                cur += e["size"]
+            elif e["action"] == "free_requested":
+                if e["addr"] in marks:
+                    marks.discard(e["addr"])
+                    continue
+                v = live.pop(e["addr"], None)
+                if v is None:
+                    freed.add(e["addr"])
+                cur -= v[0] if v else e["size"]
+            if part >= PEAK_FROM and cur > peak:
+                peak, at = cur, i + 1
+        return live, cur, peak, at, part, freed
+
+    _, _, peak, at, parts, _ = replay(len(trace))
+    live, cur, _, _, peak_part, freed = replay(at)
+    by = [0] * len(STEP_PARTS)
+    for size, part in live.values():
+        by[part] += size
+    blocks = sorted(live.values(), reverse=True)[:10]
+
+    def owner(addr, size):
+        """The first group with a pointer in [addr, addr + size), or
+        None."""
+        lo = bisect.bisect_left(ptrs, (addr, -1))
+        hi = bisect.bisect_left(ptrs, (addr + size, -1))
+        return min((g for _, g in ptrs[lo:hi]), default=None)
+
+    held_by, other = dict.fromkeys(names, 0), []
+    for a, n in before.items():
+        if a in freed:
+            continue
+        g = owner(a, n)
+        if g is None:
+            other.append(n)
+        else:
+            held_by[names[g]] += n
+    other.sort(reverse=True)
+    return out, dict(
+        peak_bytes=peak, stat_peak_bytes=torch.cuda.max_memory_allocated(),
+        held_bytes=cur - sum(by), held_by=held_by,
+        held_other_bytes=sum(other), held_other_blocks=other[:10],
+        entries=len(trace), truncated=len(trace) >= SNAPSHOT_ENTRIES,
+        parts_seen=parts + 1, peak_in=STEP_PARTS[peak_part],
+        by_part=[[STEP_PARTS[i], b] for i, b in enumerate(by)],
+        top_blocks=[[b, STEP_PARTS[p]] for b, p in blocks])
+
+
+def state_pointers(state, batch):
+    """{group: data pointers on the card} of what a step may hold from
+    before it: the state's parameters and buffers (local shards), its
+    gradients, its Adam moments, the batch, and whatever FSDP keeps in its
+    modules' state (walked by attribute path: the gathered parameters, the
+    collectives' buffers), by that path. Pointers only: a tensor held here
+    would outlive the step's own release of it."""
+    mods = [m for m in (state.model, state.teacher, state.projector)
+            if m is not None]
+    params = [p for m in mods for p in m.parameters()]
+    groups = {
+        "parameters and buffers": [sharding.local(t) for m in mods for t in
+                                   list(m.parameters()) + list(m.buffers())],
+        "gradients": [g for p in params for g in (
+            p.grad, getattr(sharding.local(p), "grad", None))
+            if g is not None],
+        "Adam moments": [v for st in state.optimizer.adamw.state.values()
+                         for v in st.values() if isinstance(v, torch.Tensor)],
+        "batch": []}
+    seen = set()
+
+    def walk(x, path, depth, out):
+        if id(x) in seen or depth > 6 or isinstance(x, torch.nn.Module):
+            return
+        seen.add(id(x))
+        if isinstance(x, torch.Tensor):
+            out.setdefault(path, []).append(sharding.local(x))
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v, path, depth + 1, out)
+        elif isinstance(x, (list, tuple, set)):
+            for v in x:
+                walk(v, path, depth + 1, out)
+        elif type(x).__module__.startswith("torch.distributed") \
+                and hasattr(x, "__dict__"):
+            for k, v in vars(x).items():
+                walk(v, f"{path}.{k}", depth + 1, out)
+
+    walk(batch, "batch", 0, groups)
+    from torch.distributed.fsdp import FSDPModule
+    for m in mods:
+        for sub in m.modules():
+            if isinstance(sub, FSDPModule):
+                walk(sub._get_fsdp_state(), "FSDP", 0, groups)
+    return {k: [t.data_ptr() for t in v if t.is_cuda]
+            for k, v in groups.items()}
+
+
+def snapshot_step(state, cfg, batch):
+    """Two more of the recipe's warm-up steps on every rank, rank 0's
+    under `peak_breakdown` with their parts marked. Returns (the steps'
+    records, rank 0's readings or None)."""
+    steps = ((True, None),) * 2
+    with marked_step_parts():
+        if not dist.is_main():
+            return recorded_ssod_steps(state, cfg, batch, steps,
+                                       MAIN_WIDTH), None
+        return peak_breakdown(lambda: recorded_ssod_steps(
+            state, cfg, batch, steps, MAIN_WIDTH),
+            state_pointers(state, batch))
+
+
+def breakdown_lines(snap):
+    """peak_breakdown's readings as log lines."""
+    mib = 2 ** 20
+    yield (f"the second step's peak {snap['peak_bytes'] / mib:.1f} MiB in "
+           f"its {snap['peak_in']} (replay of {snap['entries']} events, "
+           f"{snap['parts_seen']} parts; the allocator's own peak over both "
+           f"steps {snap['stat_peak_bytes'] / mib:.1f} MiB): held from "
+           f"before both steps {snap['held_bytes'] / mib:.1f} MiB")
+    for name, b in snap["held_by"].items():
+        if b:
+            yield f"  held: {name}: {b / mib:.1f} MiB"
+    yield (f"  held, unattributed: {snap['held_other_bytes'] / mib:.1f} MiB "
+           f"(largest blocks: "
+           f"{[round(b / mib, 1) for b in snap['held_other_blocks']]})")
+    for part, b in snap["by_part"]:
+        if b:
+            yield f"  allocated {part}: {b / mib:.1f} MiB"
+    yield ("  largest live blocks (MiB, part): "
+           + ", ".join(f"{b / mib:.1f} ({p})" for b, p in snap["top_blocks"]))
+
+
+@contextlib.contextmanager
+def one_reduce_scatter(model):
+    """The SSOD step's FSDP gradients reduce-scattered once, after its
+    second backward: the supervised pass's backward keeps them whole
+    (`set_requires_gradient_sync(False)`), and the unlabeled one reduces
+    their sum. The step itself reduce-scatters after each backward."""
+    inner = ssod_mod.loss_and_grads
+
+    def held(*args, **kw):
+        model.set_requires_gradient_sync(False)
+        try:
+            return inner(*args, **kw)
+        finally:
+            model.set_requires_gradient_sync(True)
+
+    ssod_mod.loss_and_grads = held
+    try:
+        yield
+    finally:
+        ssod_mod.loss_and_grads = inner
+
+
+def timed_collective(fn, times):
+    """fn, synchronised on both sides so the span holds the collective
+    alone; its ms appended to `times`."""
+    def timed(tensors):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(tensors)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return timed
+
+
+def measured_align(fn, names, diffs):
+    """dist.align_model_group_ that also appends to `diffs` each leaf's
+    relative L2 distance between this rank's gradient and the model
+    group's first rank's (0 on that rank), by leaf name."""
+    def align(tensors):
+        mine = [t.clone() for t in tensors]
+        fn(tensors)
+        out = {}
+        for n, a, b in zip(names(), mine, tensors):
+            d = (a.double() - b.double()).norm()
+            ref = b.double().norm()
+            out[n] = float(d / ref) if ref > 0 else (0.0 if d == 0
+                                                      else math.inf)
+        diffs.append(out)
+    return align
+
+
+def optimizer_grads(state):
+    """{name: a copy of its gradient} over the optimizer's parameters."""
+    return {n: p.grad.detach().clone() for n, p, _ in state.optimizer.params
+            if p.grad is not None}
+
 
 
 def ddp_rank(rank, world, init_method, backend, out_dir):
@@ -1548,18 +1930,8 @@ def ddp_rank(rank, world, init_method, backend, out_dir):
         allreduce_ms = []
         all_sum_ = dist.all_sum_
         part("bfloat16 state")
-
-        def timed_all_sum_(tensors):
-            # synchronised on both sides, so the span holds the reduction
-            # alone (this adds two synchronisations to each timed step)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            all_sum_(tensors)
-            torch.cuda.synchronize()
-            allreduce_ms.append((time.perf_counter() - t0) * 1e3)
-
-        dist.all_sum_ = timed_all_sum_
-        torch.cuda.reset_peak_memory_stats(device)
+        # (two synchronisations added to each timed step)
+        dist.all_sum_ = timed_collective(all_sum_, allreduce_ms)
         try:
             timing = recorded_ssod_steps(state, cfg, batch, DDP_TIME_STEPS,
                                          MAIN_WIDTH)
@@ -1569,13 +1941,18 @@ def ddp_rank(rank, world, init_method, backend, out_dir):
         for rec, ms in zip(timing, allreduce_ms):
             rec["allreduce_ms"] = ms
             del rec["cols"], rec["sets"]
+        # phase 8c's FSDP leg reads its peak beside this one
+        _, snap = snapshot_step(state, cfg, batch)
+        part("memory snapshot step")
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump({"rank": rank, "device": str(device),
                        "parts_s": parts_s,
                        "backend": dist.backend(), "equality": equality,
                        "timing": timing, "grad_bytes": grad_bytes,
-                       "peak_memory_bytes": torch.cuda.max_memory_allocated(
-                           device)}, f)
+                       "local_state_bytes": sharding.local_state_bytes(
+                           state),
+                       "peak_memory_bytes": max(t["peak"] for t in timing),
+                       "snapshot": snap}, f)
         done = True
     finally:
         dist.destroy()
@@ -1657,13 +2034,18 @@ def ddp_phase(card, bare_ms):
                 f"{[(t['fwd'], t['bwd']) for t in r['timing']]}, peak "
                 f"memory {r['peak_memory_bytes'] / 2 ** 30:.2f} GiB; "
                 f"seconds since its start, by part {r['parts_s']}")
+            if r["snapshot"]:
+                log(f"  rank {r['rank']}'s two warm-up steps, the allocator's "
+                    "history:")
+                for line in breakdown_lines(r["snapshot"]):
+                    log("    " + line)
         log(f"  phase 6's one-process step in this call: warm-up "
             f"{bare_ms['warm_up']:.1f} ms, Hungarian "
             f"{bare_ms['hungarian']:.1f} ms"
             + (" (two processes share one card here: no scaling figure)"
                if backend == "gloo" else ""))
         t1 = time.perf_counter()
-        checks, failures = [], []
+        checks, failures, refs = [], [], []
         state, cfg = ddp_state("float32", "cuda")
         for i in range(len(DDP_EQ_STEPS)):
             start = os.path.join(tmp, f"eq_state{i}.pt")
@@ -1675,6 +2057,8 @@ def ddp_phase(card, bare_ms):
                                before, after, runs)
             checks.append(c)
             failures += f
+            # phase 8c's references: one process and its witnesses
+            refs.append(dict(before=before, runs=runs))
         single_s = time.perf_counter() - t1
         del state
         torch.cuda.empty_cache()
@@ -1693,7 +2077,7 @@ def ddp_phase(card, bare_ms):
     return dict(backend=backend, ranks=[{k: v for k, v in r.items()
                                          if k != "equality"} for r in ranks],
                 equality=checks, launches=launches, bare_step_ms=bare_ms,
-                ranks_s=ranks_s, card=card)
+                ranks_s=ranks_s, card=card), refs
 
 
 def params_of_blob(path):
@@ -1702,7 +2086,7 @@ def params_of_blob(path):
             for k, v in blob[m].items()}
 
 
-def ddp_compare(i, recs, before, after, runs):
+def ddp_compare(i, recs, before, after, runs, scale=None):
     """Phase 8a's checks of equality step i, all runs from one state: the
     ranks' records `recs` and parameters `after` against one process on
     the global batch and its witnesses (`runs`: one process, then the
@@ -1712,8 +2096,12 @@ def ddp_compare(i, recs, before, after, runs):
     grad_norm and gmm_thr, and the per-leaf update errors (worst and
     median) lie within WITNESS_FACTOR times the witnesses' largest distance
     from one process, plus DDP_FLOOR of the total loss (a term) or of the
-    value. Returns (the readings, the failures)."""
-    (ref, ref_after), wits = runs[0], runs[1:]
+    value. `scale` (phase 8c): (before, runs) of another start whose
+    witnesses give the limits, where `runs` holds one process alone.
+    Returns (the readings, the failures)."""
+    ref, ref_after = runs[0]
+    s_before, s_runs = scale if scale is not None else (before, runs)
+    (s_ref, s_ref_after), s_wits = s_runs[0], s_runs[1:]
     failures = []
 
     def fail(msg):
@@ -1737,7 +2125,7 @@ def ddp_compare(i, recs, before, after, runs):
     got = picked([row for r in recs for row in r["sets"]["costs"]],
                  recs[0]["metrics"]["gmm_thr"])
     ones = [picked(w["sets"]["costs"], w["metrics"]["gmm_thr"])
-            for w, _ in runs]
+            for w, _ in runs + list(s_wits if scale is not None else [])]
     readings["gmm_element"] = (got, ones)
     if got != ones[0] or len(got) != 1:
         fail(f"GMM element {got}, one process {ones[0]}")
@@ -1749,8 +2137,8 @@ def ddp_compare(i, recs, before, after, runs):
         parts = np.concatenate([np.asarray(r["cols"][k]) for r in recs],
                                axis=full.ndim - 2)
         cols_same.append((bool(np.array_equal(parts, full)), all(
-            np.array_equal(np.asarray(w["cols"][k]), full)
-            for w, _ in wits)))
+            np.array_equal(np.asarray(w["cols"][k]), np.asarray(
+                s_ref["cols"][k])) for w, _ in s_wits)))
         if not np.array_equal(parts, full):
             fail(f"Hungarian solve {k} columns differ")
     readings["hungarian"] = cols_same
@@ -1759,16 +2147,17 @@ def ddp_compare(i, recs, before, after, runs):
     terms = {}
     for k in [k for k in rm if "loss" in k] + ["grad_norm", "gmm_thr"]:
         got_d = abs(m[k] - rm[k])
-        wit_d = max(abs(w["metrics"][k] - rm[k]) for w, _ in wits)
+        wit_d = max(abs(w["metrics"][k] - s_ref["metrics"][k])
+                    for w, _ in s_wits)
         floor = DDP_FLOOR * (total if "loss" in k and k != "total_loss"
                              else abs(rm[k]))
         terms[k] = (got_d, wit_d)
         if got_d > WITNESS_FACTOR * wit_d + floor:
             fail(f"{k} {m[k]} vs one process {rm[k]} (witnesses "
-                 f"{[w['metrics'][k] for w, _ in wits]})")
+                 f"{[w['metrics'][k] for w, _ in s_wits]})")
     upd = leaf_update_errors(before, after, before, ref_after)
-    wupd = [leaf_update_errors(before, a, before, ref_after)
-            for _, a in wits]
+    wupd = [leaf_update_errors(s_before, a, s_before, s_ref_after)
+            for _, a in s_wits]
     worst, med = max(upd.values()), float(np.median(list(upd.values())))
     wworst = max(max(u.values()) for u in wupd)
     wmed = max(float(np.median(list(u.values()))) for u in wupd)
@@ -1777,7 +2166,7 @@ def ddp_compare(i, recs, before, after, runs):
         fail(f"update errors worst {worst} median {med}, witnesses "
              f"{wworst} / {wmed}")
     readings.update(
-        {k: (m[k], rm[k], [w["metrics"][k] for w, _ in wits])
+        {k: (m[k], rm[k], [w["metrics"][k] for w, _ in s_wits])
          for k in ("total_loss", "grad_norm", "gmm_thr")},
         worst_loss_term=max(((k, v) for k, v in terms.items()
                              if "loss" in k and k != "total_loss"),
@@ -1907,6 +2296,572 @@ def torchrun_phase(card, trainer_per_step):
         f"{[e[1] for e in rec['evals']]}; checkpoint {rec['ckpts']}")
     log("  " + card)
     return dict(rec, run_s=run_s, card=card)
+
+# --------------------------------------------------------------------------
+# phase 8c: FSDP, tensor parallelism, donation
+# --------------------------------------------------------------------------
+
+def ffn_params(state):
+    """(local, whole) parameter counts of the student's FFN leaves (the 12
+    linear1 / linear2 pairs)."""
+    loc = whole = 0
+    for n, p in state.model.named_parameters():
+        if n.split(".")[-2] in ("linear1", "linear2"):
+            loc += sharding.local(p).numel()
+            whole += p.numel()
+    return loc, whole
+
+
+def frozen_sums(state):
+    return [int(dist.bit_checksum(sharding.local(p)))
+            for n, p in state.model.named_parameters()
+            if n.startswith(("backbone.conv1.", "backbone.bn1.",
+                             "backbone.layer1."))]
+
+
+def layout_rank(rank, world, init_method, backend, leg, out_dir):
+    """One rank of a phase 8c leg ((name, fsdp, tp, world)): the float32
+    equality run on the leg's layout (rank 0 saves the full state before
+    each step; under TP each rank's gradients before the model group's
+    broadcast measured against the group's first rank's), then the bfloat16
+    timing run with its local state bytes and its all-reduce and broadcast
+    timed; the FSDP leg then takes LAYOUT_ONE_RS_STEPS with one
+    reduce-scatter after the second backward and a warm-up step under the
+    allocator's history;
+    its records to rank<r>.json."""
+    name, fsdp, tp, _ = leg
+    t0 = time.perf_counter()
+    parts_s = {}
+
+    def part(what):
+        parts_s[what] = round(time.perf_counter() - t0, 2)
+
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    dist.init_distributed(backend, device, rank, world, init_method)
+    done = False
+    all_sum_, align_ = dist.all_sum_, dist.align_model_group_
+    try:
+        mesh = dist.make_mesh(tp, device)
+        part("group and mesh")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        state, cfg = ddp_state("float32", device)
+        dist.broadcast_state(state)
+        sharding.shard_state(state, mesh, fsdp, tp)
+        # phase 8a's global batch, over this leg's data ranks
+        batch = ddp_batch(*(DDP_WORLD * n // dist.world()
+                            for n in DDP_EQ_IMAGES), device)
+        frozen0 = frozen_sums(state)
+        teacher0 = [int(dist.bit_checksum(sharding.local(p)))
+                    for p in state.teacher.parameters()]
+        part("float32 state")
+
+        def save(i):
+            blob = ckpt_mod.full_blob(state, state.step)
+            if dist.is_main():
+                torch.save(blob, os.path.join(out_dir,
+                                              f"eq_state{i + 1}.pt"))
+
+        def aligned_names():
+            # the leaves the optimizer hands to the broadcast, in its order
+            return [n for n, p, _ in state.optimizer.params
+                    if "model" not in sharding.sharded_axes(p)]
+
+        align_diffs = []
+        if tp > 1:
+            dist.align_model_group_ = measured_align(align_, aligned_names,
+                                                     align_diffs)
+        save(-1)
+        equality = recorded_ssod_steps(state, cfg, batch, DDP_EQ_STEPS, 4,
+                                       save)
+        dist.align_model_group_ = align_
+        checks = dict(
+            frozen_unchanged=frozen_sums(state) == frozen0,
+            teacher_moved=sum(int(dist.bit_checksum(sharding.local(p))) != c
+                              for p, c in zip(state.teacher.parameters(),
+                                              teacher0)))
+        # FSDP's and TP's hooks tie a laid-out module into reference
+        # cycles: without a collection its float32 shards outlive it into
+        # the bfloat16 run (328 MiB held through an FSDP rank's steps;
+        # NVIDIA H100 80GB HBM3, 700.00 W)
+        del state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        part("float32 steps")
+
+        state, cfg = ddp_state("bfloat16", device)
+        dist.broadcast_state(state)
+        sharding.shard_state(state, mesh, fsdp, tp)
+        batch = ddp_batch(SSOD_SUP, SSOD_UNSUP, device)
+        part("bfloat16 state")
+        allreduce_ms, broadcast_ms = [], []
+        dist.all_sum_ = timed_collective(all_sum_, allreduce_ms)
+        dist.align_model_group_ = timed_collective(align_, broadcast_ms)
+        timing = recorded_ssod_steps(state, cfg, batch, DDP_TIME_STEPS,
+                                     MAIN_WIDTH)
+        dist.all_sum_, dist.align_model_group_ = all_sum_, align_
+        for rec, ar, bc in zip(timing, allreduce_ms, broadcast_ms):
+            rec.update(allreduce_ms=ar, broadcast_ms=bc)
+            del rec["cols"], rec["sets"]
+        part("bfloat16 steps")
+        one_rs, snap = [], None
+        if fsdp and tp == 1:
+            with one_reduce_scatter(state.model):
+                one_rs = recorded_ssod_steps(state, cfg, batch,
+                                             LAYOUT_ONE_RS_STEPS, MAIN_WIDTH)
+            for rec in one_rs:
+                del rec["cols"], rec["sets"]
+            _, snap = snapshot_step(state, cfg, batch)
+            part("one reduce-scatter, memory snapshot step")
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "device": str(device),
+                       "backend": dist.backend(), "data_rank": dist.rank(),
+                       "data_world": dist.world(), "parts_s": parts_s,
+                       "equality": equality, "timing": timing,
+                       "one_reduce_scatter": one_rs, "snapshot": snap,
+                       "align_diffs": align_diffs, "checks": checks,
+                       "local_state_bytes": sharding.local_state_bytes(
+                           state),
+                       "ffn_params": ffn_params(state),
+                       "peak_memory_bytes": max(t["peak"] for t in timing)},
+                      f)
+        done = True
+    finally:
+        dist.all_sum_, dist.align_model_group_ = all_sum_, align_
+        dist.destroy()
+    if done:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
+
+
+class tp_order:
+    """One process computing the FFN pairs in the TP ranks' order, for the
+    TP legs' references: each linear1 as `tp` column blocks, each linear2
+    as `tp` row blocks each adding bias / tp (the rank's part of the
+    DTensor bias), summed in rank order, as RowwiseParallel's all-reduce
+    sums them. Without it one process rounds every FFN output of 12 layers
+    differently, and at full width with random weights one such rounding
+    flips the discrete choices (8a's witnesses)."""
+
+    def __init__(self, tp, *models):
+        self.tp, self.models = tp, models
+
+    def layers(self):
+        for m in self.models:
+            t = m.bbox_head.transformer
+            yield from list(t.encoder.layers) + list(t.decoder.layers)
+
+    def __enter__(self):
+        tp = self.tp
+        for layer in self.layers():
+            l1, l2 = layer.linear1, layer.linear2
+
+            def fwd1(x, m=l1):
+                dt = m._dtype(m.weight)
+                x = x.to(dt)
+                return torch.cat([
+                    torch.nn.functional.linear(x, w.to(dt), b.to(dt))
+                    for w, b in zip(m.weight.chunk(tp, 0),
+                                    m.bias.chunk(tp, 0))], -1)
+
+            def fwd2(h, m=l2):
+                dt = m._dtype(m.weight)
+                h, b = h.to(dt), m.bias.to(dt) / tp
+                out = None
+                for hh, w in zip(h.chunk(tp, -1), m.weight.chunk(tp, 1)):
+                    y = torch.nn.functional.linear(hh, w.to(dt), b)
+                    out = y if out is None else out + y
+                return out
+
+            l1.forward, l2.forward = fwd1, fwd2
+        return self
+
+    def __exit__(self, *exc):
+        for layer in self.layers():
+            del layer.linear1.forward, layer.linear2.forward
+
+
+def check_align(diffs, floor):
+    """The TP ranks' gradients before the model group's broadcast (`diffs`,
+    per leaf the largest over the ranks) against the atomic-order floor
+    (`floor`: per leaf, one process against itself from the same state):
+    the worst leaf within ALIGN_FACTOR times the worst floor, the median
+    within ALIGN_FACTOR times the floor's median plus DDP_FLOOR. Leaves
+    at zero on both sides are left out. Returns (the readings, the
+    failures)."""
+    keys = [k for k in diffs if diffs[k] > 0 or floor.get(k, 0.0) > 0]
+    if not keys:
+        return dict(leaves=0), []
+    fl = {k: floor.get(k, 0.0) for k in keys}
+    worst = max(keys, key=diffs.get)
+    out = dict(leaves=len(keys), worst_leaf=worst, worst=diffs[worst],
+               floor_of_worst=fl[worst], worst_floor=max(fl.values()),
+               median=float(np.median([diffs[k] for k in keys])),
+               floor_median=float(np.median(list(fl.values()))),
+               above_a_zero_floor=sum(1 for k in keys
+                                      if fl[k] == 0 and diffs[k] > 0))
+    failures = []
+    if (out["worst"] > ALIGN_FACTOR * out["worst_floor"]
+            or out["median"] > ALIGN_FACTOR * out["floor_median"]
+            + DDP_FLOOR):
+        failures.append(f"the TP ranks' gradients before the broadcast "
+                        f"differ beyond the atomic-order floor: {out}")
+    return out, failures
+
+
+def layout_leg(leg, refs, dp_bytes, state, cfg):
+    """A phase 8c leg: its ranks, then the checks against phase 8a's
+    references (step 0: one process and its witnesses from the same seeded
+    start; step 1: one process from the leg's own state, limits from 8a's
+    witnesses). Under TP, one process takes step 0 twice: the second run's
+    gradients against the first's are the floor of the ranks' differences
+    before the broadcast. Returns (the readings, the failures)."""
+    name, fsdp, tp, world = leg
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    failures, align = [], None
+    try:
+        t0 = time.perf_counter()
+        dist.run_local(layout_rank, world, (backend, leg, tmp),
+                       timeout=LAYOUT_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        # one record per data rank, in data order (TP ranks alike)
+        by_data = {}
+        for r in ranks:
+            by_data.setdefault(r["data_rank"], r)
+        data_recs = [by_data[d] for d in sorted(by_data)]
+        checks = []
+        for i in range(len(DDP_EQ_STEPS)):
+            if any(r["equality"][i]["metrics"] != ranks[0]["equality"][i][
+                    "metrics"] for r in ranks):
+                failures.append(f"{name} step {i}: the ranks' metrics differ")
+            start = os.path.join(tmp, f"eq_state{i}.pt")
+            after = params_of_blob(os.path.join(tmp, f"eq_state{i + 1}.pt"))
+            before = params_of_blob(start)
+            recs = [r["equality"][i] for r in data_recs]
+            if i == 0 and any(not torch.equal(before[k], refs[0]["before"][
+                    k]) for k in before):
+                failures.append(f"{name}: its start is not phase 8a's")
+            if i == 0 and tp == 1:
+                runs, scale = refs[0]["runs"], None
+            else:
+                # one process from the leg's own state (in the TP ranks'
+                # order of the FFN sums), limits from 8a's witnesses
+                with tp_order(tp, state.model, state.teacher) if tp > 1 \
+                        else contextlib.nullcontext():
+                    runs = [single_process_run(state, cfg, 0, start, i)]
+                    if i == 0:
+                        first = optimizer_grads(state)
+                        single_process_run(state, cfg, 0, start, i)
+                        floor = rel_errors([({"g": first}, {
+                            "g": optimizer_grads(state)})], "g")
+                        del first
+                        diffs = {}
+                        for r in ranks:
+                            for k, v in r["align_diffs"][0].items():
+                                diffs[k] = max(diffs.get(k, 0.0), v)
+                        align, f = check_align(diffs, floor)
+                        failures += [f"{name}: {x}" for x in f]
+                scale = (refs[i]["before"], refs[i]["runs"])
+            c, f = ddp_compare(i, recs, before, after, runs, scale)
+            if i == 0 and tp > 1:
+                # beside plain one process (8a's), reported, not held: the
+                # TP order is a rounding of every FFN output
+                c["plain_one_process"] = ddp_compare(
+                    i, recs, before, after, refs[0]["runs"])[0]
+            checks.append(c)
+            failures += [f"{name}: {x}" for x in f]
+            del before, after
+        for r in ranks:
+            if not r["checks"]["frozen_unchanged"]:
+                failures.append(f"{name} rank {r['rank']}: frozen leaves "
+                                "changed")
+            if not r["checks"]["teacher_moved"]:
+                failures.append(f"{name} rank {r['rank']}: the teacher did "
+                                "not move")
+            share = r["local_state_bytes"] / dp_bytes
+            r["state_share"] = share
+            if fsdp and share > LAYOUT_STATE_SHARE:
+                failures.append(f"{name} rank {r['rank']}: local state "
+                                f"{share:.3f} of the data-parallel rank's")
+            loc, whole = r["ffn_params"]
+            if tp > 1 and loc > whole / tp + TP_REPLICATED_FFN:
+                failures.append(f"{name} rank {r['rank']}: FFN {loc} of "
+                                f"{whole} parameters")
+            log(f"  {name} rank {r['rank']} (data rank {r['data_rank']} of "
+                f"{r['data_world']}, {r['backend']}): bfloat16 1 + 4 step ms "
+                f"{[round(t['ms'], 1) for t in r['timing']]} (all-reduce "
+                f"{[round(t['allreduce_ms'], 1) for t in r['timing']]}, "
+                f"model-group broadcast "
+                f"{[round(t['broadcast_ms'], 1) for t in r['timing']]}), "
+                f"peak memory by step "
+                f"{[round(t['peak'] / 2 ** 30, 3) for t in r['timing']]} "
+                f"GiB, MSDA launches per step "
+                f"{[(t['fwd'], t['bwd']) for t in r['timing']]}, local state "
+                f"{r['local_state_bytes']} bytes ({share:.3f} of data "
+                f"parallel's {dp_bytes}), FFN {loc} of {whole} parameters; "
+                f"seconds by part {r['parts_s']}")
+            if r["one_reduce_scatter"]:
+                one = r["one_reduce_scatter"]
+                log(f"    one reduce-scatter after the second backward: step "
+                    f"ms {[round(t['ms'], 1) for t in one]}, peak memory by "
+                    f"step {[round(t['peak'] / 2 ** 30, 3) for t in one]} GiB"
+                    " (warm-up, Hungarian; against steps 1 and 3 above)")
+            if r["snapshot"]:
+                log(f"    rank {r['rank']}'s two warm-up steps, the "
+                    "allocator's history:")
+                for line in breakdown_lines(r["snapshot"]):
+                    log("      " + line)
+    finally:
+        shutil.rmtree(tmp)
+    for c in checks:
+        log(f"  {name} equality step {c['step']}: {c}")
+    if align is not None:
+        log(f"  {name}: gradients before the model group's broadcast "
+            f"against one process's atomic-order floor: {align}")
+    log(f"  {name}: ranks {ranks_s:.1f} s")
+    launches = {kind: [sum(t[kind] for run in ("equality", "timing",
+                                                "one_reduce_scatter")
+                           for t in r[run]) for r in ranks]
+                for kind in ("fwd", "bwd")}
+    return dict(backend=backend, world=world, fsdp=fsdp, tp=tp,
+                ranks=[{k: v for k, v in r.items()
+                        if k not in ("equality", "align_diffs")}
+                       for r in ranks], equality=checks, align=align,
+                launches=launches, ranks_s=ranks_s), failures
+
+
+def donation_check():
+    """Every step is donated (`train.optim`): the EMA's products and
+    AdamW's denominators are made optim.UPDATE_CHUNK elements at a time.
+    One SSOD step's EMA and optimizer update so, against the same update
+    over the whole state in one call each, from one state and one set of
+    gradients (full width, bfloat16, seeded weights, the gradients seeded
+    too), DONATION_ROUNDS times in turns: the results bit-equal, every
+    state tensor in its storage, the update's peak memory above the state
+    no higher in chunks, and each mode's ms (median); then a whole step
+    keeps the storage."""
+    state, cfg = ddp_state("bfloat16", "cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    trainable = [p for _, p, _ in state.optimizer.params]
+    for p in trainable:
+        p.grad = 1e-3 * torch.randn(p.shape, device="cuda", generator=g)
+    # Adam's moments exist after one update
+    state.optimizer.step(0)
+    snap = [t.detach().clone() for t in donation_tensors(state)]
+    grads = [p.grad.clone() for p in trainable]
+    chunk = optim.UPDATE_CHUNK
+    modes = {"whole": 1 << 62, "chunked": chunk}
+    res = {m: dict(out=None, peaks=[], ms=[], ptrs=[]) for m in modes}
+    try:
+        for _ in range(DONATION_ROUNDS):
+            for mode, size in modes.items():
+                optim.UPDATE_CHUNK = size
+                with torch.no_grad():
+                    for t, v in zip(donation_tensors(state), snap):
+                        t.copy_(v)
+                    for p, v in zip(trainable, grads):
+                        p.grad.copy_(v)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                ema_update(state.teacher, state.model, 7, cfg.ema_momentum)
+                state.optimizer.step(1)
+                torch.cuda.synchronize()
+                r = res[mode]
+                r["ms"].append((time.perf_counter() - t0) * 1e3)
+                r["peaks"].append(torch.cuda.max_memory_allocated() - base)
+                tensors = donation_tensors(state)
+                r["ptrs"].append([t.data_ptr() for t in tensors])
+                if r["out"] is None:
+                    r["out"] = [t.detach().clone() for t in tensors]
+    finally:
+        optim.UPDATE_CHUNK = chunk
+    equal = all(torch.equal(a, b) for a, b in zip(res["whole"]["out"],
+                                                  res["chunked"]["out"]))
+    ptrs = [p for r in res.values() for p in r["ptrs"]]
+    del snap, grads
+    for r in res.values():
+        del r["out"]
+    # a whole step: every state tensor keeps its storage
+    batch = ddp_batch(SSOD_SUP, SSOD_UNSUP, "cuda")
+    before = [t.data_ptr() for t in donation_tensors(state)]
+    torch.cuda.reset_peak_memory_stats()
+    make_ssod_train_step(cfg, warm_up=True)(state, batch)
+    torch.cuda.synchronize()
+    kept = before == [t.data_ptr() for t in donation_tensors(state)]
+    step_peak = torch.cuda.max_memory_allocated()
+    del state, batch
+    torch.cuda.empty_cache()
+    return dict(bit_equal=equal,
+                storage_kept=all(p == ptrs[0] for p in ptrs) and kept,
+                update_peak_bytes={m: max(r["peaks"]) for m, r in res.items()},
+                update_ms={m: float(np.median(r["ms"]))
+                           for m, r in res.items()},
+                update_ms_runs={m: r["ms"] for m, r in res.items()},
+                chunk_elements=chunk, step_peak_bytes=step_peak)
+
+
+def donation_tensors(state):
+    """Every tensor of the state a step updates: the parameters, the
+    teacher's, the Adam moments and their step counts."""
+    out = [sharding.local(p) for m in (state.model, state.teacher,
+                                       state.projector)
+           for p in m.parameters()]
+    for st in state.optimizer.adamw.state.values():
+        out += [v for _, v in sorted(st.items())
+                if isinstance(v, torch.Tensor)]
+    return out
+
+
+def layout_cli_rank(rank, world, init_method, backend, argv, out):
+    """Phase 8c's trainer rank: the SSOD CLI's `main` on `argv` in a group
+    joined here (its `load_cfg` finds it), MSDA launches counted per step;
+    rank 0 writes its record to `out`."""
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    dist.init_distributed(backend, device, rank, world, init_method)
+    per_step = []
+    run_step = SsodTrainer._run_step
+
+    def counted_step(self, step, batch, vis_img):
+        reset_counts()
+        result = run_step(self, step, batch, vis_img)
+        per_step.append((step, msda.ms_deform_attn_cuda.launches,
+                         msda.ms_deform_attn_bwd_cuda.launches))
+        return result
+
+    SsodTrainer._run_step = counted_step
+    done = False
+    try:
+        trainer = train_detr_ssod.main(argv + ["--device", str(device)])
+        if dist.is_main():
+            with open(out, "w") as f:
+                json.dump(dict(per_step=per_step, steps=[
+                    t["step"] for t in trainer.timings],
+                    ckpts=trainer.ckpt.all_steps(),
+                    local_state_bytes=sharding.local_state_bytes(
+                        trainer.state)), f)
+        done = True
+    finally:
+        SsodTrainer._run_step = run_step
+        dist.destroy()
+    if done:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
+
+
+def layout_trainer(card):
+    """The SSOD CLI with fsdp=True tp=2 over LAYOUT_CLI_WORLD ranks on a
+    synthetic JPEG set: LAYOUT_CLI_STEPS steps, an eval, a checkpoint;
+    then that checkpoint resumed in one process for one step."""
+    world = LAYOUT_CLI_WORLD
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_layout_cli_")
+    failures = []
+    try:
+        n_img = max(max(r) for r in TRAINER_SPLITS.values()) + 1
+        paths, img_dir = write_synthetic_coco(tmp, n=n_img, seed=0,
+                                              splits=TRAINER_SPLITS,
+                                              **TRAINER_SET)
+        work, out = os.path.join(tmp, "ssod"), os.path.join(tmp, "rank.json")
+        argv = [SSOD_CONFIG, "--work-dir", work, "--cfg-options",
+                f"data.train_sup_ann={paths['sup']}",
+                f"data.train_unsup_ann={paths['unsup']}",
+                f"data.val_ann={paths['val']}",
+                f"data.train_prefix={img_dir}", f"data.val_prefix={img_dir}",
+                f"ssod.warm_up_step={LAYOUT_CLI_STEPS // 2}",
+                # an eval after the last step (index LAYOUT_CLI_STEPS - 1)
+                f"eval_interval={LAYOUT_CLI_STEPS - 1}",
+                f"ckpt_interval={LAYOUT_CLI_STEPS}", "image_log_interval=0",
+                "log_interval=1", "fsdp=True", "tp=2", "donate=True"]
+        t0 = time.perf_counter()
+        dist.run_local(layout_cli_rank, world, (
+            backend, argv[:1] + ["--max-steps", str(LAYOUT_CLI_STEPS)]
+            + argv[1:], out), timeout=LAYOUT_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+        with open(out) as f:
+            rec = json.load(f)
+        with open(os.path.join(work, "train.log")) as f:
+            train_log = f.read()
+        if rec["steps"] != list(range(LAYOUT_CLI_STEPS)):
+            failures.append(f"trainer steps {rec['steps']}")
+        if LAYOUT_CLI_STEPS not in rec["ckpts"]:
+            failures.append(f"no checkpoint: {rec['ckpts']}")
+        for step, f, b in rec["per_step"]:
+            if (f, b) != SSOD_LAUNCHES[step < LAYOUT_CLI_STEPS // 2]:
+                failures.append(f"trainer step {step}: {f} + {b} launches")
+        want = f"layout: mesh (data {world // 2}, model 2), fsdp=True, tp=2"
+        if want not in train_log:
+            failures.append("the log does not name the layout")
+        for tag in ("teacher", "student"):
+            if f"Eval[{tag}] iter {LAYOUT_CLI_STEPS - 1}: mAP=" \
+                    not in train_log:
+                failures.append(f"no Eval[{tag}] line")
+        aps = {f"{tag} iter {step}": res for (tag, step), res in
+               read_evals(os.path.join(work, "train.log")).items()}
+        for what, res in aps.items():
+            check_aps(res, f"layout trainer Eval[{what}]")
+        # the checkpoint (full tensors) resumed in one process, one step
+        t1 = time.perf_counter()
+        resumed = train_detr_ssod.main(
+            argv[:1] + ["--max-steps", str(LAYOUT_CLI_STEPS + 1)]
+            + argv[1:-3] + ["eval_interval=1000"])
+        resume_s = time.perf_counter() - t1
+        with open(os.path.join(work, "train.log")) as f:
+            if f.read().count(f"resumed from step {LAYOUT_CLI_STEPS}") != 1:
+                failures.append("one process did not resume the checkpoint")
+        if [t["step"] for t in resumed.timings] != [LAYOUT_CLI_STEPS]:
+            failures.append(f"resumed steps {resumed.timings}")
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp)
+    log(f"  trainer, fsdp=True tp=2 donate=True over {world} ranks "
+        f"({backend}): steps {rec['steps']}, launches per step "
+        f"{rec['per_step']}, rank 0's local state "
+        f"{rec['local_state_bytes']} bytes, {ranks_s:.1f} s; resumed in one "
+        f"process for one step in {resume_s:.1f} s")
+    return dict(backend=backend, world=world, per_step=rec["per_step"],
+                ranks_s=ranks_s, resume_s=resume_s, evals=aps,
+                local_state_bytes=rec["local_state_bytes"]), failures
+
+
+def layout_phase(card, refs, ddp):
+    log("== phase 8c: FSDP, TP and FSDP + TP (float32 equality against one "
+        "process, bfloat16 timing at 1 + 4 per data rank), donation, the "
+        "SSOD CLI with fsdp=True tp=2 over 4 ranks")
+    dp_bytes = ddp["ranks"][0]["local_state_bytes"]
+    state, cfg = ddp_state("float32", "cuda")
+    legs, failures = {}, []
+    for leg in LAYOUT_LEGS:
+        rec, f = layout_leg(leg, refs, dp_bytes, state, cfg)
+        legs[leg[0]] = rec
+        failures += f
+    del state
+    torch.cuda.empty_cache()
+    donation = donation_check()
+    log(f"  donation: {donation}")
+    if not (donation["bit_equal"] and donation["storage_kept"]):
+        failures.append(f"donation: {donation}")
+    peaks = donation["update_peak_bytes"]
+    if peaks["chunked"] > peaks["whole"]:
+        failures.append(f"the update in chunks raised its peak: {peaks}")
+    trainer, f = layout_trainer(card)
+    failures += f
+    log("  " + card)
+    if failures:
+        raise AssertionError("phase 8c: " + "; ".join(failures))
+    launches = {name: leg["launches"] for name, leg in legs.items()}
+    return dict(legs=legs, donation=donation, trainer=trainer,
+                launches=launches, card=card)
+
 
 def leaf_errors(grads_k, grads_p):
     gnorm = float(torch.sqrt(sum((g.double() ** 2).sum()
@@ -2576,8 +3531,10 @@ def main():
     ssod = timed("6", ssod_phase, card)
     host_lib = timed("7a", host_library_phase, host_build_s)
     trainer = timed("7", trainer_phase, card, ssod["warm_step_ms"])
-    ddp = timed("8a", ddp_phase, card, ssod["warm_step_ms"])
+    ddp, ddp_refs = timed("8a", ddp_phase, card, ssod["warm_step_ms"])
     torchrun = timed("8b", torchrun_phase, card, trainer["launches_per_step"])
+    layouts = timed("8c", layout_phase, card, ddp_refs, ddp)
+    del ddp_refs
     exported = timed("9", export_phase, card)
     remat = timed("10", remat_phase, card)
     rehearsal = timed("11", rehearsal_phase, card)
@@ -2607,6 +3564,9 @@ def main():
                              "trainer": trainer["launches_fwd"],
                              # per rank, phase 8a's two runs
                              "ddp": ddp["launches"]["fwd"],
+                             # per rank, each phase 8c leg's two runs
+                             **{name: launches["fwd"] for name, launches
+                                in layouts["launches"].items()},
                              # the loaded program's runs (phase 9)
                              "export": exported["launches"],
                              # the remat runs of phase 10
@@ -2633,6 +3593,8 @@ def main():
                              "ssod": ssod["launches_bwd"],
                              "trainer": trainer["launches_bwd"],
                              "ddp": ddp["launches"]["bwd"],
+                             **{name: launches["bwd"] for name, launches
+                                in layouts["launches"].items()},
                              "export": 0,
                              "remat": remat["launches"]["bwd"],
                              "rehearsal": rehearsal["launches"]["bwd"]},
@@ -2650,7 +3612,7 @@ def main():
         "float32_request_err": errs, "train": train,
         "float32_grad_check": grad_check, "ssod": ssod,
         "host_library": host_lib, "trainer": trainer, "ddp": ddp,
-        "torchrun": torchrun, "export": exported,
+        "torchrun": torchrun, "layouts": layouts, "export": exported,
         "remat": remat, "rehearsal": rehearsal}
     print(json.dumps(json_safe(record), allow_nan=False), flush=True)
     print(json.dumps({"ok": True, "device": {

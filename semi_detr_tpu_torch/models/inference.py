@@ -25,7 +25,7 @@ import torch
 
 from ..core import boxes as box_ops
 from ..ops.nms import multiclass_nms
-from ..parallel import dist
+from ..parallel import dist, sharding
 
 
 def _extent(img_hw):
@@ -74,15 +74,17 @@ def _forward_decode(detector, images, img_hw, use_nms, max_dets):
     return decode(out["cls"][-1], out["coord"][-1], img_hw, max_dets)
 
 
-@torch.inference_mode()
 def predict(detector, images, img_hw, use_nms: bool = False,
             max_dets: int = 300):
     """One forward and decode: (boxes, scores, labels) on the device.
 
     images: (B, H, W, 3) uint8 or normalized float; img_hw: (B, 2) int,
     both on the detector's device. Teacher and student go through this one
-    function."""
-    return _forward_decode(detector, images, img_hw, use_nms, max_dets)
+    function. In inference mode, but for a sharded detector (no grad only:
+    the parameters FSDP gathers here are trained again afterwards)."""
+    with torch.no_grad() if sharding.is_laid_out(detector) \
+            else torch.inference_mode():
+        return _forward_decode(detector, images, img_hw, use_nms, max_dets)
 
 
 class ServingProgram(torch.nn.Module):
@@ -206,7 +208,8 @@ def evaluate_detector(detector, dataset, batch_size: int = 4,
     same image id. The images are read, decoded and resized ahead by the
     host library's prefetch loader (`data.pipeline.prefetched_test_batches`)
     while the detector runs. Under data parallelism each rank infers every
-    W-th batch and every rank scores the gathered union."""
+    W-th batch and every rank scores the gathered union (W: the data
+    ranks; the TP ranks of one model group infer the same batches)."""
     from ..data.coco_eval import coco_map
     from ..data.pipeline import prefetched_test_batches
 
@@ -220,6 +223,12 @@ def evaluate_detector(detector, dataset, batch_size: int = 4,
             idx = [int(i) for i in ids[s:s + batch_size]]
             groups.append((idx + [idx[-1]] * (batch_size - len(idx)), bkt))
     mine = groups[dist.rank()::dist.world()]
+    if sharding.is_laid_out(detector):
+        # every rank of a sharded detector runs as many forwards (each
+        # gathers parameters from the others): the shorter slices repeat
+        # their last batch, whose results land on the same image ids
+        per = -(-len(groups) // dist.world())
+        mine += [mine[-1] if mine else groups[0]] * (per - len(mine))
     dets = gather_results(run_eval(detector, prefetched_test_batches(
         dataset, mine, scale=test_scale), use_nms))
     return coco_map(dets, _groundtruth(dataset), num_classes, class_names)

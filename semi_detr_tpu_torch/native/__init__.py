@@ -14,9 +14,14 @@ step.
   non-interlaced) by zlib's inflate and the row filters in C++; JPEG
   through libjpeg where the machine has it (`jpeg_libjpeg.cpp`: the pixels
   of `semi_detr_tpu.native.decode_image` and `cv2.imread`), else through
-  the CUDA toolkit's nvJPEG (`jpeg_nvjpeg.cpp`: decoded on the card,
-  within a few grey levels of libjpeg). `decoders()` says which. Before
-  either decodes, `jpeg_check` walks the stream and decodes a sequential
+  the CUDA toolkit's nvJPEG (`jpeg_nvjpeg.cpp`). On the nvJPEG build a
+  sequential Huffman stream (SOF0/SOF1: COCO's files and the synthetic
+  sets) is decoded here instead (`decode_jpeg_sequential`: the Huffman
+  walk of `jpeg_check` kept, dequantized, libjpeg's integer IDCT and
+  output stage, libjpeg's pixels to the bit); the card decodes the rest
+  (progressive, arithmetic), within a few grey levels of libjpeg.
+  `decoders()` says which route each kind takes. Before the back end
+  decodes, `jpeg_check` walks the stream and decodes a sequential
   Huffman stream's codes as libjpeg does. A truncated, CMYK or unknown
   file, a bad Huffman code or a restart marker out of order raises
   `ImageDecodeError` on both routes; it never comes back blank. (JPEG
@@ -64,6 +69,8 @@ FIXTURES = os.path.join(_DIR, "fixtures")
 SOURCES = ("host.cpp",)
 HEADERS = ("host.h",)
 JPEG_SOURCES = {"libjpeg": "jpeg_libjpeg.cpp", "nvjpeg": "jpeg_nvjpeg.cpp"}
+# the route of sequential Huffman streams on the nvJPEG build
+SEQUENTIAL = "host sequential (libjpeg islow)"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off",
              "-pthread")
 # larger images are refused before any pixel buffer is allocated
@@ -186,6 +193,10 @@ _SIGNATURES = {
     "sdt_encode_jpeg": ([_P, _I, _I, _P, _P], _I),
     "sdt_free": ([_P], None),
     "sdt_jpeg_check": ([_P, _L], _I),
+    "sdt_jpeg_sequential": ([_P, _L], _I),
+    "sdt_jpeg_sequential_on_host": ([], _I),
+    "sdt_decode_jpeg_sequential": ([_P, _L, _P, _I, _I], _I),
+    "sdt_decode_jpeg_backend": ([_P, _L, _P, _I, _I], _I),
     "sdt_rgb_to_ycc420": ([_P, _I, _I, _P, _P, _P], None),
     "sdt_ycc_to_rgb": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], None),
     "sdt_resize_bilinear": ([_P, _I, _I, _I, _P, _I, _I], None),
@@ -217,9 +228,16 @@ def _library() -> ctypes.CDLL:
 
 
 def decoders() -> Dict[str, str]:
-    """The decoders the library was built with, by format."""
-    return {"png": "zlib inflate + C++ row filters",
-            "jpeg": _library().sdt_jpeg_backend().decode()}
+    """The decoders the library was built with: by format, `jpeg` the back
+    end, and the route each kind of JPEG stream takes in `decode_image`
+    (`jpeg_sequential`: the streams `jpeg_sequential` takes; `jpeg_other`:
+    progressive, arithmetic, and the rest)."""
+    lib = _library()
+    backend = lib.sdt_jpeg_backend().decode()
+    return {"png": "zlib inflate + C++ row filters", "jpeg": backend,
+            "jpeg_sequential": (SEQUENTIAL if lib.sdt_jpeg_sequential_on_host()
+                                else backend),
+            "jpeg_other": backend}
 
 
 def _ptr(a: np.ndarray) -> int:
@@ -293,6 +311,41 @@ def jpeg_check(buf: bytes) -> Optional[str]:
     lib = _library()
     return lib.sdt_last_error().decode() if lib.sdt_jpeg_check(
         buf, len(buf)) else None
+
+
+def jpeg_sequential(buf: bytes) -> bool:
+    """Whether the library's sequential decoder takes the stream: sequential
+    Huffman, 8 bits, gray or YCbCr, chroma subsampled by 1 or 2 (the frame
+    header and the segments before the first scan read)."""
+    buf = bytes(buf)
+    return bool(_library().sdt_jpeg_sequential(buf, len(buf)))
+
+
+def _decode_jpeg(fn: str, buf: bytes, name: str) -> np.ndarray:
+    buf = bytes(buf)
+    h, w = image_size(buf, name)
+    out = np.empty((h, w, 3), np.uint8)
+    lib = _library()
+    st = getattr(lib, fn)(buf, len(buf), _ptr(out), h, w)
+    if st:
+        raise _error(st, name, lib.sdt_last_error().decode())
+    return out
+
+
+def decode_jpeg_sequential(buf: bytes, name: str = "<bytes>") -> np.ndarray:
+    """The library's own decode of a stream `jpeg_sequential` takes, on
+    either route: libjpeg's default decode (integer IDCT, fancy upsampling)
+    to the bit. `decode_image` takes this path on the nvJPEG route; raises
+    ImageDecodeError for damaged data and for another kind of stream."""
+    return _decode_jpeg("sdt_decode_jpeg_sequential", buf, name)
+
+
+def decode_jpeg_backend(buf: bytes, name: str = "<bytes>") -> np.ndarray:
+    """The back end's decode (`decoders()["jpeg"]`) of any JPEG stream,
+    after `jpeg_check`: what `decode_image` does with the streams
+    `jpeg_sequential` refuses, here for every stream (on the nvJPEG route
+    it times and measures the card's decode beside the sequential one)."""
+    return _decode_jpeg("sdt_decode_jpeg_backend", buf, name)
 
 
 def encode_jpeg(img: np.ndarray) -> bytes:

@@ -202,18 +202,36 @@ void rgb_to_ycc420(const uint8_t* rgb, int h, int w, uint8_t* y, uint8_t* cb,
   }
 }
 
-// ------------------------------------------------------------ JPEG check
+// ------------------------------------------------- JPEG check and decode
 // The entropy-coded data of a sequential Huffman JPEG (SOF0, SOF1) decoded
-// to its coefficients, as libjpeg's jdhuff.c reads them, and thrown away:
-// a code that no table holds, a scan whose data ends before its last block
-// or a restart marker out of order fails, as libjpeg's slow path warns
-// (its fast path lets a bad code pass as 0). Other streams (progressive,
-// arithmetic) are walked marker by marker only. Bytes between markers that
-// no scan reads pass, as libjpeg passes them with a warning.
+// to its coefficients as libjpeg's jdhuff.c reads them: the DC prediction
+// per component (reset at each scan and restart), the sign extension, the
+// zig-zag order and interleaved or one-component scans. The check throws
+// the coefficients away: a code that no table holds, a scan whose data ends
+// before its last block or a restart marker out of order fails, as
+// libjpeg's slow path warns (its fast path lets a bad code pass as 0).
+// Other streams (progressive, arithmetic) are walked marker by marker only.
+// Bytes between markers that no scan reads pass, as libjpeg passes them
+// with a warning.
+//
+// The decode keeps the coefficients, dequantizes them by the DQT table
+// each component latched at its first scan, runs libjpeg's integer IDCT
+// (jidctint.c, jpeg_idct_islow) and finishes the planes with ycc_to_rgb:
+// the pixels of libjpeg's default decode, which libjpeg-turbo's SIMD islow
+// matches bit for bit.
 
 namespace {
 
 constexpr int kLook = 9;  // bits of the lookahead table
+
+// zig-zag position -> natural (row-major) position; 16 more entries catch
+// a run past the end of a block, as libjpeg's jpeg_natural_order does
+const int kNatural[64 + 16] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 struct HuffTable {
   bool defined = false;
@@ -343,18 +361,34 @@ int decode(Bits* b, const HuffTable& t) {
   return t.vals[(code + t.valoffset[l]) & 0xFF];
 }
 
-// one 8x8 block: the DC difference, then the AC run/size pairs to the EOB
-bool read_block(Bits* b, const HuffTable& dc, const HuffTable& ac) {
+// libjpeg's HUFF_EXTEND: s bits r as a signed value
+inline int extend(uint32_t r, int s) {
+  const int v = static_cast<int>(r);
+  return s && v < (1 << (s - 1)) ? v + static_cast<int>(~0u << s) + 1 : v;
+}
+
+// one 8x8 block: the DC difference, then the AC run/size pairs to the EOB.
+// With blk, the coefficients go there in natural order (blk zeroed by the
+// caller) and *dc carries the component's DC prediction, each value cast
+// to 16 bits as jdhuff.c's JCOEF.
+bool read_block(Bits* b, const HuffTable& dc, const HuffTable& ac,
+                int16_t* blk, int* last_dc) {
   const int s = decode(b, dc);
   if (s < 0) return false;
-  b->get(s);
+  const uint32_t r0 = b->get(s);
+  if (blk) {
+    *last_dc = static_cast<int>(static_cast<unsigned>(extend(r0, s)) +
+                                static_cast<unsigned>(*last_dc));
+    blk[0] = static_cast<int16_t>(*last_dc);
+  }
   for (int k = 1; k < 64; ++k) {
     const int rs = decode(b, ac);
     if (rs < 0) return false;
     const int r = rs >> 4, z = rs & 15;
     if (z) {
       k += r;
-      b->get(z);
+      const uint32_t v = b->get(z);
+      if (blk) blk[kNatural[k]] = static_cast<int16_t>(extend(v, z));
     } else {
       if (r != 15) break;
       k += 15;
@@ -365,8 +399,20 @@ bool read_block(Bits* b, const HuffTable& dc, const HuffTable& ac) {
 
 struct Frame {
   bool seen = false, huffman_sequential = false;
-  int width = 0, height = 0, hmax = 1, vmax = 1, ncomp = 0;
-  int id[4], hs[4], vs[4];
+  int precision = 8, width = 0, height = 0, hmax = 1, vmax = 1, ncomp = 0;
+  int id[4], hs[4], vs[4], tq[4];
+};
+
+// what the decode keeps of a stream: the DQT tables as defined, each
+// component's table latched at its first scan, and its coefficient blocks
+// over the MCU grid (bh x bw blocks of 64, natural order)
+struct Coefs {
+  uint16_t dqt[4][64];
+  bool dqt_defined[4] = {false, false, false, false};
+  uint16_t qt[4][64];
+  bool scanned[4] = {false, false, false, false};
+  int bw[4], bh[4];
+  std::vector<int16_t> blocks[4];
 };
 
 int damaged(const char* what) {
@@ -382,10 +428,11 @@ int ran_out(const Bits& b) {
 }
 
 // the scan whose header (SOS segment body sos, len bytes) ends at data;
-// on success *end is the position of the marker after the scan
-int check_scan(const uint8_t* d, long n, const uint8_t* sos, long len,
-               long data, const Frame& f, const HuffTable* dc,
-               const HuffTable* ac, int restart, long* end) {
+// on success *end is the position of the marker after the scan. With co,
+// the coefficients are kept there.
+int read_scan(const uint8_t* d, long n, const uint8_t* sos, long len,
+              long data, const Frame& f, const HuffTable* dc,
+              const HuffTable* ac, int restart, Coefs* co, long* end) {
   const int ns = len >= 1 ? sos[0] : 0;
   if (ns < 1 || ns > 4 || len != 4 + 2 * ns)
     return damaged("bad scan header");
@@ -399,23 +446,36 @@ int check_scan(const uint8_t* d, long n, const uint8_t* sos, long len,
         !dc[tables >> 4].defined || !ac[tables & 15].defined)
       return damaged("scan of an unknown component or Huffman table");
   }
-  // blocks of each MCU, by component, and the MCU count
-  long mcus;
+  if (co) {  // libjpeg's latch_quant_tables
+    for (int j = 0; j < ns; ++j) {
+      const int c = comp[j];
+      if (co->scanned[c]) continue;
+      if (!co->dqt_defined[f.tq[c]]) {
+        set_error("JPEG: a scan's quantization table is not defined");
+        return kCorrupt;
+      }
+      std::memcpy(co->qt[c], co->dqt[f.tq[c]], sizeof(co->qt[c]));
+      co->scanned[c] = true;
+    }
+  }
+  // blocks of each MCU, by component, and the MCU grid
+  long mcus, mcu_w;
   int blocks[4];
   if (ns == 1) {
     const int i = comp[0];
-    const long bw = (static_cast<long>(f.width) * f.hs[i] + 8L * f.hmax - 1) /
-                    (8L * f.hmax);
-    const long bh = (static_cast<long>(f.height) * f.vs[i] + 8L * f.vmax - 1) /
-                    (8L * f.vmax);
-    mcus = bw * bh;
+    mcu_w = (static_cast<long>(f.width) * f.hs[i] + 8L * f.hmax - 1) /
+            (8L * f.hmax);
+    const long bh = (static_cast<long>(f.height) * f.vs[i] + 8L * f.vmax -
+                     1) / (8L * f.vmax);
+    mcus = mcu_w * bh;
     blocks[0] = 1;
   } else {
-    mcus = ((f.width + 8L * f.hmax - 1) / (8L * f.hmax)) *
-           ((f.height + 8L * f.vmax - 1) / (8L * f.vmax));
+    mcu_w = (f.width + 8L * f.hmax - 1) / (8L * f.hmax);
+    mcus = mcu_w * ((f.height + 8L * f.vmax - 1) / (8L * f.vmax));
     for (int j = 0; j < ns; ++j) blocks[j] = f.hs[comp[j]] * f.vs[comp[j]];
   }
   Bits b(d, n, data);
+  int last_dc[4] = {0, 0, 0, 0};
   int expect = 0;  // the next restart marker, RST0 .. RST7
   for (long m = 0; m < mcus; ++m) {
     if (restart > 0 && m > 0 && m % restart == 0) {
@@ -424,12 +484,21 @@ int check_scan(const uint8_t* d, long n, const uint8_t* sos, long len,
         return damaged("restart marker missing or out of order");
       b.pos += 2;
       expect = (expect + 1) & 7;
+      last_dc[0] = last_dc[1] = last_dc[2] = last_dc[3] = 0;
     }
+    const long my = m / mcu_w, mx = m % mcu_w;
     for (int j = 0; j < ns; ++j) {
-      const int t = sos[2 + 2 * j];
-      for (int k = 0; k < blocks[j]; ++k)
-        if (!read_block(&b, dc[t >> 4], ac[t & 15]))
+      const int t = sos[2 + 2 * j], c = comp[j];
+      for (int k = 0; k < blocks[j]; ++k) {
+        int16_t* blk = nullptr;
+        if (co) {  // the block's place in the component's grid
+          const long by = ns == 1 ? my : my * f.vs[c] + k / f.hs[c];
+          const long bx = ns == 1 ? mx : mx * f.hs[c] + k % f.hs[c];
+          blk = co->blocks[c].data() + (by * co->bw[c] + bx) * 64;
+        }
+        if (!read_block(&b, dc[t >> 4], ac[t & 15], blk, &last_dc[j]))
           return damaged("bad Huffman code");
+      }
     }
     if (b.overrun()) return ran_out(b);
   }
@@ -439,9 +508,20 @@ int check_scan(const uint8_t* d, long n, const uint8_t* sos, long len,
   return kOk;
 }
 
-}  // namespace
+// the frame's components' block grids, each padded to whole MCUs
+void size_coefs(const Frame& f, Coefs* co) {
+  const long mw = (f.width + 8L * f.hmax - 1) / (8L * f.hmax);
+  const long mh = (f.height + 8L * f.vmax - 1) / (8L * f.vmax);
+  for (int c = 0; c < f.ncomp; ++c) {
+    co->bw[c] = static_cast<int>(mw * f.hs[c]);
+    co->bh[c] = static_cast<int>(mh * f.vs[c]);
+    co->blocks[c].assign(static_cast<size_t>(co->bw[c]) * co->bh[c] * 64, 0);
+  }
+}
 
-int jpeg_check(const uint8_t* d, long n) {
+// The stream walked from SOI to EOI; with co (a sequential Huffman frame
+// only) the coefficients kept. Also reports the frame to *fo.
+int walk(const uint8_t* d, long n, Coefs* co, Frame* fo) {
   Frame f;
   HuffTable dc[4], ac[4];
   int restart = 0;
@@ -456,6 +536,7 @@ int jpeg_check(const uint8_t* d, long n) {
     i += 2;
     if (m == 0xD9) {  // EOI
       if (!scanned) return damaged("no scan before EOI");
+      if (fo) *fo = f;
       return kOk;
     }
     if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;  // no length
@@ -478,6 +559,20 @@ int jpeg_check(const uint8_t* d, long n) {
           return damaged("bad Huffman table");
         q += 17 + nvals;
       }
+    } else if (m == 0xDB && co) {  // DQT: tables in zig-zag order
+      long q = 0;
+      while (q < blen) {
+        const int pq = body[q] >> 4, tq = body[q] & 15;
+        const long size = pq ? 128 : 64;
+        if (pq > 1 || tq > 3 || q + 1 + size > blen)
+          return damaged("bad quantization table");
+        for (int k = 0; k < 64; ++k)
+          co->dqt[tq][kNatural[k]] = static_cast<uint16_t>(
+              pq ? (body[q + 1 + 2 * k] << 8) | body[q + 2 + 2 * k]
+                 : body[q + 1 + k]);
+        co->dqt_defined[tq] = true;
+        q += 1 + size;
+      }
     } else if (m == 0xDD) {  // DRI
       if (blen != 2) return damaged("bad restart interval");
       restart = (body[0] << 8) | body[1];
@@ -487,6 +582,7 @@ int jpeg_check(const uint8_t* d, long n) {
       if (nc < 1 || nc > 4 || blen != 6 + 3 * nc)
         return damaged("bad frame header");
       f.seen = true;
+      f.precision = body[0];
       f.height = (body[1] << 8) | body[2];
       f.width = (body[3] << 8) | body[4];
       f.ncomp = nc;
@@ -494,6 +590,7 @@ int jpeg_check(const uint8_t* d, long n) {
         f.id[c] = body[6 + 3 * c];
         f.hs[c] = body[7 + 3 * c] >> 4;
         f.vs[c] = body[7 + 3 * c] & 15;
+        f.tq[c] = body[8 + 3 * c] & 3;
         if (f.hs[c] < 1 || f.hs[c] > 4 || f.vs[c] < 1 || f.vs[c] > 4)
           return damaged("bad sampling factors");
         f.hmax = std::max(f.hmax, f.hs[c]);
@@ -502,11 +599,19 @@ int jpeg_check(const uint8_t* d, long n) {
       // a height of 0 comes in a DNL segment after the scan: walk only
       f.huffman_sequential = (m == 0xC0 || m == 0xC1) && f.height > 0 &&
                              f.width > 0;
+      if (co) {
+        if (!f.huffman_sequential) {
+          set_error("JPEG: not a sequential Huffman stream");
+          return kUnsupported;
+        }
+        size_coefs(f, co);
+      }
     } else if (m == 0xDA) {  // SOS and its entropy-coded data
       if (!f.seen) return damaged("scan before the frame header");
       scanned = true;
       if (f.huffman_sequential) {
-        const int st = check_scan(d, n, body, blen, i, f, dc, ac, restart, &i);
+        const int st = read_scan(d, n, body, blen, i, f, dc, ac, restart, co,
+                                 &i);
         if (st) return st;
         continue;
       }
@@ -524,6 +629,251 @@ int jpeg_check(const uint8_t* d, long n) {
     }
   }
   return damaged("Premature end of JPEG file (no EOI)");
+}
+
+// libjpeg's sample_range_limit + CENTERJSAMPLE (jdmaster.c
+// prepare_range_limit_table), read at a DESCALEd IDCT output & 1023
+struct RangeLimit {
+  uint8_t t[1024];
+  RangeLimit() {
+    for (int i = 0; i < 1024; ++i)
+      t[i] = i < 128 ? i + 128 : i < 512 ? 255 : i < 896 ? 0 : i - 896;
+  }
+};
+
+// jidctint.c, jpeg_idct_islow: the 8x8 block (natural order) dequantized
+// by q, into 8 rows of out (stride bytes apart), cropped to rows x cols
+void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
+                long stride, int rows, int cols) {
+  static const RangeLimit range;
+  constexpr int kConst = 13, kPass1 = 2;
+  auto descale = [](int64_t x, int n) {
+    return static_cast<int>((x + (int64_t{1} << (n - 1))) >> n);
+  };
+  // FIX(x) of CONST_BITS 13
+  constexpr int64_t f0_298 = 2446, f0_390 = 3196, f0_541 = 4433,
+                    f0_765 = 6270, f0_899 = 7373, f1_175 = 9633,
+                    f1_501 = 12299, f1_847 = 15137, f1_961 = 16069,
+                    f2_053 = 16819, f2_562 = 20995, f3_072 = 25172;
+  int ws[64];
+  int64_t tmp0, tmp1, tmp2, tmp3, tmp10, tmp11, tmp12, tmp13, z1, z2, z3,
+      z4, z5;
+  // the odd part: y7, y5, y3, y1 in tmp0..tmp3 -> tmp0..tmp3
+  auto odd = [&]() {
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    z4 = tmp1 + tmp3;
+    z5 = (z3 + z4) * f1_175;
+    tmp0 = tmp0 * f0_298;
+    tmp1 = tmp1 * f2_053;
+    tmp2 = tmp2 * f3_072;
+    tmp3 = tmp3 * f1_501;
+    z1 = z1 * -f0_899;
+    z2 = z2 * -f2_562;
+    z3 = z3 * -f1_961;
+    z4 = z4 * -f0_390;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+  };
+  // pass 1: columns, scaled up by 2 ** PASS1_BITS
+  for (int c = 0; c < 8; ++c) {
+    const int16_t* x = in + c;
+    const uint16_t* qc = q + c;
+    int* w = ws + c;
+    if (!x[8] && !x[16] && !x[24] && !x[32] && !x[40] && !x[48] && !x[56]) {
+      const int dcval = (x[0] * qc[0]) * (1 << kPass1);  // AC terms all 0
+      for (int r = 0; r < 8; ++r) w[8 * r] = dcval;
+      continue;
+    }
+    z2 = x[16] * qc[16];
+    z3 = x[48] * qc[48];
+    z1 = (z2 + z3) * f0_541;
+    tmp2 = z1 + z3 * -f1_847;
+    tmp3 = z1 + z2 * f0_765;
+    z2 = x[0] * qc[0];
+    z3 = x[32] * qc[32];
+    tmp0 = (z2 + z3) * (int64_t{1} << kConst);
+    tmp1 = (z2 - z3) * (int64_t{1} << kConst);
+    tmp10 = tmp0 + tmp3;
+    tmp13 = tmp0 - tmp3;
+    tmp11 = tmp1 + tmp2;
+    tmp12 = tmp1 - tmp2;
+    tmp0 = x[56] * qc[56];
+    tmp1 = x[40] * qc[40];
+    tmp2 = x[24] * qc[24];
+    tmp3 = x[8] * qc[8];
+    odd();
+    const int n = kConst - kPass1;
+    w[0] = descale(tmp10 + tmp3, n);
+    w[56] = descale(tmp10 - tmp3, n);
+    w[8] = descale(tmp11 + tmp2, n);
+    w[48] = descale(tmp11 - tmp2, n);
+    w[16] = descale(tmp12 + tmp1, n);
+    w[40] = descale(tmp12 - tmp1, n);
+    w[24] = descale(tmp13 + tmp0, n);
+    w[32] = descale(tmp13 - tmp0, n);
+  }
+  // pass 2: rows, descaled by 8 and 2 ** PASS1_BITS, level-shifted and
+  // clamped by the range table
+  uint8_t px[8];
+  for (int r = 0; r < rows; ++r) {
+    const int* w = ws + 8 * r;
+    const int n = kConst + kPass1 + 3;
+    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
+      std::memset(px, range.t[descale(w[0], kPass1 + 3) & 1023], 8);
+    } else {
+      z2 = w[2];
+      z3 = w[6];
+      z1 = (z2 + z3) * f0_541;
+      tmp2 = z1 + z3 * -f1_847;
+      tmp3 = z1 + z2 * f0_765;
+      tmp0 = (int64_t{w[0]} + w[4]) * (int64_t{1} << kConst);
+      tmp1 = (int64_t{w[0]} - w[4]) * (int64_t{1} << kConst);
+      tmp10 = tmp0 + tmp3;
+      tmp13 = tmp0 - tmp3;
+      tmp11 = tmp1 + tmp2;
+      tmp12 = tmp1 - tmp2;
+      tmp0 = w[7];
+      tmp1 = w[5];
+      tmp2 = w[3];
+      tmp3 = w[1];
+      odd();
+      px[0] = range.t[descale(tmp10 + tmp3, n) & 1023];
+      px[7] = range.t[descale(tmp10 - tmp3, n) & 1023];
+      px[1] = range.t[descale(tmp11 + tmp2, n) & 1023];
+      px[6] = range.t[descale(tmp11 - tmp2, n) & 1023];
+      px[2] = range.t[descale(tmp12 + tmp1, n) & 1023];
+      px[5] = range.t[descale(tmp12 - tmp1, n) & 1023];
+      px[3] = range.t[descale(tmp13 + tmp0, n) & 1023];
+      px[4] = range.t[descale(tmp13 - tmp0, n) & 1023];
+    }
+    std::memcpy(out + r * stride, px, cols);
+  }
+}
+
+// a segment's body by marker code, before the first SOS (nullptr if none)
+const uint8_t* find_segment(const uint8_t* d, long n, int marker,
+                            long* blen) {
+  long i = 2;
+  while (i + 3 < n) {
+    if (d[i] != 0xFF || d[i + 1] == 0xFF) {
+      ++i;
+      continue;
+    }
+    const int m = d[i + 1];
+    i += 2;
+    if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
+    if (m == 0xDA || m == 0xD9) return nullptr;
+    const long len = (static_cast<long>(d[i]) << 8) | d[i + 1];
+    if (len < 2 || i + len > n) return nullptr;
+    if (m == marker) {
+      *blen = len - 2;
+      return d + i + 2;
+    }
+    i += len;
+  }
+  return nullptr;
+}
+
+}  // namespace
+
+int jpeg_check(const uint8_t* d, long n) {
+  return walk(d, n, nullptr, nullptr);
+}
+
+bool jpeg_sequential(const uint8_t* d, long n) {
+  long len = 0;
+  const uint8_t* sof = nullptr;
+  int kind = -1;
+  for (int m : {0xC0, 0xC1}) {
+    if ((sof = find_segment(d, n, m, &len))) {
+      kind = m;
+      break;
+    }
+  }
+  // any other SOFn before the first scan makes the stream another kind
+  for (int m = 0xC2; m <= 0xCF && kind >= 0; ++m) {
+    long l2;
+    if (m != 0xC4 && m != 0xC8 && m != 0xCC && find_segment(d, n, m, &l2))
+      return false;
+  }
+  if (kind < 0 || len < 6 || sof[0] != 8) return false;
+  const int h = (sof[1] << 8) | sof[2], w = (sof[3] << 8) | sof[4];
+  const int nc = sof[5];
+  if (h == 0 || w == 0 || len != 6 + 3 * nc) return false;
+  if (nc == 1) return true;
+  if (nc != 3) return false;
+  // libjpeg's colour space guess (jdapimin.c): RGB without a JFIF marker
+  // where an Adobe marker says transform 0 or the ids are 'R', 'G', 'B'
+  long al = 0;
+  const uint8_t* adobe = find_segment(d, n, 0xEE, &al);
+  long jl = 0;
+  const uint8_t* jfif = find_segment(d, n, 0xE0, &jl);
+  const bool is_jfif = jfif && jl >= 5 && std::memcmp(jfif, "JFIF\0", 5) == 0;
+  const bool is_adobe = adobe && al >= 12 && std::memcmp(adobe, "Adobe", 5) == 0;
+  if (!is_jfif) {
+    if (is_adobe ? adobe[11] == 0
+                 : (sof[6] == 'R' && sof[9] == 'G' && sof[12] == 'B'))
+      return false;
+  }
+  // luma at the largest factors, both chroma planes alike, each factor
+  // 1 or 2 times the chroma's (the upsamplings of ycc_to_rgb)
+  const int hy = sof[7] >> 4, vy = sof[7] & 15;
+  const int hc = sof[10] >> 4, vc = sof[10] & 15;
+  if (sof[13] != sof[10] || hc < 1 || vc < 1 || hy < hc || vy < vc)
+    return false;
+  return (hy == hc || hy == 2 * hc) && (vy == vc || vy == 2 * vc);
+}
+
+int jpeg_decode_sequential(const uint8_t* d, long n, uint8_t* out, int h,
+                           int w) {
+  if (!jpeg_sequential(d, n)) {
+    set_error("JPEG: not a sequential Huffman stream of 8 bits, gray or "
+              "YCbCr with chroma factors 1 or 2");
+    return kUnsupported;
+  }
+  Coefs co;
+  Frame f;
+  const int st = walk(d, n, &co, &f);
+  if (st) return st;
+  if (f.height != h || f.width != w) {
+    set_error("JPEG size differs from the size asked for");
+    return kSizeMismatch;
+  }
+  // each component's plane, libjpeg's downsampled size
+  std::vector<uint8_t> planes[3];
+  int ph[3], pw[3];
+  for (int c = 0; c < f.ncomp; ++c) {
+    if (!co.scanned[c]) return damaged("a component no scan holds");
+    ph[c] = static_cast<int>((static_cast<long>(h) * f.vs[c] + f.vmax - 1) /
+                             f.vmax);
+    pw[c] = static_cast<int>((static_cast<long>(w) * f.hs[c] + f.hmax - 1) /
+                             f.hmax);
+    planes[c].resize(static_cast<size_t>(ph[c]) * pw[c]);
+    const int16_t* blocks = co.blocks[c].data();
+    for (int by = 0; by * 8 < ph[c]; ++by)
+      for (int bx = 0; bx * 8 < pw[c]; ++bx)
+        idct_islow(blocks + (static_cast<long>(by) * co.bw[c] + bx) * 64,
+                   co.qt[c],
+                   planes[c].data() + static_cast<long>(by) * 8 * pw[c] +
+                       bx * 8,
+                   pw[c], std::min(8, ph[c] - by * 8),
+                   std::min(8, pw[c] - bx * 8));
+  }
+  if (f.ncomp == 1) {
+    const uint8_t* y = planes[0].data();
+    for (long i = 0; i < static_cast<long>(h) * w; ++i)
+      out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = y[i];
+    return kOk;
+  }
+  ycc_to_rgb(planes[0].data(), planes[1].data(), planes[2].data(), h, w,
+             ph[1], pw[1], f.hs[0] / f.hs[1], f.vs[0] / f.vs[1], out);
+  return kOk;
 }
 
 // ------------------------------------------------------------------ PNG
@@ -786,6 +1136,10 @@ int sdt_image_info(const uint8_t* d, long n, int* h, int* w) {
 int sdt_decode(const uint8_t* d, long n, uint8_t* out, int h, int w) {
   if (is_png(d, n)) return sdt_png_decode(d, n, out, h, w);
   if (is_jpeg(d, n)) {
+    // the back end's route for this kind of stream, chosen before any
+    // decode: the sequential decoder checks as it decodes
+    if (jpeg_sequential_on_host() && jpeg_sequential(d, n))
+      return jpeg_decode_sequential(d, n, out, h, w);
     const int st = jpeg_check(d, n);
     return st ? st : jpeg_decode(d, n, out, h, w);
   }
@@ -808,6 +1162,28 @@ void sdt_rgb_to_ycc420(const uint8_t* rgb, int h, int w, uint8_t* y,
 
 // 0 for a whole JPEG stream, else kCorrupt (the fault in sdt_last_error)
 int sdt_jpeg_check(const uint8_t* d, long n) { return jpeg_check(d, n); }
+
+// 1 for a stream the sequential decoder takes (sdt::jpeg_sequential)
+int sdt_jpeg_sequential(const uint8_t* d, long n) {
+  return jpeg_sequential(d, n) ? 1 : 0;
+}
+
+// 1 where sdt_decode sends those streams to the sequential decoder
+int sdt_jpeg_sequential_on_host() { return jpeg_sequential_on_host(); }
+
+// the back end's own decode of any JPEG stream, after the check (the
+// route sdt_decode takes for the streams jpeg_sequential refuses)
+int sdt_decode_jpeg_backend(const uint8_t* d, long n, uint8_t* out, int h,
+                            int w) {
+  const int st = jpeg_check(d, n);
+  return st ? st : jpeg_decode(d, n, out, h, w);
+}
+
+// sdt::jpeg_decode_sequential on either route, for the tests
+int sdt_decode_jpeg_sequential(const uint8_t* d, long n, uint8_t* out, int h,
+                               int w) {
+  return jpeg_decode_sequential(d, n, out, h, w);
+}
 
 // sdt::ycc_to_rgb for the tests: planes y (h, w), cb and cr (ch, cw)
 void sdt_ycc_to_rgb(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,

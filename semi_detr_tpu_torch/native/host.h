@@ -42,6 +42,21 @@ void ycc_to_rgb(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
 // code pass.
 int jpeg_check(const uint8_t* d, long n);
 
+// true for a stream jpeg_decode_sequential takes: sequential Huffman
+// (SOF0, SOF1) of 8 bits, gray or YCbCr (libjpeg's colour space guess),
+// the luma at the largest sampling factors and both chroma planes subsampled
+// alike by 1 or 2 in each direction. Read from the segments before the
+// first scan only.
+bool jpeg_sequential(const uint8_t* d, long n);
+
+// libjpeg's default decode of such a stream, in this library: the
+// entropy-coded data decoded (checked as jpeg_check checks it), dequantized,
+// jidctint.c's integer IDCT (jpeg_idct_islow) and ycc_to_rgb, into out
+// (h, w, 3); a gray stream is repeated over three channels. Bit-equal to
+// libjpeg's decode. Another kind of stream gives kUnsupported.
+int jpeg_decode_sequential(const uint8_t* d, long n, uint8_t* out, int h,
+                           int w);
+
 // libjpeg's input stage for a 4:2:0 stream: RGB (h, w, 3) -> y (h, w), and
 // cb and cr ((h + 1) / 2, (w + 1) / 2) by the fixed-point tables of
 // jccolor.c and the 2x2 means of jcsample.c (the edges repeated). The
@@ -61,5 +76,9 @@ constexpr int kJpegQuality = 95;
 // buffer the caller frees
 int jpeg_encode(const uint8_t* rgb, int h, int w, uint8_t** out, long* size);
 const char* jpeg_backend();
+// true where sdt_decode gives the streams jpeg_sequential takes to
+// jpeg_decode_sequential instead of the back end (nvJPEG: its IDCT is not
+// libjpeg's); the libjpeg back end decodes every stream itself
+bool jpeg_sequential_on_host();
 
 }  // namespace sdt

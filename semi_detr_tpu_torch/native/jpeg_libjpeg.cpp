@@ -159,4 +159,6 @@ int jpeg_encode(const uint8_t* rgb, int h, int w, uint8_t** out, long* size) {
 
 const char* jpeg_backend() { return "libjpeg"; }
 
+bool jpeg_sequential_on_host() { return false; }
+
 }  // namespace sdt

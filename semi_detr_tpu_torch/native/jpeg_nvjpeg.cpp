@@ -1,6 +1,8 @@
 // JPEG back end of the host library through nvJPEG, for a machine that has
-// the CUDA toolkit but no libjpeg (the H100 machine of this port). The
-// stream is decoded on the card to its Y, Cb and Cr planes, copied back to
+// the CUDA toolkit but no libjpeg (the H100 machine of this port). A
+// sequential Huffman stream does not come here: host.cpp decodes it
+// libjpeg-exact (jpeg_sequential_on_host). Any other stream is decoded on
+// the card to its Y, Cb and Cr planes, copied back to
 // host memory and finished as libjpeg finishes it (fancy chroma upsampling
 // and its fixed-point colour tables, host.cpp's ycc_to_rgb), so only
 // nvJPEG's IDCT differs from libjpeg's; subsamplings other than 4:4:4,
@@ -279,5 +281,7 @@ int jpeg_encode(const uint8_t* rgb, int h, int w, uint8_t** out, long* size) {
 }
 
 const char* jpeg_backend() { return "nvjpeg"; }
+
+bool jpeg_sequential_on_host() { return true; }
 
 }  // namespace sdt

@@ -1,2 +1,3 @@
-"""Data parallelism over torch.distributed (`dist`), the counterpart of
-`semi_detr_tpu/parallel`."""
+"""Data parallelism over torch.distributed and its (data, model) mesh
+(`dist`), and FSDP / tensor parallelism of the train state (`sharding`):
+the counterpart of `semi_detr_tpu/parallel`."""

@@ -26,11 +26,20 @@ Two ranks on one card run gloo on CUDA tensors: gloo runs all_reduce,
 broadcast and all_gather on CUDA tensors itself (each through a host copy
 of its own), so no collective here stages a tensor by hand.
 
-Not ported: `make_mesh`, `batch_sharding`, `replicate` and
-`with_batch_constraint`, which name XLA shardings and have no meaning for
-eager tensors (a rank's tensors are its shard; parameters are replicated
-by `broadcast_state` and kept so by the gradient sum). `fsdp_sharding` and
-`tp_sharding` wait for the later parts of the multi-GPU slice.
+The mesh (`make_mesh`, the counterpart of `mesh.make_mesh((dp, mp))`): a
+2-D `(data, model)` device mesh over the group, `data = W / tp`. The batch
+is split over `data` only, so the `tp` ranks of one model group share one
+data shard, and every global-batch collective here (the sums, maxima and
+gathers, `all_sum_`, `rank_rows`) runs over this rank's **data** group:
+`rank()` and `world()` are the data rank and the data world. Without a mesh
+(data parallel) the data group is the world. `world_rank()` and
+`world_size()` name the whole group; `is_main()` is world rank 0.
+`parallel.sharding` lays the state out over the mesh (FSDP over `data`,
+tensor parallelism over `model`).
+
+Not ported: `batch_sharding`, `replicate` and `with_batch_constraint`,
+which name XLA shardings and have no meaning for eager tensors (a rank's
+tensors are its shard).
 """
 from __future__ import annotations
 
@@ -48,20 +57,96 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 BUCKET_NUMEL = 16 * 2 ** 20
 
 
+# the (data, model) mesh of `make_mesh`, None without one
+_MESH = None
+
+
 def _active() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def rank() -> int:
+def world_rank() -> int:
+    """This process's rank in the whole group."""
     return dist.get_rank() if _active() else 0
 
 
-def world() -> int:
+def world_size() -> int:
+    """The whole group's size."""
     return dist.get_world_size() if _active() else 1
 
 
+def data_group():
+    """The process group of this rank's data axis (None: the world)."""
+    return None if _MESH is None else _MESH.get_group("data")
+
+
+def model_group():
+    """The process group of this rank's model axis (None without a
+    mesh)."""
+    return None if _MESH is None else _MESH.get_group("model")
+
+
+def rank() -> int:
+    """This rank's index on the data axis: the shard of the global batch
+    it holds."""
+    if _MESH is None:
+        return world_rank()
+    return _MESH.get_local_rank("data")
+
+
+def world() -> int:
+    """The data axis's size: how many shards the global batch has."""
+    if _MESH is None:
+        return world_size()
+    return _MESH.size(0)
+
+
 def is_main() -> bool:
-    return rank() == 0
+    return world_rank() == 0
+
+
+def mesh():
+    """The mesh of `make_mesh`, or None."""
+    return _MESH
+
+
+def make_mesh(tp: int = 1, device="cpu"):
+    """The `(data, model)` mesh over the group, `data = W / tp`, as the JAX
+    trainers' `_build_mesh` makes it (`make_mesh((n // tp, tp))`): raises
+    for tp > 1 without a group of more than one process and for W % tp != 0.
+    Every collective of this module then runs over the data axis. Returns
+    the mesh (None in one process, where there is nothing to lay out).
+    `device`: where the ranks' tensors live (the mesh's device type)."""
+    global _MESH
+    from torch.distributed.device_mesh import init_device_mesh
+    n = world_size()
+    shape = check_layout(n, tp)
+    _MESH = None
+    if n > 1:
+        _MESH = init_device_mesh(torch.device(device).type, shape,
+                                 mesh_dim_names=("data", "model"))
+    return _MESH
+
+
+def check_layout(world: int, tp: int):
+    """The mesh shape (data, model) of `world` ranks at `tp`, or the JAX
+    `_build_mesh`'s refusals: tp > 1 without more than one process, and a
+    tp that does not divide the world."""
+    if tp > 1 and world <= 1:
+        raise ValueError(f"tp={tp} needs a group of more than one process "
+                         "(tensor parallelism splits each model over tp "
+                         "ranks)")
+    if tp < 1 or world % tp:
+        raise ValueError(f"tp={tp} does not divide the world of {world} "
+                         "ranks")
+    return world // tp, tp
+
+
+def drop_mesh():
+    """Back to the world as the data group (the mesh's groups stay with the
+    process group and go with `destroy`). Returns None."""
+    global _MESH
+    _MESH = None
 
 
 def backend() -> Optional[str]:
@@ -116,6 +201,7 @@ def barrier():
 
 
 def destroy():
+    drop_mesh()
     if _active():
         dist.destroy_process_group()
 
@@ -137,7 +223,7 @@ def all_sum(t: torch.Tensor) -> torch.Tensor:
     if not _active():
         return t
     out = t.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, dist.ReduceOp.SUM)
+    dist.all_reduce(out, dist.ReduceOp.SUM, group=data_group())
     return out
 
 
@@ -146,7 +232,7 @@ def all_max(t: torch.Tensor) -> torch.Tensor:
     if not _active():
         return t
     out = t.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, dist.ReduceOp.MAX)
+    dist.all_reduce(out, dist.ReduceOp.MAX, group=data_group())
     return out
 
 
@@ -155,9 +241,16 @@ def all_gather(t: torch.Tensor) -> torch.Tensor:
     group). Every rank passes the same shape and dtype."""
     if not _active():
         return t[None]
+    return gather_over(t, data_group())
+
+
+def gather_over(t: torch.Tensor, group=None) -> torch.Tensor:
+    """(group size, *t.shape): every member's `t` in group rank order
+    (group None: the world)."""
     t = t.detach().contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, t)
+    parts = [torch.empty_like(t)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
     return torch.stack(parts)
 
 
@@ -215,12 +308,29 @@ def all_sum_(tensors: Sequence[torch.Tensor]):
     """Sum each tensor over ranks, in place, in flat buckets: the gradient
     reduction of the step."""
     if _active() and tensors:
-        _coalesced_(tensors, lambda f: dist.all_reduce(f, dist.ReduceOp.SUM))
+        g = data_group()
+        _coalesced_(tensors, lambda f: dist.all_reduce(f, dist.ReduceOp.SUM,
+                                                       group=g))
+
+
+def align_model_group_(tensors: Sequence[torch.Tensor]):
+    """The first rank of this rank's model group's values into the group's
+    other ranks, in place (a no-op without a model axis of more than one
+    rank). The tp ranks of a model group compute the gradients of the
+    leaves they both hold from the same data, but a card's atomic sums (the
+    MSDA backward) round them differently on each: without this their
+    replicas would drift apart."""
+    g = model_group()
+    if g is None or dist.get_world_size(g) == 1 or not tensors:
+        return
+    src = dist.get_global_rank(g, 0)
+    _coalesced_(tensors, lambda f: dist.broadcast(f, src, group=g))
 
 
 def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0):
-    """Rank `src`'s values into every rank's tensors, in place. NCCL takes
-    CUDA tensors only: CPU tensors travel through the current card."""
+    """World rank `src`'s values into every rank's tensors (over the whole
+    group), in place. NCCL takes CUDA tensors only: CPU tensors travel
+    through the current card."""
     if not _active() or not tensors:
         return
     on_card = backend() == "nccl"
@@ -233,10 +343,12 @@ def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0):
 
 
 def broadcast_state(state, src: int = 0):
-    """Rank `src`'s train state (parameters, buffers, teacher, projector,
-    optimizer moments and the step) to every rank, in place: after init, a
-    warm start or a resume. The ranks' optimizer states must have one
-    structure (all fresh, or all restored from one checkpoint)."""
+    """World rank `src`'s train state (parameters, buffers, teacher,
+    projector, optimizer moments and the step) to every rank, in place:
+    after init, a warm start or a resume, before `sharding.shard_state` cuts
+    every shard from the same full tensors. The ranks' optimizer states
+    must have one structure (all fresh, or all restored from one
+    checkpoint)."""
     if not _active():
         return state
     tensors = [t.detach() for m in (state.model, state.teacher,
@@ -288,16 +400,26 @@ def bit_checksum(t: torch.Tensor) -> torch.Tensor:
     return (flat.to(torch.int64) * w).sum()
 
 
-def assert_replicated(tensors: Sequence[torch.Tensor], what: str):
-    """Raise unless every rank holds the same tensors to the bit (their
-    `bit_checksum`s gathered and compared)."""
+def assert_replicated(tensors: Sequence[torch.Tensor], what: str,
+                      keys: Optional[Sequence[int]] = None):
+    """Raise unless the ranks hold the same tensors to the bit (their
+    `bit_checksum`s gathered over the whole group and compared). `keys`:
+    per tensor, which shard of it this rank holds; only ranks of one key
+    are compared (None: every rank holds the whole tensor)."""
     if not _active() or not tensors:
         return
     sums = torch.stack([bit_checksum(t) for t in tensors])
-    gathered = all_gather(sums.to(collective_device()))
-    if not bool((gathered == gathered[0]).all()):
-        raise RuntimeError(f"{what} differs across ranks: checksums "
-                           f"{gathered.cpu().tolist()}")
+    key = torch.tensor(keys if keys is not None else [0] * len(tensors),
+                       dtype=torch.int64, device=sums.device)
+    gathered = gather_over(torch.stack([sums, key]).to(
+        collective_device())).cpu()
+    for i in range(len(tensors)):
+        first = {}
+        for k, v in zip(gathered[:, 1, i].tolist(),
+                        gathered[:, 0, i].tolist()):
+            if first.setdefault(k, v) != v:
+                raise RuntimeError(f"{what} differs across ranks: checksums "
+                                   f"{gathered[:, 0].tolist()}")
 
 
 # --------------------------------------------------------------------------

@@ -10,7 +10,10 @@ default (the reference forces inference_on='teacher', tools/test.py:
 below `ssod.warm_up_step` and with top-k after (`:235-241`); a
 reference-layout `.pth` is taken as fully trained (top-k). Prints the
 summary JSON and the classwise AP table. Under `torch.distributed.run`
-the ranks share the eval (rank-sliced) and rank 0 prints and writes.
+the ranks share the eval (rank-sliced) and rank 0 prints and writes;
+with the config's `fsdp` / `tp` the detector is laid out as the trainers
+lay it out (`parallel.sharding`), and the TP ranks of a model group infer
+the same batches.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 
 from ..models.dino_head import DINODetector
 from ..models.inference import evaluate_detector
-from ..parallel import dist
+from ..parallel import dist, sharding
 from ..train.checkpoint import CheckpointManager, load_warm_start
 from .common import (base_parser, build_dataset, class_names, load_cfg,
                      scales_of, ssod_config)
@@ -60,6 +63,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         raise KeyError(f"checkpoint lacks {len(missing)} keys, e.g. "
                        f"{missing[:3]}")
     detector.to(torch.device(args.device))
+    fsdp, tp = bool(cfg.get("fsdp", False)), int(cfg.get("tp", 1))
+    if fsdp or tp > 1:
+        mesh = dist.make_mesh(tp, args.device)
+        if mesh is not None:
+            sharding.shard_module(detector, mesh, fsdp, tp)
     res = evaluate_detector(
         detector, val, use_nms=use_nms,
         bucket=tuple(cfg.get("bucket", (800, 1344))),

@@ -18,7 +18,11 @@ Counterpart of `semi_detr_tpu/train/checkpoint.py` on `torch.save` /
   reference's duplication rule, `dino_detr_ssod.py:953-978`);
 * data parallel: rank 0 alone writes (and creates the directory), every
   rank waits for the save at a barrier, and every rank reads the same
-  files on resume (the trainer then broadcasts rank 0's state).
+  files on resume (the trainer then broadcasts rank 0's state);
+* sharded (FSDP, TP): the file is the same, full tensors of the parameters,
+  the teacher and the moments, gathered from the shards by every rank and
+  written by rank 0. A run resumes on any layout: the trainer restores the
+  full state, broadcasts it and shards it again.
 
 Reading the JAX package's orbax directories is not supported.
 """
@@ -30,7 +34,7 @@ from typing import Dict, Optional
 
 import torch
 
-from ..parallel import dist
+from ..parallel import dist, sharding
 from ..utils.torch_weights import split_teacher_student
 from .state import TrainState
 
@@ -38,8 +42,28 @@ _FILE_RE = re.compile(r"step_(\d+)\.pt")
 
 
 def _state_dict(module) -> Optional[Dict[str, torch.Tensor]]:
-    return None if module is None else {
-        k: v.detach().cpu() for k, v in module.state_dict().items()}
+    """Full tensors on the CPU (gathered from a sharded module's shards: a
+    collective)."""
+    if module is None:
+        return None
+    sharding.reshard(module)
+    return {k: sharding.full_tensor(v).detach().cpu()
+            for k, v in module.state_dict().items()}
+
+
+def full_blob(state: TrainState, step: int) -> dict:
+    """The checkpoint's content: full tensors on the CPU, whatever the
+    layout (a collective where the state is sharded)."""
+    return {"step": step, "student": _state_dict(state.model),
+            "teacher": _state_dict(state.teacher),
+            "projector": _state_dict(state.projector),
+            "optimizer": _cpu(state.optimizer.full_state_dict())}
+
+
+def _cpu(sd: dict) -> dict:
+    """An optimizer state dict with its tensors on the CPU."""
+    return {**sd, "state": {i: {k: v.cpu() for k, v in st.items()}
+                            for i, st in sd["state"].items()}}
 
 
 class CheckpointManager:
@@ -71,11 +95,12 @@ class CheckpointManager:
         if not force and (step == 0 or step % self.interval != 0):
             return False
         saved = False
-        if dist.is_main() and step not in self.all_steps():
-            blob = {"step": step, "student": _state_dict(state.model),
-                    "teacher": _state_dict(state.teacher),
-                    "projector": _state_dict(state.projector),
-                    "optimizer": state.optimizer.adamw.state_dict()}
+        due = step not in self.all_steps()
+        # a sharded state is gathered by every rank; rank 0 writes
+        blob = (full_blob(state, step) if due and state.optimizer.sharded
+                else None)
+        if dist.is_main() and due:
+            blob = blob or full_blob(state, step)
             tmp = self.path(step) + ".tmp"
             torch.save(blob, tmp)
             os.replace(tmp, self.path(step))

@@ -30,8 +30,18 @@ after init, warm starts and resume, and the ranks' student and teacher are
 checked against each other every `logger.interval` steps. Rank 0 alone
 writes the log, `metrics.jsonl`, the render and the checkpoints (the ranks
 wait for a save at a barrier); eval is rank-sliced and every rank gets the
-same mAP. FSDP, TP and buffer donation belong to later parts of the
-multi-GPU slice: values other than the data-parallel ones raise.
+same mAP.
+
+FSDP, TP and donation (`fsdp`, `tp`, `donate`, the JAX trainers' options):
+the ranks form a `(data, model)` mesh, `data = W / tp` (`dist.make_mesh`,
+the JAX `_build_mesh`: tp > 1 in one process, or W % tp != 0, raises; in one
+process `fsdp` shards nothing). The sampler and the supervised stream shard
+by data rank, so the `tp` ranks of a model group take the same batch. After
+warm starts, the resume and its broadcast, the first `train` lays the state
+out (`sharding.shard_state`, the JAX `_state_sharding`); the checkpoints
+stay full tensors, so a run resumes on any layout. `donate` is accepted
+and changes nothing: every step updates the state in place, with bounded
+temporaries (`train.optim`), which is what donation buys the JAX step.
 """
 from __future__ import annotations
 
@@ -55,7 +65,7 @@ from ..models.dino_head import DinoConfig, DINODetector
 from ..models.inference import evaluate_teacher_and_student
 from ..models.ssod import Projector, SsodConfig
 from ..ops import ms_deform_attn_cuda as msda
-from ..parallel import dist
+from ..parallel import dist, sharding
 from ..utils.logging import (MetricsLogger, device_memory_summary,
                              get_logger, log_image_with_boxes, weight_summary)
 from .checkpoint import (CheckpointManager, apply_backbone_init,
@@ -64,15 +74,6 @@ from .optim import make_optimizer
 from .ssod import make_ssod_train_step
 from .state import TrainState, check_replicas
 from .supervised import make_supervised_train_step
-
-
-def _data_parallel_only(fsdp: bool, tp: int, donate: bool):
-    if fsdp or tp != 1 or donate:
-        raise ValueError(
-            f"fsdp={fsdp}, tp={tp}, donate={donate}: FSDP, tensor-parallel "
-            "and donated training belong to later parts of the multi-GPU "
-            "slice of the port; the trainers run data parallel (fsdp=False,"
-            " tp=1, donate=False)")
 
 
 def _pad_indices(idx, n):
@@ -142,6 +143,27 @@ class _Trainer:
     """What both trainers share: device, logger, checkpoints, warm starts,
     the host -> device path and the loop."""
 
+    def _layout(self, fsdp: bool, tp: int, donate: bool):
+        """The mesh of the options (raising as the JAX `_build_mesh`
+        asserts), before the state or the streams read the data rank."""
+        self.fsdp, self.tp, self.donate = bool(fsdp), int(tp), bool(donate)
+        self.mesh = (dist.make_mesh(self.tp, self.device)
+                     if self.fsdp or self.tp > 1 else dist.drop_mesh())
+        self._sharded = False
+
+    def _shard(self):
+        """Lay the state out on the mesh, once (after warm starts and the
+        resume's broadcast)."""
+        if not self._sharded:
+            sharding.shard_state(self.state, self.mesh, self.fsdp, self.tp)
+            self._sharded = True
+            if self.mesh is not None:
+                self.logger.logger.info(
+                    f"layout: mesh (data {self.mesh.size(0)}, model "
+                    f"{self.mesh.size(1)}), fsdp={self.fsdp}, tp={self.tp},"
+                    f" donate={self.donate}; local state "
+                    f"{sharding.local_state_bytes(self.state)} bytes")
+
     def _setup(self, state: TrainState, work_dir: str, ckpt_interval: int,
                backbone_init, load_from, log_interval: int = 50,
                use_wandb: bool = False):
@@ -168,7 +190,10 @@ class _Trainer:
 
     def resume(self, path: Optional[str] = None):
         """Restore the latest checkpoint from `path` (--resume-from) or the
-        work dir."""
+        work dir (into the full state: before `train` lays it out)."""
+        if self._sharded:
+            raise RuntimeError("resume before train: the state is laid "
+                               "out already")
         mgr = self.ckpt if path is None else CheckpointManager(path)
         if mgr.latest_step() is not None:
             mgr.restore(self.state)
@@ -187,6 +212,7 @@ class _Trainer:
         return batch, vis
 
     def _loop(self, total: int, run_step):
+        self._shard()
         gen = prefetch(self.batches(start_step=self.state.step),
                        transform=self._host_batch)
         try:
@@ -256,7 +282,6 @@ class SsodTrainer(_Trainer):
                  donate: bool = False,
                  by_prob: bool = False, device="cuda",
                  log_interval: int = 50, use_wandb: bool = False):
-        _data_parallel_only(fsdp, tp, donate)
         self.cfg = cfg
         # reference multinomial batch mixing (semi_sampler.py:113-135)
         self.by_prob = by_prob
@@ -268,6 +293,7 @@ class SsodTrainer(_Trainer):
                 "by the group size; prefer exact-ratio mixing "
                 "(by_prob=False) when cls_avg_groups is set")
         self.device = torch.device(device)
+        self._layout(fsdp, tp, donate)
         # pseudo-label render interval, 0 = off (reference
         # log_image_with_boxes, detr_ssod/utils/logger.py:91-161)
         self.image_log_interval = image_log_interval
@@ -390,9 +416,9 @@ class SupervisedTrainer(_Trainer):
                  donate: bool = False,
                  cls_avg_group=None, device="cuda",
                  log_interval: int = 50, use_wandb: bool = False):
-        _data_parallel_only(fsdp, tp, donate)
         self.cfg = cfg
         self.device = torch.device(device)
+        self._layout(fsdp, tp, donate)
         self.cls_avg_group = cls_avg_group
         self.multi_bucket = multi_bucket
         self.scales = scales

@@ -42,6 +42,13 @@ rank's loss is its share of the global loss, the gradients are summed
 before the clip (`train/optim.py`), and the logged losses and per-image
 counts are the global batch's.
 
+Sharded (`parallel.sharding`): the same step over the layout's shards. The
+student's and the teacher's `encode_images` and `decode_queries` are FSDP
+forward methods. Under FSDP each backward reduce-scatters its gradients,
+which add into the shards: held whole until the second backward, the
+supervised gradients raised the step's peak memory and its time on the
+card (`chip_smoke.py` phase 8c).
+
 Spans (`torch.profiler.record_function`): train.ema, train.forward_loss,
 train.backward, train.optimizer, ssod.teacher, ssod.pseudo_labels,
 ssod.gmm, ssod.student, ssod.consistency and hungarian.solve_batch, which

@@ -8,7 +8,13 @@ Counterpart of `semi_detr_tpu/train/state.py`:
 * at step 0 the ramp gives m = 0, so the teacher becomes an exact clone.
 The update runs in place on the teacher's float32 parameters. Under data
 parallelism every rank updates its teacher from identical parameters;
-`check_replicas` holds the ranks to that cheaply.
+`check_replicas` holds the ranks to that cheaply. Sharded
+(`parallel.sharding`), the teacher is laid out like the student and the
+update runs on the local shards, pairs taken by parameter order.
+
+The update runs in place and makes its products `optim.UPDATE_CHUNK`
+elements at a time (`train.optim`: what the JAX steps' `donate_argnums`
+buys), rounded as one call over the state would round them.
 """
 from __future__ import annotations
 
@@ -22,9 +28,9 @@ import torch.nn as nn
 
 from ..models.dino_head import DinoConfig, DINODetector
 from ..models.ssod import Projector, SsodConfig
-from ..parallel import dist
+from ..parallel import dist, sharding
 from ..utils.config import load_config
-from .optim import GroupedAdamW, make_optimizer
+from .optim import GroupedAdamW, chunk_slices, make_optimizer
 
 
 @dataclass
@@ -137,24 +143,36 @@ def ema_update(teacher: nn.Module, student: nn.Module, step: int,
                decay_intervals: Sequence[int] = (),
                decay_factor: float = 0.1) -> np.float32:
     """teacher <- m * teacher + (1 - m) * student, parameter by parameter
-    (`mean_teacher.py:60-64`). Returns m."""
+    (`mean_teacher.py:60-64`), rounded as the JAX formula t*m + s*(1-m):
+    each product, then the sum, the products s * (1 - m) made UPDATE_CHUNK
+    elements at a time. Sharded, on the local shards. Returns m."""
     m = ema_momentum(step, momentum, warm_up, decay_intervals, decay_factor)
     one_minus = float(np.float32(1) - m)
-    t_params = list(teacher.parameters())
-    s_params = [s.detach().to(t.dtype) for s, t in
+    sharding.reshard(teacher, student)
+    t_params = [sharding.local(t) for t in teacher.parameters()]
+    s_params = [sharding.local(s).detach().to(t.dtype) for s, t in
                 zip(student.parameters(), t_params)]
     torch._foreach_mul_(t_params, float(m))
-    torch._foreach_add_(t_params, torch._foreach_mul(s_params, one_minus))
+    for part in chunk_slices(t_params):
+        torch._foreach_add_(t_params[part], torch._foreach_mul(
+            s_params[part], one_minus))
     return m
 
 
 def check_replicas(state: TrainState):
-    """Raise unless every rank holds the same student and teacher: the bit
-    checksums of their first, middle and last parameters, compared across
-    the ranks (a no-op in one process)."""
+    """Raise unless the ranks hold the student and teacher they should: the
+    bit checksums of their first, middle and last parameters, compared
+    across the ranks that hold the same part of each (every rank for a
+    replicated leaf, the ranks of one shard for a sharded one; a no-op in
+    one process)."""
+    sharding.reshard(state.model, state.teacher)
     leaves = []
     for module in (state.model, state.teacher):
         if module is not None:
             params = list(module.parameters())
             leaves += [params[0], params[len(params) // 2], params[-1]]
-    dist.assert_replicated(leaves, f"the train state at step {state.step}")
+    keys = None
+    if any(sharding.is_sharded(p) for p in leaves):
+        keys = [sharding.shard_key(p) for p in leaves]
+    dist.assert_replicated([sharding.local(p) for p in leaves],
+                           f"the train state at step {state.step}", keys)

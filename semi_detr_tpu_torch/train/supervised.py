@@ -14,7 +14,8 @@ Data parallel (`parallel.dist`): with W ranks of B images the step computes
 the JAX step's result on the global batch of W * B images: each rank draws
 the global batch's CDN noise and keeps its rows, the CDN partition and the
 loss factors are global, the gradients are summed before the clip, and
-the logged losses are the global batch's.
+the logged losses are the global batch's. Sharded
+(`parallel.sharding`), the same step over the layout's shards.
 
 Each part of a step runs under a `torch.profiler.record_function` span
 (train.ema, train.forward_loss, train.backward, train.optimizer; the

@@ -20,10 +20,19 @@ tests/test_torch_train_step.py, beside the JAX trajectories they reuse.
   ranks' images disjoint within each step;
 * the SSOD CLI on 2 ranks: parameters equal across the ranks, rank 0
   alone writes the work dir, resume reproduces the uninterrupted third
-  step; the trainers still refuse FSDP, TP and donation.
+  step; the trainers refuse what the JAX trainers refuse (tp > 1 in one
+  process, W % tp != 0);
+* the same CLI under FSDP (2 ranks) and FSDP + TP (4 ranks, data 2 x
+  model 2), with donation: each layout's checkpoint resumed data parallel,
+  and a data-parallel checkpoint resumed under each layout, every run
+  reproducing the uninterrupted data-parallel run's steps; under TP (tp 2,
+  data 1) with an eval; the eval CLI on one checkpoint written under
+  FSDP + TP, data parallel, under TP and under FSDP + TP: the same
+  detections.
 """
 import json
 import os
+import shutil
 import threading
 
 import numpy as np
@@ -370,11 +379,23 @@ def test_trainer_rank_zero_alone_writes(trainer_runs):
 
 
 def test_trainers_refuse_fsdp_tp_and_donation():
-    for kw in ({"fsdp": True}, {"tp": 2}, {"donate": True}):
-        with pytest.raises(ValueError, match="later parts of the multi-GPU"):
+    """The JAX trainers' refusals (`_build_mesh`'s asserts): tp > 1 with one
+    process, and a tp that does not divide the world; FSDP, TP and donation
+    are otherwise accepted (`test_trainer_layouts_resume_across_layouts`
+    trains under them)."""
+    for kw in ({"tp": 2}, {"tp": 2, "fsdp": True, "donate": True}):
+        with pytest.raises(ValueError, match="more than one process"):
             loop.SsodTrainer(None, None, None, **kw)
-        with pytest.raises(ValueError, match="later parts of the multi-GPU"):
+        with pytest.raises(ValueError, match="more than one process"):
             loop.SupervisedTrainer(None, None, **kw)
+    assert dist.check_layout(4, 2) == (2, 2)
+    assert dist.check_layout(2, 2) == (1, 2)
+    assert dist.check_layout(1, 1) == (1, 1)
+    for world, tp in ((4, 3), (2, 4), (6, 4), (3, 0)):
+        with pytest.raises(ValueError, match="does not divide"):
+            dist.check_layout(world, tp)
+    # one process: no mesh, so fsdp shards nothing (JAX's mesh is None)
+    assert dist.make_mesh(1) is None and dist.world() == 1
 
 
 def test_maybe_initialize_distributed(monkeypatch):
@@ -399,3 +420,167 @@ def test_maybe_initialize_distributed(monkeypatch):
     finally:
         dist.destroy()
     assert dist.backend() is None
+
+
+LAYOUT_TIMEOUT = 420
+
+
+@pytest.fixture(scope="module")
+def layout_runs(tmp_path_factory, trainer_runs):
+    """On the trainer_runs set, every run's checkpoint at step 2 resumed for
+    a third step on another layout. Four ranks (data 2 x model 2): FSDP +
+    TP (with donation) for 2 steps, a checkpoint and an eval; the data-
+    parallel checkpoint of trainer_runs resumed under FSDP + TP; the eval
+    CLI under FSDP + TP on the FSDP + TP checkpoint. Then two ranks: FSDP
+    for 2 steps, resumed data parallel; the data-parallel checkpoint
+    resumed under FSDP; the FSDP + TP checkpoint resumed data parallel;
+    TP (tp 2, data 1) for 2 steps with an eval; the eval CLI on the FSDP +
+    TP checkpoint, data parallel and under TP."""
+    root = tmp_path_factory.mktemp("layouts")
+    coco = trainer_runs[0] / "coco"
+    data = [f"data.train_sup_ann={coco / 'sup.json'}",
+            f"data.train_unsup_ann={coco / 'unsup.json'}",
+            f"data.val_ann={coco / 'val.json'}",
+            f"data.train_prefix={coco / 'images'}",
+            f"data.val_prefix={coco / 'images'}"]
+
+    def argv(work, steps, *extra):
+        return [SSOD_CONFIG, "--work-dir", str(root / work), "--max-steps",
+                str(steps), "--device", "cpu", "--cfg-options", *SSOD_TINY,
+                *data, "ckpt_interval=2", *extra]
+
+    def eval_argv(work, *extra):
+        return [SSOD_CONFIG, "--work-dir", str(root / work), "--device",
+                "cpu", "--cfg-options", *SSOD_TINY, *data, *extra]
+
+    def resume_from(src, work):
+        """A work dir holding only `src`'s step-2 checkpoint."""
+        os.makedirs(root / work / "ckpt")
+        shutil.copy(src / "ckpt" / "step_2.pt", root / work / "ckpt")
+
+    fsdp = ("fsdp=True", "donate=True")
+    fsdp_tp = ("fsdp=True", "tp=2", "donate=True")
+    # trainer_runs' data-parallel run stopped at step 2
+    resume_from(trainer_runs[0] / "stopped", "dp_to_fsdp_tp")
+    resume_from(trainer_runs[0] / "stopped", "dp_to_fsdp")
+    # three CLI runs on four ranks, then seven on two: about 25 s and 40 s
+    # alone, above twice that beside a loaded test run
+    runs4 = workers.spawn(root, "trainer", {"runs": [
+        ("fsdp_tp_first", argv("from_fsdp_tp", 2, *fsdp_tp,
+                               "eval_interval=1")),
+        ("fsdp_tp_resumed", argv("dp_to_fsdp_tp", 3, *fsdp_tp)),
+        ("eval_fsdp_tp", eval_argv("from_fsdp_tp", "tp=2", "fsdp=True"))]},
+        world=4, timeout=LAYOUT_TIMEOUT)
+    resume_from(root / "from_fsdp_tp", "fsdp_tp_to_dp")
+    runs2 = workers.spawn(root, "trainer", {"runs": [
+        ("fsdp_first", argv("from_fsdp", 2, *fsdp, "eval_interval=1")),
+        ("dp_resumed", argv("from_fsdp", 3)),
+        ("fsdp_resumed", argv("dp_to_fsdp", 3, *fsdp)),
+        ("dp_resumed_from_fsdp_tp", argv("fsdp_tp_to_dp", 3)),
+        ("tp", argv("tp", 2, "tp=2", "eval_interval=1")),
+        ("eval_dp", eval_argv("from_fsdp_tp")),
+        ("eval_tp", eval_argv("from_fsdp_tp", "tp=2"))]},
+        timeout=LAYOUT_TIMEOUT)
+    # the checkpoints (~0.4 GB each: a full ResNet-50 per copy) are read
+    # no more; the logs stay
+    for work in ("from_fsdp_tp", "dp_to_fsdp_tp", "dp_to_fsdp", "from_fsdp",
+                 "fsdp_tp_to_dp", "tp"):
+        shutil.rmtree(root / work / "ckpt")
+    return root, runs4, runs2
+
+
+# a step from a state written by another layout: the layouts' sums round
+# differently (the metrics of the uninterrupted run's third step within
+# this relative bound)
+RTOL_ACROSS_LAYOUTS = 1e-4
+
+
+def _near(got, want, what):
+    for k, v in want.items():
+        if k == "data_wait":
+            continue
+        assert abs(got[k] - v) <= RTOL_ACROSS_LAYOUTS * max(
+            abs(v), 1e-3), (what, k, got[k], v)
+
+
+def test_trainer_layouts_resume_across_layouts(trainer_runs, layout_runs):
+    """Each layout's run against trainer_runs' uninterrupted data-parallel
+    run: its first two steps, and every third step resumed from another
+    layout's checkpoint (FSDP <-> data parallel, FSDP + TP <-> data
+    parallel)."""
+    _, (run0, _) = trainer_runs
+    root, runs4, runs2 = layout_runs
+    want = run0["run"]["records"]
+    for ranks, name, steps in (
+            (runs4, "fsdp_tp_first", [0, 1]), (runs4, "fsdp_tp_resumed", [2]),
+            (runs2, "fsdp_first", [0, 1]), (runs2, "dp_resumed", [2]),
+            (runs2, "fsdp_resumed", [2]),
+            (runs2, "dp_resumed_from_fsdp_tp", [2]), (runs2, "tp", [0, 1])):
+        for r in ranks:
+            assert r[name]["timings"] == steps, name
+            for step in steps:
+                a, b = ranks[0][name]["records"][step], r[name]["records"][
+                    step]
+                assert a["metrics"] == b["metrics"], (name, step)
+                assert b["replicated"], (name, step)
+        if name != "tp":        # tp: data 1, another global batch
+            for step in steps:
+                _near(ranks[0][name]["records"][step]["metrics"],
+                      want[step]["metrics"], (name, step))
+    with open(root / "from_fsdp_tp" / "train.log") as f:
+        log = f.read()
+    assert "layout: mesh (data 2, model 2), fsdp=True, tp=2, donate=True" \
+        in log
+    assert log.count("Eval[teacher] iter 1: mAP=") == 1
+    with open(root / "from_fsdp" / "train.log") as f:
+        log = f.read()
+    assert "layout: mesh (data 2, model 1), fsdp=True, tp=1, donate=True" \
+        in log
+    assert log.count("resumed from step 2") == 1
+    for work in ("dp_to_fsdp_tp", "dp_to_fsdp", "fsdp_tp_to_dp"):
+        with open(root / work / "train.log") as f:
+            assert f.read().count("resumed from step 2") == 1, work
+    # TP (the recipe's remat on): both ranks take the whole batch, and the
+    # sharded teacher and student evaluate together
+    with open(root / "tp" / "train.log") as f:
+        log = f.read()
+    assert "layout: mesh (data 1, model 2), fsdp=False, tp=2" in log
+    assert log.count("Eval[student] iter 1: mAP=") == 1
+
+
+def _same_detections(a, b, what):
+    """Per image, each of a's detections has one in b with the same score
+    and box up to the layouts' rounding; near ties may swap places, so it
+    is looked for among b's neighbours in score order."""
+    assert sorted(a) == sorted(b), what
+    for iid in a:
+        (ba, sa, la), (bb, sb, lb) = a[iid], b[iid]
+        assert len(sa) == len(sb) > 0, (what, iid)
+        np.testing.assert_allclose(np.sort(sa), np.sort(sb), rtol=0,
+                                   atol=1e-5, err_msg=f"{what} {iid}")
+        oa, ob = np.argsort(-sa, kind="stable"), np.argsort(-sb,
+                                                           kind="stable")
+        used = set()
+        for i, ia in enumerate(oa):
+            near = [ob[j] for j in range(max(0, i - 3), min(len(ob), i + 4))
+                    if ob[j] not in used and lb[ob[j]] == la[ia]
+                    and abs(sb[ob[j]] - sa[ia]) <= 1e-5]
+            err = [np.abs(bb[j] - ba[ia]).max() for j in near]
+            assert err and min(err) <= 1e-3 * max(1.0, np.abs(ba[ia]).max(
+            )), (what, iid, i)
+            used.add(near[int(np.argmin(err))])
+
+
+def test_eval_cli_detections_across_layouts(layout_runs):
+    """The eval CLI on one checkpoint (written under FSDP + TP): the same
+    detections, boxes and scores per image, data parallel, under TP and
+    under FSDP + TP, and the same mAP on every rank."""
+    _, runs4, runs2 = layout_runs
+    dp = runs2[0]["eval_dp"]
+    assert any(s.max() > 0 for _, s, _ in dp["dets"].values())
+    for ranks, name in ((runs2, "eval_dp"), (runs2, "eval_tp"),
+                        (runs4, "eval_fsdp_tp")):
+        for r in ranks:
+            assert r[name]["res"]["mAP"] == ranks[0][name]["res"]["mAP"]
+        _same_detections(dp["dets"], ranks[0][name]["dets"], name)
+        assert abs(ranks[0][name]["res"]["mAP"] - dp["res"]["mAP"]) <= 1e-6

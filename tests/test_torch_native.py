@@ -6,7 +6,10 @@ plain versions, the JAX package's native decoder and resize, and cv2.
   rotate +-30, shear), every pixel function of the colour ops and all 81
   op x magnitude cases, the PNG row filters and decoder (against
   `image_io`), JPEG decode (against the JAX decoder and cv2.imread) and
-  encode (cv2.imwrite's bytes), on seeded images of odd sizes.
+  encode (cv2.imwrite's bytes), on seeded images of odd sizes; the
+  library's own sequential decoder (the card's route) against libjpeg on
+  the fixtures and on cv2- and Pillow-written streams of every chroma
+  layout, gray, restart intervals 1 and 7.
 * Within tolerance: the resize within one grey level of cv2.resize.
 * Behaviour: damaged, CMYK and unknown files raise naming the file; the
   prefetch loader (the JAX test's cases, `next()` with nothing
@@ -67,7 +70,11 @@ def test_built_with_png_and_a_jpeg_decoder():
     found = native.probe()
     assert found["zlib"] and found["route"] in ("libjpeg", "nvjpeg")
     dec = native.decoders()
-    assert set(dec) == {"png", "jpeg"} and dec["jpeg"] == found["route"]
+    assert set(dec) == {"png", "jpeg", "jpeg_sequential", "jpeg_other"}
+    assert dec["jpeg"] == dec["jpeg_other"] == found["route"]
+    # the card's build decodes sequential streams here, libjpeg-exact
+    assert dec["jpeg_sequential"] == (
+        native.SEQUENTIAL if found["route"] == "nvjpeg" else "libjpeg")
 
 
 # ---------------------------------------------------------------- resize
@@ -426,6 +433,99 @@ def _valid_jpegs():
     with open(os.path.join(native.FIXTURES, "noninterleaved.jpg"), "rb") as f:
         out["noninterleaved"] = f.read()
     return out
+
+
+# ------------------------------------------- the sequential JPEG decoder
+
+@pytest.mark.parametrize("name", ["colour_420", "gray", "noninterleaved"])
+def test_sequential_decoder_on_the_fixtures(name):
+    """The library's own decoder (the card's route for these streams) gives
+    libjpeg's pixels to the bit: the committed PNGs where there are, and
+    libjpeg's decode here."""
+    with open(os.path.join(native.FIXTURES, f"{name}.jpg"), "rb") as f:
+        buf = f.read()
+    assert native.jpeg_sequential(buf)
+    got = native.decode_jpeg_sequential(buf)
+    np.testing.assert_array_equal(got, native.decode_jpeg_backend(buf))
+    np.testing.assert_array_equal(got, _cv2_rgb(buf))
+    png = os.path.join(native.FIXTURES, f"{name}.png")
+    if os.path.exists(png):
+        np.testing.assert_array_equal(got, image_io.read_image(png))
+
+
+_SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+             "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+             "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+             "440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440}
+
+
+@pytest.mark.parametrize("rst", [0, 1, 7])
+@pytest.mark.parametrize("kind", ["444", "422", "420", "440", "gray"])
+def test_sequential_decoder_equals_libjpeg(kind, rst):
+    """cv2-written streams of every chroma layout, gray, odd and tiny
+    sizes, qualities 5 to 100 (large coefficients) and restart intervals
+    1 and 7: bit-equal to libjpeg's decode (the back end here, and
+    cv2.imread)."""
+    for (h, w), q in zip(((1, 1), (7, 9), (17, 33), (61, 83), (64, 48)),
+                         (5, 50, 75, 95, 100)):
+        img = _picture(h, w, seed=h + q)
+        src = img[..., 0] if kind == "gray" else img
+        params = [cv2.IMWRITE_JPEG_QUALITY, q,
+                  cv2.IMWRITE_JPEG_RST_INTERVAL, rst]
+        if kind != "gray":
+            params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, _SAMPLING[kind]]
+        buf = cv2.imencode(".jpg", src, params)[1].tobytes()
+        assert native.jpeg_sequential(buf)
+        got = native.decode_jpeg_sequential(buf)
+        np.testing.assert_array_equal(got, native.decode_jpeg_backend(buf))
+        np.testing.assert_array_equal(got, _cv2_rgb(buf))
+
+
+def test_sequential_decoder_on_other_writers():
+    """Pillow's streams (4:4:4, 4:2:2, 4:2:0, optimized tables) and the
+    library's own encode."""
+    for name, buf in _valid_jpegs().items():
+        if "progressive" in name:
+            continue
+        assert native.jpeg_sequential(buf), name
+        np.testing.assert_array_equal(native.decode_jpeg_sequential(buf),
+                                      _cv2_rgb(buf), err_msg=name)
+
+
+def test_sequential_decoder_raises_on_damage():
+    """The decoder checks as it decodes: every fault jpeg_check finds
+    raises ImageDecodeError with the same message."""
+    with open(os.path.join(native.FIXTURES, "colour_420.jpg"), "rb") as f:
+        buf = f.read()
+    mid = _entropy_middle(buf)
+    rst = cv2.imencode(".jpg", _picture(40, 56, 2),
+                       [cv2.IMWRITE_JPEG_RST_INTERVAL, 1])[1].tobytes()
+    marks = [i for i in range(len(rst) - 1)
+             if rst[i] == 0xFF and 0xD0 <= rst[i + 1] <= 0xD7]
+    for bad in (buf[:len(buf) // 2], buf[:len(buf) - 2],
+                buf[:mid] + b"\xff\x00" * 8 + buf[mid + 16:],
+                rst[:marks[2]] + rst[marks[2] + 2:]):
+        fault = native.jpeg_check(bad)
+        assert fault is not None
+        with pytest.raises(native.ImageDecodeError) as err:
+            native.decode_jpeg_sequential(bad)
+        assert fault in str(err.value)
+
+
+def test_progressive_stream_is_routed_not_decoded():
+    """A progressive stream is not the sequential decoder's: it stays on
+    the back end's route (the card's nvJPEG there), and the sequential
+    decoder refuses it rather than decode it."""
+    img = _picture(33, 47, 4)
+    buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[
+        1].tobytes()
+    assert not native.jpeg_sequential(buf)
+    with pytest.raises(native.ImageDecodeError, match="not a sequential"):
+        native.decode_jpeg_sequential(buf)
+    np.testing.assert_array_equal(native.decode_image(buf), _cv2_rgb(buf))
+    cmyk = io.BytesIO()
+    Image.new("CMYK", (20, 10), (10, 20, 30, 40)).save(cmyk, "JPEG")
+    assert not native.jpeg_sequential(cmyk.getvalue())
 
 
 def test_jpeg_check_passes_whole_streams():

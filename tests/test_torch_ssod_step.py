@@ -29,8 +29,8 @@ held to the step's own counts and threshold.
 
 The same two steps then run on 2 gloo ranks of 1 + 1 images from the
 state each started from (`ranks`, `torch_dist_workers`), held to the JAX
-step on the global batch and to the port's one-process step (the block at
-the end of this file).
+step on the global batch and to the port's one-process step, and laid out
+by FSDP, TP and FSDP + TP (`laid_out`; the blocks at the end of this file).
 
 Bounds: losses 1e-4 relative (as the supervised test); the counts and the
 kept sets equal; the GMM picks the same pool element, and gmm_thr within
@@ -587,9 +587,8 @@ def test_two_ranks_equal_one_process(ranks, case):
                                          + WITNESS_FACTOR * witness)
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_two_ranks_losses_match_jax(run, ranks, case):
-    jm, pm = run[case]["jm"], ranks["ranks"][0][case]["metrics"]
+def _losses_match_jax(run, case, pm):
+    jm = run[case]["jm"]
     keys = {k for k in jm if "loss" in k}
     assert keys == {k for k in pm if "loss" in k}
     for k in sorted(keys):
@@ -597,20 +596,18 @@ def test_two_ranks_losses_match_jax(run, ranks, case):
     assert pm["ema_momentum"] == float(jm["ema_momentum"])
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_two_ranks_pseudo_sets_and_gmm_match_jax(run, ranks, case):
+def _sets_and_gmm_match_jax(run, case, pm, cat):
+    """`cat(key)`: the ranks' per-image sets in global batch order."""
     jm, js = run[case]["jm"], run[case]["jsets"]
-    pm = ranks["ranks"][0][case]["metrics"]
     for key, mask in (("pseudo_per_img", "valid"),
                       ("sup_set_per_img", "keep_sup"),
                       ("cons_set_per_img", "keep_cons")):
         assert pm[key] == float(jm[key]), key
-        np.testing.assert_array_equal(_rank_cat(ranks, case, mask),
-                                      js[mask], err_msg=mask)
+        np.testing.assert_array_equal(cat(mask), js[mask], err_msg=mask)
     # the threshold is a cost of the pool that spans both ranks: the same
     # pseudo box as the JAX step's
     valid = js["valid"].reshape(-1)
-    costs = _rank_cat(ranks, case, "costs").reshape(-1)
+    costs = cat("costs").reshape(-1)
     got = np.flatnonzero(valid & (costs == np.float32(pm["gmm_thr"])))
     ref = np.flatnonzero(valid & (js["costs"].reshape(-1)
                                   == np.float32(js["gmm_thr"])))
@@ -618,25 +615,21 @@ def test_two_ranks_pseudo_sets_and_gmm_match_jax(run, ranks, case):
     assert _close(pm["gmm_thr"], float(jm["gmm_thr"]), 1e-4)
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_two_ranks_grad_norm_matches_jax(run, ranks, case):
+def _grad_norm_matches_jax(run, case, r):
     """The JAX step's grad_norm counts the frozen leaves too."""
-    r = ranks["ranks"][0][case]
     got = np.sqrt(r["metrics"]["grad_norm"] ** 2 + r["frozen_sq"])
     ref = float(run[case]["jm"]["grad_norm"])
     assert abs(got - ref) <= 1e-3 * ref, (got, ref)
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_two_ranks_updates_and_teacher_match_jax(run, ranks, case):
-    """test_updates_match_jax and test_ema_teacher_matches_jax on rank 0's
-    state."""
-    r = ranks["ranks"][0][case]
+def _updates_and_teacher_match_jax(run, case, r, records):
+    """test_updates_match_jax and test_ema_teacher_matches_jax on one
+    rank's state (`records`: that run's rank-0 records, by case)."""
     before = _leaves(run[case]["before"]["jax"])
     after = _leaves(_jax_layout(r["student"], r["projector"]))
     ref_after = _leaves(run[case]["after"]["jax"])
     skip = set.intersection(*[
-        _negligible(_grad_tree(ranks["ranks"][0][c])) for c in CASES
+        _negligible(_grad_tree(records[c])) for c in CASES
         if c in (case, "warm_up")])
     upd, moved = {}, set()
     for path, p0 in before.items():
@@ -662,3 +655,113 @@ def test_two_ranks_updates_and_teacher_match_jax(run, ranks, case):
     for path, ref in _leaves(run[case]["teacher"]["jax"]).items():
         np.testing.assert_allclose(teacher[path], ref, rtol=0,
                                    atol=UPDATE_ABS, err_msg=path)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_two_ranks_losses_match_jax(run, ranks, case):
+    _losses_match_jax(run, case, ranks["ranks"][0][case]["metrics"])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_two_ranks_pseudo_sets_and_gmm_match_jax(run, ranks, case):
+    _sets_and_gmm_match_jax(run, case, ranks["ranks"][0][case]["metrics"],
+                            lambda key: _rank_cat(ranks, case, key))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_two_ranks_grad_norm_matches_jax(run, ranks, case):
+    """The JAX step's grad_norm counts the frozen leaves too."""
+    _grad_norm_matches_jax(run, case, ranks["ranks"][0][case])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_two_ranks_updates_and_teacher_match_jax(run, ranks, case):
+    """test_updates_match_jax and test_ema_teacher_matches_jax on rank 0's
+    state."""
+    _updates_and_teacher_match_jax(run, case, ranks["ranks"][0][case],
+                                   ranks["ranks"][0])
+
+
+# --------------------------------------------------------------------------
+# the same steps laid out: FSDP (2 ranks), TP (tp 2 on 2 ranks, data 1)
+# and FSDP + TP (2 x 2 ranks)
+# --------------------------------------------------------------------------
+# `parallel.sharding.shard_state` lays out the state the data-parallel legs
+# start from; the step is the same. Held to the JAX step on the global
+# batch, to the port's one-process step and to its data-parallel ranks by
+# the data-parallel legs' bounds. The TP ranks of one model group see the
+# same data; the kept sets concatenate over the data ranks.
+LAYOUTS = {"fsdp": ({"fsdp": True, "tp": 1}, 2),
+           "tp": ({"fsdp": False, "tp": 2}, 2),
+           "fsdp_tp": ({"fsdp": True, "tp": 2}, 4)}
+
+
+@pytest.fixture(scope="module", params=list(LAYOUTS))
+def laid_out(request, run, tmp_path_factory):
+    """The steps of `run` on one layout: one spawn per layout."""
+    layout, world = LAYOUTS[request.param]
+    cases = [{"state": run[c]["blob"], "warm_up": w, "score_thr": t,
+              "noises": run[c]["noises"]} for c, (w, t) in CASES.items()]
+    spec = {"cfg": CFG, "ssod_kw": SSOD_KW, "cases": cases,
+            "batch": to_device(_batch(), "cpu"), "layout": layout}
+    got = workers.spawn(tmp_path_factory.mktemp(request.param), "ssod",
+                        spec, world=world)
+    return {"name": request.param, "world": world,
+            "ranks": [dict(zip(CASES, r)) for r in got]}
+
+
+def _data_cat(laid_out, case, key):
+    """A set of the layout's ranks in global batch order: one rank per data
+    rank."""
+    by_data = {r[case]["data_rank"]: r[case] for r in laid_out["ranks"]}
+    return np.concatenate([by_data[d]["sets"][key].numpy()
+                           for d in sorted(by_data)])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_layout_ranks_agree_and_hold_their_shards(laid_out, case):
+    recs = [r[case] for r in laid_out["ranks"]]
+    layout, world = LAYOUTS[laid_out["name"]]
+    data = world // layout["tp"]
+    assert {r["data_world"] for r in recs} == {data}
+    assert sorted(r["data_rank"] for r in recs) == sorted(
+        list(range(data)) * layout["tp"])
+    for r in recs:
+        assert r["metrics"] == recs[0]["metrics"]
+        assert r["replicated"]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_layout_equals_one_process_and_data_parallel(ranks, laid_out,
+                                                     case):
+    got = laid_out["ranks"][0][case]
+    for ref in (ranks["one"][case], ranks["ranks"][0][case]):
+        total = ref["metrics"]["total_loss"]
+        assert got["metrics"].keys() == ref["metrics"].keys()
+        for k, b in ref["metrics"].items():
+            if "loss" in k and k != "total_loss":
+                assert abs(got["metrics"][k] - b) <= (
+                    RTOL_ONE_PROCESS * total), k
+            else:
+                assert _close(got["metrics"][k], b, RTOL_ONE_PROCESS), (k, b)
+    ref = ranks["one"][case]
+    for key in ("valid", "keep_sup", "keep_cons"):
+        np.testing.assert_array_equal(_data_cat(laid_out, case, key),
+                                      ref["sets"][key].numpy(), err_msg=key)
+    flat = [torch.cat([g.flatten() for g in r["grads"].values()]).numpy()
+            for r in (got, ref, ranks["witness"][case])]
+    witness = _rel_l2(flat[2], flat[1])
+    assert _rel_l2(flat[0], flat[1]) <= (RTOL_ONE_PROCESS
+                                         + WITNESS_FACTOR * witness)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_layout_matches_jax(run, laid_out, case):
+    """The data-parallel legs' JAX checks on the layout's rank 0: losses,
+    kept sets and the GMM's element, grad_norm, updates and teacher."""
+    r = laid_out["ranks"][0][case]
+    _losses_match_jax(run, case, r["metrics"])
+    _sets_and_gmm_match_jax(run, case, r["metrics"],
+                            lambda key: _data_cat(laid_out, case, key))
+    _grad_norm_matches_jax(run, case, r)
+    _updates_and_teacher_match_jax(run, case, r, laid_out["ranks"][0])

@@ -475,8 +475,11 @@ def test_two_ranks_agree_and_equal_one_process(ranks, warm_up):
 def test_two_ranks_match_jax(setup, jax_steps, ranks, warm_up):
     """test_step_matches_jax's checks, on the ranks' global losses and
     summed gradients, and rank 0's update."""
-    ref_losses, ref_grads, ref_params = jax_steps[warm_up]
-    r = ranks["ranks"][0][warm_up]
+    _matches_jax(setup, jax_steps[warm_up], ranks["ranks"][0][warm_up])
+
+
+def _matches_jax(setup, jax_step, r):
+    ref_losses, ref_grads, ref_params = jax_step
     assert set(r["losses"]) == set(ref_losses)
     for k in ref_losses:
         a, b = r["losses"][k], float(ref_losses[k])
@@ -518,3 +521,52 @@ def test_two_ranks_match_jax(setup, jax_steps, ranks, warm_up):
     worst = max(upd, key=upd.get)
     assert upd[worst] <= UPDATE_WORST, (worst, upd[worst])
     assert float(np.median(list(upd.values()))) <= UPDATE_MEDIAN
+
+
+# --------------------------------------------------------------------------
+# the same step laid out: FSDP (2 ranks) and TP (tp 2 on 2 ranks, data 1)
+# --------------------------------------------------------------------------
+# `parallel.sharding.shard_state` over the state of `ranks`; held to the JAX
+# step, the one-process step and the data-parallel ranks by the bounds of
+# the data-parallel leg.
+LAYOUTS = {"fsdp": {"fsdp": True, "tp": 1}, "tp": {"fsdp": False, "tp": 2}}
+
+
+@pytest.fixture(scope="module", params=list(LAYOUTS))
+def laid_out(request, setup, tmp_path_factory):
+    _, _, port, batch, key = setup
+    tb = _to(batch, torch.from_numpy)
+    tb["gt"]["labels"] = tb["gt"]["labels"].long()
+    spec = {"cfg": CFG, "capacity": CAP, "cases": [False, True],
+            "state": {k: v.detach().clone()
+                      for k, v in port.state_dict().items()},
+            "batch": tb, "noise": list(jax_noise(key, 2, CAP, K)),
+            "layout": LAYOUTS[request.param]}
+    got = workers.spawn(tmp_path_factory.mktemp(request.param),
+                        "supervised", spec)
+    return [dict(zip((False, True), r)) for r in got]
+
+
+@pytest.mark.parametrize("warm_up", [False, True], ids=["hungarian", "o2m"])
+def test_layout_agrees_and_equals_one_process(ranks, laid_out, warm_up):
+    r0, r1 = (r[warm_up] for r in laid_out)
+    assert r0["losses"] == r1["losses"]
+    assert r0["grad_norm"] == r1["grad_norm"]
+    assert r0["replicated"] and r1["replicated"]
+    for ref in (ranks["one"][warm_up], ranks["ranks"][0][warm_up]):
+        total = ref["losses"]["total"]
+        assert r0["losses"].keys() == ref["losses"].keys()
+        for k, b in ref["losses"].items():
+            assert abs(r0["losses"][k] - b) <= RTOL_ONE_PROCESS * total, (
+                k, r0["losses"][k], b)
+        assert abs(r0["grad_norm"] - ref["grad_norm"]) <= (
+            RTOL_ONE_PROCESS * ref["grad_norm"])
+        flat = [torch.cat([g.flatten() for g in r["grads"].values()])
+                for r in (r0, ref)]
+        assert _rel_l2(flat[0].numpy(), flat[1].numpy()) <= RTOL_ONE_PROCESS
+
+
+@pytest.mark.parametrize("warm_up", [False, True], ids=["hungarian", "o2m"])
+def test_layout_matches_jax(setup, jax_steps, laid_out, warm_up):
+    """test_two_ranks_match_jax on the layout's rank 0."""
+    _matches_jax(setup, jax_steps[warm_up], laid_out[0][warm_up])

@@ -28,6 +28,7 @@ from semi_detr_tpu.utils.torch_weights import (export_dino_detector,
                                                load_backbone_from_pth)
 from semi_detr_tpu_torch.data.synthetic import write_synthetic_coco
 from semi_detr_tpu_torch.models.resnet import ResNet
+from semi_detr_tpu_torch.parallel import sharding
 from semi_detr_tpu_torch.tools import test as test_cli
 from semi_detr_tpu_torch.tools import train_detr_od, train_detr_ssod
 from semi_detr_tpu_torch.train import checkpoint as ckpt
@@ -301,11 +302,28 @@ def test_eval_cli_prints_aps(recorded, coco, capsys, tmp_path):
 
 def test_trainer_refuses_multi_gpu_arguments_and_warns(recorded, caplog,
                                                       tmp_path):
-    with pytest.raises(ValueError, match="multi-GPU"):
+    """The JAX trainers' refusal in one process (tp > 1 needs a group);
+    fsdp and donate are accepted: no mesh in one process, so FSDP shards
+    nothing (every step updates in place: `donate` changes nothing)."""
+    with pytest.raises(ValueError, match="more than one process"):
         loop.SsodTrainer(None, None, None, tp=2)
-    with pytest.raises(ValueError, match="multi-GPU"):
-        loop.SupervisedTrainer(None, None, fsdp=True)
+    with pytest.raises(ValueError, match="more than one process"):
+        loop.SupervisedTrainer(None, None, fsdp=True, tp=2)
     t = recorded["trainer"]
+    accepted = loop.SsodTrainer(t.cfg, t.sup_dataset, t.unsup_dataset,
+                                fsdp=True, donate=True,
+                                work_dir=str(tmp_path / "fsdp"),
+                                device="cpu")
+    assert accepted.mesh is None and accepted.fsdp and accepted.donate
+    accepted._shard()
+    # the layout's state bytes: a gradient per trainable parameter whether
+    # made or not, and no moments before the first update
+    st = accepted.state
+    whole = sum(p.numel() for m in (st.model, st.teacher, st.projector)
+                for p in m.parameters())
+    trainable = sum(p.numel() for _, p, _ in st.optimizer.params)
+    assert sharding.local_state_bytes(st) == 4 * (whole + trainable)
+    assert not accepted.state.optimizer.sharded
     loop.SsodTrainer(dataclasses.replace(t.cfg, cls_avg_groups=(1, 2)),
                      t.sup_dataset, t.unsup_dataset, by_prob=True,
                      work_dir=str(tmp_path), device="cpu")

@@ -22,7 +22,7 @@ from semi_detr_tpu_torch.models.dino_head import DinoConfig, DINODetector
 from semi_detr_tpu_torch.models.dn import (CdnNoise, build_cdn_queries,
                                            cdn_attn_mask)
 from semi_detr_tpu_torch.models.ssod import Projector, SsodConfig
-from semi_detr_tpu_torch.parallel import dist
+from semi_detr_tpu_torch.parallel import dist, sharding
 from semi_detr_tpu_torch.train import optim
 from semi_detr_tpu_torch.train.ssod import make_ssod_train_step
 from semi_detr_tpu_torch.train.state import TrainState
@@ -36,30 +36,34 @@ SPAWN_TIMEOUT = 120
 WORLD = 2
 
 
-def spawn(tmp_path, body, spec):
-    """Run BODIES[body] on WORLD gloo ranks; their results, by rank. The
-    files that carry the spec and the results are removed once read."""
+def spawn(tmp_path, body, spec, world=WORLD, timeout=SPAWN_TIMEOUT):
+    """Run BODIES[body] on `world` gloo ranks, joined within `timeout`
+    seconds; their results, by rank. The files that carry the spec and the
+    results are removed once read."""
     spec_path = str(tmp_path / f"{body}_spec.pt")
     out = str(tmp_path / f"{body}_rank%d.pt")
     torch.save(spec, spec_path)
     try:
-        dist.run_local(rank_main, WORLD, (body, spec_path, out),
-                       timeout=SPAWN_TIMEOUT)
+        dist.run_local(rank_main, world, (body, spec_path, out),
+                       timeout=timeout)
         return [torch.load(out % r, weights_only=False)
-                for r in range(WORLD)]
+                for r in range(world)]
     finally:
-        for path in [spec_path] + [out % r for r in range(WORLD)]:
+        for path in [spec_path] + [out % r for r in range(world)]:
             if os.path.exists(path):
                 os.remove(path)
 
 
 def rank_main(rank, world, init_method, body, spec_path, out):
     """Spawned rank: join the group, run BODIES[body](rank, spec) on the
-    spec the test saved, save the result to out % rank, leave."""
+    spec the test saved, save the result to out % rank, leave. A spec with
+    a `layout` ({"fsdp", "tp"}) makes the (data, model) mesh first."""
     torch.set_num_threads(1)
     dist.init_distributed("gloo", "cpu", rank, world, init_method)
     try:
         spec = torch.load(spec_path, weights_only=False)
+        if spec.get("layout"):
+            dist.make_mesh(spec["layout"]["tp"], "cpu")
         torch.save(BODIES[body](rank, spec), out % rank)
     finally:
         dist.destroy()
@@ -70,26 +74,73 @@ def _shard(batch):
 
 
 def _grads(modules):
-    """{prefix + name: gradient (zeros where None)} of every parameter."""
+    """{prefix + name: gradient (zeros where None)} of every parameter, the
+    full tensors of a sharded one."""
     out = {}
     for prefix, m in modules.items():
         for name, p in m.named_parameters():
-            out[prefix + name] = (torch.zeros_like(p) if p.grad is None
-                                  else p.grad.detach().clone())
+            out[prefix + name] = (
+                torch.zeros(p.shape) if p.grad is None
+                else sharding.full_tensor(p.grad).detach().clone())
     return out
 
 
 def _sd(module):
-    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+    sharding.reshard(module)
+    return {k: sharding.full_tensor(v).detach().clone()
+            for k, v in module.state_dict().items()}
 
 
 def replicated(modules):
-    """Every rank holds the modules' state to the bit; raises otherwise (a
-    no-op without a group)."""
-    dist.assert_replicated([t for m in modules
-                            for t in m.state_dict().values()],
-                           "the ranks' state")
+    """Every rank holds the modules' state to the bit (the ranks of one
+    shard, for a sharded leaf); raises otherwise (a no-op without a
+    group)."""
+    sharding.reshard(*modules)
+    leaves = [t for m in modules for t in m.state_dict().values()]
+    dist.assert_replicated([sharding.local(t) for t in leaves],
+                           "the ranks' state",
+                           [sharding.shard_key(t) for t in leaves])
     return True
+
+
+def _global_grads(model):
+    """{name: the global batch's gradient}, full tensors, before the
+    optimizer's step: summed over the data ranks here, but where FSDP's
+    reduce-scatter summed them already (the gradients stay as they are)."""
+    out = {}
+    for name, p in model.named_parameters():
+        g = p.grad
+        if g is None:
+            out[name] = torch.zeros(p.shape)
+        elif "data" in sharding.sharded_axes(g):
+            out[name] = sharding.full_tensor(g).clone()
+        else:
+            out[name] = sharding.full_tensor(
+                dist.all_sum(sharding.local(g)), g).clone()
+    return out
+
+
+def _lay_out(state, spec):
+    """The state on the spec's layout (the mesh rank_main made), the frozen
+    leaves taking gradients again (for the JAX step's grad_norm): the
+    rebuilt optimizer freezes them. Returns the frozen leaves."""
+    layout = spec.get("layout")
+    if layout:
+        sharding.shard_state(state, dist.mesh(), layout["fsdp"],
+                             layout["tp"])
+    frozen = [p for n, p in state.model.named_parameters()
+              if optim.param_group(n) == "frozen"]
+    for p in frozen:
+        p.requires_grad_(True)
+    return frozen
+
+
+def _summed(grads):
+    """The frozen leaves' gradients summed over the data ranks: FSDP's
+    reduce-scatter did it for the leaves it shards."""
+    plain = [g for g in grads if not sharding.is_sharded(g)]
+    dist.all_sum_(plain)
+    return [sharding.full_tensor(g) for g in grads]
 
 
 # --------------------------------------------------------------------------
@@ -120,11 +171,14 @@ def ssod_state(cfg_kw, blob):
 def run_ssod_cases(spec, full=True):
     """Each case of `spec` from its blob: one SSOD step on this rank's
     shard of the global batch, with this rank's rows of the case's global
-    CDN noise (or the step's own seeded draw). With `full`, the cases that
-    carry noise also return the parameters and gradients."""
+    CDN noise (or the step's own seeded draw), on the spec's layout. With
+    `full`, the cases that carry noise also return the parameters and
+    gradients (full tensors, gathered by every rank)."""
     out = []
     for case in spec["cases"]:
         state, frozen = ssod_state(spec["cfg"], case["state"])
+        if spec.get("layout"):
+            frozen = _lay_out(state, spec)
         pcfg = SsodConfig(dino=DinoConfig(**spec["cfg"]),
                           score_thr=case["score_thr"], **spec["ssod_kw"])
         noises = case["noises"]
@@ -132,8 +186,7 @@ def run_ssod_cases(spec, full=True):
             noises = [CdnNoise(*map(dist.rank_rows, n)) for n in noises]
         pm = make_ssod_train_step(pcfg, case["warm_up"])(
             state, _shard(spec["batch"]), noises=noises)
-        fg = [p.grad for p in frozen]
-        dist.all_sum_(fg)
+        fg = _summed([p.grad for p in frozen])
         rec = dict(
             metrics={k: float(v) for k, v in pm.items()
                      if k not in ("pseudo_vis", "pseudo_sets")},
@@ -141,12 +194,15 @@ def run_ssod_cases(spec, full=True):
             vis_keep=pm["pseudo_vis"]["keep"].clone(),
             frozen_sq=sum(float((g.double() ** 2).sum()) for g in fg),
             replicated=replicated((state.model, state.teacher,
-                                   state.projector)))
-        if full and case["noises"] is not None:
-            rec.update(
+                                   state.projector)),
+            data_rank=dist.rank(), data_world=dist.world())
+        if case["noises"] is not None and (full or spec.get("layout")):
+            tensors = dict(
                 student=_sd(state.model), teacher=_sd(state.teacher),
                 projector=_sd(state.projector),
                 grads=_grads({"": state.model, "projector.": state.projector}))
+            if full:
+                rec.update(tensors)
         out.append(rec)
     return out
 
@@ -167,6 +223,11 @@ def run_supervised_cases(spec, full=True):
         model = DINODetector(DinoConfig(**cfg_kw)).train()
         model.load_state_dict(spec["state"])
         opt = optim.make_optimizer(model)
+        if spec.get("layout"):
+            state = TrainState.create(model, opt, with_teacher=False)
+            sharding.shard_state(state, dist.mesh(), spec["layout"]["fsdp"],
+                                 spec["layout"]["tp"])
+            opt = state.optimizer
         tb = _shard(spec["batch"])
         noise = CdnNoise(*map(dist.rank_rows, spec["noise"]))
         cdn = build_cdn_queries(
@@ -180,13 +241,14 @@ def run_supervised_cases(spec, full=True):
                  "cdn": cdn}
         losses = global_losses(loss_and_grads(model, tb, warm_up,
                                               extra_queries=extra))
-        grads = _grads({"": model})
-        dist.all_sum_(list(grads.values()))
+        grads = _global_grads(model)
         grad_norm = float(opt.step(0))
         rec = dict(losses={k: float(v) for k, v in losses.items()},
                    grad_norm=grad_norm, replicated=replicated((model,)))
+        # a sharded model's tensors are gathered by every rank
+        params = _sd(model) if full or spec.get("layout") else None
         if full:
-            rec.update(grads=grads, params=_sd(model))
+            rec.update(grads=grads, params=params)
         out.append(rec)
     return out
 
@@ -269,13 +331,29 @@ def _trainer_body(rank, spec):
     try:
         runs = {}
         for name, argv in spec["runs"]:
+            if name.startswith("eval"):     # the eval CLI and its detections
+                from semi_detr_tpu_torch.models import inference
+                from semi_detr_tpu_torch.tools import test as test_cli
+                gather, dets = inference.gather_results, []
+
+                def gathered(results, **kw):
+                    dets.append(gather(results, **kw))
+                    return dets[-1]
+
+                inference.gather_results = gathered
+                try:
+                    res = test_cli.main(argv)
+                finally:
+                    inference.gather_results = gather
+                runs[name] = {"res": res, "dets": dets[0]}
+                continue
             records.clear()
             t = train_detr_ssod.main(argv)
             runs[name] = {
                 "records": dict(records),
                 "timings": [r["step"] for r in t.timings],
                 "final": torch.stack([
-                    dist.bit_checksum(v) for m in (
+                    dist.bit_checksum(sharding.local(v)) for m in (
                         t.state.model, t.state.teacher, t.state.projector)
                     for v in m.state_dict().values()]),
                 "writes": t.logger.jsonl is not None}
