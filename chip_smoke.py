@@ -9,7 +9,10 @@ Phases (any failure exits non-zero):
    semi_detr_tpu_torch/csrc, one nvcc per source started together (timed;
    ptxas register report printed), and g++ the host library from
    semi_detr_tpu_torch/native at the same time (timed; phases 4-7 use its
-   resize, decode and augmentation ops).
+   resize, decode and augmentation ops), the serving runner
+   (csrc/serve_main.cpp) and, once the forward kernel's library is built,
+   the MSDA operator library that links it (csrc/msda_op.cpp), both
+   against libtorch (timed; phase 9b runs them).
 3. Kernel against its plain version, at the main path's shapes (encoder
    Lq = S = 22,323 and decoder Lq = 900, N=1, M=8, D=32, L=4, P=4) and on
    an out-of-bounds case, each in float32 (TF32 off) and bfloat16: max abs
@@ -83,9 +86,11 @@ Phases (any failure exits non-zero):
 7a. Host library on the card: what the build probe found (g++, CPU
    architecture, zlib, libjpeg, nvJPEG), the JPEG route and `decoders()`.
    The committed fixtures (native/fixtures: a 4:2:0 colour JPEG of odd
-   size and a grayscale one) decode to their committed libjpeg pixels
-   exactly on either route (sequential streams take the host library's
-   decoder where the back end is nvJPEG), and the back end's own decode
+   size, a grayscale one, and a progressive 4:2:0 one) decode to their
+   committed libjpeg pixels exactly on either route (sequential and
+   progressive streams take the host library's decoders where the back
+   end is nvJPEG; `decoders()` names the routes), and the back end's own
+   decode
    within NVJPEG_TOL on the nvJPEG route; ms per image of both. The
    library's JPEG encode + decode of both fixture pictures and a 480x640
    noise picture against cv2's quality-95 round trip of each (committed in
@@ -144,12 +149,7 @@ Phases (any failure exits non-zero):
    gradient all-reduce's ms (span `dist.grad_allreduce`, synchronised on
    both sides), the MSDA launches per step (48 / 42 + 24, vector
    instances, asserted) and the peak memory, beside phase 6's one-process
-   step. Then two more warm-up steps with rank 0's allocator history
-   recorded and the second replayed to its peak: the bytes live there by
-   the step part that allocated them (the passes and backwards marked),
-   and what was held from before by owner (the state, the batch, FSDP's
-   module state); 8c's FSDP leg reads its own beside it. Two processes
-   share the card: no scaling figure.
+   step. Two processes share the card: no scaling figure.
 8b. The SSOD CLI under `python -m torch.distributed.run --standalone
    --nproc-per-node 1` (NCCL, world 1) on phase 7's synthetic JPEG set:
    this script re-enters as the launcher's rank (its TORCHRUN_FLAG
@@ -163,23 +163,23 @@ Phases (any failure exits non-zero):
    spawned as 8a's ranks (gloo on the one card; NCCL, one rank per card,
    where the machine has as many cards): FSDP at W = 2, TP at tp = 2 (W =
    2, data 1), FSDP + TP at W = 4 (data 2 x model 2). Each leg runs 8a's
-   float32 equality run on its layout: the first step against 8a's one
-   process and witnesses (the same seeded start), the second against one
-   process from the leg's own state within 8a's witness limits; kept sets,
+   float32 equality run on its layout (a TP leg its first step only,
+   `layout_eq_steps`): the first step against 8a's one process and
+   witnesses (the same seeded start), the second against one process from
+   the leg's own state within 8a's witness limits; kept sets,
    GMM element and Hungarian columns equal; frozen leaves bit-unchanged;
    the teacher moved. Under TP each rank's gradients before the model
    group's broadcast (`dist.align_model_group_`) are held, per leaf, to
    ALIGN_FACTOR times the floor of one process taking the first step twice
-   from the same state (the backward's atomic order). Then 8a's bfloat16
-   timing run: per rank the step ms, the all-reduce's and the broadcast's
+   from the same state (the backward's atomic order). Then a bfloat16
+   timing run at 8a's batch, one warm step per stage (LAYOUT_TIME_STEPS:
+   a cold and a warm warm-up step, then a Hungarian step): per rank the
+   step ms, the all-reduce's and the broadcast's
    ms, the MSDA launches (48 / 42 + 24, vector instances, asserted), the
    peak memory per step and the local state bytes (parameters, a gradient
    per trainable parameter, moments, teacher), held to at most
    LAYOUT_STATE_SHARE of 8a's data-parallel rank under FSDP, and the FFN
-   pairs split by tp under TP. The FSDP leg then takes a warm-up and a
-   Hungarian step with one reduce-scatter after the second backward (the
-   step reduce-scatters after each), step ms and peak beside the timing
-   run's, and 8a's recorded warm-up steps. Donation: every step
+   pairs split by tp under TP. Donation: every step
    updates in place in chunks of `optim.UPDATE_CHUNK` elements; one EMA
    and optimizer update so from one state and one set of seeded gradients
    against the whole state in one call, in turns: bit-equal, every state
@@ -189,19 +189,43 @@ Phases (any failure exits non-zero):
    a checkpoint at the end), and that checkpoint resumed in one process
    for one step.
    Ranks sharing one card give no scaling figure, and none is claimed.
-9. The serving program exported: `tools.export_model.export_program`
+9. The serving programs exported: `tools.export_model.export_program`
    traces phase 4's detector (full-width DINO-R50, bfloat16, seeded
-   weights, box layers filled) with `torch.export` at batch 1 in the
-   landscape bucket 800x1344, with the top-k and with the NMS decode, and
-   saves both. A fresh process (this script with EXPORT_FLAG, importing
-   only the port) loads them and runs them on phase 4's packed landscape
-   requests (480x640 and 427x641; the portrait ones need an export of
-   their own bucket), counting the MSDA launches of each run from 0.
-   Asserted: top-k boxes, scores and labels equal eager `predict`'s to the
-   bit; the NMS kept sets equal; 300 finite detections inside the image;
-   exactly 12 forward launches per run, all through the vector instance.
-   Printed: export s, artifact bytes, load s, warm ms per request of the
-   loaded program beside eager `predict`.
+   weights, box layers filled) with `torch.export` at batch 1: the top-k
+   and the NMS decode in the landscape bucket 800x1344 and the top-k in
+   the portrait bucket 1344x800 (SERVED), and saves them. A fresh process
+   (this script with EXPORT_FLAG, importing only the port) loads the
+   landscape ones and runs each on phase 4's packed landscape requests,
+   counting the MSDA launches of each run from 0. Asserted: top-k boxes,
+   scores and labels equal eager `predict`'s to the bit; the NMS kept sets
+   equal; 300 finite detections inside the image; exactly 12 forward
+   launches per run, all through the vector instance. Printed: export s,
+   artifact bytes, load s, warm ms per request of the loaded program
+   beside eager `predict`.
+9b. The served program without Python: each program of phase 9, and the
+   landscape top-k of the same weights in float32 with its two-stage
+   selection given (`SelectionGiven`), compiled by AOTInductor
+   (`tools.export_model.package_program`) into packages, one compiling
+   process each, all at once (after the timed phases, before the timed
+   runs); each package run by the same fresh Python process
+   (`aoti_load_package`; the Python operator serves MSDA) and each
+   bfloat16 one by the C++ runner (`tools.serve_runner`: csrc/
+   serve_main.cpp built by g++ in phase 2, no libpython in its `ldd`, an
+   emptied environment; the C++ operator library csrc/msda_op.cpp serves
+   MSDA). Asserted: 12 MSDA launches per run through the vector instance
+   of the program's dtype, counted by each operator; the runner's outputs
+   equal the Python-loaded package's to the bit; 300 finite detections
+   inside the image; the float32 package (TF32 off, eager's selection)
+   equal to float32 eager within FLOAT32_TOL, its encoder memory by
+   position and its boxes, scores and labels by rank (a near tie
+   excepted); each bfloat16 package's scores in descending order within
+   PACKAGE_WITNESS_FACTOR times a witness (eager on the request moved by
+   one bfloat16 rounding). Printed: compile s and bytes per package, load
+   s, warm ms per request of the package in Python and in the runner
+   beside eager `predict` and the torch.export program, one traced pass
+   of the top-k package and of eager `predict` (device kernel and busy ms
+   per request, busy share), torch's and CUDA's versions; phase 2 prints
+   the operator library's and the runner's build s.
 10. Remat: phase 6's SSOD step (its state, seeded weights and batch;
    a warm-up step at score_thr 0, then a Hungarian step) and phase 5's
    supervised step (an O2M and a Hungarian step), each run from one state
@@ -227,7 +251,6 @@ Phases (any failure exits non-zero):
 The line before the last is a JSON object with the kernels' numbers and the
 training records; the last line is {"ok": true, "device": {...}}.
 """
-import bisect
 import concurrent.futures
 import contextlib
 import copy
@@ -257,23 +280,27 @@ from semi_detr_tpu_torch.data import augment, image_io  # noqa: E402
 from semi_detr_tpu_torch.data.pipeline import (  # noqa: E402
     synthetic_batch, synthetic_ssod_batch, to_device)
 from semi_detr_tpu_torch.models import transformer as tr  # noqa: E402
-from semi_detr_tpu_torch.models.inference import predict  # noqa: E402
+from semi_detr_tpu_torch.models.dino_head import prepare_images  # noqa: E402
+from semi_detr_tpu_torch.models.inference import (  # noqa: E402
+    decode_topk, predict)
 from semi_detr_tpu_torch.ops import hungarian  # noqa: E402
 from semi_detr_tpu_torch.ops import ms_deform_attn_cuda as msda  # noqa: E402
+from semi_detr_tpu_torch.ops import msda_cpp  # noqa: E402
 from semi_detr_tpu_torch.ops.ms_deform_attn import (  # noqa: E402
     ms_deform_attn, ms_deform_attn_backward_autograd)
 from semi_detr_tpu_torch.parallel import dist, sharding  # noqa: E402
 from semi_detr_tpu_torch.data.synthetic import (  # noqa: E402
     write_synthetic_coco)
 from semi_detr_tpu_torch.tools import export_model  # noqa: E402
+from semi_detr_tpu_torch.tools import profile_predict  # noqa: E402
 from semi_detr_tpu_torch.tools import recipe_rehearsal  # noqa: E402
+from semi_detr_tpu_torch.tools import serve_runner  # noqa: E402
 from semi_detr_tpu_torch.tools import test as test_cli  # noqa: E402
 from semi_detr_tpu_torch.tools import train_detr_od  # noqa: E402
 from semi_detr_tpu_torch.tools import train_detr_ssod  # noqa: E402
 from semi_detr_tpu_torch.train import checkpoint as ckpt_mod  # noqa: E402
 from semi_detr_tpu_torch.train.loop import SsodTrainer  # noqa: E402
 from semi_detr_tpu_torch.train import optim  # noqa: E402
-from semi_detr_tpu_torch.train import ssod as ssod_mod  # noqa: E402
 from semi_detr_tpu_torch.train.ssod import make_ssod_train_step  # noqa: E402
 from semi_detr_tpu_torch.train.state import (  # noqa: E402
     ema_update, init_ssod_state, init_train_state, refine_boxes)
@@ -392,10 +419,19 @@ WITNESS_NUDGES = (1, -1)
 # checkpoint at the end.
 LAYOUT_LEGS = (("fsdp", True, 1, 2), ("tp", False, 2, 2),
                ("fsdp_tp", True, 2, 4))
-# the FSDP leg's steps with one reduce-scatter after the second backward
-# (warm-up, Hungarian; the timing run's steps 1 and 3 are their
-# counterparts)
-LAYOUT_ONE_RS_STEPS = ((True, None), (False, None))
+# the float32 equality run of a leg: phase 8a's two steps under FSDP; a TP
+# leg's stops after the first, the warm-up step, which holds the TP ranks'
+# gradients before the model group's broadcast and every discrete choice
+# against one process in the TP order (the Hungarian step after it held
+# the same on the card, NVIDIA H100 80GB HBM3, 700.00 W)
+def layout_eq_steps(tp):
+    return DDP_EQ_STEPS if tp == 1 else DDP_EQ_STEPS[:1]
+
+
+# each leg's bfloat16 timing run: a warm-up step that carries the
+# first-call costs, a warm one, and a Hungarian step (phase 8a's run minus
+# its second Hungarian step)
+LAYOUT_TIME_STEPS = ((True, None),) * 2 + ((False, None),)
 # under TP: each rank's gradients before the model group's broadcast
 # against its first rank's, per leaf, held to ALIGN_FACTOR times the
 # floor of one process taking the same step twice (the atomic order of
@@ -412,13 +448,14 @@ TORCHRUN_STEPS, TORCHRUN_WARM_UP, TORCHRUN_TIMEOUT = 4, 2, 300
 # the argument that makes this script phase 8b's rank under the launcher
 TORCHRUN_FLAG = "--torchrun-ssod-cli"
 # phase 7a: the committed JPEG fixtures against their libjpeg pixels.
-# Sequential streams (the fixtures, COCO's files) decode in the host
-# library on either route, libjpeg-exact: tolerance (0, 0). The back end's
-# own decode is held too: nvJPEG's IDCT is not libjpeg's (it read max abs
-# 2, mean abs 0.039 grey levels on the colour fixture and 1 / 0.021 on the
-# gray one; NVIDIA H100 80GB HBM3, 700.00 W; libnvjpeg.so.12.4.0.76), and
-# it still decodes progressive and arithmetic streams; the limit on (max
-# abs, mean abs) leaves a level for another IDCT build
+# Sequential and progressive Huffman streams (the fixtures, COCO's files)
+# decode in the host library on either route, libjpeg-exact: tolerance
+# (0, 0). The back end's own decode is held too: nvJPEG's IDCT is not
+# libjpeg's (it read max abs 2, mean abs 0.039 grey levels on the colour
+# fixture and 1 / 0.021 on the gray one; NVIDIA H100 80GB HBM3, 700.00 W;
+# libnvjpeg.so.12.4.0.76), and it still decodes arithmetic and Adobe RGB
+# streams and incomplete progressive scripts; the limit on (max abs, mean
+# abs) leaves a level for another IDCT build
 NVJPEG_TOL = (3, 0.1)
 # the card's JPEG encode + decode against cv2's quality-95 round trip of
 # the same picture (native/fixtures/cv2_q95_roundtrip.json): grey levels
@@ -427,14 +464,44 @@ NVJPEG_TOL = (3, 0.1)
 # more than half a level on the colour fixture's picture, and fails here
 ROUND_TRIP_SLACK = (8, 0.25)
 HOST_SRC, HOST_VIEW = (480, 640), (800, 1066)
-# phase 9: the serving program exported by tools.export_model at batch 1 in
-# the landscape bucket (a portrait request needs an export of its own
-# bucket, 1344x800), top-k and NMS, loaded and run by a fresh process (this
-# script with EXPORT_FLAG) on phase 4's packed landscape requests, timed
-# over EXPORT_REPS warm runs each; the process is killed after
-# EXPORT_TIMEOUT seconds
-EXPORT_BUCKET, EXPORT_REPS, EXPORT_TIMEOUT = (800, 1344), 5, 300
-EXPORT_FLAG = "--run-exported"
+# phases 9 and 9b: the serving programs exported by tools.export_model at
+# batch 1, (name, NMS decode, bucket): the top-k and NMS programs of the
+# landscape bucket, and the top-k program of the portrait one (a request
+# fills the bucket of its orientation), with phase 4's seeded weights.
+# Phase 9 loads and runs the landscape ones in a fresh process (this script
+# with EXPORT_FLAG) on phase 4's packed requests of their bucket, timed
+# over EXPORT_REPS warm runs each.
+SERVED = (("topk", False, (800, 1344)), ("nms", True, (800, 1344)),
+          ("topk_portrait", False, (1344, 800)))
+EXPORT_BUCKET, EXPORT_REPS = (800, 1344), 5
+EXPORT_FLAG, PACKAGE_FLAG = "--run-exported", "--package-program"
+# Phase 9b packages each program of SERVED with AOTInductor (bfloat16,
+# full width), and FLOAT32_PACKAGE, each in a compiling process of its
+# own (this script with PACKAGE_FLAG), all started together; the loading
+# process runs every package, the C++ runner (tools.serve_runner) the
+# bfloat16 ones, on the requests of its bucket; every process is killed
+# after PACKAGE_TIMEOUT seconds. Inductor fuses the bfloat16 elementwise
+# work and rounds elsewhere than eager `predict`, and with random weights
+# the scores crowd together, so near ties trade places: a development call
+# read boxes by rank ~1,000 px apart and 137-185 of 300 labels by rank
+# differing in the witnesses alone (eager on the request moved by one
+# bfloat16 rounding, WITNESS_NUDGES units in the last place; NVIDIA H100
+# 80GB HBM3, 700.00 W). A bfloat16 package is therefore held to eager by
+# its scores in descending order, within PACKAGE_WITNESS_FACTOR times the
+# witnesses' largest distance, and the runner's outputs to the
+# Python-loaded package's to the bit. In float32 (TF32 off) the package
+# matches eager's encoder memory within 1.3e-5, but the two-stage
+# selection's near ties still decide: eager on its input moved by one
+# float32 rounding chose other proposals in 3 of 4 tries, and 288-297 of
+# its 300 detections left FLOAT32_TOL by rank (a development call, same
+# card). So the float32 program holds its selection fixed:
+# `SelectionGiven`, the top-k program with eager's selection as an input,
+# packaged as FLOAT32_PACKAGE, is held to float32 eager, its encoder memory
+# by position and its answer by rank (`held_by_rank`), within FLOAT32_TOL,
+# the CPU package test's tolerance (tests/test_torch_package.py).
+FLOAT32_PACKAGE = "topk_f32_given"
+FLOAT32_TOL = dict(rtol=1e-4, atol=1e-4)
+PACKAGE_TIMEOUT, PACKAGE_WITNESS_FACTOR = 900, 2.0
 # phase 10: remat against no remat from one state, per path and stage,
 # REMAT_ROUNDS times in turns (no remat, remat, ...): the loss terms
 # bit-equal in every run; per leaf, the relative L2 errors of the
@@ -1012,7 +1079,7 @@ def host_library_phase(host_build_s):
     log(f"  decoders {native.decoders()}; g++ build {host_build_s:.1f} s "
         "(phase 2)")
     fixtures = {}
-    for name in ("colour_420", "gray"):
+    for name in ("colour_420", "gray", "progressive_420"):
         jpg = os.path.join(native.FIXTURES, f"{name}.jpg")
         with open(jpg, "rb") as f:
             buf = f.read()
@@ -1022,16 +1089,19 @@ def host_library_phase(host_build_s):
         if not np.array_equal(native.decode_image(png), ref):
             raise AssertionError(f"{name}.png: the library's PNG decode "
                                  "differs from the numpy decoder's")
-        if not native.jpeg_sequential(buf):
-            raise AssertionError(f"{name}.jpg: not a sequential stream")
+        kind = native.jpeg_host_kind(buf)
+        if kind != ("progressive" if "progressive" in name
+                    else "sequential"):
+            raise AssertionError(f"{name}.jpg: the host decoders' kind "
+                                 f"{kind}")
         got = native.decode_image(buf, jpg)
         diff = np.abs(got.astype(int) - ref.astype(int))
-        # the back end's own decode (nvJPEG on the card), which sequential
+        # the back end's own decode (nvJPEG on the card), which these
         # streams no longer take, beside it
         back = native.decode_jpeg_backend(buf, jpg)
         bdiff = np.abs(back.astype(int) - ref.astype(int))
         fixtures[name] = dict(
-            shape=list(got.shape), route=native.decoders()["jpeg_sequential"],
+            shape=list(got.shape), route=native.decoders()[f"jpeg_{kind}"],
             max_abs=int(diff.max()), mean_abs=float(diff.mean()),
             share_differing=float((diff > 0).mean()),
             ms=best_ms(lambda: native.decode_image(buf)),
@@ -1044,7 +1114,8 @@ def host_library_phase(host_build_s):
             f"{fixtures[name]['ms']:.3f} ms; the back end's decode "
             f"({fixtures[name]['backend']}): max abs {bdiff.max()}, mean abs "
             f"{bdiff.mean():.4f}, {fixtures[name]['backend_ms']:.3f} ms")
-        # sequential streams decode libjpeg-exact on either route
+        # sequential and progressive streams decode libjpeg-exact on
+        # either route
         if got.shape != ref.shape or diff.max() > 0:
             raise AssertionError(f"fixture {name}: {fixtures[name]} not "
                                  "libjpeg's pixels")
@@ -1601,253 +1672,6 @@ def assert_state_replicated(state, what):
                            [sharding.shard_key(p) for p in leaves])
 
 
-# --------------------------------------------------------------------------
-# the peak memory of one step, from the allocator's history
-# --------------------------------------------------------------------------
-
-# allocator events kept for the replay (a warm-up SSOD step makes about
-# 90,000)
-SNAPSHOT_ENTRIES = 4_000_000
-# a marker allocation at the start of the SSOD step's supervised pass and
-# at the start and end of each backward (bytes, a multiple of the
-# allocator's 512-byte rounding that no tensor of the step has). Two steps
-# are recorded and the second's peak replayed; the markers split them
-# into STEP_PARTS, so what the second step holds from the first shows the
-# part of the first that allocated it. The history is kept without
-# stacks: with Python stacks, the allocator's recording failed inside the
-# remat recompute on the card ("SystemError: error return without
-# exception set" from a checkpointed decoder step).
-MARK_BYTES = 12_345 * 512
-STEP_PARTS = ("previous step: before its supervised pass",
-              "previous step: supervised forward",
-              "previous step: supervised backward",
-              "previous step: unlabeled forwards",
-              "previous step: unlabeled backward",
-              "previous step: update; EMA",
-              "supervised forward", "supervised backward",
-              "unlabeled forwards", "unlabeled backward", "update")
-# the parts of the second step, where its peak is looked for
-PEAK_FROM = 6
-
-
-@contextlib.contextmanager
-def marked_step_parts():
-    """A MARK_BYTES allocation, made and freed, at the start of the SSOD
-    step's supervised pass and at the start and end of every backward."""
-    inner, backward = ssod_mod.loss_and_grads, torch.Tensor.backward
-
-    def mark():
-        torch.empty(MARK_BYTES, dtype=torch.uint8, device="cuda")
-
-    def marked(*args, **kw):
-        mark()
-        return inner(*args, **kw)
-
-    def marked_backward(self, *args, **kw):
-        mark()
-        try:
-            return backward(self, *args, **kw)
-        finally:
-            mark()
-
-    ssod_mod.loss_and_grads = marked
-    torch.Tensor.backward = marked_backward
-    try:
-        yield
-    finally:
-        ssod_mod.loss_and_grads = inner
-        torch.Tensor.backward = backward
-
-
-def peak_breakdown(fn, known=None):
-    """fn() (two SSOD steps, their parts marked) under the allocator's
-    history, replayed: the second step's peak, the part it falls in, the
-    bytes live there by the part that allocated them, and the ten largest
-    live blocks. What was live before fn and is still live at the peak
-    counts as held, by the first group of `known` ({name: data pointers},
-    in order) with a pointer in the block; the rest is listed as
-    unattributed. Returns (fn's result, the readings)."""
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    dev = torch.cuda.current_device()
-    before = {b["address"]: b["size"]
-              for seg in torch.cuda.memory._snapshot()["segments"]
-              if seg.get("device", dev) == dev for b in seg["blocks"]
-              if b["state"] == "active_allocated"}
-    names = list(known or {})
-    ptrs = sorted((p, i) for i, ps in enumerate((known or {}).values())
-                  for p in ps if p)
-    torch.cuda.memory._record_memory_history(
-        enabled="all", context=None, max_entries=SNAPSHOT_ENTRIES)
-    try:
-        out = fn()
-        torch.cuda.synchronize()
-        trace = torch.cuda.memory._snapshot()["device_traces"][dev]
-    finally:
-        torch.cuda.memory._record_memory_history(enabled=None)
-    last = len(STEP_PARTS) - 1
-
-    def replay(stop):
-        live, cur, peak, at, part, marks = {}, held, 0, 0, 0, set()
-        freed = set()
-        for i, e in enumerate(trace[:stop]):
-            if e["action"] == "alloc" and e["size"] == MARK_BYTES:
-                part = min(part + 1, last)
-                marks.add(e["addr"])
-            elif e["action"] == "alloc":
-                live[e["addr"]] = (e["size"], part)
-                cur += e["size"]
-            elif e["action"] == "free_requested":
-                if e["addr"] in marks:
-                    marks.discard(e["addr"])
-                    continue
-                v = live.pop(e["addr"], None)
-                if v is None:
-                    freed.add(e["addr"])
-                cur -= v[0] if v else e["size"]
-            if part >= PEAK_FROM and cur > peak:
-                peak, at = cur, i + 1
-        return live, cur, peak, at, part, freed
-
-    _, _, peak, at, parts, _ = replay(len(trace))
-    live, cur, _, _, peak_part, freed = replay(at)
-    by = [0] * len(STEP_PARTS)
-    for size, part in live.values():
-        by[part] += size
-    blocks = sorted(live.values(), reverse=True)[:10]
-
-    def owner(addr, size):
-        """The first group with a pointer in [addr, addr + size), or
-        None."""
-        lo = bisect.bisect_left(ptrs, (addr, -1))
-        hi = bisect.bisect_left(ptrs, (addr + size, -1))
-        return min((g for _, g in ptrs[lo:hi]), default=None)
-
-    held_by, other = dict.fromkeys(names, 0), []
-    for a, n in before.items():
-        if a in freed:
-            continue
-        g = owner(a, n)
-        if g is None:
-            other.append(n)
-        else:
-            held_by[names[g]] += n
-    other.sort(reverse=True)
-    return out, dict(
-        peak_bytes=peak, stat_peak_bytes=torch.cuda.max_memory_allocated(),
-        held_bytes=cur - sum(by), held_by=held_by,
-        held_other_bytes=sum(other), held_other_blocks=other[:10],
-        entries=len(trace), truncated=len(trace) >= SNAPSHOT_ENTRIES,
-        parts_seen=parts + 1, peak_in=STEP_PARTS[peak_part],
-        by_part=[[STEP_PARTS[i], b] for i, b in enumerate(by)],
-        top_blocks=[[b, STEP_PARTS[p]] for b, p in blocks])
-
-
-def state_pointers(state, batch):
-    """{group: data pointers on the card} of what a step may hold from
-    before it: the state's parameters and buffers (local shards), its
-    gradients, its Adam moments, the batch, and whatever FSDP keeps in its
-    modules' state (walked by attribute path: the gathered parameters, the
-    collectives' buffers), by that path. Pointers only: a tensor held here
-    would outlive the step's own release of it."""
-    mods = [m for m in (state.model, state.teacher, state.projector)
-            if m is not None]
-    params = [p for m in mods for p in m.parameters()]
-    groups = {
-        "parameters and buffers": [sharding.local(t) for m in mods for t in
-                                   list(m.parameters()) + list(m.buffers())],
-        "gradients": [g for p in params for g in (
-            p.grad, getattr(sharding.local(p), "grad", None))
-            if g is not None],
-        "Adam moments": [v for st in state.optimizer.adamw.state.values()
-                         for v in st.values() if isinstance(v, torch.Tensor)],
-        "batch": []}
-    seen = set()
-
-    def walk(x, path, depth, out):
-        if id(x) in seen or depth > 6 or isinstance(x, torch.nn.Module):
-            return
-        seen.add(id(x))
-        if isinstance(x, torch.Tensor):
-            out.setdefault(path, []).append(sharding.local(x))
-        elif isinstance(x, dict):
-            for v in x.values():
-                walk(v, path, depth + 1, out)
-        elif isinstance(x, (list, tuple, set)):
-            for v in x:
-                walk(v, path, depth + 1, out)
-        elif type(x).__module__.startswith("torch.distributed") \
-                and hasattr(x, "__dict__"):
-            for k, v in vars(x).items():
-                walk(v, f"{path}.{k}", depth + 1, out)
-
-    walk(batch, "batch", 0, groups)
-    from torch.distributed.fsdp import FSDPModule
-    for m in mods:
-        for sub in m.modules():
-            if isinstance(sub, FSDPModule):
-                walk(sub._get_fsdp_state(), "FSDP", 0, groups)
-    return {k: [t.data_ptr() for t in v if t.is_cuda]
-            for k, v in groups.items()}
-
-
-def snapshot_step(state, cfg, batch):
-    """Two more of the recipe's warm-up steps on every rank, rank 0's
-    under `peak_breakdown` with their parts marked. Returns (the steps'
-    records, rank 0's readings or None)."""
-    steps = ((True, None),) * 2
-    with marked_step_parts():
-        if not dist.is_main():
-            return recorded_ssod_steps(state, cfg, batch, steps,
-                                       MAIN_WIDTH), None
-        return peak_breakdown(lambda: recorded_ssod_steps(
-            state, cfg, batch, steps, MAIN_WIDTH),
-            state_pointers(state, batch))
-
-
-def breakdown_lines(snap):
-    """peak_breakdown's readings as log lines."""
-    mib = 2 ** 20
-    yield (f"the second step's peak {snap['peak_bytes'] / mib:.1f} MiB in "
-           f"its {snap['peak_in']} (replay of {snap['entries']} events, "
-           f"{snap['parts_seen']} parts; the allocator's own peak over both "
-           f"steps {snap['stat_peak_bytes'] / mib:.1f} MiB): held from "
-           f"before both steps {snap['held_bytes'] / mib:.1f} MiB")
-    for name, b in snap["held_by"].items():
-        if b:
-            yield f"  held: {name}: {b / mib:.1f} MiB"
-    yield (f"  held, unattributed: {snap['held_other_bytes'] / mib:.1f} MiB "
-           f"(largest blocks: "
-           f"{[round(b / mib, 1) for b in snap['held_other_blocks']]})")
-    for part, b in snap["by_part"]:
-        if b:
-            yield f"  allocated {part}: {b / mib:.1f} MiB"
-    yield ("  largest live blocks (MiB, part): "
-           + ", ".join(f"{b / mib:.1f} ({p})" for b, p in snap["top_blocks"]))
-
-
-@contextlib.contextmanager
-def one_reduce_scatter(model):
-    """The SSOD step's FSDP gradients reduce-scattered once, after its
-    second backward: the supervised pass's backward keeps them whole
-    (`set_requires_gradient_sync(False)`), and the unlabeled one reduces
-    their sum. The step itself reduce-scatters after each backward."""
-    inner = ssod_mod.loss_and_grads
-
-    def held(*args, **kw):
-        model.set_requires_gradient_sync(False)
-        try:
-            return inner(*args, **kw)
-        finally:
-            model.set_requires_gradient_sync(True)
-
-    ssod_mod.loss_and_grads = held
-    try:
-        yield
-    finally:
-        ssod_mod.loss_and_grads = inner
-
-
 def timed_collective(fn, times):
     """fn, synchronised on both sides so the span holds the collective
     alone; its ms appended to `times`."""
@@ -1941,9 +1765,6 @@ def ddp_rank(rank, world, init_method, backend, out_dir):
         for rec, ms in zip(timing, allreduce_ms):
             rec["allreduce_ms"] = ms
             del rec["cols"], rec["sets"]
-        # phase 8c's FSDP leg reads its peak beside this one
-        _, snap = snapshot_step(state, cfg, batch)
-        part("memory snapshot step")
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump({"rank": rank, "device": str(device),
                        "parts_s": parts_s,
@@ -1951,8 +1772,8 @@ def ddp_rank(rank, world, init_method, backend, out_dir):
                        "timing": timing, "grad_bytes": grad_bytes,
                        "local_state_bytes": sharding.local_state_bytes(
                            state),
-                       "peak_memory_bytes": max(t["peak"] for t in timing),
-                       "snapshot": snap}, f)
+                       "peak_memory_bytes": max(t["peak"] for t in timing)},
+                      f)
         done = True
     finally:
         dist.destroy()
@@ -2034,11 +1855,6 @@ def ddp_phase(card, bare_ms):
                 f"{[(t['fwd'], t['bwd']) for t in r['timing']]}, peak "
                 f"memory {r['peak_memory_bytes'] / 2 ** 30:.2f} GiB; "
                 f"seconds since its start, by part {r['parts_s']}")
-            if r["snapshot"]:
-                log(f"  rank {r['rank']}'s two warm-up steps, the allocator's "
-                    "history:")
-                for line in breakdown_lines(r["snapshot"]):
-                    log("    " + line)
         log(f"  phase 6's one-process step in this call: warm-up "
             f"{bare_ms['warm_up']:.1f} ms, Hungarian "
             f"{bare_ms['hungarian']:.1f} ms"
@@ -2325,10 +2141,7 @@ def layout_rank(rank, world, init_method, backend, leg, out_dir):
     each step; under TP each rank's gradients before the model group's
     broadcast measured against the group's first rank's), then the bfloat16
     timing run with its local state bytes and its all-reduce and broadcast
-    timed; the FSDP leg then takes LAYOUT_ONE_RS_STEPS with one
-    reduce-scatter after the second backward and a warm-up step under the
-    allocator's history;
-    its records to rank<r>.json."""
+    timed; its records to rank<r>.json."""
     name, fsdp, tp, _ = leg
     t0 = time.perf_counter()
     parts_s = {}
@@ -2372,8 +2185,8 @@ def layout_rank(rank, world, init_method, backend, leg, out_dir):
             dist.align_model_group_ = measured_align(align_, aligned_names,
                                                      align_diffs)
         save(-1)
-        equality = recorded_ssod_steps(state, cfg, batch, DDP_EQ_STEPS, 4,
-                                       save)
+        equality = recorded_ssod_steps(state, cfg, batch,
+                                       layout_eq_steps(tp), 4, save)
         dist.align_model_group_ = align_
         checks = dict(
             frozen_unchanged=frozen_sums(state) == frozen0,
@@ -2397,28 +2210,18 @@ def layout_rank(rank, world, init_method, backend, leg, out_dir):
         allreduce_ms, broadcast_ms = [], []
         dist.all_sum_ = timed_collective(all_sum_, allreduce_ms)
         dist.align_model_group_ = timed_collective(align_, broadcast_ms)
-        timing = recorded_ssod_steps(state, cfg, batch, DDP_TIME_STEPS,
+        timing = recorded_ssod_steps(state, cfg, batch, LAYOUT_TIME_STEPS,
                                      MAIN_WIDTH)
         dist.all_sum_, dist.align_model_group_ = all_sum_, align_
         for rec, ar, bc in zip(timing, allreduce_ms, broadcast_ms):
             rec.update(allreduce_ms=ar, broadcast_ms=bc)
             del rec["cols"], rec["sets"]
         part("bfloat16 steps")
-        one_rs, snap = [], None
-        if fsdp and tp == 1:
-            with one_reduce_scatter(state.model):
-                one_rs = recorded_ssod_steps(state, cfg, batch,
-                                             LAYOUT_ONE_RS_STEPS, MAIN_WIDTH)
-            for rec in one_rs:
-                del rec["cols"], rec["sets"]
-            _, snap = snapshot_step(state, cfg, batch)
-            part("one reduce-scatter, memory snapshot step")
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump({"rank": rank, "device": str(device),
                        "backend": dist.backend(), "data_rank": dist.rank(),
                        "data_world": dist.world(), "parts_s": parts_s,
                        "equality": equality, "timing": timing,
-                       "one_reduce_scatter": one_rs, "snapshot": snap,
                        "align_diffs": align_diffs, "checks": checks,
                        "local_state_bytes": sharding.local_state_bytes(
                            state),
@@ -2536,7 +2339,7 @@ def layout_leg(leg, refs, dp_bytes, state, cfg):
             by_data.setdefault(r["data_rank"], r)
         data_recs = [by_data[d] for d in sorted(by_data)]
         checks = []
-        for i in range(len(DDP_EQ_STEPS)):
+        for i in range(len(layout_eq_steps(tp))):
             if any(r["equality"][i]["metrics"] != ranks[0]["equality"][i][
                     "metrics"] for r in ranks):
                 failures.append(f"{name} step {i}: the ranks' metrics differ")
@@ -2606,17 +2409,6 @@ def layout_leg(leg, refs, dp_bytes, state, cfg):
                 f"{r['local_state_bytes']} bytes ({share:.3f} of data "
                 f"parallel's {dp_bytes}), FFN {loc} of {whole} parameters; "
                 f"seconds by part {r['parts_s']}")
-            if r["one_reduce_scatter"]:
-                one = r["one_reduce_scatter"]
-                log(f"    one reduce-scatter after the second backward: step "
-                    f"ms {[round(t['ms'], 1) for t in one]}, peak memory by "
-                    f"step {[round(t['peak'] / 2 ** 30, 3) for t in one]} GiB"
-                    " (warm-up, Hungarian; against steps 1 and 3 above)")
-            if r["snapshot"]:
-                log(f"    rank {r['rank']}'s two warm-up steps, the "
-                    "allocator's history:")
-                for line in breakdown_lines(r["snapshot"]):
-                    log("      " + line)
     finally:
         shutil.rmtree(tmp)
     for c in checks:
@@ -2625,8 +2417,7 @@ def layout_leg(leg, refs, dp_bytes, state, cfg):
         log(f"  {name}: gradients before the model group's broadcast "
             f"against one process's atomic-order floor: {align}")
     log(f"  {name}: ranks {ranks_s:.1f} s")
-    launches = {kind: [sum(t[kind] for run in ("equality", "timing",
-                                                "one_reduce_scatter")
+    launches = {kind: [sum(t[kind] for run in ("equality", "timing")
                            for t in r[run]) for r in ranks]
                 for kind in ("fwd", "bwd")}
     return dict(backend=backend, world=world, fsdp=fsdp, tp=tp,
@@ -3026,7 +2817,7 @@ def model_grad_phase():
 
 
 # --------------------------------------------------------------------------
-# phase 9: the exported serving program
+# phases 9 and 9b: the served program, exported and packaged
 # --------------------------------------------------------------------------
 
 
@@ -3043,38 +2834,110 @@ def warm_ms(fn, args, reps):
     return (time.perf_counter() - t0) * 1e3 / (reps * len(args))
 
 
+def float32_matmuls(exact):
+    """cuBLAS without TF32; cuDNN without it (exact) or at torch's
+    default, with it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = not exact
+
+
+class SelectionGiven(torch.nn.Module):
+    """The served top-k program with its two-stage selection given:
+    forward(images, img_hw, refpoint_unsig) -> (encoder memory, boxes,
+    scores, labels), the decoder run from `refpoint_unsig` (B, nq, 4)
+    instead of the encoder's own top-k proposals. With eager's selection
+    it answers as eager `predict` does, so a package of it can be held to
+    eager where the selection's near ties would otherwise decide."""
+
+    def __init__(self, detector):
+        super().__init__()
+        self.detector = detector
+
+    def forward(self, images, img_hw, refpoint_unsig):
+        enc = self.detector.encode_images(images, img_hw)
+        enc["refpoint_unsig"] = refpoint_unsig
+        out = self.detector(images, img_hw, enc=enc)
+        return (enc["memory"],) + tuple(decode_topk(
+            out["cls"][-1], out["coord"][-1], img_hw))
+
+
 def run_exported(tmp):
-    """Phase 9's loading process: load each artifact, run it on the packed
+    """Phase 9's loading process: load each artifact of the plan
+    (`plan.json`: {entry: {file, keys: the request keys of its bucket,
+    given: whether it takes the request's `refpoint` too, float32,
+    profile}}; a torch.export program or a package), run it on its packed
     requests with the MSDA counts set to 0 before each run and read after,
-    time it, and write the outputs and numbers into `tmp`."""
+    time it, trace it where asked, and write the outputs and numbers into
+    `tmp`. A float32 entry runs with TF32 off, as its eager reference
+    does; the others at torch's defaults, as the runner does."""
     inputs = np.load(os.path.join(tmp, "inputs.npz"))
-    keys = sorted({k.split("_", 1)[1] for k in inputs.files})
-    reqs = [(k, torch.from_numpy(inputs[f"images_{k}"]).cuda(),
-             torch.from_numpy(inputs[f"hw_{k}"]).cuda()) for k in keys]
+    with open(os.path.join(tmp, "plan.json")) as f:
+        plan = json.load(f)
     outs, res = {}, {}
-    for name in ("topk", "nms"):
+    for name, entry in plan.items():
+        float32_matmuls(entry["float32"])
+        reqs = [(k, tuple(torch.from_numpy(inputs[f"{part}_{k}"]).cuda()
+                          for part in ("images", "hw") + (
+                              ("refpoint",) if entry["given"] else ())))
+                for k in entry["keys"]]
         t0 = time.perf_counter()
-        program = export_model.load_program(os.path.join(tmp, f"{name}.pt2"))
+        program = export_model.load_program(os.path.join(tmp,
+                                                         entry["file"]))
         load_s = time.perf_counter() - t0
         runs = []
         with torch.inference_mode():
-            for k, im, hw in reqs:
+            for k, args in reqs:
                 reset_counts()
-                got = program(im, hw)
+                got = program(*args)
                 torch.cuda.synchronize()
                 runs.append(dict(request=k,
                                  launches=msda.ms_deform_attn_cuda.launches,
                                  by_width=dict(msda.ms_deform_attn_cuda
                                                .launches_by_width),
                                  bwd=msda.ms_deform_attn_bwd_cuda.launches))
-                for part, t in zip(("boxes", "scores", "labels"), got):
-                    outs[f"{name}_{part}_{k}"] = t.cpu().numpy()
-            ms = warm_ms(program, [(im, hw) for _, im, hw in reqs],
-                         EXPORT_REPS)
-        res[name] = dict(load_s=load_s, runs=runs, warm_ms=ms)
+                for i, t in enumerate(got):
+                    outs[f"{name}_{k}_{i}"] = t.cpu().numpy()
+            calls = [args for _, args in reqs]
+            res[name] = dict(load_s=load_s, runs=runs,
+                             warm_ms=warm_ms(program, calls, EXPORT_REPS))
+            if entry["profile"]:
+                res[name]["trace"] = request_trace(program, calls,
+                                                   res[name]["warm_ms"])
+        del program
     np.savez(os.path.join(tmp, "outputs.npz"), **outs)
     with open(os.path.join(tmp, "loaded.json"), "w") as f:
         json.dump(res, f)
+
+
+def request_trace(fn, calls, request_ms):
+    """Device time of one warm pass of fn over `calls`, per request, from
+    a torch.profiler trace: kernel ms, busy ms (the union of the device
+    intervals), busy over the untraced `request_ms`, and the MSDA forward
+    kernel's ms."""
+    busy, kernels = profile_predict.device_trace(
+        lambda: [fn(*a) for a in calls])
+    n = len(calls)
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    return dict(kernel_ms=sum(kernels.values()) / n, busy_ms=busy / n,
+                busy_share=busy / n / request_ms,
+                msda_ms=sum(v for k, v in kernels.items()
+                            if "msda_fwd" in k) / n)
+
+
+def package_child(tmp, name, float32):
+    """Phase 9b's compiling process for program `name`: the
+    `ExportedProgram` saved as `name.pt2` in `tmp` loaded and packaged by
+    `tools.export_model.package_program` into `name.pkg.pt2` (TF32 off for
+    a float32 program, as its eager reference runs); its compile s into
+    `name.compile.json`."""
+    float32_matmuls(float32)
+    exported = torch.export.load(os.path.join(tmp, f"{name}.pt2"))
+    t0 = time.perf_counter()
+    export_model.package_program(exported,
+                                 os.path.join(tmp, f"{name}.pkg.pt2"))
+    with open(os.path.join(tmp, f"{name}.compile.json"), "w") as f:
+        json.dump({"compile_s": time.perf_counter() - t0}, f)
 
 
 def kept_set(boxes, scores, labels):
@@ -3082,10 +2945,71 @@ def kept_set(boxes, scores, labels):
             zip(boxes, scores, labels) if s > 0}
 
 
-def export_phase(card):
+def bf16_nudge(x, step):
+    """x (float32) rounded to bfloat16 and moved `step` units in its last
+    place away from zero (toward it for a negative step); zeros stay."""
+    xb = x.to(torch.bfloat16)
+    bits = xb.view(torch.int16)
+    moved = torch.where(xb != 0, bits + step, bits)
+    return moved.view(torch.bfloat16).float()
+
+
+def sorted_scores_distance(got, want):
+    """Max abs difference of two answers' scores in descending order: one
+    image's answers, robust to near ties trading places."""
+    order = [np.sort(a[1].astype(np.float64))[::-1] for a in (got, want)]
+    return float(np.abs(order[0] - order[1]).max())
+
+
+def held_by_rank(got, want, extent, rtol, atol):
+    """One image's top-k answer (boxes, scores, labels) held to another by
+    rank, within rtol / atol; the boxes in units of the image's `extent`
+    (h, w), as the detector predicts them. The scores in their descending
+    order must be close; at each rank the detection must equal (its label
+    exactly, its box within the tolerance) the other answer's at that
+    rank, or at another rank whose score is within the tolerance of its
+    own (a near tie that the two programs' sums order differently), each
+    detection of the other answer taken once. A detection left without a
+    counterpart is excused only where its score is within the tolerance
+    of the other answer's last (the pair that crosses the top-k cut).
+    Returns the numbers; `failed` lists the ranks that do not hold."""
+    scale = np.array([extent[1], extent[0]] * 2, np.float64)
+    (gb, gs, gl), (wb, ws, wl) = [
+        (b.astype(np.float64) / scale, s.astype(np.float64), lab)
+        for b, s, lab in (got, want)]
+
+    def close(a, b):
+        return np.abs(a - b) <= atol + rtol * np.abs(b)
+
+    taken = np.zeros(len(ws), bool)
+    same = tie = cut = 0
+    failed, box_err = [], 0.0
+    for i in range(len(gs)):
+        cands = sorted(np.flatnonzero(close(gs[i], ws) & ~taken),
+                       key=lambda j: abs(j - i))
+        hit = next((j for j in cands if wl[j] == gl[i]
+                    and close(gb[i], wb[j]).all()), None)
+        if hit is not None:
+            taken[hit] = True
+            same, tie = same + int(hit == i), tie + int(hit != i)
+            box_err = max(box_err, float(np.abs(gb[i] - wb[hit]).max()))
+        elif close(gs[i], ws[-1]):
+            cut += 1
+        else:
+            failed.append(i)
+    if not close(gs, ws).all():
+        failed.append("scores")
+    return dict(score_err=float(np.abs(gs - ws).max()), box_err=box_err,
+                same_rank=same, tie=tie, cut=cut, failed=failed)
+
+
+def serving_phase(card):
+    """Phases 9 and 9b: the served programs exported, then packaged."""
     log(f"== phase 9: the serving program exported by tools.export_model "
-        f"(torch.export, batch 1, bucket {EXPORT_BUCKET}), loaded and run by "
-        f"a fresh process")
+        f"(torch.export, batch 1, bucket {EXPORT_BUCKET}), loaded and run "
+        f"by a fresh process")
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
+    float32_matmuls(True)          # the float32 reference; bf16 unaffected
     pred = init_detector(CONFIG, None, device="cuda", use_nms=False, seed=0)
     det = refine_boxes(pred.detector, seed=0)
     rng = np.random.RandomState(0)
@@ -3093,40 +3017,173 @@ def export_phase(card):
               for hw in REQUESTS]
     packed = {str(i): (img,) + pred.preprocess(img)
               for i, img in enumerate(images)}
-    land = {k: v for k, v in packed.items()
-            if tuple(v[1].shape[1:3]) == EXPORT_BUCKET}
-    log(f"  requests {[REQUESTS[int(k)] for k in land]} fill the exported "
-        f"landscape bucket; the portrait ones "
-        f"{[REQUESTS[int(k)] for k in packed if k not in land]} need an "
-        f"export of {EXPORT_BUCKET[::-1]}, not made here")
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+
+    def keys_of(bucket):
+        return sorted(k for k, v in packed.items()
+                      if tuple(v[1].shape[1:3]) == bucket)
+
+    land = keys_of(EXPORT_BUCKET)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    procs = {}
     try:
-        np.savez(os.path.join(tmp, "inputs.npz"), **{
-            f"{part}_{k}": t.cpu().numpy() for k, (_, im, hw, _) in
-            land.items() for part, t in (("images", im), ("hw", hw))})
-        record, eager = {}, {}
-        for use_nms in (False, True):
-            name = "nms" if use_nms else "topk"
-            t0 = time.perf_counter()
-            exported = export_model.export_program(det, 1, EXPORT_BUCKET,
-                                                   use_nms)
+        arrays = {f"{part}_{k}": t.cpu().numpy()
+                  for k, (_, im, hw, _) in packed.items()
+                  for part, t in (("images", im), ("hw", hw))}
+        plan, record, eager, witness, float32 = {}, {}, {}, {}, {}
+        t_compile = time.perf_counter()
+
+        def package(name, exported, bucket, t0, given=False):
+            """The program saved, its compiling process started (this
+            script with PACKAGE_FLAG), and its package put in the loading
+            process's plan."""
             path = os.path.join(tmp, f"{name}.pt2")
             torch.export.save(exported, path)
-            export_s = time.perf_counter() - t0
-            del exported
-            for k, (_, im, hw, _) in land.items():
+            float32[name] = given
+            with open(os.path.join(tmp, f"{name}.compile.log"), "w") as f:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     PACKAGE_FLAG, tmp, name, str(int(given))], stdout=f,
+                    stderr=subprocess.STDOUT)
+            plan[f"package_{name}"] = dict(
+                file=f"{name}.pkg.pt2", keys=keys_of(bucket), given=given,
+                float32=given, profile=name == "topk")
+            record[name] = dict(bucket=bucket, export_s=time.perf_counter()
+                                - t0, bytes=os.path.getsize(path),
+                                requests=[REQUESTS[int(k)]
+                                          for k in keys_of(bucket)])
+
+        # each program exported and saved, its compile started at once; the
+        # references, which are not timed, computed while they compile
+        for name, use_nms, bucket in SERVED:
+            t0 = time.perf_counter()
+            package(name, export_model.export_program(det, 1, bucket,
+                                                      use_nms), bucket, t0)
+            if bucket == EXPORT_BUCKET:       # phase 9 runs the .pt2 too
+                plan[f"export_{name}"] = dict(
+                    file=f"{name}.pt2", keys=land, given=False,
+                    float32=False, profile=False)
+        # the float32 program: the same seeded weights in float32, its
+        # decoder run from eager's own selection, which the package takes
+        # as an input
+        pred32 = init_detector(CONFIG, None, device="cuda", use_nms=False,
+                               seed=0, cfg_options={"model.dtype":
+                                                    "float32"})
+        given = SelectionGiven(refine_boxes(pred32.detector, seed=0)).eval()
+        ref_of, witness32 = {}, {}
+        with torch.inference_mode():
+            for k in land:
+                _, im, hw, _ = packed[k]
+                ref_of[k] = given.detector.encode_images(
+                    im, hw)["refpoint_unsig"]
+                arrays[f"refpoint_{k}"] = ref_of[k].cpu().numpy()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            exported = torch.export.export(given, tuple(
+                torch.from_numpy(arrays[f"{part}_{land[0]}"]).cuda()
+                for part in ("images", "hw", "refpoint")))
+        package(FLOAT32_PACKAGE, exported, EXPORT_BUCKET, t0, given=True)
+        del exported
+        with torch.inference_mode():
+            for k in land:
+                _, im, hw, _ = packed[k]
+                out = given(im, hw, torch.from_numpy(
+                    arrays[f"refpoint_{k}"]).cuda())
+                eager[(FLOAT32_PACKAGE, k)] = [t.cpu().numpy() for t in out]
+                # with its own selection it is eager top-k `predict`
+                if not all(torch.equal(a, b) for a, b in zip(
+                        out[1:], predict(given.detector, im, hw))):
+                    raise AssertionError("SelectionGiven with eager's "
+                                         "selection differs from predict")
+                # why the selection is given: eager itself, on its input
+                # moved by one float32 rounding, keeps its proposals or
+                # not, and its answer holds by rank only where it keeps
+                # them
+                x = prepare_images(im, hw)
+                for sign in (1.0, -1.0):
+                    moved = torch.nextafter(x, torch.full_like(
+                        x, sign * math.inf))
+                    ref_w = given.detector.encode_images(
+                        moved, hw)["refpoint_unsig"]
+                    h = held_by_rank(
+                        [t[0].cpu().numpy() for t in predict(
+                            given.detector, moved, hw)],
+                        [t[0] for t in eager[(FLOAT32_PACKAGE, k)][1:]],
+                        arrays[f"hw_{k}"][0], **FLOAT32_TOL)
+                    witness32[(k, sign)] = dict(
+                        selection_kept=bool(torch.allclose(
+                            ref_w, ref_of[k], **FLOAT32_TOL)),
+                        failed=len(h["failed"]), same_rank=h["same_rank"])
+        log(f"  float32 witnesses (eager top-k on the request moved by one "
+            f"float32 rounding, against eager by rank within {FLOAT32_TOL}):"
+            + ";".join(f" request {REQUESTS[int(k)]} {sign:+.0f}: "
+                        f"proposals kept {w['selection_kept']}, "
+                        f"{w['same_rank']} at the same rank, "
+                        f"{w['failed']} failed"
+                        for (k, sign), w in witness32.items()))
+        record[FLOAT32_PACKAGE]["witness"] = list(witness32.values())
+        del pred32, given
+        for name, use_nms, bucket in SERVED:
+            for k in keys_of(bucket):
+                _, im, hw, _ = packed[k]
                 eager[(name, k)] = [t.cpu().numpy() for t in predict(
                     det, im, hw, use_nms)]
-            ms = warm_ms(lambda im, hw: predict(det, im, hw, use_nms),
-                         [(v[1], v[2]) for v in land.values()], EXPORT_REPS)
-            record[name] = dict(export_s=export_s,
-                                bytes=os.path.getsize(path), eager_ms=ms)
+                x = prepare_images(im, hw)
+                witness[(name, k)] = [[t.cpu().numpy() for t in predict(
+                    det, bf16_nudge(x, step), hw, use_nms)]
+                    for step in WITNESS_NUDGES]
+        np.savez(os.path.join(tmp, "inputs.npz"), **arrays)
+        for name, rec in record.items():
+            log(f"  {name}: bucket {rec['bucket']}, export "
+                f"{rec['export_s']:.1f} s, {rec['bytes']:,} bytes")
+
+        log(f"== phase 9b: the serving programs packaged by AOTInductor "
+            f"(tools.export_model.package_program, {len(procs)} compiling "
+            f"processes, each started once its program was saved), run by "
+            f"a fresh Python process and by the C++ runner")
+        failed = {}
+        for name, proc in procs.items():
+            try:
+                proc.wait(timeout=max(1.0, PACKAGE_TIMEOUT - (
+                    time.perf_counter() - t_compile)))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"packaging {name}: killed after "
+                                     f"{PACKAGE_TIMEOUT} s")
+            if proc.returncode != 0:
+                with open(os.path.join(tmp, f"{name}.compile.log")) as f:
+                    failed[name] = (f"exited {proc.returncode}:\n"
+                                    f"{f.read()[-3000:]}")
+        compile_wall_s = time.perf_counter() - t_compile
+        if failed:
+            raise AssertionError(f"packaging failed: {failed}")
+        for name in procs:
+            with open(os.path.join(tmp, f"{name}.compile.json")) as f:
+                record[name].update(json.load(f))
+            record[name]["package_bytes"] = os.path.getsize(
+                os.path.join(tmp, f"{name}.pkg.pt2"))
+            log(f"  {name}: package compile {record[name]['compile_s']:.1f}"
+                f" s, {record[name]['package_bytes']:,} bytes")
+        log(f"  from the first export to the last compile "
+            f"{compile_wall_s:.1f} s of wall time (the exports and the "
+            f"references beside the compiles)")
+        # timed after the compiles, with the card and the host to itself
+        for name, use_nms, bucket in SERVED:
+            calls = [packed[k][1:3] for k in keys_of(bucket)]
+            record[name]["eager_ms"] = warm_ms(
+                lambda im, hw: predict(det, im, hw, use_nms), calls,
+                EXPORT_REPS)
+            if name == "topk":
+                record[name]["eager_trace"] = request_trace(
+                    lambda im, hw: predict(det, im, hw, use_nms), calls,
+                    record[name]["eager_ms"])
         del pred, det
+        gc.collect()
         torch.cuda.empty_cache()
+        with open(os.path.join(tmp, "plan.json"), "w") as f:
+            json.dump(plan, f)
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                                EXPORT_FLAG, tmp], capture_output=True,
-                              text=True, timeout=EXPORT_TIMEOUT)
+                              text=True, timeout=PACKAGE_TIMEOUT)
         child_s = time.perf_counter() - t0
         if proc.returncode != 0:
             raise AssertionError(f"loading process exited {proc.returncode}:"
@@ -3135,49 +3192,181 @@ def export_phase(card):
         with open(os.path.join(tmp, "loaded.json")) as f:
             loaded = json.load(f)
         outs = np.load(os.path.join(tmp, "outputs.npz"))
-        launches = 0
-        for name, rec in record.items():
-            rec.update(loaded[name])
-            for run in rec["runs"]:
+        runner_bin = serve_runner.build()[0]
+        libpython_free, ldd = serve_runner.python_free(runner_bin)
+        if not libpython_free:
+            raise AssertionError(f"the runner links libpython:\n{ldd}")
+
+        failures = []
+        launches = {"export": 0, "package": 0, "runner": 0}
+
+        def check_launches(runs, path, what, width=MAIN_WIDTH):
+            for run in runs:
                 if (run["launches"] != 12 or run["bwd"] != 0
-                        or run["by_width"] != {str(MAIN_WIDTH): 12}):
-                    raise AssertionError(f"{name} request {run['request']}: "
-                                         f"MSDA launches {run}, not 12 "
-                                         f"through width {MAIN_WIDTH}")
-                launches += run["launches"]
-            for k, (img, _, _, sf) in land.items():
-                got = [outs[f"{name}_{part}_{k}"]
-                       for part in ("boxes", "scores", "labels")]
-                want = eager[(name, k)]
-                if name == "topk":
+                        or run["by_width"] != {str(width): 12}):
+                    failures.append(f"{what} request {run['request']}: "
+                                    f"MSDA launches {run}, not 12 through "
+                                    f"width {width}")
+                launches[path] += run["launches"]
+
+        def answer(entry, k, n=3):
+            return [outs[f"{entry}_{k}_{i}"] for i in range(n)]
+
+        # phase 9: the torch.export programs, bit-equal to eager predict
+        for name, use_nms, bucket in SERVED:
+            if f"export_{name}" not in plan:
+                continue
+            rec = record[name]
+            rec["export"] = loaded[f"export_{name}"]
+            check_launches(rec["export"]["runs"], "export",
+                           f"{name} torch.export program")
+            for k in land:
+                got, want = answer(f"export_{name}", k), eager[(name, k)]
+                if not use_nms:
                     bad = [part for part, g, w in zip(
                         ("boxes", "scores", "labels"), got, want)
                         if not np.array_equal(g, w)]
                     if bad:
-                        raise AssertionError(
-                            f"top-k request {k}: {bad} differ from eager "
-                            f"predict, max abs "
-                            f"{[float(np.abs(g.astype(np.float64) - w).max())
-                                for g, w in zip(got, want)]}")
-                else:
-                    if kept_set(*(a[0] for a in got)) != kept_set(
-                            *(a[0] for a in want)):
-                        raise AssertionError(f"NMS request {k}: kept sets "
-                                             "differ from eager predict")
+                        failures.append(
+                            f"{name} torch.export program, request {k}: "
+                            f"{bad} differ from eager predict")
+                elif kept_set(*(a[0] for a in got)) != kept_set(
+                        *(a[0] for a in want)):
+                    failures.append(f"{name} torch.export program, request"
+                                    f" {k}: kept sets differ from eager")
+                img, _, _, sf = packed[k]
                 check_answer(img, Predictor.postprocess(
                     [torch.from_numpy(a) for a in got], sf, -1.0))
-            log(f"  {name}: export {rec['export_s']:.1f} s, "
-                f"{rec['bytes']:,} bytes; load {rec['load_s']:.1f} s; warm "
-                f"ms per request, loaded program {rec['warm_ms']:.2f} against "
-                f"eager predict {rec['eager_ms']:.2f}; MSDA launches per run "
-                f"{[r['launches'] for r in rec['runs']]} (width "
-                f"{MAIN_WIDTH})")
-        log(f"  top-k outputs equal eager predict's to the bit, NMS kept sets"
-            f" equal; loading process {child_s:.1f} s")
+            log(f"  {name} torch.export program: load "
+                f"{rec['export']['load_s']:.1f} s; warm ms per request "
+                f"{rec['export']['warm_ms']:.2f} against eager predict "
+                f"{rec['eager_ms']:.2f}; MSDA launches per run "
+                f"{[r['launches'] for r in rec['export']['runs']]}; "
+                + ("boxes, scores, labels equal eager's to the bit"
+                   if not use_nms else "kept sets equal eager's"))
+
+        # phase 9b: the packages
+        inputs = np.load(os.path.join(tmp, "inputs.npz"))
+        for name in procs:
+            rec, entry = record[name], plan[f"package_{name}"]
+            keys = entry["keys"]
+            rec["package"] = loaded[f"package_{name}"]
+            # the vector instance of the program's dtype (bfloat16: 8
+            # channels per lane, float32: 4)
+            check_launches(rec["package"]["runs"], "package",
+                           f"{name} package in Python", msda.kernel_width(
+                               D, torch.float32 if float32[name]
+                               else torch.bfloat16))
+            if entry["given"]:
+                # held to float32 eager by position (the encoder memory)
+                # and by rank (the answer from the same selection): a
+                # fault in the backbone, the encoder, the decoder, the
+                # box head, the decode or the score-to-box pairing shows
+                held = []
+                for k in keys:
+                    got = answer(f"package_{name}", k, 4)
+                    want = eager[(name, k)]
+                    img, _, _, sf = packed[k]
+                    check_answer(img, Predictor.postprocess(
+                        [torch.from_numpy(a) for a in got[1:]], sf, -1.0))
+                    h = held_by_rank([a[0] for a in got[1:]],
+                                     [a[0] for a in want[1:]],
+                                     inputs[f"hw_{k}"][0], **FLOAT32_TOL)
+                    h["memory_err"] = float(np.abs(
+                        got[0].astype(np.float64) - want[0]).max())
+                    if not np.allclose(got[0], want[0], **FLOAT32_TOL):
+                        h["failed"].append("memory")
+                    if h["failed"]:
+                        failures.append(f"{name} request {k}: "
+                                        f"{h['failed'][:10]} differ from "
+                                        f"float32 eager beyond "
+                                        f"{FLOAT32_TOL}")
+                    held.append(h)
+                rec["against_eager"] = held
+                log(f"  {name} against float32 eager (TF32 off; "
+                    f"{FLOAT32_TOL}; boxes in units of the image): "
+                    + "; ".join(f"request {REQUESTS[int(k)]}: memory err "
+                                f"{h['memory_err']:.3e}, score err "
+                                f"{h['score_err']:.3e}, box err "
+                                f"{h['box_err']:.3e}, "
+                                f"{h['same_rank']} at the same rank, "
+                                f"{h['tie']} in a near tie, {h['cut']} at "
+                                f"the cut, failed {h['failed'][:10]}"
+                                for k, h in zip(keys, held)))
+                log(f"  {name}: load {rec['package']['load_s']:.2f} s; "
+                    f"MSDA launches per run "
+                    f"{[r['launches'] for r in rec['package']['runs']]}")
+                continue
+            runner = serve_runner.run(
+                os.path.join(tmp, f"{name}.pkg.pt2"),
+                [(inputs[f"images_{k}"], inputs[f"hw_{k}"]) for k in keys],
+                "cuda", EXPORT_REPS, timeout=PACKAGE_TIMEOUT)
+            rec["runner"] = {k: v for k, v in runner.items()
+                             if k != "outputs"}
+            check_launches([dict(request=k, launches=sum(
+                run["launches"].values()), bwd=0, by_width={
+                    w: c for w, c in run["launches"].items() if c})
+                for k, run in zip(keys, runner["runs"])], "runner",
+                f"{name} runner")
+            dist_pkg, dist_wit = [], []
+            for k, got_r in zip(keys, runner["outputs"]):
+                got = answer(f"package_{name}", k)
+                if not all(np.array_equal(a, b) and a.dtype == b.dtype
+                           for a, b in zip(got, got_r)):
+                    failures.append(f"{name} request {k}: the runner's "
+                                    "outputs differ from the Python-loaded "
+                                    "package's")
+                img, _, _, sf = packed[k]
+                for a in (got, got_r):
+                    check_answer(img, Predictor.postprocess(
+                        [torch.from_numpy(t) for t in a], sf, -1.0))
+                want = [a[0] for a in eager[(name, k)]]
+                dist_pkg.append(sorted_scores_distance(
+                    [a[0] for a in got], want))
+                dist_wit += [sorted_scores_distance([a[0] for a in w], want)
+                             for w in witness[(name, k)]]
+            limit = PACKAGE_WITNESS_FACTOR * max(dist_wit)
+            rec["against_eager"] = dict(package=dist_pkg, witness=dist_wit,
+                                        limit=limit)
+            log(f"  {name} against eager predict (scores in descending "
+                f"order, max abs): package {dist_pkg}, one-bf16-rounding "
+                f"witnesses {dist_wit}; limit {limit}")
+            if max(dist_pkg) > limit:
+                failures.append(f"{name}: scores {dist_pkg} against eager "
+                                f"beyond the witnesses' limit {limit}")
+            log(f"  {name}: load s, package in Python "
+                f"{rec['package']['load_s']:.2f}, runner "
+                f"{runner['load_s']:.2f}; warm ms per request, package in "
+                f"Python {rec['package']['warm_ms']:.2f}, runner "
+                f"{runner['warm_ms']:.2f}, eager predict "
+                f"{rec['eager_ms']:.2f}"
+                + (f", torch.export program {rec['export']['warm_ms']:.2f}"
+                   if "export" in rec else "")
+                + f"; MSDA launches per run, package "
+                f"{[r['launches'] for r in rec['package']['runs']]}, runner "
+                f"{[r['launches'] for r in runner['runs']]}; the runner's "
+                f"outputs equal the package's in Python")
+        for what, t in (("eager predict", record["topk"]["eager_trace"]),
+                        ("package in Python",
+                         record["topk"]["package"]["trace"])):
+            log(f"  topk {what}, one traced pass: device kernels "
+                f"{t['kernel_ms']:.2f} ms, busy {t['busy_ms']:.2f} ms per "
+                f"request, {100 * t['busy_share']:.1f} % of the untraced "
+                f"request; MSDA forward {t['msda_ms']:.3f} ms")
+        log(f"  the runner {runner_bin}: no libpython in ldd, an emptied "
+            f"environment ({sorted(serve_runner.runner_env())}); loading "
+            f"process {child_s:.1f} s")
         log("  " + card)
+        if failures:
+            raise AssertionError("phases 9 / 9b: " + "; ".join(failures))
         return dict(record, launches=launches, child_s=child_s,
-                    requests=[REQUESTS[int(k)] for k in land], card=card)
+                    compile_wall_s=compile_wall_s, torch=torch.__version__,
+                    cuda=torch.version.cuda, card=card)
     finally:
+        for proc in procs.values():          # none outlives the phase
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(tmp)
 
 
@@ -3485,6 +3674,9 @@ def main():
     if len(sys.argv) > 1 and sys.argv[1] == EXPORT_FLAG:
         run_exported(sys.argv[2])
         return
+    if len(sys.argv) > 1 and sys.argv[1] == PACKAGE_FLAG:
+        package_child(sys.argv[2], sys.argv[3], sys.argv[4] == "1")
+        return
     if len(sys.argv) > 1 and sys.argv[1] == TORCHRUN_FLAG:
         torchrun_cli_rank(sys.argv[2], sys.argv[3:])
         return
@@ -3500,16 +3692,24 @@ def main():
         out = build()
         return out, time.perf_counter() - t0
 
-    # nvcc (one process per kernel source) and g++ (the host library),
-    # all started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    # nvcc (one process per kernel source) and g++ (the host library, the
+    # serving runner, and the MSDA operator library once the forward
+    # kernel's library it links is there), all started together
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         host = pool.submit(timed_build, native.build)
+        runner = pool.submit(timed_build, serve_runner.build)
         (paths, build_log), build_s = timed_build(msda.build)
+        (op_path, _), op_build_s = timed_build(msda_cpp.build)
         (host_path, _), host_build_s = host.result()
+        (runner_path, _), runner_build_s = runner.result()
     log(f"  built {', '.join(paths)} in {build_s:.1f} s; {host_path} in "
-        f"{host_build_s:.1f} s")
+        f"{host_build_s:.1f} s; the MSDA operator library {op_path} in "
+        f"{op_build_s:.1f} s after them; the serving runner {runner_path} "
+        f"in {runner_build_s:.1f} s")
     for line in ptxas_summary(build_log):
         log("  ptxas: " + line)
+    builds = dict(kernels_s=build_s, host_s=host_build_s,
+                  op_library_s=op_build_s, runner_s=runner_build_s)
 
     phase_s = {"2": build_s}
 
@@ -3535,7 +3735,7 @@ def main():
     torchrun = timed("8b", torchrun_phase, card, trainer["launches_per_step"])
     layouts = timed("8c", layout_phase, card, ddp_refs, ddp)
     del ddp_refs
-    exported = timed("9", export_phase, card)
+    served = timed("9", serving_phase, card)
     remat = timed("10", remat_phase, card)
     rehearsal = timed("11", rehearsal_phase, card)
 
@@ -3567,8 +3767,13 @@ def main():
                              # per rank, each phase 8c leg's two runs
                              **{name: launches["fwd"] for name, launches
                                 in layouts["launches"].items()},
-                             # the loaded program's runs (phase 9)
-                             "export": exported["launches"],
+                             # the loaded programs' runs (phase 9)
+                             "export": served["launches"]["export"],
+                             # the packages' runs in a Python process
+                             # (the Python operator) and in the C++
+                             # runner (the C++ operator), phase 9b
+                             "package": served["launches"]["package"],
+                             "runner": served["launches"]["runner"],
                              # the remat runs of phase 10
                              "remat": remat["launches"]["fwd"],
                              # both CLI legs of phase 11
@@ -3595,7 +3800,7 @@ def main():
                              "ddp": ddp["launches"]["bwd"],
                              **{name: launches["bwd"] for name, launches
                                 in layouts["launches"].items()},
-                             "export": 0,
+                             "export": 0, "package": 0, "runner": 0,
                              "remat": remat["launches"]["bwd"],
                              "rehearsal": rehearsal["launches"]["bwd"]},
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in bwd_main),
@@ -3607,12 +3812,13 @@ def main():
                                    for r in bwd_main) else "operations",
         "library_ms": None,
         "cases": bwd_rows,
-    }], "card": card, "build_s": build_s, "phase_s": phase_s,
+    }], "card": card, "build_s": build_s, "builds": builds,
+        "phase_s": phase_s,
         "request_ms": {k: v * 1e3 for k, v in latency.items()},
         "float32_request_err": errs, "train": train,
         "float32_grad_check": grad_check, "ssod": ssod,
         "host_library": host_lib, "trainer": trainer, "ddp": ddp,
-        "torchrun": torchrun, "layouts": layouts, "export": exported,
+        "torchrun": torchrun, "layouts": layouts, "serving": served,
         "remat": remat, "rehearsal": rehearsal}
     print(json.dumps(json_safe(record), allow_nan=False), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,8 +18,12 @@ step.
   sequential Huffman stream (SOF0/SOF1: COCO's files and the synthetic
   sets) is decoded here instead (`decode_jpeg_sequential`: the Huffman
   walk of `jpeg_check` kept, dequantized, libjpeg's integer IDCT and
-  output stage, libjpeg's pixels to the bit); the card decodes the rest
-  (progressive, arithmetic), within a few grey levels of libjpeg.
+  output stage, libjpeg's pixels to the bit), and so is a progressive
+  Huffman stream (SOF2: cv2's and Pillow's `progressive` output) whose
+  scan script completes every coefficient libjpeg's block smoothing reads
+  (`decode_jpeg_progressive`: jdphuff.c's four scan types, the same back
+  half); the card decodes the rest (arithmetic, Adobe RGB, an incomplete
+  progressive script), within a few grey levels of libjpeg.
   `decoders()` says which route each kind takes. Before the back end
   decodes, `jpeg_check` walks the stream and decodes a sequential
   Huffman stream's codes as libjpeg does. A truncated, CMYK or unknown
@@ -69,8 +73,12 @@ FIXTURES = os.path.join(_DIR, "fixtures")
 SOURCES = ("host.cpp",)
 HEADERS = ("host.h",)
 JPEG_SOURCES = {"libjpeg": "jpeg_libjpeg.cpp", "nvjpeg": "jpeg_nvjpeg.cpp"}
-# the route of sequential Huffman streams on the nvJPEG build
+# the routes of sequential and progressive Huffman streams on the nvJPEG
+# build
 SEQUENTIAL = "host sequential (libjpeg islow)"
+PROGRESSIVE = "host progressive (libjpeg jdphuff + islow)"
+# jpeg_host_kind's answers
+HOST_KINDS = {0: None, 1: "sequential", 2: "progressive"}
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off",
              "-pthread")
 # larger images are refused before any pixel buffer is allocated
@@ -193,9 +201,10 @@ _SIGNATURES = {
     "sdt_encode_jpeg": ([_P, _I, _I, _P, _P], _I),
     "sdt_free": ([_P], None),
     "sdt_jpeg_check": ([_P, _L], _I),
-    "sdt_jpeg_sequential": ([_P, _L], _I),
-    "sdt_jpeg_sequential_on_host": ([], _I),
+    "sdt_jpeg_host_kind": ([_P, _L], _I),
+    "sdt_jpeg_host_route": ([], _I),
     "sdt_decode_jpeg_sequential": ([_P, _L, _P, _I, _I], _I),
+    "sdt_decode_jpeg_progressive": ([_P, _L, _P, _I, _I], _I),
     "sdt_decode_jpeg_backend": ([_P, _L, _P, _I, _I], _I),
     "sdt_rgb_to_ycc420": ([_P, _I, _I, _P, _P, _P], None),
     "sdt_ycc_to_rgb": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], None),
@@ -230,13 +239,15 @@ def _library() -> ctypes.CDLL:
 def decoders() -> Dict[str, str]:
     """The decoders the library was built with: by format, `jpeg` the back
     end, and the route each kind of JPEG stream takes in `decode_image`
-    (`jpeg_sequential`: the streams `jpeg_sequential` takes; `jpeg_other`:
-    progressive, arithmetic, and the rest)."""
+    (`jpeg_sequential` and `jpeg_progressive`: the streams
+    `jpeg_host_kind` names so; `jpeg_other`: arithmetic, Adobe RGB, an
+    incomplete progressive script, and the rest)."""
     lib = _library()
     backend = lib.sdt_jpeg_backend().decode()
+    on_host = lib.sdt_jpeg_host_route()
     return {"png": "zlib inflate + C++ row filters", "jpeg": backend,
-            "jpeg_sequential": (SEQUENTIAL if lib.sdt_jpeg_sequential_on_host()
-                                else backend),
+            "jpeg_sequential": SEQUENTIAL if on_host else backend,
+            "jpeg_progressive": PROGRESSIVE if on_host else backend,
             "jpeg_other": backend}
 
 
@@ -313,12 +324,12 @@ def jpeg_check(buf: bytes) -> Optional[str]:
         buf, len(buf)) else None
 
 
-def jpeg_sequential(buf: bytes) -> bool:
-    """Whether the library's sequential decoder takes the stream: sequential
-    Huffman, 8 bits, gray or YCbCr, chroma subsampled by 1 or 2 (the frame
-    header and the segments before the first scan read)."""
+def jpeg_host_kind(buf: bytes) -> Optional[str]:
+    """The library's own decoder that takes the stream: "sequential",
+    "progressive" (a complete scan script: its scan headers are read), or
+    None (the back end's on the nvJPEG route)."""
     buf = bytes(buf)
-    return bool(_library().sdt_jpeg_sequential(buf, len(buf)))
+    return HOST_KINDS[_library().sdt_jpeg_host_kind(buf, len(buf))]
 
 
 def _decode_jpeg(fn: str, buf: bytes, name: str) -> np.ndarray:
@@ -333,17 +344,27 @@ def _decode_jpeg(fn: str, buf: bytes, name: str) -> np.ndarray:
 
 
 def decode_jpeg_sequential(buf: bytes, name: str = "<bytes>") -> np.ndarray:
-    """The library's own decode of a stream `jpeg_sequential` takes, on
-    either route: libjpeg's default decode (integer IDCT, fancy upsampling)
-    to the bit. `decode_image` takes this path on the nvJPEG route; raises
+    """The library's own decode of a stream `jpeg_host_kind` names
+    "sequential", on either route: libjpeg's default decode (integer IDCT,
+    fancy upsampling) to the bit. `decode_image` takes this path on the nvJPEG route; raises
     ImageDecodeError for damaged data and for another kind of stream."""
     return _decode_jpeg("sdt_decode_jpeg_sequential", buf, name)
+
+
+def decode_jpeg_progressive(buf: bytes, name: str = "<bytes>") -> np.ndarray:
+    """The library's own decode of a progressive Huffman stream (8 bits,
+    gray or YCbCr, chroma subsampled by 1 or 2), on either route:
+    libjpeg's decode to the bit. `decode_image` takes this path on the
+    nvJPEG route; raises ImageDecodeError for damaged data, another kind
+    of stream, or a scan script that leaves a coefficient libjpeg would
+    smooth short of its last bit."""
+    return _decode_jpeg("sdt_decode_jpeg_progressive", buf, name)
 
 
 def decode_jpeg_backend(buf: bytes, name: str = "<bytes>") -> np.ndarray:
     """The back end's decode (`decoders()["jpeg"]`) of any JPEG stream,
     after `jpeg_check`: what `decode_image` does with the streams
-    `jpeg_sequential` refuses, here for every stream (on the nvJPEG route
+    `jpeg_host_kind` refuses, here for every stream (on the nvJPEG route
     it times and measures the card's decode beside the sequential one)."""
     return _decode_jpeg("sdt_decode_jpeg_backend", buf, name)
 

@@ -210,15 +210,27 @@ void rgb_to_ycc420(const uint8_t* rgb, int h, int w, uint8_t* y, uint8_t* cb,
 // the coefficients away: a code that no table holds, a scan whose data ends
 // before its last block or a restart marker out of order fails, as
 // libjpeg's slow path warns (its fast path lets a bad code pass as 0).
-// Other streams (progressive, arithmetic) are walked marker by marker only.
-// Bytes between markers that no scan reads pass, as libjpeg passes them
-// with a warning.
+// Other streams (progressive, arithmetic) are walked marker by marker only;
+// a progressive stream's scan headers are read on the way (its scan
+// script). Bytes between markers that no scan reads pass, as libjpeg
+// passes them with a warning.
 //
-// The decode keeps the coefficients, dequantizes them by the DQT table
+// A progressive Huffman stream (SOF2) is decoded as libjpeg's jdphuff.c
+// reads it: DC first scans (interleaved or not) and DC refinement scans,
+// AC first scans with their end-of-band runs, and AC refinement scans with
+// their correction bits, into one coefficient buffer per component that
+// lives across the scans. The scan order is checked as jdphuff.c checks
+// it; where libjpeg only warns of a bogus progression, the decode fails.
+//
+// Either decode keeps the coefficients, dequantizes them by the DQT table
 // each component latched at its first scan, runs libjpeg's integer IDCT
 // (jidctint.c, jpeg_idct_islow) and finishes the planes with ycc_to_rgb:
 // the pixels of libjpeg's default decode, which libjpeg-turbo's SIMD islow
-// matches bit for bit.
+// matches bit for bit. libjpeg smooths the blocks of a progressive stream
+// (jdcoefct.c, decompress_smooth_data) when a scan script leaves the DC or
+// one of the first nine AC coefficients short of its last bit; that is not
+// reproduced here: such a stream is refused (jpeg_host_kind does not take
+// it, and the progressive decode raises).
 
 namespace {
 
@@ -398,9 +410,14 @@ bool read_block(Bits* b, const HuffTable& dc, const HuffTable& ac,
 }
 
 struct Frame {
-  bool seen = false, huffman_sequential = false;
+  bool seen = false, huffman_sequential = false, progressive = false;
   int precision = 8, width = 0, height = 0, hmax = 1, vmax = 1, ncomp = 0;
   int id[4], hs[4], vs[4], tq[4];
+  // a progressive frame's script so far: the successive approximation bit
+  // each component's coefficient has reached (-1: no scan yet), as
+  // libjpeg's coef_bits
+  int8_t coef_bits[4][64];
+  bool bogus = false;  // a scan out of order (libjpeg warns)
 };
 
 // what the decode keeps of a stream: the DQT tables as defined, each
@@ -508,6 +525,189 @@ int read_scan(const uint8_t* d, long n, const uint8_t* sos, long len,
   return kOk;
 }
 
+// libjpeg's first coefficients, of each component, whose last bit a
+// progressive script must reach for jdcoefct.c not to smooth its blocks:
+// the DC and AC 1-9 (libjpeg-turbo's SAVED_COEFS; libjpeg's 1-5 are among
+// them)
+constexpr int kSmoothCoefs = 10;
+
+// The progressive scan whose header (SOS body sos, len bytes) ends at
+// data, as jdphuff.c reads it. The scan's parameters are checked and the
+// frame's script updated (*f) in either mode; with co the entropy-coded
+// data is decoded into co's blocks and *end is the position of the marker
+// after it, without co the caller skips the data.
+int read_progressive_scan(const uint8_t* d, long n, const uint8_t* sos,
+                          long len, long data, Frame* f,
+                          const HuffTable* dc, const HuffTable* ac,
+                          int restart, Coefs* co, long* end) {
+  const int ns = len >= 1 ? sos[0] : 0;
+  if (ns < 1 || ns > 4 || len != 4 + 2 * ns)
+    return damaged("bad scan header");
+  const int ss = sos[1 + 2 * ns], se = sos[2 + 2 * ns];
+  const int ah = sos[3 + 2 * ns] >> 4, al = sos[3 + 2 * ns] & 15;
+  const bool dc_band = ss == 0;
+  // jdphuff.c's start_pass_phuff_decoder: errors, not warnings
+  if ((dc_band ? se != 0 : (ss > se || se > 63 || ns != 1)) ||
+      (ah != 0 && al != ah - 1) || al > 13)
+    return damaged("bad progressive scan parameters");
+  int comp[4];
+  for (int j = 0; j < ns; ++j) {
+    const int cid = sos[1 + 2 * j], tables = sos[2 + 2 * j];
+    comp[j] = -1;
+    for (int i = 0; i < f->ncomp; ++i)
+      if (f->id[i] == cid) comp[j] = i;
+    if (comp[j] < 0) return damaged("scan of an unknown component");
+    // a DC refinement needs no table
+    const bool need = dc_band ? ah == 0 : true;
+    const int t = dc_band ? tables >> 4 : tables & 15;
+    if (need && (t > 3 || !(dc_band ? dc : ac)[t].defined))
+      return damaged("scan of an unknown Huffman table");
+  }
+  for (int j = 0; j < ns; ++j) {  // the script, as jdphuff.c updates it
+    int8_t* bits = f->coef_bits[comp[j]];
+    if (!dc_band && bits[0] < 0) f->bogus = true;
+    for (int k = ss; k <= se; ++k) {
+      if (ah != (bits[k] < 0 ? 0 : bits[k])) f->bogus = true;
+      bits[k] = static_cast<int8_t>(al);
+    }
+  }
+  if (!co) return kOk;
+  if (f->bogus) return damaged("bogus progression (a scan out of order)");
+  for (int j = 0; j < ns; ++j) {  // libjpeg's latch_quant_tables
+    const int c = comp[j];
+    if (co->scanned[c]) continue;
+    if (!co->dqt_defined[f->tq[c]]) {
+      set_error("JPEG: a scan's quantization table is not defined");
+      return kCorrupt;
+    }
+    std::memcpy(co->qt[c], co->dqt[f->tq[c]], sizeof(co->qt[c]));
+    co->scanned[c] = true;
+  }
+  long mcus, mcu_w;
+  int blocks[4];
+  if (ns == 1) {
+    const int i = comp[0];
+    mcu_w = (static_cast<long>(f->width) * f->hs[i] + 8L * f->hmax - 1) /
+            (8L * f->hmax);
+    const long bh = (static_cast<long>(f->height) * f->vs[i] +
+                     8L * f->vmax - 1) / (8L * f->vmax);
+    mcus = mcu_w * bh;
+    blocks[0] = 1;
+  } else {
+    mcu_w = (f->width + 8L * f->hmax - 1) / (8L * f->hmax);
+    mcus = mcu_w * ((f->height + 8L * f->vmax - 1) / (8L * f->vmax));
+    for (int j = 0; j < ns; ++j)
+      blocks[j] = f->hs[comp[j]] * f->vs[comp[j]];
+  }
+  const int p1 = 1 << al;           // 1 in the bit being coded
+  const int m1 = -(1 << al);        // -1 in the bit being coded
+  Bits b(d, n, data);
+  int last_dc[4] = {0, 0, 0, 0};
+  long eobrun = 0;
+  int expect = 0;
+  for (long m = 0; m < mcus; ++m) {
+    if (restart > 0 && m > 0 && m % restart == 0) {
+      if (b.overrun()) return ran_out(b);
+      if (b.next_marker() != 0xD0 + expect)
+        return damaged("restart marker missing or out of order");
+      b.pos += 2;
+      expect = (expect + 1) & 7;
+      last_dc[0] = last_dc[1] = last_dc[2] = last_dc[3] = 0;
+      eobrun = 0;
+    }
+    const long my = m / mcu_w, mx = m % mcu_w;
+    for (int j = 0; j < ns; ++j) {
+      const int c = comp[j], t = sos[2 + 2 * j];
+      for (int k = 0; k < blocks[j]; ++k) {
+        const long by = ns == 1 ? my : my * f->vs[c] + k / f->hs[c];
+        const long bx = ns == 1 ? mx : mx * f->hs[c] + k % f->hs[c];
+        int16_t* blk = co->blocks[c].data() + (by * co->bw[c] + bx) * 64;
+        if (dc_band && ah == 0) {  // decode_mcu_DC_first
+          const int s = decode(&b, dc[t >> 4]);
+          if (s < 0) return damaged("bad Huffman code");
+          const int diff = s ? extend(b.get(s), s) : 0;
+          last_dc[j] = static_cast<int>(static_cast<unsigned>(diff) +
+                                        static_cast<unsigned>(last_dc[j]));
+          blk[0] = static_cast<int16_t>(static_cast<unsigned>(last_dc[j])
+                                        << al);
+        } else if (dc_band) {  // decode_mcu_DC_refine
+          if (b.get(1)) blk[0] = static_cast<int16_t>(blk[0] | p1);
+        } else if (ah == 0) {  // decode_mcu_AC_first
+          if (eobrun > 0) {
+            --eobrun;
+            continue;
+          }
+          for (int q = ss; q <= se; ++q) {
+            const int rs = decode(&b, ac[t & 15]);
+            if (rs < 0) return damaged("bad Huffman code");
+            const int r = rs >> 4, s = rs & 15;
+            if (s) {
+              q += r;
+              const int v = extend(b.get(s), s);
+              blk[kNatural[q]] = static_cast<int16_t>(
+                  static_cast<unsigned>(v) << al);
+            } else if (r == 15) {
+              q += 15;
+            } else {
+              eobrun = 1L << r;
+              if (r) eobrun += b.get(r);
+              --eobrun;
+              break;
+            }
+          }
+        } else {  // decode_mcu_AC_refine
+          int q = ss;
+          // a correction bit for an already nonzero coefficient: 1 adds
+          // the bit to its magnitude, once
+          auto correct = [&](int16_t* coef) {
+            if (b.get(1) && (*coef & p1) == 0)
+              *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+          };
+          if (eobrun == 0) {
+            for (; q <= se; ++q) {
+              const int rs = decode(&b, ac[t & 15]);
+              if (rs < 0) return damaged("bad Huffman code");
+              int r = rs >> 4, s = rs & 15;
+              if (s) {
+                if (s != 1) return damaged("bad Huffman code");
+                s = b.get(1) ? p1 : m1;
+              } else if (r != 15) {
+                eobrun = 1L << r;
+                if (r) eobrun += b.get(r);
+                break;
+              }
+              // past the nonzero coefficients (each gets its correction
+              // bit) and r zero ones, to the new coefficient's place
+              do {
+                int16_t* coef = blk + kNatural[q];
+                if (*coef != 0) {
+                  correct(coef);
+                } else if (--r < 0) {
+                  break;
+                }
+                ++q;
+              } while (q <= se);
+              if (s) blk[kNatural[q]] = static_cast<int16_t>(s);
+            }
+          }
+          if (eobrun > 0) {
+            for (; q <= se; ++q) {
+              int16_t* coef = blk + kNatural[q];
+              if (*coef != 0) correct(coef);
+            }
+            --eobrun;
+          }
+        }
+      }
+    }
+    if (b.overrun()) return ran_out(b);
+  }
+  if (b.next_marker() < 0)
+    return damaged("Premature end of JPEG file (no EOI)");
+  *end = b.pos;
+  return kOk;
+}
+
 // the frame's components' block grids, each padded to whole MCUs
 void size_coefs(const Frame& f, Coefs* co) {
   const long mw = (f.width + 8L * f.hmax - 1) / (8L * f.hmax);
@@ -519,8 +719,9 @@ void size_coefs(const Frame& f, Coefs* co) {
   }
 }
 
-// The stream walked from SOI to EOI; with co (a sequential Huffman frame
-// only) the coefficients kept. Also reports the frame to *fo.
+// The stream walked from SOI to EOI; with co (a sequential or progressive
+// Huffman frame only) the coefficients kept. Also reports the frame, and a
+// progressive frame's scan script, to *fo.
 int walk(const uint8_t* d, long n, Coefs* co, Frame* fo) {
   Frame f;
   HuffTable dc[4], ac[4];
@@ -599,9 +800,11 @@ int walk(const uint8_t* d, long n, Coefs* co, Frame* fo) {
       // a height of 0 comes in a DNL segment after the scan: walk only
       f.huffman_sequential = (m == 0xC0 || m == 0xC1) && f.height > 0 &&
                              f.width > 0;
+      f.progressive = m == 0xC2 && f.height > 0 && f.width > 0;
+      std::memset(f.coef_bits, -1, sizeof(f.coef_bits));
       if (co) {
-        if (!f.huffman_sequential) {
-          set_error("JPEG: not a sequential Huffman stream");
+        if (!f.huffman_sequential && !f.progressive) {
+          set_error("JPEG: not a sequential or progressive Huffman stream");
           return kUnsupported;
         }
         size_coefs(f, co);
@@ -614,6 +817,12 @@ int walk(const uint8_t* d, long n, Coefs* co, Frame* fo) {
                                  &i);
         if (st) return st;
         continue;
+      }
+      if (f.progressive) {
+        const int st = read_progressive_scan(d, n, body, blen, i, &f, dc, ac,
+                                             restart, co, &i);
+        if (st) return st;
+        if (co) continue;
       }
       while (i + 1 < n) {  // up to the next marker
         const void* ff = std::memchr(d + i, 0xFF, n - 1 - i);
@@ -786,25 +995,23 @@ int jpeg_check(const uint8_t* d, long n) {
   return walk(d, n, nullptr, nullptr);
 }
 
-bool jpeg_sequential(const uint8_t* d, long n) {
+namespace {
+
+// the frame header's test of jpeg_host_kind for the frame of marker sof
+bool host_frame(const uint8_t* d, long n, int sof) {
   long len = 0;
-  const uint8_t* sof = nullptr;
-  int kind = -1;
-  for (int m : {0xC0, 0xC1}) {
-    if ((sof = find_segment(d, n, m, &len))) {
-      kind = m;
-      break;
-    }
-  }
+  const uint8_t* f = find_segment(d, n, sof, &len);
+  if (!f) return false;
   // any other SOFn before the first scan makes the stream another kind
-  for (int m = 0xC2; m <= 0xCF && kind >= 0; ++m) {
+  for (int m = 0xC0; m <= 0xCF; ++m) {
     long l2;
-    if (m != 0xC4 && m != 0xC8 && m != 0xCC && find_segment(d, n, m, &l2))
+    if (m != sof && m != 0xC4 && m != 0xC8 && m != 0xCC &&
+        find_segment(d, n, m, &l2))
       return false;
   }
-  if (kind < 0 || len < 6 || sof[0] != 8) return false;
-  const int h = (sof[1] << 8) | sof[2], w = (sof[3] << 8) | sof[4];
-  const int nc = sof[5];
+  if (len < 6 || f[0] != 8) return false;
+  const int h = (f[1] << 8) | f[2], w = (f[3] << 8) | f[4];
+  const int nc = f[5];
   if (h == 0 || w == 0 || len != 6 + 3 * nc) return false;
   if (nc == 1) return true;
   if (nc != 3) return false;
@@ -818,34 +1025,35 @@ bool jpeg_sequential(const uint8_t* d, long n) {
   const bool is_adobe = adobe && al >= 12 && std::memcmp(adobe, "Adobe", 5) == 0;
   if (!is_jfif) {
     if (is_adobe ? adobe[11] == 0
-                 : (sof[6] == 'R' && sof[9] == 'G' && sof[12] == 'B'))
+                 : (f[6] == 'R' && f[9] == 'G' && f[12] == 'B'))
       return false;
   }
   // luma at the largest factors, both chroma planes alike, each factor
   // 1 or 2 times the chroma's (the upsamplings of ycc_to_rgb)
-  const int hy = sof[7] >> 4, vy = sof[7] & 15;
-  const int hc = sof[10] >> 4, vc = sof[10] & 15;
-  if (sof[13] != sof[10] || hc < 1 || vc < 1 || hy < hc || vy < vc)
+  const int hy = f[7] >> 4, vy = f[7] & 15;
+  const int hc = f[10] >> 4, vc = f[10] & 15;
+  if (f[13] != f[10] || hc < 1 || vc < 1 || hy < hc || vy < vc)
     return false;
   return (hy == hc || hy == 2 * hc) && (vy == vc || vy == 2 * vc);
 }
 
-int jpeg_decode_sequential(const uint8_t* d, long n, uint8_t* out, int h,
-                           int w) {
-  if (!jpeg_sequential(d, n)) {
-    set_error("JPEG: not a sequential Huffman stream of 8 bits, gray or "
-              "YCbCr with chroma factors 1 or 2");
-    return kUnsupported;
-  }
-  Coefs co;
-  Frame f;
-  const int st = walk(d, n, &co, &f);
-  if (st) return st;
+// whether a progressive frame's script reached the last bit of every
+// coefficient libjpeg's block smoothing reads, in every component
+bool script_complete(const Frame& f) {
+  for (int c = 0; c < f.ncomp; ++c)
+    for (int k = 0; k < kSmoothCoefs; ++k)
+      if (f.coef_bits[c][k] != 0) return false;
+  return true;
+}
+
+// the planes of the kept coefficients (libjpeg's downsampled sizes),
+// dequantized and through jpeg_idct_islow, then ycc_to_rgb into out; a
+// gray stream repeated over three channels
+int finish(const Coefs& co, const Frame& f, uint8_t* out, int h, int w) {
   if (f.height != h || f.width != w) {
     set_error("JPEG size differs from the size asked for");
     return kSizeMismatch;
   }
-  // each component's plane, libjpeg's downsampled size
   std::vector<uint8_t> planes[3];
   int ph[3], pw[3];
   for (int c = 0; c < f.ncomp; ++c) {
@@ -874,6 +1082,49 @@ int jpeg_decode_sequential(const uint8_t* d, long n, uint8_t* out, int h,
   ycc_to_rgb(planes[0].data(), planes[1].data(), planes[2].data(), h, w,
              ph[1], pw[1], f.hs[0] / f.hs[1], f.vs[0] / f.vs[1], out);
   return kOk;
+}
+
+}  // namespace
+
+int jpeg_host_kind(const uint8_t* d, long n) {
+  if (host_frame(d, n, 0xC0) || host_frame(d, n, 0xC1)) return kSequential;
+  if (!host_frame(d, n, 0xC2)) return kOther;
+  Frame f;  // the scan script: the headers read, the data skipped
+  if (walk(d, n, nullptr, &f) != kOk || !script_complete(f)) return kOther;
+  return kProgressive;
+}
+
+int jpeg_decode_sequential(const uint8_t* d, long n, uint8_t* out, int h,
+                           int w) {
+  if (jpeg_host_kind(d, n) != kSequential) {
+    set_error("JPEG: not a sequential Huffman stream of 8 bits, gray or "
+              "YCbCr with chroma factors 1 or 2");
+    return kUnsupported;
+  }
+  Coefs co;
+  Frame f;
+  const int st = walk(d, n, &co, &f);
+  return st ? st : finish(co, f, out, h, w);
+}
+
+int jpeg_decode_progressive(const uint8_t* d, long n, uint8_t* out, int h,
+                            int w) {
+  if (!host_frame(d, n, 0xC2)) {
+    set_error("JPEG: not a progressive Huffman stream of 8 bits, gray or "
+              "YCbCr with chroma factors 1 or 2");
+    return kUnsupported;
+  }
+  Coefs co;
+  Frame f;
+  const int st = walk(d, n, &co, &f);
+  if (st) return st;
+  if (!script_complete(f)) {
+    set_error("JPEG: a progressive script that leaves a coefficient short "
+              "of its last bit (libjpeg smooths such blocks; not decoded "
+              "here)");
+    return kUnsupported;
+  }
+  return finish(co, f, out, h, w);
 }
 
 // ------------------------------------------------------------------ PNG
@@ -1137,9 +1388,13 @@ int sdt_decode(const uint8_t* d, long n, uint8_t* out, int h, int w) {
   if (is_png(d, n)) return sdt_png_decode(d, n, out, h, w);
   if (is_jpeg(d, n)) {
     // the back end's route for this kind of stream, chosen before any
-    // decode: the sequential decoder checks as it decodes
-    if (jpeg_sequential_on_host() && jpeg_sequential(d, n))
-      return jpeg_decode_sequential(d, n, out, h, w);
+    // decode: the host decoders check as they decode
+    if (jpeg_host_route()) {
+      const int kind = jpeg_host_kind(d, n);
+      if (kind == kSequential) return jpeg_decode_sequential(d, n, out, h, w);
+      if (kind == kProgressive)
+        return jpeg_decode_progressive(d, n, out, h, w);
+    }
     const int st = jpeg_check(d, n);
     return st ? st : jpeg_decode(d, n, out, h, w);
   }
@@ -1163,16 +1418,17 @@ void sdt_rgb_to_ycc420(const uint8_t* rgb, int h, int w, uint8_t* y,
 // 0 for a whole JPEG stream, else kCorrupt (the fault in sdt_last_error)
 int sdt_jpeg_check(const uint8_t* d, long n) { return jpeg_check(d, n); }
 
-// 1 for a stream the sequential decoder takes (sdt::jpeg_sequential)
-int sdt_jpeg_sequential(const uint8_t* d, long n) {
-  return jpeg_sequential(d, n) ? 1 : 0;
+// the host decoder that takes the stream (sdt::jpeg_host_kind): 0 none,
+// 1 sequential, 2 progressive
+int sdt_jpeg_host_kind(const uint8_t* d, long n) {
+  return jpeg_host_kind(d, n);
 }
 
-// 1 where sdt_decode sends those streams to the sequential decoder
-int sdt_jpeg_sequential_on_host() { return jpeg_sequential_on_host(); }
+// 1 where sdt_decode sends those streams to the host decoders
+int sdt_jpeg_host_route() { return jpeg_host_route(); }
 
 // the back end's own decode of any JPEG stream, after the check (the
-// route sdt_decode takes for the streams jpeg_sequential refuses)
+// route sdt_decode takes for the streams jpeg_host_kind refuses)
 int sdt_decode_jpeg_backend(const uint8_t* d, long n, uint8_t* out, int h,
                             int w) {
   const int st = jpeg_check(d, n);
@@ -1183,6 +1439,12 @@ int sdt_decode_jpeg_backend(const uint8_t* d, long n, uint8_t* out, int h,
 int sdt_decode_jpeg_sequential(const uint8_t* d, long n, uint8_t* out, int h,
                                int w) {
   return jpeg_decode_sequential(d, n, out, h, w);
+}
+
+// sdt::jpeg_decode_progressive on either route, for the tests
+int sdt_decode_jpeg_progressive(const uint8_t* d, long n, uint8_t* out,
+                                int h, int w) {
+  return jpeg_decode_progressive(d, n, out, h, w);
 }
 
 // sdt::ycc_to_rgb for the tests: planes y (h, w), cb and cr (ch, cw)

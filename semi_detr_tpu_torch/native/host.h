@@ -42,12 +42,16 @@ void ycc_to_rgb(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
 // code pass.
 int jpeg_check(const uint8_t* d, long n);
 
-// true for a stream jpeg_decode_sequential takes: sequential Huffman
-// (SOF0, SOF1) of 8 bits, gray or YCbCr (libjpeg's colour space guess),
-// the luma at the largest sampling factors and both chroma planes subsampled
-// alike by 1 or 2 in each direction. Read from the segments before the
-// first scan only.
-bool jpeg_sequential(const uint8_t* d, long n);
+// the library's own decoder that takes a stream: kSequential for
+// sequential Huffman (SOF0, SOF1), kProgressive for progressive Huffman
+// (SOF2) whose scan script completes the coefficients libjpeg's block
+// smoothing reads (the scan headers walked, the data skipped), kOther for
+// the rest (arithmetic coding, 12 bits, CMYK, RGB, other factors). The
+// first two need 8 bits, gray or YCbCr (libjpeg's colour space guess), the
+// luma at the largest sampling factors and both chroma planes subsampled
+// alike by 1 or 2 in each direction.
+enum JpegKind { kOther = 0, kSequential = 1, kProgressive = 2 };
+int jpeg_host_kind(const uint8_t* d, long n);
 
 // libjpeg's default decode of such a stream, in this library: the
 // entropy-coded data decoded (checked as jpeg_check checks it), dequantized,
@@ -56,6 +60,13 @@ bool jpeg_sequential(const uint8_t* d, long n);
 // libjpeg's decode. Another kind of stream gives kUnsupported.
 int jpeg_decode_sequential(const uint8_t* d, long n, uint8_t* out, int h,
                            int w);
+
+// the same for a progressive stream of those kinds (jdphuff.c's four
+// scan types into coefficient buffers kept across the scans); a script
+// that leaves a coefficient libjpeg's block smoothing reads short of its
+// last bit gives kUnsupported: libjpeg would smooth those blocks
+int jpeg_decode_progressive(const uint8_t* d, long n, uint8_t* out, int h,
+                            int w);
 
 // libjpeg's input stage for a 4:2:0 stream: RGB (h, w, 3) -> y (h, w), and
 // cb and cr ((h + 1) / 2, (w + 1) / 2) by the fixed-point tables of
@@ -76,9 +87,10 @@ constexpr int kJpegQuality = 95;
 // buffer the caller frees
 int jpeg_encode(const uint8_t* rgb, int h, int w, uint8_t** out, long* size);
 const char* jpeg_backend();
-// true where sdt_decode gives the streams jpeg_sequential takes to
-// jpeg_decode_sequential instead of the back end (nvJPEG: its IDCT is not
-// libjpeg's); the libjpeg back end decodes every stream itself
-bool jpeg_sequential_on_host();
+// true where sdt_decode gives the streams jpeg_host_kind takes to
+// jpeg_decode_sequential or jpeg_decode_progressive instead of the back end
+// (nvJPEG: its IDCT is not libjpeg's); the libjpeg back end decodes every
+// stream itself
+bool jpeg_host_route();
 
 }  // namespace sdt

@@ -1,7 +1,7 @@
 // JPEG back end of the host library through nvJPEG, for a machine that has
 // the CUDA toolkit but no libjpeg (the H100 machine of this port). A
-// sequential Huffman stream does not come here: host.cpp decodes it
-// libjpeg-exact (jpeg_sequential_on_host). Any other stream is decoded on
+// sequential or progressive Huffman stream that jpeg_host_kind takes does
+// not come here: host.cpp decodes it libjpeg-exact (jpeg_host_route). Any other stream is decoded on
 // the card to its Y, Cb and Cr planes, copied back to
 // host memory and finished as libjpeg finishes it (fancy chroma upsampling
 // and its fixed-point colour tables, host.cpp's ycc_to_rgb), so only
@@ -282,6 +282,6 @@ int jpeg_encode(const uint8_t* rgb, int h, int w, uint8_t** out, long* size) {
 
 const char* jpeg_backend() { return "nvjpeg"; }
 
-bool jpeg_sequential_on_host() { return true; }
+bool jpeg_host_route() { return true; }
 
 }  // namespace sdt

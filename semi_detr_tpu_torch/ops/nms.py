@@ -83,8 +83,12 @@ def _fixpoint(alive, overlap):
             new = alive & ~(overlap & keep[None, :]).any(1)
             return i + 1, new, (new != keep).any()
 
+        # the carried keep starts as a copy: a tensor that is both a
+        # carried input and one the body reads is an alias AOTInductor
+        # refuses
         start = (torch.zeros((), dtype=torch.int64, device=alive.device),
-                 alive, torch.ones((), dtype=torch.bool, device=alive.device))
+                 alive.clone(),
+                 torch.ones((), dtype=torch.bool, device=alive.device))
         return while_loop(cond, body, start)[1]
     keep = alive
     for _ in range(k):

@@ -64,6 +64,37 @@ def _stages(pred, images, reps=3):
     return {k: float(np.median(v) * 1e3) for k, v in out.items()}
 
 
+def device_trace(run):
+    """The device side of a torch.profiler trace of run() (after one
+    trace that pays the tracer's setup): (busy ms, the union of the
+    device events' intervals; {event name: device ms}). Only device-side
+    events (kernels, copies, sets) count: the host-side op events of the
+    same trace carry the same device time again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return prof
+
+    traced()
+    spans, kernels = [], {}
+    for e in traced().events():
+        if e.device_type == DeviceType.CUDA:
+            t0, t1 = e.time_range.start, e.time_range.end
+            spans.append((t0, t1))
+            kernels[e.name] = kernels.get(e.name, 0.0) + (t1 - t0) / 1e3
+    busy_ms, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        if t1 > end:
+            busy_ms += (t1 - max(t0, end)) / 1e3
+            end = t1
+    return busy_ms, kernels
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -71,8 +102,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_predict needs a CUDA card")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     pred = init_detector(CONFIG, None, device="cuda", use_nms=False, seed=0)
     rng = np.random.RandomState(0)
@@ -81,30 +110,8 @@ def main(argv=None):
     for img in images:
         pred(img, score_thr=-1.0)
     stages = _stages(pred, images)
-
-    def traced():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for img in images:
-                pred(img, score_thr=-1.0)
-            torch.cuda.synchronize()
-        return prof
-
-    traced()                        # the first trace pays the tracer's setup
-    prof = traced()
-    # device-side events only (kernels, copies, sets): the host-side op
-    # events of the same trace carry the same device time again
-    spans, kernels = [], {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            t0, t1 = e.time_range.start, e.time_range.end
-            spans.append((t0, t1))
-            kernels[e.name] = kernels.get(e.name, 0.0) + (t1 - t0) / 1e3
-    busy_ms, end = 0.0, float("-inf")
-    for t0, t1 in sorted(spans):              # union of device intervals
-        if t1 > end:
-            busy_ms += (t1 - max(t0, end)) / 1e3
-            end = t1
+    busy_ms, kernels = device_trace(
+        lambda: [pred(img, score_thr=-1.0) for img in images])
     n = len(images)
     device_ms = sum(kernels.values())
     msda_ms = sum(v for k, v in kernels.items() if "msda_fwd" in k)

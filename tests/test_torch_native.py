@@ -7,9 +7,9 @@ plain versions, the JAX package's native decoder and resize, and cv2.
   op x magnitude cases, the PNG row filters and decoder (against
   `image_io`), JPEG decode (against the JAX decoder and cv2.imread) and
   encode (cv2.imwrite's bytes), on seeded images of odd sizes; the
-  library's own sequential decoder (the card's route) against libjpeg on
-  the fixtures and on cv2- and Pillow-written streams of every chroma
-  layout, gray, restart intervals 1 and 7.
+  library's own sequential and progressive decoders (the card's route)
+  against libjpeg on the fixtures and on cv2- and Pillow-written streams
+  of every chroma layout, gray, restart intervals 1 and 7.
 * Within tolerance: the resize within one grey level of cv2.resize.
 * Behaviour: damaged, CMYK and unknown files raise naming the file; the
   prefetch loader (the JAX test's cases, `next()` with nothing
@@ -70,11 +70,15 @@ def test_built_with_png_and_a_jpeg_decoder():
     found = native.probe()
     assert found["zlib"] and found["route"] in ("libjpeg", "nvjpeg")
     dec = native.decoders()
-    assert set(dec) == {"png", "jpeg", "jpeg_sequential", "jpeg_other"}
+    assert set(dec) == {"png", "jpeg", "jpeg_sequential", "jpeg_progressive",
+                        "jpeg_other"}
     assert dec["jpeg"] == dec["jpeg_other"] == found["route"]
-    # the card's build decodes sequential streams here, libjpeg-exact
+    # the card's build decodes sequential and progressive streams here,
+    # libjpeg-exact
     assert dec["jpeg_sequential"] == (
         native.SEQUENTIAL if found["route"] == "nvjpeg" else "libjpeg")
+    assert dec["jpeg_progressive"] == (
+        native.PROGRESSIVE if found["route"] == "nvjpeg" else "libjpeg")
 
 
 # ---------------------------------------------------------------- resize
@@ -304,17 +308,19 @@ def test_jpeg_decode_equals_jax_and_cv2(kind):
     np.testing.assert_array_equal(got, _cv2_rgb(buf))
 
 
-@pytest.mark.parametrize("name", ["colour_420", "gray"])
+@pytest.mark.parametrize("name", ["colour_420", "gray", "progressive_420"])
 def test_committed_fixtures(name):
     """The fixtures are cv2.imwrite's files of fixture_picture, each with
     its libjpeg decode as PNG; the library reads both to those pixels."""
     jpg = os.path.join(native.FIXTURES, f"{name}.jpg")
     with open(jpg, "rb") as f:
         buf = f.read()
-    pic = fixture_picture(75, 101, 0) if name == "colour_420" else \
-        fixture_picture(53, 67, 1).mean(-1).astype(np.uint8)
+    pic = fixture_picture(53, 67, 1).mean(-1).astype(np.uint8) \
+        if name == "gray" else fixture_picture(75, 101, 0)
     src = pic[..., ::-1] if pic.ndim == 3 else pic
-    assert buf == cv2.imencode(".jpg", src)[1].tobytes()
+    params = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1] if "progressive" in name \
+        else []
+    assert buf == cv2.imencode(".jpg", src, params)[1].tobytes()
     ref = image_io.read_image(os.path.join(native.FIXTURES, f"{name}.png"))
     np.testing.assert_array_equal(image_io.read_image(jpg), ref)
     np.testing.assert_array_equal(_cv2_rgb(buf), ref)
@@ -444,7 +450,7 @@ def test_sequential_decoder_on_the_fixtures(name):
     libjpeg's decode here."""
     with open(os.path.join(native.FIXTURES, f"{name}.jpg"), "rb") as f:
         buf = f.read()
-    assert native.jpeg_sequential(buf)
+    assert native.jpeg_host_kind(buf) == "sequential"
     got = native.decode_jpeg_sequential(buf)
     np.testing.assert_array_equal(got, native.decode_jpeg_backend(buf))
     np.testing.assert_array_equal(got, _cv2_rgb(buf))
@@ -475,7 +481,7 @@ def test_sequential_decoder_equals_libjpeg(kind, rst):
         if kind != "gray":
             params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, _SAMPLING[kind]]
         buf = cv2.imencode(".jpg", src, params)[1].tobytes()
-        assert native.jpeg_sequential(buf)
+        assert native.jpeg_host_kind(buf) == "sequential"
         got = native.decode_jpeg_sequential(buf)
         np.testing.assert_array_equal(got, native.decode_jpeg_backend(buf))
         np.testing.assert_array_equal(got, _cv2_rgb(buf))
@@ -487,7 +493,7 @@ def test_sequential_decoder_on_other_writers():
     for name, buf in _valid_jpegs().items():
         if "progressive" in name:
             continue
-        assert native.jpeg_sequential(buf), name
+        assert native.jpeg_host_kind(buf) == "sequential", name
         np.testing.assert_array_equal(native.decode_jpeg_sequential(buf),
                                       _cv2_rgb(buf), err_msg=name)
 
@@ -513,19 +519,137 @@ def test_sequential_decoder_raises_on_damage():
 
 
 def test_progressive_stream_is_routed_not_decoded():
-    """A progressive stream is not the sequential decoder's: it stays on
-    the back end's route (the card's nvJPEG there), and the sequential
-    decoder refuses it rather than decode it."""
+    """A progressive stream is not the sequential decoder's, which refuses
+    it rather than decode it: it takes the progressive decoder's route
+    (the card's route for it, `decoders()["jpeg_progressive"]`). A CMYK
+    stream is neither's: it stays on the back end's route."""
     img = _picture(33, 47, 4)
     buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[
         1].tobytes()
-    assert not native.jpeg_sequential(buf)
+    assert native.jpeg_host_kind(buf) == "progressive"
     with pytest.raises(native.ImageDecodeError, match="not a sequential"):
         native.decode_jpeg_sequential(buf)
+    np.testing.assert_array_equal(native.decode_jpeg_progressive(buf),
+                                  _cv2_rgb(buf))
     np.testing.assert_array_equal(native.decode_image(buf), _cv2_rgb(buf))
+    assert set(native.decoders()) >= {"jpeg_sequential", "jpeg_progressive",
+                                      "jpeg_other"}
     cmyk = io.BytesIO()
     Image.new("CMYK", (20, 10), (10, 20, 30, 40)).save(cmyk, "JPEG")
-    assert not native.jpeg_sequential(cmyk.getvalue())
+    assert native.jpeg_host_kind(cmyk.getvalue()) is None
+    seq = cv2.imencode(".jpg", img)[1].tobytes()
+    with pytest.raises(native.ImageDecodeError, match="not a progressive"):
+        native.decode_jpeg_progressive(seq)
+
+
+# ------------------------------------------ the progressive JPEG decoder
+
+def _scans(buf):
+    """(start of each SOS marker, start of its entropy-coded data)."""
+    out, i = [], 0
+    while (i := buf.find(b"\xff\xda", i)) >= 0:
+        out.append((i, i + 2 + (buf[i + 2] << 8 | buf[i + 3])))
+        i += 2
+    return out
+
+
+@pytest.mark.parametrize("rst", [0, 1, 7])
+@pytest.mark.parametrize("kind", ["444", "422", "420", "440", "gray"])
+def test_progressive_decoder_equals_libjpeg(kind, rst):
+    """cv2's progressive streams (libjpeg's scan script: DC first and
+    refinement scans, AC first bands with end-of-band runs, AC refinements
+    with correction bits) of every chroma layout, gray, odd and tiny
+    sizes, qualities 5 to 100 and restart intervals 1 and 7: bit-equal to
+    libjpeg's decode (the back end here, and cv2.imread)."""
+    for (h, w), q in zip(((1, 1), (7, 9), (17, 33), (61, 83), (64, 48)),
+                         (5, 50, 75, 95, 100)):
+        img = _picture(h, w, seed=h + q)
+        src = img[..., 0] if kind == "gray" else img
+        params = [cv2.IMWRITE_JPEG_QUALITY, q,
+                  cv2.IMWRITE_JPEG_RST_INTERVAL, rst,
+                  cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+        if kind != "gray":
+            params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, _SAMPLING[kind]]
+        buf = cv2.imencode(".jpg", src, params)[1].tobytes()
+        assert len(_scans(buf)) > 2
+        assert native.jpeg_host_kind(buf) == "progressive"
+        got = native.decode_jpeg_progressive(buf)
+        np.testing.assert_array_equal(got, native.decode_jpeg_backend(buf))
+        np.testing.assert_array_equal(got, _cv2_rgb(buf))
+
+
+@pytest.mark.parametrize("quality", [10, 75, 95])
+def test_progressive_decoder_on_other_writers(quality):
+    """Pillow's progressive streams (4:4:4, 4:2:2, 4:2:0, optimized
+    tables, gray) and the committed fixture."""
+    for sub in (0, 1, 2):
+        for hw in ((1, 1), (13, 29), (61, 83)):
+            for extra in ({}, {"optimize": True}):
+                buf = io.BytesIO()
+                Image.fromarray(_picture(*hw, sub + quality)).save(
+                    buf, "JPEG", quality=quality, subsampling=sub,
+                    progressive=True, **extra)
+                buf = buf.getvalue()
+                assert native.jpeg_host_kind(buf) == "progressive"
+                np.testing.assert_array_equal(
+                    native.decode_jpeg_progressive(buf), _cv2_rgb(buf),
+                    err_msg=f"{sub} {hw} {extra}")
+    buf = io.BytesIO()
+    Image.fromarray(_picture(40, 50, 1)[..., 0]).save(
+        buf, "JPEG", quality=quality, progressive=True)
+    np.testing.assert_array_equal(
+        native.decode_jpeg_progressive(buf.getvalue()),
+        _cv2_rgb(buf.getvalue()))
+    with open(os.path.join(native.FIXTURES, "progressive_420.jpg"),
+              "rb") as f:
+        buf = f.read()
+    np.testing.assert_array_equal(
+        native.decode_jpeg_progressive(buf), image_io.read_image(
+            os.path.join(native.FIXTURES, "progressive_420.png")))
+
+
+def test_progressive_decoder_raises_on_damage():
+    """Truncated data, a bad Huffman code in the DC scan and restart
+    markers out of order raise ImageDecodeError; the check finds the
+    truncation first."""
+    buf = cv2.imencode(".jpg", _picture(96, 128, 5),
+                       [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
+    (_, start), (nxt, _) = _scans(buf)[:2]
+    mid = (start + nxt) // 2 - 8
+    assert buf.find(b"\xff", mid, mid + 16) < 0
+    ones = buf[:mid] + b"\xff\x00" * 8 + buf[mid + 16:]
+    rst = cv2.imencode(".jpg", _picture(40, 56, 2),
+                       [cv2.IMWRITE_JPEG_RST_INTERVAL, 1,
+                        cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
+    marks = [i for i in range(len(rst) - 1)
+             if rst[i] == 0xFF and 0xD0 <= rst[i + 1] <= 0xD7]
+    for bad, fault in ((buf[:len(buf) // 2], "Premature end"),
+                       (buf[:len(buf) - 2], "Premature end"),
+                       (ones, "bad Huffman code"),
+                       (rst[:marks[2]] + rst[marks[2] + 2:],
+                        "restart marker")):
+        with pytest.raises(native.ImageDecodeError, match=fault):
+            native.decode_jpeg_progressive(bad)
+    for bad in (buf[:len(buf) // 2], buf[:len(buf) - 2]):
+        assert "Premature end" in native.jpeg_check(bad)
+
+
+def test_incomplete_progressive_script_is_refused():
+    """A script that ends before the last bit of the DC or the first AC
+    coefficients (the first scans of a stream, then EOI) is one libjpeg
+    decodes with block smoothing, which the library does not reproduce:
+    the host decoders do not take it (the back end's route does) and the
+    progressive decoder raises rather than give unsmoothed pixels."""
+    buf = cv2.imencode(".jpg", _picture(48, 64, 7),
+                       [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
+    scans = _scans(buf)
+    for k in (1, 3, len(scans) - 1):
+        cut = buf[:scans[k][0]] + b"\xff\xd9"
+        assert native.jpeg_check(cut) is None
+        assert native.jpeg_host_kind(cut) is None, k
+        with pytest.raises(native.ImageDecodeError, match="smooth"):
+            native.decode_jpeg_progressive(cut)
+        assert native.decode_image(cut).shape == (48, 64, 3)
 
 
 def test_jpeg_check_passes_whole_streams():
