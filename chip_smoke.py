@@ -92,11 +92,20 @@ Phases (any failure exits non-zero):
    end is nvJPEG; `decoders()` names the routes), and the back end's own
    decode
    within NVJPEG_TOL on the nvJPEG route; ms per image of both. The
+   fixtures of every other kind the JAX package reads (native/fixtures/
+   jpeg_formats.json: 4:1:1, 4:4:0, Adobe RGB, arithmetic sequential and
+   progressive, a progressive script cut after 3 scans (smoothed), CMYK,
+   YCCK; png_*.png: 1-, 2- and 4-bit gray, a 2-bit palette with tRNS,
+   16-bit RGBA, Adam7 RGB) decode through the host decoders to their
+   committed pixels (libjpeg's, libpng's, cv2's for CMYK and YCCK) at
+   max abs 0, each with its kind, route and ms; nvJPEG's decode of each
+   JPEG fixture is printed beside it (or its refusal). The
    library's JPEG encode + decode of both fixture pictures and a 480x640
    noise picture against cv2's quality-95 round trip of each (committed in
    native/fixtures/cv2_q95_roundtrip.json): equal on the libjpeg route,
    within ROUND_TRIP_SLACK on the nvJPEG route. A truncated copy of the
-   colour fixture and one with a bad Huffman code raise ImageDecodeError
+   colour fixture and one with a bad Huffman code, a truncated arithmetic
+   fixture and a PNG fixture with a damaged chunk raise ImageDecodeError
    naming the file. Every
    op equals its numpy plain version bit for bit on this host: a 480x640
    source resized to all 11 COCO scales, the six warps (translate x / y,
@@ -106,7 +115,9 @@ Phases (any failure exits non-zero):
 7. Trainer path, in a temporary directory removed at the end: the port's
    `write_synthetic_coco` writes 8 labelled, 16 unlabelled and 8 val JPEG
    images of 480x640 through the host library (up to 3 boxes and 2
-   distractors each, class "person"); the SSOD CLI
+   distractors each, class "person"), and phase 7a's fixtures of the other
+   kinds (JPEG and PNG) join the unlabelled and val images, without boxes,
+   so the trainer and its evals read them; the SSOD CLI
    (`tools.train_detr_ssod.main`, in-process) runs
    configs/detr_ssod/semi_detr_r50_coco_120k.py at full width (80 classes,
    1 + 4 images at 800x1344, the 11 COCO scales, bfloat16) from those files
@@ -159,10 +170,12 @@ Phases (any failure exits non-zero):
    wrote the checkpoint, the launches per step equal phase 7's, the eval
    lines hold valid APs.
 
-8c. FSDP, tensor parallelism and donation (`parallel.sharding`), each leg
-   spawned as 8a's ranks (gloo on the one card; NCCL, one rank per card,
-   where the machine has as many cards): FSDP at W = 2, TP at tp = 2 (W =
-   2, data 1), FSDP + TP at W = 4 (data 2 x model 2). Each leg runs 8a's
+8c. FSDP, tensor parallelism and donation (`parallel.sharding`), the legs
+   run by ranks spawned as 8a's (gloo on the one card; NCCL, one rank per
+   card, where the machine has as many cards), one spawn per world size,
+   its legs in turn: FSDP at W = 2 then TP at tp = 2 (W = 2, data 1) in
+   phase 8a's two ranks, after 8a's runs; FSDP + TP at W = 4 (data 2 x
+   model 2) and then the trainer below in four. Each leg runs 8a's
    float32 equality run on its layout (a TP leg its first step only,
    `layout_eq_steps`): the first step against 8a's one process and
    witnesses (the same seeded start), the second against one process from
@@ -184,13 +197,14 @@ Phases (any failure exits non-zero):
    and optimizer update so from one state and one set of seeded gradients
    against the whole state in one call, in turns: bit-equal, every state
    tensor in its storage, the peak no higher, the ms of each; then a
-   whole step keeps the storage. Last, the SSOD CLI with fsdp=True tp=2
-   donate=True over 4 ranks on a synthetic JPEG set (2 steps, an eval and
-   a checkpoint at the end), and that checkpoint resumed in one process
-   for one step.
+   whole step keeps the storage. The SSOD CLI with fsdp=True tp=2
+   donate=True over the 4 ranks, after their leg, on a synthetic JPEG set
+   (2 steps, an eval and a checkpoint at the end), and that checkpoint
+   resumed in one process for one step.
    Ranks sharing one card give no scaling figure, and none is claimed.
-9. The serving programs exported: `tools.export_model.export_program`
-   traces phase 4's detector (full-width DINO-R50, bfloat16, seeded
+9. (Run after phase 7; its compiles go on beside phases 8a-11, and 9b
+   comes last.) The serving programs exported:
+   `tools.export_model.export_program` traces phase 4's detector (full-width DINO-R50, bfloat16, seeded
    weights, box layers filled) with `torch.export` at batch 1: the top-k
    and the NMS decode in the landscape bucket 800x1344 and the top-k in
    the portrait bucket 1344x800 (SERVED), and saves them. A fresh process
@@ -206,8 +220,10 @@ Phases (any failure exits non-zero):
    landscape top-k of the same weights in float32 with its two-stage
    selection given (`SelectionGiven`), compiled by AOTInductor
    (`tools.export_model.package_program`) into packages, one compiling
-   process each, all at once (after the timed phases, before the timed
-   runs); each package run by the same fresh Python process
+   process each with PACKAGE_THREADS compile threads, all started as
+   phase 9 saves the programs; 9b, after phase 11, waits for them, makes
+   the detector again from its seed and times eager `predict`; each
+   package run by the same fresh Python process
    (`aoti_load_package`; the Python operator serves MSDA) and each
    bfloat16 one by the C++ runner (`tools.serve_runner`: csrc/
    serve_main.cpp built by g++ in phase 2, no libpython in its `ldd`, an
@@ -251,6 +267,7 @@ Phases (any failure exits non-zero):
 The line before the last is a JSON object with the kernels' numbers and the
 training records; the last line is {"ok": true, "device": {...}}.
 """
+import atexit
 import concurrent.futures
 import contextlib
 import copy
@@ -448,14 +465,15 @@ TORCHRUN_STEPS, TORCHRUN_WARM_UP, TORCHRUN_TIMEOUT = 4, 2, 300
 # the argument that makes this script phase 8b's rank under the launcher
 TORCHRUN_FLAG = "--torchrun-ssod-cli"
 # phase 7a: the committed JPEG fixtures against their libjpeg pixels.
-# Sequential and progressive Huffman streams (the fixtures, COCO's files)
-# decode in the host library on either route, libjpeg-exact: tolerance
-# (0, 0). The back end's own decode is held too: nvJPEG's IDCT is not
-# libjpeg's (it read max abs 2, mean abs 0.039 grey levels on the colour
-# fixture and 1 / 0.021 on the gray one; NVIDIA H100 80GB HBM3, 700.00 W;
-# libnvjpeg.so.12.4.0.76), and it still decodes arithmetic and Adobe RGB
-# streams and incomplete progressive scripts; the limit on (max abs, mean
-# abs) leaves a level for another IDCT build
+# Every stream libjpeg decodes (Huffman or arithmetic, sequential or
+# progressive, smoothed or not, gray, YCbCr, RGB; and CMYK / YCCK as cv2
+# turns them) decodes in the host library on either route, exactly:
+# tolerance (0, 0). The back end's own decode of the three original
+# fixtures is held as a witness: nvJPEG's IDCT is not libjpeg's (it read
+# max abs 2, mean abs 0.039 grey levels on the colour fixture and 1 / 0.021
+# on the gray one; NVIDIA H100 80GB HBM3, 700.00 W; libnvjpeg.so.12.4.0.76);
+# the limit on (max abs, mean abs) leaves a level for another IDCT build.
+# No stream of a kind the host decoders take reaches it in decode_image.
 NVJPEG_TOL = (3, 0.1)
 # the card's JPEG encode + decode against cv2's quality-95 round trip of
 # the same picture (native/fixtures/cv2_q95_roundtrip.json): grey levels
@@ -477,7 +495,18 @@ EXPORT_BUCKET, EXPORT_REPS = (800, 1344), 5
 EXPORT_FLAG, PACKAGE_FLAG = "--run-exported", "--package-program"
 # Phase 9b packages each program of SERVED with AOTInductor (bfloat16,
 # full width), and FLOAT32_PACKAGE, each in a compiling process of its
-# own (this script with PACKAGE_FLAG), all started together; the loading
+# own (this script with PACKAGE_FLAG), all started together as phase 9
+# saves them, before phase 8a: the compiles run beside phases 8a-11, and
+# 9b, at the end, waits for them. Each compiling process takes
+# PACKAGE_THREADS Inductor compile threads (TORCHINDUCTOR_COMPILE_THREADS;
+# Inductor's default is one per core, 8 on the card's machine), niced by
+# PACKAGE_NICE so that they take the cores the phases beside them leave
+# idle. The top-k compiled first and alone, then the other three together
+# from its warm Inductor cache, took 202.9 s and then 184.0-202.9 s each,
+# 500.1 s of wall time, where four at once had taken 239-277 s each,
+# 355.7 s (two runs of this script, on slow hosts; NVIDIA H100
+# 80GB HBM3, 700.00 W): the lead's cache saved the others little. The
+# loading
 # process runs every package, the C++ runner (tools.serve_runner) the
 # bfloat16 ones, on the requests of its bucket; every process is killed
 # after PACKAGE_TIMEOUT seconds. Inductor fuses the bfloat16 elementwise
@@ -500,6 +529,7 @@ EXPORT_FLAG, PACKAGE_FLAG = "--run-exported", "--package-program"
 # by position and its answer by rank (`held_by_rank`), within FLOAT32_TOL,
 # the CPU package test's tolerance (tests/test_torch_package.py).
 FLOAT32_PACKAGE = "topk_f32_given"
+PACKAGE_THREADS, PACKAGE_NICE = 2, 10
 FLOAT32_TOL = dict(rtol=1e-4, atol=1e-4)
 PACKAGE_TIMEOUT, PACKAGE_WITNESS_FACTOR = 900, 2.0
 # phase 10: remat against no remat from one state, per path and stage,
@@ -1124,6 +1154,7 @@ def host_library_phase(host_build_s):
             raise AssertionError(f"fixture {name}: the {route} back end "
                                  f"beyond (max, mean) {tol}")
 
+    formats = format_fixtures()
     ops = {}
 
     def held(name, args, reps=3):
@@ -1211,9 +1242,82 @@ def host_library_phase(host_build_s):
         f"{k} {v:.3f}" if k.endswith("ms") else f"{k} {v}"
         for k, v in codec.items()))
     return dict(probe=found, decoders=native.decoders(),
-                build_s=host_build_s, fixtures=fixtures, ops=ops,
+                build_s=host_build_s, fixtures=fixtures, formats=formats,
+                ops=ops,
                 colour_ops=colour, codecs=codec, round_trip=round_trip,
                 damaged=damaged)
+
+
+def fixture_names():
+    """(JPEG fixtures by name: their kind and colour, PNG fixture names)
+    of native/fixtures: every other kind of file the JAX package reads."""
+    with open(os.path.join(native.FIXTURES, "jpeg_formats.json")) as f:
+        jpegs = json.load(f)
+    pngs = sorted(n[:-4] for n in os.listdir(native.FIXTURES)
+                  if n.startswith("png_") and n.endswith(".png")
+                  and not n.endswith(".ref.png"))
+    return jpegs, pngs
+
+
+def format_fixtures():
+    """Each fixture of the other kinds decoded by the host library on the
+    card against its committed pixels, at max abs 0: its kind, colour and
+    route, ms per decode; nvJPEG's decode of each JPEG one printed beside
+    it (or its refusal), not held."""
+    jpegs, pngs = fixture_names()
+    routes = native.decoders()
+    out = {}
+    for name, want in jpegs.items():
+        jpg = os.path.join(native.FIXTURES, f"{name}.jpg")
+        with open(jpg, "rb") as f:
+            buf = f.read()
+        ref = image_io.read_image(os.path.join(native.FIXTURES,
+                                               f"{name}.png"))
+        kind, colour = native.jpeg_host_kind(buf), native.jpeg_colour(buf)
+        got = native.decode_image(buf, jpg)
+        diff = np.abs(got.astype(int) - ref.astype(int)) \
+            if got.shape == ref.shape else None
+        row = out[name] = dict(
+            kind=kind, colour=colour,
+            route=routes.get("jpeg_" + str(kind).replace(" ", "_")),
+            shape=list(got.shape),
+            max_abs=None if diff is None else int(diff.max()),
+            ms=best_ms(lambda: native.decode_image(buf)))
+        try:
+            back = native.decode_jpeg_backend(buf, jpg)
+            bdiff = np.abs(back.astype(int) - ref.astype(int))
+            row["backend"] = dict(max_abs=int(bdiff.max()),
+                                  mean_abs=float(bdiff.mean()))
+        except native.ImageDecodeError as err:
+            row["backend"] = dict(refused=str(err).split(": ", 1)[-1])
+        log(f"  fixture {name} ({kind}, {colour}; {row['route']}): max abs "
+            f"{row['max_abs']}, {row['ms']:.3f} ms; the back end's decode "
+            f"({routes['jpeg']}): {row['backend']}")
+        if (kind, colour) != (want["kind"], want["colour"]) \
+                or row["max_abs"] != 0:
+            raise AssertionError(f"fixture {name}: {row}, want {want} at "
+                                 "max abs 0")
+    for name in pngs:
+        path = os.path.join(native.FIXTURES, f"{name}.png")
+        with open(path, "rb") as f:
+            buf = f.read()
+        ref = image_io.read_image(os.path.join(native.FIXTURES,
+                                               f"{name}.ref.png"))
+        got = native.decode_image(buf, path)
+        plain = image_io.decode_png(buf)
+        row = out[name] = dict(
+            shape=list(got.shape), route=routes["png"],
+            max_abs=int(np.abs(got.astype(int) - ref.astype(int)).max())
+            if got.shape == ref.shape else None,
+            numpy_equal=bool(np.array_equal(plain, got)),
+            ms=best_ms(lambda: native.decode_image(buf)),
+            numpy_ms=best_ms(lambda: image_io.decode_png(buf), 1))
+        log(f"  fixture {name} (PNG): max abs {row['max_abs']}, "
+            f"{row['ms']:.3f} ms (numpy {row['numpy_ms']:.3f} ms, equal "
+            f"{row['numpy_equal']})")
+        if row["max_abs"] != 0 or not row["numpy_equal"]:
+            raise AssertionError(f"fixture {name}: {row}")
+    return out
 
 
 def jpeg_round_trips(route):
@@ -1259,8 +1363,10 @@ def damaged_jpegs():
     """Damaged copies of the fixtures, each decoded under its own file
     name: the colour one truncated, and each with a run of 64 one bits in
     its entropy-coded data (no Huffman code is all ones; nvJPEG decodes
-    both without complaint, the library's jpeg_check catches them). Each
-    must raise ImageDecodeError naming the file."""
+    both without complaint, the library's checks catch them), the
+    progressive arithmetic one truncated, and the Adam7 PNG with a byte of
+    its data flipped (a bad CRC). Each must raise ImageDecodeError naming
+    the file."""
     cases = {}
     for name in ("colour_420", "gray"):
         with open(os.path.join(native.FIXTURES, f"{name}.jpg"), "rb") as f:
@@ -1272,9 +1378,17 @@ def damaged_jpegs():
             cases[f"{name}_truncated"] = buf[:mid]
         cases[f"{name}_bad_code"] = buf[:mid] + b"\xff\x00" * 8 \
             + buf[mid + 16:]
+    with open(os.path.join(native.FIXTURES, "jpeg_arith_progressive.jpg"),
+              "rb") as f:
+        buf = f.read()
+    cases["arith_progressive_truncated"] = buf[:len(buf) // 2]
+    with open(os.path.join(native.FIXTURES, "png_rgb_adam7.png"), "rb") as f:
+        png = bytearray(f.read())
+    png[60] ^= 0xFF                                    # inside IDAT
+    cases["png_adam7_damaged"] = bytes(png)
     out = {}
     for kind, data in cases.items():
-        name = f"{kind}.jpg"
+        name = f"{kind}.png" if kind.startswith("png") else f"{kind}.jpg"
         try:
             native.decode_image(data, name)
         except native.ImageDecodeError as err:
@@ -1288,11 +1402,12 @@ def damaged_jpegs():
     return out
 
 
-def augment_ms(dataset, reps=16):
+def augment_ms(dataset, n_synthetic, reps=16):
     """Host ms per weak and per strong view of the set's images at the
     recipe's 11 scales (the prefetch worker's work per view), with the
     pixel work of the host library and of the numpy plain versions (the
-    same draws), and ms per image decode (read_image)."""
+    same draws), and ms per image decode (read_image) of its first
+    n_synthetic images (the synthetic set's, before the fixtures)."""
     imgs = [dataset.load_image(i) for i in range(4)]
     out = {}
     for pixels, label in ((native, "cpp"), (augment.NumpyPixels, "numpy")):
@@ -1309,10 +1424,34 @@ def augment_ms(dataset, reps=16):
         finally:
             augment.px = native
     t0 = time.perf_counter()
-    for i in range(len(dataset)):
+    for i in range(n_synthetic):
         dataset.load_image(i)
-    out["decode_per_image"] = (time.perf_counter() - t0) / len(dataset) * 1e3
+    out["decode_per_image"] = (time.perf_counter() - t0) / n_synthetic * 1e3
     return out
+
+
+def add_format_fixtures(paths, img_dir):
+    """The committed fixtures of every other kind the JAX package reads
+    (native/fixtures: JPEG by jpeg_formats.json, png_*.png) copied into the
+    synthetic set's image directory and appended, without boxes, to its
+    unlabelled and val annotation files, so the trainer's data path and
+    eval read them. Returns their file names."""
+    jpegs, pngs = fixture_names()
+    files = [f"{n}.jpg" for n in sorted(jpegs)] + [f"{n}.png" for n in pngs]
+    entries = []
+    for i, name in enumerate(files):
+        shutil.copy(os.path.join(native.FIXTURES, name), img_dir)
+        with open(os.path.join(img_dir, name), "rb") as f:
+            h, w = native.image_size(f.read(), name)
+        entries.append({"id": 10 ** 6 + i, "file_name": name, "width": w,
+                        "height": h})
+    for split in ("unsup", "val"):
+        with open(paths[split]) as f:
+            coco = json.load(f)
+        coco["images"] += entries
+        with open(paths[split], "w") as f:
+            json.dump(coco, f)
+    return files
 
 
 def quiet_steps(trainer):
@@ -1357,8 +1496,11 @@ def run_trainers(card, tmp, bare_ms):
     names = sorted(os.listdir(img_dir))
     if len(names) != n_img or not all(n.endswith(".jpg") for n in names):
         raise AssertionError(f"synthetic set: {names[:4]} ...")
+    added = add_format_fixtures(paths, img_dir)
     log(f"  wrote {n_img} JPEG images ({native.decoders()['jpeg']}) and "
-        f"{len(paths)} annotation files in {time.perf_counter() - t0:.1f} s")
+        f"{len(paths)} annotation files in {time.perf_counter() - t0:.1f} s;"
+        f" the {len(added)} format fixtures copied among the unlabelled and "
+        f"val images: {added}")
     data_opts = [f"data.train_sup_ann={paths['sup']}",
                  f"data.train_unsup_ann={paths['unsup']}",
                  f"data.val_ann={paths['val']}",
@@ -1510,7 +1652,7 @@ def run_trainers(card, tmp, bare_ms):
     del od
     torch.cuda.empty_cache()
 
-    aug = augment_ms(unsup)
+    aug = augment_ms(unsup, len(TRAINER_SPLITS["unsup"]))
     eval_ms = [e["s"] * 1e3 / (2 * e["images"]) for e in evals]
     wait_ms = [t["data_wait_s"] * 1e3 for t in timings]
     # step 0 of each stage carries its first-call costs; the second is warm
@@ -1708,10 +1850,14 @@ def optimizer_grads(state):
 
 
 
-def ddp_rank(rank, world, init_method, backend, out_dir):
+def ddp_rank(rank, world, init_method, backend, out_dir, legs=(),
+             legs_dir=None):
     """One rank of phase 8a: the float32 equality run (rank 0 saves its
     student and projector after each step), then the bfloat16 timing run
-    with the gradient all-reduce timed; its records to rank<r>.json."""
+    with the gradient all-reduce timed; its records to rank<r>.json. Then
+    phase 8c's legs of this world size (`layout_leg_body`, records under
+    legs_dir/<leg name>/): the ranks' start and the card's context serve
+    both phases."""
     t0 = time.perf_counter()
     parts_s = {}
 
@@ -1774,6 +1920,11 @@ def ddp_rank(rank, world, init_method, backend, out_dir):
                            state),
                        "peak_memory_bytes": max(t["peak"] for t in timing)},
                       f)
+        del state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        for leg in legs:
+            layout_leg_body(leg, device, os.path.join(legs_dir, leg[0]))
         done = True
     finally:
         dist.destroy()
@@ -1830,15 +1981,23 @@ def params_of(state):
 
 
 def ddp_phase(card, bare_ms):
+    """Phase 8a; its ranks then run phase 8c's legs of the same world size
+    into a directory of their own, which phase 8c checks and removes.
+    Returns (the readings, 8c's references, that directory)."""
     backend = "nccl" if torch.cuda.device_count() >= DDP_WORLD else "gloo"
+    legs = tuple(leg for leg in LAYOUT_LEGS if leg[3] == DDP_WORLD)
     log(f"== phase 8a: data parallel, two ranks over {backend} "
         f"({'one per card' if backend == 'nccl' else 'on the one card'}): "
         "float32 equality run against one process on the global batch, "
-        "bfloat16 timing run at 1 + 4 per rank")
+        "bfloat16 timing run at 1 + 4 per rank; then in the same ranks "
+        f"phase 8c's legs {[leg[0] for leg in legs]}")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    legs_dir = tempfile.mkdtemp(prefix="chip_smoke_layouts_")
+    for leg in legs:
+        os.makedirs(os.path.join(legs_dir, leg[0]))
     try:
         t0 = time.perf_counter()
-        dist.run_local(ddp_rank, DDP_WORLD, (backend, tmp),
+        dist.run_local(ddp_rank, DDP_WORLD, (backend, tmp, legs, legs_dir),
                        timeout=DDP_TIMEOUT)
         ranks_s = time.perf_counter() - t0
         ranks = []
@@ -1878,14 +2037,19 @@ def ddp_phase(card, bare_ms):
         single_s = time.perf_counter() - t1
         del state
         torch.cuda.empty_cache()
+    except BaseException:
+        shutil.rmtree(legs_dir)
+        raise
     finally:
         shutil.rmtree(tmp)
     for c in checks:
         log(f"  equality step {c['step']}: {c}")
-    log(f"  ranks {ranks_s:.1f} s, one process and its witnesses "
-        f"{single_s:.1f} s")
+    log(f"  ranks {ranks_s:.1f} s (phase 8c's legs in them after "
+        f"{max(max(r['parts_s'].values()) for r in ranks):.1f} s), one "
+        f"process and its witnesses {single_s:.1f} s")
     log("  " + card)
     if failures:
+        shutil.rmtree(legs_dir)
         raise AssertionError("phase 8a: " + "; ".join(failures))
     launches = {kind: [sum(t[kind] for run in ("equality", "timing")
                            for t in r[run]) for r in ranks]
@@ -1893,7 +2057,7 @@ def ddp_phase(card, bare_ms):
     return dict(backend=backend, ranks=[{k: v for k, v in r.items()
                                          if k != "equality"} for r in ranks],
                 equality=checks, launches=launches, bare_step_ms=bare_ms,
-                ranks_s=ranks_s, card=card), refs
+                ranks_s=ranks_s, card=card), refs, legs_dir
 
 
 def params_of_blob(path):
@@ -2135,13 +2299,37 @@ def frozen_sums(state):
                              "backbone.layer1."))]
 
 
-def layout_rank(rank, world, init_method, backend, leg, out_dir):
-    """One rank of a phase 8c leg ((name, fsdp, tp, world)): the float32
-    equality run on the leg's layout (rank 0 saves the full state before
-    each step; under TP each rank's gradients before the model group's
-    broadcast measured against the group's first rank's), then the bfloat16
-    timing run with its local state bytes and its all-reduce and broadcast
-    timed; its records to rank<r>.json."""
+def layout_rank(rank, world, init_method, backend, legs, out_dir,
+                cli=None):
+    """One rank of a phase 8c spawn: each leg of `legs` (of this world size)
+    in turn, its records under out_dir/<leg name>/, then, with cli = (argv,
+    out), the SSOD CLI (`layout_cli`). One spawn per world size: the legs
+    share the processes' start, the group and the card's context."""
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    dist.init_distributed(backend, device, rank, world, init_method)
+    done = False
+    try:
+        for leg in legs:
+            layout_leg_body(leg, device, os.path.join(out_dir, leg[0]))
+        if cli is not None:
+            layout_cli(device, *cli)
+        done = True
+    finally:
+        dist.destroy()
+    if done:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
+
+
+def layout_leg_body(leg, device, out_dir):
+    """One rank's part of a phase 8c leg ((name, fsdp, tp, world)): the
+    float32 equality run on the leg's layout (rank 0 saves the full state
+    before each step; under TP each rank's gradients before the model
+    group's broadcast measured against the group's first rank's), then the
+    bfloat16 timing run with its local state bytes and its all-reduce and
+    broadcast timed; its records to rank<r>.json. TF32 is restored after
+    it."""
     name, fsdp, tp, _ = leg
     t0 = time.perf_counter()
     parts_s = {}
@@ -2149,13 +2337,12 @@ def layout_rank(rank, world, init_method, backend, leg, out_dir):
     def part(what):
         parts_s[what] = round(time.perf_counter() - t0, 2)
 
-    device = torch.device("cuda", rank if backend == "nccl" else 0)
-    dist.init_distributed(backend, device, rank, world, init_method)
-    done = False
     all_sum_, align_ = dist.all_sum_, dist.align_model_group_
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     try:
         mesh = dist.make_mesh(tp, device)
-        part("group and mesh")
+        part("mesh")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         state, cfg = ddp_state("float32", device)
@@ -2217,8 +2404,9 @@ def layout_rank(rank, world, init_method, backend, leg, out_dir):
             rec.update(allreduce_ms=ar, broadcast_ms=bc)
             del rec["cols"], rec["sets"]
         part("bfloat16 steps")
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump({"rank": rank, "device": str(device),
+        with open(os.path.join(out_dir, f"rank{dist.world_rank()}.json"),
+                  "w") as f:
+            json.dump({"rank": dist.world_rank(), "device": str(device),
                        "backend": dist.backend(), "data_rank": dist.rank(),
                        "data_world": dist.world(), "parts_s": parts_s,
                        "equality": equality, "timing": timing,
@@ -2228,14 +2416,16 @@ def layout_rank(rank, world, init_method, backend, leg, out_dir):
                        "ffn_params": ffn_params(state),
                        "peak_memory_bytes": max(t["peak"] for t in timing)},
                       f)
-        done = True
     finally:
         dist.all_sum_, dist.align_model_group_ = all_sum_, align_
-        dist.destroy()
-    if done:
-        sys.stdout.flush()
-        sys.stderr.flush()
-        os._exit(0)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    # the laid-out state is freed before the next leg (FSDP's and TP's
+    # hooks tie it into reference cycles)
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.drop_mesh()
 
 
 class tp_order:
@@ -2313,110 +2503,108 @@ def check_align(diffs, floor):
     return out, failures
 
 
-def layout_leg(leg, refs, dp_bytes, state, cfg):
-    """A phase 8c leg: its ranks, then the checks against phase 8a's
-    references (step 0: one process and its witnesses from the same seeded
-    start; step 1: one process from the leg's own state, limits from 8a's
-    witnesses). Under TP, one process takes step 0 twice: the second run's
-    gradients against the first's are the floor of the ranks' differences
-    before the broadcast. Returns (the readings, the failures)."""
+def layout_backend(world):
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def check_leg(leg, tmp, refs, dp_bytes, state, cfg):
+    """A phase 8c leg's checks, once its ranks have written their records
+    to tmp: against phase 8a's references (step 0: one process and its
+    witnesses from the same seeded start; step 1: one process from the
+    leg's own state, limits from 8a's witnesses). Under TP, one process
+    takes step 0 twice: the second run's gradients against the first's are
+    the floor of the ranks' differences before the broadcast. Returns (the
+    readings, the failures)."""
     name, fsdp, tp, world = leg
-    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
-    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    backend = layout_backend(world)
     failures, align = [], None
-    try:
-        t0 = time.perf_counter()
-        dist.run_local(layout_rank, world, (backend, leg, tmp),
-                       timeout=LAYOUT_TIMEOUT)
-        ranks_s = time.perf_counter() - t0
-        ranks = []
-        for r in range(world):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-        # one record per data rank, in data order (TP ranks alike)
-        by_data = {}
-        for r in ranks:
-            by_data.setdefault(r["data_rank"], r)
-        data_recs = [by_data[d] for d in sorted(by_data)]
-        checks = []
-        for i in range(len(layout_eq_steps(tp))):
-            if any(r["equality"][i]["metrics"] != ranks[0]["equality"][i][
-                    "metrics"] for r in ranks):
-                failures.append(f"{name} step {i}: the ranks' metrics differ")
-            start = os.path.join(tmp, f"eq_state{i}.pt")
-            after = params_of_blob(os.path.join(tmp, f"eq_state{i + 1}.pt"))
-            before = params_of_blob(start)
-            recs = [r["equality"][i] for r in data_recs]
-            if i == 0 and any(not torch.equal(before[k], refs[0]["before"][
-                    k]) for k in before):
-                failures.append(f"{name}: its start is not phase 8a's")
-            if i == 0 and tp == 1:
-                runs, scale = refs[0]["runs"], None
-            else:
-                # one process from the leg's own state (in the TP ranks'
-                # order of the FFN sums), limits from 8a's witnesses
-                with tp_order(tp, state.model, state.teacher) if tp > 1 \
-                        else contextlib.nullcontext():
-                    runs = [single_process_run(state, cfg, 0, start, i)]
-                    if i == 0:
-                        first = optimizer_grads(state)
-                        single_process_run(state, cfg, 0, start, i)
-                        floor = rel_errors([({"g": first}, {
-                            "g": optimizer_grads(state)})], "g")
-                        del first
-                        diffs = {}
-                        for r in ranks:
-                            for k, v in r["align_diffs"][0].items():
-                                diffs[k] = max(diffs.get(k, 0.0), v)
-                        align, f = check_align(diffs, floor)
-                        failures += [f"{name}: {x}" for x in f]
-                scale = (refs[i]["before"], refs[i]["runs"])
-            c, f = ddp_compare(i, recs, before, after, runs, scale)
-            if i == 0 and tp > 1:
-                # beside plain one process (8a's), reported, not held: the
-                # TP order is a rounding of every FFN output
-                c["plain_one_process"] = ddp_compare(
-                    i, recs, before, after, refs[0]["runs"])[0]
-            checks.append(c)
-            failures += [f"{name}: {x}" for x in f]
-            del before, after
-        for r in ranks:
-            if not r["checks"]["frozen_unchanged"]:
-                failures.append(f"{name} rank {r['rank']}: frozen leaves "
-                                "changed")
-            if not r["checks"]["teacher_moved"]:
-                failures.append(f"{name} rank {r['rank']}: the teacher did "
-                                "not move")
-            share = r["local_state_bytes"] / dp_bytes
-            r["state_share"] = share
-            if fsdp and share > LAYOUT_STATE_SHARE:
-                failures.append(f"{name} rank {r['rank']}: local state "
-                                f"{share:.3f} of the data-parallel rank's")
-            loc, whole = r["ffn_params"]
-            if tp > 1 and loc > whole / tp + TP_REPLICATED_FFN:
-                failures.append(f"{name} rank {r['rank']}: FFN {loc} of "
-                                f"{whole} parameters")
-            log(f"  {name} rank {r['rank']} (data rank {r['data_rank']} of "
-                f"{r['data_world']}, {r['backend']}): bfloat16 1 + 4 step ms "
-                f"{[round(t['ms'], 1) for t in r['timing']]} (all-reduce "
-                f"{[round(t['allreduce_ms'], 1) for t in r['timing']]}, "
-                f"model-group broadcast "
-                f"{[round(t['broadcast_ms'], 1) for t in r['timing']]}), "
-                f"peak memory by step "
-                f"{[round(t['peak'] / 2 ** 30, 3) for t in r['timing']]} "
-                f"GiB, MSDA launches per step "
-                f"{[(t['fwd'], t['bwd']) for t in r['timing']]}, local state "
-                f"{r['local_state_bytes']} bytes ({share:.3f} of data "
-                f"parallel's {dp_bytes}), FFN {loc} of {whole} parameters; "
-                f"seconds by part {r['parts_s']}")
-    finally:
-        shutil.rmtree(tmp)
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    # one record per data rank, in data order (TP ranks alike)
+    by_data = {}
+    for r in ranks:
+        by_data.setdefault(r["data_rank"], r)
+    data_recs = [by_data[d] for d in sorted(by_data)]
+    checks = []
+    for i in range(len(layout_eq_steps(tp))):
+        if any(r["equality"][i]["metrics"] != ranks[0]["equality"][i][
+                "metrics"] for r in ranks):
+            failures.append(f"{name} step {i}: the ranks' metrics differ")
+        start = os.path.join(tmp, f"eq_state{i}.pt")
+        after = params_of_blob(os.path.join(tmp, f"eq_state{i + 1}.pt"))
+        before = params_of_blob(start)
+        recs = [r["equality"][i] for r in data_recs]
+        if i == 0 and any(not torch.equal(before[k], refs[0]["before"][
+                k]) for k in before):
+            failures.append(f"{name}: its start is not phase 8a's")
+        if i == 0 and tp == 1:
+            runs, scale = refs[0]["runs"], None
+        else:
+            # one process from the leg's own state (in the TP ranks'
+            # order of the FFN sums), limits from 8a's witnesses
+            with tp_order(tp, state.model, state.teacher) if tp > 1 \
+                    else contextlib.nullcontext():
+                runs = [single_process_run(state, cfg, 0, start, i)]
+                if i == 0:
+                    first = optimizer_grads(state)
+                    single_process_run(state, cfg, 0, start, i)
+                    floor = rel_errors([({"g": first}, {
+                        "g": optimizer_grads(state)})], "g")
+                    del first
+                    diffs = {}
+                    for r in ranks:
+                        for k, v in r["align_diffs"][0].items():
+                            diffs[k] = max(diffs.get(k, 0.0), v)
+                    align, f = check_align(diffs, floor)
+                    failures += [f"{name}: {x}" for x in f]
+            scale = (refs[i]["before"], refs[i]["runs"])
+        c, f = ddp_compare(i, recs, before, after, runs, scale)
+        if i == 0 and tp > 1:
+            # beside plain one process (8a's), reported, not held: the
+            # TP order is a rounding of every FFN output
+            c["plain_one_process"] = ddp_compare(
+                i, recs, before, after, refs[0]["runs"])[0]
+        checks.append(c)
+        failures += [f"{name}: {x}" for x in f]
+        del before, after
+    for r in ranks:
+        if not r["checks"]["frozen_unchanged"]:
+            failures.append(f"{name} rank {r['rank']}: frozen leaves "
+                            "changed")
+        if not r["checks"]["teacher_moved"]:
+            failures.append(f"{name} rank {r['rank']}: the teacher did "
+                            "not move")
+        share = r["local_state_bytes"] / dp_bytes
+        r["state_share"] = share
+        if fsdp and share > LAYOUT_STATE_SHARE:
+            failures.append(f"{name} rank {r['rank']}: local state "
+                            f"{share:.3f} of the data-parallel rank's")
+        loc, whole = r["ffn_params"]
+        if tp > 1 and loc > whole / tp + TP_REPLICATED_FFN:
+            failures.append(f"{name} rank {r['rank']}: FFN {loc} of "
+                            f"{whole} parameters")
+        log(f"  {name} rank {r['rank']} (data rank {r['data_rank']} of "
+            f"{r['data_world']}, {r['backend']}): bfloat16 1 + 4 step ms "
+            f"{[round(t['ms'], 1) for t in r['timing']]} (all-reduce "
+            f"{[round(t['allreduce_ms'], 1) for t in r['timing']]}, "
+            f"model-group broadcast "
+            f"{[round(t['broadcast_ms'], 1) for t in r['timing']]}), "
+            f"peak memory by step "
+            f"{[round(t['peak'] / 2 ** 30, 3) for t in r['timing']]} "
+            f"GiB, MSDA launches per step "
+            f"{[(t['fwd'], t['bwd']) for t in r['timing']]}, local state "
+            f"{r['local_state_bytes']} bytes ({share:.3f} of data "
+            f"parallel's {dp_bytes}), FFN {loc} of {whole} parameters; "
+            f"seconds by part {r['parts_s']}")
     for c in checks:
         log(f"  {name} equality step {c['step']}: {c}")
     if align is not None:
         log(f"  {name}: gradients before the model group's broadcast "
             f"against one process's atomic-order floor: {align}")
-    log(f"  {name}: ranks {ranks_s:.1f} s")
+    body_s = max(max(r["parts_s"].values()) for r in ranks)
+    log(f"  {name}: the leg's part of its ranks {body_s:.1f} s")
     launches = {kind: [sum(t[kind] for run in ("equality", "timing")
                            for t in r[run]) for r in ranks]
                 for kind in ("fwd", "bwd")}
@@ -2424,7 +2612,7 @@ def layout_leg(leg, refs, dp_bytes, state, cfg):
                 ranks=[{k: v for k, v in r.items()
                         if k not in ("equality", "align_diffs")}
                        for r in ranks], equality=checks, align=align,
-                launches=launches, ranks_s=ranks_s), failures
+                launches=launches, body_s=body_s), failures
 
 
 def donation_check():
@@ -2511,12 +2699,11 @@ def donation_tensors(state):
     return out
 
 
-def layout_cli_rank(rank, world, init_method, backend, argv, out):
-    """Phase 8c's trainer rank: the SSOD CLI's `main` on `argv` in a group
-    joined here (its `load_cfg` finds it), MSDA launches counted per step;
-    rank 0 writes its record to `out`."""
-    device = torch.device("cuda", rank if backend == "nccl" else 0)
-    dist.init_distributed(backend, device, rank, world, init_method)
+def layout_cli(device, argv, out):
+    """Phase 8c's trainer, in a rank of the 4-rank spawn after its leg: the
+    SSOD CLI's `main` on `argv` in the joined group (its `load_cfg` finds
+    it), MSDA launches counted per step; rank 0 writes its record to
+    `out`."""
     per_step = []
     run_step = SsodTrainer._run_step
 
@@ -2528,7 +2715,7 @@ def layout_cli_rank(rank, world, init_method, backend, argv, out):
         return result
 
     SsodTrainer._run_step = counted_step
-    done = False
+    t0 = time.perf_counter()
     try:
         trainer = train_detr_ssod.main(argv + ["--device", str(device)])
         if dist.is_main():
@@ -2537,121 +2724,145 @@ def layout_cli_rank(rank, world, init_method, backend, argv, out):
                     t["step"] for t in trainer.timings],
                     ckpts=trainer.ckpt.all_steps(),
                     local_state_bytes=sharding.local_state_bytes(
-                        trainer.state)), f)
-        done = True
+                        trainer.state), run_s=time.perf_counter() - t0), f)
     finally:
         SsodTrainer._run_step = run_step
-        dist.destroy()
-    if done:
-        sys.stdout.flush()
-        sys.stderr.flush()
-        os._exit(0)
 
 
-def layout_trainer(card):
-    """The SSOD CLI with fsdp=True tp=2 over LAYOUT_CLI_WORLD ranks on a
-    synthetic JPEG set: LAYOUT_CLI_STEPS steps, an eval, a checkpoint;
-    then that checkpoint resumed in one process for one step."""
+def layout_cli_args(tmp):
+    """The SSOD CLI's arguments for phase 8c's trainer (fsdp=True tp=2
+    donate=True over LAYOUT_CLI_WORLD ranks) on a synthetic JPEG set
+    written under tmp: LAYOUT_CLI_STEPS steps, an eval, a checkpoint.
+    Returns (argv without --max-steps, work dir, the record's path)."""
+    n_img = max(max(r) for r in TRAINER_SPLITS.values()) + 1
+    paths, img_dir = write_synthetic_coco(tmp, n=n_img, seed=0,
+                                          splits=TRAINER_SPLITS,
+                                          **TRAINER_SET)
+    work, out = os.path.join(tmp, "ssod"), os.path.join(tmp, "cli.json")
+    argv = [SSOD_CONFIG, "--work-dir", work, "--cfg-options",
+            f"data.train_sup_ann={paths['sup']}",
+            f"data.train_unsup_ann={paths['unsup']}",
+            f"data.val_ann={paths['val']}",
+            f"data.train_prefix={img_dir}", f"data.val_prefix={img_dir}",
+            f"ssod.warm_up_step={LAYOUT_CLI_STEPS // 2}",
+            # an eval after the last step (index LAYOUT_CLI_STEPS - 1)
+            f"eval_interval={LAYOUT_CLI_STEPS - 1}",
+            f"ckpt_interval={LAYOUT_CLI_STEPS}", "image_log_interval=0",
+            "log_interval=1", "fsdp=True", "tp=2", "donate=True"]
+    return argv, work, out
+
+
+def check_trainer(argv, work, out):
+    """Phase 8c's trainer, once its ranks have run (rank 0's record at
+    out): LAYOUT_CLI_STEPS steps with exact launches, the layout in the
+    log, the evals, the checkpoint; then that checkpoint resumed in one
+    process for one step. Returns (the readings, the failures)."""
     world = LAYOUT_CLI_WORLD
-    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_layout_cli_")
+    backend = layout_backend(world)
     failures = []
-    try:
-        n_img = max(max(r) for r in TRAINER_SPLITS.values()) + 1
-        paths, img_dir = write_synthetic_coco(tmp, n=n_img, seed=0,
-                                              splits=TRAINER_SPLITS,
-                                              **TRAINER_SET)
-        work, out = os.path.join(tmp, "ssod"), os.path.join(tmp, "rank.json")
-        argv = [SSOD_CONFIG, "--work-dir", work, "--cfg-options",
-                f"data.train_sup_ann={paths['sup']}",
-                f"data.train_unsup_ann={paths['unsup']}",
-                f"data.val_ann={paths['val']}",
-                f"data.train_prefix={img_dir}", f"data.val_prefix={img_dir}",
-                f"ssod.warm_up_step={LAYOUT_CLI_STEPS // 2}",
-                # an eval after the last step (index LAYOUT_CLI_STEPS - 1)
-                f"eval_interval={LAYOUT_CLI_STEPS - 1}",
-                f"ckpt_interval={LAYOUT_CLI_STEPS}", "image_log_interval=0",
-                "log_interval=1", "fsdp=True", "tp=2", "donate=True"]
-        t0 = time.perf_counter()
-        dist.run_local(layout_cli_rank, world, (
-            backend, argv[:1] + ["--max-steps", str(LAYOUT_CLI_STEPS)]
-            + argv[1:], out), timeout=LAYOUT_TIMEOUT)
-        ranks_s = time.perf_counter() - t0
-        with open(out) as f:
-            rec = json.load(f)
-        with open(os.path.join(work, "train.log")) as f:
-            train_log = f.read()
-        if rec["steps"] != list(range(LAYOUT_CLI_STEPS)):
-            failures.append(f"trainer steps {rec['steps']}")
-        if LAYOUT_CLI_STEPS not in rec["ckpts"]:
-            failures.append(f"no checkpoint: {rec['ckpts']}")
-        for step, f, b in rec["per_step"]:
-            if (f, b) != SSOD_LAUNCHES[step < LAYOUT_CLI_STEPS // 2]:
-                failures.append(f"trainer step {step}: {f} + {b} launches")
-        want = f"layout: mesh (data {world // 2}, model 2), fsdp=True, tp=2"
-        if want not in train_log:
-            failures.append("the log does not name the layout")
-        for tag in ("teacher", "student"):
-            if f"Eval[{tag}] iter {LAYOUT_CLI_STEPS - 1}: mAP=" \
-                    not in train_log:
-                failures.append(f"no Eval[{tag}] line")
-        aps = {f"{tag} iter {step}": res for (tag, step), res in
-               read_evals(os.path.join(work, "train.log")).items()}
-        for what, res in aps.items():
-            check_aps(res, f"layout trainer Eval[{what}]")
-        # the checkpoint (full tensors) resumed in one process, one step
-        t1 = time.perf_counter()
-        resumed = train_detr_ssod.main(
-            argv[:1] + ["--max-steps", str(LAYOUT_CLI_STEPS + 1)]
-            + argv[1:-3] + ["eval_interval=1000"])
-        resume_s = time.perf_counter() - t1
-        with open(os.path.join(work, "train.log")) as f:
-            if f.read().count(f"resumed from step {LAYOUT_CLI_STEPS}") != 1:
-                failures.append("one process did not resume the checkpoint")
-        if [t["step"] for t in resumed.timings] != [LAYOUT_CLI_STEPS]:
-            failures.append(f"resumed steps {resumed.timings}")
-        del resumed
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(tmp)
+    with open(out) as f:
+        rec = json.load(f)
+    with open(os.path.join(work, "train.log")) as f:
+        train_log = f.read()
+    if rec["steps"] != list(range(LAYOUT_CLI_STEPS)):
+        failures.append(f"trainer steps {rec['steps']}")
+    if LAYOUT_CLI_STEPS not in rec["ckpts"]:
+        failures.append(f"no checkpoint: {rec['ckpts']}")
+    for step, f, b in rec["per_step"]:
+        if (f, b) != SSOD_LAUNCHES[step < LAYOUT_CLI_STEPS // 2]:
+            failures.append(f"trainer step {step}: {f} + {b} launches")
+    want = f"layout: mesh (data {world // 2}, model 2), fsdp=True, tp=2"
+    if want not in train_log:
+        failures.append("the log does not name the layout")
+    for tag in ("teacher", "student"):
+        if f"Eval[{tag}] iter {LAYOUT_CLI_STEPS - 1}: mAP=" \
+                not in train_log:
+            failures.append(f"no Eval[{tag}] line")
+    aps = {f"{tag} iter {step}": res for (tag, step), res in
+           read_evals(os.path.join(work, "train.log")).items()}
+    for what, res in aps.items():
+        check_aps(res, f"layout trainer Eval[{what}]")
+    # the checkpoint (full tensors) resumed in one process, one step
+    t1 = time.perf_counter()
+    resumed = train_detr_ssod.main(
+        argv[:1] + ["--max-steps", str(LAYOUT_CLI_STEPS + 1)]
+        + argv[1:-3] + ["eval_interval=1000"])
+    resume_s = time.perf_counter() - t1
+    with open(os.path.join(work, "train.log")) as f:
+        if f.read().count(f"resumed from step {LAYOUT_CLI_STEPS}") != 1:
+            failures.append("one process did not resume the checkpoint")
+    if [t["step"] for t in resumed.timings] != [LAYOUT_CLI_STEPS]:
+        failures.append(f"resumed steps {resumed.timings}")
+    del resumed
+    torch.cuda.empty_cache()
     log(f"  trainer, fsdp=True tp=2 donate=True over {world} ranks "
         f"({backend}): steps {rec['steps']}, launches per step "
         f"{rec['per_step']}, rank 0's local state "
-        f"{rec['local_state_bytes']} bytes, {ranks_s:.1f} s; resumed in one "
-        f"process for one step in {resume_s:.1f} s")
+        f"{rec['local_state_bytes']} bytes, {rec['run_s']:.1f} s in its "
+        f"ranks; resumed in one process for one step in {resume_s:.1f} s")
     return dict(backend=backend, world=world, per_step=rec["per_step"],
-                ranks_s=ranks_s, resume_s=resume_s, evals=aps,
+                run_s=rec["run_s"], resume_s=resume_s, evals=aps,
                 local_state_bytes=rec["local_state_bytes"]), failures
 
 
-def layout_phase(card, refs, ddp):
+def layout_phase(card, refs, ddp, tmp):
     log("== phase 8c: FSDP, TP and FSDP + TP (float32 equality against one "
         "process, bfloat16 timing at 1 + 4 per data rank), donation, the "
         "SSOD CLI with fsdp=True tp=2 over 4 ranks")
     dp_bytes = ddp["ranks"][0]["local_state_bytes"]
     state, cfg = ddp_state("float32", "cuda")
-    legs, failures = {}, []
-    for leg in LAYOUT_LEGS:
-        rec, f = layout_leg(leg, refs, dp_bytes, state, cfg)
-        legs[leg[0]] = rec
+    legs, failures, spawns = {}, [], {}
+    try:
+        argv, work, out = layout_cli_args(os.path.join(tmp, "cli"))
+        # one spawn per world size, its legs in turn in the same ranks:
+        # those of phase 8a's world ran in 8a's ranks (their records are in
+        # tmp already); in the LAYOUT_CLI_WORLD ranks the trainer follows
+        for world in sorted({leg[3] for leg in LAYOUT_LEGS}):
+            group = tuple(leg for leg in LAYOUT_LEGS if leg[3] == world)
+            if world == DDP_WORLD:
+                log(f"  legs {[leg[0] for leg in group]}: run in phase 8a's"
+                    f" ranks")
+            else:
+                cli = (argv[:1] + ["--max-steps", str(LAYOUT_CLI_STEPS)]
+                       + argv[1:], out) if world == LAYOUT_CLI_WORLD \
+                    else None
+                for leg in group:
+                    os.makedirs(os.path.join(tmp, leg[0]))
+                t0 = time.perf_counter()
+                dist.run_local(layout_rank, world, (
+                    layout_backend(world), group, tmp, cli),
+                    timeout=LAYOUT_TIMEOUT)
+                spawns[world] = dict(legs=[leg[0] for leg in group],
+                                     trainer=cli is not None,
+                                     s=time.perf_counter() - t0)
+                log(f"  {world} ranks ({layout_backend(world)}): legs "
+                    f"{spawns[world]['legs']}"
+                    + (" and the trainer" if cli is not None else "")
+                    + f" in {spawns[world]['s']:.1f} s")
+            for leg in group:
+                rec, f = check_leg(leg, os.path.join(tmp, leg[0]), refs,
+                                   dp_bytes, state, cfg)
+                legs[leg[0]] = rec
+                failures += f
+        del state
+        torch.cuda.empty_cache()
+        donation = donation_check()
+        log(f"  donation: {donation}")
+        if not (donation["bit_equal"] and donation["storage_kept"]):
+            failures.append(f"donation: {donation}")
+        peaks = donation["update_peak_bytes"]
+        if peaks["chunked"] > peaks["whole"]:
+            failures.append(f"the update in chunks raised its peak: {peaks}")
+        trainer, f = check_trainer(argv, work, out)
         failures += f
-    del state
-    torch.cuda.empty_cache()
-    donation = donation_check()
-    log(f"  donation: {donation}")
-    if not (donation["bit_equal"] and donation["storage_kept"]):
-        failures.append(f"donation: {donation}")
-    peaks = donation["update_peak_bytes"]
-    if peaks["chunked"] > peaks["whole"]:
-        failures.append(f"the update in chunks raised its peak: {peaks}")
-    trainer, f = layout_trainer(card)
-    failures += f
+    finally:
+        shutil.rmtree(tmp)
     log("  " + card)
     if failures:
         raise AssertionError("phase 8c: " + "; ".join(failures))
     launches = {name: leg["launches"] for name, leg in legs.items()}
-    return dict(legs=legs, donation=donation, trainer=trainer,
-                launches=launches, card=card)
+    return dict(legs=legs, spawns=spawns, donation=donation,
+                trainer=trainer, launches=launches, card=card)
 
 
 def leaf_errors(grads_k, grads_p):
@@ -2937,7 +3148,9 @@ def package_child(tmp, name, float32):
     export_model.package_program(exported,
                                  os.path.join(tmp, f"{name}.pkg.pt2"))
     with open(os.path.join(tmp, f"{name}.compile.json"), "w") as f:
-        json.dump({"compile_s": time.perf_counter() - t0}, f)
+        json.dump({"compile_s": time.perf_counter() - t0,
+                   "compile_threads": torch._inductor.config.compile_threads,
+                   "ended_unix": time.time()}, f)
 
 
 def kept_set(boxes, scores, labels):
@@ -3004,7 +3217,12 @@ def held_by_rank(got, want, extent, rtol, atol):
 
 
 def serving_phase(card):
-    """Phases 9 and 9b: the served programs exported, then packaged."""
+    """Phases 9 and 9b, as a generator. Its first step (phase 9) exports
+    the served programs, starts their compiles and computes the eager
+    references; the caller runs other phases while they compile. Its
+    second (9b) waits for the compiles, times eager, runs every artifact
+    in a fresh process and in the runner, checks them and yields the
+    record. Closing it early kills the compiles."""
     log(f"== phase 9: the serving program exported by tools.export_model "
         f"(torch.export, batch 1, bucket {EXPORT_BUCKET}), loaded and run "
         f"by a fresh process")
@@ -3030,7 +3248,9 @@ def serving_phase(card):
                   for k, (_, im, hw, _) in packed.items()
                   for part, t in (("images", im), ("hw", hw))}
         plan, record, eager, witness, float32 = {}, {}, {}, {}, {}
-        t_compile = time.perf_counter()
+        t_compile, t_compile_unix = time.perf_counter(), time.time()
+        env = dict(os.environ,
+                   TORCHINDUCTOR_COMPILE_THREADS=str(PACKAGE_THREADS))
 
         def package(name, exported, bucket, t0, given=False):
             """The program saved, its compiling process started (this
@@ -3043,12 +3263,15 @@ def serving_phase(card):
                 procs[name] = subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__),
                      PACKAGE_FLAG, tmp, name, str(int(given))], stdout=f,
-                    stderr=subprocess.STDOUT)
+                    stderr=subprocess.STDOUT, env=env,
+                    preexec_fn=lambda: os.nice(PACKAGE_NICE))
+            record[name] = dict(started_s=time.perf_counter() - t_compile)
             plan[f"package_{name}"] = dict(
                 file=f"{name}.pkg.pt2", keys=keys_of(bucket), given=given,
                 float32=given, profile=name == "topk")
-            record[name] = dict(bucket=bucket, export_s=time.perf_counter()
-                                - t0, bytes=os.path.getsize(path),
+            record[name].update(bucket=bucket,
+                                export_s=time.perf_counter() - t0,
+                                bytes=os.path.getsize(path),
                                 requests=[REQUESTS[int(k)]
                                           for k in keys_of(bucket)])
 
@@ -3135,11 +3358,24 @@ def serving_phase(card):
         for name, rec in record.items():
             log(f"  {name}: bucket {rec['bucket']}, export "
                 f"{rec['export_s']:.1f} s, {rec['bytes']:,} bytes")
+        # the detector is made again from its seed for 9b's eager timing:
+        # the phases in between run without it on the card
+        del pred, det
+        gc.collect()
+        torch.cuda.empty_cache()
+        references_s = time.perf_counter() - t_compile
+        log(f"  the compiles go on beside the next phases (exports and "
+            f"references {references_s:.1f} s)")
+        yield
 
         log(f"== phase 9b: the serving programs packaged by AOTInductor "
             f"(tools.export_model.package_program, {len(procs)} compiling "
-            f"processes, each started once its program was saved), run by "
-            f"a fresh Python process and by the C++ runner")
+            f"processes, each started once phase 9 saved its program, "
+            f"{PACKAGE_THREADS} compile threads each), run by a fresh Python"
+            f" process and by the C++ runner")
+        pred = init_detector(CONFIG, None, device="cuda", use_nms=False,
+                             seed=0)
+        det = refine_boxes(pred.detector, seed=0)
         failed = {}
         for name, proc in procs.items():
             try:
@@ -3158,13 +3394,18 @@ def serving_phase(card):
         for name in procs:
             with open(os.path.join(tmp, f"{name}.compile.json")) as f:
                 record[name].update(json.load(f))
+            record[name]["ended_s"] = record[name].pop("ended_unix") \
+                - t_compile_unix
             record[name]["package_bytes"] = os.path.getsize(
                 os.path.join(tmp, f"{name}.pkg.pt2"))
             log(f"  {name}: package compile {record[name]['compile_s']:.1f}"
-                f" s, {record[name]['package_bytes']:,} bytes")
-        log(f"  from the first export to the last compile "
-            f"{compile_wall_s:.1f} s of wall time (the exports and the "
-            f"references beside the compiles)")
+                f" s ({record[name]['compile_threads']} compile threads), "
+                f"started {record[name]['started_s']:.1f} s after the first "
+                f"export, ended {record[name]['ended_s']:.1f} s after it, "
+                f"{record[name]['package_bytes']:,} bytes")
+        log(f"  from the first export to the end of 9b's wait "
+            f"{compile_wall_s:.1f} s of wall time, phase 9's exports and "
+            f"references and the phases after it beside the compiles")
         # timed after the compiles, with the card and the host to itself
         for name, use_nms, bucket in SERVED:
             calls = [packed[k][1:3] for k in keys_of(bucket)]
@@ -3359,9 +3600,10 @@ def serving_phase(card):
         log("  " + card)
         if failures:
             raise AssertionError("phases 9 / 9b: " + "; ".join(failures))
-        return dict(record, launches=launches, child_s=child_s,
-                    compile_wall_s=compile_wall_s, torch=torch.__version__,
-                    cuda=torch.version.cuda, card=card)
+        yield dict(record, launches=launches, child_s=child_s,
+                   compile_wall_s=compile_wall_s, references_s=references_s,
+                   package_threads=PACKAGE_THREADS, torch=torch.__version__,
+                   cuda=torch.version.cuda, card=card)
     finally:
         for proc in procs.values():          # none outlives the phase
             if proc.poll() is None:
@@ -3680,6 +3922,7 @@ def main():
     if len(sys.argv) > 1 and sys.argv[1] == TORCHRUN_FLAG:
         torchrun_cli_rank(sys.argv[2], sys.argv[3:])
         return
+    t_script = time.perf_counter()
     log("== phase 1: device")
     card = card_line()
     log(card)
@@ -3731,13 +3974,26 @@ def main():
     ssod = timed("6", ssod_phase, card)
     host_lib = timed("7a", host_library_phase, host_build_s)
     trainer = timed("7", trainer_phase, card, ssod["warm_step_ms"])
-    ddp, ddp_refs = timed("8a", ddp_phase, card, ssod["warm_step_ms"])
+    # phase 9 starts the serving programs' compiles, which run beside
+    # phases 8a-11; phase 9b collects them
+    serving = serving_phase(card)
+    atexit.register(serving.close)       # no compile outlives a failure
+    timed("9", next, serving)
+    ddp, ddp_refs, legs_dir = timed("8a", ddp_phase, card,
+                                    ssod["warm_step_ms"])
+    atexit.register(shutil.rmtree, legs_dir, True)   # 8c removes it
     torchrun = timed("8b", torchrun_phase, card, trainer["launches_per_step"])
-    layouts = timed("8c", layout_phase, card, ddp_refs, ddp)
+    layouts = timed("8c", layout_phase, card, ddp_refs, ddp, legs_dir)
     del ddp_refs
-    served = timed("9", serving_phase, card)
     remat = timed("10", remat_phase, card)
     rehearsal = timed("11", rehearsal_phase, card)
+    served = timed("9b", next, serving)
+    serving.close()
+
+    phase_s["total"] = time.perf_counter() - t_script
+    log("== time: " + ", ".join(f"phase {k} {v:.1f} s" for k, v in
+                                phase_s.items() if k != "total")
+        + f"; the script {phase_s['total']:.1f} s ({card})")
 
     main_rows = [r for r in rows if r["dtype"] == "bfloat16"
                  and r["case"] in ("encoder", "decoder")]

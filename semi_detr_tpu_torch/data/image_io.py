@@ -9,12 +9,17 @@ image. `write_image` encodes by the file's extension: JPEG through the
 library, PNG here.
 
 The PNG reader and writer here, in numpy and zlib, are the plain versions
-the library's PNG decoder is held to: 8-bit gray, gray + alpha, RGB, RGBA
-and palette images, non-interlaced, with all five row filters (None, Sub,
-Up, Average, Paeth). Alpha is dropped, as `cv2.imread(path,
-cv2.IMREAD_COLOR)` drops it, and gray is repeated over three channels.
-Sub and Up rows decode as numpy operations; Average and Paeth rows depend
-on the pixel to their left, so they decode pixel by pixel in Python.
+the library's PNG decoder is held to. The reader gives what libpng gives
+the JAX package's loader (`png_set_expand`, `png_set_strip_16`,
+`png_set_strip_alpha`, `png_set_gray_to_rgb`): every bit depth and colour
+type (gray at 1, 2, 4, 8 and 16 bits, palette at 1, 2, 4 and 8, gray +
+alpha, RGB and RGBA at 8 and 16), non-interlaced or Adam7, with all five
+row filters (None, Sub, Up, Average, Paeth) on each pass's rows. Gray
+below 8 bits is scaled to 8 (x255, x85, x17), 16-bit samples keep their
+high byte, alpha (and tRNS) is dropped, and gray is repeated over three
+channels. Sub and Up rows decode as numpy operations; Average and Paeth
+rows depend on the pixel to their left, so they decode pixel by pixel in
+Python.
 """
 from __future__ import annotations
 
@@ -28,11 +33,18 @@ from .. import native
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel (PNG spec 11.2.2)
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# colour type -> the bit depths the specification allows
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7's passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _unfilter(raw: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
-    """Undo the per-row filters of a non-interlaced image. Returns (h,
-    row_bytes) uint8."""
+    """Undo the per-row filters of h rows (a non-interlaced image, or one
+    Adam7 pass); bpp is the bytes of a complete pixel, at least 1. Returns
+    (h, row_bytes) uint8."""
     data = np.frombuffer(raw, np.uint8)
     if data.size != h * (row_bytes + 1):
         raise ValueError(f"PNG data holds {data.size} bytes, expected "
@@ -97,21 +109,70 @@ def decode_png(buf: bytes) -> np.ndarray:
         pos += 12 + length
     if header is None:
         raise ValueError("PNG without IHDR")
-    w, h, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _CHANNELS or interlace:
-        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type "
-                         f"{ctype}, interlace {interlace} (8-bit, "
-                         "non-interlaced only)")
+    w, h, depth, ctype, compression, filt, interlace = header
+    if depth not in _DEPTHS.get(ctype, ()) or compression or filt \
+            or interlace > 1:
+        raise ValueError(f"PNG of bit depth {depth}, colour type {ctype}, "
+                         f"compression {compression}, filter {filt}, "
+                         f"interlace {interlace}: not a combination the PNG "
+                         "specification defines")
+    if ctype == 3 and palette is None:
+        raise ValueError("palette PNG without PLTE")
     ch = _CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
-    px = px.reshape(h, w, ch)
+    bits = ch * depth
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as err:
+        raise ValueError(f"PNG data damaged or truncated: {err}") from None
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    sizes = [(-(-(h - y0) // dy), -(-(w - x0) // dx))
+             for x0, y0, dx, dy in passes]
+    # an empty pass has no bytes, not even filter bytes
+    need = sum(ph * ((pw * bits + 7) // 8 + 1) for ph, pw in sizes
+               if ph > 0 and pw > 0)
+    if len(raw) != need:
+        raise ValueError(f"PNG data holds {len(raw)} bytes, expected {need}")
+    out = np.zeros((h, w, 3), np.uint8)
+    pos = 0
+    for (x0, y0, dx, dy), (ph, pw) in zip(passes, sizes):
+        if ph <= 0 or pw <= 0:
+            continue
+        row_bytes = (pw * bits + 7) // 8
+        size = ph * (row_bytes + 1)
+        rows = _unfilter(raw[pos:pos + size], ph, row_bytes, max(1, bits // 8))
+        pos += size
+        out[y0::dy, x0::dx] = _to_rgb(_samples(rows, pw * ch, depth).reshape(
+            ph, pw, ch), ctype, depth, palette)
+    return out
+
+
+def _samples(rows: np.ndarray, n: int, depth: int) -> np.ndarray:
+    """The first n samples of each of the unfiltered rows, at 8 bits or
+    fewer: sub-byte samples unpacked most significant bits first, 16-bit
+    samples reduced to their high byte (png_set_strip_16)."""
+    if depth == 8:
+        return rows[:, :n]
+    if depth == 16:
+        return rows[:, 0:2 * n:2]
+    bits = np.unpackbits(rows, axis=1)[:, :n * depth].reshape(
+        rows.shape[0], n, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8)
+
+
+def _to_rgb(px: np.ndarray, ctype: int, depth: int,
+            palette) -> np.ndarray:
+    """(h, w, channels) samples -> (h, w, 3) uint8 RGB as libpng's expand,
+    strip-alpha and gray-to-RGB transforms give them."""
     if ctype == 3:
-        if palette is None:
-            raise ValueError("palette PNG without PLTE")
+        if int(px.max()) >= len(palette):
+            raise ValueError(f"PNG palette index {int(px.max())} outside its "
+                             f"{len(palette)} entries")
         return palette[px[..., 0]]
-    if ch <= 2:                       # gray (+ alpha)
-        return np.repeat(px[..., :1], 3, axis=2)
-    return np.ascontiguousarray(px[..., :3])
+    if ctype in (0, 4):               # gray (+ alpha), scaled to 8 bits
+        scale = {1: 255, 2: 85, 4: 17}.get(depth, 1)
+        return np.repeat(px[..., :1] * np.uint8(scale), 3, axis=2)
+    return px[..., :3]
 
 
 def encode_png(img: np.ndarray, level: int = 6) -> bytes:

@@ -10,27 +10,26 @@ file are compiled by g++ at first use (`-O3 -shared -fPIC -std=c++17
 decoding and augmenting no longer holds up the thread that launches the
 step.
 
-* Decode: PNG (8-bit gray, gray + alpha, RGB, RGBA, palette;
-  non-interlaced) by zlib's inflate and the row filters in C++; JPEG
-  through libjpeg where the machine has it (`jpeg_libjpeg.cpp`: the pixels
-  of `semi_detr_tpu.native.decode_image` and `cv2.imread`), else through
-  the CUDA toolkit's nvJPEG (`jpeg_nvjpeg.cpp`). On the nvJPEG build a
-  sequential Huffman stream (SOF0/SOF1: COCO's files and the synthetic
-  sets) is decoded here instead (`decode_jpeg_sequential`: the Huffman
-  walk of `jpeg_check` kept, dequantized, libjpeg's integer IDCT and
-  output stage, libjpeg's pixels to the bit), and so is a progressive
-  Huffman stream (SOF2: cv2's and Pillow's `progressive` output) whose
-  scan script completes every coefficient libjpeg's block smoothing reads
-  (`decode_jpeg_progressive`: jdphuff.c's four scan types, the same back
-  half); the card decodes the rest (arithmetic, Adobe RGB, an incomplete
-  progressive script), within a few grey levels of libjpeg.
-  `decoders()` says which route each kind takes. Before the back end
-  decodes, `jpeg_check` walks the stream and decodes a sequential
-  Huffman stream's codes as libjpeg does. A truncated, CMYK or unknown
-  file, a bad Huffman code or a restart marker out of order raises
-  `ImageDecodeError` on both routes; it never comes back blank. (JPEG
-  has no checksum: damage that still decodes to valid codes is not
-  seen.)
+* Decode: PNG at every bit depth and colour type, non-interlaced or
+  Adam7, as libpng gives it to the JAX package's loader (`host.cpp`, by
+  zlib's inflate and the row filters in C++). JPEG by the library's own
+  decoders (`jpeg_host.cpp`), on either build: every stream of 8 bits
+  that libjpeg-turbo 2.1 decodes, sequential or progressive, Huffman or
+  arithmetic, with libjpeg's block smoothing of an incomplete progressive
+  script, every integer sampling layout, gray, YCbCr and RGB, to the
+  pixels of `semi_detr_tpu.native.decode_image` bit for bit; CMYK and
+  YCCK (which libjpeg gives no RGB for) to the pixels of the JAX loader's
+  fallback, `cv2.imread`. `jpeg_host_kind`, `jpeg_colour` and
+  `decoders()` name each kind's route. The back end decodes only the rest
+  (12-bit, lossless; both refuse most of it): libjpeg where the machine
+  has it (`jpeg_libjpeg.cpp`), else the CUDA toolkit's nvJPEG
+  (`jpeg_nvjpeg.cpp`), after `jpeg_check` has walked the stream (nvJPEG
+  decodes damaged data without complaint). A damaged stream (truncated, a
+  bad Huffman or arithmetic code, a restart marker out of order, a bogus
+  progression, a bad PNG CRC or filter) raises `ImageDecodeError` naming
+  the fault on both builds; it never comes back blank and a failed host
+  decode never goes on to the back end. (JPEG has no checksum: damage
+  that still decodes to valid codes is not seen.)
 * Encode: JPEG through the same back end (4:2:0 at quality 95, cv2's
   default); on the nvJPEG route libjpeg's colour conversion and
   downsampling run here (`rgb_to_ycc420`) and the card does the rest.
@@ -70,15 +69,23 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_DIR)
 FIXTURES = os.path.join(_DIR, "fixtures")
-SOURCES = ("host.cpp",)
+SOURCES = ("host.cpp", "jpeg_host.cpp")
 HEADERS = ("host.h",)
 JPEG_SOURCES = {"libjpeg": "jpeg_libjpeg.cpp", "nvjpeg": "jpeg_nvjpeg.cpp"}
-# the routes of sequential and progressive Huffman streams on the nvJPEG
-# build
-SEQUENTIAL = "host sequential (libjpeg islow)"
-PROGRESSIVE = "host progressive (libjpeg jdphuff + islow)"
-# jpeg_host_kind's answers
-HOST_KINDS = {0: None, 1: "sequential", 2: "progressive"}
+# the host decoders' routes, by jpeg_host_kind's answer, on either build
+HOST_KINDS = {0: None, 1: "sequential", 2: "progressive",
+              3: "sequential arithmetic", 4: "progressive arithmetic"}
+ROUTES = {"sequential": "host sequential Huffman (libjpeg jdhuff + islow)",
+          "progressive": "host progressive Huffman (libjpeg jdphuff + "
+                         "smoothing + islow)",
+          "sequential arithmetic": "host sequential arithmetic (libjpeg "
+                                   "jdarith + islow)",
+          "progressive arithmetic": "host progressive arithmetic (libjpeg "
+                                    "jdarith + smoothing + islow)"}
+# the colour handling of the host decoders
+COLOURS = ("gray, YCbCr (libjpeg jdcolor), RGB (none), CMYK and YCCK "
+           "(cv2.imread's conversion and EXIF orientation); every sampling "
+           "layout of integer ratios (libjpeg jdsample)")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off",
              "-pthread")
 # larger images are refused before any pixel buffer is allocated
@@ -202,9 +209,10 @@ _SIGNATURES = {
     "sdt_free": ([_P], None),
     "sdt_jpeg_check": ([_P, _L], _I),
     "sdt_jpeg_host_kind": ([_P, _L], _I),
-    "sdt_jpeg_host_route": ([], _I),
+    "sdt_jpeg_host_colour": ([_P, _L], ctypes.c_char_p),
     "sdt_decode_jpeg_sequential": ([_P, _L, _P, _I, _I], _I),
     "sdt_decode_jpeg_progressive": ([_P, _L, _P, _I, _I], _I),
+    "sdt_decode_jpeg_arithmetic": ([_P, _L, _P, _I, _I], _I),
     "sdt_decode_jpeg_backend": ([_P, _L, _P, _I, _I], _I),
     "sdt_rgb_to_ycc420": ([_P, _I, _I, _P, _P, _P], None),
     "sdt_ycc_to_rgb": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], None),
@@ -239,16 +247,19 @@ def _library() -> ctypes.CDLL:
 def decoders() -> Dict[str, str]:
     """The decoders the library was built with: by format, `jpeg` the back
     end, and the route each kind of JPEG stream takes in `decode_image`
-    (`jpeg_sequential` and `jpeg_progressive`: the streams
-    `jpeg_host_kind` names so; `jpeg_other`: arithmetic, Adobe RGB, an
-    incomplete progressive script, and the rest)."""
-    lib = _library()
-    backend = lib.sdt_jpeg_backend().decode()
-    on_host = lib.sdt_jpeg_host_route()
-    return {"png": "zlib inflate + C++ row filters", "jpeg": backend,
-            "jpeg_sequential": SEQUENTIAL if on_host else backend,
-            "jpeg_progressive": PROGRESSIVE if on_host else backend,
-            "jpeg_other": backend}
+    (`jpeg_sequential`, `jpeg_progressive`, `jpeg_sequential_arithmetic`,
+    `jpeg_progressive_arithmetic`: the streams `jpeg_host_kind` names so,
+    decoded by the library itself on either build; `jpeg_colour`: their
+    colour handling; `jpeg_other`: the rest, such as 12-bit or lossless
+    streams, which the back end refuses or decodes)."""
+    backend = _library().sdt_jpeg_backend().decode()
+    out = {"png": "zlib inflate + C++ row filters (every bit depth and "
+                  "colour type, Adam7)", "jpeg": backend}
+    for kind, route in ROUTES.items():
+        out["jpeg_" + kind.replace(" ", "_")] = route
+    out["jpeg_colour"] = COLOURS
+    out["jpeg_other"] = backend
+    return out
 
 
 def _ptr(a: np.ndarray) -> int:
@@ -315,9 +326,9 @@ def png_unfilter(raw: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
 
 def jpeg_check(buf: bytes) -> Optional[str]:
     """None for a JPEG stream that runs whole from SOI to EOI, else its
-    fault: the check `decode_image` makes before either back end decodes
-    (the markers walked, and a sequential Huffman stream's entropy-coded
-    data decoded as libjpeg decodes it)."""
+    fault: the check `decode_image` makes before the back end decodes a
+    stream the host decoders refuse (the markers walked, and a sequential
+    Huffman stream's entropy-coded data decoded as libjpeg decodes it)."""
     buf = bytes(buf)
     lib = _library()
     return lib.sdt_last_error().decode() if lib.sdt_jpeg_check(
@@ -325,11 +336,18 @@ def jpeg_check(buf: bytes) -> Optional[str]:
 
 
 def jpeg_host_kind(buf: bytes) -> Optional[str]:
-    """The library's own decoder that takes the stream: "sequential",
-    "progressive" (a complete scan script: its scan headers are read), or
-    None (the back end's on the nvJPEG route)."""
+    """The library's own decoder that takes the stream, from its headers:
+    "sequential", "progressive" (Huffman), "sequential arithmetic",
+    "progressive arithmetic", or None (the back end's)."""
     buf = bytes(buf)
     return HOST_KINDS[_library().sdt_jpeg_host_kind(buf, len(buf))]
+
+
+def jpeg_colour(buf: bytes) -> Optional[str]:
+    """libjpeg's colour space guess for a stream the host decoders take:
+    "gray", "YCbCr", "RGB", "CMYK" or "YCCK"; None for another stream."""
+    buf = bytes(buf)
+    return _library().sdt_jpeg_host_colour(buf, len(buf)).decode() or None
 
 
 def _decode_jpeg(fn: str, buf: bytes, name: str) -> np.ndarray:
@@ -345,27 +363,29 @@ def _decode_jpeg(fn: str, buf: bytes, name: str) -> np.ndarray:
 
 def decode_jpeg_sequential(buf: bytes, name: str = "<bytes>") -> np.ndarray:
     """The library's own decode of a stream `jpeg_host_kind` names
-    "sequential", on either route: libjpeg's default decode (integer IDCT,
-    fancy upsampling) to the bit. `decode_image` takes this path on the nvJPEG route; raises
-    ImageDecodeError for damaged data and for another kind of stream."""
+    "sequential" (Huffman), on either build: libjpeg's default decode
+    (integer IDCT, fancy upsampling) to the bit; raises ImageDecodeError
+    for damaged data and for another kind of stream."""
     return _decode_jpeg("sdt_decode_jpeg_sequential", buf, name)
 
 
 def decode_jpeg_progressive(buf: bytes, name: str = "<bytes>") -> np.ndarray:
-    """The library's own decode of a progressive Huffman stream (8 bits,
-    gray or YCbCr, chroma subsampled by 1 or 2), on either route:
-    libjpeg's decode to the bit. `decode_image` takes this path on the
-    nvJPEG route; raises ImageDecodeError for damaged data, another kind
-    of stream, or a scan script that leaves a coefficient libjpeg would
-    smooth short of its last bit."""
+    """The same for a progressive Huffman stream, block smoothing included
+    where its scan script leaves a coefficient short of its last bit."""
     return _decode_jpeg("sdt_decode_jpeg_progressive", buf, name)
+
+
+def decode_jpeg_arithmetic(buf: bytes, name: str = "<bytes>") -> np.ndarray:
+    """The same for an arithmetic-coded stream, sequential or
+    progressive."""
+    return _decode_jpeg("sdt_decode_jpeg_arithmetic", buf, name)
 
 
 def decode_jpeg_backend(buf: bytes, name: str = "<bytes>") -> np.ndarray:
     """The back end's decode (`decoders()["jpeg"]`) of any JPEG stream,
     after `jpeg_check`: what `decode_image` does with the streams
     `jpeg_host_kind` refuses, here for every stream (on the nvJPEG route
-    it times and measures the card's decode beside the sequential one)."""
+    it times and measures the card's decode beside the host decoders')."""
     return _decode_jpeg("sdt_decode_jpeg_backend", buf, name)
 
 

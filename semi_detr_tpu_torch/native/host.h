@@ -1,7 +1,7 @@
-// Declarations shared by the host library (host.cpp) and its JPEG back
-// end: jpeg_libjpeg.cpp where the machine has libjpeg, jpeg_nvjpeg.cpp
-// where it has only the CUDA toolkit's nvJPEG (native/__init__.py picks
-// one at build time).
+// Declarations shared by the host library (host.cpp), its own JPEG
+// decoders (jpeg_host.cpp) and its JPEG back end: jpeg_libjpeg.cpp where
+// the machine has libjpeg, jpeg_nvjpeg.cpp where it has only the CUDA
+// toolkit's nvJPEG (native/__init__.py picks one at build time).
 #pragma once
 
 #include <cstdint>
@@ -37,36 +37,43 @@ void ycc_to_rgb(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
 // with the fault (truncated, a bad Huffman code, a restart marker out of
 // order): the marker segments walked, and the entropy-coded data of a
 // sequential Huffman stream decoded as libjpeg decodes it. sdt_decode
-// checks every JPEG so before either back end decodes it: nvJPEG decodes a
-// damaged stream without complaint, and libjpeg's fast path lets a bad
-// code pass.
+// checks every JPEG the host decoders do not take so before the back end
+// decodes it: nvJPEG decodes a damaged stream without complaint, and
+// libjpeg's fast path lets a bad code pass.
 int jpeg_check(const uint8_t* d, long n);
 
-// the library's own decoder that takes a stream: kSequential for
-// sequential Huffman (SOF0, SOF1), kProgressive for progressive Huffman
-// (SOF2) whose scan script completes the coefficients libjpeg's block
-// smoothing reads (the scan headers walked, the data skipped), kOther for
-// the rest (arithmetic coding, 12 bits, CMYK, RGB, other factors). The
-// first two need 8 bits, gray or YCbCr (libjpeg's colour space guess), the
-// luma at the largest sampling factors and both chroma planes subsampled
-// alike by 1 or 2 in each direction.
-enum JpegKind { kOther = 0, kSequential = 1, kProgressive = 2 };
+// The library's own decoders (jpeg_host.cpp), on either back end: the
+// kind of decoder that takes a stream, from its headers up to the first
+// scan. Every kind needs 8 bits, one frame with a size, integer sampling
+// ratios and a colour space libjpeg's guess gives RGB for (gray, YCbCr,
+// RGB), or CMYK / YCCK (turned to RGB as cv2.imread turns them); kOther
+// for the rest (12 bits, lossless, two components, fractional ratios).
+enum JpegKind {
+  kOther = 0,
+  kSequential = 1,        // Huffman, SOF0 / SOF1
+  kProgressive = 2,       // Huffman, SOF2
+  kSequentialArith = 3,   // arithmetic, SOF9
+  kProgressiveArith = 4,  // arithmetic, SOF10
+};
 int jpeg_host_kind(const uint8_t* d, long n);
-
-// libjpeg's default decode of such a stream, in this library: the
-// entropy-coded data decoded (checked as jpeg_check checks it), dequantized,
-// jidctint.c's integer IDCT (jpeg_idct_islow) and ycc_to_rgb, into out
-// (h, w, 3); a gray stream is repeated over three channels. Bit-equal to
-// libjpeg's decode. Another kind of stream gives kUnsupported.
+// libjpeg's colour space guess for a stream the host decoders take
+// ("gray", "YCbCr", "RGB", "CMYK", "YCCK"), else nullptr
+const char* jpeg_host_colour(const uint8_t* d, long n);
+// (h, w) of the decoded picture of such a stream (CMYK and YCCK turned by
+// their EXIF orientation, as cv2 turns them); kUnsupported for another
+int jpeg_host_info(const uint8_t* d, long n, int* h, int* w);
+// libjpeg's default decode of a stream of that kind into out (h, w, 3)
+// RGB, bit for bit; checked as it decodes (every fault libjpeg warns of
+// fails). Another kind of stream gives kUnsupported.
 int jpeg_decode_sequential(const uint8_t* d, long n, uint8_t* out, int h,
                            int w);
-
-// the same for a progressive stream of those kinds (jdphuff.c's four
-// scan types into coefficient buffers kept across the scans); a script
-// that leaves a coefficient libjpeg's block smoothing reads short of its
-// last bit gives kUnsupported: libjpeg would smooth those blocks
 int jpeg_decode_progressive(const uint8_t* d, long n, uint8_t* out, int h,
                             int w);
+// either arithmetic kind
+int jpeg_decode_arithmetic(const uint8_t* d, long n, uint8_t* out, int h,
+                           int w);
+// any kind the host decoders take
+int jpeg_decode_host(const uint8_t* d, long n, uint8_t* out, int h, int w);
 
 // libjpeg's input stage for a 4:2:0 stream: RGB (h, w, 3) -> y (h, w), and
 // cb and cr ((h + 1) / 2, (w + 1) / 2) by the fixed-point tables of
@@ -76,9 +83,10 @@ int jpeg_decode_progressive(const uint8_t* d, long n, uint8_t* out, int h,
 void rgb_to_ycc420(const uint8_t* rgb, int h, int w, uint8_t* y, uint8_t* cb,
                    uint8_t* cr);
 
-// JPEG back end. Decode writes (h, w, 3) RGB of a stream jpeg_check
-// passed: a grayscale stream is repeated over three channels; CMYK and
-// YCCK streams are refused.
+// JPEG back end, for the streams jpeg_host_kind refuses (sdt_decode's
+// route, after jpeg_check) and for the tests and timings. Decode writes
+// (h, w, 3) RGB of a stream jpeg_check passed: a grayscale stream is
+// repeated over three channels; CMYK and YCCK streams are refused.
 int jpeg_info(const uint8_t* data, long size, int* h, int* w);
 int jpeg_decode(const uint8_t* data, long size, uint8_t* out, int h, int w);
 // the quality of every JPEG the library writes (cv2.imwrite's default)
@@ -87,10 +95,5 @@ constexpr int kJpegQuality = 95;
 // buffer the caller frees
 int jpeg_encode(const uint8_t* rgb, int h, int w, uint8_t** out, long* size);
 const char* jpeg_backend();
-// true where sdt_decode gives the streams jpeg_host_kind takes to
-// jpeg_decode_sequential or jpeg_decode_progressive instead of the back end
-// (nvJPEG: its IDCT is not libjpeg's); the libjpeg back end decodes every
-// stream itself
-bool jpeg_host_route();
 
 }  // namespace sdt

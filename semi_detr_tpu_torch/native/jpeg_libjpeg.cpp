@@ -1,5 +1,6 @@
 // JPEG back end of the host library through libjpeg, as
-// semi_detr_tpu/native/dataloader.cpp decodes (sdt_decode_jpeg): default
+// semi_detr_tpu/native/dataloader.cpp decodes (sdt_decode_jpeg), for the
+// streams the library's own decoders (jpeg_host.cpp) do not take: default
 // settings (integer IDCT, fancy upsampling), output JCS_RGB, so a
 // grayscale stream comes out as three equal channels, the pixels
 // cv2.imread gives. Encode: jpeg_set_defaults at kJpegQuality (4:2:0, the
@@ -158,7 +159,5 @@ int jpeg_encode(const uint8_t* rgb, int h, int w, uint8_t** out, long* size) {
 }
 
 const char* jpeg_backend() { return "libjpeg"; }
-
-bool jpeg_host_route() { return false; }
 
 }  // namespace sdt

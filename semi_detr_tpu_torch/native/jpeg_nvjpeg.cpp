@@ -1,9 +1,10 @@
 // JPEG back end of the host library through nvJPEG, for a machine that has
-// the CUDA toolkit but no libjpeg (the H100 machine of this port). A
-// sequential or progressive Huffman stream that jpeg_host_kind takes does
-// not come here: host.cpp decodes it libjpeg-exact (jpeg_host_route). Any other stream is decoded on
-// the card to its Y, Cb and Cr planes, copied back to
-// host memory and finished as libjpeg finishes it (fancy chroma upsampling
+// the CUDA toolkit but no libjpeg (the H100 machine of this port). Every
+// stream that jpeg_host_kind takes (each one libjpeg decodes to RGB, and
+// CMYK / YCCK) does not come here: jpeg_host.cpp decodes it libjpeg-exact.
+// A stream that reaches nvJPEG (sdt_decode's route for the rest, and
+// sdt_decode_jpeg_backend) is decoded on the card to its Y, Cb and Cr
+// planes, copied back to host memory and finished as libjpeg finishes it (fancy chroma upsampling
 // and its fixed-point colour tables, host.cpp's ycc_to_rgb), so only
 // nvJPEG's IDCT differs from libjpeg's; subsamplings other than 4:4:4,
 // 4:2:2, 4:2:0 and 4:4:0 take nvJPEG's own RGB conversion. Encode: the
@@ -281,7 +282,5 @@ int jpeg_encode(const uint8_t* rgb, int h, int w, uint8_t** out, long* size) {
 }
 
 const char* jpeg_backend() { return "nvjpeg"; }
-
-bool jpeg_host_route() { return true; }
 
 }  // namespace sdt

@@ -13,6 +13,7 @@ import cv2
 import numpy as np
 import pytest
 
+from semi_detr_tpu import native as jax_native
 from semi_detr_tpu_torch.data import image_io
 
 FILTERS = {"none": cv2.IMWRITE_PNG_FILTER_NONE,
@@ -61,10 +62,19 @@ def test_png_round_trip_and_cv2_reads_the_port_file(tmp_path):
 
 
 def test_png_reader_rejects_what_it_cannot_read(tmp_path):
+    """A 16-bit file reads as libpng reads it for the JAX package (the high
+    byte of each sample), through the library and the numpy reader; a
+    damaged chunk raises."""
     path = str(tmp_path / "deep.png")
-    cv2.imwrite(path, _picture(1).astype(np.uint16) * 257)
-    with pytest.raises(ValueError, match="bit depth 16"):
-        image_io.read_image(path)
+    deep = _picture(1).astype(np.uint16) * 257 + np.arange(
+        37, dtype=np.uint16)[:, None]
+    cv2.imwrite(path, deep)
+    with open(path, "rb") as f:
+        buf = f.read()
+    ref = jax_native.decode_image(buf)
+    np.testing.assert_array_equal(image_io.read_image(path), ref)
+    np.testing.assert_array_equal(image_io.decode_png(buf), ref)
+    np.testing.assert_array_equal(ref, (deep >> 8).astype(np.uint8)[..., ::-1])
     buf = bytearray(image_io.encode_png(_picture(2)))
     buf[40] ^= 0xFF                                  # inside IDAT
     with pytest.raises(ValueError, match="CRC"):

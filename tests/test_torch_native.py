@@ -11,7 +11,7 @@ plain versions, the JAX package's native decoder and resize, and cv2.
   against libjpeg on the fixtures and on cv2- and Pillow-written streams
   of every chroma layout, gray, restart intervals 1 and 7.
 * Within tolerance: the resize within one grey level of cv2.resize.
-* Behaviour: damaged, CMYK and unknown files raise naming the file; the
+* Behaviour: damaged, lossless and unknown files raise naming the file; the
   prefetch loader (the JAX test's cases, `next()` with nothing
   outstanding); the eval reader; `save_result` and the image demo.
 """
@@ -71,14 +71,14 @@ def test_built_with_png_and_a_jpeg_decoder():
     assert found["zlib"] and found["route"] in ("libjpeg", "nvjpeg")
     dec = native.decoders()
     assert set(dec) == {"png", "jpeg", "jpeg_sequential", "jpeg_progressive",
+                        "jpeg_sequential_arithmetic",
+                        "jpeg_progressive_arithmetic", "jpeg_colour",
                         "jpeg_other"}
     assert dec["jpeg"] == dec["jpeg_other"] == found["route"]
-    # the card's build decodes sequential and progressive streams here,
+    # either build decodes every kind libjpeg decodes in the library itself,
     # libjpeg-exact
-    assert dec["jpeg_sequential"] == (
-        native.SEQUENTIAL if found["route"] == "nvjpeg" else "libjpeg")
-    assert dec["jpeg_progressive"] == (
-        native.PROGRESSIVE if found["route"] == "nvjpeg" else "libjpeg")
+    for kind, route in native.ROUTES.items():
+        assert dec["jpeg_" + kind.replace(" ", "_")] == route
 
 
 # ---------------------------------------------------------------- resize
@@ -521,8 +521,9 @@ def test_sequential_decoder_raises_on_damage():
 def test_progressive_stream_is_routed_not_decoded():
     """A progressive stream is not the sequential decoder's, which refuses
     it rather than decode it: it takes the progressive decoder's route
-    (the card's route for it, `decoders()["jpeg_progressive"]`). A CMYK
-    stream is neither's: it stays on the back end's route."""
+    (`decoders()["jpeg_progressive"]`). A CMYK stream is the sequential
+    decoder's, which gives cv2.imread's pixels (the JAX loader's fallback
+    for it)."""
     img = _picture(33, 47, 4)
     buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[
         1].tobytes()
@@ -536,7 +537,12 @@ def test_progressive_stream_is_routed_not_decoded():
                                       "jpeg_other"}
     cmyk = io.BytesIO()
     Image.new("CMYK", (20, 10), (10, 20, 30, 40)).save(cmyk, "JPEG")
-    assert native.jpeg_host_kind(cmyk.getvalue()) is None
+    cmyk = cmyk.getvalue()
+    assert native.jpeg_host_kind(cmyk) == "sequential"
+    assert native.jpeg_colour(cmyk) == "CMYK"
+    np.testing.assert_array_equal(native.decode_jpeg_sequential(cmyk),
+                                  _cv2_rgb(cmyk))
+    np.testing.assert_array_equal(native.decode_image(cmyk), _cv2_rgb(cmyk))
     seq = cv2.imencode(".jpg", img)[1].tobytes()
     with pytest.raises(native.ImageDecodeError, match="not a progressive"):
         native.decode_jpeg_progressive(seq)
@@ -637,19 +643,21 @@ def test_progressive_decoder_raises_on_damage():
 def test_incomplete_progressive_script_is_refused():
     """A script that ends before the last bit of the DC or the first AC
     coefficients (the first scans of a stream, then EOI) is one libjpeg
-    decodes with block smoothing, which the library does not reproduce:
-    the host decoders do not take it (the back end's route does) and the
-    progressive decoder raises rather than give unsmoothed pixels."""
+    decodes with block smoothing: the progressive decoder takes it and
+    gives libjpeg-turbo 2.1's smoothed pixels (the JAX package's decoder;
+    the libjpeg-turbo that cv2 bundles smooths otherwise), on either
+    route."""
     buf = cv2.imencode(".jpg", _picture(48, 64, 7),
                        [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
     scans = _scans(buf)
     for k in (1, 3, len(scans) - 1):
         cut = buf[:scans[k][0]] + b"\xff\xd9"
         assert native.jpeg_check(cut) is None
-        assert native.jpeg_host_kind(cut) is None, k
-        with pytest.raises(native.ImageDecodeError, match="smooth"):
-            native.decode_jpeg_progressive(cut)
-        assert native.decode_image(cut).shape == (48, 64, 3)
+        assert native.jpeg_host_kind(cut) == "progressive", k
+        ref = jax_native.decode_image(cut)
+        np.testing.assert_array_equal(native.decode_jpeg_progressive(cut),
+                                      ref)
+        np.testing.assert_array_equal(native.decode_image(cut), ref)
 
 
 def test_jpeg_check_passes_whole_streams():
@@ -697,8 +705,9 @@ def test_jpeg_check_finds_damage():
 
 def test_bad_files_raise_naming_the_file(tmp_path):
     good = cv2.imencode(".jpg", _picture(30, 40, 8))[1].tobytes()
-    cmyk = io.BytesIO()
-    Image.new("CMYK", (20, 10), (10, 20, 30, 40)).save(cmyk, "JPEG")
+    # lossless (SOF3), which libjpeg-turbo 2.1 refuses
+    sof = good.index(b"\xff\xc0")
+    lossless = good[:sof + 1] + b"\xc3" + good[sof + 2:]
     fixtures = {}
     for name in ("colour_420", "gray"):
         with open(os.path.join(native.FIXTURES, f"{name}.jpg"), "rb") as f:
@@ -708,7 +717,7 @@ def test_bad_files_raise_naming_the_file(tmp_path):
             buf[:mid] + b"\xff\x00" * 8 + buf[mid + 16:], "bad Huffman code")
     cases = {**fixtures,
              "truncated.jpg": (good[:len(good) // 2], "Premature end"),
-             "cmyk.jpg": (cmyk.getvalue(), "CMYK"),
+             "lossless.jpg": (lossless, "SOF type 0xc3"),
              "header_only.jpg": (good[:20], "JPEG"),
              "text.png": (b"not an image at all", "neither a JPEG nor"),
              "crc.png": (bytes(bytearray(image_io.encode_png(
