@@ -4,8 +4,8 @@ Counterpart of `semi_detr_tpu/data/coco.py` (mmdet `CocoDataset` as the
 reference consumes it): contiguous labels from category names,
 `filter_empty_gt`, the minimum image size, aspect-ratio flags for the
 group sampler, crowd and ignore annotations as ignore regions. Pure numpy
-and JSON; images are read by `data/image_io.read_image` (JPEG and PNG,
-through the host library).
+and JSON; images are read by `data/image_io.read_image` (JPEG, PNG, BMP,
+PNM, TIFF and WebP, through the host library).
 """
 from __future__ import annotations
 

@@ -2,11 +2,15 @@
 
 Stands in for `CocoDataset.load_image` of `semi_detr_tpu/data/coco.py`
 (the native libjpeg/libpng loader, or else `cv2.imread`): `read_image`
-decodes JPEG and PNG through the port's host library (`native/`), on the
-card's machine too, which has neither cv2 nor PIL. A file it cannot decode
-raises an error that names it; it never returns a blank or substitute
-image. `write_image` encodes by the file's extension: JPEG through the
-library, PNG here.
+decodes, through the port's host library (`native/`), JPEG and PNG as the
+native loader does and every file it hands to cv2 as `cv2.imread(path,
+IMREAD_COLOR)` does (BGR turned to RGB): BMP, PNM (P1-P6), TIFF, WebP,
+and the lossless JPEG streams cv2 reads; on the card's machine too, which
+has neither cv2 nor PIL. A file it cannot decode raises an error that
+names it, and for a format cv2 reads that the port does not (GIF, JPEG
+2000, AVIF, HDR, PFM, PAM, Sun raster) names the format with "not
+ported"; it never returns a blank or substitute image. `write_image`
+encodes by the file's extension: JPEG through the library, PNG here.
 
 The PNG reader and writer here, in numpy and zlib, are the plain versions
 the library's PNG decoder is held to. The reader gives what libpng gives
@@ -202,8 +206,9 @@ def write_png(path: str, img: np.ndarray) -> str:
 
 
 def read_image(path: str) -> np.ndarray:
-    """A JPEG or PNG file -> (H, W, 3) uint8 RGB, by the host library;
-    `native.ImageDecodeError` naming the file for anything else."""
+    """An image file (JPEG, PNG, BMP, PNM, TIFF, WebP) -> (H, W, 3) uint8
+    RGB, by the host library (`native.decode_image`); `ImageDecodeError`
+    naming the file for anything it cannot decode."""
     with open(path, "rb") as f:
         buf = f.read()
     return native.decode_image(buf, path)

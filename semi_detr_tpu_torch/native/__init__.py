@@ -10,9 +10,24 @@ file are compiled by g++ at first use (`-O3 -shared -fPIC -std=c++17
 decoding and augmenting no longer holds up the thread that launches the
 step.
 
-* Decode: PNG at every bit depth and colour type, non-interlaced or
-  Adam7, as libpng gives it to the JAX package's loader (`host.cpp`, by
-  zlib's inflate and the row filters in C++). JPEG by the library's own
+* Decode, by signature: PNG at every bit depth and colour type,
+  non-interlaced or Adam7, as libpng gives it to the JAX package's loader
+  (`host.cpp`, by zlib's inflate and the row filters in C++). The files
+  the JAX loader hands to cv2, to `cv2.imread(path, IMREAD_COLOR)`'s
+  pixels (BGR turned to RGB) bit for bit, by decoders of the library's own
+  (g++ and zlib; no libtiff, libwebp or second libjpeg): BMP and PNM
+  (`bmp_pnm_host.cpp`: OpenCV's BmpDecoder and PxMDecoder, RLE quirks
+  included), TIFF (`tiff_host.cpp`: libtiff's RGBA reader over strips and
+  tiles, none / PackBits / LZW / Deflate / JPEG, predictor 2, 1-16 bits,
+  orientation 1-4), WebP (`webp_host.cpp` and the RFC 6386 tables of
+  `webp_tables.h`: VP8L, VP8 key frames with libwebp's loop filters and
+  fancy upsampling, an animation's first frame, EXIF orientation) and
+  lossless JPEG of at most 8 bits in RGB or CMYK (`jpeg_host.cpp`). The
+  formats cv2 reads and the port does not (GIF, JPEG 2000, AVIF, HDR,
+  PFM, PAM, Sun raster, and the TIFF compressions and samples
+  `tiff_host.cpp` names) raise naming the format and "not ported"; what
+  cv2 refuses too (12-bit JPEG, 16-bit or gray lossless JPEG, TIFF
+  orientation 5-8) raises saying so. JPEG by the library's own
   decoders (`jpeg_host.cpp`), on either build: every stream of 8 bits
   that libjpeg-turbo 2.1 decodes, sequential or progressive, Huffman or
   arithmetic, with libjpeg's block smoothing of an incomplete progressive
@@ -21,7 +36,8 @@ step.
   YCCK (which libjpeg gives no RGB for) to the pixels of the JAX loader's
   fallback, `cv2.imread`. `jpeg_host_kind`, `jpeg_colour` and
   `decoders()` name each kind's route. The back end decodes only the rest
-  (12-bit, lossless; both refuse most of it): libjpeg where the machine
+  (streams neither the host decoders nor cv2 read; it refuses them too):
+  libjpeg where the machine
   has it (`jpeg_libjpeg.cpp`), else the CUDA toolkit's nvJPEG
   (`jpeg_nvjpeg.cpp`), after `jpeg_check` has walked the stream (nvJPEG
   decodes damaged data without complaint). A damaged stream (truncated, a
@@ -69,19 +85,35 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_DIR)
 FIXTURES = os.path.join(_DIR, "fixtures")
-SOURCES = ("host.cpp", "jpeg_host.cpp")
-HEADERS = ("host.h",)
+SOURCES = ("host.cpp", "jpeg_host.cpp", "bmp_pnm_host.cpp", "tiff_host.cpp",
+           "webp_host.cpp")
+HEADERS = ("host.h", "webp_tables.h")
 JPEG_SOURCES = {"libjpeg": "jpeg_libjpeg.cpp", "nvjpeg": "jpeg_nvjpeg.cpp"}
 # the host decoders' routes, by jpeg_host_kind's answer, on either build
 HOST_KINDS = {0: None, 1: "sequential", 2: "progressive",
-              3: "sequential arithmetic", 4: "progressive arithmetic"}
+              3: "sequential arithmetic", 4: "progressive arithmetic",
+              5: "lossless"}
 ROUTES = {"sequential": "host sequential Huffman (libjpeg jdhuff + islow)",
           "progressive": "host progressive Huffman (libjpeg jdphuff + "
                          "smoothing + islow)",
           "sequential arithmetic": "host sequential arithmetic (libjpeg "
                                    "jdarith + islow)",
           "progressive arithmetic": "host progressive arithmetic (libjpeg "
-                                    "jdarith + smoothing + islow)"}
+                                    "jdarith + smoothing + islow)",
+          "lossless": "host lossless (libjpeg-turbo 3 jdlhuff + jddiffct; "
+                      "RGB of 2-8 bits, as cv2 5.0 reads it)"}
+# the other formats cv2 reads for the JAX loader, each decoded by the
+# library itself to cv2's pixels
+FORMAT_ROUTES = {
+    "bmp": "host BMP (1-32 bits, RLE4 / RLE8 / bit fields; OpenCV's "
+           "BmpDecoder)",
+    "pnm": "host PNM (P1-P6, maxval 1-65535; OpenCV's PxMDecoder)",
+    "tiff": "host TIFF (strips and tiles, planar 1 and 2, none / PackBits / "
+            "LZW / Deflate / JPEG, predictor 2, 1-16 bits; libtiff's RGBA "
+            "reader)",
+    "webp": "host WebP (VP8L lossless, VP8 lossy key frames with libwebp's "
+            "fancy upsampling, the first frame of an animation, EXIF "
+            "orientation)"}
 # the colour handling of the host decoders
 COLOURS = ("gray, YCbCr (libjpeg jdcolor), RGB (none), CMYK and YCCK "
            "(cv2.imread's conversion and EXIF orientation); every sampling "
@@ -248,10 +280,13 @@ def decoders() -> Dict[str, str]:
     """The decoders the library was built with: by format, `jpeg` the back
     end, and the route each kind of JPEG stream takes in `decode_image`
     (`jpeg_sequential`, `jpeg_progressive`, `jpeg_sequential_arithmetic`,
-    `jpeg_progressive_arithmetic`: the streams `jpeg_host_kind` names so,
-    decoded by the library itself on either build; `jpeg_colour`: their
-    colour handling; `jpeg_other`: the rest, such as 12-bit or lossless
-    streams, which the back end refuses or decodes)."""
+    `jpeg_progressive_arithmetic`, `jpeg_lossless`: the streams
+    `jpeg_host_kind` names so, decoded by the library itself on either
+    build; `jpeg_colour`: their colour handling; `jpeg_other`: the back
+    end, for the rest: streams neither the host decoders nor cv2 read, such
+    as hierarchical ones, which it refuses too; 12-bit and the lossless
+    streams cv2 refuses are refused before it). `bmp`, `pnm`, `tiff`,
+    `webp`: the library's own decoders of those formats."""
     backend = _library().sdt_jpeg_backend().decode()
     out = {"png": "zlib inflate + C++ row filters (every bit depth and "
                   "colour type, Adam7)", "jpeg": backend}
@@ -259,6 +294,7 @@ def decoders() -> Dict[str, str]:
         out["jpeg_" + kind.replace(" ", "_")] = route
     out["jpeg_colour"] = COLOURS
     out["jpeg_other"] = backend
+    out.update(FORMAT_ROUTES)
     return out
 
 
@@ -283,8 +319,11 @@ def _error(status: int, name: str, detail: str) -> ImageDecodeError:
 # ---------------------------------------------------------------- decode
 
 def image_size(buf: bytes, name: str = "<bytes>") -> Tuple[int, int]:
-    """(H, W) of a JPEG or PNG stream; raises ImageDecodeError naming
-    `name`."""
+    """(H, W) of a stream of any format `decode_image` reads, as decoded
+    (a CMYK, YCCK or lossless JPEG stream and a WebP one turned by their
+    EXIF orientation, as cv2 turns them), read from its headers before any
+    pixel buffer is allocated; raises ImageDecodeError naming `name` (and
+    beyond MAX_PIXELS)."""
     lib = _library()
     buf = bytes(buf)
     h, w = ctypes.c_int(), ctypes.c_int()
@@ -298,8 +337,13 @@ def image_size(buf: bytes, name: str = "<bytes>") -> Tuple[int, int]:
 
 
 def decode_image(buf: bytes, name: str = "<bytes>") -> np.ndarray:
-    """JPEG or PNG bytes -> (H, W, 3) uint8 RGB; raises ImageDecodeError
-    naming `name` (the file) on anything it cannot decode."""
+    """Image bytes -> (H, W, 3) uint8 RGB, the format found by its
+    signature: JPEG and PNG as the JAX package's native loader decodes
+    them; BMP, PNM, TIFF, WebP and lossless JPEG as `cv2.imread(path,
+    IMREAD_COLOR)` does (`decoders()` names each route). Raises
+    ImageDecodeError naming `name` (the file) on anything it cannot decode:
+    damage with the fault, a format cv2 reads and the port does not with
+    its name and "not ported"."""
     buf = bytes(buf)
     h, w = image_size(buf, name)
     out = np.empty((h, w, 3), np.uint8)
@@ -338,7 +382,8 @@ def jpeg_check(buf: bytes) -> Optional[str]:
 def jpeg_host_kind(buf: bytes) -> Optional[str]:
     """The library's own decoder that takes the stream, from its headers:
     "sequential", "progressive" (Huffman), "sequential arithmetic",
-    "progressive arithmetic", or None (the back end's)."""
+    "progressive arithmetic", "lossless", or None (refused, or the back
+    end's)."""
     buf = bytes(buf)
     return HOST_KINDS[_library().sdt_jpeg_host_kind(buf, len(buf))]
 

@@ -1,7 +1,9 @@
-// Host library of the port: image decode (PNG here, JPEG by the library's
-// own decoders in jpeg_host.cpp or the back end of host.h), JPEG encode,
-// bilinear resize, affine warp, the pixel loops of the colour ops, and a
-// threaded prefetch loader.
+// Host library of the port: image decode, dispatched by signature (PNG
+// here, JPEG by the library's own decoders in jpeg_host.cpp or the back
+// end of host.h, BMP / PNM / TIFF / WebP by bmp_pnm_host.cpp, tiff_host.cpp
+// and webp_host.cpp, and a "not ported" error naming any other format cv2
+// reads), JPEG encode, bilinear resize, affine warp, the pixel loops of the
+// colour ops, and a threaded prefetch loader.
 //
 // Counterpart of semi_detr_tpu/native/dataloader.cpp, plus the pixel work
 // that the JAX package leaves to cv2 and Pillow. Every function reproduces
@@ -17,6 +19,7 @@
 #include <zlib.h>
 
 #include <algorithm>
+#include <cctype>
 #include <cmath>
 #include <condition_variable>
 #include <cstdint>
@@ -419,32 +422,83 @@ int sdt_png_decode(const uint8_t* d, long n, uint8_t* out, int h, int w) {
   return kOk;
 }
 
-// (h, w) of a JPEG or PNG stream, by its signature (a JPEG stream as
-// decoded: a CMYK or YCCK one turned by its EXIF orientation).
+// The formats cv2.imread reads (and so the JAX loader's fallback) that the
+// library does not, by OpenCV's signature tests: their names, else nullptr.
+static const char* not_ported_format(const uint8_t* d, long n) {
+  auto starts = [&](const char* s, long k) {
+    return n >= k && std::memcmp(d, s, k) == 0;
+  };
+  if (starts("GIF87a", 6) || starts("GIF89a", 6)) return "GIF";
+  if (starts("\0\0\0\x0cjP  \r\n\x87\n", 12)) return "JPEG 2000 (JP2)";
+  if (starts("\xff\x4f\xff\x51", 4)) return "JPEG 2000 (codestream)";
+  if (starts("#?RADIANCE", 10) || starts("#?RGBE", 6)) return "Radiance HDR";
+  if (n >= 3 && d[0] == 'P' && (d[1] == 'F' || d[1] == 'f') &&
+      std::isspace(d[2]))
+    return "PFM";
+  if (n >= 3 && d[0] == 'P' && d[1] == '7' && std::isspace(d[2]))
+    return "PAM";
+  if (n >= 4 && be32(d) == 0x59A66A95u) return "Sun raster";
+  if (n >= 16 && std::memcmp(d + 4, "ftyp", 4) == 0) {  // an ISO BMFF box
+    const long box = std::min<long>(be32(d), n);
+    for (long p = 8; p + 4 <= box; p += 4)  // major, version, compatible
+      if (p != 12 && (std::memcmp(d + p, "avif", 4) == 0 ||
+                      std::memcmp(d + p, "avis", 4) == 0))
+        return "AVIF";
+  }
+  return nullptr;
+}
+
+static int unknown_format(const uint8_t* d, long n) {
+  if (const char* f = not_ported_format(d, n)) {
+    set_error(std::string(f) + " (cv2 reads it): not ported");
+    return kUnsupported;
+  }
+  set_error("neither a JPEG nor a PNG stream, nor BMP, PNM, TIFF, WebP or "
+            "another format cv2 reads");
+  return kUnknownFormat;
+}
+
+// (h, w) of a stream of any format the library decodes, by its signature,
+// as decoded (a JPEG stream CMYK or YCCK, a TIFF or a WebP one turned by
+// its orientation as cv2 turns them).
 int sdt_image_info(const uint8_t* d, long n, int* h, int* w) {
   if (is_png(d, n)) return png_info(d, n, h, w);
   if (is_jpeg(d, n)) {
     if (jpeg_host_info(d, n, h, w) == kOk) return kOk;
+    if (const char* why = jpeg_refusal(d, n)) {
+      set_error(why);
+      return kUnsupported;
+    }
     return jpeg_info(d, n, h, w);
   }
-  set_error("neither a JPEG nor a PNG stream");
-  return kUnknownFormat;
+  if (is_bmp(d, n)) return bmp_info(d, n, h, w);
+  if (is_pnm(d, n)) return pnm_info(d, n, h, w);
+  if (is_tiff(d, n)) return tiff_info(d, n, h, w);
+  if (is_webp(d, n)) return webp_info(d, n, h, w);
+  return unknown_format(d, n);
 }
 
-// Decode a JPEG or PNG stream of (h, w) pixels into out (h, w, 3) RGB. A
-// JPEG stream the library's own decoders take goes to them on either back
-// end, and a fault there fails the decode; the back end decodes only the
-// rest, after jpeg_check.
+// Decode a stream of (h, w) pixels into out (h, w, 3) RGB. A JPEG stream
+// the library's own decoders take goes to them on either back end, and a
+// fault there fails the decode; the back end decodes only the rest, after
+// jpeg_check. Every other format is the library's own.
 int sdt_decode(const uint8_t* d, long n, uint8_t* out, int h, int w) {
   if (is_png(d, n)) return sdt_png_decode(d, n, out, h, w);
   if (is_jpeg(d, n)) {
     if (jpeg_host_kind(d, n) != kOther)
       return jpeg_decode_host(d, n, out, h, w);
+    if (const char* why = jpeg_refusal(d, n)) {
+      set_error(why);
+      return kUnsupported;
+    }
     const int st = jpeg_check(d, n);
     return st ? st : jpeg_decode(d, n, out, h, w);
   }
-  set_error("neither a JPEG nor a PNG stream");
-  return kUnknownFormat;
+  if (is_bmp(d, n)) return bmp_decode(d, n, out, h, w);
+  if (is_pnm(d, n)) return pnm_decode(d, n, out, h, w);
+  if (is_tiff(d, n)) return tiff_decode(d, n, out, h, w);
+  if (is_webp(d, n)) return webp_decode(d, n, out, h, w);
+  return unknown_format(d, n);
 }
 
 int sdt_encode_jpeg(const uint8_t* rgb, int h, int w, uint8_t** out,

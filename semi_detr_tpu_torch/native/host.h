@@ -1,20 +1,24 @@
-// Declarations shared by the host library (host.cpp), its own JPEG
-// decoders (jpeg_host.cpp) and its JPEG back end: jpeg_libjpeg.cpp where
-// the machine has libjpeg, jpeg_nvjpeg.cpp where it has only the CUDA
-// toolkit's nvJPEG (native/__init__.py picks one at build time).
+// Declarations shared by the host library (host.cpp), its own decoders
+// (jpeg_host.cpp; bmp_pnm_host.cpp, tiff_host.cpp and webp_host.cpp for
+// the files the JAX loader hands to cv2) and its JPEG back end:
+// jpeg_libjpeg.cpp where the machine has libjpeg, jpeg_nvjpeg.cpp where it
+// has only the CUDA toolkit's nvJPEG (native/__init__.py picks one at
+// build time).
 #pragma once
 
 #include <cstdint>
 #include <string>
+#include <vector>
 
 namespace sdt {
 
 // status codes of every decode and load call; native/__init__.py names them
 enum Status {
   kOk = 0,
-  kUnknownFormat = 1,  // neither a JPEG nor a PNG stream
+  kUnknownFormat = 1,  // no format the library or cv2 reads
   kCorrupt = 2,        // damaged or truncated data
-  kUnsupported = 3,    // a valid file of a kind not decoded (CMYK, 16-bit)
+  kUnsupported = 3,    // a valid file of a kind not decoded (a format or
+                       // variant not ported, or one cv2 refuses too)
   kTooLarge = 4,       // more pixels than the caller allows
   kSizeMismatch = 6,   // the stream's size is not the one the caller gave
   kDevice = 7,         // a CUDA or nvJPEG call failed
@@ -54,6 +58,7 @@ enum JpegKind {
   kProgressive = 2,       // Huffman, SOF2
   kSequentialArith = 3,   // arithmetic, SOF9
   kProgressiveArith = 4,  // arithmetic, SOF10
+  kLossless = 5,          // Huffman lossless, SOF3, of the streams cv2 reads
 };
 int jpeg_host_kind(const uint8_t* d, long n);
 // libjpeg's colour space guess for a stream the host decoders take
@@ -74,6 +79,11 @@ int jpeg_decode_arithmetic(const uint8_t* d, long n, uint8_t* out, int h,
                            int w);
 // any kind the host decoders take
 int jpeg_decode_host(const uint8_t* d, long n, uint8_t* out, int h, int w);
+// why cv2 (and so the JAX loader) refuses a stream the host decoders do
+// not take: a precision other than 8 bits in a DCT frame, or a lossless
+// stream of more than 8 bits or one needing a colour conversion; nullptr
+// for any other stream
+const char* jpeg_refusal(const uint8_t* d, long n);
 
 // libjpeg's input stage for a 4:2:0 stream: RGB (h, w, 3) -> y (h, w), and
 // cb and cr ((h + 1) / 2, (w + 1) / 2) by the fixed-point tables of
@@ -95,5 +105,38 @@ constexpr int kJpegQuality = 95;
 // buffer the caller frees
 int jpeg_encode(const uint8_t* rgb, int h, int w, uint8_t** out, long* size);
 const char* jpeg_backend();
+
+// The files the JAX loader hands to cv2, decoded by the library itself to
+// cv2.imread's pixels (IMREAD_COLOR, BGR turned to RGB): each format's
+// signature test, its (h, w) as decoded, and its decode into out (h, w, 3)
+// RGB. A valid file cv2 refuses too gives kUnsupported; damage, kCorrupt.
+bool is_bmp(const uint8_t* d, long n);    // bmp_pnm_host.cpp
+int bmp_info(const uint8_t* d, long n, int* h, int* w);
+int bmp_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
+bool is_pnm(const uint8_t* d, long n);    // P1-P6
+int pnm_info(const uint8_t* d, long n, int* h, int* w);
+int pnm_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
+bool is_tiff(const uint8_t* d, long n);   // tiff_host.cpp
+int tiff_info(const uint8_t* d, long n, int* h, int* w);
+int tiff_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
+bool is_webp(const uint8_t* d, long n);   // webp_host.cpp
+int webp_info(const uint8_t* d, long n, int* h, int* w);
+int webp_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
+
+// (h, w) of a picture of (h, w) after the EXIF orientation o (1-8), and
+// the RGB picture (h, w, 3) turned as OpenCV's ApplyExifOrientation turns it
+// (flips, and for 5-8 a transpose first) into out
+void oriented_size(int o, int h, int w, int* oh, int* ow);
+void orient(const uint8_t* img, int h, int w, int o, uint8_t* out);
+
+// A JPEG stream of a TIFF strip or tile (JPEGTables merged in by the
+// caller), decoded by the host decoders at its own size into *out with the
+// colour conversion the TIFF's photometric asks for instead of libjpeg's
+// guess: ycbcr, YCbCr to RGB (h, w, 3); else none, (h, w, *ncomp) of the
+// components as they are. *h0, *v0: the first component's sampling
+// factors (0 where another component is not 1x1, which libtiff refuses).
+int jpeg_decode_tiff(const uint8_t* d, long n, bool ycbcr,
+                     std::vector<uint8_t>* out, int* h, int* w, int* ncomp,
+                     int* h0, int* v0);
 
 }  // namespace sdt

@@ -26,6 +26,14 @@
 // EXIF orientation): libjpeg cannot give RGB for these, and the JAX
 // package's loader falls back to cv2 for them.
 //
+// Lossless streams (SOF3), which the JAX loader's libjpeg-turbo 2.1
+// refuses and hands to cv2 (libjpeg-turbo 3.1, which converts no colour in
+// lossless mode), decode as cv2.imread gives them where it gives them at
+// all: 2-8 bits, three components libjpeg's guess calls RGB or four CMYK
+// ones (cv2's CMYK conversion), the samples shifted back by the point
+// transform, then the EXIF orientation. jpeg_refusal names what cv2
+// refuses too: another lossless stream, and every DCT frame of 12 bits.
+//
 // Wherever libjpeg warns of damaged data (a code no table holds, a bad
 // arithmetic code, data that ends early, a restart marker out of order, a
 // bogus progression) the decode fails with the fault; it never returns a
@@ -34,6 +42,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <cstdio>
 #include <cstring>
 #include <string>
 #include <vector>
@@ -79,6 +88,7 @@ const int kNatural[64 + 16] = {
 
 struct HuffTable {
   bool defined = false;
+  int max_symbol = 0;  // a DC table's largest category: 16 only lossless
   int32_t maxcode[18];
   int32_t valoffset[18];
   uint8_t vals[256];
@@ -89,7 +99,7 @@ struct HuffTable {
 
 // libjpeg's jpeg_make_d_derived_tbl: canonical codes from the counts of
 // each length; false for a table that does not fit its lengths or (DC) a
-// category above 15
+// category above 16 (a DCT scan refuses 16 where it uses the table)
 bool make_table(const uint8_t* counts, const uint8_t* vals, int nvals,
                 bool dc, HuffTable* t) {
   int size[257], code[256];
@@ -119,8 +129,10 @@ bool make_table(const uint8_t* counts, const uint8_t* vals, int nvals,
   t->maxcode[17] = 0xFFFFF;  // ends the search: no code is longer than 16
   std::memcpy(t->vals, vals, nvals);
   std::memset(t->look, 0, sizeof(t->look));
+  t->max_symbol = 0;
   for (int q = 0; q < nvals; ++q) {
-    if (dc && vals[q] > 15) return false;
+    if (dc && vals[q] > 16) return false;
+    t->max_symbol = std::max<int>(t->max_symbol, vals[q]);
     if (size[q] > kLook) continue;
     const int shift = kLook - size[q];
     for (int j = 0; j < (1 << shift); ++j)
@@ -253,6 +265,10 @@ struct Frame {
   // libjpeg's coef_bits
   int8_t coef_bits[4][64];
   bool bogus = false;  // a scan out of order (libjpeg warns)
+  // lossless (SOF3): the first scan's predictor (its Ss), 0 before it
+  bool lossless = false;
+  int predictor = 0;
+  int sof = 0;  // the first SOFn marker
   // the markers of libjpeg's colour space guess (before the first scan)
   bool jfif = false, adobe = false;
   int adobe_transform = 0;
@@ -268,6 +284,9 @@ struct Coefs {
   bool scanned[4] = {false, false, false, false};
   int bw[4], bh[4];
   std::vector<int16_t> blocks[4];
+  // a lossless frame's samples (height x width) and point transform
+  std::vector<uint16_t> samples[4];
+  int point[4] = {0, 0, 0, 0};
 };
 
 int damaged(const char* what) {
@@ -362,6 +381,7 @@ int read_scan(const uint8_t* d, long n, const uint8_t* sos, long len,
     if (comp[j] < 0 || (tables >> 4) > 3 || (tables & 15) > 3 ||
         !dc[tables >> 4].defined || !ac[tables & 15].defined)
       return damaged("scan of an unknown component or Huffman table");
+    if (dc[tables >> 4].max_symbol > 15) return damaged("bad Huffman table");
   }
   if (co) {
     const int st = latch_tables(f, comp, ns, co);
@@ -432,6 +452,8 @@ int read_progressive_scan(const uint8_t* d, long n, const uint8_t* sos,
     const int t = dc_band ? tables >> 4 : tables & 15;
     if (need && (t > 3 || !(dc_band ? dc : ac)[t].defined))
       return damaged("scan of an unknown Huffman table");
+    if (need && dc_band && dc[t].max_symbol > 15)
+      return damaged("bad Huffman table");
   }
   int st = progression(f, comp, ns, ss, se, ah, al);
   if (st || !co) return st;
@@ -894,6 +916,89 @@ int read_arith_scan(const uint8_t* d, long n, const uint8_t* sos, long len,
 }
 
 
+// A lossless scan (SOF3) whose header ends at data, as libjpeg-turbo 3's
+// jdlhuff.c and jddiffct.c read it: per MCU one difference per component
+// (DC-style Huffman categories 0-16, 16 meaning 32768), undone by the
+// scan's predictor (Ss, 1-7) on the point-transformed samples modulo 2^16;
+// the first row of the image (and of each restart interval, which must
+// hold whole rows) predicts from the left, its first sample from
+// 2^(P - Pt - 1), and the first column from above.
+int read_lossless_scan(const uint8_t* d, long n, const uint8_t* sos, long len,
+                       long data, Frame* f, const HuffTable* dc, int restart,
+                       Coefs* co, long* end) {
+  const int ns = len >= 1 ? sos[0] : 0;
+  if (ns < 1 || ns > 4 || len != 4 + 2 * ns) return damaged("bad scan header");
+  const int pred = sos[1 + 2 * ns], al = sos[3 + 2 * ns] & 15;
+  if (pred < 1 || pred > 7 || sos[2 + 2 * ns] != 0 || (sos[3 + 2 * ns] >> 4))
+    return damaged("bad lossless scan parameters");
+  if (al >= f->precision) return damaged("a point transform past the precision");
+  int comp[4];
+  for (int j = 0; j < ns; ++j) {
+    const int cid = sos[1 + 2 * j], t = sos[2 + 2 * j] >> 4;
+    comp[j] = -1;
+    for (int i = 0; i < f->ncomp; ++i)
+      if (f->id[i] == cid) comp[j] = i;
+    if (comp[j] < 0 || t > 3 || !dc[t].defined)
+      return damaged("scan of an unknown component or Huffman table");
+  }
+  if (f->predictor == 0) f->predictor = pred;
+  if (!co) return kOk;
+  const long W = f->width, H = f->height;
+  if (restart > 0 && restart % W) {
+    set_error("JPEG: a lossless restart interval of part of a row");
+    return kUnsupported;
+  }
+  Bits b(d, n, data);
+  const int rows_per_restart = restart > 0 ? static_cast<int>(restart / W) : 0;
+  int expect = 0;
+  long first_row = 0;
+  for (int j = 0; j < ns; ++j) {
+    co->scanned[comp[j]] = true;
+    co->point[comp[j]] = al;
+  }
+  for (long y = 0; y < H; ++y) {
+    if (rows_per_restart && y > 0 && y % rows_per_restart == 0) {
+      if (b.overrun()) return ran_out(b);
+      if (b.next_marker() != 0xD0 + expect)
+        return damaged("restart marker missing or out of order");
+      b.pos += 2;
+      expect = (expect + 1) & 7;
+      first_row = y;
+    }
+    for (long x = 0; x < W; ++x) {
+      for (int j = 0; j < ns; ++j) {
+        const int c = comp[j];
+        uint16_t* row = co->samples[c].data() + y * W;
+        const int s = decode(&b, dc[sos[2 + 2 * j] >> 4]);
+        if (s < 0 || s > 16) return damaged("bad Huffman code");
+        int diff = s == 16 ? 32768 : s ? extend(b.get(s), s) : 0;
+        int p;
+        if (y == first_row) {
+          p = x == 0 ? 1 << (f->precision - al - 1) : row[x - 1];
+        } else if (x == 0) {
+          p = row[x - W];
+        } else {
+          const int ra = row[x - 1], rb = row[x - W], rc = row[x - W - 1];
+          switch (pred) {
+            case 1: p = ra; break;
+            case 2: p = rb; break;
+            case 3: p = rc; break;
+            case 4: p = ra + rb - rc; break;
+            case 5: p = ra + ((rb - rc) >> 1); break;
+            case 6: p = rb + ((ra - rc) >> 1); break;
+            default: p = (ra + rb) >> 1;
+          }
+        }
+        row[x] = static_cast<uint16_t>((p + diff) & 0xFFFF);
+      }
+      if (b.overrun()) return ran_out(b);
+    }
+  }
+  if (b.next_marker() < 0) return damaged("Premature end of JPEG file (no EOI)");
+  *end = b.pos;
+  return kOk;
+}
+
 // The stream walked from SOI to EOI, or to its first scan header where
 // header_only; with co (a frame the host decoders take: 8 bits, SOF0, 1,
 // 2, 9 or 10) the coefficients kept. Reports the frame, a progressive
@@ -926,6 +1031,8 @@ int walk(const uint8_t* d, long n, Coefs* co, Frame* fo,
     const long blen = len - 2;
     if (m == 0xDA && header_only) {
       if (!f.seen) return damaged("scan before the frame header");
+      if (f.lossless && blen >= 1 && blen == 4 + 2 * body[0])
+        f.predictor = body[1 + 2 * body[0]];
       if (fo) *fo = f;
       return kOk;
     }
@@ -986,6 +1093,7 @@ int walk(const uint8_t* d, long n, Coefs* co, Frame* fo,
       if (nc < 1 || nc > 4 || blen != 6 + 3 * nc)
         return damaged("bad frame header");
       if (f.seen) f.frames += 1;
+      if (!f.seen) f.sof = m;
       f.seen = true;
       f.precision = body[0];
       f.height = (body[1] << 8) | body[2];
@@ -1007,22 +1115,30 @@ int walk(const uint8_t* d, long n, Coefs* co, Frame* fo,
       f.huffman_sequential = (m == 0xC0 || m == 0xC1) && sized;
       f.progressive = (m == 0xC2 || m == 0xCA) && sized;
       f.arithmetic = (m == 0xC9 || m == 0xCA) && sized;
+      f.lossless = m == 0xC3 && sized;
       f.decodable = (f.huffman_sequential || f.progressive || f.arithmetic) &&
                     f.precision == 8;
       std::memset(f.coef_bits, -1, sizeof(f.coef_bits));
       if (co) {
-        if (!f.decodable || f.frames) {
+        if (f.lossless && !f.frames && f.precision >= 2 && f.precision <= 16) {
+          for (int c = 0; c < nc; ++c)
+            co->samples[c].assign(static_cast<size_t>(f.height) * f.width, 0);
+        } else if (!f.decodable || f.frames) {
           set_error("JPEG: not a sequential or progressive frame of 8 bits "
                     "(Huffman or arithmetic)");
           return kUnsupported;
+        } else {
+          size_coefs(f, co);
         }
-        size_coefs(f, co);
       }
     } else if (m == 0xDA) {  // SOS and its entropy-coded data
       if (!f.seen) return damaged("scan before the frame header");
       scanned = true;
       int st = kOk;
-      if (f.arithmetic) {
+      if (f.lossless) {
+        st = read_lossless_scan(d, n, body, blen, i, &f, dc, restart, co, &i);
+        if (!st && co) continue;
+      } else if (f.arithmetic) {
         st = read_arith_scan(d, n, body, blen, i, &f, cond, restart, co, &i);
       } else if (f.huffman_sequential) {
         st = read_scan(d, n, body, blen, i, f, dc, ac, restart, co, &i);
@@ -1407,7 +1523,8 @@ void upsample_row(const uint8_t* plane, int ph, int pw, int he, int ve,
 }
 
 // jdapimin.c's guess of the colour space, and what comes out of each
-enum Colour { kGray, kYCbCr, kRGB, kCMYK, kYCCK, kNoColour };
+enum Colour { kGray, kYCbCr, kRGB, kCMYK, kYCCK, kNoColour,
+              kRaw };  // kRaw: the components as they are, ncomp to a pixel
 const char* const kColourNames[] = {"gray", "YCbCr", "RGB", "CMYK", "YCCK"};
 
 int colour_of(const Frame& f) {
@@ -1474,47 +1591,18 @@ int exif_orientation(const uint8_t* d, long n) {
   return 1;
 }
 
-// (h, w) of the decoded picture after the orientation o
-void oriented_size(int o, int h, int w, int* oh, int* ow) {
-  *oh = o >= 5 ? w : h;
-  *ow = o >= 5 ? h : w;
-}
-
-// the RGB picture (h, w, 3) turned as OpenCV's ApplyExifOrientation turns
-// it (flips, and for 5-8 a transpose first) into out
-void orient(const uint8_t* img, int h, int w, int o, uint8_t* out) {
-  int oh, ow;
-  oriented_size(o, h, w, &oh, &ow);
-  for (int y = 0; y < oh; ++y)
-    for (int x = 0; x < ow; ++x) {
-      int sy, sx;
-      switch (o) {
-        case 2: sy = y; sx = w - 1 - x; break;
-        case 3: sy = h - 1 - y; sx = w - 1 - x; break;
-        case 4: sy = h - 1 - y; sx = x; break;
-        case 5: sy = x; sx = y; break;
-        case 6: sy = h - 1 - x; sx = y; break;
-        case 7: sy = h - 1 - x; sx = w - 1 - y; break;
-        case 8: sy = x; sx = w - 1 - y; break;
-        default: sy = y; sx = x; break;
-      }
-      std::memcpy(out + (static_cast<long>(y) * ow + x) * 3,
-                  img + (static_cast<long>(sy) * w + sx) * 3, 3);
-    }
-}
-
 // the frame's components through libjpeg's back half into out (h, w, 3)
 // RGB: smoothing, IDCT, upsampling, colour conversion (and for CMYK and
 // YCCK cv2's conversion and orientation, orientation o)
 int finish(const Coefs& co, const Frame& f, int o, uint8_t* out, int h,
-           int w) {
-  const int colour = colour_of(f);
+           int w, int colour) {
   int oh, ow;
   oriented_size(colour >= kCMYK ? o : 1, f.height, f.width, &oh, &ow);
   if (oh != h || ow != w) {
     set_error("JPEG size differs from the size asked for");
     return kSizeMismatch;
   }
+  const int oc = colour == kRaw ? f.ncomp : 3;  // output channels
   if (colour == kNoColour) {
     set_error("JPEG: a colour space libjpeg does not convert to RGB");
     return kUnsupported;
@@ -1556,9 +1644,12 @@ int finish(const Coefs& co, const Frame& f, int o, uint8_t* out, int h,
                    colsum.data(), rows[c].data());
       p[c] = rows[c].data();
     }
-    uint8_t* px = dst + static_cast<long>(y) * W * 3;
-    for (int x = 0; x < W; ++x, px += 3) {
+    uint8_t* px = dst + static_cast<long>(y) * W * oc;
+    for (int x = 0; x < W; ++x, px += oc) {
       switch (colour) {
+        case kRaw:
+          for (int c = 0; c < oc; ++c) px[c] = p[c][x];
+          break;
         case kGray:
           px[0] = px[1] = px[2] = p[0][x];
           break;
@@ -1602,6 +1693,15 @@ int finish(const Coefs& co, const Frame& f, int o, uint8_t* out, int h,
 // size, SOF0, 1, 2, 9 or 10, a colour space libjpeg gives RGB for (or
 // CMYK / YCCK, which cv2 turns to RGB), integer sampling ratios
 int host_kind(const Frame& f) {
+  // lossless: what cv2 5.0 reads of it (libjpeg-turbo 3.1 converts no
+  // colour in lossless mode): 3 components of at most 8 bits that
+  // libjpeg's guess calls RGB, at full resolution
+  if (f.seen && f.lossless && !f.frames && f.precision >= 2 &&
+      f.precision <= 8 &&
+      ((f.ncomp == 3 && colour_of(f) == kRGB) ||
+       (f.ncomp == 4 && colour_of(f) == kCMYK)) &&
+      f.predictor >= 1 && f.predictor <= 7 && f.hmax == 1 && f.vmax == 1)
+    return kLossless;
   if (!f.seen || !f.decodable || f.frames || colour_of(f) == kNoColour)
     return kOther;
   for (int c = 0; c < f.ncomp; ++c)
@@ -1627,10 +1727,67 @@ int decode_kind(const uint8_t* d, long n, int want, const char* what,
   }
   Coefs co;
   const int st = walk(d, n, &co, &f);
-  return st ? st : finish(co, f, exif_orientation(d, n), out, h, w);
+  if (st) return st;
+  if (kind == kLossless) {
+    // the samples shifted back by Pt: RGB, or CMYK turned to RGB as
+    // cv2.imread turns it; then cv2's EXIF orientation (cv2 decodes every
+    // lossless stream for the JAX loader)
+    const int o = exif_orientation(d, n);
+    int oh, ow;
+    oriented_size(o, f.height, f.width, &oh, &ow);
+    if (oh != h || ow != w) {
+      set_error("JPEG size differs from the size asked for");
+      return kSizeMismatch;
+    }
+    for (int c = 0; c < f.ncomp; ++c)
+      if (!co.scanned[c]) return damaged("a component no scan holds");
+    const long px = static_cast<long>(f.height) * f.width;
+    std::vector<uint8_t> rgb(o == 1 ? 0 : px * 3);
+    uint8_t* dst = o == 1 ? out : rgb.data();
+    for (long i = 0; i < px; ++i) {
+      int v[4];
+      for (int c = 0; c < f.ncomp; ++c)
+        v[c] = static_cast<uint8_t>(co.samples[c][i] << co.point[c]);
+      for (int c = 0; c < 3; ++c)  // icvCvt_CMYK2BGR_8u_C4C3R for CMYK
+        dst[3 * i + c] = static_cast<uint8_t>(
+            f.ncomp == 3 ? v[c] : v[3] - (((255 - v[c]) * v[3]) >> 8));
+    }
+    if (o != 1) orient(rgb.data(), f.height, f.width, o, out);
+    return kOk;
+  }
+  return finish(co, f, exif_orientation(d, n), out, h, w, colour_of(f));
 }
 
 }  // namespace
+
+// (h, w) of the decoded picture after the orientation o
+void oriented_size(int o, int h, int w, int* oh, int* ow) {
+  *oh = o >= 5 ? w : h;
+  *ow = o >= 5 ? h : w;
+}
+
+// the RGB picture (h, w, 3) turned as OpenCV's ApplyExifOrientation turns
+// it (flips, and for 5-8 a transpose first) into out
+void orient(const uint8_t* img, int h, int w, int o, uint8_t* out) {
+  int oh, ow;
+  oriented_size(o, h, w, &oh, &ow);
+  for (int y = 0; y < oh; ++y)
+    for (int x = 0; x < ow; ++x) {
+      int sy, sx;
+      switch (o) {
+        case 2: sy = y; sx = w - 1 - x; break;
+        case 3: sy = h - 1 - y; sx = w - 1 - x; break;
+        case 4: sy = h - 1 - y; sx = x; break;
+        case 5: sy = x; sx = y; break;
+        case 6: sy = h - 1 - x; sx = y; break;
+        case 7: sy = h - 1 - x; sx = w - 1 - y; break;
+        case 8: sy = x; sx = w - 1 - y; break;
+        default: sy = y; sx = x; break;
+      }
+      std::memcpy(out + (static_cast<long>(y) * ow + x) * 3,
+                  img + (static_cast<long>(sy) * w + sx) * 3, 3);
+    }
+}
 
 int jpeg_check(const uint8_t* d, long n) {
   return walk(d, n, nullptr, nullptr);
@@ -1652,7 +1809,8 @@ int jpeg_host_info(const uint8_t* d, long n, int* h, int* w) {
   Frame f;
   if (walk(d, n, nullptr, &f, true) || host_kind(f) == kOther)
     return kUnsupported;
-  oriented_size(colour_of(f) >= kCMYK ? exif_orientation(d, n) : 1,
+  oriented_size(colour_of(f) >= kCMYK || host_kind(f) == kLossless
+                    ? exif_orientation(d, n) : 1,
                 f.height, f.width, h, w);
   return kOk;
 }
@@ -1672,8 +1830,63 @@ int jpeg_decode_arithmetic(const uint8_t* d, long n, uint8_t* out, int h,
   return decode_kind(d, n, kSequentialArith, "arithmetic-coded", out, h, w);
 }
 
+const char* jpeg_refusal(const uint8_t* d, long n) {
+  thread_local std::string msg;
+  Frame f;
+  if (walk(d, n, nullptr, &f, true) || !f.seen || host_kind(f) != kOther)
+    return nullptr;
+  char sof[8];
+  std::snprintf(sof, sizeof(sof), "0x%02x", f.sof);
+  if (f.lossless && (f.predictor < 1 || f.predictor > 7))
+    msg = "JPEG: damaged data: bad lossless scan parameters (SOF type " +
+          std::string(sof) + ", predictor " + std::to_string(f.predictor) +
+          ")";
+  else if (f.lossless)
+    msg = "JPEG: lossless (SOF type " + std::string(sof) + ") of " +
+          std::to_string(f.precision) + " bits, " +
+          std::to_string(f.ncomp) + " component(s), libjpeg's colour guess " +
+          (colour_of(f) == kNoColour ? std::string("none")
+                                     : kColourNames[colour_of(f)]) +
+          ": cv2 refuses it too (it reads lossless streams of at most 8 "
+          "bits that need no colour conversion: RGB)";
+  else if (f.precision != 8)
+    msg = "JPEG: " + std::to_string(f.precision) + "-bit precision (SOF type " +
+          sof + "): cv2 refuses it too";
+  else
+    return nullptr;
+  return msg.c_str();
+}
+
 int jpeg_decode_host(const uint8_t* d, long n, uint8_t* out, int h, int w) {
   return decode_kind(d, n, kOther, "host-decodable", out, h, w);
+}
+
+int jpeg_decode_tiff(const uint8_t* d, long n, bool ycbcr,
+                     std::vector<uint8_t>* out, int* h, int* w, int* ncomp,
+                     int* h0, int* v0) {
+  Frame f;
+  int st = walk(d, n, nullptr, &f, true);
+  if (st) return st;
+  bool integral = f.seen && f.decodable && !f.frames;
+  for (int c = 0; integral && c < f.ncomp; ++c)
+    integral = f.hmax % f.hs[c] == 0 && f.vmax % f.vs[c] == 0;
+  if (!integral || (ycbcr && f.ncomp != 3)) {
+    set_error("TIFF: a JPEG strip the host decoders do not take (8 bits, "
+              "integer sampling ratios; YCbCr of three components)");
+    return kUnsupported;
+  }
+  *h = f.height;
+  *w = f.width;
+  *ncomp = f.ncomp;
+  *h0 = f.hs[0];
+  *v0 = f.vs[0];
+  for (int c = 1; c < f.ncomp; ++c)
+    if (f.hs[c] != 1 || f.vs[c] != 1) *h0 = *v0 = 0;  // improper factors
+  out->resize(static_cast<size_t>(f.height) * f.width * (ycbcr ? 3 : f.ncomp));
+  Coefs co;
+  st = walk(d, n, &co, &f);
+  return st ? st : finish(co, f, 1, out->data(), f.height, f.width,
+                          ycbcr ? kYCbCr : kRaw);
 }
 
 // ycc_to_rgb: libjpeg's output stage on YCbCr planes (the nvJPEG back end's

@@ -1,12 +1,15 @@
-"""Image inference and rendering over a glob of JPEG or PNG files (the twin
-of demo/image_demo.py, the reference's demo/image_demo.py).
+"""Image inference and rendering over a glob of image files (the twin of
+demo/image_demo.py, the reference's demo/image_demo.py).
 
 Rides the high-level API (`init_detector` -> `inference_detector` ->
-`save_result`): every file is read by the host library, served by the
-`Predictor` on the card (or `--device cpu`), and written under its own
-name into `--output-dir` with green box outlines, encoded by its
-extension. The label text of the reference's render is left out: there is
-no font renderer without cv2.
+`save_result`): every file is read by the host library (JPEG, PNG, BMP,
+PNM, TIFF, WebP: `data.image_io.read_image`), served by the `Predictor`
+on the card (or `--device cpu`), and written under its own name into
+`--output-dir` with green box outlines, encoded by its extension; a file
+of a format the library does not encode (all but JPEG and PNG) is written
+as PNG, its name with ".png" added, where the reference's cv2.imwrite
+keeps the format. The label text of the reference's render is left out:
+there is no font renderer without cv2.
 
     python -m semi_detr_tpu_torch.tools.image_demo "images/*.jpg" CONFIG \
         --checkpoint CKPT.pth --output-dir viz/
@@ -20,6 +23,15 @@ import os
 from ..api import inference_detector, init_detector, save_result
 from ..data.image_io import read_image
 from ..utils.config import parse_cfg_options
+
+
+def output_path(path: str, output_dir: str) -> str:
+    """Where the render of `path` goes: its own name under `output_dir`,
+    with ".png" added unless it is a JPEG or PNG name."""
+    name = os.path.basename(path)
+    if name.lower().rsplit(".", 1)[-1] not in ("jpg", "jpeg", "png"):
+        name += ".png"
+    return os.path.join(output_dir, name)
 
 
 def main(argv=None):
@@ -43,7 +55,7 @@ def main(argv=None):
     for path in sorted(glob.glob(args.images)):
         img = read_image(path)
         result = inference_detector(predictor, img, score_thr=args.score_thr)
-        dst = os.path.join(args.output_dir, os.path.basename(path))
+        dst = output_path(path, args.output_dir)
         save_result(img, result, predictor.class_names, dst,
                     score_thr=args.score_thr)
         print(f"{path} -> {dst} ({len(result[1])} dets)")

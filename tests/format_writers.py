@@ -1,0 +1,872 @@
+"""Writers of the image formats the JAX loader hands to cv2, in numpy and
+the standard library, for the port's decoder tests and fixtures: TIFF (any
+byte order, strips or tiles, planar 1 or 2, none / PackBits / LZW in both
+bit orders / Deflate / JPEG compression, predictor 2, 1-16 bits, every
+photometric the host library reads, the Orientation tag), BMP (every bit
+depth, RLE4 / RLE8 / BI_BITFIELDS, bottom-up and top-down, the OS/2 and V4
+/ V5 headers), PNM (P1-P6 at any maxval) and JPEG of 12 bits (sequential
+and progressive Huffman) or lossless (SOF3, predictors 1-7, point
+transform). cv2 decodes what they write for the reference pixels; the
+tests hold the host library's decode to it.
+"""
+import struct
+import zlib
+
+import numpy as np
+
+# ------------------------------------------------------------------- TIFF
+
+
+def packbits(data: bytes) -> bytes:
+    """Apple PackBits: literal runs and repeats of up to 128 bytes."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([257 - (j - i + 1)]) + data[i:i + 1]
+            i = j + 1
+            continue
+        j = i
+        while j < n and j - i < 128 and not (
+                j + 1 < n and data[j + 1] == data[j]):
+            j += 1
+        j = max(j, i + 1)
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def lzw(data: bytes, old_style: bool = False) -> bytes:
+    """TIFF LZW as libtiff writes it (MSB first, the code width growing one
+    code early, a clear code when the table fills), or in the old style
+    libtiff still reads (LSB first, the width growing on time)."""
+    out, acc, nbits, width = bytearray(), 0, 0, 9
+
+    def put(code):
+        nonlocal acc, nbits
+        if old_style:
+            acc |= code << nbits
+            nbits += width
+            while nbits >= 8:
+                out.append(acc & 0xFF)
+                acc >>= 8
+                nbits -= 8
+        else:
+            acc = (acc << width) | code
+            nbits += width
+            while nbits >= 8:
+                out.append((acc >> (nbits - 8)) & 0xFF)
+                nbits -= 8
+                acc &= (1 << nbits) - 1
+
+    def grow():
+        nonlocal nxt, width, table
+        nxt += 1
+        if nxt == 4094:
+            put(256)
+            table, nxt, width = {bytes([i]): i for i in range(256)}, 258, 9
+        elif nxt >= (1 << width) + (1 if old_style else 0):
+            width += 1
+
+    table, nxt = {bytes([i]): i for i in range(256)}, 258
+    put(256)
+    w = data[:1]
+    for b in data[1:]:
+        wc = w + bytes([b])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        table[wc] = nxt
+        grow()
+        w = bytes([b])
+    if w:
+        put(table[w])
+        grow()
+    put(257)
+    if nbits:
+        out.append((acc << (8 - nbits)) & 0xFF if not old_style
+                   else acc & 0xFF)
+    return bytes(out)
+
+
+def _pack_rows(samples: np.ndarray, bits: int, order: str) -> bytes:
+    """(rows, n) samples -> rows packed to whole bytes: below 8 bits most
+    significant first, 16 bits in the byte order `order` ('<' or '>')."""
+    if bits == 16:
+        return samples.astype(order + "u2").tobytes()
+    if bits == 8:
+        return samples.astype(np.uint8).tobytes()
+    rows, n = samples.shape
+    bit = ((samples[..., None] >> np.arange(bits - 1, -1, -1)) & 1).reshape(
+        rows, n * bits)
+    return np.packbits(bit.astype(np.uint8), axis=1).tobytes()
+
+
+def _predict(samples: np.ndarray, stride: int, bits: int) -> np.ndarray:
+    """Predictor 2 on (rows, n) samples: each minus the one `stride`
+    before it in its row, modulo 2 ** bits."""
+    out = samples.astype(np.int64).copy()
+    out[:, stride:] -= samples[:, :-stride].astype(np.int64)
+    return out % (1 << bits)
+
+
+def jpeg_split(stream: bytes):
+    """A JPEG stream -> (its DQT and DHT segments as a tables-only stream,
+    the stream without them), as TIFF's JPEGTables and an abbreviated
+    strip hold them."""
+    tables, rest, i = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8"), 2
+    while True:
+        m = stream[i + 1]
+        if m == 0xDA:
+            rest += stream[i:]
+            break
+        n = struct.unpack(">H", stream[i + 2:i + 4])[0]
+        (tables if m in (0xDB, 0xC4) else rest).extend(stream[i:i + 2 + n])
+        i += 2 + n
+    return bytes(tables) + b"\xff\xd9", bytes(rest)
+
+
+def write_tiff(img: np.ndarray, bits: int = 8, photometric: int = None,
+               compression: int = 1, predictor: int = 1, planar: int = 1,
+               rows_per_strip: int = None, tile=None, colormap=None,
+               extra: int = None, orientation: int = None,
+               order: str = "<", jpeg=None, jpeg_tables: bool = False,
+               subsampling=None, sample_format: int = None,
+               fill_order: int = None, old_lzw: bool = False) -> bytes:
+    """(h, w, spp) samples -> a TIFF file of one page.
+
+    compression: 1 none, 5 LZW (old_lzw: the old bit order), 8 Deflate,
+    32773 PackBits, 7 JPEG (jpeg(block) -> the stream of one (rows, cols,
+    spp) uint8 block; jpeg_tables moves its tables into JPEGTables).
+    tile: (tile_h, tile_w), else strips of rows_per_strip rows (default:
+    all). colormap: (3, 2 ** bits) uint16. extra: ExtraSamples' value for
+    the samples past the colour ones."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, spp = img.shape
+    if photometric is None:
+        photometric = 3 if colormap is not None else (2 if spp >= 3 else 1)
+    ncolour = 3 if photometric in (2, 6) else 1
+    if tile:
+        th, tw = tile
+        ph, pw = -(-h // th) * th, -(-w // tw) * tw
+        padded = np.zeros((ph, pw, spp), img.dtype)
+        padded[:h, :w] = img
+        blocks = [(y, x, th, tw) for y in range(0, h, th)
+                  for x in range(0, w, tw)]
+        src = padded
+    else:
+        rps = rows_per_strip or h
+        blocks = [(y, 0, min(rps, h - y), w) for y in range(0, h, rps)]
+        src = img
+    planes = [src] if planar == 1 else [src[..., k:k + 1]
+                                        for k in range(spp)]
+    segments, tables = [], None
+    for plane in planes:
+        for y, x, bh, bw in blocks:
+            block = plane[y:y + bh, x:x + bw]
+            if compression == 7:
+                seg = jpeg(block.astype(np.uint8))
+                if jpeg_tables:
+                    tables, seg = jpeg_split(seg)
+                segments.append(seg)
+                continue
+            rows = block.reshape(bh, -1)
+            if predictor == 2:
+                rows = _predict(rows, block.shape[2], bits)
+            raw = _pack_rows(rows, bits, order)
+            if compression == 5:
+                raw = lzw(raw, old_lzw)
+            elif compression in (8, 32946):
+                raw = zlib.compress(raw)
+            elif compression == 32773:
+                raw = b"".join(packbits(raw[r * len(raw) // bh:
+                                            (r + 1) * len(raw) // bh])
+                               for r in range(bh))
+            segments.append(raw)
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
+            259: (3, [compression]), 262: (3, [photometric]),
+            277: (3, [spp]), 284: (3, [planar])}
+    if tile:
+        tags[322] = (4, [tile[1]])
+        tags[323] = (4, [tile[0]])
+    else:
+        tags[278] = (4, [rows_per_strip or h])
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if colormap is not None:
+        tags[320] = (3, list(np.asarray(colormap).reshape(-1)))
+    if spp > ncolour:
+        tags[338] = (3, [extra if extra is not None else 0] * (spp - ncolour))
+    if orientation is not None:
+        tags[274] = (3, [orientation])
+    if subsampling is not None:
+        tags[530] = (3, list(subsampling))
+    if sample_format is not None:
+        tags[339] = (3, [sample_format] * spp)
+    if fill_order is not None:
+        tags[266] = (3, [fill_order])
+    if tables is not None:
+        tags[347] = (7, list(tables))
+    # layout: header, the segments, then the IFD and its out-of-line values
+    data = bytearray(8)
+    offsets = []
+    for seg in segments:
+        offsets.append(len(data))
+        data += seg
+        if len(data) % 2:
+            data += b"\0"
+    off_tag, cnt_tag = (324, 325) if tile else (273, 279)
+    tags[off_tag] = (4, offsets)
+    tags[cnt_tag] = (4, [len(s) for s in segments])
+    fmt = {1: "B", 3: "H", 4: "I", 7: "B"}
+    ifd_at = len(data)
+    n = len(tags)
+    extra_at = ifd_at + 2 + 12 * n + 4
+    ifd, tail = bytearray(struct.pack(order + "H", n)), bytearray()
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        body = struct.pack(order + fmt[typ] * len(vals), *vals)
+        if len(body) <= 4:
+            field = body.ljust(4, b"\0")
+        else:
+            field = struct.pack(order + "I", extra_at + len(tail))
+            tail += body + (b"\0" if len(body) % 2 else b"")
+        ifd += struct.pack(order + "HHI", tag, typ, len(vals)) + field
+    ifd += struct.pack(order + "I", 0)
+    head = (b"II*\0" if order == "<" else b"MM\0*") + struct.pack(
+        order + "I", ifd_at)
+    data[:8] = head
+    return bytes(data + ifd + tail)
+
+
+# -------------------------------------------------------------------- BMP
+
+def rle_bmp_rows(idx: np.ndarray, bits: int, rng=None) -> bytes:
+    """Index rows (bottom-up order already) -> RLE8 or RLE4 data: encoded
+    runs where two or more equal pixels follow, absolute runs of at least
+    three pixels otherwise (word-aligned), an end of line after each row and
+    an end of bitmap. With rng, some runs are split at random."""
+    out = bytearray()
+    per = 2 if bits == 4 else 1
+
+    def pair_val(seq):  # an RLE4 encoded run repeats two nibbles
+        return seq[0] << 4 | (seq[1] if len(seq) > 1 else 0)
+
+    for row in idx:
+        x, w = 0, len(row)
+        while x < w:
+            j = x
+            while j + 1 < w and row[j + 1] == row[x] and j - x < 254:
+                j += 1
+            run = j - x + 1
+            if run >= 2 or w - x < 3:
+                run = min(run, 255)
+                out += bytes([run, row[x] * 17 if bits == 4 else row[x]])
+                x += run
+                continue
+            j = x
+            while j < w and j - x < 255 and not (
+                    j + 1 < w and row[j + 1] == row[j]):
+                j += 1
+            n = max(3, j - x)
+            n = min(n, w - x)
+            if n < 3:
+                out += bytes([n, row[x] * 17 if bits == 4 else row[x]])
+                x += n
+                continue
+            seg = list(row[x:x + n])
+            if bits == 4:
+                body = bytes(pair_val(seg[k:k + 2]) for k in range(0, n, 2))
+            else:
+                body = bytes(seg)
+            out += bytes([0, n]) + body + (b"\0" if len(body) % 2 else b"")
+            x += n
+        out += b"\0\0"
+    return bytes(out + b"\0\1")
+
+
+def write_bmp(img: np.ndarray, bits: int = 24, palette=None,
+              compression: int = 0, header: int = 40, top_down=False,
+              masks=None, rle_data: bytes = None, colours_used=None) -> bytes:
+    """(h, w) indices (bits 1, 4, 8 with palette (n, 3) RGB) or (h, w, 3 or
+    4) RGB(A) samples -> a BMP file. compression 0 BI_RGB, 1 RLE8, 2 RLE4,
+    3 BI_BITFIELDS (masks: red, green, blue[, alpha]); header 12 (OS/2 1.x
+    core), 40, 108 (V4) or 124 (V5). 16 bits: 5-5-5 under BI_RGB, the
+    masks' layout under BI_BITFIELDS."""
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    rows = img[::-1] if not top_down else img
+    if compression in (1, 2):
+        data = rle_data if rle_data is not None else rle_bmp_rows(
+            rows, 8 if compression == 1 else 4)
+    else:
+        if bits <= 8:
+            bit = ((rows[..., None].astype(np.int64) >> np.arange(
+                bits - 1, -1, -1)) & 1).reshape(h, w * bits)
+            raw = np.packbits(bit.astype(np.uint8), axis=1)
+        elif bits == 16:
+            r, g, b = (rows[..., k].astype(np.int64) for k in range(3))
+            if masks is not None and masks[1] == 0x7E0:
+                v = (r >> 3) << 11 | (g >> 2) << 5 | (b >> 3)
+            else:
+                v = (r >> 3) << 10 | (g >> 3) << 5 | (b >> 3)
+            raw = v.astype("<u2").view(np.uint8).reshape(h, 2 * w)
+        else:
+            raw = rows[..., [2, 1, 0] + ([3] if bits == 32 else [])]
+            if bits == 32 and rows.shape[2] == 3:
+                raw = np.concatenate(
+                    [rows[..., ::-1], np.zeros((h, w, 1), rows.dtype)], 2)
+            raw = raw.astype(np.uint8).reshape(h, -1)
+        pad = (-raw.shape[1]) % 4
+        raw = np.concatenate([raw, np.zeros((h, pad), np.uint8)], 1)
+        data = raw.tobytes()
+    pal = b""
+    if palette is not None:
+        palette = np.asarray(palette, np.uint8)
+        entry = palette[:, ::-1]
+        if header != 12:
+            entry = np.concatenate([entry, np.zeros((len(entry), 1),
+                                                    np.uint8)], 1)
+        pal = entry.tobytes()
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        n_pal = len(palette) if palette is not None else 0
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h,
+                           1, bits, compression, len(data), 2835, 2835,
+                           colours_used if colours_used is not None
+                           else n_pal, 0)
+        if header > 40:
+            m = list(masks or (0, 0, 0, 0)) + [0] * 4
+            info += struct.pack("<IIII", *m[:4])
+            info += b"sRGB"[::-1] + b"\0" * (header - 60)
+        elif compression == 3:
+            pal = struct.pack("<III", *masks[:3]) + pal
+    off = 14 + len(info) + len(pal)
+    return b"BM" + struct.pack("<IHHI", off + len(data), 0, 0, off) + \
+        info + pal + data
+
+
+# ---------------------------------------------- JPEG of 12 bits, lossless
+
+class _BitWriter:
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, code: int, length: int):
+        for k in range(length - 1, -1, -1):
+            self.acc = (self.acc << 1) | ((code >> k) & 1)
+            self.n += 1
+            if self.n == 8:
+                self.out.append(self.acc)
+                if self.acc == 0xFF:
+                    self.out.append(0)
+                self.acc, self.n = 0, 0
+
+    def flush(self) -> bytes:
+        if self.n:
+            self.put((1 << (8 - self.n)) - 1, 8 - self.n)
+        return bytes(self.out)
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def _flat_table(tc: int, th: int, nsym: int, length: int):
+    """A DHT segment body giving symbols 0..nsym-1 codes of `length` bits,
+    and the (code, length) of each symbol."""
+    counts = [0] * 16
+    counts[length - 1] = min(nsym, 255)
+    codes = {s: (s, length) for s in range(min(nsym, 255))}
+    if nsym == 256:  # a length holds at most 255: the last one bit longer
+        counts[length] = 1
+        codes[255] = (255 << 1, length + 1)
+    return (bytes([tc << 4 | th]) + bytes(counts) + bytes(range(nsym)),
+            codes)
+
+
+def _category(v: int) -> int:
+    return 0 if v == 0 else int(abs(v)).bit_length()
+
+
+def _put_value(bw, v: int, s: int):
+    if s:
+        bw.put(v if v > 0 else v + (1 << s) - 1, s)
+
+
+_ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+                    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21,
+                    28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30,
+                    37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61,
+                    54, 47, 55, 62, 63])
+
+
+def _dct_matrix():
+    k = np.arange(8)
+    c = np.cos((2 * k[None] + 1) * k[:, None] * np.pi / 16)
+    c[0] *= 1 / np.sqrt(2)
+    return c / 2
+
+
+def jpeg12(samples: np.ndarray, progressive: bool = False,
+           colour: str = "ycbcr", factors=((1, 1), (1, 1), (1, 1)),
+           quant: int = 4, precision: int = 12) -> bytes:
+    """(h, w, c) samples of 12 bits (0-4095) -> a JPEG stream of precision
+    12: sequential Huffman (SOF1) or progressive (SOF2: a DC scan, then one
+    AC scan per component). colour 'ycbcr' (JFIF, component ids 1-3),
+    'rgb' (Adobe transform 0) or 'gray'; factors (h, v) per component;
+    every quantizer `quant`; flat Huffman tables that code every symbol."""
+    h, w, nc = samples.shape
+    factors = factors[:nc]
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    mcu_w, mcu_h = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    dct = _dct_matrix()
+    blocks = []  # per component: (bh, bw, 64) quantized, zig-zag order
+    for c in range(nc):
+        fh, fv = factors[c]
+        ph, pw = -(-h * fv // vmax), -(-w * fh // hmax)
+        plane = samples[..., c].astype(np.float64)
+        if (fh, fv) != (hmax, vmax):  # box downsampling
+            sy, sx = vmax // fv, hmax // fh
+            plane = np.pad(plane, ((0, (-h) % sy), (0, (-w) % sx)), "edge")
+            plane = plane.reshape(plane.shape[0] // sy, sy,
+                                  plane.shape[1] // sx, sx).mean((1, 3))
+        bh, bw = mcu_h * fv, mcu_w * fh
+        plane = np.pad(plane[:ph, :pw], ((0, bh * 8 - ph), (0, bw * 8 - pw)),
+                       "edge") - (1 << (precision - 1))
+        t = plane.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        coef = np.einsum("ij,abjk,lk->abil", dct, t, dct)
+        q = np.round(coef / quant).astype(np.int64).reshape(bh, bw, 64)
+        blocks.append(q[..., _ZIGZAG])
+    dc_body, dc_codes = _flat_table(0, 0, 16, 5)
+    ac_body, ac_codes = _flat_table(1, 0, 256, 9)
+    ids = ([1, 2, 3, 4] if colour != "rgb" or nc == 4
+           else [ord("R"), ord("G"), ord("B")])
+    out = bytearray(b"\xff\xd8")
+    if colour == "ycbcr":
+        out += _segment(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+    elif colour == "rgb":
+        out += _segment(0xEE, b"Adobe\0\x64\0\0\0\0\0")
+    out += _segment(0xDB, bytes([0]) + bytes([quant] * 64))
+    sof = bytes([precision]) + struct.pack(">HH", h, w) + bytes([nc])
+    for c in range(nc):
+        sof += bytes([ids[c], factors[c][0] << 4 | factors[c][1], 0])
+    out += _segment(0xC2 if progressive else 0xC1, sof)
+    out += _segment(0xC4, dc_body + ac_body)
+
+    def mcu_blocks(c, my, mx):
+        fh, fv = factors[c]
+        for by in range(fv):
+            for bx in range(fh):
+                yield blocks[c][my * fv + by, mx * fh + bx]
+
+    def scan(comps, ss, se):
+        body = bytes([len(comps)])
+        for c in comps:
+            body += bytes([ids[c], 0])
+        body += bytes([ss, se, 0])
+        bw = _BitWriter()
+        pred = {c: 0 for c in comps}
+        if len(comps) == 1:
+            c = comps[0]
+            fh, fv = factors[c]
+            ph, pw = -(-h * fv // vmax), -(-w * fh // hmax)
+            units = [(by, bx) for by in range(-(-ph // 8))
+                     for bx in range(-(-pw // 8))]
+            seq = [(c, blocks[c][by, bx]) for by, bx in units]
+        else:
+            seq = [(c, b) for my in range(mcu_h) for mx in range(mcu_w)
+                   for c in comps for b in mcu_blocks(c, my, mx)]
+        for c, blk in seq:
+            if ss == 0:
+                diff = int(blk[0]) - pred[c]
+                pred[c] = int(blk[0])
+                s = _category(diff)
+                bw.put(*dc_codes[s])
+                _put_value(bw, diff, s)
+            if se > 0:
+                run = 0
+                ac = blk[max(ss, 1):se + 1]
+                last = np.nonzero(ac)[0]
+                last = last[-1] if len(last) else -1
+                for k, v in enumerate(ac[:last + 1]):
+                    v = int(v)
+                    if v == 0:
+                        run += 1
+                        continue
+                    while run > 15:
+                        bw.put(*ac_codes[0xF0])
+                        run -= 16
+                    s = _category(v)
+                    bw.put(*ac_codes[run << 4 | s])
+                    _put_value(bw, v, s)
+                    run = 0
+                if last + 1 < len(ac):
+                    bw.put(*ac_codes[0x00])
+        return _segment(0xDA, body) + bw.flush()
+
+    if progressive:
+        out += scan(list(range(nc)), 0, 0)
+        for c in range(nc):
+            out += scan([c], 1, 63)
+    else:
+        out += scan(list(range(nc)), 0, 63)
+    return bytes(out + b"\xff\xd9")
+
+
+def exif_app1(orientation: int) -> bytes:
+    """An APP1 segment of EXIF holding IFD0's Orientation tag."""
+    tiff = b"MM\0*" + struct.pack(">I", 8) + struct.pack(">H", 1) + \
+        struct.pack(">HHIHH", 0x0112, 3, 1, orientation, 0) + b"\0" * 4
+    return _segment(0xE1, b"Exif\0\0" + tiff)
+
+
+def jpeg_lossless(samples: np.ndarray, precision: int, predictor: int,
+                  point: int = 0, colour: str = "rgb",
+                  restart: int = 0, orientation: int = 0) -> bytes:
+    """(h, w, c) samples below 2 ** precision -> a lossless JPEG stream
+    (SOF3) of one interleaved scan: predictor 1-7, point transform `point`
+    (the samples' low bits dropped), colour 'rgb' (Adobe transform 0),
+    'ycbcr' (JFIF) or 'gray'; a restart every `restart` MCUs (0: none)."""
+    h, w, nc = samples.shape
+    x = samples.astype(np.int64) >> point
+    body, codes = _flat_table(0, 0, 17, 5)
+    ids = ([1, 2, 3, 4] if colour != "rgb" or nc == 4
+           else [ord("R"), ord("G"), ord("B")])
+    out = bytearray(b"\xff\xd8")
+    if colour == "ycbcr":
+        out += _segment(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+    elif colour == "rgb":
+        out += _segment(0xEE, b"Adobe\0\x64\0\0\0\0\0")
+    if orientation:
+        out += exif_app1(orientation)
+    sof = bytes([precision]) + struct.pack(">HH", h, w) + bytes([nc])
+    for c in range(nc):
+        sof += bytes([ids[c], 0x11, 0])
+    out += _segment(0xC3, sof) + _segment(0xC4, body)
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    sos = bytes([nc]) + b"".join(bytes([ids[c], 0]) for c in range(nc))
+    out += _segment(0xDA, sos + bytes([predictor, 0, point]))
+    bw, mcu, rst = _BitWriter(), 0, 0
+    first_row = 0  # the row a restart made a first row
+    for y in range(h):
+        for xx in range(w):
+            if restart and mcu and mcu % restart == 0:
+                out += bw.flush() + bytes([0xFF, 0xD0 + rst % 8])
+                rst += 1
+                bw = _BitWriter()
+                first_row = y
+                # libjpeg restarts at row starts only when restart divides w
+            for c in range(nc):
+                ra = x[y, xx - 1, c] if xx else 0
+                rb = x[y - 1, xx, c] if y else 0
+                rc = x[y - 1, xx - 1, c] if y and xx else 0
+                if y == first_row and xx == 0:
+                    p = 1 << (precision - point - 1)
+                elif y == first_row:
+                    p = ra
+                elif xx == 0:
+                    p = rb
+                else:
+                    p = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+                         5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                         7: (ra + rb) >> 1}[predictor]
+                diff = (int(x[y, xx, c]) - int(p)) & 0xFFFF
+                if diff >= 0x8000:
+                    diff -= 0x10000
+                s = 16 if diff == -0x8000 else _category(diff)
+                bw.put(*codes[s])
+                if s < 16:
+                    _put_value(bw, diff, s)
+            mcu += 1
+    return bytes(out + bw.flush() + b"\xff\xd9")
+
+
+# -------------------------------------------------------------- fixtures
+
+def picture(h: int, w: int, seed: int, noise: int = 24) -> np.ndarray:
+    """A seeded RGB picture: gradients, a disc and a bar, plus noise."""
+    rs = np.random.RandomState(seed)
+    ys, xs = np.mgrid[0:h, 0:w]
+    img = np.stack([xs * 255 // max(w - 1, 1), ys * 255 // max(h - 1, 1),
+                    (xs + ys) * 127 // max(h + w - 2, 1)], 2)
+    disc = (ys - h * 0.45) ** 2 + (xs - w * 0.6) ** 2 < (min(h, w) * 0.3) ** 2
+    img[disc] = (230, 60, 40)
+    img[h // 5:h // 5 + max(h // 8, 1), :] = (20, 40, 200)
+    if noise:
+        img = img + rs.randint(-noise // 2, noise // 2 + 1, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _pil(img, fmt, **kw) -> bytes:
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def _webp_exif(orientation: int) -> bytes:
+    from PIL import Image
+    exif = Image.Exif()
+    exif[274] = orientation
+    return exif.tobytes()
+
+
+def fixture_files():
+    """{file name: (bytes, format, variant, expect)} of the committed
+    fixtures: expect "pixels" (held to cv2.imread), "refused" (cv2 reads
+    none of it either) or "not ported" (cv2 reads it, the port does not)."""
+    import cv2
+    rs = np.random.RandomState(12)
+    a, b = picture(37, 53, 1), picture(45, 61, 2)
+    out = {}
+
+    def add(name, data, fmt, variant, expect="pixels"):
+        out[name] = (data, fmt, variant, expect)
+
+    pal = rs.randint(0, 256, (256, 3))
+    idx = (a.astype(int).sum(2) // 3).astype(np.int64)
+    add("bmp_pal1.bmp", write_bmp(idx >> 7, 1, pal[:2]), "BMP", "1-bit")
+    add("bmp_pal4.bmp", write_bmp(idx >> 4, 4, pal[:16]), "BMP", "4-bit")
+    add("bmp_pal8_topdown.bmp", write_bmp(idx, 8, pal, top_down=True), "BMP",
+        "8-bit, top-down")
+    add("bmp_os2_pal8.bmp", write_bmp(idx, 8, pal, header=12), "BMP",
+        "8-bit, OS/2 core header")
+    runs = np.repeat(idx[:, ::4], 4, 1)[:, :53]
+    add("bmp_rle8.bmp", write_bmp(runs, 8, pal, compression=1), "BMP", "RLE8")
+    add("bmp_rle4.bmp", write_bmp(runs >> 4, 4, pal[:16], compression=2),
+        "BMP", "RLE4")
+    add("bmp_rgb555.bmp", write_bmp(b, 16), "BMP", "16-bit 5-5-5")
+    add("bmp_rgb565.bmp", write_bmp(b, 16, compression=3,
+                                    masks=(0xF800, 0x7E0, 0x1F)),
+        "BMP", "16-bit 5-6-5 bit fields")
+    add("bmp_24.bmp", write_bmp(a, 24), "BMP", "24-bit")
+    add("bmp_v4_24.bmp", write_bmp(b, 24, header=108, top_down=True), "BMP",
+        "24-bit, V4 header, top-down")
+    rgba = np.concatenate([b, rs.randint(0, 256, (45, 61, 1))], 2)
+    add("bmp_32_v5.bmp", write_bmp(rgba, 32, compression=3, header=124,
+                                   masks=(0xFF0000, 0xFF00, 0xFF,
+                                          0xFF000000)),
+        "BMP", "32-bit bit fields, V5 header, alpha")
+    g = a[..., 1:2].astype(np.int64)
+    add("pnm_p1.pbm", b"P1\n# bits\n53 37\n" + " ".join(
+        str(v) for v in (g[..., 0] > 127).astype(int).ravel()).encode()
+        + b"\n", "PNM", "P1 ASCII bits")
+    add("pnm_p4.pbm", b"P4\n53 37\n" + np.packbits(
+        (g[..., 0] > 100).astype(np.uint8), axis=1).tobytes(), "PNM",
+        "P4 packed bits")
+    add("pnm_p2_100.pgm", b"P2\n53 37\n100\n" + " ".join(
+        str(v) for v in (g * 100 // 255).ravel()).encode() + b"\n", "PNM",
+        "P2 ASCII, maxval 100")
+    wide = b.astype(np.int64) * 1000 // 255
+    add("pnm_p3_1000.ppm", b"P3\n61 45\n1000\n" + " ".join(
+        str(v) for v in wide.ravel()).encode() + b"\n", "PNM",
+        "P3 ASCII, maxval 1000")
+    add("pnm_p5_65535.pgm", b"P5\n53 37\n65535\n" + (
+        g * 257 + rs.randint(0, 256, g.shape)).astype(">u2").tobytes(),
+        "PNM", "P5 16-bit")
+    add("pnm_p6_100.ppm", b"P6\n61 45\n100\n" + (
+        b.astype(np.int64) * 100 // 255).astype(np.uint8).tobytes(), "PNM",
+        "P6 maxval 100")
+
+    def enc(block):
+        bgr = np.ascontiguousarray(block[..., ::-1])
+        return cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, 90])[
+            1].tobytes()
+
+    add("tiff_none_strips.tif", write_tiff(a, rows_per_strip=8), "TIFF",
+        "none, strips")
+    add("tiff_none_be_planar2.tif", write_tiff(b, order=">", planar=2,
+                                               rows_per_strip=10),
+        "TIFF", "none, big-endian, planar 2")
+    add("tiff_packbits.tif", write_tiff(a, compression=32773), "TIFF",
+        "PackBits")
+    add("tiff_lzw_predictor.tif", write_tiff(b, compression=5, predictor=2,
+                                             rows_per_strip=16),
+        "TIFF", "LZW, predictor 2")
+    add("tiff_lzw_old.tif", write_tiff(a, compression=5, old_lzw=True),
+        "TIFF", "LZW, old-style codes")
+    add("tiff_deflate_tiles.tif", write_tiff(b, compression=8,
+                                             tile=(32, 32)),
+        "TIFF", "Deflate, tiles")
+    wide16 = b.astype(np.int64) * 257 + rs.randint(0, 256, b.shape)
+    add("tiff_deflate_16bit_planar2.tif", write_tiff(
+        wide16, bits=16, compression=8, predictor=2, planar=2,
+        order=">", tile=(16, 32)), "TIFF",
+        "Deflate, 16-bit, predictor 2, planar 2, tiles, big-endian")
+    add("tiff_gray1_miniswhite.tif", write_tiff(
+        (g > 127).astype(int), bits=1, photometric=0), "TIFF",
+        "1-bit min-is-white")
+    add("tiff_gray16_tiles.tif", write_tiff(
+        g * 257 + rs.randint(0, 256, g.shape), bits=16, photometric=1,
+        compression=5, tile=(32, 32)), "TIFF",
+        "16-bit min-is-black, tiles (libtiff's clipped-tile stride)")
+    add("tiff_palette4.tif", write_tiff(idx >> 4, bits=4,
+                                        colormap=pal[:16].T * 257),
+        "TIFF", "4-bit palette, 16-bit colour map")
+    add("tiff_palette8.tif", write_tiff(idx, bits=8, colormap=pal.T,
+                                        compression=5),
+        "TIFF", "8-bit palette, 8-bit colour map")
+    add("tiff_rgba_unassoc.tif", write_tiff(rgba, extra=2, compression=5),
+        "TIFF", "RGBA, unassociated alpha")
+    add("tiff_jpeg_ycbcr_tables.tif", write_tiff(
+        b, compression=7, photometric=6, subsampling=(2, 2), jpeg=enc,
+        jpeg_tables=True, rows_per_strip=16), "TIFF",
+        "JPEG, YCbCr 4:2:0 strips, JPEGTables")
+    add("tiff_jpeg_tiles.tif", write_tiff(
+        a, compression=7, photometric=6, subsampling=(2, 2), jpeg=enc,
+        tile=(16, 32)), "TIFF", "JPEG, YCbCr tiles")
+    add("tiff_orient3.tif", write_tiff(b, compression=5, orientation=3,
+                                       tile=(16, 16)),
+        "TIFF", "orientation 3, tiles")
+    add("tiff_orient6.tif", write_tiff(a, orientation=6), "TIFF",
+        "orientation 6", "refused")
+    add("webp_lossless.webp", _pil(a, "WEBP", lossless=True), "WebP",
+        "VP8L")
+    add("webp_lossless_palette.webp", _pil(
+        np.repeat((idx >> 6)[..., None] * 80, 3, 2).astype(np.uint8),
+        "WEBP", lossless=True), "WebP", "VP8L colour indexing")
+    add("webp_lossy.webp", _pil(b, "WEBP", quality=80), "WebP", "VP8")
+    add("webp_lossy_alpha.webp", _pil(rgba.astype(np.uint8), "WEBP",
+                                      quality=70), "WebP", "VP8X + ALPH")
+    add("webp_lossy_orient6.webp", _pil(a, "WEBP", quality=90,
+                                        exif=_webp_exif(6)),
+        "WebP", "VP8, EXIF orientation 6")
+    add("webp_lossless_orient3.webp", _pil(b, "WEBP", lossless=True,
+                                           exif=_webp_exif(3)),
+        "WebP", "VP8L, EXIF orientation 3")
+    import io
+    from PIL import Image
+    frames = [Image.fromarray(picture(37, 53, k)) for k in range(3)]
+    anim = io.BytesIO()
+    frames[0].save(anim, "WEBP", save_all=True, append_images=frames[1:],
+                   lossless=True, duration=100)
+    add("webp_animation.webp", anim.getvalue(), "WebP",
+        "animation (its first frame)")
+    big = picture(480, 640, 3, noise=0)
+    add("webp_lossy_480x640.webp", _pil(big, "WEBP", quality=80), "WebP",
+        "VP8 at 480x640")
+    add("webp_lossless_480x640.webp", _pil(big, "WEBP", lossless=True),
+        "WebP", "VP8L at 480x640")
+    add("tiff_lzw_480x640.tif", write_tiff(big, compression=5, predictor=2,
+                                           rows_per_strip=32),
+        "TIFF", "LZW, predictor 2, at 480x640")
+    lossless = b.astype(np.int64)
+    add("jpeg_lossless_p8.jpg", jpeg_lossless(lossless, 8, 4), "JPEG",
+        "lossless, 8 bits, predictor 4")
+    add("jpeg_lossless_p6_pt.jpg", jpeg_lossless(lossless >> 2, 6, 7, 1),
+        "JPEG", "lossless, 6 bits, predictor 7, point transform 1")
+    add("jpeg_lossless_cmyk_restart.jpg", jpeg_lossless(
+        np.concatenate([lossless, 255 - lossless[..., :1]], 2), 8, 5,
+        restart=61), "JPEG", "lossless CMYK, restarts")
+    add("jpeg_lossless_orient6.jpg", jpeg_lossless(
+        a.astype(np.int64), 8, 1, orientation=6), "JPEG",
+        "lossless, EXIF orientation 6")
+    twelve = a.astype(np.int64) * 16 + rs.randint(0, 16, a.shape)
+    add("jpeg12_sequential.jpg", jpeg12(twelve), "JPEG",
+        "12-bit sequential (SOF1)", "refused")
+    add("jpeg12_progressive.jpg", jpeg12(twelve, progressive=True), "JPEG",
+        "12-bit progressive (SOF2)", "refused")
+    add("jpeg_lossless_gray.jpg", jpeg_lossless(g, 8, 1, colour="gray"),
+        "JPEG", "lossless gray (needs a colour conversion)", "refused")
+    add("jpeg_lossless_p16.jpg", jpeg_lossless(wide16, 16, 1), "JPEG",
+        "lossless, 16 bits", "refused")
+    bgr = np.ascontiguousarray(a[..., ::-1])
+    for ext, fmt in ((".jp2", "JPEG 2000 (JP2)"), (".avif", "AVIF"),
+                     (".hdr", "Radiance HDR"), (".pfm", "PFM"),
+                     (".ras", "Sun raster"), (".pam", "PAM")):
+        src = bgr.astype(np.float32) / 255 if ext in (".hdr", ".pfm") \
+            else bgr
+        add("other" + ext.replace(".", "_") + ext,
+            cv2.imencode(ext, src)[1].tobytes(), fmt, "cv2.imencode",
+            "not ported")
+    add("other_gif.gif", _pil(a, "GIF"), "GIF", "Pillow", "not ported")
+    return out
+
+
+def write_fixtures(directory: str) -> dict:
+    """Writes every fixture, and for each one cv2 decodes its pixels as
+    `<stem>.ref.png`, and formats.json; returns formats.json's content."""
+    import json
+    import os
+    import cv2
+    index = {}
+    for name, (data, fmt, variant, expect) in fixture_files().items():
+        path = os.path.join(directory, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        ref = cv2.imread(path, cv2.IMREAD_COLOR)
+        stem = name.rsplit(".", 1)[0]
+        if expect == "pixels":
+            assert ref is not None, name
+            cv2.imwrite(os.path.join(directory, stem + ".ref.png"), ref)
+        elif expect == "refused":
+            assert ref is None, name
+        route = {"BMP": "bmp", "PNM": "pnm", "TIFF": "tiff", "WebP": "webp",
+                 "JPEG": "jpeg_lossless"}.get(fmt)
+        index[name] = {"format": fmt, "variant": variant, "expect": expect,
+                       "route": route if expect == "pixels" else None}
+    with open(os.path.join(directory, "formats.json"), "w") as f:
+        json.dump(index, f, indent=1, sort_keys=True)
+    return index
+
+
+if __name__ == "__main__":
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    write_fixtures(os.path.join(here, "..", "semi_detr_tpu_torch", "native",
+                                "fixtures"))
+
+
+# ------------------------------------------------------ test references
+
+def cv2_rgb(data: bytes, tmp_dir: str, name: str = "probe"):
+    """cv2.imread(path, IMREAD_COLOR) of the bytes written to a file (the
+    JAX loader's fallback reads a path; imdecode differs for a TIFF turned
+    by orientation 5-8), BGR turned to RGB; None where cv2 refuses."""
+    import os
+    import cv2
+    path = os.path.join(tmp_dir, name)
+    with open(path, "wb") as f:
+        f.write(data)
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    return None if img is None else np.ascontiguousarray(img[..., ::-1])
+
+
+def jax_load_images(directory: str, names):
+    """The JAX package's loader (`CocoDataset.load_image`: its native
+    decoder, else cv2.imread) on files of one directory: {name: (H, W, 3)
+    RGB, or the exception it raised}."""
+    from semi_detr_tpu.data.coco import CocoDataset
+    ann = {"images": [{"id": i + 1, "file_name": n, "width": 1, "height": 1}
+                      for i, n in enumerate(names)],
+           "annotations": [], "categories": [{"id": 1, "name": "person"}]}
+    ds = CocoDataset(ann, directory, classes=("person",),
+                     filter_empty_gt=False, test_mode=True)
+    out = {}
+    for i, n in enumerate(names):
+        try:
+            out[n] = ds.load_image(i)
+        except Exception as err:  # noqa: BLE001 - the loader's own error
+            out[n] = err
+    return out
+
+
+def committed(prefixes):
+    """The committed fixtures whose names start with one of `prefixes`:
+    {name: their formats.json entry}."""
+    import json
+    import os
+    from semi_detr_tpu_torch import native
+    with open(os.path.join(native.FIXTURES, "formats.json")) as f:
+        index = json.load(f)
+    return {n: e for n, e in sorted(index.items()) if n.startswith(prefixes)}

@@ -72,8 +72,9 @@ def test_built_with_png_and_a_jpeg_decoder():
     dec = native.decoders()
     assert set(dec) == {"png", "jpeg", "jpeg_sequential", "jpeg_progressive",
                         "jpeg_sequential_arithmetic",
-                        "jpeg_progressive_arithmetic", "jpeg_colour",
-                        "jpeg_other"}
+                        "jpeg_progressive_arithmetic", "jpeg_lossless",
+                        "jpeg_colour", "jpeg_other", "bmp", "pnm", "tiff",
+                        "webp"}
     assert dec["jpeg"] == dec["jpeg_other"] == found["route"]
     # either build decodes every kind libjpeg decodes in the library itself,
     # libjpeg-exact
