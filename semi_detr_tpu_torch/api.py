@@ -134,18 +134,23 @@ def inference_detector(predictor: Predictor, image, **kw):
 def save_result(image: np.ndarray, result, class_names, out_file: str,
                 score_thr: float = 0.3):
     """Render detections onto the image and save it (reference
-    save_result): each box above score_thr outlined in green, 2 pixels
-    thick, in numpy. The label and score text of the reference's render
-    is left out: there is no font renderer without cv2 (`class_names` is
-    kept for the reference's signature). The file is encoded by its
-    extension: .jpg / .jpeg through the host library, .png by
-    `data.image_io`."""
+    save_result), to the JAX `save_result`'s pixels: box by box, each box
+    at or above score_thr outlined in green 2 pixels thick
+    (`utils.logging.draw_rect`, cv2.rectangle's pixels), then
+    `f"{class_names[label]}:{score:.2f}"` at (x0, max(y0 - 4, 0)) as
+    cv2.putText draws it (`utils.text`). The file is encoded by its
+    extension as cv2.imwrite encodes it (`data.image_io.write_image`);
+    where cv2 writes nothing (.pgm and .pbm take no colour image) nothing
+    is written and the path is still returned, as the JAX function's
+    is."""
     from .data.image_io import write_image
-    from .utils.logging import draw_rect
-    boxes, scores, _ = result
+    from .utils.logging import draw_detection
+    boxes, scores, labels = result
     img = np.array(image, np.uint8)
-    for b, s in zip(boxes, scores):
-        if s >= score_thr:
-            draw_rect(img, *map(int, b), color=(0, 255, 0))
+    for b, s, l in zip(boxes, scores, labels):
+        if s < score_thr:
+            continue
+        draw_detection(img, b, f"{class_names[int(l)]}:{s:.2f}")
     os.makedirs(os.path.dirname(out_file) or ".", exist_ok=True)
-    return write_image(out_file, img)
+    write_image(out_file, img)
+    return out_file

@@ -10,7 +10,9 @@ has neither cv2 nor PIL. A file it cannot decode raises an error that
 names it, and for a format cv2 reads that the port does not (GIF, JPEG
 2000, AVIF, HDR, PFM, PAM, Sun raster) names the format with "not
 ported"; it never returns a blank or substitute image. `write_image`
-encodes by the file's extension: JPEG through the library, PNG here.
+encodes by the file's extension as cv2.imwrite does for a colour image:
+JPEG, TIFF and WebP through the library, PNG, BMP and PNM here; .pgm and
+.pbm are refused as cv2 refuses them.
 
 The PNG reader and writer here, in numpy and zlib, are the plain versions
 the library's PNG decoder is held to. The reader gives what libpng gives
@@ -27,8 +29,11 @@ Python.
 """
 from __future__ import annotations
 
+import os
 import struct
+import sys
 import zlib
+from typing import Optional
 
 import numpy as np
 
@@ -214,16 +219,67 @@ def read_image(path: str) -> np.ndarray:
     return native.decode_image(buf, path)
 
 
-def write_image(path: str, img: np.ndarray) -> str:
-    """(H, W, 3) uint8 RGB -> a file encoded by its extension: .jpg / .jpeg
-    through the host library (quality 95, cv2's default), .png here."""
-    ext = path.lower().rsplit(".", 1)[-1]
-    if ext in ("jpg", "jpeg"):
-        buf = native.encode_jpeg(img)
-    elif ext == "png":
-        buf = encode_png(img)
-    else:
-        raise ValueError(f"{path}: writes .jpg, .jpeg or .png, not .{ext}")
+def encode_bmp(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> the BMP cv2.imwrite writes: a 40-byte info
+    header, 24 bits, rows bottom-up in BGR, each padded with zeros to 4
+    bytes, no resolution."""
+    img = _rgb(img, "encode_bmp")
+    h, w = img.shape[:2]
+    stride = (w * 3 + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = img[::-1, :, ::-1].reshape(h, w * 3)
+    size = 54 + rows.size
+    return (b"BM" + struct.pack("<IHHI", size, 0, 0, 54)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, 0, 0, 0, 0, 0)
+            + rows.tobytes())
+
+
+def encode_ppm(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> the binary PPM (P6, maxval 255) cv2.imwrite
+    writes for .ppm and .pnm."""
+    img = _rgb(img, "encode_ppm")
+    h, w = img.shape[:2]
+    return f"P6\n{w} {h}\n255\n".encode() + img.tobytes()
+
+
+def _rgb(img: np.ndarray, what: str) -> np.ndarray:
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"{what} takes (H, W, 3) uint8, got {img.shape} "
+                         f"{img.dtype}")
+    return img
+
+
+# what cv2.imwrite says and does for a colour image of each extension it
+# refuses it for (it writes no file and returns False)
+REFUSED = {"pgm": "Portable bitmap(.pgm) expects gray image",
+           "pbm": "For portable bitmap(.pbm) type must be CV_8UC1"}
+# the encoder of each extension, as cv2.imwrite picks it
+ENCODERS = {"jpg": native.encode_jpeg, "jpeg": native.encode_jpeg,
+            "png": encode_png, "bmp": encode_bmp, "ppm": encode_ppm,
+            "pnm": encode_ppm, "tif": native.encode_tiff,
+            "tiff": native.encode_tiff, "webp": native.encode_webp}
+
+
+def write_image(path: str, img: np.ndarray) -> Optional[str]:
+    """(H, W, 3) uint8 RGB -> a file encoded by its extension, as
+    cv2.imwrite writes a colour image: .jpg / .jpeg through the host
+    library (quality 95, cv2's bytes), .png here, .bmp and .ppm / .pnm
+    here (cv2's bytes), .tif / .tiff and .webp by the host library's
+    encoders (cv2's TIFF tags; lossless WebP), each reading back to the
+    image's pixels. For .pgm and .pbm cv2 refuses a colour image: nothing
+    is written, its reason goes to stderr and None comes back, as cv2
+    returns False. Any other extension raises."""
+    ext = path.lower().rsplit(".", 1)[-1] if "." in os.path.basename(
+        path) else ""
+    if ext in REFUSED:
+        print(f"write_image({path!r}): nothing written: {REFUSED[ext]} "
+              "(as cv2.imwrite refuses a colour image)", file=sys.stderr)
+        return None
+    if ext not in ENCODERS:
+        raise ValueError(f"{path}: no encoder for .{ext}; the port writes "
+                         f"{', '.join('.' + e for e in ENCODERS)}")
+    buf = ENCODERS[ext](img)
     with open(path, "wb") as f:
         f.write(buf)
     return path

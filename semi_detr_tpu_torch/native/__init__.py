@@ -49,6 +49,9 @@ step.
 * Encode: JPEG through the same back end (4:2:0 at quality 95, cv2's
   default); on the nvJPEG route libjpeg's colour conversion and
   downsampling run here (`rgb_to_ycc420`) and the card does the rest.
+  TIFF (cv2.imwrite's tags: LZW, predictor 2) and lossless WebP (VP8L) by
+  the library's own encoders (`encode_host.cpp`), which read back to the
+  same pixels by cv2 and by the decoders here.
 * Pixels: `resize_bilinear` (half-pixel centres, the formula of the JAX
   package's `sdt_resize_bilinear`), `warp_affine`, and the colour ops'
   `histogram`, `apply_lut`, `gray`, `blend`, `smooth`, `solarize`,
@@ -86,7 +89,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_DIR)
 FIXTURES = os.path.join(_DIR, "fixtures")
 SOURCES = ("host.cpp", "jpeg_host.cpp", "bmp_pnm_host.cpp", "tiff_host.cpp",
-           "webp_host.cpp")
+           "webp_host.cpp", "encode_host.cpp")
 HEADERS = ("host.h", "webp_tables.h")
 JPEG_SOURCES = {"libjpeg": "jpeg_libjpeg.cpp", "nvjpeg": "jpeg_nvjpeg.cpp"}
 # the host decoders' routes, by jpeg_host_kind's answer, on either build
@@ -238,6 +241,8 @@ _SIGNATURES = {
     "sdt_decode": ([_P, _L, _P, _I, _I], _I),
     "sdt_png_unfilter": ([_P, _I, _L, _I, _P], _I),
     "sdt_encode_jpeg": ([_P, _I, _I, _P, _P], _I),
+    "sdt_encode_tiff": ([_P, _I, _I, _P, _P], _I),
+    "sdt_encode_webp": ([_P, _I, _I, _P, _P], _I),
     "sdt_free": ([_P], None),
     "sdt_jpeg_check": ([_P, _L], _I),
     "sdt_jpeg_host_kind": ([_P, _L], _I),
@@ -434,21 +439,38 @@ def decode_jpeg_backend(buf: bytes, name: str = "<bytes>") -> np.ndarray:
     return _decode_jpeg("sdt_decode_jpeg_backend", buf, name)
 
 
-def encode_jpeg(img: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 RGB -> JPEG bytes (4:2:0, quality 95)."""
+def _encode(fn: str, what: str, img: np.ndarray) -> bytes:
     img = _image(img)
     if img.shape[2] != 3:
-        raise ValueError(f"encode_jpeg takes RGB, got {img.shape}")
+        raise ValueError(f"{what} encode takes RGB, got {img.shape}")
     lib = _library()
     buf, size = ctypes.c_void_p(), ctypes.c_long()
-    st = lib.sdt_encode_jpeg(_ptr(img), img.shape[0], img.shape[1],
-                             ctypes.byref(buf), ctypes.byref(size))
+    st = getattr(lib, fn)(_ptr(img), img.shape[0], img.shape[1],
+                          ctypes.byref(buf), ctypes.byref(size))
     if st:
-        raise RuntimeError(f"JPEG encode: {lib.sdt_last_error().decode()}")
+        raise RuntimeError(f"{what} encode: {lib.sdt_last_error().decode()}")
     try:
         return ctypes.string_at(buf.value, size.value)
     finally:
         lib.sdt_free(buf)
+
+
+def encode_jpeg(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> JPEG bytes (4:2:0, quality 95)."""
+    return _encode("sdt_encode_jpeg", "JPEG", img)
+
+
+def encode_tiff(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> a TIFF file with cv2.imwrite's tags: LZW,
+    horizontal predictor, strips of about 8 KiB (`encode_host.cpp`)."""
+    return _encode("sdt_encode_tiff", "TIFF", img)
+
+
+def encode_webp(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> a lossless WebP file (VP8L: subtract green,
+    Huffman-coded literals), which cv2.imwrite's default also is
+    (`encode_host.cpp`)."""
+    return _encode("sdt_encode_webp", "WebP", img)
 
 
 def rgb_to_ycc420(img: np.ndarray) -> Tuple[np.ndarray, np.ndarray,

@@ -5,11 +5,11 @@ Rides the high-level API (`init_detector` -> `inference_detector` ->
 `save_result`): every file is read by the host library (JPEG, PNG, BMP,
 PNM, TIFF, WebP: `data.image_io.read_image`), served by the `Predictor`
 on the card (or `--device cpu`), and written under its own name into
-`--output-dir` with green box outlines, encoded by its extension; a file
-of a format the library does not encode (all but JPEG and PNG) is written
-as PNG, its name with ".png" added, where the reference's cv2.imwrite
-keeps the format. The label text of the reference's render is left out:
-there is no font renderer without cv2.
+`--output-dir` with the JAX demo's render (green box outlines and
+`class:score` labels, to cv2's pixels), encoded by its extension as
+cv2.imwrite encodes it (`data.image_io.write_image`): a BMP, PNM, TIFF
+or WebP input gives a file of its own format, and a .pgm or .pbm one
+gives none, as cv2 refuses to write a colour image there.
 
     python -m semi_detr_tpu_torch.tools.image_demo "images/*.jpg" CONFIG \
         --checkpoint CKPT.pth --output-dir viz/
@@ -27,11 +27,8 @@ from ..utils.config import parse_cfg_options
 
 def output_path(path: str, output_dir: str) -> str:
     """Where the render of `path` goes: its own name under `output_dir`,
-    with ".png" added unless it is a JPEG or PNG name."""
-    name = os.path.basename(path)
-    if name.lower().rsplit(".", 1)[-1] not in ("jpg", "jpeg", "png"):
-        name += ".png"
-    return os.path.join(output_dir, name)
+    as the JAX demo writes it (`os.path.basename`)."""
+    return os.path.join(output_dir, os.path.basename(path))
 
 
 def main(argv=None):

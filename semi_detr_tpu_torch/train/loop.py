@@ -387,9 +387,12 @@ class SsodTrainer(_Trainer):
         metrics.pop("pseudo_sets")
         if (self.image_log_interval and step % self.image_log_interval == 0
                 and dist.is_main()):
-            log_image_with_boxes(self.work_dir, "pseudo_vis", step, vis_img,
-                                 vis["boxes"].cpu().numpy(),
-                                 vis["keep"].cpu().numpy())
+            log_image_with_boxes(
+                self.work_dir, "pseudo_vis", step, vis_img,
+                vis["boxes"].cpu().numpy(), vis["labels"].cpu().numpy(),
+                vis["scores"].float().cpu().numpy(),
+                vis["keep"].cpu().numpy(),
+                class_names=getattr(self.unsup_dataset, "classes", None))
         return metrics
 
     def train(self, max_steps: Optional[int] = None):

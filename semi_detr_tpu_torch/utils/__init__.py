@@ -1,1 +1,1 @@
-"""Config loading, weight carriers and logging."""
+"""Config loading, weight carriers, logging and the label text."""

@@ -1,5 +1,6 @@
 """Logging: text log, metrics JSONL, TensorBoard where it can be imported,
-the weight summary, device memory and the pseudo-label render.
+the weight summary, device memory and the pseudo-label render (boxes and
+labels drawn to the JAX render's pixels: `draw_rect`, `utils.text`).
 
 Counterpart of `semi_detr_tpu/utils/logging.py` (the reference's mmcv
 TextLoggerHook + TensorboardLoggerHook + WandbLoggerHook,
@@ -22,8 +23,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..data.image_io import write_png
+from ..data.image_io import write_image
 from ..parallel import dist
+from .text import put_text
 
 
 def get_logger(name: str = "semi_detr_tpu_torch",
@@ -163,46 +165,86 @@ class MetricsLogger:
 
 
 def draw_rect(img: np.ndarray, x0, y0, x1, y1, color, thickness: int = 2):
-    """Box outline, `thickness` pixels inward, clipped to the image."""
+    """`cv2.rectangle(img, (x0, y0), (x1, y1), color, thickness)` (LINE_8)
+    in place, for thickness 1 and 2, on the `int()` of each coordinate.
+
+    The rule, found by probing cv2 5.0 (bit-equal on 6,000 seeded boxes
+    on a 60x80 image, coordinates -10..90, swapped, degenerate and
+    off-image): thickness 1 paints the four edges' pixels; thickness 2
+    paints each edge as a band 3 pixels wide centred on it (the edge +- 1)
+    that ends at the corners, plus a plus-shaped cap (the corner and its
+    four neighbours) at each corner: the filled polygon of the thick line
+    and its round caps of radius 1, so each outer corner pixel stays
+    unpainted. Everything clips at the image's edges."""
+    if thickness not in (1, 2):
+        raise ValueError(f"draw_rect draws thickness 1 or 2, not "
+                         f"{thickness}")
     h, w = img.shape[:2]
     x0, x1 = sorted((int(x0), int(x1)))
     y0, y1 = sorted((int(y0), int(y1)))
-    xa, xb = max(x0, 0), min(x1 + 1, w)
-    ya, yb = max(y0, 0), min(y1 + 1, h)
-    if xa >= xb or ya >= yb:
-        return
-    t = thickness
-    img[ya:min(ya + t, yb), xa:xb] = color
-    img[max(yb - t, ya):yb, xa:xb] = color
-    img[ya:yb, xa:min(xa + t, xb)] = color
-    img[ya:yb, max(xb - t, xa):xb] = color
+
+    def paint(ya, yb, xa, xb):          # inclusive ranges
+        ya, yb, xa, xb = max(ya, 0), min(yb, h - 1), max(xa, 0), min(xb,
+                                                                     w - 1)
+        if ya <= yb and xa <= xb:
+            img[ya:yb + 1, xa:xb + 1] = color
+
+    r = thickness // 2
+    paint(y0 - r, y0 + r, x0, x1)
+    paint(y1 - r, y1 + r, x0, x1)
+    paint(y0, y1, x0 - r, x0 + r)
+    paint(y0, y1, x1 - r, x1 + r)
+    if r:
+        for cx, cy in ((x0, y0), (x1, y0), (x0, y1), (x1, y1)):
+            paint(cy - r, cy + r, cx, cx)
+            paint(cy, cy, cx - r, cx + r)
+
+
+def draw_detection(img: np.ndarray, box, label_text: str, color=(0, 255, 0)
+                   ) -> None:
+    """One detection as the JAX renders draw it, in place: the box's
+    outline 2 pixels thick, then `label_text` at (x0, max(y0 - 4, 0)) in
+    cv2.putText's FONT_HERSHEY_SIMPLEX at scale 0.5, thickness 1
+    (`utils.text`)."""
+    x0, y0, x1, y1 = (int(v) for v in box)
+    draw_rect(img, x0, y0, x1, y1, color, 2)
+    put_text(img, label_text, (x0, max(y0 - 4, 0)), color)
 
 
 def log_image_with_boxes(work_dir: str, tag: str, step: int,
                          image: np.ndarray, boxes: np.ndarray,
-                         keep: np.ndarray = None,
+                         labels: np.ndarray, scores: np.ndarray = None,
+                         keep: np.ndarray = None, class_names=None,
                          denormalize: bool = True) -> str:
-    """Draw box outlines onto a training image and save it as
-    `work_dir/tag/step_N.png`: the file backend of the reference's
+    """Draw the boxes and their labels onto a training image and save it as
+    `work_dir/tag/step_N.jpg`: the file backend of the reference's
     `log_image_with_boxes` (detr_ssod/utils/logger.py:91-161), to eyeball
-    the teacher's pseudo labels. Label and score text are left out: it
-    needs a font renderer the card's machine lacks.
+    the teacher's pseudo labels. The pixels are the JAX function's: each
+    kept box's outline and its label, `name:score`, or `name` without
+    scores, or the label number without class names; the JPEG is the host
+    library's (quality 95, cv2.imwrite's bytes).
 
     image: (H, W, 3) uint8 RGB, or float normalized with the ImageNet
-    mean/std (then denormalized). boxes: (P, 4) xyxy pixels; keep: (P,)
-    bool, the boxes drawn (the kept pseudo labels)."""
+    mean/std (then denormalized). boxes: (P, 4) xyxy pixels; labels: (P,);
+    scores: (P,) or None; keep: (P,) bool, the boxes drawn (the kept pseudo
+    labels)."""
     from ..data.augment import IMG_MEAN, IMG_STD
     image = np.asarray(image)
     if denormalize and image.dtype != np.uint8:
         image = np.clip(image * IMG_STD + IMG_MEAN, 0, 255).astype(np.uint8)
     img = np.array(image, np.uint8)
-    keep = np.ones(len(boxes), bool) if keep is None else np.asarray(keep)
-    for b, k in zip(np.asarray(boxes), keep):
-        if k:
-            draw_rect(img, *b, color=(0, 255, 0))
+    n = len(boxes)
+    keep = np.ones(n, bool) if keep is None else np.asarray(keep)
+    for i in range(n):
+        if not keep[i]:
+            continue
+        name = (class_names[int(labels[i])] if class_names
+                else str(int(labels[i])))
+        txt = name if scores is None else f"{name}:{float(scores[i]):.2f}"
+        draw_detection(img, boxes[i], txt)
     out_dir = os.path.join(work_dir, tag)
     os.makedirs(out_dir, exist_ok=True)
-    return write_png(os.path.join(out_dir, f"step_{step}.png"), img)
+    return write_image(os.path.join(out_dir, f"step_{step}.jpg"), img)
 
 
 def weight_summary(model) -> str:

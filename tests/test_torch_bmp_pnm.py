@@ -182,5 +182,5 @@ def test_every_reading_path_takes_the_formats(tmp_path):
     loader.close()
     for n in names:
         np.testing.assert_array_equal(got[n], refs[n])
-    assert output_path("a/b.tif", "out") == os.path.join("out", "b.tif.png")
+    assert output_path("a/b.tif", "out") == os.path.join("out", "b.tif")
     assert output_path("a/b.JPG", "out") == os.path.join("out", "b.JPG")

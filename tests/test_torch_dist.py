@@ -373,7 +373,7 @@ def test_trainer_rank_zero_alone_writes(trainer_runs):
     assert sorted(os.listdir(work / "ckpt")) == [
         "step_1.pt", "step_2.pt", "step_3.pt"]
     assert sorted(os.listdir(work / "pseudo_vis")) == [
-        "step_0.png", "step_1.png", "step_2.png"]
+        "step_0.jpg", "step_1.jpg", "step_2.jpg"]
     with open(root / "stopped" / "train.log") as f:
         assert f.read().count("resumed from step 2") == 1
 

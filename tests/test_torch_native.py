@@ -335,8 +335,8 @@ def test_jpeg_encode_is_cv2_imwrite(tmp_path):
     np.testing.assert_array_equal(image_io.read_image(path), _cv2_rgb(buf))
     path = image_io.write_image(str(tmp_path / "a.png"), img)
     np.testing.assert_array_equal(image_io.read_image(path), img)
-    with pytest.raises(ValueError, match="bmp"):
-        image_io.write_image(str(tmp_path / "a.bmp"), img)
+    with pytest.raises(ValueError, match="no encoder for .gif"):
+        image_io.write_image(str(tmp_path / "a.gif"), img)
 
 
 def host_picture(h, w, seed):
@@ -795,21 +795,27 @@ def test_prefetched_test_batches_equal_make_test_batch(tmp_path,
 
 @pytest.mark.parametrize("ext", ["png", "jpg"])
 def test_save_result_without_cv2(tmp_path, ext):
+    """The render is the JAX save_result's: cv2.rectangle's band, 3 pixels
+    centred on each edge with the outer corners left, and the label
+    above the box; below score_thr nothing is drawn."""
+    from semi_detr_tpu.api import save_result as jax_save_result
     from semi_detr_tpu_torch.api import save_result
     img = np.zeros((40, 50, 3), np.uint8)
-    result = (np.asarray([[5.0, 6.0, 30.0, 25.0], [1.0, 1.0, 9.0, 9.0]]),
+    result = (np.asarray([[5.0, 16.0, 30.0, 35.0], [1.0, 1.0, 9.0, 9.0]]),
               np.asarray([0.9, 0.1]), np.asarray([0, 1]))
     out = save_result(img, result, ("a", "b"), str(tmp_path / f"r.{ext}"),
                       score_thr=0.3)
     back = image_io.read_image(out)
     assert back.shape == img.shape and not img.any()   # input untouched
+    want = jax_save_result(img, result, ("a", "b"),
+                           str(tmp_path / f"jax.{ext}"), score_thr=0.3)
+    np.testing.assert_array_equal(back, _cv2_rgb(open(want, "rb").read()))
     if ext == "png":
         green = (back == (0, 255, 0)).all(-1)
-        assert green[6, 5:31].all() and green[7, 5:31].all()   # 2 rows
-        assert green[6:26, 30].all() and not green[10, 10]
-        assert not green[1:10, 1].any()         # below score_thr: not drawn
-    else:
-        assert back[6, 10, 1] > 200 and back[15, 15].max() < 30
+        assert green[15:18, 5:31].all() and green[16:36, 4:7].all()
+        assert not green[15, 4] and not green[36, 31]   # corners cut
+        assert not green[20, 10] and not green[1:10, 1].any()
+        assert back[:12, 5:30, 1].max() > 200            # the label "a:0.90"
 
 
 def test_image_demo(tmp_path):

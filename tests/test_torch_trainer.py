@@ -129,7 +129,7 @@ def test_ssod_cli_across_the_warm_up(recorded):
     assert first["data_wait"] >= 0
     for step in range(3):
         assert os.path.isfile(os.path.join(work, "pseudo_vis",
-                                           f"step_{step}.png"))
+                                           f"step_{step}.jpg"))
 
 
 def test_resume_reproduces_the_uninterrupted_run(recorded):
