@@ -112,15 +112,18 @@ Phases (any failure exits non-zero):
    naming the file. The fixtures of the files the JAX loader hands to cv2
    (native/fixtures/formats.json: BMP of every header, depth and RLE, PNM
    P1-P6, TIFF of every compression, layout and photometric the library
-   reads, WebP lossless, lossy, with alpha, turned by EXIF and animated,
-   lossless JPEG; a 480x640 lossy WebP, lossless WebP and LZW TIFF for
-   times at a real size) decode on the card to their stored cv2 pixels at
-   max abs 0, each with its format, variant, route and ms, and ms per
-   format; the 12-bit and lossless JPEG streams and the TIFF orientation
-   cv2 refuses raise saying so, the formats cv2 reads and the port does
-   not (GIF, JPEG 2000, AVIF, HDR, PFM, Sun raster, PAM) raise naming
-   themselves with "not ported", and damaged copies of each new format
-   raise naming the file. Every
+   reads (CCITT, BigTIFF, CMYK, YCbCr, signed samples among them), WebP
+   lossless, lossy, with alpha, turned by EXIF and animated, lossless JPEG,
+   GIF, Sun raster, PAM, PFM and Radiance HDR; a 480x640 lossy WebP,
+   lossless WebP, LZW TIFF, Group 4 TIFF, GIF and HDR, and a 480x640 Sun
+   raster, PAM and PFM written from a cv2 reference by
+   `tools.raw_formats`, for times at a real size) decode on the card to
+   their stored cv2 pixels at max abs 0, each with its format, variant,
+   route and ms, and ms per format; what cv2 refuses (12-bit and some
+   lossless JPEG, TIFF orientation 6, LZMA, ZSTD and float TIFF, RLE Sun
+   raster, ...) raises saying so, the formats cv2 reads and the port does
+   not (JPEG 2000, AVIF, CIELab TIFF) raise naming themselves with "not
+   ported", and damaged copies of each format raise naming the file. Every
    op equals its numpy plain version bit for bit on this host: a 480x640
    source resized to all 11 COCO scales, the six warps (translate x / y,
    rotate +-30, shear x / y) at 800x1066, the 81 colour op x magnitude
@@ -130,8 +133,9 @@ Phases (any failure exits non-zero):
    `write_synthetic_coco` writes 8 labelled, 16 unlabelled and 8 val JPEG
    images of 480x640 through the host library (up to 3 boxes and 2
    distractors each, class "person"), and phase 7a's fixtures of the other
-   kinds (JPEG and PNG, and one BMP, PNM, TIFF, WebP and lossless JPEG of
-   the cv2 formats) join the unlabelled and val images, without boxes, so
+   kinds (JPEG and PNG, and one BMP, PNM, TIFF, WebP, lossless JPEG, GIF
+   and HDR of the cv2 formats) join the unlabelled and val images, without
+   boxes, so
    the trainer (load_image) and its evals (the prefetch loader) read them;
    the SSOD CLI
    (`tools.train_detr_ssod.main`, in-process) runs
@@ -354,6 +358,8 @@ from semi_detr_tpu_torch.data.synthetic import (  # noqa: E402
 from semi_detr_tpu_torch.tools import export_model  # noqa: E402
 from semi_detr_tpu_torch.tools import image_demo  # noqa: E402
 from semi_detr_tpu_torch.tools import profile_predict  # noqa: E402
+from semi_detr_tpu_torch.tools.raw_formats import (  # noqa: E402
+    raw_format_files)
 from semi_detr_tpu_torch.tools import recipe_rehearsal  # noqa: E402
 from semi_detr_tpu_torch.tools.remat_check import (  # noqa: E402
     check_remat, rel_errors)
@@ -446,7 +452,8 @@ TRAINER_SPLITS = {"sup": range(0, 8), "unsup": range(8, 24),
 # unlabelled and val images beside the JPEG and PNG ones
 TRAINER_CV2_FIXTURES = ("bmp_rle8.bmp", "pnm_p6_100.ppm",
                         "tiff_jpeg_ycbcr_tables.tif",
-                        "webp_lossy_orient6.webp", "jpeg_lossless_p8.jpg")
+                        "webp_lossy_orient6.webp", "jpeg_lossless_p8.jpg",
+                        "gif_offset_local_transparent.gif", "hdr_rle.hdr")
 # the trainer's steps; warm-up steps 1-3 and Hungarian steps 5-7 are warm
 # (median of each, against phase 6's); eval and render every
 # TRAINER_INTERVAL steps and one checkpoint at the end, so none of them
@@ -1379,20 +1386,36 @@ def format_fixtures():
 
 def cv2_format_fixtures():
     """The fixtures of the files the JAX loader hands to cv2
-    (native/fixtures/formats.json): BMP, PNM, TIFF, WebP and lossless JPEG
-    decoded by the host library on the card against their stored cv2
-    pixels at max abs 0, with ms per fixture and per format and the route;
-    the streams cv2 refuses (12-bit JPEG, lossless it cannot convert, TIFF
-    orientation 6) and the formats cv2 reads that the port does not (GIF,
-    JPEG 2000, AVIF, HDR, PFM, Sun raster, PAM) raise naming themselves."""
+    (native/fixtures/formats.json): BMP, PNM, PAM, TIFF (with CCITT,
+    BigTIFF, CMYK, YCbCr, signed samples), WebP, lossless JPEG, GIF, Sun
+    raster, PFM and Radiance HDR decoded by the host library on the card
+    against their stored cv2 pixels at max abs 0, with ms per fixture and
+    per format and the route, and a 480x640 Sun raster, PAM and PFM written
+    by `tools.raw_formats` from the 480x640 WebP fixture's cv2 reference
+    (held to it); what cv2 refuses (12-bit JPEG, lossless it cannot convert,
+    TIFF orientation 6, LZMA, ZSTD and float TIFF, RLE Sun raster, a one-
+    channel PFM, old-style run-length HDR, ...) raises saying so, and the
+    formats cv2 reads that the port does not (JPEG 2000, AVIF, CIELab TIFF)
+    raise naming themselves with "not ported"."""
     with open(os.path.join(native.FIXTURES, "formats.json")) as f:
         index = json.load(f)
     routes = native.decoders()
     rows, small, large = {}, {}, {}
+    wide_ref = image_io.read_image(os.path.join(
+        native.FIXTURES, "webp_lossless_480x640.ref.png"))
+    built = {}
+    for name, (buf, fmt, variant) in raw_format_files(wide_ref).items():
+        built[name] = buf
+        index[name] = {"format": fmt, "variant": variant, "expect": "pixels",
+                       "route": {"Sun raster": "sun_raster", "PAM": "pam",
+                                 "PFM": "pfm"}[fmt]}
     for name, want in sorted(index.items()):
         path = os.path.join(native.FIXTURES, name)
-        with open(path, "rb") as f:
-            buf = f.read()
+        if name in built:
+            buf = built[name]
+        else:
+            with open(path, "rb") as f:
+                buf = f.read()
         if want["expect"] != "pixels":
             text = ("not ported" if want["expect"] == "not ported"
                     else "cv2 refuses it too")
@@ -1409,8 +1432,8 @@ def cv2_format_fixtures():
                 continue
             raise AssertionError(f"{name}: decoded where it must raise "
                                  f"({want['expect']})")
-        ref = image_io.read_image(os.path.join(
-            native.FIXTURES, name.rsplit(".", 1)[0] + ".ref.png"))
+        ref = wide_ref if name in built else image_io.read_image(
+            os.path.join(native.FIXTURES, name.rsplit(".", 1)[0] + ".ref.png"))
         got = native.decode_image(buf, path)
         row = rows[name] = dict(
             format=want["format"], variant=want["variant"],
@@ -1438,17 +1461,21 @@ def cv2_format_fixtures():
 
 def damaged_formats():
     """Damaged copies of the cv2-format fixtures, each decoded under its
-    own file name: BMP, PNM, TIFF and lossless JPEG cut in half, a WebP
-    cut in half with its RIFF size made consistent (its VP8 chunk then runs
-    past the file), a VP8L one with its codes overwritten, and an LZW
-    strip of codes past its table. Each must raise ImageDecodeError naming
-    the file."""
+    own file name: BMP, PNM, PAM, TIFF (LZW, Group 4, BigTIFF), lossless
+    JPEG, GIF, Sun raster, PFM and HDR cut in half, a WebP cut in half with
+    its RIFF size made consistent (its VP8 chunk then runs past the file), a
+    VP8L one with its codes overwritten, an LZW strip of codes past its
+    table, a GIF of LZW codes past its table and a Group 4 strip of EOLs
+    where its 2-D codes belong. Each must raise ImageDecodeError naming the
+    file."""
     def fixture(name):
         with open(os.path.join(native.FIXTURES, name), "rb") as f:
             return f.read()
     cases = {}
     for name in ("bmp_24.bmp", "pnm_p6_100.ppm", "tiff_lzw_predictor.tif",
-                 "jpeg_lossless_p8.jpg"):
+                 "jpeg_lossless_p8.jpg", "gif_480x640.gif", "ras_pal8.ras",
+                 "pam_rgb16.pam", "pfm_scale2_be.pfm", "hdr_480x640.hdr",
+                 "tiffv_g4_480x640.tif", "tiffv_bigtiff.tif"):
         buf = fixture(name)
         stem, ext = name.rsplit(".", 1)
         cases[f"{stem}_truncated.{ext}"] = buf[:len(buf) // 2]
@@ -1462,6 +1489,17 @@ def damaged_formats():
     lzw = bytearray(fixture("tiff_lzw_predictor.tif"))
     lzw[8:40] = b"\xff" * 32
     cases["tiff_bad_lzw.tif"] = bytes(lzw)
+    gif = bytearray(fixture("gif_480x640.gif"))
+    gif[-2000:-1980] = b"\xff" * 20
+    cases["gif_bad_codes.gif"] = bytes(gif)
+    g4 = bytearray(fixture("tiffv_g4_480x640.tif"))
+    at = int.from_bytes(g4[4:8], "little")  # Pillow writes the IFD first
+    strip = next(int.from_bytes(g4[p + 8:p + 12], "little")
+                 for p in range(at + 2, at + 2 + 12 * int.from_bytes(
+                     g4[at:at + 2], "little"), 12)
+                 if int.from_bytes(g4[p:p + 2], "little") == 273)
+    g4[strip:strip + 16] = b"\0\0\0\x01" * 4
+    cases["tiffv_g4_bad_codes.tif"] = bytes(g4)
     out = {}
     for name, data in cases.items():
         try:

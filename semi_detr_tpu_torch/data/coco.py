@@ -5,7 +5,8 @@ reference consumes it): contiguous labels from category names,
 `filter_empty_gt`, the minimum image size, aspect-ratio flags for the
 group sampler, crowd and ignore annotations as ignore regions. Pure numpy
 and JSON; images are read by `data/image_io.read_image` (JPEG, PNG, BMP,
-PNM, TIFF and WebP, through the host library).
+PNM, PAM, TIFF, WebP, GIF, Sun raster, PFM and HDR, through the host
+library).
 """
 from __future__ import annotations
 

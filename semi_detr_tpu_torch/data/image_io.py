@@ -4,12 +4,13 @@ Stands in for `CocoDataset.load_image` of `semi_detr_tpu/data/coco.py`
 (the native libjpeg/libpng loader, or else `cv2.imread`): `read_image`
 decodes, through the port's host library (`native/`), JPEG and PNG as the
 native loader does and every file it hands to cv2 as `cv2.imread(path,
-IMREAD_COLOR)` does (BGR turned to RGB): BMP, PNM (P1-P6), TIFF, WebP,
-and the lossless JPEG streams cv2 reads; on the card's machine too, which
-has neither cv2 nor PIL. A file it cannot decode raises an error that
-names it, and for a format cv2 reads that the port does not (GIF, JPEG
-2000, AVIF, HDR, PFM, PAM, Sun raster) names the format with "not
-ported"; it never returns a blank or substitute image. `write_image`
+IMREAD_COLOR)` does (BGR turned to RGB): BMP, PNM (P1-P6), PAM, TIFF
+(with CCITT, BigTIFF, CMYK and YCbCr), WebP, GIF, Sun raster, PFM,
+Radiance HDR and the lossless JPEG streams cv2 reads; on the card's machine
+too, which has neither cv2 nor PIL. A file it cannot decode raises an
+error that names it, and for a format cv2 reads that the port does not
+(JPEG 2000, AVIF, CIELab TIFF) names the format with "not ported"; it never
+returns a blank or substitute image. `write_image`
 encodes by the file's extension as cv2.imwrite does for a colour image:
 JPEG, TIFF and WebP through the library, PNG, BMP and PNM here; .pgm and
 .pbm are refused as cv2 refuses them.

@@ -15,26 +15,33 @@ step.
   (`host.cpp`, by zlib's inflate and the row filters in C++). The files
   the JAX loader hands to cv2, to `cv2.imread(path, IMREAD_COLOR)`'s
   pixels (BGR turned to RGB) bit for bit, by decoders of the library's own
-  (g++ and zlib; no libtiff, libwebp or second libjpeg): BMP and PNM
-  (`bmp_pnm_host.cpp`: OpenCV's BmpDecoder and PxMDecoder, RLE quirks
-  included), TIFF (`tiff_host.cpp`: libtiff's RGBA reader over strips and
-  tiles, none / PackBits / LZW / Deflate / JPEG, predictor 2, 1-16 bits,
-  orientation 1-4), WebP (`webp_host.cpp` and the RFC 6386 tables of
-  `webp_tables.h`: VP8L, VP8 key frames with libwebp's loop filters and
-  fancy upsampling, an animation's first frame, EXIF orientation) and
-  lossless JPEG of at most 8 bits in RGB or CMYK (`jpeg_host.cpp`). The
-  formats cv2 reads and the port does not (GIF, JPEG 2000, AVIF, HDR,
-  PFM, PAM, Sun raster, and the TIFF compressions and samples
-  `tiff_host.cpp` names) raise naming the format and "not ported"; what
-  cv2 refuses too (12-bit JPEG, 16-bit or gray lossless JPEG, TIFF
-  orientation 5-8) raises saying so. JPEG by the library's own
+  (g++ and zlib; no libtiff, libwebp, giflib or second libjpeg): BMP, PNM
+  and PAM (`bmp_pnm_host.cpp`: OpenCV's BmpDecoder, PxMDecoder and
+  PAMDecoder, quirks included), TIFF (`tiff_host.cpp` with
+  `ccitt_host.cpp`: libtiff's RGBA reader over strips and tiles, classic
+  and BigTIFF, none / PackBits / LZW / Deflate / CCITT modified Huffman,
+  Group 3 and Group 4 / JPEG, predictor 2, 1-16 bits, signed samples,
+  CMYK, YCbCr, orientation 1-4), WebP (`webp_host.cpp` and the RFC 6386
+  tables of `webp_tables.h`: VP8L, VP8 key frames with libwebp's loop
+  filters and fancy upsampling, an animation's first frame, EXIF
+  orientation), GIF (`gif_host.cpp`: the first frame on the logical
+  screen), Sun raster (`raster_host.cpp`), PFM and Radiance HDR
+  (`float_host.cpp`: float pixels rounded to 8 bits as Mat::convertTo
+  rounds them) and lossless JPEG of at most 8 bits in RGB or CMYK
+  (`jpeg_host.cpp`). The formats cv2 reads and the port does not (JPEG
+  2000, AVIF, and the TIFF compressions and photometrics `tiff_host.cpp`
+  names, CIELab among them) raise naming the format and "not ported";
+  what cv2 refuses too (12-bit JPEG, 16-bit or gray lossless JPEG, TIFF
+  orientation 5-8, the TIFF compressions cv2's libtiff is built without:
+  LZMA, ZSTD, WebP, old-style JPEG; float samples; RLE Sun raster, a
+  one-channel PFM) raises saying so. JPEG by the library's own
   decoders (`jpeg_host.cpp`), on either build: every stream of 8 bits
   that libjpeg-turbo 2.1 decodes, sequential or progressive, Huffman or
   arithmetic, with libjpeg's block smoothing of an incomplete progressive
   script, every integer sampling layout, gray, YCbCr and RGB, to the
   pixels of `semi_detr_tpu.native.decode_image` bit for bit; CMYK and
   YCCK (which libjpeg gives no RGB for) to the pixels of the JAX loader's
-  fallback, `cv2.imread`. `jpeg_host_kind`, `jpeg_colour` and
+  fallback, `cv2.imread` (libjpeg-turbo 3.1's smoothing included). `jpeg_host_kind`, `jpeg_colour` and
   `decoders()` name each kind's route. The back end decodes only the rest
   (streams neither the host decoders nor cv2 read; it refuses them too):
   libjpeg where the machine
@@ -89,7 +96,8 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_DIR)
 FIXTURES = os.path.join(_DIR, "fixtures")
 SOURCES = ("host.cpp", "jpeg_host.cpp", "bmp_pnm_host.cpp", "tiff_host.cpp",
-           "webp_host.cpp", "encode_host.cpp")
+           "ccitt_host.cpp", "webp_host.cpp", "gif_host.cpp",
+           "raster_host.cpp", "float_host.cpp", "encode_host.cpp")
 HEADERS = ("host.h", "webp_tables.h")
 JPEG_SOURCES = {"libjpeg": "jpeg_libjpeg.cpp", "nvjpeg": "jpeg_nvjpeg.cpp"}
 # the host decoders' routes, by jpeg_host_kind's answer, on either build
@@ -111,9 +119,20 @@ FORMAT_ROUTES = {
     "bmp": "host BMP (1-32 bits, RLE4 / RLE8 / bit fields; OpenCV's "
            "BmpDecoder)",
     "pnm": "host PNM (P1-P6, maxval 1-65535; OpenCV's PxMDecoder)",
-    "tiff": "host TIFF (strips and tiles, planar 1 and 2, none / PackBits / "
-            "LZW / Deflate / JPEG, predictor 2, 1-16 bits; libtiff's RGBA "
-            "reader)",
+    "pam": "host PAM (P7, depth 1-4, maxval 1-65535; OpenCV's PAMDecoder, "
+           "its quirks included)",
+    "tiff": "host TIFF (classic and BigTIFF, strips and tiles, planar 1 and "
+            "2, none / PackBits / LZW / Deflate / CCITT modified Huffman, "
+            "Group 3 and Group 4 / JPEG, predictor 2, 1-16 bits, signed "
+            "samples, CMYK, YCbCr; libtiff's RGBA reader)",
+    "gif": "host GIF (the first frame on the logical screen, LZW; OpenCV's "
+           "GifDecoder)",
+    "sun_raster": "host Sun raster (types 0 and 1, 1-32 bits, colour maps; "
+                  "OpenCV's SunRasterDecoder)",
+    "pfm": "host PFM (float samples scaled by 1 / |scale|, rounded as "
+           "Mat::convertTo; OpenCV's PFMDecoder)",
+    "hdr": "host Radiance HDR (run-length and flat RGBE scanlines, times "
+           "255 and rounded as Mat::convertTo; OpenCV's rgbe.cpp)",
     "webp": "host WebP (VP8L lossless, VP8 lossy key frames with libwebp's "
             "fancy upsampling, the first frame of an animation, EXIF "
             "orientation)"}
@@ -290,8 +309,9 @@ def decoders() -> Dict[str, str]:
     build; `jpeg_colour`: their colour handling; `jpeg_other`: the back
     end, for the rest: streams neither the host decoders nor cv2 read, such
     as hierarchical ones, which it refuses too; 12-bit and the lossless
-    streams cv2 refuses are refused before it). `bmp`, `pnm`, `tiff`,
-    `webp`: the library's own decoders of those formats."""
+    streams cv2 refuses are refused before it). `bmp`, `pnm`, `pam`,
+    `tiff`, `webp`, `gif`, `sun_raster`, `pfm`, `hdr`: the library's own
+    decoders of those formats."""
     backend = _library().sdt_jpeg_backend().decode()
     out = {"png": "zlib inflate + C++ row filters (every bit depth and "
                   "colour type, Adam7)", "jpeg": backend}
@@ -344,11 +364,12 @@ def image_size(buf: bytes, name: str = "<bytes>") -> Tuple[int, int]:
 def decode_image(buf: bytes, name: str = "<bytes>") -> np.ndarray:
     """Image bytes -> (H, W, 3) uint8 RGB, the format found by its
     signature: JPEG and PNG as the JAX package's native loader decodes
-    them; BMP, PNM, TIFF, WebP and lossless JPEG as `cv2.imread(path,
-    IMREAD_COLOR)` does (`decoders()` names each route). Raises
-    ImageDecodeError naming `name` (the file) on anything it cannot decode:
-    damage with the fault, a format cv2 reads and the port does not with
-    its name and "not ported"."""
+    them; BMP, PNM, PAM, TIFF, WebP, GIF, Sun raster, PFM, Radiance HDR and
+    lossless JPEG as `cv2.imread(path, IMREAD_COLOR)` does (`decoders()`
+    names each route). Raises ImageDecodeError naming `name` (the file) on
+    anything it cannot decode: damage with the fault, what cv2 refuses with
+    "cv2 refuses it too", a format cv2 reads and the port does not with its
+    name and "not ported"."""
     buf = bytes(buf)
     h, w = image_size(buf, name)
     out = np.empty((h, w, 3), np.uint8)

@@ -20,10 +20,25 @@
 // samples (P5, P6) of a maxval below 256 are taken as they are; a maxval of
 // 256-65535 gives 16-bit samples (big-endian in P5 / P6) whose high byte is
 // the pixel. P1 and P4 bits of 1 are black.
+//
+// PAM (P7), OpenCV's PAMDecoder: header lines of WIDTH, HEIGHT, DEPTH 1-4,
+// MAXVAL 1-65535 and TUPLTYPE up to ENDHDR, comments skipped. The tuple
+// type must fit the depth (BLACKANDWHITE or GRAYSCALE 1, GRAYSCALE_ALPHA 2,
+// RGB 3, RGB_ALPHA 4); without one, depth 1 or 3 of a maxval below 256 is
+// gray or RGB and the rest is refused. Samples are bytes, or big-endian
+// 16-bit words above maxval 255 of which the high byte is the pixel (no
+// scaling to maxval). cv2's quirks: an RGB tuple reaches cv2's BGR picture
+// unswapped, so the red sample reads as blue; a maxval of 1 takes each
+// row's sample bytes as packed bits (pixel x is bit 7 - x % 8 of byte
+// x / 8: 255 where set); GRAYSCALE_ALPHA and RGB_ALPHA give the first
+// sample, or the first three, of each pixel, where cv2 converts only the
+// first w / depth pixels of a row and leaves the rest of its picture
+// unset (the JAX loader's pixels there are whatever memory held).
 
 #include <algorithm>
 #include <cctype>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <string>
 #include <vector>
@@ -381,7 +396,155 @@ int pnm_pixels(const uint8_t* d, long n, const Pnm& p, uint8_t* out) {
   return kOk;
 }
 
+// ------------------------------------------------------------------- PAM
+
+struct Pam {
+  int w = 0, h = 0, depth = 0, maxval = 0;
+  long data = 0;
+};
+
+int pam_refused(const std::string& what) {
+  set_error("PAM: " + what + " (cv2 refuses it too)");
+  return kUnsupported;
+}
+
+// OpenCV's ReadPAMHeaderLine: a field name of at most 8 bytes and its value,
+// the rest of the line; *name is empty for a comment
+bool pam_line(const uint8_t* d, long n, long* p, std::string* name,
+              std::string* value) {
+  auto get = [&]() -> int { return *p < n ? d[(*p)++] : -1; };
+  int c;
+  do c = get(); while (c >= 0 && std::isspace(c));
+  if (c < 0) return false;
+  name->clear();
+  value->clear();
+  if (c == '#') {
+    do c = get(); while (c >= 0 && c != '\n' && c != '\r');
+    return c >= 0;
+  }
+  for (int i = 0; i < 8 && c >= 0 && !std::isspace(c); ++i) {
+    name->push_back(static_cast<char>(c));
+    c = get();
+  }
+  if (c < 0 || !std::isspace(c)) return false;
+  if (c == '\n' || c == '\r') return true;
+  do c = get(); while (c >= 0 && std::isspace(c));
+  while (c >= 0 && c != '\n' && c != '\r') {
+    value->push_back(static_cast<char>(c));
+    if (value->size() >= 255) return false;
+    c = get();
+  }
+  return c >= 0;
+}
+
+int pam_header(const uint8_t* d, long n, Pam* m) {
+  long p = 3;
+  bool end = false, hw = false, hh = false, hd = false, hm = false;
+  std::string name, value, tupl;
+  bool has_tupl = false;
+  while (!end) {
+    if (!pam_line(d, n, &p, &name, &value))
+      return bad("PAM", "a header that does not parse");
+    const long v = std::atol(value.c_str());
+    if (name.empty()) continue;  // a comment
+    if (name == "ENDHDR") {
+      end = true;
+    } else if (name == "WIDTH") {
+      m->w = static_cast<int>(v), hw = true;
+    } else if (name == "HEIGHT") {
+      m->h = static_cast<int>(v), hh = true;
+    } else if (name == "DEPTH") {
+      m->depth = static_cast<int>(v), hd = true;
+    } else if (name == "MAXVAL") {
+      m->maxval = static_cast<int>(v), hm = true;
+    } else if (name == "TUPLTYPE") {
+      tupl = value, has_tupl = true;
+    } else {
+      return bad("PAM", "an unknown header field " + name);
+    }
+  }
+  if (!hw || !hh || !hd || !hm) return bad("PAM", "a header field missing");
+  if (m->w <= 0 || m->h <= 0 || m->w > 65535 * 16 || m->h > 65535 * 16)
+    return bad("PAM", "a size out of range");
+  if (m->depth < 1 || m->depth > 4)
+    return pam_refused("depth " + std::to_string(m->depth));
+  if (m->maxval < 1 || m->maxval > 65535)
+    return pam_refused("maxval " + std::to_string(m->maxval));
+  int want;
+  if (!has_tupl) {
+    if (m->maxval > 255 || (m->depth != 1 && m->depth != 3))
+      return pam_refused("no TUPLTYPE at depth " + std::to_string(m->depth) +
+                         ", maxval " + std::to_string(m->maxval));
+    want = m->depth;
+  } else if (tupl == "BLACKANDWHITE" || tupl == "GRAYSCALE") {
+    want = 1;
+  } else if (tupl == "GRAYSCALE_ALPHA") {
+    want = 2;
+  } else if (tupl == "RGB") {
+    want = 3;
+  } else if (tupl == "RGB_ALPHA") {
+    want = 4;
+  } else {
+    return pam_refused("TUPLTYPE " + tupl);
+  }
+  if (want != m->depth)
+    return pam_refused("TUPLTYPE " + tupl + " at depth " +
+                       std::to_string(m->depth));
+  m->data = p;
+  return kOk;
+}
+
+int pam_pixels(const uint8_t* d, long n, const Pam& m, uint8_t* out) {
+  const int bytes = m.maxval > 255 ? 2 : 1;
+  const long row = static_cast<long>(m.w) * m.depth * bytes;
+  if (m.data + row * m.h > n) return bad("PAM", "file ends before its data");
+  for (int y = 0; y < m.h; ++y) {
+    const uint8_t* s = d + m.data + y * row;
+    uint8_t* o = out + static_cast<long>(y) * m.w * 3;
+    for (int x = 0; x < m.w; ++x, o += 3) {
+      if (m.maxval == 1) {  // packed bits, as cv2 takes them
+        o[0] = o[1] = o[2] = (s[x >> 3] >> (7 - (x & 7))) & 1 ? 255 : 0;
+        continue;
+      }
+      const uint8_t* q = s + static_cast<long>(x) * m.depth * bytes;
+      auto at = [&](int k) { return q[k * bytes]; };  // the high byte
+      if (m.depth <= 2) {
+        o[0] = o[1] = o[2] = at(0);
+      } else if (m.depth == 3) {  // unswapped into cv2's BGR
+        o[0] = at(2), o[1] = at(1), o[2] = at(0);
+      } else {
+        o[0] = at(0), o[1] = at(1), o[2] = at(2);
+      }
+    }
+  }
+  return kOk;
+}
+
 }  // namespace
+
+bool is_pam(const uint8_t* d, long n) {
+  return n >= 3 && d[0] == 'P' && d[1] == '7' && std::isspace(d[2]);
+}
+
+int pam_info(const uint8_t* d, long n, int* h, int* w) {
+  Pam m;
+  const int st = pam_header(d, n, &m);
+  if (st) return st;
+  *h = m.h;
+  *w = m.w;
+  return kOk;
+}
+
+int pam_decode(const uint8_t* d, long n, uint8_t* out, int h, int w) {
+  Pam m;
+  const int st = pam_header(d, n, &m);
+  if (st) return st;
+  if (m.h != h || m.w != w) {
+    set_error("PAM size differs from the size asked for");
+    return kSizeMismatch;
+  }
+  return pam_pixels(d, n, m, out);
+}
 
 bool is_bmp(const uint8_t* d, long n) {
   return n >= 2 && d[0] == 'B' && d[1] == 'M';

@@ -19,7 +19,6 @@
 #include <zlib.h>
 
 #include <algorithm>
-#include <cctype>
 #include <cmath>
 #include <condition_variable>
 #include <cstdint>
@@ -428,16 +427,8 @@ static const char* not_ported_format(const uint8_t* d, long n) {
   auto starts = [&](const char* s, long k) {
     return n >= k && std::memcmp(d, s, k) == 0;
   };
-  if (starts("GIF87a", 6) || starts("GIF89a", 6)) return "GIF";
   if (starts("\0\0\0\x0cjP  \r\n\x87\n", 12)) return "JPEG 2000 (JP2)";
   if (starts("\xff\x4f\xff\x51", 4)) return "JPEG 2000 (codestream)";
-  if (starts("#?RADIANCE", 10) || starts("#?RGBE", 6)) return "Radiance HDR";
-  if (n >= 3 && d[0] == 'P' && (d[1] == 'F' || d[1] == 'f') &&
-      std::isspace(d[2]))
-    return "PFM";
-  if (n >= 3 && d[0] == 'P' && d[1] == '7' && std::isspace(d[2]))
-    return "PAM";
-  if (n >= 4 && be32(d) == 0x59A66A95u) return "Sun raster";
   if (n >= 16 && std::memcmp(d + 4, "ftyp", 4) == 0) {  // an ISO BMFF box
     const long box = std::min<long>(be32(d), n);
     for (long p = 8; p + 4 <= box; p += 4)  // major, version, compatible
@@ -453,8 +444,8 @@ static int unknown_format(const uint8_t* d, long n) {
     set_error(std::string(f) + " (cv2 reads it): not ported");
     return kUnsupported;
   }
-  set_error("neither a JPEG nor a PNG stream, nor BMP, PNM, TIFF, WebP or "
-            "another format cv2 reads");
+  set_error("neither a JPEG nor a PNG stream, nor BMP, PNM, PAM, TIFF, "
+            "WebP, GIF, Sun raster, PFM, HDR or another format cv2 reads");
   return kUnknownFormat;
 }
 
@@ -475,6 +466,11 @@ int sdt_image_info(const uint8_t* d, long n, int* h, int* w) {
   if (is_pnm(d, n)) return pnm_info(d, n, h, w);
   if (is_tiff(d, n)) return tiff_info(d, n, h, w);
   if (is_webp(d, n)) return webp_info(d, n, h, w);
+  if (is_pam(d, n)) return pam_info(d, n, h, w);
+  if (is_gif(d, n)) return gif_info(d, n, h, w);
+  if (is_sun_raster(d, n)) return sun_raster_info(d, n, h, w);
+  if (is_pfm(d, n)) return pfm_info(d, n, h, w);
+  if (is_hdr(d, n)) return hdr_info(d, n, h, w);
   return unknown_format(d, n);
 }
 
@@ -498,6 +494,11 @@ int sdt_decode(const uint8_t* d, long n, uint8_t* out, int h, int w) {
   if (is_pnm(d, n)) return pnm_decode(d, n, out, h, w);
   if (is_tiff(d, n)) return tiff_decode(d, n, out, h, w);
   if (is_webp(d, n)) return webp_decode(d, n, out, h, w);
+  if (is_pam(d, n)) return pam_decode(d, n, out, h, w);
+  if (is_gif(d, n)) return gif_decode(d, n, out, h, w);
+  if (is_sun_raster(d, n)) return sun_raster_decode(d, n, out, h, w);
+  if (is_pfm(d, n)) return pfm_decode(d, n, out, h, w);
+  if (is_hdr(d, n)) return hdr_decode(d, n, out, h, w);
   return unknown_format(d, n);
 }
 

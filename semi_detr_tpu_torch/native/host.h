@@ -1,6 +1,7 @@
 // Declarations shared by the host library (host.cpp), its own decoders
-// (jpeg_host.cpp; bmp_pnm_host.cpp, tiff_host.cpp and webp_host.cpp for
-// the files the JAX loader hands to cv2) and its JPEG back end:
+// (jpeg_host.cpp; bmp_pnm_host.cpp, tiff_host.cpp with ccitt_host.cpp,
+// webp_host.cpp, gif_host.cpp, raster_host.cpp and float_host.cpp for the
+// files the JAX loader hands to cv2) and its JPEG back end:
 // jpeg_libjpeg.cpp where the machine has libjpeg, jpeg_nvjpeg.cpp where it
 // has only the CUDA toolkit's nvJPEG (native/__init__.py picks one at
 // build time).
@@ -122,6 +123,28 @@ int tiff_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
 bool is_webp(const uint8_t* d, long n);   // webp_host.cpp
 int webp_info(const uint8_t* d, long n, int* h, int* w);
 int webp_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
+bool is_pam(const uint8_t* d, long n);    // bmp_pnm_host.cpp, P7
+int pam_info(const uint8_t* d, long n, int* h, int* w);
+int pam_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
+bool is_gif(const uint8_t* d, long n);    // gif_host.cpp
+int gif_info(const uint8_t* d, long n, int* h, int* w);
+int gif_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
+bool is_sun_raster(const uint8_t* d, long n);  // raster_host.cpp
+int sun_raster_info(const uint8_t* d, long n, int* h, int* w);
+int sun_raster_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
+bool is_pfm(const uint8_t* d, long n);    // float_host.cpp
+int pfm_info(const uint8_t* d, long n, int* h, int* w);
+int pfm_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
+bool is_hdr(const uint8_t* d, long n);
+int hdr_info(const uint8_t* d, long n, int* h, int* w);
+int hdr_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
+
+// A CCITT strip or tile of a TIFF (ccitt_host.cpp): compression 2, 3 (with
+// its T4Options) or 4, `rows` rows of `width` pixels into out as packed
+// bits (1 black), as libtiff's fax decoders give them; kCorrupt (the fault
+// set) on damage.
+int ccitt_decode(const uint8_t* src, long len, int compression,
+                 uint32_t t4_options, long width, long rows, uint8_t* out);
 
 // (h, w) of a picture of (h, w) after the EXIF orientation o (1-8), and
 // the RGB picture (h, w, 3) turned as OpenCV's ApplyExifOrientation turns it

@@ -15,7 +15,9 @@
 //   progressive scan types, the statistics reset at each restart.
 // The back half is shared: block smoothing where a progressive script
 // leaves the DC or AC 1-9 short of its last bit (jdcoefct.c,
-// decompress_smooth_data, libjpeg-turbo 2.1's ten saved coefficients),
+// decompress_smooth_data, libjpeg-turbo 2.1's ten saved coefficients; for
+// CMYK and YCCK, which reach cv2, 3.1's neighbourhood, found by probing
+// cv2.imread against 2.1 on cut streams of every vertical sampling),
 // dequantization by the table each component latched at its first scan,
 // jidctint.c's jpeg_idct_islow, each component's upsampling as jdsample.c
 // chooses it against the frame's largest factors, and the colour
@@ -1291,7 +1293,9 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
 }
 
 // ------------------------------------------------------ block smoothing
-// jdcoefct.c (libjpeg-turbo 2.1): smoothing_ok and decompress_smooth_data.
+// jdcoefct.c (libjpeg-turbo 2.1, and 3.1's rows and columns for the
+// streams cv2 decodes for the JAX loader): smoothing_ok and
+// decompress_smooth_data.
 // The first nine AC coefficients of a block still short of their last
 // bit, where zero, are estimated from the DC values of the block and its
 // 24 neighbours, and where no AC data came at all the DC itself; the
@@ -1334,9 +1338,13 @@ inline int16_t estimate(int64_t q00, int64_t q, int64_t dcs, int al) {
 }
 
 // component c's plane (ph x pw samples) from its blocks: smoothed where
-// smooth, dequantized and through jpeg_idct_islow
+// smooth, dequantized and through jpeg_idct_islow. rows_31 takes the 5 x 5
+// neighbourhood as libjpeg-turbo 3.1 (cv2 5.0's) does for the streams the
+// JAX loader hands to cv2: the rows two away where 2.1 repeats a nearer
+// one under vertical subsampling, and columns clamped to the row (2.1
+// repeats the first column on a row of two blocks).
 void component_plane(const Coefs& co, const Frame& f, int c, bool smooth,
-                     uint8_t* plane, int ph, int pw) {
+                     bool rows_31, uint8_t* plane, int ph, int pw) {
   const int16_t* blocks = co.blocks[c].data();
   const uint16_t* qt = co.qt[c];
   const int wib = (pw + 7) / 8, hib = (ph + 7) / 8;
@@ -1364,10 +1372,16 @@ void component_plane(const Coefs& co, const Frame& f, int c, bool smooth,
     const int imcu = r / v, br = r % v;
     const int block_rows = imcu < last_row ? v : hib - last_row * v;
     const int prev = (br > 0 || imcu > 0) ? r - 1 : r;
-    const int pprev = (br > 1 || imcu > 1) ? r - 2 : prev;
+    int pprev = (br > 1 || imcu > 1) ? r - 2 : prev;
     const int next = (br < block_rows - 1 || imcu < last_row) ? r + 1 : r;
-    const int nnext =
-        (br < block_rows - 2 || imcu + 1 < last_row) ? r + 2 : next;
+    int nnext = (br < block_rows - 2 || imcu + 1 < last_row) ? r + 2 : next;
+    if (rows_31) {
+      // libjpeg-turbo 3.1: the rows two away wherever the component's
+      // buffer holds them (a dummy row of the last iMCU row below too),
+      // but a short last iMCU row keeps 2.1's row above
+      if (imcu < last_row || block_rows == v) pprev = r >= 2 ? r - 2 : prev;
+      nnext = r + 2 < (hib + v - 1) / v * v ? r + 2 : next;
+    }
     const int16_t* rp[5] = {blocks + pprev * bw * 64, blocks + prev * bw * 64,
                             blocks + r * bw * 64, blocks + next * bw * 64,
                             blocks + nnext * bw * 64};
@@ -1378,10 +1392,16 @@ void component_plane(const Coefs& co, const Frame& f, int c, bool smooth,
     const int last_col = wib - 1;
     for (int b = 0; b < wib; ++b) {
       std::memcpy(ws, rp[2] + b * 64, sizeof(ws));
-      if (b == 0 && b < last_col)
-        for (int y = 0; y < 5; ++y) dcv[y][3] = rp[y][64];
-      if (b + 1 < last_col)
-        for (int y = 0; y < 5; ++y) dcv[y][4] = rp[y][(b + 2) * 64];
+      if (rows_31) {  // the columns two away clamped to the row's blocks
+        for (int y = 0; y < 5; ++y)
+          for (int x = 0; x < 5; ++x)
+            dcv[y][x] = rp[y][std::min(std::max(b + x - 2, 0), last_col) * 64];
+      } else {
+        if (b == 0 && b < last_col)
+          for (int y = 0; y < 5; ++y) dcv[y][3] = rp[y][64];
+        if (b + 1 < last_col)
+          for (int y = 0; y < 5; ++y) dcv[y][4] = rp[y][(b + 2) * 64];
+      }
       const int DC01 = dcv[0][0], DC02 = dcv[0][1], DC03 = dcv[0][2],
                 DC04 = dcv[0][3], DC05 = dcv[0][4], DC06 = dcv[1][0],
                 DC07 = dcv[1][1], DC08 = dcv[1][2], DC09 = dcv[1][3],
@@ -1593,9 +1613,11 @@ int exif_orientation(const uint8_t* d, long n) {
 
 // the frame's components through libjpeg's back half into out (h, w, 3)
 // RGB: smoothing, IDCT, upsampling, colour conversion (and for CMYK and
-// YCCK cv2's conversion and orientation, orientation o)
+// YCCK cv2's conversion and orientation, orientation o). by_cv2: a stream
+// the JAX loader hands to cv2 (CMYK, YCCK, a TIFF's JPEG strips), smoothed
+// as cv2's libjpeg-turbo 3.1 smooths
 int finish(const Coefs& co, const Frame& f, int o, uint8_t* out, int h,
-           int w, int colour) {
+           int w, int colour, bool by_cv2) {
   int oh, ow;
   oriented_size(colour >= kCMYK ? o : 1, f.height, f.width, &oh, &ow);
   if (oh != h || ow != w) {
@@ -1619,7 +1641,8 @@ int finish(const Coefs& co, const Frame& f, int o, uint8_t* out, int h,
     pw[c] = static_cast<int>((static_cast<long>(W) * f.hs[c] + f.hmax - 1) /
                              f.hmax);
     planes[c].resize(static_cast<size_t>(ph[c]) * pw[c]);
-    component_plane(co, f, c, smooth, planes[c].data(), ph[c], pw[c]);
+    component_plane(co, f, c, smooth, by_cv2, planes[c].data(), ph[c],
+                    pw[c]);
   }
   // one output row of every component at a time
   std::vector<uint8_t> rows[4];
@@ -1755,7 +1778,8 @@ int decode_kind(const uint8_t* d, long n, int want, const char* what,
     if (o != 1) orient(rgb.data(), f.height, f.width, o, out);
     return kOk;
   }
-  return finish(co, f, exif_orientation(d, n), out, h, w, colour_of(f));
+  return finish(co, f, exif_orientation(d, n), out, h, w, colour_of(f),
+                colour_of(f) >= kCMYK);
 }
 
 }  // namespace
@@ -1886,7 +1910,7 @@ int jpeg_decode_tiff(const uint8_t* d, long n, bool ycbcr,
   Coefs co;
   st = walk(d, n, &co, &f);
   return st ? st : finish(co, f, 1, out->data(), f.height, f.width,
-                          ycbcr ? kYCbCr : kRaw);
+                          ycbcr ? kYCbCr : kRaw, true);
 }
 
 // ycc_to_rgb: libjpeg's output stage on YCbCr planes (the nvJPEG back end's

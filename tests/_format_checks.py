@@ -1,5 +1,7 @@
 """Checks shared by the per-format decoder tests (test_torch_bmp_pnm,
-test_torch_tiff, test_torch_webp, test_torch_jpeg12_lossless)."""
+test_torch_tiff, test_torch_tiff_variants, test_torch_webp,
+test_torch_jpeg12_lossless, test_torch_gif, test_torch_raster_pam,
+test_torch_float_formats)."""
 import os
 
 import numpy as np
@@ -30,7 +32,10 @@ def check_fixture(name: str, entry: dict):
         assert native.image_size(read(name)) == got.shape[:2]
         assert entry["route"] in native.decoders()
         return
-    assert isinstance(jax, Exception), (name, "the JAX loader reads it")
+    if entry["expect"] == "not ported":  # cv2, so the JAX loader, reads it
+        assert isinstance(jax, np.ndarray), (name, jax)
+    else:
+        assert isinstance(jax, Exception), (name, "the JAX loader reads it")
     with pytest.raises(native.ImageDecodeError) as err:
         image_io.read_image(path)
     msg = str(err.value)
@@ -53,6 +58,21 @@ def check_against_cv2(data: bytes, tmp_path, name: str):
     assert got.shape == ref.shape, (name, got.shape, ref.shape)
     diff = np.abs(got.astype(int) - ref.astype(int))
     assert diff.max() == 0, (name, diff.max(), (diff > 0).mean())
+    return True
+
+
+def check_against_loaders(data: bytes, tmp_path, name: str):
+    """check_against_cv2, and the JAX package's loader (its native decoder,
+    else cv2.imread) on the same file gives the same pixels, or raises
+    where the library raises; returns whether cv2 read it."""
+    read_it = check_against_cv2(data, tmp_path, name)
+    jax = jax_load_images(str(tmp_path), [name])[name]
+    if not read_it:
+        assert isinstance(jax, Exception), (name, "the JAX loader reads it")
+        return False
+    got = native.decode_image(data, name)
+    assert isinstance(jax, np.ndarray) and np.array_equal(got, jax), name
+    assert native.image_size(data, name) == got.shape[:2]
     return True
 
 

@@ -1,13 +1,19 @@
 """Writers of the image formats the JAX loader hands to cv2, in numpy and
 the standard library, for the port's decoder tests and fixtures: TIFF (any
-byte order, strips or tiles, planar 1 or 2, none / PackBits / LZW in both
-bit orders / Deflate / JPEG compression, predictor 2, 1-16 bits, every
-photometric the host library reads, the Orientation tag), BMP (every bit
-depth, RLE4 / RLE8 / BI_BITFIELDS, bottom-up and top-down, the OS/2 and V4
-/ V5 headers), PNM (P1-P6 at any maxval) and JPEG of 12 bits (sequential
-and progressive Huffman) or lossless (SOF3, predictors 1-7, point
-transform). cv2 decodes what they write for the reference pixels; the
-tests hold the host library's decode to it.
+byte order, classic or BigTIFF, strips or tiles, planar 1 or 2, none /
+PackBits / LZW in both bit orders / Deflate / JPEG / LZMA compression,
+predictor 2, FillOrder 2, 1-32 bits, signed and float samples, every
+photometric the host library reads with CMYK and YCbCr data units, the
+Orientation tag; CCITT through Pillow's libtiff, `pil_tiff`), BMP (every
+bit depth, RLE4 / RLE8 / BI_BITFIELDS, bottom-up and top-down, the OS/2
+and V4 / V5 headers), PNM (P1-P6 at any maxval), PAM (P7), Sun raster
+(every depth and type, colour maps, the byte encoding), GIF (LZW at any
+minimum code size, clears deferred or not, interlace, local and global
+tables, offsets, transparency, extensions, frames), PFM, Radiance HDR
+(new-style run-length, flat and old-style run-length scanlines) and JPEG
+of 12 bits (sequential and progressive Huffman) or lossless (SOF3,
+predictors 1-7, point transform). cv2 decodes what they write for the
+reference pixels; the tests hold the host library's decode to it.
 """
 import struct
 import zlib
@@ -95,8 +101,8 @@ def lzw(data: bytes, old_style: bool = False) -> bytes:
 def _pack_rows(samples: np.ndarray, bits: int, order: str) -> bytes:
     """(rows, n) samples -> rows packed to whole bytes: below 8 bits most
     significant first, 16 bits in the byte order `order` ('<' or '>')."""
-    if bits == 16:
-        return samples.astype(order + "u2").tobytes()
+    if bits in (16, 32):
+        return samples.astype(f"{order}u{bits // 8}").tobytes()
     if bits == 8:
         return samples.astype(np.uint8).tobytes()
     rows, n = samples.shape
@@ -135,22 +141,31 @@ def write_tiff(img: np.ndarray, bits: int = 8, photometric: int = None,
                extra: int = None, orientation: int = None,
                order: str = "<", jpeg=None, jpeg_tables: bool = False,
                subsampling=None, sample_format: int = None,
-               fill_order: int = None, old_lzw: bool = False) -> bytes:
+               fill_order: int = None, old_lzw: bool = False,
+               bigtiff: bool = False, inkset: int = None,
+               ref_black_white=None, ycbcr_coefficients=None,
+               lzma_filters=None) -> bytes:
     """(h, w, spp) samples -> a TIFF file of one page.
 
     compression: 1 none, 5 LZW (old_lzw: the old bit order), 8 Deflate,
     32773 PackBits, 7 JPEG (jpeg(block) -> the stream of one (rows, cols,
     spp) uint8 block; jpeg_tables moves its tables into JPEGTables).
+    34925 LZMA (the .xz stream libtiff's codec writes; lzma_filters a
+    filter chain for the stdlib's encoder).
     tile: (tile_h, tile_w), else strips of rows_per_strip rows (default:
     all). colormap: (3, 2 ** bits) uint16. extra: ExtraSamples' value for
-    the samples past the colour ones."""
+    the samples past the colour ones. Photometric 6 outside JPEG packs
+    (h, w, 3) YCbCr samples into libtiff's data units of `subsampling`
+    (h * v luma samples, then the means of Cb and Cr, rounded down).
+    fill_order 2 reverses the bits of every coded byte (not under JPEG).
+    bigtiff writes version 43 with 8-byte counts and offsets."""
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
     h, w, spp = img.shape
     if photometric is None:
         photometric = 3 if colormap is not None else (2 if spp >= 3 else 1)
-    ncolour = 3 if photometric in (2, 6) else 1
+    ncolour = {2: 3, 6: 3, 8: 3, 5: 4}.get(photometric, 1)
     if tile:
         th, tw = tile
         ph, pw = -(-h // th) * th, -(-w // tw) * tw
@@ -175,7 +190,11 @@ def write_tiff(img: np.ndarray, bits: int = 8, photometric: int = None,
                     tables, seg = jpeg_split(seg)
                 segments.append(seg)
                 continue
-            rows = block.reshape(bh, -1)
+            if photometric == 6 and subsampling and planar == 1:
+                rows = _ycbcr_units(block, *subsampling)
+                bh = rows.shape[0]
+            else:
+                rows = block.reshape(bh, -1)
             if predictor == 2:
                 rows = _predict(rows, block.shape[2], bits)
             raw = _pack_rows(rows, bits, order)
@@ -187,6 +206,13 @@ def write_tiff(img: np.ndarray, bits: int = 8, photometric: int = None,
                 raw = b"".join(packbits(raw[r * len(raw) // bh:
                                             (r + 1) * len(raw) // bh])
                                for r in range(bh))
+            elif compression == 34925:
+                import lzma
+                raw = lzma.compress(raw, format=lzma.FORMAT_XZ,
+                                    check=lzma.CHECK_NONE,
+                                    filters=lzma_filters)
+            if fill_order == 2:
+                raw = bytes(_REVERSED[np.frombuffer(raw, np.uint8)])
             segments.append(raw)
     tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
             259: (3, [compression]), 262: (3, [photometric]),
@@ -210,6 +236,14 @@ def write_tiff(img: np.ndarray, bits: int = 8, photometric: int = None,
         tags[339] = (3, [sample_format] * spp)
     if fill_order is not None:
         tags[266] = (3, [fill_order])
+    if inkset is not None:
+        tags[332] = (3, [inkset])
+    if ycbcr_coefficients is not None:
+        tags[529] = (5, [v for x in ycbcr_coefficients
+                         for v in (int(round(x * 10000)), 10000)])
+    if ref_black_white is not None:
+        tags[532] = (5, [v for x in ref_black_white
+                         for v in (int(round(x * 1000)), 1000)])
     if tables is not None:
         tags[347] = (7, list(tables))
     # layout: header, the segments, then the IFD and its out-of-line values
@@ -223,25 +257,84 @@ def write_tiff(img: np.ndarray, bits: int = 8, photometric: int = None,
     off_tag, cnt_tag = (324, 325) if tile else (273, 279)
     tags[off_tag] = (4, offsets)
     tags[cnt_tag] = (4, [len(s) for s in segments])
-    fmt = {1: "B", 3: "H", 4: "I", 7: "B"}
+    fmt = {1: "B", 3: "H", 4: "I", 5: "I", 7: "B", 16: "Q"}
+    if bigtiff:  # offsets and counts as LONG8, after a 16-byte header
+        data[8:8] = bytes(8)
+        offsets = [o + 8 for o in offsets]
+        tags[off_tag] = (16, offsets)
+        tags[cnt_tag] = (16, [len(s) for s in segments])
     ifd_at = len(data)
     n = len(tags)
-    extra_at = ifd_at + 2 + 12 * n + 4
-    ifd, tail = bytearray(struct.pack(order + "H", n)), bytearray()
+    count, entry, word = ("Q", 20, 8) if bigtiff else ("H", 12, 4)
+    ptr = "Q" if bigtiff else "I"
+    extra_at = ifd_at + struct.calcsize(count) + entry * n + word
+    ifd = bytearray(struct.pack(order + count, n))
+    tail = bytearray()
     for tag in sorted(tags):
         typ, vals = tags[tag]
         body = struct.pack(order + fmt[typ] * len(vals), *vals)
-        if len(body) <= 4:
-            field = body.ljust(4, b"\0")
+        if len(body) <= word:
+            field = body.ljust(word, b"\0")
         else:
-            field = struct.pack(order + "I", extra_at + len(tail))
+            field = struct.pack(order + ptr, extra_at + len(tail))
             tail += body + (b"\0" if len(body) % 2 else b"")
-        ifd += struct.pack(order + "HHI", tag, typ, len(vals)) + field
-    ifd += struct.pack(order + "I", 0)
-    head = (b"II*\0" if order == "<" else b"MM\0*") + struct.pack(
-        order + "I", ifd_at)
-    data[:8] = head
+        nvals = len(vals) // (2 if typ == 5 else 1)
+        ifd += struct.pack(order + "HH" + ("Q" if bigtiff else "I"), tag, typ,
+                           nvals) + field
+    ifd += struct.pack(order + ptr, 0)
+    magic = (b"II" if order == "<" else b"MM") + struct.pack(
+        order + "H", 43 if bigtiff else 42)
+    head = magic + (struct.pack(order + "HHQ", 8, 0, ifd_at) if bigtiff
+                    else struct.pack(order + "I", ifd_at))
+    data[:len(head)] = head
     return bytes(data + ifd + tail)
+
+
+def pil_tiff(img: np.ndarray, compression: str, tiffinfo=None) -> bytes:
+    """A TIFF written by Pillow's libtiff (CCITT for a bool picture:
+    "tiff_ccitt", "group3", "group4"; tiffinfo's tags, such as T4Options
+    292, FillOrder 266 or RowsPerStrip 278, passed to libtiff)."""
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "TIFF", compression=compression,
+                              tiffinfo=tiffinfo or {})
+    return buf.getvalue()
+
+
+def set_tiff_tag(data: bytes, tag: int, value: int) -> bytes:
+    """A classic TIFF with the first value of a SHORT or LONG tag of its
+    first IFD set to `value`."""
+    order = "<" if data[:2] == b"II" else ">"
+    out = bytearray(data)
+    ifd = struct.unpack(order + "I", data[4:8])[0]
+    n = struct.unpack(order + "H", data[ifd:ifd + 2])[0]
+    for e in range(n):
+        p = ifd + 2 + 12 * e
+        t, typ = struct.unpack(order + "HH", data[p:p + 4])
+        if t == tag:
+            out[p + 8:p + 12] = struct.pack(
+                order + ("H" if typ == 3 else "I"), value).ljust(4, b"\0")
+            return bytes(out)
+    raise KeyError(tag)
+
+
+_REVERSED = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)],
+                     np.uint8)
+
+
+def _ycbcr_units(block: np.ndarray, sh: int, sv: int) -> np.ndarray:
+    """(rows, cols, 3) YCbCr -> rows of libtiff's data units: for each
+    (sv, sh) cell its sh * sv luma samples in raster order, then the
+    cell's mean Cb and Cr (rounded down); the edges repeated."""
+    rows, cols = block.shape[:2]
+    ph, pw = -(-rows // sv) * sv, -(-cols // sh) * sh
+    b = np.pad(block.astype(np.int64), ((0, ph - rows), (0, pw - cols),
+                                        (0, 0)), "edge")
+    cells = b.reshape(ph // sv, sv, pw // sh, sh, 3).transpose(0, 2, 1, 3, 4)
+    y = cells[..., 0].reshape(ph // sv, pw // sh, sv * sh)
+    c = cells[..., 1:].reshape(ph // sv, pw // sh, sv * sh, 2).mean(2)
+    return np.concatenate([y, c.astype(np.int64)], 2).reshape(ph // sv, -1)
 
 
 # -------------------------------------------------------------------- BMP
@@ -590,6 +683,281 @@ def jpeg_lossless(samples: np.ndarray, precision: int, predictor: int,
     return bytes(out + bw.flush() + b"\xff\xd9")
 
 
+# -------------------------------------------------------------------- GIF
+
+def gif_lzw(indices, min_size: int, clear_every: int = None,
+            deferred: bool = False) -> bytes:
+    """Palette indices -> GIF's LZW codes, least significant bit first, in
+    sub-blocks of up to 255 bytes ended by an empty one: a clear code first
+    and whenever the table fills (or every `clear_every` codes), unless
+    `deferred`, which goes on at 12 bits with the table full and no clear."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    out, acc, nbits = bytearray(), 0, 0
+    width = min_size + 1
+
+    def put(code):  # the width grows once the decoder's table reaches it
+        nonlocal acc, nbits, width
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+        if code not in (clear, end) and nxt >= 1 << width and width < 12:
+            width += 1
+
+    def reset():
+        nonlocal table, nxt, width
+        table = {(i,): i for i in range(clear)}
+        nxt, width = end + 1, min_size + 1
+
+    table, nxt = {}, 0
+    reset()
+    put(clear)
+    data = [int(v) for v in np.asarray(indices).ravel()]
+    w, emitted = (data[0],), 0
+    for b in data[1:]:
+        wc = w + (b,)
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        emitted += 1
+        if nxt < 4096:
+            table[wc] = nxt
+            nxt += 1
+        if (nxt == 4096 and not deferred) or (
+                clear_every and emitted % clear_every == 0):
+            put(clear)
+            reset()
+        w = (b,)
+    put(table[w])
+    put(end)
+    if nbits:
+        out.append(acc & 0xFF)
+    blocks = bytearray()
+    for i in range(0, len(out), 255):
+        chunk = out[i:i + 255]
+        blocks += bytes([len(chunk)]) + chunk
+    return bytes(blocks + b"\0")
+
+
+def write_gif(indices, palette=None, screen=None, offset=(0, 0),
+              local_palette=None, transparent: int = None,
+              background: int = 0, interlace: bool = False,
+              min_size: int = None, version: bytes = b"89a",
+              extensions: bool = True, deferred: bool = False,
+              clear_every: int = None, frames=(), disposal: int = 0) -> bytes:
+    """(h, w) palette indices -> a GIF of one frame (plus `frames`, more
+    index arrays drawn after it): palette (n, 3) the global colour table
+    (None: none), screen (h, w) the logical screen (default the frame's),
+    offset (top, left) of the frame on it, local_palette its own table,
+    transparent the Graphic Control's transparent index (disposal its
+    disposal method), background the screen's background index, interlace
+    the four-pass row order."""
+    idx = np.asarray(indices)
+    h, w = idx.shape
+    sh, sw = screen or (h, w)
+
+    def table_bits(pal):
+        n = len(pal)
+        return max(1, int(np.ceil(np.log2(max(n, 2))))) - 1
+
+    def table(pal):
+        pal = np.asarray(pal, np.uint8)
+        size = 2 << table_bits(pal)
+        full = np.zeros((size, 3), np.uint8)
+        full[:len(pal)] = pal
+        return full.tobytes()
+
+    out = bytearray(b"GIF" + version)
+    flags = 0
+    if palette is not None:
+        flags = 0x80 | 0x70 | table_bits(palette)
+    out += struct.pack("<HHBBB", sw, sh, flags, background, 0)
+    if palette is not None:
+        out += table(palette)
+    if extensions:
+        out += b"\x21\xfe" + bytes([7]) + b"comment" + b"\0"
+        out += b"\x21\xff\x0bNETSCAPE2.0\x03\x01\0\0\0"
+    for k, frame in enumerate([idx] + list(frames)):
+        frame = np.asarray(frame)
+        fh, fw = frame.shape
+        if transparent is not None or extensions:
+            gce = (1 if transparent is not None else 0) | disposal << 2
+            out += b"\x21\xf9\x04" + bytes([gce]) + b"\x0a\0" + bytes(
+                [transparent or 0]) + b"\0"
+        fl = 0
+        if local_palette is not None and k == 0:
+            fl |= 0x80 | table_bits(local_palette)
+        if interlace:
+            fl |= 0x40
+        top, left = offset if k == 0 else (0, 0)
+        out += b"\x2c" + struct.pack("<HHHHB", left, top, fw, fh, fl)
+        if local_palette is not None and k == 0:
+            out += table(local_palette)
+        rows = frame
+        if interlace:
+            order = (list(range(0, fh, 8)) + list(range(4, fh, 8)) +
+                     list(range(2, fh, 4)) + list(range(1, fh, 2)))
+            rows = frame[order]
+        size = min_size or max(2, int(frame.max()).bit_length())
+        out += bytes([size]) + gif_lzw(rows, size, clear_every, deferred)
+    return bytes(out + b"\x3b")
+
+
+# ------------------------------------------------------ Sun raster, PAM
+
+def ras_rle(data: bytes) -> bytes:
+    """Sun raster's byte encoding: a run of 3 or more bytes as 0x80, count
+    - 1, value; a single 0x80 as 0x80 0x00; the rest literal."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 255:
+            j += 1
+        run = j - i + 1
+        if run >= 3 or data[i] == 0x80:
+            if run >= 2 or data[i] != 0x80:
+                out += bytes([0x80, run - 1, data[i]])
+            else:
+                out += b"\x80\x00"
+            i = j + 1
+            continue
+        out += bytes(data[i:i + run])
+        i = j + 1
+    return bytes(out)
+
+
+def write_ras(samples, depth: int, colormap=None, rtype: int = 1,
+              rows: str = "padded") -> bytes:
+    """(h, w) indices or bits (depth 1, 8) or (h, w, 3) RGB (depth 24, 32)
+    -> a Sun raster file: rtype 0 old, 1 standard, 2 byte-encoded (RLE), 3
+    RGB order; colormap (n, 3) RGB as an equal-RGB map. 24-bit pixels are
+    B, G, R (R, G, B under type 3); 32-bit ones a pad byte then those.
+    Rows are padded to 16 bits; rows="unpadded" leaves that out (before the
+    byte encoding)."""
+    a = np.asarray(samples)
+    h, w = a.shape[:2]
+    if depth == 1:
+        raw = np.packbits(a.astype(np.uint8), axis=1)
+    elif depth == 8:
+        raw = a.astype(np.uint8).reshape(h, w)
+    else:
+        px = a[..., ::-1] if rtype != 3 else a
+        if depth == 32:
+            px = np.concatenate([np.zeros((h, w, 1), px.dtype), px], 2)
+        raw = px.astype(np.uint8).reshape(h, -1)
+    if rows == "padded" and raw.shape[1] % 2:
+        raw = np.concatenate([raw, np.zeros((h, 1), np.uint8)], 1)
+    data = raw.tobytes()
+    if rtype == 2:
+        data = ras_rle(data)
+    cmap = b""
+    if colormap is not None:
+        cmap = np.asarray(colormap, np.uint8).T.tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(data), rtype,
+                       1 if colormap is not None else 0, len(cmap)) + \
+        cmap + data
+
+
+def write_pam(samples, maxval: int = 255, tupltype: str = None,
+              comments: bool = False) -> bytes:
+    """(h, w, depth) samples -> a PAM (P7) file, big-endian above 8 bits."""
+    a = np.asarray(samples)
+    h, w, depth = a.shape
+    head = f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH {depth}\nMAXVAL {maxval}\n"
+    if comments:
+        head = "P7\n# written by numpy\n" + head[3:]
+    if tupltype:
+        head += f"TUPLTYPE {tupltype}\n"
+    body = a.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+    return (head + "ENDHDR\n").encode() + body
+
+
+# ---------------------------------------------------------- PFM, HDR
+
+def write_pfm(samples, scale: float = -1.0) -> bytes:
+    """(h, w, 3) or (h, w) float32 samples -> a PFM file (PF, or Pf for
+    gray): rows bottom-up, little-endian where `scale` is negative."""
+    a = np.asarray(samples, np.float32)
+    kind = "PF" if a.ndim == 3 else "Pf"
+    h, w = a.shape[:2]
+    order = "<" if scale < 0 else ">"
+    return f"{kind}\n{w} {h}\n{scale}\n".encode() + \
+        a[::-1].astype(order + "f4").tobytes()
+
+
+def hdr_rle_scanline(row: np.ndarray) -> bytes:
+    """One scanline of (w, 4) RGBE bytes in the new-style run-length
+    encoding: 02 02 and the width, then each component's runs (a byte
+    above 128 repeats the next one) and literals (up to 128 bytes)."""
+    w = len(row)
+    out = bytearray([2, 2, w >> 8, w & 0xFF])
+    for c in range(4):
+        v, i = row[:, c], 0
+        while i < w:
+            j = i
+            while j + 1 < w and v[j + 1] == v[i] and j - i < 126:
+                j += 1
+            if j - i + 1 >= 3:
+                out += bytes([128 + j - i + 1, v[i]])
+                i = j + 1
+                continue
+            j = i
+            while j < w and j - i < 128 and not (
+                    j + 2 < w and v[j] == v[j + 1] == v[j + 2]):
+                j += 1
+            out += bytes([j - i]) + bytes(v[i:j].astype(np.uint8))
+            i = j
+    return bytes(out)
+
+
+def write_hdr(rgbe, encoding: str = "rle", magic: bytes = b"#?RADIANCE",
+              extra_lines=(b"EXPOSURE=1.0",)) -> bytes:
+    """(h, w, 4) RGBE bytes -> a Radiance HDR file: encoding "rle" (the
+    new-style run-length scanlines cv2.imwrite writes), "flat" (four bytes a
+    pixel) or "old" (the old-style run-length code, a pixel of 1, 1, 1
+    repeating the one before it count times, as flat pixels a reader
+    without it sees)."""
+    a = np.asarray(rgbe, np.uint8)
+    h, w = a.shape[:2]
+    head = magic + b"\n" + b"".join(line + b"\n" for line in extra_lines)
+    head += b"FORMAT=32-bit_rle_rgbe\n\n" + f"-Y {h} +X {w}\n".encode()
+    if encoding == "rle":
+        body = b"".join(hdr_rle_scanline(row) for row in a)
+    elif encoding == "flat":
+        body = a.tobytes()
+    else:
+        body = bytearray()
+        for row in a:
+            x = 0
+            while x < w:
+                body += bytes(row[x])
+                j = x + 1
+                while j < w and j - x < 255 and (row[j] == row[x]).all():
+                    j += 1
+                if j - x > 2:
+                    body += bytes([1, 1, 1, j - x - 1])
+                    x = j
+                else:
+                    x += 1
+        body = bytes(body)
+    return head + body
+
+
+def rgbe(img: np.ndarray) -> np.ndarray:
+    """(h, w, 3) float -> (h, w, 4) RGBE bytes, as Ward's float2rgbe."""
+    img = np.asarray(img, np.float64)
+    v = img.max(2)
+    m, e = np.frexp(v)
+    scale = np.where(v > 1e-32, m * 256.0 / np.where(v > 0, v, 1), 0)
+    out = np.zeros(img.shape[:2] + (4,), np.uint8)
+    out[..., :3] = np.floor(img * scale[..., None]).clip(0, 255)
+    out[..., 3] = np.where(v > 1e-32, e + 128, 0)
+    return out
+
+
 # -------------------------------------------------------------- fixtures
 
 def picture(h: int, w: int, seed: int, noise: int = 24) -> np.ndarray:
@@ -788,9 +1156,115 @@ def fixture_files():
             else bgr
         add("other" + ext.replace(".", "_") + ext,
             cv2.imencode(ext, src)[1].tobytes(), fmt, "cv2.imencode",
-            "not ported")
-    add("other_gif.gif", _pil(a, "GIF"), "GIF", "Pillow", "not ported")
+            "not ported" if ext in (".jp2", ".avif") else "pixels")
+    add("other_gif.gif", _pil(a, "GIF"), "GIF", "Pillow")
+    _add_new_formats(add, a, b, big, rs)
     return out
+
+
+def _add_new_formats(add, a, b, big, rs):
+    """The fixtures of GIF, Sun raster, PAM, PFM, HDR and the TIFF variants
+    (`tiffv_*`): a few variants of each, what cv2 refuses of each, and a
+    480x640 GIF, HDR and Group 4 TIFF (the 480x640 Sun raster, PAM and PFM
+    that chip_smoke.py times are written there from a 480x640 reference,
+    rather than committed at their raw size)."""
+    pal = rs.randint(0, 256, (256, 3))
+    idx = rs.randint(0, 16, (37, 53))
+    add("gif_offset_local_transparent.gif", write_gif(
+        idx[:20, :30], pal[:16], screen=(37, 53), offset=(9, 17),
+        local_palette=pal[100:116], transparent=3, background=7), "GIF",
+        "frame at an offset, local palette, transparency")
+    add("gif_interlaced_deferred.gif", write_gif(
+        rs.randint(0, 256, (61, 97)), pal, interlace=True, deferred=True),
+        "GIF", "interlaced, deferred clear")
+    add("gif_no_palette.gif", write_gif(rs.randint(0, 256, (37, 53)), None),
+        "GIF", "no colour table (OpenCV's default one)")
+    big_pal = (np.arange(256)[:, None] * [1, 3, 7] % 256)
+    big_idx = ((big[..., 0].astype(int) // 8) * 8 +
+               big[..., 2].astype(int) // 32) % 256
+    add("gif_480x640.gif", write_gif(big_idx, big_pal), "GIF",
+        "480x640, 256 colours")
+    add("gif_bg_past_table.gif", write_gif(idx[:4, :4] % 4, pal[:4],
+                                           screen=(37, 53), background=9),
+        "GIF", "background index past the table", "refused")
+    gidx = rs.randint(0, 256, (45, 61))
+    add("ras_pal8.ras", write_ras(gidx, 8, pal), "Sun raster",
+        "8-bit, colour map")
+    add("ras_1bit.ras", write_ras(rs.randint(0, 2, (37, 53)), 1),
+        "Sun raster", "1-bit, no map")
+    add("ras_32_old.ras", write_ras(b, 32, rtype=0), "Sun raster",
+        "32-bit, old type")
+    add("ras_rle.ras", write_ras(gidx, 8, pal, rtype=2), "Sun raster",
+        "byte-encoded (RLE)", "refused")
+    wide16 = b.astype(np.int64) * 257 + rs.randint(0, 256, b.shape)
+    add("pam_rgb16.pam", write_pam(wide16, 65535, "RGB"), "PAM",
+        "RGB, maxval 65535")
+    add("pam_gray100.pam", write_pam(a[..., :1].astype(int) * 100 // 255,
+                                     100, comments=True), "PAM",
+        "gray, maxval 100, no TUPLTYPE")
+    add("pam_bw.pam", write_pam(rs.randint(0, 2, (37, 53, 1)), 1,
+                                "BLACKANDWHITE"), "PAM",
+        "maxval 1 (read as packed bits)")
+    add("pam_rgb_as_gray.pam", write_pam(a, 255, "GRAYSCALE"), "PAM",
+        "TUPLTYPE GRAYSCALE at depth 3", "refused")
+    f = b.astype(np.float32) * 2 + rs.uniform(-0.5, 0.5, b.shape).astype(
+        np.float32)
+    add("pfm_scale2_be.pfm", write_pfm(f, 2.0), "PFM",
+        "scale 2, big-endian")
+    add("pfm_gray.pfm", write_pfm(f[..., 0]), "PFM", "one channel (Pf)",
+        "refused")
+    add("hdr_rle.hdr", write_hdr(rgbe(a.astype(np.float64) / 200)),
+        "Radiance HDR", "run-length scanlines")
+    add("hdr_flat.hdr", write_hdr(rgbe(b.astype(np.float64) / 90), "flat",
+                                  magic=b"#?RGBE"), "Radiance HDR",
+        "flat pixels")
+    add("hdr_480x640.hdr", write_hdr(rgbe((big // 16 * 16).astype(
+        np.float64) / 255)), "Radiance HDR", "480x640, run-length")
+    runs = rgbe(a.astype(np.float64) / 255)
+    runs[5, 3:30] = runs[5, 3]
+    add("hdr_old_rle.hdr", write_hdr(runs, "old"), "Radiance HDR",
+        "old-style run-length pixels", "refused")
+    bilevel = a[..., 0] > 120
+    add("tiffv_mh.tif", pil_tiff(bilevel, "tiff_ccitt"), "TIFF",
+        "CCITT modified Huffman")
+    add("tiffv_g3_2d.tif", pil_tiff(bilevel, "group3", {292: 1, 278: 16}),
+        "TIFF", "CCITT Group 3, 2-D, strips")
+    add("tiffv_g4_fill_order2.tif", set_tiff_tag(
+        pil_tiff(bilevel, "group4", {266: 2}), 262, 0), "TIFF",
+        "CCITT Group 4, FillOrder 2, min-is-white")
+    bands = (big[..., 0] // 16 + big[..., 1] // 16 + big[..., 2] // 32) % 2
+    add("tiffv_g4_480x640.tif", pil_tiff(bands == 0, "group4"),
+        "TIFF", "CCITT Group 4 at 480x640")
+    add("tiffv_bigtiff.tif", write_tiff(b, compression=5, bigtiff=True,
+                                        order=">", tile=(16, 32)), "TIFF",
+        "BigTIFF, LZW tiles, big-endian")
+    add("tiffv_cmyk.tif", write_tiff(rs.randint(0, 256, (45, 61, 4)),
+                                     photometric=5, compression=8), "TIFF",
+        "CMYK")
+    import cv2
+    ycc = cv2.cvtColor(b, cv2.COLOR_RGB2YCrCb)[..., [0, 2, 1]]
+    add("tiffv_ycbcr22.tif", write_tiff(ycc, photometric=6,
+                                        subsampling=(2, 2), compression=5,
+                                        rows_per_strip=8), "TIFF",
+        "YCbCr 2x2 outside JPEG")
+    add("tiffv_ycbcr44_tiles.tif", write_tiff(
+        ycc, photometric=6, subsampling=(4, 4), tile=(16, 32)), "TIFF",
+        "YCbCr 4x4 tiles (libtiff's clipped-tile skip)")
+    add("tiffv_signed16.tif", write_tiff(wide16, bits=16, sample_format=2,
+                                         compression=8), "TIFF",
+        "signed 16-bit samples")
+    add("tiffv_gray_alpha_planes.tif", write_tiff(
+        rs.randint(0, 256, (37, 53, 2)), photometric=1, planar=2, extra=2),
+        "TIFF", "gray + unassociated alpha in separate planes")
+    add("tiffv_lzma.tif", write_tiff(a, compression=34925), "TIFF",
+        "LZMA (cv2's libtiff lacks it)", "refused")
+    add("tiffv_zstd.tif", write_tiff(a, compression=50000), "TIFF",
+        "ZSTD (cv2's libtiff lacks it)", "refused")
+    add("tiffv_float32.tif", write_tiff(
+        (a.astype(np.float32) / 255).view(np.uint32), bits=32,
+        sample_format=3), "TIFF", "float samples", "refused")
+    add("tiffv_cielab.tif", write_tiff(a, photometric=8), "TIFF",
+        "CIELab", "not ported")
 
 
 def write_fixtures(directory: str) -> dict:
@@ -812,7 +1286,9 @@ def write_fixtures(directory: str) -> dict:
         elif expect == "refused":
             assert ref is None, name
         route = {"BMP": "bmp", "PNM": "pnm", "TIFF": "tiff", "WebP": "webp",
-                 "JPEG": "jpeg_lossless"}.get(fmt)
+                 "JPEG": "jpeg_lossless", "GIF": "gif", "PAM": "pam",
+                 "Sun raster": "sun_raster", "PFM": "pfm",
+                 "Radiance HDR": "hdr"}.get(fmt)
         index[name] = {"format": fmt, "variant": variant, "expect": expect,
                        "route": route if expect == "pixels" else None}
     with open(os.path.join(directory, "formats.json"), "w") as f:
@@ -838,7 +1314,10 @@ def cv2_rgb(data: bytes, tmp_dir: str, name: str = "probe"):
     path = os.path.join(tmp_dir, name)
     with open(path, "wb") as f:
         f.write(data)
-    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    try:
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+    except cv2.error:  # a header it cannot size a picture from
+        return None
     return None if img is None else np.ascontiguousarray(img[..., ::-1])
 
 

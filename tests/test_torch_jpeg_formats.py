@@ -286,6 +286,40 @@ def test_cmyk_and_ycck_equal_the_jax_loader(case, tmp_path):
     np.testing.assert_array_equal(image_io.read_image(path), ref)
 
 
+@functools.lru_cache(maxsize=None)
+def _cut_cmyk_streams():
+    """Progressive CMYK (Pillow, every component 1x1) and YCCK (libjpeg,
+    Y and K 2x2: vertical subsampling) streams of sizes whose last iMCU
+    row is whole, short, or a row of two blocks, Huffman and arithmetic."""
+    out = {}
+    for h, w in ((37, 53), (17, 40), (64, 96), (40, 9), (31, 16)):
+        cmyk = picture(h, w, h + w, channels=4)
+        out[f"cmyk_{h}x{w}"] = pil_jpeg(cmyk, "CMYK", quality=80,
+                                        progressive=True)
+        ycck = ycck_jpeg(cmyk, 80)
+        out[f"ycck_{h}x{w}"] = transcode(ycck, "progressive")
+        if (h, w) == (37, 53):
+            out[f"ycck_arith_{h}x{w}"] = transcode(ycck, "arithmetic",
+                                                   "progressive")
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(_cut_cmyk_streams()))
+def test_cut_cmyk_and_ycck_scripts_equal_the_jax_loader(case):
+    """A CMYK or YCCK progressive script cut after each of its scans is
+    smoothed as the JAX loader's cv2 (libjpeg-turbo 3.1) smooths it: its
+    5 x 5 neighbourhood takes the rows two away that 2.1 replaces by a
+    nearer one under vertical subsampling, and clamps its columns on a row
+    of two blocks."""
+    buf = _cut_cmyk_streams()[case]
+    for k in range(1, len(scans(buf))):
+        short = cut_after(buf, k)
+        ref = jax_loader_image(short)
+        kind = native.jpeg_host_kind(short)
+        np.testing.assert_array_equal(DECODERS[kind](short), ref,
+                                      err_msg=f"{case} cut after {k}")
+
+
 # ------------------------------------------------------------ routes
 
 def test_every_kind_is_named_and_routed_to_the_host():

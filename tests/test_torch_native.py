@@ -73,8 +73,8 @@ def test_built_with_png_and_a_jpeg_decoder():
     assert set(dec) == {"png", "jpeg", "jpeg_sequential", "jpeg_progressive",
                         "jpeg_sequential_arithmetic",
                         "jpeg_progressive_arithmetic", "jpeg_lossless",
-                        "jpeg_colour", "jpeg_other", "bmp", "pnm", "tiff",
-                        "webp"}
+                        "jpeg_colour", "jpeg_other", "bmp", "pnm", "pam",
+                        "tiff", "webp", "gif", "sun_raster", "pfm", "hdr"}
     assert dec["jpeg"] == dec["jpeg_other"] == found["route"]
     # either build decodes every kind libjpeg decodes in the library itself,
     # libjpeg-exact

@@ -10,17 +10,21 @@ tiles, planar 1 and 2, both byte orders, predictor 2, 1-16 bits, every
 photometric the library reads, alpha (unassociated alpha premultiplies),
 16-bit colour maps, orientation 1-4, and libtiff's stride in clipped gray
 tiles; each is held to cv2.imread at max abs 0. Orientation 5-8 and
-layouts cv2 refuses raise, as the JAX loader does; the compressions and
-samples the port leaves out raise naming themselves and "not ported";
-damaged copies raise naming the file.
+layouts cv2 refuses raise, as the JAX loader does; the variants once left
+out now decode (CCITT, CMYK), raise saying cv2 refuses them too (LZMA,
+ZSTD, WebP, old-style JPEG, float samples) or raise naming themselves and
+"not ported" (CIELab); damaged copies raise naming the file. The rest of
+the variants are in test_torch_tiff_variants.py.
 """
 import cv2
 import numpy as np
 import pytest
 
-from _format_checks import (check_against_cv2, check_damaged, check_fixture,
-                            fixture_params, read)
-from format_writers import picture, write_tiff
+from _format_checks import (check_against_cv2, check_against_loaders,
+                            check_damaged, check_fixture, fixture_params,
+                            read)
+from format_writers import (_pil, cv2_rgb, picture, pil_tiff, set_tiff_tag,
+                            write_tiff)
 from semi_detr_tpu_torch import native
 
 H, W = 37, 53
@@ -146,18 +150,59 @@ def test_fill_order_and_lzw_styles(tmp_path):
                                             old_lzw=old), tmp_path, "l.tif")
 
 
-@pytest.mark.parametrize("tag,value,what", [
-    (259, 3, "CCITT Group 3"), (259, 4, "CCITT Group 4"),
-    (259, 34925, "LZMA"), (259, 50000, "ZSTD"), (259, 50001, "WebP"),
-    (259, 6, "old-style JPEG"), (339, 3, "float samples"),
-    (262, 5, "CMYK"), (262, 8, "CIELab")])
-def test_not_ported_raise_naming_themselves(tag, value, what):
-    kw = {259: "compression", 262: "photometric", 339: "sample_format"}
-    data = write_tiff(picture(H, W, 6), **{kw[tag]: value})
+def _variant(tag, value):
+    """A TIFF whose tag `tag` is `value`, with data of that kind."""
+    img = picture(H, W, 6)
+    bilevel = img[..., 0] > 120
+    if tag == 259 and value in (3, 4):
+        return pil_tiff(bilevel, "group3" if value == 3 else "group4")
+    if tag == 266:  # Group 4 with FillOrder 2
+        return pil_tiff(bilevel, "group4", {266: value})
+    if tag == 259 and value == 50001:  # one strip holding a WebP stream
+        webp = _pil(img, "WEBP", lossless=True)
+        return set_tiff_tag(write_tiff(img, compression=7,
+                                       jpeg=lambda block: webp), 259, 50001)
+    if tag == 339:  # float32 samples
+        f = (img.astype(np.float32) / 255).view(np.uint32)
+        return write_tiff(f, bits=32, sample_format=value)
+    if tag == 262 and value == 5:
+        rs = np.random.RandomState(5)
+        return write_tiff(rs.randint(0, 256, (H, W, 4)), photometric=5)
+    if tag == 322:  # uncompressed tiles of 16 x 16 gray bytes: 256 each
+        return write_tiff(img[..., :1], photometric=1, tile=(value, value))
+    kw = {259: "compression", 262: "photometric"}
+    return write_tiff(img, **{kw[tag]: value})
+
+
+@pytest.mark.parametrize("tag,value,what,expect", [
+    (259, 3, "CCITT Group 3", "pixels"), (259, 4, "CCITT Group 4", "pixels"),
+    (259, 34925, "LZMA", "refused"), (259, 50000, "ZSTD", "refused"),
+    (259, 50001, "WebP", "refused"), (259, 6, "old-style JPEG", "refused"),
+    (339, 3, "float samples", "refused"), (262, 5, "CMYK", "pixels"),
+    (262, 8, "CIELab", "not ported"),
+    (266, 2, "CCITT Group 4 with FillOrder 2", "pixels"),
+    (322, 16, "a tile under 1,024 bytes", "pixels")])
+def test_not_ported_raise_naming_themselves(tag, value, what, expect,
+                                            tmp_path):
+    """The variants once left out: CCITT and CMYK now decode to cv2's
+    pixels; the compressions cv2's libtiff is built without (LZMA, ZSTD,
+    WebP, old-style JPEG) and float samples raise saying cv2 refuses them
+    too; CIELab, which cv2 reads, raises naming itself and "not ported". An
+    uncompressed tile under 1,024 bytes reads as cv2 reads it."""
+    data = _variant(tag, value)
+    if expect == "not ported":  # cv2 and so the JAX loader read it
+        assert cv2_rgb(data, str(tmp_path), "variant.tif") is not None
+    else:
+        read_it = check_against_loaders(data, tmp_path, "variant.tif")
+        assert read_it == (expect == "pixels"), (what, read_it)
+    if expect == "pixels":
+        return
     with pytest.raises(native.ImageDecodeError) as err:
         native.decode_image(data, "variant.tif")
     msg = str(err.value)
-    assert "variant.tif" in msg and what in msg and "not ported" in msg, msg
+    assert "variant.tif" in msg and what in msg, msg
+    assert ("not ported" if expect == "not ported"
+            else "cv2 refuses it too") in msg, msg
 
 
 def test_damaged_copies_raise_naming_the_file():
