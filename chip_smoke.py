@@ -114,16 +114,21 @@ Phases (any failure exits non-zero):
    P1-P6, TIFF of every compression, layout and photometric the library
    reads (CCITT, BigTIFF, CMYK, YCbCr, signed samples among them), WebP
    lossless, lossy, with alpha, turned by EXIF and animated, lossless JPEG,
-   GIF, Sun raster, PAM, PFM and Radiance HDR; a 480x640 lossy WebP,
-   lossless WebP, LZW TIFF, Group 4 TIFF, GIF and HDR, and a 480x640 Sun
+   GIF, Sun raster, PAM, PFM, Radiance HDR and JPEG 2000 (JP2 and raw
+   codestreams: both wavelets, every progression, POC, tiles, precincts,
+   every code-block style, layers, RGN, PPM / PPT, SOP / EPH, palettes,
+   channel definitions, colour specifications); a 480x640 lossy WebP,
+   lossless WebP, LZW TIFF, Group 4 TIFF, GIF, HDR and JPEG 2000 (5/3 and
+   9/7), and a 480x640 Sun
    raster, PAM and PFM written from a cv2 reference by
    `tools.raw_formats`, for times at a real size) decode on the card to
    their stored cv2 pixels at max abs 0, each with its format, variant,
    route and ms, and ms per format; what cv2 refuses (12-bit and some
    lossless JPEG, TIFF orientation 6, LZMA, ZSTD and float TIFF, RLE Sun
-   raster, ...) raises saying so, the formats cv2 reads and the port does
-   not (JPEG 2000, AVIF, CIELab TIFF) raise naming themselves with "not
-   ported", and damaged copies of each format raise naming the file. Every
+   raster, signed, sub-sampled or offset JPEG 2000, ...) raises saying so,
+   the formats cv2 reads and the port does not (AVIF, CIELab TIFF) raise
+   naming themselves with "not ported", and damaged copies of each format
+   raise naming the file. Every
    op equals its numpy plain version bit for bit on this host: a 480x640
    source resized to all 11 COCO scales, the six warps (translate x / y,
    rotate +-30, shear x / y) at 800x1066, the 81 colour op x magnitude
@@ -133,8 +138,9 @@ Phases (any failure exits non-zero):
    `write_synthetic_coco` writes 8 labelled, 16 unlabelled and 8 val JPEG
    images of 480x640 through the host library (up to 3 boxes and 2
    distractors each, class "person"), and phase 7a's fixtures of the other
-   kinds (JPEG and PNG, and one BMP, PNM, TIFF, WebP, lossless JPEG, GIF
-   and HDR of the cv2 formats) join the unlabelled and val images, without
+   kinds (JPEG and PNG, and one BMP, PNM, TIFF, WebP, lossless JPEG, GIF,
+   HDR, JP2 (9/7) and raw JPEG 2000 codestream (5/3) of the cv2 formats)
+   join the unlabelled and val images, without
    boxes, so
    the trainer (load_image) and its evals (the prefetch loader) read them;
    the SSOD CLI
@@ -169,10 +175,12 @@ Phases (any failure exits non-zero):
    mean abs of at most MEAN_ABS_CEIL (their equal share and max abs
    printed); then the
    image demo (`tools.image_demo.main`, --score-thr 0) on JPEG, BMP, PPM,
-   TIFF, WebP and PGM fixtures with phase 7's SSOD checkpoint: each
-   render under its input's name in its input's format (no file for the
-   .pgm, as cv2 writes none), reading back to the pixels drawn (the JPEG
-   to the library's encode of them), 12 forward MSDA launches per image
+   TIFF, WebP, PGM, PFM, Sun raster, PAM, HDR and GIF fixtures with phase
+   7's SSOD checkpoint: each render under its input's name in its input's
+   format (no file for the .pgm, as cv2 writes none), reading back to the
+   pixels drawn (the JPEG, HDR and GIF: the library's encode of them, HDR
+   within HDR_READBACK levels, GIF on its table's steps), 12 forward MSDA
+   launches per image
    (the `demo` path). Printed: ms per image (save_result, draw and PNG
    write), ms per label, the glyph table's rasterisation ms, the demo's
    seconds.
@@ -453,7 +461,8 @@ TRAINER_SPLITS = {"sup": range(0, 8), "unsup": range(8, 24),
 TRAINER_CV2_FIXTURES = ("bmp_rle8.bmp", "pnm_p6_100.ppm",
                         "tiff_jpeg_ycbcr_tables.tif",
                         "webp_lossy_orient6.webp", "jpeg_lossless_p8.jpg",
-                        "gif_offset_local_transparent.gif", "hdr_rle.hdr")
+                        "gif_offset_local_transparent.gif", "hdr_rle.hdr",
+                        "j2k_lossy_layers.jp2", "j2k_raw.j2k")
 # the trainer's steps; warm-up steps 1-3 and Hungarian steps 5-7 are warm
 # (median of each, against phase 6's); eval and render every
 # TRAINER_INTERVAL steps and one checkpoint at the end, so none of them
@@ -465,9 +474,19 @@ TRAINER_STEPS, TRAINER_WARM_UP, TRAINER_INTERVAL = 8, 4, 4
 # on the CPU it is bit-equal); the demo's inputs, one per format
 RENDER_DEMO_INPUTS = ("colour_420.jpg", "bmp_24.bmp", "pnm_p6_100.ppm",
                       "tiff_lzw_predictor.tif", "webp_lossy.webp",
-                      "pnm_p2_100.pgm")
+                      "pnm_p2_100.pgm", "other_pfm.pfm", "ras_pal8.ras",
+                      "pam_rgb16.pam", "hdr_rle.hdr", "other_gif.gif")
 RENDER_SIGNATURES = {"jpg": b"\xff\xd8", "bmp": b"BM", "ppm": b"P6",
-                     "tif": b"II*\0", "webp": b"RIFF"}
+                     "tif": b"II*\0", "webp": b"RIFF", "pfm": b"PF",
+                     "ras": b"\x59\xa6\x6a\x95", "pam": b"P7",
+                     "hdr": b"#?RADIANCE", "gif": b"GIF89a"}
+# the library's encoders whose files are cv2's bytes, lossy: the demo's
+# file must be the encoder's bytes for its render (and read back to a
+# picture of the render's size: HDR within HDR_READBACK levels, GIF on the
+# 3-3-2 table's steps)
+RENDER_LOSSY = {"jpg": native.encode_jpeg, "hdr": native.encode_hdr,
+                "gif": native.encode_gif}
+HDR_READBACK = 2
 TRAINER_WARM = {"warm_up": (1, 2, 3), "hungarian": (5, 6, 7)}
 # then the trainer's steps on its next batches, built beforehand (no
 # prefetch thread beside them): QUIET_STEPS of each stage
@@ -1388,15 +1407,17 @@ def cv2_format_fixtures():
     """The fixtures of the files the JAX loader hands to cv2
     (native/fixtures/formats.json): BMP, PNM, PAM, TIFF (with CCITT,
     BigTIFF, CMYK, YCbCr, signed samples), WebP, lossless JPEG, GIF, Sun
-    raster, PFM and Radiance HDR decoded by the host library on the card
+    raster, PFM, Radiance HDR and JPEG 2000 decoded by the host library on
+    the card
     against their stored cv2 pixels at max abs 0, with ms per fixture and
     per format and the route, and a 480x640 Sun raster, PAM and PFM written
     by `tools.raw_formats` from the 480x640 WebP fixture's cv2 reference
     (held to it); what cv2 refuses (12-bit JPEG, lossless it cannot convert,
     TIFF orientation 6, LZMA, ZSTD and float TIFF, RLE Sun raster, a one-
-    channel PFM, old-style run-length HDR, ...) raises saying so, and the
-    formats cv2 reads that the port does not (JPEG 2000, AVIF, CIELab TIFF)
-    raise naming themselves with "not ported"."""
+    channel PFM, old-style run-length HDR, signed, sub-sampled or offset
+    JPEG 2000, ...) raises saying so, and the formats cv2 reads that the
+    port does not (AVIF, CIELab TIFF) raise naming themselves with "not
+    ported"."""
     with open(os.path.join(native.FIXTURES, "formats.json")) as f:
         index = json.load(f)
     routes = native.decoders()
@@ -1462,7 +1483,9 @@ def cv2_format_fixtures():
 def damaged_formats():
     """Damaged copies of the cv2-format fixtures, each decoded under its
     own file name: BMP, PNM, PAM, TIFF (LZW, Group 4, BigTIFF), lossless
-    JPEG, GIF, Sun raster, PFM and HDR cut in half, a WebP cut in half with
+    JPEG, GIF, Sun raster, PFM, HDR and JPEG 2000 (JP2, a raw codestream,
+    PPM headers) cut in half, a codestream without its EOC and one whose
+    tile-part length runs past its end, a WebP cut in half with
     its RIFF size made consistent (its VP8 chunk then runs past the file), a
     VP8L one with its codes overwritten, an LZW strip of codes past its
     table, a GIF of LZW codes past its table and a Group 4 strip of EOLs
@@ -1475,7 +1498,9 @@ def damaged_formats():
     for name in ("bmp_24.bmp", "pnm_p6_100.ppm", "tiff_lzw_predictor.tif",
                  "jpeg_lossless_p8.jpg", "gif_480x640.gif", "ras_pal8.ras",
                  "pam_rgb16.pam", "pfm_scale2_be.pfm", "hdr_480x640.hdr",
-                 "tiffv_g4_480x640.tif", "tiffv_bigtiff.tif"):
+                 "tiffv_g4_480x640.tif", "tiffv_bigtiff.tif",
+                 "j2k_480x640_lossless.jp2", "j2k_raw.j2k",
+                 "j2kw_ppm.j2k"):
         buf = fixture(name)
         stem, ext = name.rsplit(".", 1)
         cases[f"{stem}_truncated.{ext}"] = buf[:len(buf) // 2]
@@ -1500,6 +1525,11 @@ def damaged_formats():
                  if int.from_bytes(g4[p:p + 2], "little") == 273)
     g4[strip:strip + 16] = b"\0\0\0\x01" * 4
     cases["tiffv_g4_bad_codes.tif"] = bytes(g4)
+    j2k = fixture("j2k_raw.j2k")
+    cases["j2k_raw_no_eoc.j2k"] = j2k[:-2]
+    sot = j2k.find(b"\xff\x90")
+    cases["j2k_raw_psot_past_end.j2k"] = j2k[:sot + 6] + (
+        len(j2k)).to_bytes(4, "big") + j2k[sot + 10:]
     out = {}
     for name, data in cases.items():
         try:
@@ -1978,8 +2008,10 @@ def demo_run(trainer_dir, tmp, failures):
     """The image demo (`tools.image_demo.main`) at --score-thr 0 on
     RENDER_DEMO_INPUTS with the SSOD checkpoint phase 7 wrote: each render
     under its input's name, in its format (none for .pgm), reading back
-    to the pixels it drew (the JPEG to the library's encode of them);
-    12 forward MSDA launches per image."""
+    to the pixels it drew (the JPEG, HDR and GIF: the library's encode of
+    them, cv2's bytes by the CPU tests; HDR reading back within
+    HDR_READBACK levels, GIF on its table's steps); 12 forward MSDA
+    launches per image."""
     src = os.path.join(tmp, "in")
     out = os.path.join(tmp, "out")
     os.makedirs(src)
@@ -2028,10 +2060,19 @@ def demo_run(trainer_dir, tmp, failures):
         img = drawn[name]
         if not buf.startswith(RENDER_SIGNATURES[ext]):
             failures.append(f"demo: {name} starts {buf[:4]!r}")
-        if ext == "jpg":
-            same = buf == native.encode_jpeg(img)
+        back = image_io.read_image(path)
+        if ext in RENDER_LOSSY:
+            same = buf == RENDER_LOSSY[ext](img) and back.shape == img.shape
+            if ext == "hdr":
+                same &= int(np.abs(back.astype(int) - img).max()) <= \
+                    HDR_READBACK
+            if ext == "gif":
+                same &= all(set(np.unique(back[..., c]).tolist()) <= steps
+                            for c, steps in enumerate(
+                                (set(range(0, 253, 36)),) * 2 +
+                                ({0, 85, 170, 255},)))
         else:
-            same = bool(np.array_equal(image_io.read_image(path), img))
+            same = bool(np.array_equal(back, img))
         if not same:
             failures.append(f"demo: {name} does not read back to its render")
         files[name] = dict(bytes=len(buf), hw=img.shape[:2],

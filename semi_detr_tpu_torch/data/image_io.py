@@ -6,14 +6,16 @@ decodes, through the port's host library (`native/`), JPEG and PNG as the
 native loader does and every file it hands to cv2 as `cv2.imread(path,
 IMREAD_COLOR)` does (BGR turned to RGB): BMP, PNM (P1-P6), PAM, TIFF
 (with CCITT, BigTIFF, CMYK and YCbCr), WebP, GIF, Sun raster, PFM,
-Radiance HDR and the lossless JPEG streams cv2 reads; on the card's machine
-too, which has neither cv2 nor PIL. A file it cannot decode raises an
-error that names it, and for a format cv2 reads that the port does not
-(JPEG 2000, AVIF, CIELab TIFF) names the format with "not ported"; it never
-returns a blank or substitute image. `write_image`
-encodes by the file's extension as cv2.imwrite does for a colour image:
-JPEG, TIFF and WebP through the library, PNG, BMP and PNM here; .pgm and
-.pbm are refused as cv2 refuses them.
+Radiance HDR, JPEG 2000 (JP2 and raw codestreams) and the lossless JPEG
+streams cv2 reads; on the card's machine too, which has neither cv2 nor
+PIL. A file it cannot decode raises an error that names it, and for a
+format cv2 reads that the port does not (AVIF, CIELab TIFF) names the
+format with "not ported"; it never returns a blank or substitute image.
+`write_image` encodes by the file's extension as cv2.imwrite does for a
+colour image: JPEG, TIFF, WebP, GIF and Radiance HDR through the library,
+PNG, BMP, PNM, PFM, Sun raster and PAM here; .pgm and .pbm are refused as
+cv2 refuses them, and .jp2 and .avif, which cv2 writes, raise "not
+ported".
 
 The PNG reader and writer here, in numpy and zlib, are the plain versions
 the library's PNG decoder is held to. The reader gives what libpng gives
@@ -212,9 +214,10 @@ def write_png(path: str, img: np.ndarray) -> str:
 
 
 def read_image(path: str) -> np.ndarray:
-    """An image file (JPEG, PNG, BMP, PNM, TIFF, WebP) -> (H, W, 3) uint8
-    RGB, by the host library (`native.decode_image`); `ImageDecodeError`
-    naming the file for anything it cannot decode."""
+    """An image file (JPEG, PNG, BMP, PNM, PAM, TIFF, WebP, GIF, Sun
+    raster, PFM, HDR, JPEG 2000) -> (H, W, 3) uint8 RGB, by the host
+    library (`native.decode_image`); `ImageDecodeError` naming the file
+    for anything it cannot decode."""
     with open(path, "rb") as f:
         buf = f.read()
     return native.decode_image(buf, path)
@@ -243,6 +246,44 @@ def encode_ppm(img: np.ndarray) -> bytes:
     return f"P6\n{w} {h}\n255\n".encode() + img.tobytes()
 
 
+def encode_pfm(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> the PFM cv2.imwrite writes: little-endian
+    (scale -1), the values as float32 in R, G, B order, rows bottom-up."""
+    img = _rgb(img, "encode_pfm")
+    h, w = img.shape[:2]
+    return f"PF\n{w} {h}\n-1\n".encode() + img[::-1].astype("<f4").tobytes()
+
+
+def encode_sun_raster(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> the Sun raster cv2.imwrite writes: the
+    standard type, 24 bits, B, G, R per pixel, rows padded to 16 bits. cv2
+    pads a row with the byte that follows it in memory: the next row's
+    first, and after the last row a byte past its buffer (written 0
+    here)."""
+    img = _rgb(img, "encode_sun_raster")
+    h, w = img.shape[:2]
+    flat = img[..., ::-1].reshape(-1)
+    stride = (3 * w + 1) & ~1
+    if stride == 3 * w:
+        rows = flat
+    else:
+        rows = np.zeros((h, stride), np.uint8)
+        rows[:, :3 * w] = flat.reshape(h, 3 * w)
+        rows[:-1, 3 * w] = flat.reshape(h, 3 * w)[1:, 0]
+    return struct.pack(">8I", 0x59A66A95, w, h, 24, h * stride, 1, 0, 0) + \
+        rows.tobytes()
+
+
+def encode_pam(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> the PAM cv2.imwrite writes: depth 3, maxval
+    255, no TUPLTYPE, the samples in cv2's B, G, R order (cv2 reads them
+    back unswapped, so to the same picture)."""
+    img = _rgb(img, "encode_pam")
+    h, w = img.shape[:2]
+    return (f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH 3\nMAXVAL 255\nENDHDR\n"
+            .encode() + img[..., ::-1].tobytes())
+
+
 def _rgb(img: np.ndarray, what: str) -> np.ndarray:
     img = np.ascontiguousarray(img)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
@@ -259,7 +300,13 @@ REFUSED = {"pgm": "Portable bitmap(.pgm) expects gray image",
 ENCODERS = {"jpg": native.encode_jpeg, "jpeg": native.encode_jpeg,
             "png": encode_png, "bmp": encode_bmp, "ppm": encode_ppm,
             "pnm": encode_ppm, "tif": native.encode_tiff,
-            "tiff": native.encode_tiff, "webp": native.encode_webp}
+            "tiff": native.encode_tiff, "webp": native.encode_webp,
+            "pfm": encode_pfm, "ras": encode_sun_raster,
+            "sr": encode_sun_raster, "pam": encode_pam,
+            "hdr": native.encode_hdr, "pic": native.encode_hdr,
+            "gif": native.encode_gif}
+# extensions cv2.imwrite writes a colour image to that the port does not
+NOT_PORTED = {"jp2": "JPEG 2000", "avif": "AVIF"}
 
 
 def write_image(path: str, img: np.ndarray) -> Optional[str]:
@@ -268,15 +315,24 @@ def write_image(path: str, img: np.ndarray) -> Optional[str]:
     library (quality 95, cv2's bytes), .png here, .bmp and .ppm / .pnm
     here (cv2's bytes), .tif / .tiff and .webp by the host library's
     encoders (cv2's TIFF tags; lossless WebP), each reading back to the
-    image's pixels. For .pgm and .pbm cv2 refuses a colour image: nothing
-    is written, its reason goes to stderr and None comes back, as cv2
-    returns False. Any other extension raises."""
+    image's pixels; .pfm, .ras / .sr and .pam here and .hdr / .pic by the
+    host library, cv2's bytes (a Sun raster of odd width but its last pad
+    byte, which cv2 takes from past its buffer); .gif by the host library,
+    cv2's bytes (its 3-3-2 table and Floyd-Steinberg dithering). For .pgm
+    and .pbm cv2 refuses a colour image: nothing is written, its reason
+    goes to stderr and None comes back, as cv2 returns False. .jp2 and
+    .avif raise naming the format, "not ported"; any other extension
+    raises."""
     ext = path.lower().rsplit(".", 1)[-1] if "." in os.path.basename(
         path) else ""
     if ext in REFUSED:
         print(f"write_image({path!r}): nothing written: {REFUSED[ext]} "
               "(as cv2.imwrite refuses a colour image)", file=sys.stderr)
         return None
+    if ext in NOT_PORTED:
+        raise ValueError(f"{path}: no encoder for .{ext}: "
+                         f"{NOT_PORTED[ext]} (cv2.imwrite writes it) is not "
+                         "ported")
     if ext not in ENCODERS:
         raise ValueError(f"{path}: no encoder for .{ext}; the port writes "
                          f"{', '.join('.' + e for e in ENCODERS)}")

@@ -27,14 +27,17 @@ step.
   orientation), GIF (`gif_host.cpp`: the first frame on the logical
   screen), Sun raster (`raster_host.cpp`), PFM and Radiance HDR
   (`float_host.cpp`: float pixels rounded to 8 bits as Mat::convertTo
-  rounds them) and lossless JPEG of at most 8 bits in RGB or CMYK
-  (`jpeg_host.cpp`). The formats cv2 reads and the port does not (JPEG
-  2000, AVIF, and the TIFF compressions and photometrics `tiff_host.cpp`
-  names, CIELab among them) raise naming the format and "not ported";
-  what cv2 refuses too (12-bit JPEG, 16-bit or gray lossless JPEG, TIFF
-  orientation 5-8, the TIFF compressions cv2's libtiff is built without:
-  LZMA, ZSTD, WebP, old-style JPEG; float samples; RLE Sun raster, a
-  one-channel PFM) raises saying so. JPEG by the library's own
+  rounds them), JPEG 2000 (`j2k_host.cpp`: JP2 and raw codestreams as
+  OpenJPEG 2.5 decodes them for cv2, the 9/7 wavelet in its float32
+  order) and lossless JPEG of at most 8 bits in RGB or CMYK
+  (`jpeg_host.cpp`). The formats cv2 reads and the port does not (AVIF,
+  high-throughput JPEG 2000, and the TIFF compressions and photometrics
+  `tiff_host.cpp` names, CIELab among them) raise naming the format and
+  "not ported"; what cv2 refuses too (12-bit JPEG, 16-bit or gray
+  lossless JPEG, TIFF orientation 5-8, the TIFF compressions cv2's libtiff
+  is built without: LZMA, ZSTD, WebP, old-style JPEG; float samples; RLE
+  Sun raster, a one-channel PFM; signed, sub-sampled or offset JPEG 2000
+  components) raises saying so. JPEG by the library's own
   decoders (`jpeg_host.cpp`), on either build: every stream of 8 bits
   that libjpeg-turbo 2.1 decodes, sequential or progressive, Huffman or
   arithmetic, with libjpeg's block smoothing of an incomplete progressive
@@ -58,7 +61,9 @@ step.
   downsampling run here (`rgb_to_ycc420`) and the card does the rest.
   TIFF (cv2.imwrite's tags: LZW, predictor 2) and lossless WebP (VP8L) by
   the library's own encoders (`encode_host.cpp`), which read back to the
-  same pixels by cv2 and by the decoders here.
+  same pixels by cv2 and by the decoders here; GIF (cv2's 3-3-2 table and
+  Floyd-Steinberg dithering) and Radiance HDR (RGBE, run-length
+  scanlines) there too, cv2's bytes.
 * Pixels: `resize_bilinear` (half-pixel centres, the formula of the JAX
   package's `sdt_resize_bilinear`), `warp_affine`, and the colour ops'
   `histogram`, `apply_lut`, `gray`, `blend`, `smooth`, `solarize`,
@@ -97,7 +102,8 @@ _PKG = os.path.dirname(_DIR)
 FIXTURES = os.path.join(_DIR, "fixtures")
 SOURCES = ("host.cpp", "jpeg_host.cpp", "bmp_pnm_host.cpp", "tiff_host.cpp",
            "ccitt_host.cpp", "webp_host.cpp", "gif_host.cpp",
-           "raster_host.cpp", "float_host.cpp", "encode_host.cpp")
+           "raster_host.cpp", "float_host.cpp", "j2k_host.cpp",
+           "encode_host.cpp")
 HEADERS = ("host.h", "webp_tables.h")
 JPEG_SOURCES = {"libjpeg": "jpeg_libjpeg.cpp", "nvjpeg": "jpeg_nvjpeg.cpp"}
 # the host decoders' routes, by jpeg_host_kind's answer, on either build
@@ -133,6 +139,11 @@ FORMAT_ROUTES = {
            "Mat::convertTo; OpenCV's PFMDecoder)",
     "hdr": "host Radiance HDR (run-length and flat RGBE scanlines, times "
            "255 and rounded as Mat::convertTo; OpenCV's rgbe.cpp)",
+    "jpeg2000": "host JPEG 2000 (JP2 boxes and raw codestreams; tier-2 "
+                "with every progression and POC, PPM / PPT, SOP / EPH; "
+                "tier-1 under every code-block style; 5/3 and 9/7 wavelets, "
+                "RCT / ICT; palettes and channel definitions; OpenJPEG "
+                "2.5's decode as cv2 reads it)",
     "webp": "host WebP (VP8L lossless, VP8 lossy key frames with libwebp's "
             "fancy upsampling, the first frame of an animation, EXIF "
             "orientation)"}
@@ -262,6 +273,8 @@ _SIGNATURES = {
     "sdt_encode_jpeg": ([_P, _I, _I, _P, _P], _I),
     "sdt_encode_tiff": ([_P, _I, _I, _P, _P], _I),
     "sdt_encode_webp": ([_P, _I, _I, _P, _P], _I),
+    "sdt_encode_gif": ([_P, _I, _I, _P, _P], _I),
+    "sdt_encode_hdr": ([_P, _I, _I, _P, _P], _I),
     "sdt_free": ([_P], None),
     "sdt_jpeg_check": ([_P, _L], _I),
     "sdt_jpeg_host_kind": ([_P, _L], _I),
@@ -311,7 +324,7 @@ def decoders() -> Dict[str, str]:
     as hierarchical ones, which it refuses too; 12-bit and the lossless
     streams cv2 refuses are refused before it). `bmp`, `pnm`, `pam`,
     `tiff`, `webp`, `gif`, `sun_raster`, `pfm`, `hdr`: the library's own
-    decoders of those formats."""
+    decoders of those formats, `jpeg2000` the JPEG 2000 one."""
     backend = _library().sdt_jpeg_backend().decode()
     out = {"png": "zlib inflate + C++ row filters (every bit depth and "
                   "colour type, Adam7)", "jpeg": backend}
@@ -364,12 +377,12 @@ def image_size(buf: bytes, name: str = "<bytes>") -> Tuple[int, int]:
 def decode_image(buf: bytes, name: str = "<bytes>") -> np.ndarray:
     """Image bytes -> (H, W, 3) uint8 RGB, the format found by its
     signature: JPEG and PNG as the JAX package's native loader decodes
-    them; BMP, PNM, PAM, TIFF, WebP, GIF, Sun raster, PFM, Radiance HDR and
-    lossless JPEG as `cv2.imread(path, IMREAD_COLOR)` does (`decoders()`
-    names each route). Raises ImageDecodeError naming `name` (the file) on
-    anything it cannot decode: damage with the fault, what cv2 refuses with
-    "cv2 refuses it too", a format cv2 reads and the port does not with its
-    name and "not ported"."""
+    them; BMP, PNM, PAM, TIFF, WebP, GIF, Sun raster, PFM, Radiance HDR,
+    JPEG 2000 and lossless JPEG as `cv2.imread(path, IMREAD_COLOR)` does
+    (`decoders()` names each route). Raises ImageDecodeError naming
+    `name` (the file) on anything it cannot decode: damage with the fault,
+    what cv2 refuses with "cv2 refuses it too", a format cv2 reads and the
+    port does not with its name and "not ported"."""
     buf = bytes(buf)
     h, w = image_size(buf, name)
     out = np.empty((h, w, 3), np.uint8)
@@ -492,6 +505,19 @@ def encode_webp(img: np.ndarray) -> bytes:
     Huffman-coded literals), which cv2.imwrite's default also is
     (`encode_host.cpp`)."""
     return _encode("sdt_encode_webp", "WebP", img)
+
+
+def encode_gif(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> the GIF cv2.imwrite writes at its default
+    quality: the fixed 3-3-2 colour table, Floyd-Steinberg dithering onto
+    it, one LZW-coded frame (`encode_host.cpp`)."""
+    return _encode("sdt_encode_gif", "GIF", img)
+
+
+def encode_hdr(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> the Radiance HDR cv2.imwrite writes: the
+    pixels over 255 as RGBE, run-length scanlines (`encode_host.cpp`)."""
+    return _encode("sdt_encode_hdr", "HDR", img)
 
 
 def rgb_to_ycc420(img: np.ndarray) -> Tuple[np.ndarray, np.ndarray,

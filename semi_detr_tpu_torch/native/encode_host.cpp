@@ -28,8 +28,24 @@
 //   bits, the stream padded with zeros to the 32-byte file cv2 needs to
 //   recognise it. Bytes differ from libwebp's; the pixels read back exact
 //   by cv2 (libwebp) and by webp_host.cpp.
+// * GIF: cv2 5.0's GifEncoder at its default quality: the fixed 3-3-2
+//   colour table (red and green in 8 steps of 36, blue in 4 of 85; index
+//   r << 5 | g << 2 | b) and Floyd-Steinberg error diffusion onto it, in
+//   float32, row by row left to right (7/16 right, 3/16 down-left, 5/16
+//   down, 1/16 down-right; a pixel's errors summed before they are added
+//   to it), each channel's step index floor(v / step + 0.5) in float32; then GIF89a with a NETSCAPE2.0 loop extension, a
+//   graphic control extension (disposal 3, delay 100), one frame and LZW
+//   codes of 9-12 bits (a clear code first and whenever the table reaches
+//   4,096 entries) in sub-blocks of 255 bytes. The bytes are cv2's (the
+//   tests hold them so).
+// * Radiance HDR: the picture scaled by 1/255 in float32 (Mat::convertTo)
+//   and turned to RGBE by Ward's float2rgbe as OpenCV's rgbe.cpp has it,
+//   its header and new-style run-length scanlines (RGBE_WriteBytes_RLE:
+//   runs of 4 or more, a short run before one, literals of up to 128
+//   bytes; flat pixels for a width under 8). The bytes are cv2's.
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -433,6 +449,201 @@ int webp_encode(const uint8_t* rgb, int h, int w, std::vector<uint8_t>* f) {
   return kOk;
 }
 
+// Floyd-Steinberg onto the fixed 3-3-2 table, as GifEncoder's fast mode:
+// (h, w) indices. Each pixel's diffused errors are summed apart, in the
+// order they arrive, and added to it when it is reached.
+std::vector<uint8_t> gif_dither(const uint8_t* rgb, int h, int w) {
+  std::vector<uint8_t> idx(static_cast<size_t>(h) * w);
+  const float step[3] = {36.f, 36.f, 85.f};
+  const int top[3] = {7, 7, 3};
+  const int shift[3] = {5, 2, 0};
+  // this row's and the next row's errors, a pixel of margin either side
+  std::vector<float> cur((w + 2) * 3, 0.f), nxt((w + 2) * 3, 0.f);
+  for (int y = 0; y < h; ++y) {
+    for (int x = 0; x < w; ++x) {
+      int k = 0;
+      for (int c = 0; c < 3; ++c) {
+        const float v =
+            static_cast<float>(rgb[(static_cast<size_t>(y) * w + x) * 3 + c]) +
+            cur[(x + 1) * 3 + c];
+        int q = static_cast<int>(std::floor(v / step[c] + 0.5f));
+        q = std::min(std::max(q, 0), top[c]);
+        const float e = v - static_cast<float>(q) * step[c];
+        cur[(x + 2) * 3 + c] += e * (7.f / 16.f);
+        nxt[x * 3 + c] += e * (3.f / 16.f);
+        nxt[(x + 1) * 3 + c] += e * (5.f / 16.f);
+        nxt[(x + 2) * 3 + c] += e * (1.f / 16.f);
+        k |= q << shift[c];
+      }
+      idx[static_cast<size_t>(y) * w + x] = static_cast<uint8_t>(k);
+    }
+    cur.swap(nxt);
+    std::fill(nxt.begin(), nxt.end(), 0.f);
+  }
+  return idx;
+}
+
+// GIF LZW of 8-bit indices: codes LSB first, the width growing as the
+// decoder's table reaches it
+std::vector<uint8_t> gif_lzw(const std::vector<uint8_t>& px) {
+  std::vector<uint8_t> out;
+  uint32_t acc = 0;
+  int nbits = 0, width = 9, next = 258;
+  auto put = [&](int code) {
+    acc |= static_cast<uint32_t>(code) << nbits;
+    nbits += width;
+    while (nbits >= 8) {
+      out.push_back(static_cast<uint8_t>(acc & 0xFF));
+      acc >>= 8;
+      nbits -= 8;
+    }
+  };
+  // child[code * 256 + byte]: the code of that string, 0 for none
+  std::vector<uint16_t> child(4096 * 256, 0);
+  put(256);
+  if (px.empty()) {
+    put(257);
+  } else {
+    int cur = px[0];
+    for (size_t i = 1; i < px.size(); ++i) {
+      const int b = px[i];
+      const uint16_t c = child[static_cast<size_t>(cur) * 256 + b];
+      if (c) {
+        cur = c;
+        continue;
+      }
+      put(cur);
+      child[static_cast<size_t>(cur) * 256 + b] = static_cast<uint16_t>(next);
+      if (next == (1 << width) && width < 12) ++width;
+      if (++next == 4096) {  // the table is full: a clear code
+        put(256);
+        std::fill(child.begin(), child.end(), 0);
+        next = 258;
+        width = 9;
+      }
+      cur = b;
+    }
+    put(cur);
+    put(257);
+  }
+  if (nbits) out.push_back(static_cast<uint8_t>(acc & 0xFF));
+  return out;
+}
+
+int gif_encode(const uint8_t* rgb, int h, int w, std::vector<uint8_t>* f) {
+  if (h > 0xFFFF || w > 0xFFFF) {
+    set_error("GIF holds at most 65535 x 65535 pixels");
+    return kTooLarge;
+  }
+  const std::vector<uint8_t> codes = gif_lzw(gif_dither(rgb, h, w));
+  f->clear();
+  for (char c : std::string("GIF89a")) f->push_back(c);
+  put16(f, w);
+  put16(f, h);
+  f->push_back(0xF7);  // global table of 256, 8-bit colour resolution
+  f->push_back(0);
+  f->push_back(0);
+  for (int i = 0; i < 256; ++i) {
+    f->push_back(static_cast<uint8_t>((i >> 5) * 36));
+    f->push_back(static_cast<uint8_t>(((i >> 2) & 7) * 36));
+    f->push_back(static_cast<uint8_t>((i & 3) * 85));
+  }
+  const uint8_t ext[] = {0x21, 0xFF, 0x0B, 'N', 'E', 'T', 'S', 'C', 'A',
+                         'P', 'E', '2', '.', '0', 0x03, 0x01, 0x00, 0x00,
+                         0x00, 0x21, 0xF9, 0x04, 0x0C, 0x64, 0x00, 0x00,
+                         0x00, 0x2C, 0x00, 0x00, 0x00, 0x00};
+  f->insert(f->end(), ext, ext + sizeof(ext));
+  put16(f, w);
+  put16(f, h);
+  f->push_back(0x07);
+  f->push_back(8);  // LZW minimum code size
+  for (size_t at = 0; at < codes.size(); at += 255) {
+    const size_t n = std::min<size_t>(255, codes.size() - at);
+    f->push_back(static_cast<uint8_t>(n));
+    f->insert(f->end(), codes.begin() + at, codes.begin() + at + n);
+  }
+  f->push_back(0);
+  f->push_back(0x3B);
+  return kOk;
+}
+
+// Ward's float2rgbe as OpenCV's rgbe.cpp has it
+void float2rgbe(uint8_t* rgbe, float red, float green, float blue) {
+  float v = red;
+  if (green > v) v = green;
+  if (blue > v) v = blue;
+  if (v < 1e-32) {
+    rgbe[0] = rgbe[1] = rgbe[2] = rgbe[3] = 0;
+    return;
+  }
+  int e;
+  v = static_cast<float>(std::frexp(v, &e) * 256.0 / v);
+  rgbe[0] = static_cast<uint8_t>(red * v);
+  rgbe[1] = static_cast<uint8_t>(green * v);
+  rgbe[2] = static_cast<uint8_t>(blue * v);
+  rgbe[3] = static_cast<uint8_t>(e + 128);
+}
+
+// RGBE_WriteBytes_RLE of one channel of a scanline
+void hdr_rle(const uint8_t* data, int numbytes, std::vector<uint8_t>* f) {
+  int cur = 0;
+  while (cur < numbytes) {
+    int beg_run = cur, run_count = 0, old_run_count = 0;
+    while (run_count < 4 && beg_run < numbytes) {
+      beg_run += run_count;
+      old_run_count = run_count;
+      run_count = 1;
+      while (beg_run + run_count < numbytes && run_count < 127 &&
+             data[beg_run] == data[beg_run + run_count])
+        run_count++;
+    }
+    if (old_run_count > 1 && old_run_count == beg_run - cur) {
+      f->push_back(static_cast<uint8_t>(128 + old_run_count));
+      f->push_back(data[cur]);
+      cur = beg_run;
+    }
+    while (cur < beg_run) {
+      const int n = std::min(beg_run - cur, 128);
+      f->push_back(static_cast<uint8_t>(n));
+      f->insert(f->end(), data + cur, data + cur + n);
+      cur += n;
+    }
+    if (run_count >= 4) {
+      f->push_back(static_cast<uint8_t>(128 + run_count));
+      f->push_back(data[beg_run]);
+      cur += run_count;
+    }
+  }
+}
+
+int hdr_encode(const uint8_t* rgb, int h, int w, std::vector<uint8_t>* f) {
+  const std::string head = "#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y " +
+                           std::to_string(h) + " +X " + std::to_string(w) +
+                           "\n";
+  f->assign(head.begin(), head.end());
+  const float scale = 1 / 255.0f;
+  std::vector<uint8_t> line(static_cast<size_t>(w) * 4);
+  for (int y = 0; y < h; ++y) {
+    for (int x = 0; x < w; ++x) {
+      const uint8_t* p = rgb + (static_cast<size_t>(y) * w + x) * 3;
+      uint8_t e[4];
+      float2rgbe(e, p[0] * scale, p[1] * scale, p[2] * scale);
+      for (int c = 0; c < 4; ++c) line[c * w + x] = e[c];
+    }
+    if (w < 8 || w > 0x7FFF) {  // flat pixels
+      for (int x = 0; x < w; ++x)
+        for (int c = 0; c < 4; ++c) f->push_back(line[c * w + x]);
+      continue;
+    }
+    f->push_back(2);
+    f->push_back(2);
+    f->push_back(static_cast<uint8_t>(w >> 8));
+    f->push_back(static_cast<uint8_t>(w & 0xFF));
+    for (int c = 0; c < 4; ++c) hdr_rle(line.data() + c * w, w, f);
+  }
+  return kOk;
+}
+
 int copy_out(const std::vector<uint8_t>& v, uint8_t** out, long* size) {
   *out = static_cast<uint8_t*>(std::malloc(v.empty() ? 1 : v.size()));
   if (!*out) {
@@ -464,6 +675,24 @@ int sdt_encode_webp(const uint8_t* rgb, int h, int w, uint8_t** out,
                     long* size) {
   std::vector<uint8_t> f;
   const int st = sdt::webp_encode(rgb, h, w, &f);
+  return st ? st : sdt::copy_out(f, out, size);
+}
+
+// (h, w, 3) RGB -> the GIF cv2.imwrite writes (3-3-2 table, Floyd-
+// Steinberg); *out is freed with sdt_free
+int sdt_encode_gif(const uint8_t* rgb, int h, int w, uint8_t** out,
+                   long* size) {
+  std::vector<uint8_t> f;
+  const int st = sdt::gif_encode(rgb, h, w, &f);
+  return st ? st : sdt::copy_out(f, out, size);
+}
+
+// (h, w, 3) RGB -> the Radiance HDR cv2.imwrite writes (run-length RGBE);
+// *out is freed with sdt_free
+int sdt_encode_hdr(const uint8_t* rgb, int h, int w, uint8_t** out,
+                   long* size) {
+  std::vector<uint8_t> f;
+  const int st = sdt::hdr_encode(rgb, h, w, &f);
   return st ? st : sdt::copy_out(f, out, size);
 }
 

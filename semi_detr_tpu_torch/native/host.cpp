@@ -424,11 +424,6 @@ int sdt_png_decode(const uint8_t* d, long n, uint8_t* out, int h, int w) {
 // The formats cv2.imread reads (and so the JAX loader's fallback) that the
 // library does not, by OpenCV's signature tests: their names, else nullptr.
 static const char* not_ported_format(const uint8_t* d, long n) {
-  auto starts = [&](const char* s, long k) {
-    return n >= k && std::memcmp(d, s, k) == 0;
-  };
-  if (starts("\0\0\0\x0cjP  \r\n\x87\n", 12)) return "JPEG 2000 (JP2)";
-  if (starts("\xff\x4f\xff\x51", 4)) return "JPEG 2000 (codestream)";
   if (n >= 16 && std::memcmp(d + 4, "ftyp", 4) == 0) {  // an ISO BMFF box
     const long box = std::min<long>(be32(d), n);
     for (long p = 8; p + 4 <= box; p += 4)  // major, version, compatible
@@ -445,7 +440,8 @@ static int unknown_format(const uint8_t* d, long n) {
     return kUnsupported;
   }
   set_error("neither a JPEG nor a PNG stream, nor BMP, PNM, PAM, TIFF, "
-            "WebP, GIF, Sun raster, PFM, HDR or another format cv2 reads");
+            "WebP, GIF, Sun raster, PFM, HDR, JPEG 2000 or another format cv2 "
+            "reads");
   return kUnknownFormat;
 }
 
@@ -471,6 +467,7 @@ int sdt_image_info(const uint8_t* d, long n, int* h, int* w) {
   if (is_sun_raster(d, n)) return sun_raster_info(d, n, h, w);
   if (is_pfm(d, n)) return pfm_info(d, n, h, w);
   if (is_hdr(d, n)) return hdr_info(d, n, h, w);
+  if (is_jpeg2000(d, n)) return jpeg2000_info(d, n, h, w);
   return unknown_format(d, n);
 }
 
@@ -499,6 +496,7 @@ int sdt_decode(const uint8_t* d, long n, uint8_t* out, int h, int w) {
   if (is_sun_raster(d, n)) return sun_raster_decode(d, n, out, h, w);
   if (is_pfm(d, n)) return pfm_decode(d, n, out, h, w);
   if (is_hdr(d, n)) return hdr_decode(d, n, out, h, w);
+  if (is_jpeg2000(d, n)) return jpeg2000_decode(d, n, out, h, w);
   return unknown_format(d, n);
 }
 

@@ -1,10 +1,10 @@
 // Declarations shared by the host library (host.cpp), its own decoders
 // (jpeg_host.cpp; bmp_pnm_host.cpp, tiff_host.cpp with ccitt_host.cpp,
-// webp_host.cpp, gif_host.cpp, raster_host.cpp and float_host.cpp for the
-// files the JAX loader hands to cv2) and its JPEG back end:
-// jpeg_libjpeg.cpp where the machine has libjpeg, jpeg_nvjpeg.cpp where it
-// has only the CUDA toolkit's nvJPEG (native/__init__.py picks one at
-// build time).
+// webp_host.cpp, gif_host.cpp, raster_host.cpp, float_host.cpp and
+// j2k_host.cpp for the files the JAX loader hands to cv2) and its JPEG
+// back end: jpeg_libjpeg.cpp where the machine has libjpeg,
+// jpeg_nvjpeg.cpp where it has only the CUDA toolkit's nvJPEG
+// (native/__init__.py picks one at build time).
 #pragma once
 
 #include <cstdint>
@@ -138,6 +138,9 @@ int pfm_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
 bool is_hdr(const uint8_t* d, long n);
 int hdr_info(const uint8_t* d, long n, int* h, int* w);
 int hdr_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
+bool is_jpeg2000(const uint8_t* d, long n);  // j2k_host.cpp: JP2, .j2k
+int jpeg2000_info(const uint8_t* d, long n, int* h, int* w);
+int jpeg2000_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
 
 // A CCITT strip or tile of a TIFF (ccitt_host.cpp): compression 2, 3 (with
 // its T4Options) or 4, `rows` rows of `width` pixels into out as packed

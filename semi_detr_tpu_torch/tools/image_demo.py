@@ -3,13 +3,16 @@ demo/image_demo.py, the reference's demo/image_demo.py).
 
 Rides the high-level API (`init_detector` -> `inference_detector` ->
 `save_result`): every file is read by the host library (JPEG, PNG, BMP,
-PNM, TIFF, WebP: `data.image_io.read_image`), served by the `Predictor`
-on the card (or `--device cpu`), and written under its own name into
-`--output-dir` with the JAX demo's render (green box outlines and
-`class:score` labels, to cv2's pixels), encoded by its extension as
-cv2.imwrite encodes it (`data.image_io.write_image`): a BMP, PNM, TIFF
-or WebP input gives a file of its own format, and a .pgm or .pbm one
-gives none, as cv2 refuses to write a colour image there.
+PNM, PAM, TIFF, WebP, GIF, Sun raster, PFM, HDR, JPEG 2000:
+`data.image_io.read_image`), served by the `Predictor` on the card (or
+`--device cpu`), and written under its own name into `--output-dir` with
+the JAX demo's render (green box outlines and `class:score` labels, to
+cv2's pixels), encoded by its extension as cv2.imwrite encodes it
+(`data.image_io.write_image`): a BMP, PNM, TIFF, WebP, PFM, Sun raster,
+PAM, HDR or GIF input gives a file of its own format (cv2's bytes for
+all but WebP), a .pgm or .pbm one gives none, as cv2 refuses to write a
+colour image there, and a .jp2 one raises at the write: its encoder is
+not ported.
 
     python -m semi_detr_tpu_torch.tools.image_demo "images/*.jpg" CONFIG \
         --checkpoint CKPT.pth --output-dir viz/

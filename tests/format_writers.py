@@ -1156,7 +1156,7 @@ def fixture_files():
             else bgr
         add("other" + ext.replace(".", "_") + ext,
             cv2.imencode(ext, src)[1].tobytes(), fmt, "cv2.imencode",
-            "not ported" if ext in (".jp2", ".avif") else "pixels")
+            "not ported" if ext == ".avif" else "pixels")
     add("other_gif.gif", _pil(a, "GIF"), "GIF", "Pillow")
     _add_new_formats(add, a, b, big, rs)
     return out
@@ -1288,7 +1288,8 @@ def write_fixtures(directory: str) -> dict:
         route = {"BMP": "bmp", "PNM": "pnm", "TIFF": "tiff", "WebP": "webp",
                  "JPEG": "jpeg_lossless", "GIF": "gif", "PAM": "pam",
                  "Sun raster": "sun_raster", "PFM": "pfm",
-                 "Radiance HDR": "hdr"}.get(fmt)
+                 "Radiance HDR": "hdr",
+                 "JPEG 2000 (JP2)": "jpeg2000"}.get(fmt)
         index[name] = {"format": fmt, "variant": variant, "expect": expect,
                        "route": route if expect == "pixels" else None}
     with open(os.path.join(directory, "formats.json"), "w") as f:

@@ -12,7 +12,9 @@ what cv2 5.0 writes for a colour image of every extension it reads:
   the port's own decoder; .png: read back exact;
 * .pgm and .pbm: nothing, as cv2 refuses a colour image there (its
   reason on stderr);
-* anything else raises.
+* .jp2 and .avif, which cv2 writes, raise naming the format, "not
+  ported"; anything else raises (.pfm, .ras / .sr, .pam, .hdr / .pic and
+  .gif: test_torch_image_write_formats.py).
 """
 import os
 
@@ -119,7 +121,7 @@ def test_pgm_and_pbm_write_nothing(tmp_path, capsys, ext, reason):
     assert not os.path.exists(str(tmp_path / f"b.{ext}"))
 
 
-@pytest.mark.parametrize("name", ["a.gif", "a.jp2", "a.avif", "noext"])
+@pytest.mark.parametrize("name", ["a.xyz", "a.jp2", "a.avif", "noext"])
 def test_an_extension_without_encoder_raises(tmp_path, name):
     with pytest.raises(ValueError, match="no encoder"):
         image_io.write_image(str(tmp_path / name), picture("flat_1x1"))
@@ -134,16 +136,20 @@ def test_output_path_keeps_the_name():
 
 DEMO_INPUTS = ("colour_420.jpg", "bmp_24.bmp", "pnm_p6_100.ppm",
                "tiff_lzw_predictor.tif", "webp_lossy.webp",
-               "pnm_p2_100.pgm")
+               "pnm_p2_100.pgm", "other_pfm.pfm", "ras_pal8.ras",
+               "pam_rgb16.pam", "hdr_rle.hdr", "other_gif.gif")
 SIGNATURES = {"jpg": b"\xff\xd8", "bmp": b"BM", "ppm": b"P6",
-              "tif": b"II*\0", "webp": b"RIFF"}
+              "tif": b"II*\0", "webp": b"RIFF", "pfm": b"PF",
+              "ras": b"\x59\xa6\x6a\x95", "pam": b"P7",
+              "hdr": b"#?RADIANCE", "gif": b"GIF89a"}
 
 
 def test_demo_keeps_each_inputs_name_and_format(tmp_path):
-    """The demo on fixtures of six formats with a tiny seeded detector:
+    """The demo on fixtures of eleven formats with a tiny seeded detector:
     each render under its input's name, in its format (the .pgm input's
     render is not written, as cv2 writes none), with the pixels the JAX
-    save_result draws for the same detections."""
+    save_result draws for the same detections (and for PFM, Sun raster,
+    PAM, HDR and GIF its bytes, but a Sun raster's last pad byte)."""
     import shutil
 
     from semi_detr_tpu.api import save_result as jax_save_result
@@ -166,8 +172,8 @@ def test_demo_keeps_each_inputs_name_and_format(tmp_path):
                            "--score-thr", "0.0", "--device", "cpu"])
     assert [os.path.basename(p) for p in out] == sorted(DEMO_INPUTS)
     written = sorted(os.listdir(tmp_path / "out"))
-    assert written == sorted(n for n in DEMO_INPUTS if n.endswith(
-        (".jpg", ".bmp", ".ppm", ".tif", ".webp")))
+    assert written == sorted(n for n in DEMO_INPUTS
+                             if not n.endswith(".pgm"))
     jax_dir = tmp_path / "jax"
     for name in DEMO_INPUTS:
         img = image_io.read_image(str(src / name))
@@ -179,8 +185,14 @@ def test_demo_keeps_each_inputs_name_and_format(tmp_path):
         if name.endswith(".pgm"):
             assert not os.path.exists(want) and not os.path.exists(got)
             continue
-        with open(got, "rb") as f:
-            assert f.read(4).startswith(SIGNATURES[name.rsplit(".")[-1]])
+        with open(got, "rb") as f, open(want, "rb") as g:
+            a, b = f.read(), g.read()
+        ext = name.rsplit(".")[-1]
+        assert a.startswith(SIGNATURES[ext]), name
+        if ext in ("pfm", "pam", "hdr", "gif"):
+            assert a == b, name
+        elif ext == "ras":
+            assert a[:-1] == b[:-1], name
         np.testing.assert_array_equal(
             image_io.read_image(got),
             cv2.imread(want, cv2.IMREAD_COLOR)[..., ::-1], err_msg=name)

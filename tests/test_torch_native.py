@@ -74,7 +74,8 @@ def test_built_with_png_and_a_jpeg_decoder():
                         "jpeg_sequential_arithmetic",
                         "jpeg_progressive_arithmetic", "jpeg_lossless",
                         "jpeg_colour", "jpeg_other", "bmp", "pnm", "pam",
-                        "tiff", "webp", "gif", "sun_raster", "pfm", "hdr"}
+                        "tiff", "webp", "gif", "sun_raster", "pfm", "hdr",
+                        "jpeg2000"}
     assert dec["jpeg"] == dec["jpeg_other"] == found["route"]
     # either build decodes every kind libjpeg decodes in the library itself,
     # libjpeg-exact
@@ -335,8 +336,8 @@ def test_jpeg_encode_is_cv2_imwrite(tmp_path):
     np.testing.assert_array_equal(image_io.read_image(path), _cv2_rgb(buf))
     path = image_io.write_image(str(tmp_path / "a.png"), img)
     np.testing.assert_array_equal(image_io.read_image(path), img)
-    with pytest.raises(ValueError, match="no encoder for .gif"):
-        image_io.write_image(str(tmp_path / "a.gif"), img)
+    with pytest.raises(ValueError, match="no encoder for .xyz"):
+        image_io.write_image(str(tmp_path / "a.xyz"), img)
 
 
 def host_picture(h, w, seed):
