@@ -137,7 +137,8 @@ Phases (any failure exits non-zero):
 7. Trainer path, in a temporary directory removed at the end: the port's
    `write_synthetic_coco` writes 8 labelled, 16 unlabelled and 8 val JPEG
    images of 480x640 through the host library (up to 3 boxes and 2
-   distractors each, class "person"), and phase 7a's fixtures of the other
+   distractors each, one class, which the annotation files name after
+   data.classes[0]), and phase 7a's fixtures of the other
    kinds (JPEG and PNG, and one BMP, PNM, TIFF, WebP, lossless JPEG, GIF,
    HDR, JP2 (9/7) and raw JPEG 2000 codestream (5/3) of the cv2 formats)
    join the unlabelled and val images, without
@@ -146,7 +147,13 @@ Phases (any failure exits non-zero):
    the SSOD CLI
    (`tools.train_detr_ssod.main`, in-process) runs
    configs/detr_ssod/semi_detr_r50_coco_120k.py at full width (80 classes,
-   1 + 4 images at 800x1344, the 11 COCO scales, bfloat16) from those files
+   1 + 4 images at 800x1344, the 11 COCO scales, bfloat16) from those files,
+   with data.classes the 80 COCO names of which 16 (index 0 among them)
+   are replaced by the names of phase 7r's case "names" (Rubik past ASCII,
+   the fallback font, the box), and ssod.score_thr 0 (with random weights
+   the recipe's 0.4 keeps no pseudo label to draw), so the pseudo renders
+   draw labels through the trainer's own path (printed: their labels by
+   route; at least one asserted),
    for 8 steps, with warm_up_step, eval and render intervals of 4 and a
    checkpoint at the end. Asserted: steps 0-7 ran (4 in the warm-up); 48 /
    42 forward and 24 backward MSDA launches per step and 12 forward per
@@ -169,11 +176,14 @@ Phases (any failure exits non-zero):
 7r. The render on the card's host (no cv2 there): `api.save_result` on
    the committed cases (native/fixtures/render.json: seeded pictures,
    all 80 COCO names, scores 0.00-1.00, labels clipped at the top, left
-   and right edges) against cv2 5.0's renders of them (the JAX
-   save_result's, committed as PNG), by `tools.render_check`: box pixels
-   at max abs 0, label pixels at an ink IoU of at least IOU_FLOOR and a
-   mean abs of at most MEAN_ABS_CEIL (their equal share and max abs
-   printed); then the
+   and right edges; and the case "names", whose class list takes every
+   route of utils.text: Rubik past ASCII, the fallback font WenQuanYi
+   Micro Hei, the box, a line break and an end of text) against cv2 5.0's
+   renders of them (the JAX save_result's, committed as PNG), by
+   `tools.render_check`: box pixels at max abs 0, label pixels at an ink
+   IoU of at least IOU_FLOOR and a mean abs of at most MEAN_ABS_CEIL (their
+   equal share and max abs printed); the case "names" must equal its PNG
+   exactly; then the
    image demo (`tools.image_demo.main`, --score-thr 0) on JPEG, BMP, PPM,
    TIFF, WebP, PGM, PFM, Sun raster, PAM, HDR and GIF fixtures with phase
    7's SSOD checkpoint: each render under its input's name in its input's
@@ -182,8 +192,9 @@ Phases (any failure exits non-zero):
    within HDR_READBACK levels, GIF on its table's steps), 12 forward MSDA
    launches per image
    (the `demo` path). Printed: ms per image (save_result, draw and PNG
-   write), ms per label, the glyph table's rasterisation ms, the demo's
-   seconds.
+   write), ms per label and ms per label by route, the fallback font's
+   inflate-and-parse ms and the rasterisation ms of the glyphs the cases
+   draw (each once per process), the demo's seconds.
 
 8a. Data parallel, two ranks spawned over gloo on the one card (one rank
    per card over NCCL where there are two; `parallel.dist.run_local`, each
@@ -385,6 +396,7 @@ from semi_detr_tpu_torch.train.state import (  # noqa: E402
     ema_update, init_ssod_state, init_train_state, refine_boxes)
 from semi_detr_tpu_torch.train.supervised import (  # noqa: E402
     make_supervised_train_step)
+from semi_detr_tpu_torch.utils import logging as port_logging  # noqa: E402
 from semi_detr_tpu_torch.utils import text  # noqa: E402
 # the yardstick: the main-path levels of the 800x1344 bucket, M = 8,
 # D = 32, P = 4, the seeded inputs, the bounds and the timer
@@ -456,6 +468,18 @@ TRAINER_SET = dict(hw=(480, 640), max_boxes=3, distractors=2,
                    class_name="person")
 TRAINER_SPLITS = {"sup": range(0, 8), "unsup": range(8, 24),
                   "val": range(24, 32)}
+# phase 7's data.classes: the 80 COCO names with TRAINER_RENAMED of them,
+# index 0 (the synthetic set's class, which its annotation files carry)
+# among them, replaced in turn by the names of the render case "names"
+# (those without a control character; a repeat numbered), so the trainer's
+# pseudo renders draw from
+# Rubik past ASCII, the fallback font and the box
+TRAINER_RENAMED, TRAINER_CLASSES_SEED = 16, 16
+# the SSOD CLI's score_thr: with random weights the recipe's 0.4 keeps no
+# pseudo label, so its renders would draw no label; at 0 each render draws
+# the first image's pseudo labels (the launch counts do not depend on the
+# kept sets, as phase 6's step at score_thr 0 shows)
+TRAINER_SCORE_THR = 0.0
 # one fixture of each format the JAX loader hands to cv2, among phase 7's
 # unlabelled and val images beside the JPEG and PNG ones
 TRAINER_CV2_FIXTURES = ("bmp_rle8.bmp", "pnm_p6_100.ppm",
@@ -1716,12 +1740,28 @@ def trainer_phase(card, bare_ms):
         raise
 
 
+def trainer_classes():
+    """Phase 7's class list (TRAINER_RENAMED, TRAINER_CLASSES_SEED)."""
+    with open(os.path.join(native.FIXTURES, "render.json")) as f:
+        case, = [c for c in json.load(f)["cases"] if c["name"] == "names"]
+    names = [n for n in case["classes"] if n.isprintable()]
+    rng = np.random.default_rng(TRAINER_CLASSES_SEED)
+    where = [0] + sorted(int(i) for i in rng.choice(
+        np.arange(1, len(COCO_CLASSES)), TRAINER_RENAMED - 1, replace=False))
+    classes = list(COCO_CLASSES)
+    for k, i in enumerate(where):
+        classes[i] = names[k % len(names)] + (
+            f" {k // len(names) + 1}" if k >= len(names) else "")
+    return tuple(classes)
+
+
 def run_trainers(card, tmp, bare_ms):
     n_img = max(max(r) for r in TRAINER_SPLITS.values()) + 1
+    classes = trainer_classes()
     t0 = time.perf_counter()
-    paths, img_dir = write_synthetic_coco(tmp, n=n_img, seed=0,
-                                          splits=TRAINER_SPLITS,
-                                          **TRAINER_SET)
+    paths, img_dir = write_synthetic_coco(
+        tmp, n=n_img, seed=0, splits=TRAINER_SPLITS,
+        **dict(TRAINER_SET, class_name=classes[0]))
     names = sorted(os.listdir(img_dir))
     if len(names) != n_img or not all(n.endswith(".jpg") for n in names):
         raise AssertionError(f"synthetic set: {names[:4]} ...")
@@ -1733,13 +1773,18 @@ def run_trainers(card, tmp, bare_ms):
     data_opts = [f"data.train_sup_ann={paths['sup']}",
                  f"data.train_unsup_ann={paths['unsup']}",
                  f"data.val_ann={paths['val']}",
-                 f"data.train_prefix={img_dir}", f"data.val_prefix={img_dir}"]
+                 f"data.train_prefix={img_dir}", f"data.val_prefix={img_dir}",
+                 f"data.classes={list(classes)!r}"]
+    log(f"  data.classes: the COCO names with {TRAINER_RENAMED} replaced: "
+        + ", ".join(f"{i}: {n}" for i, n in enumerate(classes)
+                    if n != COCO_CLASSES[i]))
     work = os.path.join(tmp, "ssod")
     ssod_args = [SSOD_CONFIG, "--work-dir", work, "--cfg-options",
                  *data_opts, f"ssod.warm_up_step={TRAINER_WARM_UP}",
                  f"eval_interval={TRAINER_INTERVAL}",
                  f"ckpt_interval={TRAINER_STEPS}",
-                 f"image_log_interval={TRAINER_INTERVAL}"]
+                 f"image_log_interval={TRAINER_INTERVAL}",
+                 f"ssod.score_thr={TRAINER_SCORE_THR}"]
 
     # per-step launch counts, eval and checkpoint times: the trainer's own
     # methods, wrapped for the length of this phase
@@ -1778,8 +1823,17 @@ def run_trainers(card, tmp, bare_ms):
                               bytes=os.path.getsize(self.path(state.step))))
         return saved
 
+    # the labels the trainer's pseudo renders draw, by route
+    vis_routes = {way: 0 for way in text.ROUTES}
+    vis_put_text = port_logging.put_text
+
+    def recording_put_text(img, label, org, color):
+        vis_routes[label_route(label)] += 1
+        return vis_put_text(img, label, org, color)
+
     SsodTrainer._run_step, SsodTrainer.evaluate = counted_step, timed_eval
     ckpt_mod.CheckpointManager.maybe_save = timed_save
+    port_logging.put_text = recording_put_text
     try:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -1835,6 +1889,11 @@ def run_trainers(card, tmp, bare_ms):
             vis = os.path.join(work, "pseudo_vis", f"step_{step}.jpg")
             if not os.path.isfile(vis) or image_io.read_image(vis).ndim != 3:
                 raise AssertionError(f"no pseudo render at step {step}")
+        log(f"  pseudo renders (steps 0 and {TRAINER_INTERVAL}): labels by "
+            f"route {vis_routes}")
+        if not sum(vis_routes.values()):
+            raise AssertionError("the pseudo renders drew no label at "
+                                 f"score_thr {TRAINER_SCORE_THR}")
         timings = trainer.timings
         val_dataset, unsup = trainer.val_dataset, trainer.unsup_dataset
         quiet = quiet_steps(trainer)
@@ -1856,6 +1915,7 @@ def run_trainers(card, tmp, bare_ms):
     finally:
         SsodTrainer._run_step, SsodTrainer.evaluate = run_step, evaluate
         ckpt_mod.CheckpointManager.maybe_save = maybe_save
+        port_logging.put_text = vis_put_text
 
     # the eval CLI on the last checkpoint, on the teacher (the default)
     t0 = time.perf_counter()
@@ -1872,6 +1932,7 @@ def run_trainers(card, tmp, bare_ms):
         CONFIG, "--work-dir", os.path.join(tmp, "od"), "--max-steps",
         str(OD_STEPS), "--cfg-options", f"data.train_ann={paths['sup']}",
         "data.val_ann=", f"data.train_prefix={img_dir}",
+        f"data.classes={list(classes)!r}",
         f"schedule.batch_size={OD_BATCH}"])
     od_launches = (msda.ms_deform_attn_cuda.launches,
                    msda.ms_deform_attn_bwd_cuda.launches)
@@ -1927,7 +1988,9 @@ def run_trainers(card, tmp, bare_ms):
                 augment_ms=aug,
                 eval_ms_per_image=eval_ms, checkpoint_saves=saves,
                 peak_memory_bytes=peak, run_s=run_s, eval_cli_s=test_s,
-                eval_cli=res, od_steps=od_timings,
+                eval_cli=res, od_steps=od_timings, vis_routes=vis_routes,
+                classes=[n for i, n in enumerate(classes)
+                         if n != COCO_CLASSES[i]],
                 launches_fwd=fwd, launches_bwd=bwd, card=card)
 
 
@@ -1943,13 +2006,23 @@ def render_phase(card, trainer_dir):
         "cv2 5.0's committed renders; the image demo on phase 7's "
         "checkpoint, each file in its input's format)")
     failures = []
-    text.glyph.cache_clear()
-    t0 = time.perf_counter()
-    for code in range(32, 127):
-        text.glyph(chr(code))
-    raster_ms = (time.perf_counter() - t0) * 1e3
     with open(os.path.join(native.FIXTURES, "render.json")) as f:
         spec = json.load(f)
+    # the fonts' costs, once per process: the fallback font's inflate and
+    # parse, then the rasterisation of every glyph the cases draw
+    text.glyph.cache_clear()
+    text.fallback.cache_clear()
+    t0 = time.perf_counter()
+    text.fallback()
+    fallback_ms = (time.perf_counter() - t0) * 1e3
+    drawn = sorted({ch for case in spec["cases"]
+                    for name in case.get("classes", COCO_CLASSES)
+                    for ch in name + ":0123456789."} - {"\n", "\0"})
+    t0 = time.perf_counter()
+    for ch in drawn:
+        text.glyph(ch)
+    raster_ms = (time.perf_counter() - t0) * 1e3
+    by_route = {way: [] for way in text.ROUTES}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_render_")
     cases = []
     try:
@@ -1959,15 +2032,16 @@ def render_phase(card, trainer_dir):
                       np.asarray(case["scores"], np.float32),
                       np.asarray(case["labels"], np.int64))
             thr = case["score_thr"]
+            classes = tuple(case.get("classes", COCO_CLASSES))
             ref = image_io.read_image(os.path.join(native.FIXTURES,
                                                    case["ref"]))
             out = os.path.join(tmp, case["ref"])
             image_ms = best_ms(lambda: save_result(
-                img, result, COCO_CLASSES, out, score_thr=thr))
+                img, result, classes, out, score_thr=thr))
             got = image_io.read_image(out)
-            held = render_check.hold(got, ref, img, result, COCO_CLASSES, thr)
+            held = render_check.hold(got, ref, img, result, classes, thr)
             box_abs, r = held["box_max_abs"], held["label"]
-            labels = [(render_check.label_text(COCO_CLASSES[int(lab)], s),
+            labels = [(render_check.label_text(classes[int(lab)], s),
                        (int(b[0]), max(int(b[1]) - 4, 0)))
                       for b, s, lab in zip(*result) if s >= thr]
             canvas = img.copy()
@@ -1976,6 +2050,13 @@ def render_phase(card, trainer_dir):
                 for t, org in labels:
                     text.put_text(canvas, t, org, render_check.COLOUR)
             label_ms = best_ms(draw_labels) / len(labels)
+            for t, org in labels:
+                way = label_route(t)
+                by_route[way].append(best_ms(lambda: text.put_text(
+                    canvas, t, org, render_check.COLOUR)))
+            if "classes" in case and not np.array_equal(got, ref):
+                failures.append(f"render {case['name']}: not cv2's pixels "
+                                f"(labels {r})")
             if not held["ok"]:
                 failures.append(f"render {case['name']}: boxes max abs "
                                 f"{box_abs}, labels {r}")
@@ -1993,15 +2074,32 @@ def render_phase(card, trainer_dir):
         demo = demo_run(trainer_dir, tmp, failures)
     finally:
         shutil.rmtree(tmp)
-    log(f"  the 95 glyphs rasterised from the table in {raster_ms:.1f} ms "
-        "(once per process)")
+    route_ms = {way: (float(np.median(v)) if v else None, len(v))
+                for way, v in by_route.items()}
+    log(f"  the fallback font inflated and parsed in {fallback_ms:.1f} ms; "
+        f"the {len(drawn)} glyphs the cases draw rasterised in "
+        f"{raster_ms:.1f} ms (each once per process)")
+    log("  ms per label by route (the label's costliest glyph: rubik, "
+        "fallback, box), median and labels: " + ", ".join(
+            f"{way} {ms:.4f} ({n})" if n else f"{way} none"
+            for way, (ms, n) in route_ms.items()))
     log("  " + card)
     if failures:
         raise AssertionError("phase 7r: " + "; ".join(failures))
     return dict(cases=cases, demo=demo, raster_ms=raster_ms,
+                raster_glyphs=len(drawn), fallback_ms=fallback_ms,
+                route_ms=route_ms,
                 ms_per_label=float(np.mean([c["label_ms"] for c in cases])),
                 ms_per_image={c["name"]: c["image_ms"] for c in cases},
                 card=card)
+
+
+def label_route(label):
+    """The route of a label: "box" if any character takes it, else
+    "fallback" if any does, else "rubik" (line breaks and what follows
+    the end of text aside)."""
+    ways = {text.route(ch) for ch in label.split("\0")[0] if ch != "\n"}
+    return next(w for w in ("box", "fallback", "rubik") if w in ways)
 
 
 def demo_run(trainer_dir, tmp, failures):

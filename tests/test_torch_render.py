@@ -5,22 +5,24 @@ and `cv2.putText(f"{name}:{score:.2f}", (x0, max(y0 - 4, 0)),
 FONT_HERSHEY_SIMPLEX, 0.5, (0, 255, 0), 1)` in `api.save_result` and in
 `utils.logging.log_image_with_boxes`. The port draws in numpy:
 `utils.logging.draw_rect` (cv2.rectangle's rule) and `utils.text` (cv2
-5.0's TrueType render of that call, from the committed glyph table). Held
+5.0's TrueType render of that call, from the committed fonts). Held
 here, bit for bit:
 
 * `draw_rect` against `cv2.rectangle` on 600 seeded boxes per thickness
   (off-image, degenerate and swapped ones among them);
 * every printable glyph alone, and 200 seeded labels of random text,
-  colour, background and position, against `cv2.putText`;
+  colour, background and position, against `cv2.putText` (the other
+  characters, the fallback font and the box: `test_torch_text_fallback.py`);
 * the port's `save_result` against the JAX one on the committed render
   cases (all 80 COCO names, scores 0.00-1.00, labels clipped at the top,
-  left and right edges, on seeded backgrounds), box pixels and label
+  left and right edges, on seeded backgrounds; a class list that takes
+  every route of `utils.text`), box pixels and label
   pixels read apart; the committed references (`native/fixtures/
   render.json` and its PNGs, which `chip_smoke.py` holds the card's host
   to, where there is no cv2) against the JAX function's render now;
 * `log_image_with_boxes` against the JAX one: both write `step_N.jpg`;
-* `tools/font_table.py` regenerates the committed glyph table byte for
-  byte from cv2's binary;
+* `tools/font_table.py` regenerates the committed fonts (the Rubik table,
+  WenQuanYi's gzip member, the notices) byte for byte from cv2's binary;
 * no runtime module of the port imports cv2, PIL, fontTools or jax.
 
 The label reading reached and pinned: every label pixel equal (share
@@ -152,10 +154,18 @@ def test_label_box_bounds_the_ink():
 
 @pytest.mark.parametrize("label", ["人:0.50", "café:0.31", "a\tb"])
 def test_a_character_outside_the_table_raises(label):
-    img = np.zeros((20, 80, 3), np.uint8)
-    with pytest.raises(text.NotPortedCharacter, match="not ported"):
-        text.put_text(img, label, (2, 15), GREEN)
-    assert not img.any()                    # nothing drawn before it
+    """A character outside printable ASCII is drawn as cv2 draws it (the
+    fallback font, Rubik past ASCII, the box); the one character refused,
+    before anything is drawn, is a lone surrogate, on which cv2 crashes."""
+    img = np.random.default_rng(len(label)).integers(
+        0, 256, (20, 80, 3)).astype(np.uint8)
+    np.testing.assert_array_equal(
+        text.put_text(img.copy(), label, (2, 15), GREEN),
+        cv2_label(img, label, (2, 15), GREEN))
+    bad = img.copy()
+    with pytest.raises(ValueError, match="lone surrogate"):
+        text.put_text(bad, label + "\ud800", (2, 15), GREEN)
+    np.testing.assert_array_equal(bad, img)     # nothing drawn before it
 
 
 def test_a_missing_or_damaged_table_raises(tmp_path, monkeypatch):
@@ -183,7 +193,14 @@ def test_a_missing_or_damaged_table_raises(tmp_path, monkeypatch):
 
 # ---------------------------------------------------- save_result vs JAX
 
-CASE_NAMES = ("edges", "coco80", "dense")
+CASE_NAMES = ("edges", "coco80", "dense", "names")
+# the class list of the "names" case: a name for every route of utils.text
+# (Rubik past ASCII: Latin-1, Latin Extended, Cyrillic, Hebrew, a combining
+# mark; the fallback font: Han, kana, Hangul, fullwidth forms; the box: an
+# emoji, a tab, a carriage return) and a line break and an end of text
+RENDER_NAMES = ("café", "Łódź żółw", "Ёжик", "שלום", "cafe\u0301", "猫",
+                "ねこ", "고양이", "ＴＶ", "🐱 cat", "tab\there", "cr\rlf",
+                "two\nlines", "end\0hidden")
 
 
 def render_cases():
@@ -196,6 +213,10 @@ def render_case(name):
     return case
 
 
+def case_classes(case):
+    return tuple(case.get("classes", COCO_CLASSES))
+
+
 def case_inputs(case):
     img = host_picture(case["h"], case["w"], case["seed"])
     result = (np.asarray(case["boxes"], np.float32),
@@ -204,9 +225,9 @@ def case_inputs(case):
     return img, result
 
 
-def jax_render(img, result, score_thr, path):
+def jax_render(img, result, score_thr, path, classes=COCO_CLASSES):
     from semi_detr_tpu.api import save_result as jax_save_result
-    jax_save_result(img, result, COCO_CLASSES, path, score_thr=score_thr)
+    jax_save_result(img, result, classes, path, score_thr=score_thr)
     return cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1]
 
 
@@ -214,12 +235,12 @@ def jax_render(img, result, score_thr, path):
 def test_save_result_is_jax_save_result(tmp_path, name):
     case = render_case(name)
     img, result = case_inputs(case)
-    thr = case["score_thr"]
-    want = jax_render(img, result, thr, str(tmp_path / "jax.png"))
-    out = save_result(img, result, COCO_CLASSES, str(tmp_path / "port.png"),
+    thr, classes = case["score_thr"], case_classes(case)
+    want = jax_render(img, result, thr, str(tmp_path / "jax.png"), classes)
+    out = save_result(img, result, classes, str(tmp_path / "port.png"),
                       score_thr=thr)
     got = read_image(out)
-    held = render_check.hold(got, want, img, result, COCO_CLASSES, thr)
+    held = render_check.hold(got, want, img, result, classes, thr)
     assert held["ok"] and held["box_max_abs"] == 0
     # the reading reached, pinned
     assert held["label"] == dict(equal=1.0, max_abs=0, iou=1.0,
@@ -234,14 +255,15 @@ def test_render_fixtures_are_cv2s(tmp_path, name):
     case = render_case(name)
     img, result = case_inputs(case)
     ref = read_image(os.path.join(native.FIXTURES, case["ref"]))
+    classes = case_classes(case)
     np.testing.assert_array_equal(
-        jax_render(img, result, case["score_thr"], str(tmp_path / "j.png")),
-        ref)
+        jax_render(img, result, case["score_thr"], str(tmp_path / "j.png"),
+                   classes), ref)
     got = img.copy()
     for b, s, lab in zip(*result):
         if s >= case["score_thr"]:
             port_logging.draw_detection(got, b,
-                                        f"{COCO_CLASSES[int(lab)]}:{s:.2f}")
+                                        f"{classes[int(lab)]}:{s:.2f}")
     np.testing.assert_array_equal(got, ref)
 
 
@@ -250,8 +272,9 @@ def test_render_cases_cover_the_names_scores_and_edges():
     assert [{k: v for k, v in c.items() if k != "ref"} for c in cases] == \
         make_cases()
     assert tuple(c["name"] for c in cases) == CASE_NAMES
-    labels = {int(x) for c in cases for x in c["labels"]}
-    scores = [s for c in cases for s in c["scores"]]
+    coco = [c for c in cases if "classes" not in c]
+    labels = {int(x) for c in coco for x in c["labels"]}
+    scores = [s for c in coco for s in c["scores"]]
     assert labels == set(range(80))
     assert min(scores) == 0.0 and max(scores) == 1.0
     edges = set()
@@ -266,19 +289,27 @@ def test_render_cases_cover_the_names_scores_and_edges():
             if int(x0) + 40 > c["w"]:
                 edges.add("right")
     assert edges == {"top", "left", "right"}
+    names = render_case("names")
+    assert tuple(names["classes"]) == RENDER_NAMES
+    assert sorted(names["labels"]) == list(range(len(RENDER_NAMES)))
+    drawn = "".join(RENDER_NAMES)
+    assert {text.route(ch) for ch in drawn if ch not in "\n\0"} == \
+        set(text.ROUTES)
+    assert "\n" in drawn and "\0" in drawn
 
 
 # ------------------------------------------------ log_image_with_boxes
 
 @pytest.mark.parametrize("variant", ["scores", "no_scores", "no_names",
-                                     "normalized"])
+                                     "normalized", "non_ascii_names"])
 def test_log_image_with_boxes_is_jax(tmp_path, variant):
     from semi_detr_tpu.utils.logging import log_image_with_boxes as jax_log
-    case = render_cases()[0]
+    case = render_case("names" if variant == "non_ascii_names" else "edges")
     img, (boxes, scores, labels) = case_inputs(case)
     keep = np.arange(len(boxes)) % 3 != 1
     kw = dict(scores=None if variant == "no_scores" else scores, keep=keep,
-              class_names=None if variant == "no_names" else COCO_CLASSES)
+              class_names=None if variant == "no_names"
+              else case_classes(case))
     if variant == "normalized":
         from semi_detr_tpu_torch.data.augment import IMG_MEAN, IMG_STD
         img = ((img - IMG_MEAN) / IMG_STD).astype(np.float32)
@@ -312,10 +343,20 @@ def test_font_table_header_and_notice():
     head = text.table()["font"]
     assert head["wght"] == 400 and head["wght_normalized"] == 0.1875
     assert head["ascender"] == 935 and head["units_per_em"] == 1000
-    assert set(text.table()["glyphs"]) == {chr(c) for c in range(32, 127)}
+    cmap = text.table()["cmap"]
+    assert len(cmap) == 885 and {chr(c) for c in range(32, 127)} <= set(cmap)
     with open(os.path.join(text.FONT_DIR, "Rubik-OFL.txt")) as f:
         notice = f.read()
     assert "SIL Open Font License, Version 1.1" in notice
+    with open(os.path.join(text.FONT_DIR,
+                           "WenQuanYiMicroHei-NOTICE.txt")) as f:
+        notice = f.read()
+    assert "Licensed under the Apache License, Version 2.0" in notice
+    with open(os.path.join(text.FONT_DIR, "Apache-2.0.txt")) as f:
+        assert "Apache License" in f.read()
+    wqy = text.fallback()
+    assert (wqy.units_per_em, wqy.ascent, wqy.descent) == (2048, 1918, -483)
+    assert len(wqy.cmap) == 34600 and wqy.num_glyphs == 49531
 
 
 FORBIDDEN = ("cv2", "PIL", "fontTools", "jax", "jaxlib", "semi_detr_tpu")
@@ -389,6 +430,22 @@ def make_cases():
                       scores=[round(float(s), 3)
                               for s in rng.uniform(0, 1, 40)],
                       labels=[int(x) for x in rng.integers(0, 80, 40)]))
+    # 4: a class list that takes every route of utils.text, fixed boxes and
+    # scores, one label clipped at the top and one at the right edge
+    h, w = 104, 230
+    boxes = [[6.0, 20.0, 50.0, 40.0], [80.0, 18.0, 150.0, 45.0],
+             [160.0, 24.0, 225.0, 50.0], [8.0, 55.0, 50.0, 75.0],
+             [62.0, 60.0, 118.0, 80.0], [128.0, 62.0, 170.0, 85.0],
+             [178.0, 66.0, 226.0, 90.0], [6.0, 88.0, 60.0, 110.0],
+             [72.0, 95.0, 112.0, 112.0], [120.0, 104.0, 190.0, 118.0],
+             [200.0, 8.0, 229.0, 30.0], [30.0, 2.0, 70.0, 12.0],
+             [92.0, 84.0, 150.0, 92.0], [190.0, 100.0, 229.0, 119.0]]
+    cases.append(dict(name="names", h=h, w=w, seed=24, score_thr=0.0,
+                      boxes=boxes,
+                      scores=[0.99, 0.87, 0.5, 0.31, 0.05, 1.0, 0.62, 0.44,
+                              0.78, 0.12, 0.95, 0.3, 0.66, 0.21],
+                      labels=list(range(len(RENDER_NAMES))),
+                      classes=list(RENDER_NAMES)))
     return cases
 
 
@@ -400,14 +457,15 @@ def write_fixtures():
             case["ref"] = f"render_{case['name']}.png"
             img, result = case_inputs(case)
             got = jax_render(img, result, case["score_thr"],
-                             os.path.join(tmp, "r.png"))
+                             os.path.join(tmp, "r.png"), case_classes(case))
             cv2.imwrite(os.path.join(native.FIXTURES, case["ref"]),
                         got[..., ::-1], [cv2.IMWRITE_PNG_COMPRESSION, 9])
     with open(SPEC, "w") as f:
         json.dump({"picture": "host_picture(h, w, seed) of "
                               "tests/test_torch_render.py and chip_smoke.py",
                    "drawn_by": "semi_detr_tpu.api.save_result (cv2 5.0.0) "
-                               "with the 80 COCO class names",
+                               "with the 80 COCO class names, or the "
+                               "case's classes",
                    "cases": cases}, f, indent=1)
         f.write("\n")
     return 0
