@@ -128,7 +128,15 @@ Phases (any failure exits non-zero):
    raster, signed, sub-sampled or offset JPEG 2000, ...) raises saying so,
    the formats cv2 reads and the port does not (AVIF, CIELab TIFF) raise
    naming themselves with "not ported", and damaged copies of each format
-   raise naming the file. Every
+   raise naming the file; the TIFF fixtures of the compressions cv2's
+   libtiff cannot decode (Pixar, NeXT, JPEG 2000 inside TIFF) read as the
+   one-colour picture of zero samples, as cv2 reads them. The library's
+   JPEG 2000 encoder (OpenJPEG 2.5.3's reversible encoder at cv2's rate 4)
+   writes cv2's bytes on this machine's compiler: the committed pictures
+   (native/fixtures/jp2w_*.png) against cv2's committed .jp2 files, and
+   480x640 and 800x1344 pictures against the length and sha256 of cv2's
+   files (jp2_writes.json), with encode and decode ms; below 32 pixels
+   it refuses as cv2 does, leaving cv2's 77 bytes. Every
    op equals its numpy plain version bit for bit on this host: a 480x640
    source resized to all 11 COCO scales, the six warps (translate x / y,
    rotate +-30, shear x / y) at 800x1066, the 81 colour op x magnitude
@@ -185,12 +193,14 @@ Phases (any failure exits non-zero):
    equal share and max abs printed); the case "names" must equal its PNG
    exactly; then the
    image demo (`tools.image_demo.main`, --score-thr 0) on JPEG, BMP, PPM,
-   TIFF, WebP, PGM, PFM, Sun raster, PAM, HDR and GIF fixtures with phase
-   7's SSOD checkpoint: each render under its input's name in its input's
-   format (no file for the .pgm, as cv2 writes none), reading back to the
-   pixels drawn (the JPEG, HDR and GIF: the library's encode of them, HDR
-   within HDR_READBACK levels, GIF on its table's steps), 12 forward MSDA
-   launches per image
+   TIFF, WebP, PGM, PFM, Sun raster, PAM, HDR, GIF and JPEG 2000 (a
+   480x640 .jp2) fixtures with phase 7's SSOD checkpoint: each render
+   under its input's name in its input's format (no file for the .pgm, as
+   cv2 writes none), reading back to the pixels drawn (the JPEG, HDR, GIF
+   and JPEG 2000: the library's encode of them, HDR within HDR_READBACK
+   levels, GIF on its table's steps, JPEG 2000 through the library's
+   decoder at the render's size), 12 forward MSDA launches per image
+   (144 in all) and no backward
    (the `demo` path). Printed: ms per image (save_result, draw and PNG
    write), ms per label and ms per label by route, the fallback font's
    inflate-and-parse ms and the rasterisation ms of the glyphs the cases
@@ -337,6 +347,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -499,17 +510,19 @@ TRAINER_STEPS, TRAINER_WARM_UP, TRAINER_INTERVAL = 8, 4, 4
 RENDER_DEMO_INPUTS = ("colour_420.jpg", "bmp_24.bmp", "pnm_p6_100.ppm",
                       "tiff_lzw_predictor.tif", "webp_lossy.webp",
                       "pnm_p2_100.pgm", "other_pfm.pfm", "ras_pal8.ras",
-                      "pam_rgb16.pam", "hdr_rle.hdr", "other_gif.gif")
+                      "pam_rgb16.pam", "hdr_rle.hdr", "other_gif.gif",
+                      "j2k_480x640_lossless.jp2")
 RENDER_SIGNATURES = {"jpg": b"\xff\xd8", "bmp": b"BM", "ppm": b"P6",
                      "tif": b"II*\0", "webp": b"RIFF", "pfm": b"PF",
                      "ras": b"\x59\xa6\x6a\x95", "pam": b"P7",
-                     "hdr": b"#?RADIANCE", "gif": b"GIF89a"}
+                     "hdr": b"#?RADIANCE", "gif": b"GIF89a",
+                     "jp2": b"\0\0\0\x0cjP  \r\n\x87\n"}
 # the library's encoders whose files are cv2's bytes, lossy: the demo's
 # file must be the encoder's bytes for its render (and read back to a
 # picture of the render's size: HDR within HDR_READBACK levels, GIF on the
-# 3-3-2 table's steps)
+# 3-3-2 table's steps, JPEG 2000 through the library's decoder)
 RENDER_LOSSY = {"jpg": native.encode_jpeg, "hdr": native.encode_hdr,
-                "gif": native.encode_gif}
+                "gif": native.encode_gif, "jp2": native.encode_jp2}
 HDR_READBACK = 2
 TRAINER_WARM = {"warm_up": (1, 2, 3), "hungarian": (5, 6, 7)}
 # then the trainer's steps on its next batches, built beforehand (no
@@ -1323,6 +1336,8 @@ def host_library_phase(host_build_s):
         lambda: native.png_unfilter(*args)), numpy_ms=best_ms(
         lambda: image_io._unfilter(*args), 1))
     cv2_formats = cv2_format_fixtures()
+    blank_tiffs = blank_tiff_fixtures()
+    jp2 = jp2_writes()
     round_trip = jpeg_round_trips(route)
     damaged = damaged_jpegs()
     damaged.update(damaged_formats())
@@ -1350,7 +1365,8 @@ def host_library_phase(host_build_s):
         for k, v in codec.items()))
     return dict(probe=found, decoders=native.decoders(),
                 build_s=host_build_s, fixtures=fixtures, formats=formats,
-                cv2_formats=cv2_formats, ops=ops,
+                cv2_formats=cv2_formats, blank_tiffs=blank_tiffs,
+                jp2_writes=jp2, ops=ops,
                 colour_ops=colour, codecs=codec, round_trip=round_trip,
                 damaged=damaged)
 
@@ -1502,6 +1518,79 @@ def cv2_format_fixtures():
         f"{k} ({v['fixtures']}): {v['mean_ms']:.3f}, {v['max_ms']:.3f}"
         for k, v in per_format.items()))
     return dict(fixtures=rows, per_format=per_format)
+
+
+def blank_tiff_fixtures():
+    """The TIFF fixtures of the compressions cv2's libtiff cannot decode
+    (tiffb_*: Pixar, NeXT, JPEG 2000 inside TIFF), which cv2 reads as the
+    picture of zero samples: each decoded to one colour at its file's
+    size (cv2_format_fixtures holds them to cv2's pixels)."""
+    out = {}
+    for name in sorted(n for n in os.listdir(native.FIXTURES)
+                       if n.startswith("tiffb_") and n.endswith(".tif")):
+        path = os.path.join(native.FIXTURES, name)
+        with open(path, "rb") as f:
+            got = native.decode_image(f.read(), path)
+        colours = np.unique(got.reshape(-1, 3), axis=0)
+        out[name] = dict(hw=list(got.shape[:2]),
+                         colour=colours[0].tolist(), colours=len(colours))
+        log(f"  blank TIFF {name}: {got.shape[0]}x{got.shape[1]}, "
+            f"{len(colours)} colour {colours[0].tolist()}")
+        if len(colours) != 1:
+            raise AssertionError(f"{name}: not the picture of zero samples")
+    if len(out) != 3:
+        raise AssertionError(f"blank TIFF fixtures: {sorted(out)}")
+    return out
+
+
+def jp2_writes():
+    """The library's JPEG 2000 encoder (OpenJPEG 2.5.3's reversible encoder
+    cut to cv2's rate 4, `native.encode_jp2`) on this machine's compiler:
+    each committed picture (native/fixtures/jp2_writes.json: PNG) against
+    cv2's committed .jp2, host_picture at 480x640 and 800x1344 against the
+    length and sha256 of cv2's file, each file read back through the
+    library's decoder; encode and decode ms; cv2's refusal below 32 pixels
+    (its 77-byte file)."""
+    with open(os.path.join(native.FIXTURES, "jp2_writes.json")) as f:
+        spec = json.load(f)
+    rows = {}
+
+    def held(name, img, want_len, want_sha):
+        got = native.encode_jp2(img)
+        back = native.decode_image(got)
+        row = rows[name] = dict(
+            hw=list(img.shape[:2]), bytes=len(got),
+            equal=(len(got), hashlib.sha256(got).hexdigest()) == (
+                want_len, want_sha),
+            readback_max_abs=int(np.abs(back.astype(int) - img).max()),
+            encode_ms=best_ms(lambda: native.encode_jp2(img)),
+            decode_ms=best_ms(lambda: native.decode_image(got)))
+        log(f"  jp2 write {name} {img.shape[0]}x{img.shape[1]}: {len(got)} "
+            f"bytes, cv2's {row['equal']}, reads back at max abs "
+            f"{row['readback_max_abs']}; encode {row['encode_ms']:.3f} ms, "
+            f"decode {row['decode_ms']:.3f} ms")
+        if not row["equal"]:
+            raise AssertionError(f"jp2 write {name}: not cv2's bytes")
+
+    for name, files in sorted(spec["pictures"].items()):
+        img = image_io.read_image(os.path.join(native.FIXTURES, files["png"]))
+        with open(os.path.join(native.FIXTURES, files["jp2"]), "rb") as f:
+            want = f.read()
+        held(name, img, len(want), hashlib.sha256(want).hexdigest())
+    for row in spec["host_pictures"]:
+        held(f"host_picture_{row['h']}x{row['w']}",
+             host_picture(row["h"], row["w"], row["seed"]), row["bytes"],
+             row["sha256"])
+    try:
+        native.encode_jp2(host_picture(31, 40, 0))
+        raise AssertionError("jp2 write 31x40: not refused")
+    except native.EncodeRefused as err:
+        if len(err.partial) != 77:
+            raise AssertionError(f"jp2 write 31x40: {len(err.partial)} "
+                                 "bytes left, cv2 leaves 77")
+        refusal = err.reason
+    log(f"  jp2 write 31x40 refused as cv2 refuses it: {refusal}")
+    return dict(files=rows, refusal=refusal)
 
 
 def damaged_formats():
@@ -2106,10 +2195,10 @@ def demo_run(trainer_dir, tmp, failures):
     """The image demo (`tools.image_demo.main`) at --score-thr 0 on
     RENDER_DEMO_INPUTS with the SSOD checkpoint phase 7 wrote: each render
     under its input's name, in its format (none for .pgm), reading back
-    to the pixels it drew (the JPEG, HDR and GIF: the library's encode of
-    them, cv2's bytes by the CPU tests; HDR reading back within
-    HDR_READBACK levels, GIF on its table's steps); 12 forward MSDA
-    launches per image."""
+    to the pixels it drew (the JPEG, HDR, GIF and JPEG 2000: the library's
+    encode of them, cv2's bytes by the CPU tests; HDR reading back within
+    HDR_READBACK levels, GIF on its table's steps, JPEG 2000 at the
+    render's size); 12 forward MSDA launches per image."""
     src = os.path.join(tmp, "in")
     out = os.path.join(tmp, "out")
     os.makedirs(src)

@@ -12,9 +12,9 @@ PIL. A file it cannot decode raises an error that names it, and for a
 format cv2 reads that the port does not (AVIF, CIELab TIFF) names the
 format with "not ported"; it never returns a blank or substitute image.
 `write_image` encodes by the file's extension as cv2.imwrite does for a
-colour image: JPEG, TIFF, WebP, GIF and Radiance HDR through the library,
-PNG, BMP, PNM, PFM, Sun raster and PAM here; .pgm and .pbm are refused as
-cv2 refuses them, and .jp2 and .avif, which cv2 writes, raise "not
+colour image: JPEG, TIFF, WebP, GIF, Radiance HDR and JPEG 2000 through
+the library, PNG, BMP, PNM, PFM, Sun raster and PAM here; .pgm and .pbm
+are refused as cv2 refuses them, and .avif, which cv2 writes, raises "not
 ported".
 
 The PNG reader and writer here, in numpy and zlib, are the plain versions
@@ -304,9 +304,9 @@ ENCODERS = {"jpg": native.encode_jpeg, "jpeg": native.encode_jpeg,
             "pfm": encode_pfm, "ras": encode_sun_raster,
             "sr": encode_sun_raster, "pam": encode_pam,
             "hdr": native.encode_hdr, "pic": native.encode_hdr,
-            "gif": native.encode_gif}
+            "gif": native.encode_gif, "jp2": native.encode_jp2}
 # extensions cv2.imwrite writes a colour image to that the port does not
-NOT_PORTED = {"jp2": "JPEG 2000", "avif": "AVIF"}
+NOT_PORTED = {"avif": "AVIF"}
 
 
 def write_image(path: str, img: np.ndarray) -> Optional[str]:
@@ -318,11 +318,14 @@ def write_image(path: str, img: np.ndarray) -> Optional[str]:
     image's pixels; .pfm, .ras / .sr and .pam here and .hdr / .pic by the
     host library, cv2's bytes (a Sun raster of odd width but its last pad
     byte, which cv2 takes from past its buffer); .gif by the host library,
-    cv2's bytes (its 3-3-2 table and Floyd-Steinberg dithering). For .pgm
-    and .pbm cv2 refuses a colour image: nothing is written, its reason
-    goes to stderr and None comes back, as cv2 returns False. .jp2 and
-    .avif raise naming the format, "not ported"; any other extension
-    raises."""
+    cv2's bytes (its 3-3-2 table and Floyd-Steinberg dithering); .jp2 by
+    the host library, cv2's bytes (OpenJPEG's reversible encoder cut to
+    rate 4). For .pgm and .pbm cv2 refuses a colour image: nothing is
+    written, its reason goes to stderr and None comes back, as cv2 returns
+    False. Below 32 pixels on a side cv2 refuses a .jp2 too, but leaves
+    the 77 bytes of its JP2 boxes: those are written, the reason goes to
+    stderr and None comes back. .avif raises naming the format, "not
+    ported"; any other extension raises."""
     ext = path.lower().rsplit(".", 1)[-1] if "." in os.path.basename(
         path) else ""
     if ext in REFUSED:
@@ -336,7 +339,15 @@ def write_image(path: str, img: np.ndarray) -> Optional[str]:
     if ext not in ENCODERS:
         raise ValueError(f"{path}: no encoder for .{ext}; the port writes "
                          f"{', '.join('.' + e for e in ENCODERS)}")
-    buf = ENCODERS[ext](img)
+    try:
+        buf = ENCODERS[ext](img)
+    except native.EncodeRefused as err:
+        with open(path, "wb") as f:
+            f.write(err.partial)
+        print(f"write_image({path!r}): {err.reason}; {len(err.partial)} "
+              "bytes left (as cv2.imwrite leaves them and returns False)",
+              file=sys.stderr)
+        return None
     with open(path, "wb") as f:
         f.write(buf)
     return path

@@ -103,8 +103,8 @@ FIXTURES = os.path.join(_DIR, "fixtures")
 SOURCES = ("host.cpp", "jpeg_host.cpp", "bmp_pnm_host.cpp", "tiff_host.cpp",
            "ccitt_host.cpp", "webp_host.cpp", "gif_host.cpp",
            "raster_host.cpp", "float_host.cpp", "j2k_host.cpp",
-           "encode_host.cpp")
-HEADERS = ("host.h", "webp_tables.h")
+           "encode_host.cpp", "j2k_encode_host.cpp")
+HEADERS = ("host.h", "webp_tables.h", "j2k_tables.h")
 JPEG_SOURCES = {"libjpeg": "jpeg_libjpeg.cpp", "nvjpeg": "jpeg_nvjpeg.cpp"}
 # the host decoders' routes, by jpeg_host_kind's answer, on either build
 HOST_KINDS = {0: None, 1: "sequential", 2: "progressive",
@@ -130,7 +130,8 @@ FORMAT_ROUTES = {
     "tiff": "host TIFF (classic and BigTIFF, strips and tiles, planar 1 and "
             "2, none / PackBits / LZW / Deflate / CCITT modified Huffman, "
             "Group 3 and Group 4 / JPEG, predictor 2, 1-16 bits, signed "
-            "samples, CMYK, YCbCr; libtiff's RGBA reader)",
+            "samples, CMYK, YCbCr; libtiff's RGBA reader; Pixar, NeXT and "
+            "JPEG 2000 compression as the picture of zero samples)",
     "gif": "host GIF (the first frame on the logical screen, LZW; OpenCV's "
            "GifDecoder)",
     "sun_raster": "host Sun raster (types 0 and 1, 1-32 bits, colour maps; "
@@ -162,6 +163,16 @@ _STATUS = {1: "unknown format", 2: "damaged data", 3: "unsupported kind",
 
 class ImageDecodeError(ValueError):
     """An image file or stream that the library cannot decode."""
+
+
+class EncodeRefused(ValueError):
+    """A picture an encoder refuses as cv2.imwrite refuses it (returning
+    False): `reason` is cv2's message, `partial` the bytes cv2 leaves in
+    the file all the same."""
+
+    def __init__(self, reason: str, partial: bytes):
+        super().__init__(reason)
+        self.reason, self.partial = reason, partial
 
 
 def _cuda_home() -> str:
@@ -275,6 +286,7 @@ _SIGNATURES = {
     "sdt_encode_webp": ([_P, _I, _I, _P, _P], _I),
     "sdt_encode_gif": ([_P, _I, _I, _P, _P], _I),
     "sdt_encode_hdr": ([_P, _I, _I, _P, _P], _I),
+    "sdt_encode_jp2": ([_P, _I, _I, _P, _P], _I),
     "sdt_free": ([_P], None),
     "sdt_jpeg_check": ([_P, _L], _I),
     "sdt_jpeg_host_kind": ([_P, _L], _I),
@@ -518,6 +530,32 @@ def encode_hdr(img: np.ndarray) -> bytes:
     """(H, W, 3) uint8 RGB -> the Radiance HDR cv2.imwrite writes: the
     pixels over 255 as RGBE, run-length scanlines (`encode_host.cpp`)."""
     return _encode("sdt_encode_hdr", "HDR", img)
+
+
+def encode_jp2(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> the .jp2 file cv2.imwrite writes, byte for
+    byte (OpenJPEG 2.5.3's reversible 5/3 encoder, one layer cut to rate 4
+    by its rate allocation; `j2k_encode_host.cpp`). Below 32 pixels on a
+    side cv2 refuses: EncodeRefused, holding the 77-byte file cv2
+    leaves."""
+    img = _image(img)
+    if img.shape[2] != 3:
+        raise ValueError(f"JPEG 2000 encode takes RGB, got {img.shape}")
+    lib = _library()
+    buf, size = ctypes.c_void_p(), ctypes.c_long()
+    st = lib.sdt_encode_jp2(_ptr(img), img.shape[0], img.shape[1],
+                            ctypes.byref(buf), ctypes.byref(size))
+    if st not in (0, 3):
+        raise RuntimeError(f"JPEG 2000 encode: "
+                           f"{lib.sdt_last_error().decode()}")
+    try:
+        out = ctypes.string_at(buf.value, size.value)
+    finally:
+        lib.sdt_free(buf)
+    if st:
+        raise EncodeRefused(f"OpenJPEG2000: {lib.sdt_last_error().decode()}",
+                            out)
+    return out
 
 
 def rgb_to_ycc420(img: np.ndarray) -> Tuple[np.ndarray, np.ndarray,

@@ -1,7 +1,8 @@
 // Declarations shared by the host library (host.cpp), its own decoders
 // (jpeg_host.cpp; bmp_pnm_host.cpp, tiff_host.cpp with ccitt_host.cpp,
 // webp_host.cpp, gif_host.cpp, raster_host.cpp, float_host.cpp and
-// j2k_host.cpp for the files the JAX loader hands to cv2) and its JPEG
+// j2k_host.cpp for the files the JAX loader hands to cv2; its encoders are
+// encode_host.cpp and j2k_encode_host.cpp) and its JPEG
 // back end: jpeg_libjpeg.cpp where the machine has libjpeg,
 // jpeg_nvjpeg.cpp where it has only the CUDA toolkit's nvJPEG
 // (native/__init__.py picks one at build time).

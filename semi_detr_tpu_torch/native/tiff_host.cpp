@@ -44,13 +44,23 @@
 //   width for strips). cv2 reads no TIFF of orientation 5-8: it fails after
 //   the decode when it turns the picture, so those raise here too.
 //
-// What cv2 reads and this file does not (JPEG 2000 inside TIFF, CIELab,
-// ThunderScan, SGILog, CMYK inside JPEG) raises ImageDecodeError naming it
-// with "not ported". What cv2 refuses as well raises saying so: the
-// compressions its libtiff is built without (LZMA, ZSTD, WebP, old-style
-// JPEG, PixarLog, LERC), float samples, 2-bit gray or palette, 4-bit gray,
-// more than four samples, CMYK of other than four 8-bit samples or InkSet 1,
-// YCbCr of other subsamplings.
+// * Pixar (32908), NeXT (32947) and JPEG 2000 (34712) compression, which
+//   cv2's libtiff knows but cannot decode ("Compression scheme N strip
+//   decoding is not implemented"): its RGBA reader goes on with the
+//   strip's buffer as allocated, all zeros, so cv2 reads the picture of
+//   zero samples at the file's size (black for RGB and min-is-black, white
+//   for min-is-white and CMYK, the colour map's first entry for a
+//   palette), whatever the strips hold; every other rule (the layouts cv2
+//   refuses, orientation, a strip outside the file) is that of the other
+//   compressions.
+//
+// What cv2 reads and this file does not (CIELab, ThunderScan, SGILog, CMYK
+// inside JPEG) raises ImageDecodeError naming it with "not ported". What
+// cv2 refuses as well raises saying so: the compressions its libtiff is
+// built without (LZMA, ZSTD, WebP, old-style JPEG, PixarLog, LERC), float
+// samples, 2-bit gray or palette, 4-bit gray, more than four samples, CMYK
+// of other than four 8-bit samples or InkSet 1, YCbCr of other
+// subsamplings.
 
 #include <zlib.h>
 
@@ -119,12 +129,15 @@ struct Tiff {
 const char* compression_name(int c) {
   switch (c) {
     case 32809: return "ThunderScan compression (32809)";
-    case 32908: return "Pixar compression (32908)";
     case 34676: case 34677: return "SGILog compression";
-    case 34712: return "JPEG 2000 compression (34712)";
-    case 32947: return "NeXT compression (32947)";
     default: return nullptr;
   }
+}
+
+// the compressions cv2's libtiff knows and does not decode, read as zero
+// samples
+bool blank_compression(int c) {
+  return c == 32908 || c == 32947 || c == 34712;
 }
 
 // the compressions cv2's libtiff is built without ("... compression support
@@ -245,7 +258,7 @@ int parse(const uint8_t* d, long n, Tiff* t) {
   const int c = t->compression;
   const bool ccitt = c == 2 || c == 3 || c == 4;
   if (c != 1 && c != 5 && c != 7 && c != 8 && c != 32946 && c != 32773 &&
-      !ccitt)
+      !ccitt && !blank_compression(c))
     return refused("compression " + std::to_string(c));
   if (t->sample_format == 3)
     return refused("float samples (SampleFormat 3)");
@@ -527,7 +540,8 @@ int read_segment(const uint8_t* d, long n, const Tiff& t, long seg, int plane,
                                 (b * 0x8020LU & 0x88440LU)) * 0x10101LU >> 16);
     }
   int st = kOk;
-  switch (t.compression) {
+  // under the blank compressions buf stays zero
+  if (!blank_compression(t.compression)) switch (t.compression) {
     case 1:
       if (cnt < want) return bad("a strip or tile shorter than its rows");
       std::memcpy(buf.data(), src.data(), want);

@@ -9,10 +9,10 @@ PNM, PAM, TIFF, WebP, GIF, Sun raster, PFM, HDR, JPEG 2000:
 the JAX demo's render (green box outlines and `class:score` labels, to
 cv2's pixels), encoded by its extension as cv2.imwrite encodes it
 (`data.image_io.write_image`): a BMP, PNM, TIFF, WebP, PFM, Sun raster,
-PAM, HDR or GIF input gives a file of its own format (cv2's bytes for
-all but WebP), a .pgm or .pbm one gives none, as cv2 refuses to write a
-colour image there, and a .jp2 one raises at the write: its encoder is
-not ported.
+PAM, HDR, GIF or JPEG 2000 (.jp2) input gives a file of its own format
+(cv2's bytes for all but WebP; a .jp2 below 32 pixels on a side is cv2's
+77-byte file, as cv2 refuses it), and a .pgm or .pbm one gives none, as
+cv2 refuses to write a colour image there.
 
     python -m semi_detr_tpu_torch.tools.image_demo "images/*.jpg" CONFIG \
         --checkpoint CKPT.pth --output-dir viz/

@@ -1265,15 +1265,32 @@ def _add_new_formats(add, a, b, big, rs):
         sample_format=3), "TIFF", "float samples", "refused")
     add("tiffv_cielab.tif", write_tiff(a, photometric=8), "TIFF",
         "CIELab", "not ported")
+    # the compressions cv2's libtiff cannot decode: the picture of zero
+    # samples (the strips hold the pictures uncompressed all the same)
+    add("tiffb_pixar_rgb.tif", write_tiff(a, compression=32908,
+                                          rows_per_strip=8), "TIFF",
+        "Pixar compression (32908), RGB strips: black")
+    add("tiffb_next_miniswhite.tif", write_tiff(
+        a[..., 0], photometric=0, compression=32947), "TIFF",
+        "NeXT compression (32947), min-is-white: white")
+    add("tiffb_jp2k_palette_tiles.tif", write_tiff(
+        idx, compression=34712, tile=(16, 16), colormap=np.tile(
+            np.arange(256, dtype=np.uint16) * 200 + 9000, (3, 1))), "TIFF",
+        "JPEG 2000 compression (34712), palette tiles: entry 0")
 
 
 def write_fixtures(directory: str) -> dict:
     """Writes every fixture, and for each one cv2 decodes its pixels as
-    `<stem>.ref.png`, and formats.json; returns formats.json's content."""
+    `<stem>.ref.png`, and their entries of formats.json (the entries of
+    the other writers, such as the JPEG 2000 fixtures of
+    test_torch_jpeg2000.py, kept); returns formats.json's content."""
     import json
     import os
     import cv2
     index = {}
+    if os.path.exists(os.path.join(directory, "formats.json")):
+        with open(os.path.join(directory, "formats.json")) as f:
+            index = json.load(f)
     for name, (data, fmt, variant, expect) in fixture_files().items():
         path = os.path.join(directory, name)
         with open(path, "wb") as f:

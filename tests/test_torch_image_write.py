@@ -12,9 +12,9 @@ what cv2 5.0 writes for a colour image of every extension it reads:
   the port's own decoder; .png: read back exact;
 * .pgm and .pbm: nothing, as cv2 refuses a colour image there (its
   reason on stderr);
-* .jp2 and .avif, which cv2 writes, raise naming the format, "not
-  ported"; anything else raises (.pfm, .ras / .sr, .pam, .hdr / .pic and
-  .gif: test_torch_image_write_formats.py).
+* .avif, which cv2 writes, raises naming the format, "not ported";
+  anything else raises (.pfm, .ras / .sr, .pam, .hdr / .pic and .gif:
+  test_torch_image_write_formats.py; .jp2: test_torch_jp2_write.py).
 """
 import os
 
@@ -121,7 +121,7 @@ def test_pgm_and_pbm_write_nothing(tmp_path, capsys, ext, reason):
     assert not os.path.exists(str(tmp_path / f"b.{ext}"))
 
 
-@pytest.mark.parametrize("name", ["a.xyz", "a.jp2", "a.avif", "noext"])
+@pytest.mark.parametrize("name", ["a.xyz", "a.j2k", "a.avif", "noext"])
 def test_an_extension_without_encoder_raises(tmp_path, name):
     with pytest.raises(ValueError, match="no encoder"):
         image_io.write_image(str(tmp_path / name), picture("flat_1x1"))
@@ -137,19 +137,22 @@ def test_output_path_keeps_the_name():
 DEMO_INPUTS = ("colour_420.jpg", "bmp_24.bmp", "pnm_p6_100.ppm",
                "tiff_lzw_predictor.tif", "webp_lossy.webp",
                "pnm_p2_100.pgm", "other_pfm.pfm", "ras_pal8.ras",
-               "pam_rgb16.pam", "hdr_rle.hdr", "other_gif.gif")
+               "pam_rgb16.pam", "hdr_rle.hdr", "other_gif.gif",
+               "j2k_irr.jp2")
 SIGNATURES = {"jpg": b"\xff\xd8", "bmp": b"BM", "ppm": b"P6",
               "tif": b"II*\0", "webp": b"RIFF", "pfm": b"PF",
               "ras": b"\x59\xa6\x6a\x95", "pam": b"P7",
-              "hdr": b"#?RADIANCE", "gif": b"GIF89a"}
+              "hdr": b"#?RADIANCE", "gif": b"GIF89a",
+              "jp2": b"\0\0\0\x0cjP  \r\n\x87\n"}
 
 
 def test_demo_keeps_each_inputs_name_and_format(tmp_path):
-    """The demo on fixtures of eleven formats with a tiny seeded detector:
+    """The demo on fixtures of twelve formats with a tiny seeded detector:
     each render under its input's name, in its format (the .pgm input's
     render is not written, as cv2 writes none), with the pixels the JAX
     save_result draws for the same detections (and for PFM, Sun raster,
-    PAM, HDR and GIF its bytes, but a Sun raster's last pad byte)."""
+    PAM, HDR, GIF and JPEG 2000 its bytes, but a Sun raster's last pad
+    byte)."""
     import shutil
 
     from semi_detr_tpu.api import save_result as jax_save_result
@@ -189,7 +192,7 @@ def test_demo_keeps_each_inputs_name_and_format(tmp_path):
             a, b = f.read(), g.read()
         ext = name.rsplit(".")[-1]
         assert a.startswith(SIGNATURES[ext]), name
-        if ext in ("pfm", "pam", "hdr", "gif"):
+        if ext in ("pfm", "pam", "hdr", "gif", "jp2"):
             assert a == b, name
         elif ext == "ras":
             assert a[:-1] == b[:-1], name
