@@ -112,7 +112,10 @@ Phases (any failure exits non-zero):
    naming the file. The fixtures of the files the JAX loader hands to cv2
    (native/fixtures/formats.json: BMP of every header, depth and RLE, PNM
    P1-P6, TIFF of every compression, layout and photometric the library
-   reads (CCITT, BigTIFF, CMYK, YCbCr, signed samples among them), WebP
+   reads (CCITT, BigTIFF, CMYK, YCbCr, signed samples among them; tiffx_*:
+   orientation 5-8 on square pictures, StripByteCounts libtiff estimates
+   anew, CMYK inside JPEG, a predictor on subsampled YCbCr, CIELab, SGILog
+   and ThunderScan, and a 480x640 CIELab file), WebP
    lossless, lossy, with alpha, turned by EXIF and animated, lossless JPEG,
    GIF, Sun raster, PAM, PFM, Radiance HDR and JPEG 2000 (JP2 and raw
    codestreams: both wavelets, every progression, POC, tiles, precincts,
@@ -124,10 +127,12 @@ Phases (any failure exits non-zero):
    `tools.raw_formats`, for times at a real size) decode on the card to
    their stored cv2 pixels at max abs 0, each with its format, variant,
    route and ms, and ms per format; what cv2 refuses (12-bit and some
-   lossless JPEG, TIFF orientation 6, LZMA, ZSTD and float TIFF, RLE Sun
-   raster, signed, sub-sampled or offset JPEG 2000, ...) raises saying so,
-   the formats cv2 reads and the port does not (AVIF, CIELab TIFF) raise
-   naming themselves with "not ported", and damaged copies of each format
+   lossless JPEG, TIFF orientation 6 on a picture that is not square,
+   LZMA, ZSTD and float TIFF, TIFF predictor 3 on integer samples, ICC
+   CIELab, LogLuv without SGILog, RLE Sun raster, signed, sub-sampled or
+   offset JPEG 2000, ...) raises saying so, the formats cv2 reads and the
+   port does not (AVIF) raise naming themselves with "not ported", and
+   damaged copies of each format
    raise naming the file; the TIFF fixtures of the compressions cv2's
    libtiff cannot decode (Pixar, NeXT, JPEG 2000 inside TIFF) read as the
    one-colour picture of zero samples, as cv2 reads them. The library's
@@ -193,14 +198,15 @@ Phases (any failure exits non-zero):
    equal share and max abs printed); the case "names" must equal its PNG
    exactly; then the
    image demo (`tools.image_demo.main`, --score-thr 0) on JPEG, BMP, PPM,
-   TIFF, WebP, PGM, PFM, Sun raster, PAM, HDR, GIF and JPEG 2000 (a
-   480x640 .jp2) fixtures with phase 7's SSOD checkpoint: each render
+   TIFF (LZW RGB and a 480x640 CIELab file), WebP, PGM, PFM, Sun raster,
+   PAM, HDR, GIF and JPEG 2000 (a 480x640 .jp2) fixtures with phase 7's
+   SSOD checkpoint: each render
    under its input's name in its input's format (no file for the .pgm, as
    cv2 writes none), reading back to the pixels drawn (the JPEG, HDR, GIF
    and JPEG 2000: the library's encode of them, HDR within HDR_READBACK
    levels, GIF on its table's steps, JPEG 2000 through the library's
    decoder at the render's size), 12 forward MSDA launches per image
-   (144 in all) and no backward
+   (156 in all) and no backward
    (the `demo` path). Printed: ms per image (save_result, draw and PNG
    write), ms per label and ms per label by route, the fallback font's
    inflate-and-parse ms and the rasterisation ms of the glyphs the cases
@@ -511,7 +517,7 @@ RENDER_DEMO_INPUTS = ("colour_420.jpg", "bmp_24.bmp", "pnm_p6_100.ppm",
                       "tiff_lzw_predictor.tif", "webp_lossy.webp",
                       "pnm_p2_100.pgm", "other_pfm.pfm", "ras_pal8.ras",
                       "pam_rgb16.pam", "hdr_rle.hdr", "other_gif.gif",
-                      "j2k_480x640_lossless.jp2")
+                      "j2k_480x640_lossless.jp2", "tiffx_cielab_480x640.tif")
 RENDER_SIGNATURES = {"jpg": b"\xff\xd8", "bmp": b"BM", "ppm": b"P6",
                      "tif": b"II*\0", "webp": b"RIFF", "pfm": b"PF",
                      "ras": b"\x59\xa6\x6a\x95", "pam": b"P7",
@@ -1446,18 +1452,21 @@ def format_fixtures():
 def cv2_format_fixtures():
     """The fixtures of the files the JAX loader hands to cv2
     (native/fixtures/formats.json): BMP, PNM, PAM, TIFF (with CCITT,
-    BigTIFF, CMYK, YCbCr, signed samples), WebP, lossless JPEG, GIF, Sun
+    BigTIFF, CMYK, YCbCr, signed samples; tiffx_*: square orientation 5-8,
+    estimated StripByteCounts, CMYK inside JPEG, a predictor on subsampled
+    YCbCr, CIELab, SGILog, ThunderScan), WebP, lossless JPEG, GIF, Sun
     raster, PFM, Radiance HDR and JPEG 2000 decoded by the host library on
     the card
-    against their stored cv2 pixels at max abs 0, with ms per fixture and
-    per format and the route, and a 480x640 Sun raster, PAM and PFM written
-    by `tools.raw_formats` from the 480x640 WebP fixture's cv2 reference
-    (held to it); what cv2 refuses (12-bit JPEG, lossless it cannot convert,
-    TIFF orientation 6, LZMA, ZSTD and float TIFF, RLE Sun raster, a one-
+    against their stored cv2 pixels at max abs 0, with ms per fixture (its
+    variant beside it) and per format and the route, and a 480x640 Sun
+    raster, PAM and PFM written by `tools.raw_formats` from the 480x640
+    WebP fixture's cv2 reference (held to it); what cv2 refuses (12-bit
+    JPEG, lossless it cannot convert, TIFF orientation 6 on a picture that
+    is not square, LZMA, ZSTD and float TIFF, predictor 3 on integer
+    samples, ICC CIELab, LogLuv without SGILog, RLE Sun raster, a one-
     channel PFM, old-style run-length HDR, signed, sub-sampled or offset
     JPEG 2000, ...) raises saying so, and the formats cv2 reads that the
-    port does not (AVIF, CIELab TIFF) raise naming themselves with "not
-    ported"."""
+    port does not (AVIF) raise naming themselves with "not ported"."""
     with open(os.path.join(native.FIXTURES, "formats.json")) as f:
         index = json.load(f)
     routes = native.decoders()
@@ -1595,7 +1604,8 @@ def jp2_writes():
 
 def damaged_formats():
     """Damaged copies of the cv2-format fixtures, each decoded under its
-    own file name: BMP, PNM, PAM, TIFF (LZW, Group 4, BigTIFF), lossless
+    own file name: BMP, PNM, PAM, TIFF (LZW, Group 4, BigTIFF, CIELab, CMYK
+    inside JPEG), lossless
     JPEG, GIF, Sun raster, PFM, HDR and JPEG 2000 (JP2, a raw codestream,
     PPM headers) cut in half, a codestream without its EOC and one whose
     tile-part length runs past its end, a WebP cut in half with
@@ -1612,6 +1622,7 @@ def damaged_formats():
                  "jpeg_lossless_p8.jpg", "gif_480x640.gif", "ras_pal8.ras",
                  "pam_rgb16.pam", "pfm_scale2_be.pfm", "hdr_480x640.hdr",
                  "tiffv_g4_480x640.tif", "tiffv_bigtiff.tif",
+                 "tiffx_cielab_480x640.tif", "tiffx_cmyk_jpeg.tif",
                  "j2k_480x640_lossless.jp2", "j2k_raw.j2k",
                  "j2kw_ppm.j2k"):
         buf = fixture(name)

@@ -5,12 +5,13 @@ Stands in for `CocoDataset.load_image` of `semi_detr_tpu/data/coco.py`
 decodes, through the port's host library (`native/`), JPEG and PNG as the
 native loader does and every file it hands to cv2 as `cv2.imread(path,
 IMREAD_COLOR)` does (BGR turned to RGB): BMP, PNM (P1-P6), PAM, TIFF
-(with CCITT, BigTIFF, CMYK and YCbCr), WebP, GIF, Sun raster, PFM,
+(every variant cv2 reads: CCITT, BigTIFF, CMYK, YCbCr, CIELab, SGILog and
+ThunderScan among them), WebP, GIF, Sun raster, PFM,
 Radiance HDR, JPEG 2000 (JP2 and raw codestreams) and the lossless JPEG
 streams cv2 reads; on the card's machine too, which has neither cv2 nor
 PIL. A file it cannot decode raises an error that names it, and for a
-format cv2 reads that the port does not (AVIF, CIELab TIFF) names the
-format with "not ported"; it never returns a blank or substitute image.
+format cv2 reads that the port does not (AVIF, high-throughput JPEG
+2000) names the format with "not ported"; it never returns a blank or substitute image.
 `write_image` encodes by the file's extension as cv2.imwrite does for a
 colour image: JPEG, TIFF, WebP, GIF, Radiance HDR and JPEG 2000 through
 the library, PNG, BMP, PNM, PFM, Sun raster and PAM here; .pgm and .pbm

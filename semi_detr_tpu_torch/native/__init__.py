@@ -18,10 +18,14 @@ step.
   (g++ and zlib; no libtiff, libwebp, giflib or second libjpeg): BMP, PNM
   and PAM (`bmp_pnm_host.cpp`: OpenCV's BmpDecoder, PxMDecoder and
   PAMDecoder, quirks included), TIFF (`tiff_host.cpp` with
-  `ccitt_host.cpp`: libtiff's RGBA reader over strips and tiles, classic
-  and BigTIFF, none / PackBits / LZW / Deflate / CCITT modified Huffman,
-  Group 3 and Group 4 / JPEG, predictor 2, 1-16 bits, signed samples,
-  CMYK, YCbCr, orientation 1-4), WebP (`webp_host.cpp` and the RFC 6386
+  `ccitt_host.cpp` and `sgilog_host.cpp`: libtiff's RGBA reader over
+  strips and tiles, classic and BigTIFF, none / PackBits / LZW / Deflate /
+  CCITT modified Huffman, Group 3 and Group 4 / JPEG / ThunderScan /
+  SGILog (LogL, LogLuv 32 and 24, the uv grid of `sgilog_tables.h`),
+  predictor 2 (on YCbCr data units too), 1-16 bits, signed samples, CMYK
+  (inside JPEG too), YCbCr, CIELab, orientation 1-8 (5-8 on a square
+  picture), StripByteCounts estimated anew where libtiff estimates them:
+  every TIFF cv2 reads), WebP (`webp_host.cpp` and the RFC 6386
   tables of `webp_tables.h`: VP8L, VP8 key frames with libwebp's loop
   filters and fancy upsampling, an animation's first frame, EXIF
   orientation), GIF (`gif_host.cpp`: the first frame on the logical
@@ -31,13 +35,13 @@ step.
   OpenJPEG 2.5 decodes them for cv2, the 9/7 wavelet in its float32
   order) and lossless JPEG of at most 8 bits in RGB or CMYK
   (`jpeg_host.cpp`). The formats cv2 reads and the port does not (AVIF,
-  high-throughput JPEG 2000, and the TIFF compressions and photometrics
-  `tiff_host.cpp` names, CIELab among them) raise naming the format and
-  "not ported"; what cv2 refuses too (12-bit JPEG, 16-bit or gray
-  lossless JPEG, TIFF orientation 5-8, the TIFF compressions cv2's libtiff
-  is built without: LZMA, ZSTD, WebP, old-style JPEG; float samples; RLE
-  Sun raster, a one-channel PFM; signed, sub-sampled or offset JPEG 2000
-  components) raises saying so. JPEG by the library's own
+  high-throughput JPEG 2000) raise naming the format and "not ported";
+  what cv2 refuses too (12-bit JPEG, 16-bit or gray lossless JPEG, TIFF
+  orientation 5-8 on a picture that is not square, the TIFF compressions
+  cv2's libtiff is built without: LZMA, ZSTD, WebP, old-style JPEG; float
+  samples, predictor 3 on integer samples, photometric 4, 9, 10, 32803 and
+  34892, LogL or LogLuv without SGILog; RLE Sun raster, a one-channel PFM;
+  signed, sub-sampled or offset JPEG 2000 components) raises saying so. JPEG by the library's own
   decoders (`jpeg_host.cpp`), on either build: every stream of 8 bits
   that libjpeg-turbo 2.1 decodes, sequential or progressive, Huffman or
   arithmetic, with libjpeg's block smoothing of an incomplete progressive
@@ -101,10 +105,10 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_DIR)
 FIXTURES = os.path.join(_DIR, "fixtures")
 SOURCES = ("host.cpp", "jpeg_host.cpp", "bmp_pnm_host.cpp", "tiff_host.cpp",
-           "ccitt_host.cpp", "webp_host.cpp", "gif_host.cpp",
-           "raster_host.cpp", "float_host.cpp", "j2k_host.cpp",
+           "ccitt_host.cpp", "sgilog_host.cpp", "webp_host.cpp",
+           "gif_host.cpp", "raster_host.cpp", "float_host.cpp", "j2k_host.cpp",
            "encode_host.cpp", "j2k_encode_host.cpp")
-HEADERS = ("host.h", "webp_tables.h", "j2k_tables.h")
+HEADERS = ("host.h", "webp_tables.h", "j2k_tables.h", "sgilog_tables.h")
 JPEG_SOURCES = {"libjpeg": "jpeg_libjpeg.cpp", "nvjpeg": "jpeg_nvjpeg.cpp"}
 # the host decoders' routes, by jpeg_host_kind's answer, on either build
 HOST_KINDS = {0: None, 1: "sequential", 2: "progressive",
@@ -129,9 +133,10 @@ FORMAT_ROUTES = {
            "its quirks included)",
     "tiff": "host TIFF (classic and BigTIFF, strips and tiles, planar 1 and "
             "2, none / PackBits / LZW / Deflate / CCITT modified Huffman, "
-            "Group 3 and Group 4 / JPEG, predictor 2, 1-16 bits, signed "
-            "samples, CMYK, YCbCr; libtiff's RGBA reader; Pixar, NeXT and "
-            "JPEG 2000 compression as the picture of zero samples)",
+            "Group 3 and Group 4 / JPEG / ThunderScan / SGILog, predictor 2, "
+            "1-16 bits, signed samples, CMYK, YCbCr, CIELab, orientation "
+            "1-8; libtiff's RGBA reader; Pixar, NeXT and JPEG 2000 "
+            "compression as the picture of zero samples)",
     "gif": "host GIF (the first frame on the logical screen, LZW; OpenCV's "
            "GifDecoder)",
     "sun_raster": "host Sun raster (types 0 and 1, 1-32 bits, colour maps; "

@@ -1,9 +1,9 @@
 // Declarations shared by the host library (host.cpp), its own decoders
-// (jpeg_host.cpp; bmp_pnm_host.cpp, tiff_host.cpp with ccitt_host.cpp,
-// webp_host.cpp, gif_host.cpp, raster_host.cpp, float_host.cpp and
-// j2k_host.cpp for the files the JAX loader hands to cv2; its encoders are
-// encode_host.cpp and j2k_encode_host.cpp) and its JPEG
-// back end: jpeg_libjpeg.cpp where the machine has libjpeg,
+// (jpeg_host.cpp; bmp_pnm_host.cpp, tiff_host.cpp with ccitt_host.cpp and
+// sgilog_host.cpp, webp_host.cpp, gif_host.cpp, raster_host.cpp,
+// float_host.cpp and j2k_host.cpp for the files the JAX loader hands to
+// cv2; its encoders are encode_host.cpp and j2k_encode_host.cpp) and its
+// JPEG back end: jpeg_libjpeg.cpp where the machine has libjpeg,
 // jpeg_nvjpeg.cpp where it has only the CUDA toolkit's nvJPEG
 // (native/__init__.py picks one at build time).
 #pragma once
@@ -149,6 +149,15 @@ int jpeg2000_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
 // set) on damage.
 int ccitt_decode(const uint8_t* src, long len, int compression,
                  uint32_t t4_options, long width, long rows, uint8_t* out);
+
+// An SGILog strip or tile of a TIFF (sgilog_host.cpp): `rows` rows of
+// `width` pixels of LogL (kind kSgiLogL, compression 34676) into 8-bit gray,
+// or of LogLuv 32 or 24 (34676 or 34677) into 8-bit RGB, as libtiff's
+// tif_luv.c gives them to its RGBA reader; kCorrupt (the fault set) where
+// the data ends before the rows do.
+enum { kSgiLogL = 1, kSgiLogLuv32 = 2, kSgiLogLuv24 = 3 };
+int sgilog_decode(const uint8_t* src, long len, int kind, long width,
+                  long rows, uint8_t* out);
 
 // (h, w) of a picture of (h, w) after the EXIF orientation o (1-8), and
 // the RGB picture (h, w, 3) turned as OpenCV's ApplyExifOrientation turns it

@@ -14,7 +14,17 @@
 //   merged in front. FillOrder 2 reverses the bits of the raw data first
 //   (under JPEG cv2 fails to read the strips, and this file refuses it).
 // * Predictor 2 under LZW and Deflate (libtiff ignores it under none and
-//   PackBits), on 8- and 16-bit samples.
+//   PackBits), on 8- and 16-bit samples, summed as tif_predict.c sums it:
+//   the decoded bytes in rows of libtiff's row size (the scanline size in
+//   strips, a row of tile samples in tiles), with a stride of the samples
+//   per pixel; over YCbCr data units too, where a row that does not divide
+//   the bytes, or is not whole pixels, leaves them undifferenced (libtiff
+//   fails there and its RGBA reader goes on with the bytes).
+// * ThunderScan (32809, tif_thunder.c: runs, 2- and 3-bit deltas, raw
+//   pixels) in strips; its tiles read as zero samples (libtiff has no tile
+//   decoder for it). SGILog (34676 and 34677, sgilog_host.cpp): LogL to
+//   8-bit gray, LogLuv 32 and 24 to 8-bit RGB, as tif_luv.c gives them to
+//   the RGBA reader.
 // * Signed samples (SampleFormat 2) read as the unsigned bits they hold, as
 //   libtiff's RGBA reader takes them.
 // * Photometric min-is-white and min-is-black (1, 8 or 16 bits; a second
@@ -26,10 +36,11 @@
 //   255, as tif_getimage.c does), palette (1, 4 or 8 bits; a colour map with
 //   any entry of 256 or more taken as 16 bits and shifted down by 8), and
 //   YCbCr inside JPEG (libtiff asks libjpeg for RGB); a JPEG stream under
-//   photometric RGB is not colour-converted. 16-bit samples become
+//   another photometric is not colour-converted. 16-bit samples become
 //   (v + 128) / 257 in RGB, v >> 8 in gray (libtiff's own two maps).
 // * CMYK (photometric 5, InkSet 1, four 8-bit samples contiguous or in
-//   planes): k = 255 - K, each of R, G, B = k * (255 - C) / 255.
+//   planes, inside JPEG too, the components as they are coded, whatever an
+//   Adobe marker says): k = 255 - K, each of R, G, B = k * (255 - C) / 255.
 // * YCbCr outside JPEG (photometric 6, 8 bits): contiguous data units of
 //   h x v luma samples and one Cb and Cr each (subsampling 1x1, 1x2, 2x1,
 //   2x2, 4x1, 4x2, 4x4) or 1x1 planes, each pixel taking its unit's chroma
@@ -39,10 +50,21 @@
 //   steps. Two libtiff quirks at 4x4 are repeated: a strip is read only to
 //   its rows times a scanline size rounded down (the rest is 0), and a
 //   clipped tile's rows of units are skipped as if its units were 10 bytes.
+// * CIELab (photometric 8, three 8- or 16-bit samples, contiguous) by
+//   initCIELabConversion: TIFFCIELab16ToXYZ with the WhitePoint's
+//   reference white (D50 without one) and TIFFXYZToRGB on libtiff's sRGB
+//   display, in their float steps.
 // * Orientation 1-4 as libtiff's RGBA reader turns a strip or tile: rows
 //   flipped over the whole picture, columns within each tile (over the whole
-//   width for strips). cv2 reads no TIFF of orientation 5-8: it fails after
-//   the decode when it turns the picture, so those raise here too.
+//   width for strips). 5-8 of a square picture: flipped as 1-4 first, then
+//   turned as cv2 turns it (5 and 7 transposed, 6 and 8 about the other
+//   diagonal); cv2 fails to turn a picture of 5-8 that is not square, so
+//   that raises here too.
+// * StripByteCounts as libtiff's directory reader leaves them: a missing
+//   tag, a single strip's count of 0 (uncompressed: past the file's end or
+//   short of the picture too) and uncompressed counts whose first two differ
+//   are estimated anew (EstimateStripByteCounts); a count of 0 left, or one
+//   past the file, raises, as does a strip the data then runs short of.
 //
 // * Pixar (32908), NeXT (32947) and JPEG 2000 (34712) compression, which
 //   cv2's libtiff knows but cannot decode ("Compression scheme N strip
@@ -54,17 +76,22 @@
 //   refuses, orientation, a strip outside the file) is that of the other
 //   compressions.
 //
-// What cv2 reads and this file does not (CIELab, ThunderScan, SGILog, CMYK
-// inside JPEG) raises ImageDecodeError naming it with "not ported". What
-// cv2 refuses as well raises saying so: the compressions its libtiff is
-// built without (LZMA, ZSTD, WebP, old-style JPEG, PixarLog, LERC), float
-// samples, 2-bit gray or palette, 4-bit gray, more than four samples, CMYK
-// of other than four 8-bit samples or InkSet 1, YCbCr of other
-// subsamplings.
+// Every TIFF cv2 reads decodes here. What cv2 refuses raises
+// ImageDecodeError saying so ("cv2 refuses it too"): the compressions its
+// libtiff is built without (LZMA, ZSTD, WebP, old-style JPEG, PixarLog,
+// LERC), float samples, a predictor other than 2 (3 on integer samples) or 2
+// on samples under 8 bits, 2-bit gray or palette, 4-bit gray (ThunderScan's
+// too), more than four samples, samples of different depths, CMYK of other
+// than four 8-bit samples or InkSet 1, YCbCr of other subsamplings, CIELab
+// in planes or with a fourth sample, photometric 4, 9, 10, 32803, 34892 and
+// the rest, LogL or LogLuv without SGILog compression (and SGILog under any
+// other photometric), no PhotometricInterpretation, orientation 5-8 on a
+// picture that is not square. Damage raises naming it.
 
 #include <zlib.h>
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <string>
@@ -79,11 +106,6 @@ namespace {
 int bad(const std::string& what) {
   set_error("TIFF: damaged data: " + what);
   return kCorrupt;
-}
-
-int not_ported(const std::string& what) {
-  set_error("TIFF: " + what + " not ported (cv2 reads it)");
-  return kUnsupported;
 }
 
 int refused(const std::string& what) {
@@ -120,19 +142,22 @@ struct Tiff {
   uint32_t t4_options = 0;
   float luma[3] = {0.299f, 0.587f, 0.114f};  // YCbCrCoefficients
   float ref_bw[6] = {0.0f, 255.0f, 128.0f, 255.0f, 128.0f, 255.0f};
+  // WhitePoint; libtiff's default is D50's (Adobe's TIFF note)
+  float white[2] = {96.4250f / (96.4250f + 100.0f + 82.4680f),
+                    100.0f / (96.4250f + 100.0f + 82.4680f)};
+  int sgilog = 0;  // kSgiLogL, kSgiLogLuv32 or kSgiLogLuv24 of host.h
   std::vector<uint64_t> offsets, counts;
+  bool has_counts = false;
   std::vector<uint32_t> colormap;
   std::vector<uint8_t> jpeg_tables;
+  // what libtiff's StripByteCounts estimate reads of the IFD: its entries,
+  // the bytes of their values stored outside it, and whether one is of a
+  // type of no known size
+  long entries = 0;
+  uint64_t outside = 0;
+  bool unknown_type = false;
+  bool big = false;
 };
-
-// the compressions cv2's libtiff reads and the port does not
-const char* compression_name(int c) {
-  switch (c) {
-    case 32809: return "ThunderScan compression (32809)";
-    case 34676: case 34677: return "SGILog compression";
-    default: return nullptr;
-  }
-}
 
 // the compressions cv2's libtiff knows and does not decode, read as zero
 // samples
@@ -154,6 +179,95 @@ const char* unconfigured_name(int c) {
   }
 }
 
+// contiguous YCbCr outside JPEG: rows of data units, each h x v luma
+// samples and then Cb and Cr
+bool ycc_units(const Tiff& t) {
+  return t.photometric == 6 && t.planar == 1 && t.spp == 3 &&
+         t.compression != 7;
+}
+
+// libtiff's TIFFScanlineSize64 (for YCbCr units, a row of units / v,
+// rounded down) and TIFFVTileSize64 of a whole tile
+uint64_t scanline_size(const Tiff& t) {
+  if (ycc_units(t))
+    return (uint64_t{t.w} + t.ycc_h - 1) / t.ycc_h *
+           (t.ycc_h * t.ycc_v + 2) / t.ycc_v;
+  const uint64_t per = t.planar == 1 ? t.spp : 1;
+  return (uint64_t{t.w} * per * t.bits + 7) / 8;
+}
+
+uint64_t tile_size(const Tiff& t) {
+  if (ycc_units(t))
+    return (uint64_t{t.tile_w} + t.ycc_h - 1) / t.ycc_h *
+           (t.ycc_h * t.ycc_v + 2) * ((t.tile_h + t.ycc_v - 1) / t.ycc_v);
+  const uint64_t per = t.planar == 1 ? t.spp : 1;
+  return t.tile_h * ((uint64_t{t.tile_w} * per * t.bits + 7) / 8);
+}
+
+// libtiff's TIFFStripSize64: the bytes of a whole strip
+uint64_t strip_size(const Tiff& t) {
+  const uint64_t rows = std::min(t.rows_per_strip, t.h);
+  if (ycc_units(t))
+    return (uint64_t{t.w} + t.ycc_h - 1) / t.ycc_h *
+           (t.ycc_h * t.ycc_v + 2) * ((rows + t.ycc_v - 1) / t.ycc_v);
+  return rows * scanline_size(t);
+}
+
+// StripByteCounts as libtiff's TIFFReadDirectory leaves them (tif_dirread.c):
+// a missing tag (one strip or tile, or one per plane), the count of a
+// single strip that is 0 (or, without compression, runs past the file's
+// end or is shorter than the picture), and uncompressed counts whose first
+// two differ (more than two strips or tiles) are estimated anew
+// (EstimateStripByteCounts); the rest stand as written.
+int strip_byte_counts(long n, Tiff* t) {
+  const uint64_t size = static_cast<uint64_t>(n);
+  const long across = t->tiled ? (t->w + t->tile_w - 1) / t->tile_w : 1;
+  const long down = t->tiled ? (t->h + t->tile_h - 1) / t->tile_h
+                             : (t->h + std::min(t->rows_per_strip, t->h) - 1) /
+                                   std::min(t->rows_per_strip, t->h);
+  const long segments = across * down * (t->planar == 2 ? t->spp : 1);
+  if (static_cast<long>(t->offsets.size()) < segments)
+    return bad("fewer strip or tile offsets than the picture needs");
+  auto& counts = t->counts;
+  bool estimate = false;
+  if (!t->has_counts) {
+    if (t->planar == 1 ? segments > 1 : segments != t->spp)
+      return bad("no StripByteCounts for " + std::to_string(segments) +
+                 " strips or tiles");
+    estimate = true;
+  } else if (static_cast<long>(counts.size()) < segments) {
+    return bad("fewer strip or tile byte counts than the picture needs");
+  } else if (segments == 1 && !t->tiled && t->offsets[0] != 0) {
+    const uint64_t c0 = counts[0], o0 = t->offsets[0];
+    estimate = c0 == 0 ||
+               (t->compression == 1 &&
+                (o0 > size || c0 > size - o0 || c0 < scanline_size(*t) * t->h));
+  } else if (t->planar == 1 && segments > 2 && t->compression == 1 &&
+             counts[0] != counts[1] && counts[0] != 0 && counts[1] != 0) {
+    estimate = true;
+  }
+  if (!estimate) return kOk;
+  counts.assign(segments, 0);
+  if (t->compression != 1) {  // what the file holds past its IFD, shared
+    if (t->unknown_type)
+      return bad("a tag of a type of no known size beside a StripByteCounts "
+                 "libtiff estimates");
+    uint64_t space = (t->big ? 16 + 8 + 20 * t->entries + 8
+                             : 8 + 2 + 12 * t->entries + 4) + t->outside;
+    space = size < space ? size : size - space;
+    if (t->planar == 2) space /= t->spp;
+    std::fill(counts.begin(), counts.end(), space);
+    const uint64_t last = t->offsets[segments - 1];
+    if (last + counts.back() > size) counts.back() = last >= size ? 0 : size - last;
+  } else if (t->tiled) {
+    std::fill(counts.begin(), counts.end(), tile_size(*t));
+  } else {  // whole rows: the picture's rows / strips, rounded down
+    std::fill(counts.begin(), counts.end(),
+              scanline_size(*t) * (t->h / static_cast<uint64_t>(down)));
+  }
+  return kOk;
+}
+
 // the first IFD's fields and the checks of what the decoder reads
 int parse(const uint8_t* d, long n, Tiff* t) {
   if (n < 8) return bad("file ends inside its header");
@@ -172,11 +286,18 @@ int parse(const uint8_t* d, long n, Tiff* t) {
     return bad("IFD runs past the file");
   static const int kSize[] = {0, 1, 1, 2, 4, 8, 1, 1, 2, 4, 8, 4, 8,
                               4, 0, 0, 8, 8, 8};
+  t->big = big;
+  t->entries = static_cast<long>(entries);
   for (long e = 0; e < static_cast<long>(entries); ++e) {
     const long p = static_cast<long>(ifd) + head + entry * e;
     const uint32_t tag = r.u16(p), type = r.u16(p + 2);
     const uint64_t count = big ? r.u64(p + 4) : r.u32(p + 4);
-    if (type < 1 || type > 18 || kSize[type] == 0) continue;  // libtiff skips
+    if (type < 1 || type > 18 || kSize[type] == 0) {  // libtiff skips it
+      t->unknown_type = true;
+      continue;
+    }
+    if (count <= (1u << 28) && kSize[type] * count > static_cast<uint64_t>(word))
+      t->outside += kSize[type] * count;
     if (count > (1u << 28)) return bad("a tag of too many values");
     const long bytes = static_cast<long>(kSize[type]) * static_cast<long>(count);
     const long field = p + (big ? 12 : 8);
@@ -216,12 +337,13 @@ int parse(const uint8_t* d, long n, Tiff* t) {
         t->bits = static_cast<int>(value(0));
         for (uint32_t i = 1; i < count; ++i)
           if (value(i) != value(0))
-            return not_ported("samples of different bit depths");
+            return refused("samples of different bit depths");
         break;
       }
       case 259: t->compression = static_cast<int>(value(0)); break;
       case 292: t->t4_options = static_cast<uint32_t>(value(0)); break;
       case 332: t->inkset = static_cast<int>(value(0)); break;
+      case 318: rationals(t->white, 2); break;
       case 529: rationals(t->luma, 3); break;
       case 532: rationals(t->ref_bw, 6); break;
       case 262: t->photometric = static_cast<int>(value(0)); break;
@@ -230,7 +352,10 @@ int parse(const uint8_t* d, long n, Tiff* t) {
       case 274: t->orientation = static_cast<int>(value(0)); break;
       case 277: t->spp = static_cast<int>(value(0)); break;
       case 278: t->rows_per_strip = static_cast<uint32_t>(value(0)); break;
-      case 279: case 325: t->counts = values(); break;
+      case 279: case 325:
+        t->counts = values();
+        t->has_counts = true;
+        break;
       case 284: t->planar = static_cast<int>(value(0)); break;
       case 317: t->predictor = static_cast<int>(value(0)); break;
       case 320: {
@@ -252,31 +377,69 @@ int parse(const uint8_t* d, long n, Tiff* t) {
   }
   if (t->w == 0 || t->h == 0) return bad("no image size");
   if (t->w > 1u << 24 || t->h > 1u << 24) return bad("an image size too large");
-  if (const char* c = compression_name(t->compression)) return not_ported(c);
   if (const char* c = unconfigured_name(t->compression))
     return refused(std::string(c) + ", which cv2's libtiff is built without");
   const int c = t->compression;
   const bool ccitt = c == 2 || c == 3 || c == 4;
+  const bool sgilog = c == 34676 || c == 34677;
   if (c != 1 && c != 5 && c != 7 && c != 8 && c != 32946 && c != 32773 &&
-      !ccitt && !blank_compression(c))
+      c != 32809 && !ccitt && !sgilog && !blank_compression(c))
     return refused("compression " + std::to_string(c));
+  if (t->photometric < 0) return refused("no PhotometricInterpretation");
+  const int ph = t->photometric;
+  if (ph == 32844 || ph == 32845) {  // LogL, LogLuv: tif_luv.c's only
+    if (ph == 32844 ? c != 34676 : !sgilog)
+      return refused(ph == 32844 ? "LogL (photometric 32844) of other than "
+                                   "SGILog compression (34676)"
+                                 : "LogLuv (photometric 32845) of other than "
+                                   "SGILog compression (34676 or 34677)");
+    if (ph == 32845 && t->planar != 1)
+      return refused("LogLuv in separate planes");
+    if (t->spp != (ph == 32844 ? 1 : 3))
+      return refused(std::string(ph == 32844 ? "LogL" : "LogLuv") + " of " +
+                     std::to_string(t->spp) + " samples per pixel");
+    // the file's own BitsPerSample and SampleFormat (libtiff writes 16 and
+    // signed) pass the RGBA reader's checks first, and OpenCV's gray ones
+    // for LogL
+    const int fb = t->bits, ff = t->sample_format;
+    if (ph == 32844 ? fb != 1 && fb != 8 && fb != 16
+                    : fb != 1 && fb != 2 && fb != 4 && fb != 8 && fb != 16)
+      return refused(std::string(ph == 32844 ? "LogL" : "LogLuv") +
+                     " of BitsPerSample " + std::to_string(fb));
+    if (ph == 32844 ? ff != 1 && ff != 2 : ff == 3)
+      return refused(std::string(ph == 32844 ? "LogL" : "LogLuv") +
+                     " of SampleFormat " + std::to_string(ff));
+    // the RGBA reader asks tif_luv.c for 8-bit gray or RGB (its "little
+    // white lie"), whatever the file's samples; SGILog has no predictor
+    t->sgilog = ph == 32844 ? kSgiLogL : c == 34676 ? kSgiLogLuv32
+                                                    : kSgiLogLuv24;
+    t->photometric = ph == 32844 ? 1 : 2;
+    t->bits = 8;
+    t->sample_format = 1;
+    t->predictor = 1;
+  } else if (sgilog) {
+    return refused("SGILog compression under photometric " +
+                   std::to_string(ph) + ", not LogL or LogLuv");
+  }
   if (t->sample_format == 3)
     return refused("float samples (SampleFormat 3)");
   if (t->sample_format != 1 && t->sample_format != 2)
     return refused("SampleFormat " + std::to_string(t->sample_format));
-  if (t->photometric < 0) return bad("no PhotometricInterpretation");
   if (t->fill_order == 2 && c == 7)
     return refused("FillOrder 2 under JPEG compression");
   if (ccitt && (t->bits != 1 || t->spp != 1 || t->photometric > 1))
     return refused("CCITT compression of other than 1-bit gray");
+  if (c == 32809 && t->bits != 4)
+    return refused("ThunderScan compression of " + std::to_string(t->bits) +
+                   "-bit samples");
   switch (t->photometric) {
     case 0: case 1: case 2: case 3: break;
+    case 4: return refused("a transparency mask (photometric 4)");
     case 5:
       if (t->inkset != 1) return refused("CMYK of InkSet " +
                                          std::to_string(t->inkset));
       if (t->bits != 8 || t->spp != 4)
         return refused("CMYK of other than four 8-bit samples");
-      if (c == 7) return not_ported("CMYK inside JPEG");
       break;
     case 6:
       if (c == 7) {
@@ -292,19 +455,26 @@ int parse(const uint8_t* d, long n, Tiff* t) {
         return refused("YCbCr subsampling " + std::to_string(t->ycc_h) + "x" +
                        std::to_string(t->ycc_v) + " in planar configuration " +
                        std::to_string(t->planar));
-      if (t->predictor != 1 && (t->ycc_h != 1 || t->ycc_v != 1))
-        return not_ported("a predictor on subsampled YCbCr");
       break;
-    case 8: case 9: case 10: return not_ported("CIELab (photometric " +
-                                               std::to_string(t->photometric) +
-                                               ")");
+    case 8:  // CIELab: initCIELabConversion's 8- and 16-bit putters only
+      if (t->planar != 1) return refused("CIELab in separate planes");
+      if (t->spp != 3)
+        return refused("CIELab of " + std::to_string(t->spp) +
+                       " samples per pixel");
+      if (t->white[1] == 0.0f) return refused("CIELab of a WhitePoint y of 0");
+      break;
+    case 9: return refused("ICC CIELab (photometric 9)");
+    case 10: return refused("ITU CIELab (photometric 10)");
+    case 32803: return refused("a colour filter array (photometric 32803)");
+    case 34892: return refused("linear raw (photometric 34892)");
     default:
-      return not_ported("photometric " + std::to_string(t->photometric));
+      return refused("photometric " + std::to_string(t->photometric));
   }
   if (t->spp < 1 || t->spp > 4) return refused(std::to_string(t->spp) +
                                                " samples per pixel");
   if (t->planar != 1 && t->planar != 2) return bad("bad PlanarConfiguration");
-  const int colour = (t->photometric == 2 || t->photometric == 6) ? 3
+  const int colour = (t->photometric == 2 || t->photometric == 6 ||
+                      t->photometric == 8) ? 3
                      : t->photometric == 5 ? 4 : 1;
   if (t->spp < colour) return bad("fewer samples than the photometric needs");
   if (t->planar == 2 && colour == 1 && t->spp > 1 && t->bits == 1)
@@ -327,12 +497,15 @@ int parse(const uint8_t* d, long n, Tiff* t) {
   if (t->photometric == 3) {
     if (t->colormap.size() != 3u << b) return bad("a colour map of the wrong size");
   }
-  if (t->predictor != 1) {
-    const bool coded = t->compression == 5 || t->compression == 8 ||
-                       t->compression == 32946;
-    if (coded && t->predictor == 3) return not_ported("floating-point predictor");
-    if (coded && t->predictor != 2) return bad("unknown predictor");
-    if (coded && b < 8) return bad("predictor 2 on samples of under 8 bits");
+  if (t->predictor != 1 && (c == 5 || c == 8 || c == 32946)) {
+    // tif_predict.c's PredictorSetup
+    if (t->predictor == 3)
+      return refused("the floating-point predictor (Predictor 3) on "
+                     "integer samples");
+    if (t->predictor != 2)
+      return refused("Predictor " + std::to_string(t->predictor));
+    if (b < 8)
+      return refused("predictor 2 on " + std::to_string(b) + "-bit samples");
   }
   if (t->tiled) {
     if (t->tile_w == 0 || t->tile_h == 0 || t->tile_w % 16 || t->tile_h % 16 ||
@@ -341,18 +514,11 @@ int parse(const uint8_t* d, long n, Tiff* t) {
   } else if (t->rows_per_strip == 0) {
     return bad("RowsPerStrip of 0");
   }
-  const long across = t->tiled ? (t->w + t->tile_w - 1) / t->tile_w : 1;
-  const long down = t->tiled ? (t->h + t->tile_h - 1) / t->tile_h
-                             : (t->h + std::min(t->rows_per_strip, t->h) - 1) /
-                                   std::min(t->rows_per_strip, t->h);
-  const long segments = across * down * (t->planar == 2 ? t->spp : 1);
-  if (static_cast<long>(t->offsets.size()) < segments ||
-      static_cast<long>(t->counts.size()) < segments)
-    return bad("fewer strip or tile offsets than the picture needs");
-  if (t->orientation >= 5 && t->orientation <= 8)
+  if (t->orientation >= 5 && t->orientation <= 8 && t->w != t->h)
     return refused("orientation " + std::to_string(t->orientation) +
-                   ", which cv2.imread fails to turn");
-  return kOk;
+                   " on a picture that is not square, which cv2.imread "
+                   "fails to turn");
+  return strip_byte_counts(n, t);
 }
 
 // --------------------------------------------------------------- codecs
@@ -474,6 +640,75 @@ int packbits_decode(const uint8_t* src, long len, uint8_t* out, long want) {
   return kOk;
 }
 
+// libtiff's ThunderDecodeRow (tif_thunder.c): 4-bit pixels, rows of the
+// picture's width `scanline` bytes apart, each coded as bytes of a 2-bit
+// code and 6 bits of data: a run of the last pixel (its count in the data),
+// three 2-bit or two 3-bit deltas from the last pixel (a skip code for
+// none), or a raw pixel. A row of too few or too many pixels fails.
+int thunder_decode(const uint8_t* src, long len, long width, long scanline,
+                   long want, uint8_t* out) {
+  static const int kDelta2[4] = {0, 1, 0, -1};
+  static const int kDelta3[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  if (scanline <= 0 || want % scanline)
+    return bad("ThunderScan: fractional scanlines");
+  const uint8_t* bp = src;
+  long cc = len;
+  for (long r0 = 0; r0 < want; r0 += scanline) {
+    uint8_t* op = out + r0;
+    unsigned lastpixel = 0;
+    long npixels = 0;
+    auto set = [&](unsigned v) {
+      lastpixel = v & 0xf;
+      if (npixels < width) {
+        if (npixels++ & 1)
+          *op++ |= static_cast<uint8_t>(lastpixel);
+        else
+          op[0] = static_cast<uint8_t>(lastpixel << 4);
+      }
+    };
+    while (cc > 0 && npixels < width) {
+      int n = *bp++;
+      --cc;
+      switch (n & 0xc0) {
+        case 0x00:  // a run of the last pixel, n & 0x3f long
+          n &= 0x3f;
+          if (npixels & 1) {
+            op[0] |= static_cast<uint8_t>(lastpixel);
+            lastpixel = *op++;
+            ++npixels;
+            --n;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += n;
+          if (npixels <= width)
+            for (; n > 0; n -= 2) *op++ = static_cast<uint8_t>(lastpixel);
+          if (n == -1) *--op &= 0xf0;
+          lastpixel &= 0xf;
+          break;
+        case 0x40:  // three 2-bit deltas
+          for (int sh = 4; sh >= 0; sh -= 2) {
+            const int delta = (n >> sh) & 3;
+            if (delta != 2) set(lastpixel + kDelta2[delta]);
+          }
+          break;
+        case 0x80:  // two 3-bit deltas
+          for (int sh = 3; sh >= 0; sh -= 3) {
+            const int delta = (n >> sh) & 7;
+            if (delta != 4) set(lastpixel + kDelta3[delta]);
+          }
+          break;
+        default: set(static_cast<unsigned>(n)); break;  // a raw pixel
+      }
+    }
+    if (npixels != width)
+      return bad(std::string("ThunderScan: ") +
+                 (npixels < width ? "not enough" : "too much") +
+                 " data in a row");
+  }
+  return kOk;
+}
+
 // ------------------------------------------------------------- decode
 
 // the samples of the picture, before the photometric maps: (h, w, spp)
@@ -488,11 +723,19 @@ struct Samples {
 // one strip or tile (index seg, of plane `plane`) into the samples
 int read_segment(const uint8_t* d, long n, const Tiff& t, long seg, int plane,
                  long y0, long x0, long seg_h, long seg_w, Samples* s) {
+  // TIFFFillStrip / TIFFFillTile: a count of 0 fails, one over 1 MiB and
+  // past 10 times the segment's size plus 4,096 is cut to that, and the
+  // bytes must lie inside the file
+  uint64_t count = t.counts[seg];
+  if (count == 0) return bad("a strip or tile of no bytes");
+  const uint64_t full = t.tiled ? tile_size(t) : strip_size(t);
+  if (count > (1u << 20) && full != 0 && (count - 4096) / 10 > full)
+    count = full * 10 + 4096;
   if (t.offsets[seg] > static_cast<uint64_t>(n) ||
-      t.counts[seg] > static_cast<uint64_t>(n) - t.offsets[seg])
+      count > static_cast<uint64_t>(n) - t.offsets[seg])
     return bad("a strip or tile outside the file");
   const long off = static_cast<long>(t.offsets[seg]);
-  const long cnt = static_cast<long>(t.counts[seg]);
+  const long cnt = static_cast<long>(count);
   const int per = t.planar == 2 ? 1 : t.spp;  // samples in the segment
   const long rows = std::min<long>(seg_h, t.h - y0);
   const long cols = std::min<long>(seg_w, t.w - x0);
@@ -523,9 +766,7 @@ int read_segment(const uint8_t* d, long n, const Tiff& t, long seg, int plane,
     return kOk;
   }
   const long raw_rows = t.tiled ? seg_h : rows;
-  // contiguous YCbCr outside JPEG: rows of data units, each h x v luma
-  // samples, then Cb and Cr
-  const bool units = t.photometric == 6 && t.planar == 1;
+  const bool units = ycc_units(t);
   const int uh = units ? t.ycc_h : 1, uv = units ? t.ycc_v : 1;
   const long unit_bytes = units ? uh * uv + 2 : 0;
   const long units_across = (seg_w + uh - 1) / uh;
@@ -533,38 +774,82 @@ int read_segment(const uint8_t* d, long n, const Tiff& t, long seg, int plane,
                                : (seg_w * per * t.bits + 7) / 8;
   const long stored_rows = units ? (raw_rows + uv - 1) / uv : raw_rows;
   const long want = row_bytes * stored_rows;
-  std::vector<uint8_t> src(d + off, d + off + cnt), buf(want);
+  // the bytes libtiff decodes: all of a tile; a strip's rows times the
+  // scanline size, for YCbCr units the rows rounded up to v times a row of
+  // units / v rounded down (gtStripContig), the rest of the buffer 0
+  const long asked = t.tiled || !units
+                         ? want
+                         : std::min(want, (rows + uv - 1) / uv * uv *
+                                              (row_bytes / uv));
+  std::vector<uint8_t> src(d + off, d + off + cnt), buf(want, 0);
   if (t.fill_order == 2)  // the bits of every byte reversed
     for (auto& b : src) {
       b = static_cast<uint8_t>(((b * 0x0802LU & 0x22110LU) |
                                 (b * 0x8020LU & 0x88440LU)) * 0x10101LU >> 16);
     }
   int st = kOk;
-  // under the blank compressions buf stays zero
-  if (!blank_compression(t.compression)) switch (t.compression) {
+  // under the blank compressions buf stays zero, and so it does for
+  // ThunderScan tiles (tif_thunder.c decodes strips only)
+  if (!blank_compression(t.compression) &&
+      !(t.compression == 32809 && t.tiled)) switch (t.compression) {
     case 1:
-      if (cnt < want) return bad("a strip or tile shorter than its rows");
-      std::memcpy(buf.data(), src.data(), want);
+      if (cnt < asked) return bad("a strip or tile shorter than its rows");
+      std::memcpy(buf.data(), src.data(), asked);
       break;
-    case 5: st = lzw_decode(src.data(), cnt, buf.data(), want); break;
+    case 5: st = lzw_decode(src.data(), cnt, buf.data(), asked); break;
     case 8: case 32946:
-      st = inflate_segment(src.data(), cnt, buf.data(), want);
+      st = inflate_segment(src.data(), cnt, buf.data(), asked);
       break;
     case 2: case 3: case 4:
       st = ccitt_decode(src.data(), cnt, t.compression, t.t4_options, seg_w,
                         raw_rows, buf.data());
       break;
-    default: st = packbits_decode(src.data(), cnt, buf.data(), want);
+    case 32809:
+      st = thunder_decode(src.data(), cnt, t.w,
+                          static_cast<long>(scanline_size(t)), asked,
+                          buf.data());
+      break;
+    case 34676: case 34677:
+      st = sgilog_decode(src.data(), cnt, t.sgilog, seg_w, raw_rows,
+                         buf.data());
+      break;
+    default: st = packbits_decode(src.data(), cnt, buf.data(), asked);
   }
   if (st) return st;
-  if (units) {  // each pixel's luma sample and its unit's chroma
-    // libtiff's strip reader asks for rows rounded up to v times the
-    // scanline size, (a row of units) / v rounded down: the bytes past that
-    // stay 0
-    if (!t.tiled) {
-      const long asked = (rows + uv - 1) / uv * uv * (row_bytes / uv);
-      if (asked < want) std::fill(buf.begin() + asked, buf.end(), 0);
+  const long nsamp = seg_w * per;
+  if (t.bits == 16) {  // to native (little-endian) order, as libtiff swaps
+    for (long i = 0; i < raw_rows * nsamp; ++i) {
+      uint8_t* b = buf.data() + 2 * i;
+      if (!t.le) std::swap(b[0], b[1]);
     }
+  }
+  if (t.predictor == 2 && (t.compression == 5 || t.compression == 8 ||
+                           t.compression == 32946)) {
+    // tif_predict.c's PredictorDecodeTile: the decoded bytes in rows of
+    // libtiff's row size (the scanline size in strips, a row of tile
+    // samples in tiles, whatever YCbCr's data units), each row summed with
+    // a stride of the samples per pixel. Where the bytes do not divide into
+    // rows, or a row into pixels, libtiff fails before it sums and its
+    // RGBA reader goes on with the bytes as decoded.
+    const long rowsize = t.tiled ? (seg_w * per * t.bits + 7) / 8
+                                 : static_cast<long>(scanline_size(t));
+    const int bytes = t.bits / 8;
+    if (rowsize > 0 && asked % rowsize == 0 && rowsize % (per * bytes) == 0)
+      for (long r0 = 0; r0 < asked; r0 += rowsize) {
+        uint8_t* row = buf.data() + r0;
+        for (long i = per; i < rowsize / bytes; ++i) {
+          if (bytes == 2) {
+            const int v = (row[2 * i] | (row[2 * i + 1] << 8)) +
+                          (row[2 * i - 2 * per] | (row[2 * i - 2 * per + 1] << 8));
+            row[2 * i] = static_cast<uint8_t>(v);
+            row[2 * i + 1] = static_cast<uint8_t>(v >> 8);
+          } else {
+            row[i] = static_cast<uint8_t>(row[i] + row[i - per]);
+          }
+        }
+      }
+  }
+  if (units) {  // each pixel's luma sample and its unit's chroma
     // in a clipped tile each row of units after the first starts after the
     // units the pixels use and the rest of the row, the rest counted as
     // (pixels / h) units of h * 2 + 2 bytes by putcontig8bitYCbCr44tile
@@ -586,38 +871,15 @@ int read_segment(const uint8_t* d, long n, const Tiff& t, long seg, int plane,
       }
     return kOk;
   }
-  const bool predict = t.predictor == 2 && (t.compression == 5 ||
-                                            t.compression == 8 ||
-                                            t.compression == 32946);
-  const long nsamp = seg_w * per;
-  if (t.bits == 16) {  // to native (little-endian) order, as libtiff swaps
-    for (long i = 0; i < raw_rows * nsamp; ++i) {
-      uint8_t* b = buf.data() + 2 * i;
-      if (!t.le) std::swap(b[0], b[1]);
-    }
-  }
-  if (predict)
-    for (long y = 0; y < raw_rows; ++y) {
-      uint8_t* row = buf.data() + y * row_bytes;
-      for (long i = per; i < nsamp; ++i) {
-        if (t.bits == 16) {
-          const int v = (row[2 * i] | (row[2 * i + 1] << 8)) +
-                        (row[2 * i - 2 * per] | (row[2 * i - 2 * per + 1] << 8));
-          row[2 * i] = static_cast<uint8_t>(v);
-          row[2 * i + 1] = static_cast<uint8_t>(v >> 8);
-        } else {
-          row[i] = static_cast<uint8_t>(row[i] + row[i - per]);
-        }
-      }
-    }
   // libtiff's gray tile readers (putgreytile, putagreytile,
   // put16bitbwtile) step over the clipped part of a rightmost tile by its
   // pixel count in bytes: each row of such a tile after the first starts
-  // there, at npix * samples * bytes + (tile width - npix)
+  // there, at npix * samples * bytes + (tile width - npix); one sample in
+  // separate planes is read as contiguous
   const int bytes = t.bits / 8;
   long stride = row_bytes;
   if (t.tiled && cols < seg_w && t.photometric <= 1 && bytes > 0 &&
-      t.planar == 1)
+      (t.planar == 1 || t.spp == 1))
     stride = cols * per * bytes + (seg_w - cols);
   for (long y = 0; y < rows; ++y) {
     const uint8_t* row = buf.data() + y * stride;
@@ -696,6 +958,53 @@ struct Ycc {
   }
 };
 
+// libtiff's CIE L*a*b* to RGB (tif_color.c) as initCIELabConversion sets it
+// up: TIFFCIELabToRGBInit with the sRGB display of tif_getimage.c and the
+// reference white of the WhitePoint (Y of 100), then TIFFCIELab16ToXYZ (8-bit
+// samples scaled by 257 and 256) and TIFFXYZToRGB, in their float steps
+struct CieLab {
+  static constexpr int kRange = 1500;  // CIELABTORGB_TABLE_RANGE
+  float table[kRange + 1];  // the same for R, G and B on this display
+  float step, x0, y0, z0;
+  void init(const float* white) {
+    const double gamma = 1.0 / 2.4F;
+    step = (100.0F - 1.0F) / kRange;
+    for (int i = 0; i <= kRange; ++i)
+      table[i] = 255u * static_cast<float>(
+                            std::pow(static_cast<double>(i) / kRange, gamma));
+    y0 = 100.0F;
+    x0 = white[0] / white[1] * y0;
+    z0 = (1.0F - white[0] - white[1]) / white[1] * y0;
+  }
+  uint8_t channel(float yc) const {
+    yc = yc > 1.0F ? yc : 1.0F;
+    yc = yc < 100.0F ? yc : 100.0F;
+    int i = static_cast<int>((yc - 1.0F) / step);
+    i = std::min(kRange, i);
+    const float f = table[i];
+    const uint32_t v = static_cast<uint32_t>(f > 0 ? f + 0.5 : f - 0.5);
+    return static_cast<uint8_t>(std::min<uint32_t>(v, 255));
+  }
+  void rgb(uint32_t l, int32_t a, int32_t b, uint8_t* o) const {
+    const float L = static_cast<float>(l) * 100.0F / 65535.0F;
+    float cby, tmp, X, Y, Z;
+    if (L < 8.856F) {
+      Y = (L * y0) / 903.292F;
+      cby = 7.787F * (Y / y0) + 16.0F / 116.0F;
+    } else {
+      cby = (L + 16.0F) / 116.0F;
+      Y = y0 * cby * cby * cby;
+    }
+    tmp = static_cast<float>(a) / 256.0F / 500.0F + cby;
+    X = tmp < 0.2069F ? x0 * (tmp - 0.13793F) / 7.787F : x0 * tmp * tmp * tmp;
+    tmp = cby - static_cast<float>(b) / 256.0F / 200.0F;
+    Z = tmp < 0.2069F ? z0 * (tmp - 0.13793F) / 7.787F : z0 * tmp * tmp * tmp;
+    o[0] = channel(3.2410F * X + -1.5374F * Y + -0.4986F * Z);
+    o[1] = channel(-0.9692F * X + 1.8760F * Y + 0.0416F * Z);
+    o[2] = channel(0.0556F * X + -0.2040F * Y + 1.0570F * Z);
+  }
+};
+
 int decode(const uint8_t* d, long n, const Tiff& t, uint8_t* out) {
   Samples s{static_cast<int>(t.h), static_cast<int>(t.w), t.spp, {}};
   s.v.assign(static_cast<size_t>(t.h) * t.w * t.spp, 0);
@@ -731,6 +1040,8 @@ int decode(const uint8_t* d, long n, const Tiff& t, uint8_t* out) {
   const bool gray_alpha = gray_planes && t.extra == 2;
   Ycc ycc;
   if (t.photometric == 6 && t.compression != 7) ycc.init(t.luma, t.ref_bw);
+  CieLab lab;
+  if (t.photometric == 8) lab.init(t.white);
   auto to8 = [&](uint32_t v) -> int {  // RGB samples
     return b == 16 ? static_cast<int>((v + 128) / 257) : static_cast<int>(v);
   };
@@ -762,6 +1073,14 @@ int decode(const uint8_t* d, long n, const Tiff& t, uint8_t* out) {
         case 3:
           for (int c = 0; c < 3; ++c) o[c] = cmap[c][q[0]];
           break;
+        case 8:  // L unsigned, a and b signed
+          if (b == 8)
+            lab.rgb(q[0] * 257u, static_cast<int8_t>(q[1]) * 256,
+                    static_cast<int8_t>(q[2]) * 256, o);
+          else
+            lab.rgb(q[0], static_cast<int16_t>(q[1]), static_cast<int16_t>(q[2]),
+                    o);
+          break;
         case 6:
           if (t.compression != 7) {  // the JPEG strips came as RGB
             ycc.rgb(q[0], q[1], q[2], o);
@@ -779,9 +1098,10 @@ int decode(const uint8_t* d, long n, const Tiff& t, uint8_t* out) {
         }
       }
     }
-  // orientation 2-4: columns flipped within each tile (the whole width of a
-  // strip), rows over the picture
-  const int o = t.orientation;
+  // orientation 2-4 (and 6-8 first as 2-4): columns flipped within each
+  // tile (the whole width of a strip), rows over the picture
+  const int o = t.orientation > 4 && t.orientation <= 8 ? t.orientation - 4
+                                                        : t.orientation;
   if (o == 2 || o == 3) {
     for (int y = 0; y < s.h; ++y) {
       uint8_t* row = out + static_cast<long>(y) * s.w * 3;
@@ -802,6 +1122,18 @@ int decode(const uint8_t* d, long n, const Tiff& t, uint8_t* out) {
       std::memcpy(a, z, rb);
       std::memcpy(z, tmp.data(), rb);
     }
+  }
+  // then cv2 turns a square picture of orientation 5-8: 5 and 7 about the
+  // main diagonal (transposed), 6 and 8 about the other one
+  if (t.orientation >= 5 && t.orientation <= 8) {
+    const long side = s.w;
+    const bool main = t.orientation == 5 || t.orientation == 7;
+    for (long y = 0; y < side; ++y)
+      for (long x = main ? y + 1 : 0; main ? x < side : x < side - 1 - y; ++x) {
+        const long ty = main ? x : side - 1 - x, tx = main ? y : side - 1 - y;
+        for (int c = 0; c < 3; ++c)
+          std::swap(out[(y * side + x) * 3 + c], out[(ty * side + tx) * 3 + c]);
+      }
   }
   return kOk;
 }

@@ -44,6 +44,47 @@ def packbits(data: bytes) -> bytes:
     return bytes(out)
 
 
+def thunderscan(rows, run_to_end: bool = False) -> bytes:
+    """(rows, w) 4-bit pixels -> ThunderScan codes (tif_thunder.c's
+    decoder; libtiff has no encoder): per row from a last pixel of 0, runs
+    of the last pixel (up to 63), three 2-bit deltas (0, 1, -1; a skip code
+    where the row has fewer left), two 3-bit deltas (-3..3) or a raw pixel,
+    whichever codes most pixels. A run reaches a row's end only where
+    run_to_end is set."""
+    d2 = {0: 0, 1: 1, -1: 3}
+    d3 = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    out = bytearray()
+    for row in np.asarray(rows, np.int64):
+        w, last, i = len(row), 0, 0
+        while i < w:
+            run = 0
+            while i + run < w and row[i + run] == last and run < 63:
+                run += 1
+            if run >= 2 and (i + run < w or run_to_end):
+                out.append(run)
+                i += run
+                continue
+            deltas = [int(v) - p for v, p in zip(row[i:i + 3],
+                                                 [last] + list(row[i:i + 2]))]
+            n2 = next((k for k, v in enumerate(deltas) if v not in d2),
+                      len(deltas))
+            if n2 == 3 or (n2 == len(deltas) and n2 > 0):
+                codes = [d2[v] for v in deltas] + [2] * (3 - n2)
+                out.append(0x40 | codes[0] << 4 | codes[1] << 2 | codes[2])
+                i, last = i + n2, int(row[i + n2 - 1])
+                continue
+            n3 = next((k for k, v in enumerate(deltas[:2]) if v not in d3),
+                      len(deltas[:2]))
+            if n3 == 2 or (n3 == len(deltas[:2]) and n3 > 0):
+                codes = [d3[v] for v in deltas[:2]] + [4] * (2 - n3)
+                out.append(0x80 | codes[0] << 3 | codes[1])
+                i, last = i + n3, int(row[i + n3 - 1])
+                continue
+            out.append(0xC0 | int(row[i]))
+            i, last = i + 1, int(row[i])
+    return bytes(out)
+
+
 def lzw(data: bytes, old_style: bool = False) -> bytes:
     """TIFF LZW as libtiff writes it (MSB first, the code width growing one
     code early, a clear code when the table fills), or in the old style
@@ -144,7 +185,7 @@ def write_tiff(img: np.ndarray, bits: int = 8, photometric: int = None,
                fill_order: int = None, old_lzw: bool = False,
                bigtiff: bool = False, inkset: int = None,
                ref_black_white=None, ycbcr_coefficients=None,
-               lzma_filters=None) -> bytes:
+               lzma_filters=None, white_point=None) -> bytes:
     """(h, w, spp) samples -> a TIFF file of one page.
 
     compression: 1 none, 5 LZW (old_lzw: the old bit order), 8 Deflate,
@@ -158,6 +199,8 @@ def write_tiff(img: np.ndarray, bits: int = 8, photometric: int = None,
     (h, w, 3) YCbCr samples into libtiff's data units of `subsampling`
     (h * v luma samples, then the means of Cb and Cr, rounded down).
     fill_order 2 reverses the bits of every coded byte (not under JPEG).
+    white_point: WhitePoint's ((num, den), (num, den)) for CIELab.
+    compression 32809 codes 4-bit rows by `thunderscan`.
     bigtiff writes version 43 with 8-byte counts and offsets."""
     img = np.asarray(img)
     if img.ndim == 2:
@@ -190,14 +233,27 @@ def write_tiff(img: np.ndarray, bits: int = 8, photometric: int = None,
                     tables, seg = jpeg_split(seg)
                 segments.append(seg)
                 continue
-            if photometric == 6 and subsampling and planar == 1:
+            units = photometric == 6 and subsampling and planar == 1
+            if units:
                 rows = _ycbcr_units(block, *subsampling)
                 bh = rows.shape[0]
             else:
                 rows = block.reshape(bh, -1)
-            if predictor == 2:
+            if predictor == 2 and units:
+                # libtiff differences data units in rows of its scanline
+                # size (a row of units / v) in strips, of 3 * tile width
+                # bytes in tiles, whatever the units
+                size = tile[1] * 3 if tile else rows.shape[1] // \
+                    subsampling[1]
+                flat = rows.reshape(-1)
+                n = -(-flat.size // size) * size
+                chunks = np.pad(flat, (0, n - flat.size)).reshape(-1, size)
+                rows = _predict(chunks, 3, 8).reshape(-1)[:flat.size] \
+                    .reshape(rows.shape)
+            elif predictor == 2:
                 rows = _predict(rows, block.shape[2], bits)
-            raw = _pack_rows(rows, bits, order)
+            raw = thunderscan(rows) if compression == 32809 else \
+                _pack_rows(rows, bits, order)
             if compression == 5:
                 raw = lzw(raw, old_lzw)
             elif compression in (8, 32946):
@@ -246,6 +302,8 @@ def write_tiff(img: np.ndarray, bits: int = 8, photometric: int = None,
                          for v in (int(round(x * 1000)), 1000)])
     if tables is not None:
         tags[347] = (7, list(tables))
+    if white_point is not None:
+        tags[318] = (5, [v for pair in white_point for v in pair])
     # layout: header, the segments, then the IFD and its out-of-line values
     data = bytearray(8)
     offsets = []
@@ -302,21 +360,28 @@ def pil_tiff(img: np.ndarray, compression: str, tiffinfo=None) -> bytes:
     return buf.getvalue()
 
 
-def set_tiff_tag(data: bytes, tag: int, value: int) -> bytes:
-    """A classic TIFF with the first value of a SHORT or LONG tag of its
-    first IFD set to `value`."""
+def _tiff_entry(data: bytes, tag: int):
+    """(byte order, the entry's position, its type, count) of a tag of a
+    classic TIFF's first IFD."""
     order = "<" if data[:2] == b"II" else ">"
-    out = bytearray(data)
     ifd = struct.unpack(order + "I", data[4:8])[0]
     n = struct.unpack(order + "H", data[ifd:ifd + 2])[0]
     for e in range(n):
         p = ifd + 2 + 12 * e
-        t, typ = struct.unpack(order + "HH", data[p:p + 4])
+        t, typ, count = struct.unpack(order + "HHI", data[p:p + 8])
         if t == tag:
-            out[p + 8:p + 12] = struct.pack(
-                order + ("H" if typ == 3 else "I"), value).ljust(4, b"\0")
-            return bytes(out)
+            return order, p, typ, count
     raise KeyError(tag)
+
+
+def set_tiff_tag(data: bytes, tag: int, value: int) -> bytes:
+    """A classic TIFF with the first value of a SHORT or LONG tag of its
+    first IFD set to `value`."""
+    order, p, typ, _ = _tiff_entry(data, tag)
+    out = bytearray(data)
+    out[p + 8:p + 12] = struct.pack(
+        order + ("H" if typ == 3 else "I"), value).ljust(4, b"\0")
+    return bytes(out)
 
 
 _REVERSED = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)],
@@ -1097,7 +1162,7 @@ def fixture_files():
                                        tile=(16, 16)),
         "TIFF", "orientation 3, tiles")
     add("tiff_orient6.tif", write_tiff(a, orientation=6), "TIFF",
-        "orientation 6", "refused")
+        "orientation 6, not square", "refused")
     add("webp_lossless.webp", _pil(a, "WEBP", lossless=True), "WebP",
         "VP8L")
     add("webp_lossless_palette.webp", _pil(
@@ -1159,6 +1224,7 @@ def fixture_files():
             "not ported" if ext == ".avif" else "pixels")
     add("other_gif.gif", _pil(a, "GIF"), "GIF", "Pillow")
     _add_new_formats(add, a, b, big, rs)
+    _add_tiff_tail(add)
     return out
 
 
@@ -1264,7 +1330,7 @@ def _add_new_formats(add, a, b, big, rs):
         (a.astype(np.float32) / 255).view(np.uint32), bits=32,
         sample_format=3), "TIFF", "float samples", "refused")
     add("tiffv_cielab.tif", write_tiff(a, photometric=8), "TIFF",
-        "CIELab", "not ported")
+        "CIELab")
     # the compressions cv2's libtiff cannot decode: the picture of zero
     # samples (the strips hold the pictures uncompressed all the same)
     add("tiffb_pixar_rgb.tif", write_tiff(a, compression=32908,
@@ -1279,8 +1345,214 @@ def _add_new_formats(add, a, b, big, rs):
         "JPEG 2000 compression (34712), palette tiles: entry 0")
 
 
-def write_fixtures(directory: str) -> dict:
-    """Writes every fixture, and for each one cv2 decodes its pixels as
+def _tiff_values_at(data: bytes, tag: int):
+    """(byte order, struct format, count, where the values are) of a SHORT
+    or LONG tag of a classic TIFF's first IFD."""
+    order, p, typ, count = _tiff_entry(data, tag)
+    f, size = ("H", 2) if typ == 3 else ("I", 4)
+    at = p + 8 if size * count <= 4 else struct.unpack(
+        order + "I", data[p + 8:p + 12])[0]
+    return order, f, count, at
+
+
+def set_tiff_values(data: bytes, tag: int, values) -> bytes:
+    """A classic TIFF with every value of a SHORT or LONG tag of its first
+    IFD set to `values` (as many as it holds), in line or where they are
+    stored."""
+    order, f, count, at = _tiff_values_at(data, tag)
+    assert count == len(values), (tag, count, len(values))
+    body = struct.pack(order + f * count, *values)
+    out = bytearray(data)
+    out[at:at + len(body)] = body
+    return bytes(out)
+
+
+def tiff_values(data: bytes, tag: int):
+    """The values of a SHORT or LONG tag of a classic TIFF's first IFD."""
+    order, f, count, at = _tiff_values_at(data, tag)
+    return list(struct.unpack_from(order + f * count, data, at))
+
+
+def drop_tiff_tag(data: bytes, tag: int) -> bytes:
+    """A classic TIFF whose first IFD no longer holds `tag`."""
+    order = "<" if data[:2] == b"II" else ">"
+    ifd = struct.unpack(order + "I", data[4:8])[0]
+    n = struct.unpack(order + "H", data[ifd:ifd + 2])[0]
+    entries = [data[ifd + 2 + 12 * e:ifd + 14 + 12 * e] for e in range(n)]
+    kept = [x for x in entries if struct.unpack(order + "H", x[:2])[0] != tag]
+    out = bytearray(data)
+    out[ifd:ifd + 2 + 12 * n + 4] = (struct.pack(order + "H", len(kept)) +
+                                     b"".join(kept) + bytes(4) +
+                                     bytes(12 * (n - len(kept))))
+    return bytes(out)
+
+
+def sgilog_tiff(words, compression: int, photometric: int, **kw) -> bytes:
+    """write_sgilog (libtiff's SGILog encoder, through the libtiff shared
+    library) of raw words, as bytes."""
+    import os
+    import tempfile
+    from semi_detr_tpu_torch.tools.sgilog_table import write_sgilog
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sgilog.tif")
+        write_sgilog(path, words, compression, photometric, **kw)
+        with open(path, "rb") as f:
+            return f.read()
+
+
+def sgilog_words(kind: str, h: int, w: int, seed: int) -> np.ndarray:
+    """Seeded raw SGILog words of a (h, w) picture: LogL 16-bit (a few
+    negative and zero, runs), LogLuv 32 (zero luminance, a negative row,
+    runs) or LogLuv 24 (every kind of uv index, past the grid too)."""
+    rs = np.random.RandomState(seed)
+    ys, xs = np.mgrid[0:h, 0:w]
+    if kind == "logl":
+        le = 13500 + (xs * 3000 // max(w - 1, 1)) + rs.randint(0, 400, (h, w))
+        le[:, :2] = 0
+        le[h // 3, :] |= 0x8000
+        le[h // 2:h // 2 + 3, 3:w - 2] = 15000
+        return le.astype(np.uint16).view(np.int16)
+    if kind == "luv32":
+        le = 14500 + (ys * 2500 // max(h - 1, 1)) + rs.randint(0, 300, (h, w))
+        le[1, :3] = 0
+        le[h // 4, :] |= 0x8000
+        u = 70 + xs * 60 // max(w - 1, 1) + rs.randint(0, 8, (h, w))
+        v = 150 + ys * 60 // max(h - 1, 1) + rs.randint(0, 8, (h, w))
+        out = (le.astype(np.uint32) << 16) | (u << 8) | v
+        out[h // 2:h // 2 + 4, 2:w - 3] = out[h // 2, 2]
+        return out.astype(np.uint32)
+    le = 700 + (xs * 200 // max(w - 1, 1)) + rs.randint(0, 20, (h, w))
+    le[0, :2] = 0
+    c = rs.randint(0, 16384, (h, w))
+    return ((le.astype(np.uint32) << 14) | c).astype(np.uint32)
+
+
+def cielab(img: np.ndarray, bits: int = 8, seed: int = 0) -> np.ndarray:
+    """RGB -> CIELab samples as TIFF stores them: L* in 0-255, a* and b* as
+    signed bytes (cv2's Lab with its offset of 128 taken out); at 16 bits
+    L* times 257 and a*, b* times 256 as signed 16-bit words, plus seeded
+    noise in their low bytes."""
+    import cv2
+    lab = cv2.cvtColor(np.ascontiguousarray(img), cv2.COLOR_RGB2Lab).astype(
+        np.int64)
+    if bits == 8:
+        return lab ^ np.array([0, 0x80, 0x80])
+    noise = np.random.RandomState(seed).randint(0, 256, lab.shape)
+    wide = np.concatenate([lab[..., :1] * 257,
+                           (lab[..., 1:] - 128) * 256 + noise[..., 1:]], 2)
+    return wide & 0xFFFF
+
+
+def _add_tiff_tail(add):
+    """The TIFF variants of test_torch_tiff_tail.py (`tiffx_*`): orientation
+    5-8 on square pictures, StripByteCounts libtiff estimates anew, CMYK
+    inside JPEG, a predictor on subsampled YCbCr, CIELab, SGILog (LogL,
+    LogLuv 32 and 24), ThunderScan, what cv2 refuses of them, and a 480x640
+    CIELab file (the image demo's TIFF input)."""
+    import cv2
+    rs = np.random.RandomState(18)
+    sq = picture(40, 40, 7)
+    add("tiffx_orient5.tif", write_tiff(sq, orientation=5, compression=5,
+                                        rows_per_strip=7), "TIFF",
+        "orientation 5, square, strips")
+    add("tiffx_orient6_tiles.tif", write_tiff(
+        sq, orientation=6, compression=8, tile=(16, 16)), "TIFF",
+        "orientation 6, square, tiles across a width of 40")
+    add("tiffx_orient7_planar2.tif", write_tiff(
+        sq, orientation=7, planar=2, tile=(16, 32)), "TIFF",
+        "orientation 7, square, planar 2 tiles")
+    add("tiffx_orient8_gray16.tif", write_tiff(
+        sq[..., :1].astype(np.int64) * 257, bits=16, photometric=1,
+        orientation=8, compression=5, rows_per_strip=9), "TIFF",
+        "orientation 8, square, 16-bit gray")
+    c = picture(29, 43, 8)
+    one = write_tiff(c)
+    add("tiffx_counts_zero.tif", set_tiff_values(one, 279, [0]), "TIFF",
+        "one uncompressed strip, StripByteCounts 0 (estimated)")
+    add("tiffx_counts_short.tif", set_tiff_values(one, 279, [100]), "TIFF",
+        "one uncompressed strip, StripByteCounts 100 (estimated)")
+    add("tiffx_counts_missing_lzw.tif", drop_tiff_tag(
+        write_tiff(c, compression=5), 279), "TIFF",
+        "one LZW strip, no StripByteCounts (estimated)")
+    tiles = write_tiff(c, tile=(16, 16))
+    counts = tiff_values(tiles, 325)
+    add("tiffx_counts_wrong_tiles.tif", set_tiff_values(
+        tiles, 325, [7] + counts[1:]), "TIFF",
+        "uncompressed tiles, first two counts differ (estimated)")
+    cmyk = np.concatenate([c, rs.randint(0, 256, (29, 43, 1))], 2)
+
+    import io
+    from PIL import Image
+
+    def adobe_cmyk(block):  # Pillow's CMYK JPEG: an Adobe marker
+        out = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(block.astype(np.uint8)),
+                        "CMYK").save(out, "JPEG", quality=90)
+        return out.getvalue()
+    buf = io.BytesIO()
+    Image.fromarray(cmyk.astype(np.uint8), "CMYK").save(
+        buf, "TIFF", compression="jpeg")
+    add("tiffx_cmyk_jpeg.tif", buf.getvalue(), "TIFF",
+        "CMYK inside JPEG (Pillow's libtiff)")
+    add("tiffx_cmyk_jpeg_adobe_tiles.tif", write_tiff(
+        cmyk, photometric=5, compression=7, jpeg=adobe_cmyk, tile=(16, 16),
+        jpeg_tables=True), "TIFF",
+        "CMYK inside JPEG, Adobe marker, tiles, JPEGTables")
+    ycc = cv2.cvtColor(c, cv2.COLOR_RGB2YCrCb)[..., [0, 2, 1]]
+    add("tiffx_ycbcr21_predictor.tif", write_tiff(
+        ycc[:, :42], photometric=6, subsampling=(2, 1), compression=5,
+        predictor=2, rows_per_strip=8), "TIFF",
+        "YCbCr 2x1, LZW, predictor 2, strips")
+    add("tiffx_ycbcr42_predictor_tiles.tif", write_tiff(
+        ycc, photometric=6, subsampling=(4, 2), compression=8, predictor=2,
+        tile=(16, 16)), "TIFF",
+        "YCbCr 4x2, Deflate, predictor 2, tiles (libtiff leaves them "
+        "undifferenced)")
+    add("tiffx_ycbcr44_predictor.tif", write_tiff(
+        ycc, photometric=6, subsampling=(4, 4), compression=5, predictor=2,
+        tile=(16, 32)), "TIFF", "YCbCr 4x4, LZW, predictor 2, tiles")
+    lab = cielab(c)
+    add("tiffx_cielab16_tiles.tif", write_tiff(
+        cielab(c, 16), bits=16, photometric=8, compression=5, predictor=2,
+        tile=(16, 32)), "TIFF", "CIELab, 16 bits, LZW, predictor 2, tiles")
+    add("tiffx_cielab_whitepoint.tif", write_tiff(
+        lab, photometric=8, compression=8, rows_per_strip=8,
+        white_point=((3127, 10000), (3290, 10000))), "TIFF",
+        "CIELab, 8 bits, WhitePoint D65")
+    for kind, comp, ph, name, kw in (
+            ("logl", 34676, 32844, "tiffx_sgilog_logl.tif",
+             dict(rows_per_strip=8)),
+            ("luv32", 34676, 32845, "tiffx_sgilog_luv32.tif",
+             dict(order=">")),
+            ("luv24", 34677, 32845, "tiffx_sgilog_luv24_tiles.tif",
+             dict(tile=(16, 16)))):
+        add(name, sgilog_tiff(sgilog_words(kind, 29, 43, comp + ph), comp,
+                              ph, **kw), "TIFF",
+            {"logl": "SGILog LogL", "luv32": "SGILog LogLuv 32",
+             "luv24": "SGILog LogLuv 24"}[kind] + " (libtiff's encoder), " +
+            ", ".join(f"{k} {v}" for k, v in kw.items()))
+    idx = np.clip(c[..., 0].astype(np.int64) // 16, 0, 15)
+    idx[5, 4:30] = 9
+    add("tiffx_thunderscan.tif", write_tiff(
+        idx, bits=4, colormap=rs.randint(0, 65536, (3, 16)),
+        compression=32809, rows_per_strip=8), "TIFF",
+        "ThunderScan, 4-bit palette")
+    add("tiffx_predictor3_int.tif", write_tiff(c, compression=5, predictor=3),
+        "TIFF", "the floating-point predictor on integer samples", "refused")
+    add("tiffx_icclab.tif", write_tiff(lab, photometric=9), "TIFF",
+        "ICC CIELab (photometric 9)", "refused")
+    add("tiffx_logluv_lzw.tif", write_tiff(c, photometric=32845,
+                                           compression=5), "TIFF",
+        "LogLuv without SGILog compression", "refused")
+    big = picture(480, 640, 9, noise=0)
+    add("tiffx_cielab_480x640.tif", write_tiff(
+        cielab(big), photometric=8, compression=5, predictor=2,
+        rows_per_strip=16), "TIFF", "CIELab, LZW, predictor 2, at 480x640")
+
+
+def write_fixtures(directory: str, prefixes=None) -> dict:
+    """Writes every fixture (or those whose names start with one of
+    `prefixes`), and for each one cv2 decodes its pixels as
     `<stem>.ref.png`, and their entries of formats.json (the entries of
     the other writers, such as the JPEG 2000 fixtures of
     test_torch_jpeg2000.py, kept); returns formats.json's content."""
@@ -1292,6 +1564,8 @@ def write_fixtures(directory: str) -> dict:
         with open(os.path.join(directory, "formats.json")) as f:
             index = json.load(f)
     for name, (data, fmt, variant, expect) in fixture_files().items():
+        if prefixes and not name.startswith(tuple(prefixes)):
+            continue
         path = os.path.join(directory, name)
         with open(path, "wb") as f:
             f.write(data)
@@ -1317,8 +1591,9 @@ def write_fixtures(directory: str) -> dict:
 if __name__ == "__main__":
     import os
     here = os.path.dirname(os.path.abspath(__file__))
+    import sys
     write_fixtures(os.path.join(here, "..", "semi_detr_tpu_torch", "native",
-                                "fixtures"))
+                                "fixtures"), sys.argv[1:] or None)
 
 
 # ------------------------------------------------------ test references

@@ -8,13 +8,14 @@ stored cv2 pixels and to the JAX loader's at max abs 0. Seeded files of
 both code styles, Deflate, JPEG with and without JPEGTables), strips and
 tiles, planar 1 and 2, both byte orders, predictor 2, 1-16 bits, every
 photometric the library reads, alpha (unassociated alpha premultiplies),
-16-bit colour maps, orientation 1-4, and libtiff's stride in clipped gray
-tiles; each is held to cv2.imread at max abs 0. Orientation 5-8 and
-layouts cv2 refuses raise, as the JAX loader does; the variants once left
-out now decode (CCITT, CMYK), raise saying cv2 refuses them too (LZMA,
-ZSTD, WebP, old-style JPEG, float samples) or raise naming themselves and
-"not ported" (CIELab); damaged copies raise naming the file. The rest of
-the variants are in test_torch_tiff_variants.py.
+16-bit colour maps, orientation 1-8 (5-8 on a square picture), and
+libtiff's stride in clipped gray tiles; each is held to cv2.imread at max
+abs 0. Orientation 5-8 on a picture that is not square and layouts cv2
+refuses raise, as the JAX loader does; the variants once left out now
+decode (CCITT, CMYK, CIELab) or raise saying cv2 refuses them too (LZMA,
+ZSTD, WebP, old-style JPEG, float samples); damaged copies raise naming the
+file. The rest of the variants are in test_torch_tiff_variants.py and
+test_torch_tiff_tail.py.
 """
 import cv2
 import numpy as np
@@ -23,7 +24,7 @@ import pytest
 from _format_checks import (check_against_cv2, check_against_loaders,
                             check_damaged, check_fixture, fixture_params,
                             read)
-from format_writers import (_pil, cv2_rgb, picture, pil_tiff, set_tiff_tag,
+from format_writers import (_pil, picture, pil_tiff, set_tiff_tag,
                             write_tiff)
 from semi_detr_tpu_torch import native
 
@@ -98,13 +99,19 @@ def test_extra_samples(extra, bits, tile, tmp_path):
 @pytest.mark.parametrize("orientation", range(1, 9))
 def test_orientation(orientation, tmp_path):
     """1-4 as libtiff's RGBA reader turns strips and tiles (columns within
-    each tile); cv2.imread reads no TIFF of 5-8."""
+    each tile); 5-8 of a square picture as that reader flips it (as 1-4)
+    and cv2 then turns it; cv2.imread fails to turn a picture of 5-8 that
+    is not square."""
     img = picture(H, W, orientation)
+    square = picture(40, 40, orientation)
     for tile in (None, (16, 16)):
         data = write_tiff(img, orientation=orientation, compression=5,
                           tile=tile, rows_per_strip=5)
         assert check_against_cv2(data, tmp_path, "o.tif") == (
             orientation <= 4)
+        data = write_tiff(square, orientation=orientation, compression=5,
+                          tile=tile, rows_per_strip=7)
+        assert check_against_cv2(data, tmp_path, "square.tif")
 
 
 def _jpeg(params):
@@ -179,30 +186,26 @@ def _variant(tag, value):
     (259, 34925, "LZMA", "refused"), (259, 50000, "ZSTD", "refused"),
     (259, 50001, "WebP", "refused"), (259, 6, "old-style JPEG", "refused"),
     (339, 3, "float samples", "refused"), (262, 5, "CMYK", "pixels"),
-    (262, 8, "CIELab", "not ported"),
+    (262, 8, "CIELab", "pixels"),
     (266, 2, "CCITT Group 4 with FillOrder 2", "pixels"),
     (322, 16, "a tile under 1,024 bytes", "pixels")])
 def test_not_ported_raise_naming_themselves(tag, value, what, expect,
                                             tmp_path):
-    """The variants once left out: CCITT and CMYK now decode to cv2's
-    pixels; the compressions cv2's libtiff is built without (LZMA, ZSTD,
-    WebP, old-style JPEG) and float samples raise saying cv2 refuses them
-    too; CIELab, which cv2 reads, raises naming itself and "not ported". An
-    uncompressed tile under 1,024 bytes reads as cv2 reads it."""
+    """The variants once left out: CCITT, CMYK and CIELab now decode to
+    cv2's pixels; the compressions cv2's libtiff is built without (LZMA,
+    ZSTD, WebP, old-style JPEG) and float samples raise saying cv2 refuses
+    them too. An uncompressed tile under 1,024 bytes reads as cv2 reads
+    it."""
     data = _variant(tag, value)
-    if expect == "not ported":  # cv2 and so the JAX loader read it
-        assert cv2_rgb(data, str(tmp_path), "variant.tif") is not None
-    else:
-        read_it = check_against_loaders(data, tmp_path, "variant.tif")
-        assert read_it == (expect == "pixels"), (what, read_it)
+    read_it = check_against_loaders(data, tmp_path, "variant.tif")
+    assert read_it == (expect == "pixels"), (what, read_it)
     if expect == "pixels":
         return
     with pytest.raises(native.ImageDecodeError) as err:
         native.decode_image(data, "variant.tif")
     msg = str(err.value)
     assert "variant.tif" in msg and what in msg, msg
-    assert ("not ported" if expect == "not ported"
-            else "cv2 refuses it too") in msg, msg
+    assert "cv2 refuses it too" in msg, msg
 
 
 def test_damaged_copies_raise_naming_the_file():
