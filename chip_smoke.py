@@ -120,7 +120,11 @@ Phases (any failure exits non-zero):
    GIF, Sun raster, PAM, PFM, Radiance HDR and JPEG 2000 (JP2 and raw
    codestreams: both wavelets, every progression, POC, tiles, precincts,
    every code-block style, layers, RGN, PPM / PPT, SOP / EPH, palettes,
-   channel definitions, colour specifications); a 480x640 lossy WebP,
+   channel definitions, colour specifications; j2kh_*: high-throughput
+   code-blocks, the cleanup pass alone and with SigProp and MagRef,
+   layers, lossy cleanups, 9/7, VSC, 4x4 to 64x64 blocks, tiles, gray,
+   12- and 16-bit, RGBA, JP2, JPH and raw codestreams, with their ms and
+   the ms of a 480x640 HT file); a 480x640 lossy WebP,
    lossless WebP, LZW TIFF, Group 4 TIFF, GIF, HDR and JPEG 2000 (5/3 and
    9/7), and a 480x640 Sun
    raster, PAM and PFM written from a cv2 reference by
@@ -130,9 +134,11 @@ Phases (any failure exits non-zero):
    lossless JPEG, TIFF orientation 6 on a picture that is not square,
    LZMA, ZSTD and float TIFF, TIFF predictor 3 on integer samples, ICC
    CIELab, LogLuv without SGILog, RLE Sun raster, signed, sub-sampled or
-   offset JPEG 2000, ...) raises saying so, the formats cv2 reads and the
+   offset JPEG 2000, the mixed HT style, ROI or more than 3 passes in an
+   HT code-block, ...) raises saying so, the formats cv2 reads and the
    port does not (AVIF) raise naming themselves with "not ported", and
-   damaged copies of each format
+   damaged copies of each format (an HT file cut in half and one whose
+   Scup runs past its cleanup segment among them)
    raise naming the file; the TIFF fixtures of the compressions cv2's
    libtiff cannot decode (Pixar, NeXT, JPEG 2000 inside TIFF) read as the
    one-colour picture of zero samples, as cv2 reads them. The library's
@@ -199,14 +205,15 @@ Phases (any failure exits non-zero):
    exactly; then the
    image demo (`tools.image_demo.main`, --score-thr 0) on JPEG, BMP, PPM,
    TIFF (LZW RGB and a 480x640 CIELab file), WebP, PGM, PFM, Sun raster,
-   PAM, HDR, GIF and JPEG 2000 (a 480x640 .jp2) fixtures with phase 7's
-   SSOD checkpoint: each render
+   PAM, HDR, GIF and JPEG 2000 (a 480x640 .jp2, and a 480x640 .jp2 of
+   high-throughput code-blocks) fixtures with phase 7's SSOD checkpoint:
+   each render
    under its input's name in its input's format (no file for the .pgm, as
    cv2 writes none), reading back to the pixels drawn (the JPEG, HDR, GIF
    and JPEG 2000: the library's encode of them, HDR within HDR_READBACK
    levels, GIF on its table's steps, JPEG 2000 through the library's
    decoder at the render's size), 12 forward MSDA launches per image
-   (156 in all) and no backward
+   (168 in all, 14 inputs) and no backward
    (the `demo` path). Printed: ms per image (save_result, draw and PNG
    write), ms per label and ms per label by route, the fallback font's
    inflate-and-parse ms and the rasterisation ms of the glyphs the cases
@@ -233,7 +240,8 @@ Phases (any failure exits non-zero):
    grad_norm, gmm_thr and per-leaf update errors must lie within
    WITNESS_FACTOR times the witnesses' largest distance from one process.
    The bfloat16 timing run: the recipe's 1 + 4 images
-   per rank, 2 warm-up and 2 Hungarian steps; per rank the step ms, the
+   per rank, 2 warm-up steps (the first carries the first-call costs) and
+   a Hungarian step after them (DDP_TIME_STEPS); per rank the step ms, the
    gradient all-reduce's ms (span `dist.grad_allreduce`, synchronised on
    both sides), the MSDA launches per step (48 / 42 + 24, vector
    instances, asserted) and the peak memory, beside phase 6's one-process
@@ -263,8 +271,9 @@ Phases (any failure exits non-zero):
    group's broadcast (`dist.align_model_group_`) are held, per leaf, to
    ALIGN_FACTOR times the floor of one process taking the first step twice
    from the same state (the backward's atomic order). Then a bfloat16
-   timing run at 8a's batch, one warm step per stage (LAYOUT_TIME_STEPS:
-   a cold and a warm warm-up step, then a Hungarian step): per rank the
+   timing run at 8a's batch (LAYOUT_TIME_STEPS: a cold and a warm
+   Hungarian step; the warm-up stage is timed in 8a and phase 6): per
+   rank the
    step ms, the all-reduce's and the broadcast's
    ms, the MSDA launches (48 / 42 + 24, vector instances, asserted), the
    peak memory per step and the local state bytes (parameters, a gradient
@@ -394,6 +403,7 @@ from semi_detr_tpu_torch.data.synthetic import (  # noqa: E402
 from semi_detr_tpu_torch.tools import export_model  # noqa: E402
 from semi_detr_tpu_torch.tools import image_demo  # noqa: E402
 from semi_detr_tpu_torch.tools import profile_predict  # noqa: E402
+from semi_detr_tpu_torch.tools import raw_formats  # noqa: E402
 from semi_detr_tpu_torch.tools.raw_formats import (  # noqa: E402
     raw_format_files)
 from semi_detr_tpu_torch.tools import recipe_rehearsal  # noqa: E402
@@ -509,6 +519,9 @@ TRAINER_CV2_FIXTURES = ("bmp_rle8.bmp", "pnm_p6_100.ppm",
 # TRAINER_INTERVAL steps and one checkpoint at the end, so none of them
 # (nor a checkpoint's write-back) falls on a warm step
 TRAINER_STEPS, TRAINER_WARM_UP, TRAINER_INTERVAL = 8, 4, 4
+# the 480x640 high-throughput JPEG 2000 fixture phase 7a times and the
+# demo reads
+HT_DEMO_FIXTURE = "j2kh_480x640.jp2"
 # phase 7r: the render. save_result against cv2's renders (native/fixtures/
 # render.json and its PNGs), held by `tools.render_check` (boxes at max abs
 # 0, each label at worst to an ink IoU of 0.95 and a mean abs of 2 levels;
@@ -517,7 +530,8 @@ RENDER_DEMO_INPUTS = ("colour_420.jpg", "bmp_24.bmp", "pnm_p6_100.ppm",
                       "tiff_lzw_predictor.tif", "webp_lossy.webp",
                       "pnm_p2_100.pgm", "other_pfm.pfm", "ras_pal8.ras",
                       "pam_rgb16.pam", "hdr_rle.hdr", "other_gif.gif",
-                      "j2k_480x640_lossless.jp2", "tiffx_cielab_480x640.tif")
+                      "j2k_480x640_lossless.jp2", "tiffx_cielab_480x640.tif",
+                      HT_DEMO_FIXTURE)
 RENDER_SIGNATURES = {"jpg": b"\xff\xd8", "bmp": b"BM", "ppm": b"P6",
                      "tif": b"II*\0", "webp": b"RIFF", "pfm": b"PF",
                      "ras": b"\x59\xa6\x6a\x95", "pam": b"P7",
@@ -554,11 +568,15 @@ OD_STEPS, OD_BATCH = 2, 2
 # the per-leaf update errors (worst and median) may move by WITNESS_FACTOR
 # times the witnesses' largest distance from one process, plus DDP_FLOOR
 # of the total loss (a term) or of the value itself. The timing run: the
-# recipe's 1 + 4 per rank in bfloat16, 2 warm-up and 2 Hungarian steps.
+# recipe's 1 + 4 per rank in bfloat16: a warm-up step that carries the
+# first-call costs, a warm one, and a Hungarian step (warm after them: the
+# layout legs, timed so, read it 4,301-6,095 ms against 4,057-5,733 for
+# the warm warm-up step; NVIDIA H100 80GB HBM3, 700.00 W); one step of each
+# stage past the first call, to keep the smoke under 900 s.
 # Every rank is joined within DDP_TIMEOUT seconds or killed.
 DDP_WORLD, DDP_EQ_IMAGES = 2, (1, 2)
 DDP_EQ_STEPS = ((True, 0.0), (False, None))
-DDP_TIME_STEPS = ((True, None),) * 2 + ((False, None),) * 2
+DDP_TIME_STEPS = ((True, None),) * 2 + ((False, None),)
 WITNESS_FACTOR, DDP_FLOOR, DDP_TIMEOUT = 4.0, 1e-6, 420
 WITNESS_NUDGES = (1, -1)
 # phase 8c: the layouts, (name, fsdp, tp, world): gloo ranks on the one
@@ -582,10 +600,12 @@ def layout_eq_steps(tp):
     return DDP_EQ_STEPS if tp == 1 else DDP_EQ_STEPS[:1]
 
 
-# each leg's bfloat16 timing run: a warm-up step that carries the
-# first-call costs, a warm one, and a Hungarian step (phase 8a's run minus
-# its second Hungarian step)
-LAYOUT_TIME_STEPS = ((True, None),) * 2 + ((False, None),)
+# each leg's bfloat16 timing run: a Hungarian step that carries the
+# first-call costs and a warm one (the warm-up stage is timed by phase 8a
+# and phase 6, not again here, to keep the smoke under 900 s; a TP leg's
+# equality run takes only the warm-up step, so this run is its Hungarian
+# step on the card)
+LAYOUT_TIME_STEPS = ((False, None),) * 2
 # under TP: each rank's gradients before the model group's broadcast
 # against its first rank's, per leaf, held to ALIGN_FACTOR times the
 # floor of one process taking the same step twice (the atomic order of
@@ -1526,7 +1546,24 @@ def cv2_format_fixtures():
     log("  ms per decode by format (fixtures; mean, max): " + ", ".join(
         f"{k} ({v['fixtures']}): {v['mean_ms']:.3f}, {v['max_ms']:.3f}"
         for k, v in per_format.items()))
-    return dict(fixtures=rows, per_format=per_format)
+    ht = {n: r for n, r in rows.items() if n.startswith("j2kh_")}
+    ht_small = [r["ms"] for n, r in ht.items()
+                if "ms" in r and n != HT_DEMO_FIXTURE]
+    ht_sum = dict(fixtures=len(ht), max_abs_0=sum(
+        r.get("max_abs") == 0 for r in ht.values()),
+        refused=sum("raised" in r for r in ht.values()),
+        small_mean_ms=float(np.mean(ht_small)),
+        small_max_ms=float(np.max(ht_small)),
+        ms_480x640=rows[HT_DEMO_FIXTURE]["ms"])
+    if ht_sum["max_abs_0"] + ht_sum["refused"] != len(ht) or len(ht) < 27:
+        raise AssertionError(f"HT fixtures: {ht_sum}")
+    log(f"  high-throughput JPEG 2000 (j2kh_*): {ht_sum['fixtures']} "
+        f"fixtures, {ht_sum['max_abs_0']} at max abs 0 and "
+        f"{ht_sum['refused']} refused as cv2 refuses them; ms per decode "
+        f"{ht_sum['small_mean_ms']:.3f} mean, {ht_sum['small_max_ms']:.3f} "
+        f"max at 64x64 or less; the 480x640 HT file "
+        f"{ht_sum['ms_480x640']:.3f} ms")
+    return dict(fixtures=rows, per_format=per_format, ht=ht_sum)
 
 
 def blank_tiff_fixtures():
@@ -1607,9 +1644,11 @@ def damaged_formats():
     own file name: BMP, PNM, PAM, TIFF (LZW, Group 4, BigTIFF, CIELab, CMYK
     inside JPEG), lossless
     JPEG, GIF, Sun raster, PFM, HDR and JPEG 2000 (JP2, a raw codestream,
-    PPM headers) cut in half, a codestream without its EOC and one whose
-    tile-part length runs past its end, a WebP cut in half with
-    its RIFF size made consistent (its VP8 chunk then runs past the file), a
+    PPM headers, high-throughput code-blocks) cut in half, a codestream
+    without its EOC and one whose tile-part length runs past its end, an
+    HT codestream whose Scup runs past its cleanup segment, a WebP cut in
+    half with its RIFF size made consistent (its VP8 chunk then runs past
+    the file), a
     VP8L one with its codes overwritten, an LZW strip of codes past its
     table, a GIF of LZW codes past its table and a Group 4 strip of EOLs
     where its 2-D codes belong. Each must raise ImageDecodeError naming the
@@ -1624,7 +1663,7 @@ def damaged_formats():
                  "tiffv_g4_480x640.tif", "tiffv_bigtiff.tif",
                  "tiffx_cielab_480x640.tif", "tiffx_cmyk_jpeg.tif",
                  "j2k_480x640_lossless.jp2", "j2k_raw.j2k",
-                 "j2kw_ppm.j2k"):
+                 "j2kw_ppm.j2k", HT_DEMO_FIXTURE):
         buf = fixture(name)
         stem, ext = name.rsplit(".", 1)
         cases[f"{stem}_truncated.{ext}"] = buf[:len(buf) // 2]
@@ -1654,6 +1693,10 @@ def damaged_formats():
     sot = j2k.find(b"\xff\x90")
     cases["j2k_raw_psot_past_end.j2k"] = j2k[:sot + 6] + (
         len(j2k)).to_bytes(4, "big") + j2k[sot + 10:]
+    ht = raw_formats._picture(13, 19, 51, 60)
+    cases["j2kh_scup_past_lcup.j2k"] = raw_formats.j2k_codestream(
+        [ht[..., c] for c in range(3)], ht=True, ht_passes=3,
+        ht_damage="scup_past_lcup")
     out = {}
     for name, data in cases.items():
         try:

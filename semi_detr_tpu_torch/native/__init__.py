@@ -31,11 +31,12 @@ step.
   orientation), GIF (`gif_host.cpp`: the first frame on the logical
   screen), Sun raster (`raster_host.cpp`), PFM and Radiance HDR
   (`float_host.cpp`: float pixels rounded to 8 bits as Mat::convertTo
-  rounds them), JPEG 2000 (`j2k_host.cpp`: JP2 and raw codestreams as
-  OpenJPEG 2.5 decodes them for cv2, the 9/7 wavelet in its float32
-  order) and lossless JPEG of at most 8 bits in RGB or CMYK
-  (`jpeg_host.cpp`). The formats cv2 reads and the port does not (AVIF,
-  high-throughput JPEG 2000) raise naming the format and "not ported";
+  rounds them), JPEG 2000 (`j2k_host.cpp`: JP2, JPH and raw codestreams
+  as OpenJPEG 2.5 decodes them for cv2, the 9/7 wavelet in its float32
+  order; high-throughput code-blocks in `j2k_ht_host.cpp` with the VLC
+  tables of `j2k_ht_tables.h`) and lossless JPEG of at most 8 bits in RGB
+  or CMYK (`jpeg_host.cpp`). The format cv2 reads and the port does not
+  (AVIF) raises naming the format and "not ported";
   what cv2 refuses too (12-bit JPEG, 16-bit or gray lossless JPEG, TIFF
   orientation 5-8 on a picture that is not square, the TIFF compressions
   cv2's libtiff is built without: LZMA, ZSTD, WebP, old-style JPEG; float
@@ -107,8 +108,9 @@ FIXTURES = os.path.join(_DIR, "fixtures")
 SOURCES = ("host.cpp", "jpeg_host.cpp", "bmp_pnm_host.cpp", "tiff_host.cpp",
            "ccitt_host.cpp", "sgilog_host.cpp", "webp_host.cpp",
            "gif_host.cpp", "raster_host.cpp", "float_host.cpp", "j2k_host.cpp",
-           "encode_host.cpp", "j2k_encode_host.cpp")
-HEADERS = ("host.h", "webp_tables.h", "j2k_tables.h", "sgilog_tables.h")
+           "j2k_ht_host.cpp", "encode_host.cpp", "j2k_encode_host.cpp")
+HEADERS = ("host.h", "webp_tables.h", "j2k_tables.h", "sgilog_tables.h",
+           "j2k_ht_tables.h")
 JPEG_SOURCES = {"libjpeg": "jpeg_libjpeg.cpp", "nvjpeg": "jpeg_nvjpeg.cpp"}
 # the host decoders' routes, by jpeg_host_kind's answer, on either build
 HOST_KINDS = {0: None, 1: "sequential", 2: "progressive",
@@ -145,11 +147,13 @@ FORMAT_ROUTES = {
            "Mat::convertTo; OpenCV's PFMDecoder)",
     "hdr": "host Radiance HDR (run-length and flat RGBE scanlines, times "
            "255 and rounded as Mat::convertTo; OpenCV's rgbe.cpp)",
-    "jpeg2000": "host JPEG 2000 (JP2 boxes and raw codestreams; tier-2 "
-                "with every progression and POC, PPM / PPT, SOP / EPH; "
-                "tier-1 under every code-block style; 5/3 and 9/7 wavelets, "
-                "RCT / ICT; palettes and channel definitions; OpenJPEG "
-                "2.5's decode as cv2 reads it)",
+    "jpeg2000": "host JPEG 2000 (JP2 and JPH boxes and raw codestreams; "
+                "tier-2 with every progression and POC, PPM / PPT, SOP / "
+                "EPH; tier-1 under every code-block style, and the high-"
+                "throughput block coder of Part 15 (cleanup, SigProp, "
+                "MagRef); 5/3 and 9/7 wavelets, RCT / ICT; palettes and "
+                "channel definitions; OpenJPEG 2.5's decode as cv2 reads "
+                "it)",
     "webp": "host WebP (VP8L lossless, VP8 lossy key frames with libwebp's "
             "fancy upsampling, the first frame of an animation, EXIF "
             "orientation)"}
@@ -341,7 +345,9 @@ def decoders() -> Dict[str, str]:
     as hierarchical ones, which it refuses too; 12-bit and the lossless
     streams cv2 refuses are refused before it). `bmp`, `pnm`, `pam`,
     `tiff`, `webp`, `gif`, `sun_raster`, `pfm`, `hdr`: the library's own
-    decoders of those formats, `jpeg2000` the JPEG 2000 one."""
+    decoders of those formats, `jpeg2000` the JPEG 2000 one (its high-
+    throughput block decoder of Part 15 too: the only route of an HTJ2K
+    file, on either machine)."""
     backend = _library().sdt_jpeg_backend().decode()
     out = {"png": "zlib inflate + C++ row filters (every bit depth and "
                   "colour type, Adam7)", "jpeg": backend}

@@ -1,8 +1,8 @@
 // Declarations shared by the host library (host.cpp), its own decoders
 // (jpeg_host.cpp; bmp_pnm_host.cpp, tiff_host.cpp with ccitt_host.cpp and
 // sgilog_host.cpp, webp_host.cpp, gif_host.cpp, raster_host.cpp,
-// float_host.cpp and j2k_host.cpp for the files the JAX loader hands to
-// cv2; its encoders are encode_host.cpp and j2k_encode_host.cpp) and its
+// float_host.cpp and j2k_host.cpp with j2k_ht_host.cpp for the files the
+// JAX loader hands to cv2; its encoders are encode_host.cpp and j2k_encode_host.cpp) and its
 // JPEG back end: jpeg_libjpeg.cpp where the machine has libjpeg,
 // jpeg_nvjpeg.cpp where it has only the CUDA toolkit's nvJPEG
 // (native/__init__.py picks one at build time).
@@ -142,6 +142,20 @@ int hdr_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
 bool is_jpeg2000(const uint8_t* d, long n);  // j2k_host.cpp: JP2, .j2k
 int jpeg2000_info(const uint8_t* d, long n, int* h, int* w);
 int jpeg2000_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
+
+// One high-throughput code-block of a JPEG 2000 tile (j2k_ht_host.cpp) as
+// OpenJPEG 2.5's opj_t1_ht_decode_cblk decodes it: its data (len bytes,
+// every layer's contribution in packet order), the passes and lengths of
+// its first nsegs codeword segments, the band's bit-planes mb (0 for a
+// block never included), its own numbps (mb less the zero bit-planes),
+// the component's ROI shift and VSC, into out (w x h, zeroed) at twice the
+// coefficient, as Part 1's tier-1 leaves it. kHtOk, else kHtDamaged or
+// kHtRefused (what OpenJPEG does not decode) with the fault in *msg.
+enum { kHtOk = 0, kHtDamaged = 1, kHtRefused = 2 };
+int j2k_ht_decode_cblk(const uint8_t* data, long len, const int* seg_passes,
+                       const long* seg_lens, int nsegs, int mb, int numbps,
+                       int roishift, bool vsc, int w, int h, int32_t* out,
+                       std::string* msg);
 
 // A CCITT strip or tile of a TIFF (ccitt_host.cpp): compression 2, 3 (with
 // its T4Options) or 4, `rows` rows of `width` pixels into out as packed

@@ -37,7 +37,13 @@
 //   e-sYCC are refused. Every component must lie at the origin at full
 //   size (no image offset, no sub-sampling). What cv2 refuses raises
 //   saying so.
-// Code-blocks of the high-throughput coder (Part 15) are not ported.
+// * Code-blocks of the high-throughput coder (Part 15, code-block style
+//   0x40, with any other style bits): the CAP and CPF markers walked past
+//   (OpenJPEG needs neither), tier-2 as OpenJPEG's t2.c reads an HT block
+//   (the first codeword segment of a packet takes one pass, the cleanup;
+//   the next the rest, each length of Lblock + floor(log2(passes)) bits),
+//   tier-1 by j2k_ht_host.cpp; a JPH file's boxes are a JP2 file's. The
+//   mixed style (0x80) is refused, as OpenJPEG refuses it in COD / COC.
 
 #include <algorithm>
 #include <cmath>
@@ -67,11 +73,6 @@ struct Fail {
 
 [[noreturn]] void refused(const std::string& m) {
   throw Fail{kUnsupported, "JPEG 2000: " + m + " (cv2 refuses it too)"};
-}
-
-[[noreturn]] void not_ported(const std::string& m) {
-  throw Fail{kUnsupported,
-             "JPEG 2000 (cv2 reads it): " + m + ": not ported"};
 }
 
 uint32_t be16(const uint8_t* p) { return (p[0] << 8) | p[1]; }
@@ -154,6 +155,8 @@ void read_spcod(const uint8_t* p, long n, Tccp* t, bool precincts) {
   if (t->cblkw > 10 || t->cblkh > 10 || t->cblkw + t->cblkh > 12)
     damaged("code-block size out of range");
   t->cblksty = p[3];
+  if (t->cblksty & 0x80)
+    refused("the mixed high-throughput code-block style");
   t->qmfbid = p[4];
   if (t->qmfbid > 1) damaged("unknown wavelet");
   if (precincts) {
@@ -559,6 +562,7 @@ struct Seg {
 
 struct Cblk {
   int x0, y0, x1, y1;
+  int mb = 0;  // the band's bit-planes, once included (HT's Mb)
   int numbps = 0, numlenbits = 0, numnewpasses = 0;
   bool included = false;
   std::vector<Seg> segs;
@@ -689,6 +693,7 @@ void read_packet(TileComp* tc, const Tccp& tccp, const Tcp& tcp, int resno,
         while (!prc.imsb.decode(&bio, k, i)) {
           if (++i > 74) damaged("bad zero bit-plane tag tree");
         }
+        cb.mb = band.numbps;
         cb.numbps = band.numbps + 1 - i;
         cb.numlenbits = 3;
       }
@@ -710,9 +715,13 @@ void read_packet(TileComp* tc, const Tccp& tccp, const Tcp& tcp, int resno,
         }
       }
       int nnew = cb.numnewpasses;
+      const bool ht = tccp.cblksty & 0x40;
       for (;;) {
         Seg& sg = cb.segs[segno];
-        sg.numnewpasses = std::min(sg.maxpasses - sg.numpasses, nnew);
+        // an HT block's first segment takes one pass a packet (the
+        // cleanup), the next one the rest (t2.c, whatever maxpasses says)
+        sg.numnewpasses = ht ? (segno == 0 ? 1 : nnew)
+                             : std::min(sg.maxpasses - sg.numpasses, nnew);
         const int bits = cb.numlenbits + floorlog2(sg.numnewpasses);
         if (bits > 32) damaged("segment length of more than 32 bits");
         const uint32_t len = bio.read(bits);
@@ -1035,6 +1044,26 @@ void decode_cblk(const Cblk& cb, int orient, int roishift, int cblksty,
   }
 }
 
+// an HT code-block by j2k_ht_host.cpp into t1->data (w x h)
+void decode_ht_cblk(const Cblk& cb, const Tccp& tccp, T1* t1) {
+  const int w = cb.x1 - cb.x0, h = cb.y1 - cb.y0;
+  t1->data.assign(static_cast<size_t>(w) * h, 0);
+  int passes[2] = {0, 0};
+  long lens[2] = {0, 0};
+  const int nsegs = static_cast<int>(cb.segs.size());
+  for (int s = 0; s < std::min(nsegs, 2); ++s) {
+    passes[s] = cb.segs[s].numpasses;
+    lens[s] = cb.segs[s].len;
+  }
+  std::string msg;
+  const int st = j2k_ht_decode_cblk(
+      cb.data.data(), static_cast<long>(cb.data.size()), passes, lens, nsegs,
+      cb.mb, cb.numbps, tccp.roishift, tccp.cblksty & 8, w, h,
+      t1->data.data(), &msg);
+  if (st == kHtRefused) refused(msg);
+  if (st != kHtOk) damaged(msg);
+}
+
 // ------------------------------------------------------------ wavelets
 
 // the inverse 5/3 of one line in place: sn low and dn high samples stored
@@ -1350,11 +1379,6 @@ void decode_tile(Codestream* cs, int tileno,
                  const std::vector<int64_t>& py0) {
   Tcp& tcp = cs->tiles[tileno];
   const int nc = static_cast<int>(cs->comps.size());
-  for (int c = 0; c < nc; ++c) {
-    const Tccp& t = tcp.tccps[c];
-    if (t.cblksty & 0x40) not_ported("high-throughput code-blocks (Part 15)");
-    if (t.cblksty & 0x80) damaged("unknown code-block style");
-  }
   std::vector<TileComp> tcs;
   init_tile(*cs, tcp, tileno, &tcs);
   // tier-2
@@ -1401,10 +1425,16 @@ void decode_tile(Codestream* cs, int tileno,
         if (band.bandno & 1) ox += tc.res[r - 1].x1 - tc.res[r - 1].x0;
         if (band.bandno & 2) oy += tc.res[r - 1].y1 - tc.res[r - 1].y0;
         const float stepsize = 0.5f * band.stepsize;
+        const bool ht = tccp.cblksty & 0x40;
         for (Precinct& prc : band.precs)
           for (Cblk& cb : prc.cblks) {
+            if (ht && tccp.roishift)  // every block, as OpenJPEG checks
+              refused("ROI (RGN) with high-throughput code-blocks");
             if (cb.x1 <= cb.x0 || cb.y1 <= cb.y0 || cb.segs.empty()) continue;
-            decode_cblk(cb, band.bandno, tccp.roishift, tccp.cblksty, &t1);
+            if (ht)
+              decode_ht_cblk(cb, tccp, &t1);
+            else
+              decode_cblk(cb, band.bandno, tccp.roishift, tccp.cblksty, &t1);
             const int cw = cb.x1 - cb.x0;
             for (int y = 0; y < cb.y1 - cb.y0; ++y)
               for (int x = 0; x < cw; ++x) {

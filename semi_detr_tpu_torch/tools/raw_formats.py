@@ -17,11 +17,14 @@ the CPU.
 * PFM, little-endian (scale -1): the picture's values as float32, rows
   bottom-up; cv2 rounds them back to the same bytes.
 
-`j2k_codestream`, `jp2_file`, `jpeg2000_files`: JPEG 2000 streams of the
-kinds Pillow's encoder cannot make (the section "JPEG 2000" below).
+`j2k_codestream`, `jp2_file`, `jpeg2000_files`, `jpeg2000_ht_files`: JPEG
+2000 streams of the kinds Pillow's encoder cannot make, high-throughput
+ones among them (the section "JPEG 2000" below).
 """
 from __future__ import annotations
 
+import functools
+import os
 import struct
 from typing import Dict, Tuple
 
@@ -54,12 +57,16 @@ def raw_format_files(rgb: np.ndarray) -> Dict[str, Tuple[bytes, str, str]]:
 # code-block styles other than the default, POC, PPM / PPT, SOP / EPH,
 # RGN, tile-parts of several tiles interleaved, COC / QCC, palettes, channel
 # definitions, colour specifications, precisions other than 8 and 16, sub-
-# sampled and signed components, image offsets. Reversible only (the 5/3
-# wavelet, the RCT); every code-block coded by the MQ coder of ISO/IEC
-# 15444-1 Annex C and the passes of Annex D, every packet as Annex B sends
-# it. `tests/test_torch_jpeg2000.py` regenerates the committed fixtures
-# (`native/fixtures/j2kw_*`) from it byte for byte, and holds the host
-# library's decode of them to cv2.imread (OpenJPEG).
+# sampled and signed components, image offsets, and high-throughput code-
+# blocks (Part 15), which no encoder on these machines writes. The 5/3
+# wavelet and the RCT (the 9/7 and the ICT only as a decoder reads the 5/3
+# coefficients sent as quantised ones); every code-block coded by the MQ
+# coder of ISO/IEC 15444-1 Annex C and the passes of Annex D, or by the HT
+# block coder below, every packet as Annex B sends it.
+# `tests/test_torch_jpeg2000.py` and `tests/test_torch_jpeg2000_ht.py`
+# regenerate the committed fixtures (`native/fixtures/j2kw_*`, `j2kh_*`)
+# from it byte for byte, and hold the host library's decode of them to
+# cv2.imread (OpenJPEG).
 
 # the MQ coder's states (Table C.2): Qe, next MPS, next LPS, switch
 _MQ = ((0x5601, 1, 1, 1), (0x3401, 2, 6, 0), (0x1801, 3, 9, 0),
@@ -363,6 +370,429 @@ def _t1_encode(coef, orient: int, style: int, nbits: int):
     return segments
 
 
+# ------------------------------------------- the HT block coder (Part 15)
+#
+# ITU-T T.814 / ISO/IEC 15444-15: the cleanup pass (MagSgn forward, MEL,
+# VLC backward, with their stuffing), then SigProp and MagRef, mirroring
+# the scan of OpenJPEG 2.5's decoder (ht_dec.c) that cv2 reads them with.
+# Its VLC codewords come from the decode tables of native/j2k_ht_tables.h
+# inverted (`tools.ht_vlc_table` finds those in cv2's binary): cv2 reading
+# the lossless fixtures back to their pictures witnesses both.
+
+HT = 0x40
+_HT_HEADER = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "native", "j2k_ht_tables.h")
+
+
+@functools.lru_cache(maxsize=None)
+def _committed_ht_tables():
+    from semi_detr_tpu_torch.tools.ht_vlc_table import parse_header
+    with open(_HT_HEADER) as f:
+        t0, t1, mel = parse_header(f.read())
+    return tuple(t0.tolist()), tuple(t1.tolist()), mel
+
+
+def _vlc_encoder(table):
+    """{(context, rho, u_off): [(e_k, e_1, codeword, length)]} of a decode
+    table."""
+    out = {}
+    for i, e in enumerate(table):
+        n = e & 7
+        if not n:
+            continue
+        key = (i >> 7, (e >> 4) & 15, (e >> 3) & 1)
+        entry = ((e >> 12) & 15, (e >> 8) & 15, i & ((1 << n) - 1), n)
+        if entry not in out.setdefault(key, []):
+            out[key].append(entry)
+    return out
+
+
+@functools.lru_cache(maxsize=4)
+def _ht_coder(tables):
+    t0, t1, mel = tables
+    return _vlc_encoder(t0), _vlc_encoder(t1), mel
+
+
+class _Fwd:
+    """A forward stream (MagSgn, SigProp): bits from the least significant,
+    7 bits in the byte after an 0xFF."""
+
+    def __init__(self):
+        self.buf, self.tmp, self.used, self.max = bytearray(), 0, 0, 8
+
+    def put(self, v, n):
+        while n > 0:
+            t = min(self.max - self.used, n)
+            self.tmp |= (v & ((1 << t) - 1)) << self.used
+            self.used += t
+            v >>= t
+            n -= t
+            if self.used == self.max:
+                self.buf.append(self.tmp)
+                self.max = 7 if self.tmp == 0xFF else 8
+                self.tmp = self.used = 0
+
+    def end(self, fill):
+        """MagSgn pads with ones (a last 0xFF dropped: the decoder reads
+        0xFF past the end); SigProp with zeros."""
+        if self.used:
+            if fill:
+                self.tmp |= ((1 << (self.max - self.used)) - 1) << self.used
+            if not (fill and self.tmp == 0xFF):
+                self.buf.append(self.tmp)
+        elif fill and self.max == 7:
+            self.buf.pop()
+        return bytes(self.buf)
+
+
+class _Rev:
+    """A backward stream (VLC, MagRef), written from the segment's end: a
+    byte after one above 0x8F holds 7 bits when its low 7 are all ones."""
+
+    def __init__(self, vlc):
+        # the VLC's first byte shares its low nibble with Scup, and the
+        # segment's last byte is Scup's
+        self.buf = [0xFF] if vlc else []
+        self.used, self.tmp, self.last8f = (4, 0xF, True) if vlc else (
+            0, 0, True)
+
+    def put(self, v, n):
+        while n > 0:
+            avail = 8 - self.last8f - self.used
+            t = min(avail, n)
+            self.tmp |= (v & ((1 << t) - 1)) << self.used
+            self.used += t
+            v >>= t
+            n -= t
+            if t == avail:
+                if self.last8f and self.tmp != 0x7F:
+                    self.last8f = False
+                    continue
+                self.buf.append(self.tmp)
+                self.last8f = self.tmp > 0x8F
+                self.tmp = self.used = 0
+
+    def end(self):
+        if self.used:
+            self.buf.append(self.tmp)
+        return bytes(self.buf[::-1])
+
+
+class _Mel:
+    """The MEL coder (T.814 C.3): runs of 0 events, bits from the most
+    significant, 7 bits in the byte after an 0xFF."""
+
+    def __init__(self, exp):
+        self.exp, self.buf, self.tmp, self.rem = exp, bytearray(), 0, 8
+        self.run, self.k, self.threshold = 0, 0, 1
+
+    def bit(self, b):
+        self.tmp = (self.tmp << 1) | b
+        self.rem -= 1
+        if not self.rem:
+            self.buf.append(self.tmp)
+            self.rem = 7 if self.tmp == 0xFF else 8
+            self.tmp = 0
+
+    def event(self, e):
+        if not e:
+            self.run += 1
+            if self.run >= self.threshold:
+                self.bit(1)
+                self.run = 0
+                self.k = min(12, self.k + 1)
+                self.threshold = 1 << self.exp[self.k]
+            return
+        self.bit(0)
+        for t in range(self.exp[self.k] - 1, -1, -1):
+            self.bit((self.run >> t) & 1)
+        self.run = 0
+        self.k = max(0, self.k - 1)
+        self.threshold = 1 << self.exp[self.k]
+
+
+def _mel_vlc_end(mel, vlc):
+    """The MEL's last byte and the VLC's first, fused where their bits do
+    not overlap (OpenJPH's termination)."""
+    if mel.run > 0:
+        mel.bit(1)
+    mtmp = (mel.tmp << mel.rem) & 0xFF
+    mmask = (0xFF << mel.rem) & 0xFF
+    vmask = 0xFF >> (8 - vlc.used)
+    if not (mmask | vmask):
+        return
+    fuse = mtmp | vlc.tmp
+    if not (((fuse ^ mtmp) & mmask) | ((fuse ^ vlc.tmp) & vmask)) and \
+            fuse != 0xFF and len(vlc.buf) > 1:
+        mel.buf.append(fuse)
+    else:
+        mel.buf.append(mtmp)
+        vlc.buf.append(vlc.tmp)
+    vlc.used = 0
+
+
+# u's prefix (least significant bit first) and suffix lengths (T.814
+# Table 3): 1 "1"; 2 "01"; 3-4 "001" + 1 bit; 5-36 "000" + 5 bits
+def _u_code(u):
+    if u == 0:
+        return (0, 0), (0, 0)
+    if u <= 2:
+        return (1, 1) if u == 1 else (2, 2), (0, 0)
+    if u <= 4:
+        return (4, 3), (u - 3, 1)
+    return (0, 3), (u - 5, 5)
+
+
+def _bitlen(a):
+    a = np.asarray(a, np.int64)
+    out = np.zeros(a.shape, np.int64)
+    m = a.copy()
+    while m.any():
+        out += m > 0
+        m >>= 1
+    return out
+
+
+def _ht_cleanup(mu, neg, coder):
+    """The HT cleanup pass of magnitudes mu (h, w) with signs neg: the
+    codeword segment [MagSgn][MEL][VLC reversed], Scup in its last two
+    bytes."""
+    enc0, enc1, mel_exp = coder
+    h, w = mu.shape
+    hh, ww = h + (h & 1), (w + 3) // 4 * 4
+    vv = np.zeros((hh, ww), np.int64)
+    ee = np.zeros((hh, ww), np.int64)
+    sig = mu > 0
+    vv[:h, :w] = np.where(sig, 2 * (mu - 1) + neg, 0)
+    ee[:h, :w] = _bitlen(np.where(sig, 2 * (mu - 1) + 1, 0))
+    # a quad's samples: 0 top-left, 1 bottom-left, 2 top-right, 3 bottom-
+    # right
+    qv = np.stack([vv[0::2, 0::2], vv[1::2, 0::2], vv[0::2, 1::2],
+                   vv[1::2, 1::2]], -1).tolist()
+    qe = np.stack([ee[0::2, 0::2], ee[1::2, 0::2], ee[0::2, 1::2],
+                   ee[1::2, 1::2]], -1).tolist()
+    ms, mel, vlc = _Fwd(), _Mel(mel_exp), _Rev(True)
+    nq = ww // 2
+    ls = [0] * (nq + 3)  # the line state the decoder keeps per quad
+
+    memo = {}
+
+    def codeword(enc, c, rho, u_off, U, v):
+        key = (enc is enc0, c, rho, u_off, U,
+               tuple(v[i] >> (U - 1) for i in range(4) if rho >> i & 1))
+        if key in memo:
+            ek, cwd, n = memo[key]
+            vlc.put(cwd, n)
+            return ek
+        best = None
+        for ek, e1, cwd, n in enc[(c, rho, u_off)]:
+            if U == 1 and ek:
+                continue
+            if any(ek >> i & 1 and (v[i] >> (U - 1)) != (e1 >> i & 1)
+                   for i in range(4) if rho >> i & 1):
+                continue
+            key = (-bin(ek).count("1"), n, cwd)
+            if best is None or key < best[0]:
+                best = (key, ek, cwd, n)
+        if best is None:
+            raise ValueError(f"no codeword for context {c}, rho {rho}, "
+                             f"u_off {u_off}, U {U}")
+        memo[key] = best[1:]
+        vlc.put(best[2], best[3])
+        return best[1]
+
+    def magsgn(rho, U, ek, v):
+        for i in range(4):
+            if rho >> i & 1:
+                m = U - (ek >> i & 1)
+                ms.put(v[i] & ((1 << m) - 1), m)
+
+    def line_state(j, rho, e):
+        if rho & 2:
+            ls[j] = 0x80 | max(ls[j] & 0x7F, e[1])
+        ls[j + 1] = 0x80 | e[3] if rho & 8 else 0
+
+    for yq in range(hh // 2):
+        first = yq == 0
+        ls0, c_q = ls[0], 0
+        if not first:
+            ls[0] = 0
+        for x in range(0, w, 4):
+            j = x // 2
+            quads = [(qv[yq][j], qe[yq][j])]
+            if x + 2 < w:
+                quads.append((qv[yq][j + 1], qe[yq][j + 1]))
+            info = []
+            for k, (v, e) in enumerate(quads):
+                rho = sum(1 << i for i in range(4) if e[i])
+                if first:
+                    c, kappa = c_q, 1
+                else:
+                    left, right = (ls0, ls[j + 1]) if k == 0 else (
+                        ls[j + 1], ls[j + 2])
+                    c = c_q | (left >> 7) | ((right >> 5) & 4)
+                    kappa = 1
+                    if bin(rho).count("1") >= 2:
+                        kappa = max(max(left & 0x7F, right & 0x7F) - 1, 1)
+                U = max(max(e), kappa)
+                u = U - kappa
+                if c == 0:
+                    mel.event(rho != 0)
+                ek = 0
+                if c or rho:
+                    ek = codeword(enc0 if first else enc1, c, rho,
+                                  int(u > 0), U, v)
+                c_q = ((rho & 1) | (rho >> 1)) if first else (
+                    2 if rho & 12 else 0)
+                info.append((rho, U, u, ek, v, e))
+            u0 = info[0][2]
+            u1 = info[1][2] if len(info) > 1 else 0
+            (p0, s0), (p1, s1) = _u_code(u0), _u_code(u1)
+            if first and u0 and u1:
+                mel.event(min(u0, u1) > 2)
+                if min(u0, u1) > 2:
+                    (p0, s0), (p1, s1) = _u_code(u0 - 2), _u_code(u1 - 2)
+                elif u0 > 2:
+                    p1, s1 = (u1 - 1, 1), (0, 0)
+                    vlc.put(*p0)
+                    vlc.put(*p1)
+                    vlc.put(*s0)
+                    p0 = p1 = s0 = (0, 0)
+            for cw in (p0, p1, s0, s1):
+                vlc.put(*cw)
+            if not first:
+                ls0 = ls[j + 2]
+                ls[j + 1] = ls[j + 2] = 0
+            for k, (rho, U, u, ek, v, e) in enumerate(info):
+                magsgn(rho, U, ek, v)
+                line_state(j + k, rho, e)
+            if len(info) == 1:
+                ls[j + 2] = 0
+    _mel_vlc_end(mel, vlc)
+    seg = bytearray(ms.end(True) + bytes(mel.buf) + vlc.end())
+    scup = len(mel.buf) + len(vlc.buf)
+    if not 2 <= scup <= 4079:
+        raise ValueError(f"Scup {scup} out of range")
+    seg[-1] = scup >> 4
+    seg[-2] = (seg[-2] & 0xF0) | (scup & 0xF)
+    return bytes(seg)
+
+
+def _ht_refine(mag, neg, p, vsc, magref):
+    """SigProp (and with `magref` MagRef) at plane p - 1 of the cleanup at
+    plane p, in the stripes, groups of 4 columns and bit orders OpenJPEG
+    reads them: (SigProp's bytes, MagRef's reversed), which the second
+    codeword segment holds in that order."""
+    h, w = mag.shape
+    sig = (mag >> p) > 0
+    bit = ((mag >> (p - 1)) & 1).astype(bool)
+    sp, mr = _Fwd(), _Rev(False)
+    above = np.zeros(w + 2, bool)  # the previous stripe's row 3, final
+    for y0 in range(0, h, 4):
+        rows = min(4, h - y0)
+        s = np.zeros((6, w + 2), bool)  # rows -1..4, columns -1..w
+        s[1:rows + 1, 1:w + 1] = sig[y0:y0 + rows]
+        mb = np.zeros((4, w + 2), bool)
+        for r in range(4):
+            lo, hi = max(r - 1, 0), min(r + 1, 3)
+            for dr in range(lo, hi + 1):
+                mb[r, 1:w + 1] |= s[dr + 1, 0:w] | s[dr + 1, 1:w + 1] | \
+                    s[dr + 1, 2:w + 2]
+        if y0 + 4 < h and not vsc:
+            nxt = np.zeros(w + 2, bool)
+            nxt[1:w + 1] = sig[y0 + 4]
+            mb[3, 1:w + 1] |= nxt[0:w] | nxt[1:w + 1] | nxt[2:w + 2]
+        mb[0, 1:w + 1] |= above[0:w] | above[1:w + 1] | above[2:w + 2]
+        mb[:, 1:w + 1] &= ~s[1:5, 1:w + 1]
+        mb[rows:] = False
+        if magref:  # the cleanup's samples, column by column
+            col = bit[y0:y0 + rows].T[sig[y0:y0 + rows].T].astype(
+                np.int64)
+            for at in range(0, len(col), 32):
+                chunk = col[at:at + 32]
+                mr.put(int((chunk << np.arange(len(chunk))).sum()),
+                       len(chunk))
+        mbt = mb[:, 1:].T.tolist()  # by column, 4 rows each
+        st = s[1:5, 1:].T.tolist()
+        pad = np.zeros((4, w), bool)
+        pad[:rows] = bit[y0:y0 + rows]
+        bt = pad.T.tolist()
+        pad = np.zeros((4, w), bool)
+        pad[:rows] = neg[y0:y0 + rows] > 0
+        nt = pad.T.tolist()
+        newt = [[False] * 4 for _ in range(w + 1)]
+        for g in range(0, w, 4):
+            for x in range(g, min(g + 4, w)):
+                m, b = mbt[x], bt[x]
+                for r in range(4):
+                    if not m[r]:
+                        continue
+                    sp.put(int(b[r]), 1)
+                    if not b[r]:
+                        continue
+                    newt[x][r] = True
+                    if r < 3 and not st[x][r + 1] and r + 1 < rows:
+                        m[r + 1] = True
+                    for rr in range(max(r - 1, 0), min(r + 1, 3) + 1):
+                        if rr < rows and not st[x + 1][rr]:
+                            mbt[x + 1][rr] = True
+            for x in range(g, min(g + 4, w)):
+                for r in range(4):
+                    if newt[x][r]:
+                        sp.put(int(nt[x][r]), 1)
+        above = np.zeros(w + 2, bool)
+        if rows == 4:
+            above[1:w + 1] = s[4, 1:w + 1] | np.array(
+                [c[3] for c in newt[:w]], bool)
+    return sp.end(False), mr.end()
+
+
+# the damage `ht_damage` does to every HT code-block (the tests hold the
+# decoder to cv2 on each): a second segment of no bytes; SigProp and
+# MagRef signalled below plane 0 (two passes of two zero bytes after a
+# lossless cleanup); Scup past Lcup, or below 2; a cleanup segment of one
+# byte; zero bit-planes past the band's; one bit-plane more than coded;
+# significance in a column past the block's (an odd width)
+HT_DAMAGE = ("empty_refinement", "below_plane_0", "scup_past_lcup",
+             "scup_below_2", "short_cleanup", "zero_planes_past",
+             "planes_overstated", "outside")
+
+
+def _ht_encode(coef, p, passes, vsc, tables, damage=None):
+    """One HT code-block of integer coefficients, its cleanup at plane p:
+    [(codeword segment, bytes)] per coding pass, the cleanup (segment 0),
+    then SigProp and MagRef of plane p - 1 (segment 1) where passes > 1;
+    passes past 3 are signalled with no bytes (OpenJPEG refuses them)."""
+    coder = _ht_coder(tuple(tuple(int(e) for e in t) for t in tables)
+                      if tables is not None else _committed_ht_tables())
+    mag = np.abs(np.asarray(coef, np.int64))
+    neg = (np.asarray(coef) < 0).astype(np.int64)
+    mu, sgn = mag >> p, neg
+    if damage == "outside":
+        mu = np.pad(mu, ((0, 0), (0, 1)), constant_values=1)
+        sgn = np.pad(neg, ((0, 0), (0, 1)))
+    cleanup = bytearray(_ht_cleanup(mu, sgn, coder))
+    if damage == "scup_past_lcup":
+        scup = len(cleanup) + 1
+        cleanup[-1] = scup >> 4
+        cleanup[-2] = (cleanup[-2] & 0xF0) | (scup & 0xF)
+    elif damage == "scup_below_2":
+        cleanup[-1] = 0
+        cleanup[-2] = (cleanup[-2] & 0xF0) | 1
+    elif damage == "short_cleanup":
+        cleanup = cleanup[:1]
+    out = [(0, bytes(cleanup))]
+    if damage == "below_plane_0":
+        return out + [(1, b"\0"), (1, b"\0")]
+    if passes > 1:
+        sp, mr = _ht_refine(mag, neg, p, vsc, passes > 2)
+        if damage == "empty_refinement":
+            sp = mr = b""
+        out += [(1, sp), (1, mr)][:passes - 1]
+        out += [(1, b"")] * (passes - 3)
+    return out
+
+
 def _fdwt53(a, axis, x0):
     """The forward 5/3 (F.4.8.2) along one axis of samples starting at the
     absolute coordinate x0: (low, high)."""
@@ -662,7 +1092,9 @@ def j2k_codestream(planes, precision=8, signed=False, subsampling=None,
                    layers=1, progression=0, pocs=None, precincts=None,
                    tile=None, mct=None, sop=False, eph=False, ppm=False,
                    ppt=False, roi=None, tile_parts=1, coc=None,
-                   comment=None) -> bytes:
+                   comment=None, ht=False, ht_passes=1, ht_drop=0,
+                   ht_layers=None, cap=True, cpf=False, irreversible=False,
+                   ht_tables=None, ht_damage=None) -> bytes:
     """A lossless codestream of integer planes (one per component, each at
     its own sampled size): 5/3 wavelet over `levels`, code-blocks of
     2^cblk, `style` the code-block style bits, `layers` quality layers
@@ -672,7 +1104,20 @@ def j2k_codestream(planes, precision=8, signed=False, subsampling=None,
     resolution, `tile` (w, h), `mct` the RCT (default: 3 or more
     components), SOP / EPH markers, packet headers in PPM or PPT, `roi`
     (shift, fraction of each band's top-left raised), `tile_parts` per
-    tile (interleaved across tiles), `coc` {component: (cblk, style)}."""
+    tile (interleaved across tiles), `coc` {component: (cblk, style)}.
+
+    `ht`: every code-block by the HT block coder (style bit 0x40 added to
+    `style`, a CAP marker unless `cap` is False, a CPF marker with `cpf`):
+    `ht_passes` 1 (cleanup), 2 (+ SigProp) or 3 (+ MagRef), more signalled
+    empty; the cleanup at plane `ht_drop` + (1 with SigProp), planes below
+    `ht_drop` left out (lossy; and SigProp reaches only the samples next to
+    significant ones, so three passes are lossless only where plane
+    `ht_drop` has no other); `ht_layers` the passes each layer adds (by
+    default all in layer 0); `ht_tables` decode tables (default
+    native/j2k_ht_tables.h); `ht_damage` one of HT_DAMAGE. `irreversible`:
+    the 9/7 wavelet in COD and scalar-expounded QCD / QCC, the 5/3
+    coefficients sent as its quantised ones (a picture cv2 decodes as the
+    decoder under test must; not the input's)."""
     nc = len(planes)
     prec = [precision] * nc if np.isscalar(precision) else list(precision)
     sgn = [signed] * nc if np.isscalar(signed) else list(signed)
@@ -691,8 +1136,12 @@ def j2k_codestream(planes, precision=8, signed=False, subsampling=None,
         if not sgn[c]:
             v = v - (1 << (prec[c] - 1))
         comp.append(v)
+    if ht:
+        style |= HT
     cstyle = {c: (cblk, style) for c in range(nc)}
     cstyle.update(coc or {})
+    htc = dict(passes=ht_passes, drop=ht_drop, layers=ht_layers,
+               tables=ht_tables, damage=ht_damage)
     # tiles
     tiles_data = []
     for t in range(ntx * nty):
@@ -716,7 +1165,8 @@ def j2k_codestream(planes, precision=8, signed=False, subsampling=None,
                  for c in range(nc)]
         tiles_data.append(_tile_packets(
             tiles, prec, mct, cstyle, layers, progression, pocs,
-            [tuple(s) for s in sub], (tx0, ty0, tx1, ty1), roi, sop, eph))
+            [tuple(s) for s in sub], (tx0, ty0, tx1, ty1), roi, sop, eph,
+            htc))
     # the main header
     siz = struct.pack(">HIIIIIIIIH", 0, x1, y1, ox, oy, tw_, th_, 0, 0, nc)
     for c in range(nc):
@@ -724,24 +1174,30 @@ def j2k_codestream(planes, precision=8, signed=False, subsampling=None,
     scod = (1 if precincts else 0) | (2 if sop else 0) | (4 if eph else 0)
 
     def spcod(cb, st):
-        out = bytes([levels, cb[0] - 2, cb[1] - 2, st, 1])
+        out = bytes([levels, cb[0] - 2, cb[1] - 2, st,
+                     0 if irreversible else 1])
         if precincts:
             out += bytes(ppy << 4 | ppx for ppx, ppy in prec_sizes)
         return out
 
     head = b"\xff\x4f" + _marker(0xFF51, siz)
+    if ht and cap:  # Part 15 capability, Ccap15 0: HT code-blocks only
+        head += _marker(0xFF50, struct.pack(">IH", 1 << 17, 0))
     head += _marker(0xFF52, bytes([scod, progression]) + struct.pack(
         ">H", layers) + bytes([1 if mct else 0]) + spcod(cblk, style))
     csz = 1 if nc < 257 else 2
     for c, (cb, st) in sorted((coc or {}).items()):
         head += _marker(0xFF53, c.to_bytes(csz, "big") + bytes(
             [1 if precincts else 0]) + spcod(cb, st))
-    head += _marker(0xFF5C, _sqcd(prec[0] + (1 if mct else 0), levels))
+    head += _marker(0xFF5C, _sqcd(prec[0] + (1 if mct else 0), levels,
+                                  irreversible))
     for c in range(1, nc):
         want = prec[c] + (1 if mct and c < 3 else 0)
         if want != prec[0] + (1 if mct else 0):
             head += _marker(0xFF5D, c.to_bytes(csz, "big") + _sqcd(
-                want, levels))
+                want, levels, irreversible))
+    if cpf:  # the corresponding profile: Part 15's HT profile, walked past
+        head += _marker(0xFF59, struct.pack(">H", 0x0F00))
     if roi:
         for c in range(nc):
             head += _marker(0xFF5E, c.to_bytes(csz, "big") + bytes(
@@ -792,15 +1248,19 @@ def j2k_codestream(planes, precision=8, signed=False, subsampling=None,
 _GUARD_BITS = 2
 
 
-def _sqcd(prec, levels):
+def _sqcd(prec, levels, irreversible=False):
     """QCD / QCC for no quantisation: each band's exponent, its precision
-    plus the band's gain, and two guard bits."""
+    plus the band's gain, and two guard bits; `irreversible`: scalar
+    expounded, the same exponents and a mantissa of 0x280."""
     expn = [prec] + [prec + g for _ in range(levels) for g in (1, 1, 2)]
+    if irreversible:
+        return bytes([2 | _GUARD_BITS << 5]) + b"".join(
+            struct.pack(">H", e << 11 | 0x280) for e in expn)
     return bytes([_GUARD_BITS << 5]) + bytes(e << 3 for e in expn)
 
 
 def _tile_packets(tiles, prec, mct, cstyle, layers, progression, pocs, sub,
-                  bounds, roi, sop, eph):
+                  bounds, roi, sop, eph, htc):
     """[(SOP marker or b"", header, body)] of one tile's packets, in its
     progression."""
     gains = {0: 0, 1: 1, 2: 1, 3: 2}
@@ -825,18 +1285,46 @@ def _tile_packets(tiles, prec, mct, cstyle, layers, progression, pocs, sub,
                             v[:int(np.ceil(v.shape[0] * frac)), :] <<= shift
                         nbits = int(np.abs(v).max()).bit_length() if v.size \
                             else 0
-                        zero = mb + shift - nbits
+                        if style & HT:
+                            # the cleanup's plane p: missing MSBs K_max -
+                            # 1 - p (RGN's shift is not applied: OpenJPEG
+                            # refuses ROI with HT code-blocks)
+                            dmg = htc["damage"]
+                            p = htc["drop"] + (htc["passes"] > 1 and
+                                               dmg != "below_plane_0")
+                            zero = mb - 1 - p + {"zero_planes_past": p + 1,
+                                                 "planes_overstated": -1
+                                                 }.get(dmg, 0)
+                            segs = [] if not nbits or (
+                                htc["passes"] == 1 and nbits <= p) else \
+                                _ht_encode(blk, p, htc["passes"],
+                                           bool(style & VSC), htc["tables"],
+                                           dmg)
+                        else:
+                            zero = mb + shift - nbits
+                            segs = _t1_encode(v, band["b"], style, nbits) \
+                                if nbits and v.size else []
                         if zero < 0:
                             raise ValueError("coefficients past the range "
                                              "the quantisation gives")
-                        segs = _t1_encode(v, band["b"], style, nbits) \
-                            if nbits and v.size else []
                         coded[(c, r, band["b"], pn, k)] = (zero, segs)
     # each code-block's segments by layer: TERMALL spreads them
     def by_layer(segs, style):
         out = [[] for _ in range(layers)]
         if not segs:
             return out
+        if style & HT:  # the passes by layer, grouped by codeword segment
+            counts = htc["layers"] or [len(segs)]
+            at = 0
+            for lay, n in enumerate(counts):
+                for seg, data in segs[at:at + n]:
+                    if out[lay] and out[lay][-1][2] == seg:
+                        m, d, _ = out[lay][-1]
+                        out[lay][-1] = (m + 1, d + data, seg)
+                    else:
+                        out[lay].append((1, data, seg))
+                at += n
+            return [[(m, d) for m, d, _ in g] for g in out]
         if style & TERMALL:
             n = len(segs)
             for i, s in enumerate(segs):
@@ -920,12 +1408,13 @@ def _box(kind: bytes, body: bytes) -> bytes:
 
 
 def jp2_file(codestream: bytes, colour=16, palette=None, cmap=None,
-             cdef=None) -> bytes:
+             cdef=None, brand=b"jp2 ") -> bytes:
     """The codestream in a JP2 file: the signature, ftyp, jp2h (ihdr from
     the codestream's SIZ; colr, an enumerated colour space or ("icc",
     profile bytes), or None for none; pclr from `palette` ((entries,
     channels) ints, bit depth 8), cmap [(component, type, column)], cdef
-    [(channel, type, association)]) and jp2c."""
+    [(channel, type, association)]) and jp2c; `brand` b"jph " for a JPH
+    file (ISO/IEC 15444-15 Annex D: the same boxes under its own brand)."""
     siz = codestream[4:]
     x1, y1, x0, y0 = struct.unpack(">IIII", siz[4:20])
     nc, = struct.unpack(">H", siz[36:38])
@@ -949,7 +1438,8 @@ def jp2_file(codestream: bytes, colour=16, palette=None, cmap=None,
         jp2h += _box(b"cdef", struct.pack(">H", len(cdef)) + b"".join(
             struct.pack(">HHH", *d) for d in cdef))
     return (_box(b"jP  ", b"\r\n\x87\n") +
-            _box(b"ftyp", b"jp2 \0\0\0\0jp2 ") + _box(b"jp2h", jp2h) +
+            _box(b"ftyp", brand + b"\0\0\0\0" + brand) +
+            _box(b"jp2h", jp2h) +
             _box(b"jp2c", codestream))
 
 
@@ -1057,4 +1547,110 @@ def jpeg2000_files() -> Dict[str, Tuple[bytes, str, str, str]]:
         "image offset", "refused")
     add("j2kw_gray_raw.j2k", j2k_codestream([p[0]]),
         "one component, no colour space", "refused")
+    return out
+
+
+def jpeg2000_ht_files(sources=None) -> Dict[str, Tuple[bytes, str, str,
+                                                      str]]:
+    """The committed high-throughput JPEG 2000 fixtures of this writer
+    (`j2kh_*`): {file name: (bytes, format, variant, expect)}, as
+    `jpeg2000_files`. 64x64 or smaller, but the 480x640 file the demo and
+    the card's timing read. `sources`, a dict, receives the picture each
+    lossless fixture must read back to in cv2 (RGB; gray repeated, 12 and
+    16 bits shifted to 8, alpha dropped)."""
+    rgb = _picture(19, 23, 41, 40)
+    p = [rgb[..., c] for c in range(3)]
+    rng = np.random.default_rng(42)
+    prc = [(2, 2), (2, 2), (3, 3)]
+    out = {}
+
+    def add(name, data, variant, expect="pixels", source=None):
+        fmt = {"jp2": "JPEG 2000 (JP2)", "jph": "JPEG 2000 (JPH)"}.get(
+            name.rsplit(".", 1)[1], "JPEG 2000 (codestream)")
+        out[name] = (data, fmt, variant, expect)
+        if source is not None and sources is not None:
+            source = np.asarray(source)
+            sources[name] = np.repeat(source[..., None], 3, 2) \
+                if source.ndim == 2 else source[..., :3]
+
+    add("j2kh_cleanup.j2k", j2k_codestream(p, ht=True),
+        "HT cleanup pass only, lossless", source=rgb)
+    add("j2kh_sigprop.j2k", j2k_codestream(p, ht=True, ht_passes=2),
+        "HT cleanup and SigProp (plane 0 of the cleanup's samples left out)")
+    add("j2kh_magref.j2k", j2k_codestream(p, ht=True, ht_passes=3),
+        "HT cleanup, SigProp and MagRef, lossless", source=rgb)
+    add("j2kh_layers.j2k", j2k_codestream(
+        p, ht=True, ht_passes=3, layers=2, ht_layers=[2, 1]),
+        "HT, 2 layers: cleanup and SigProp, then MagRef", source=rgb)
+    add("j2kh_termall_layers.j2k", j2k_codestream(
+        p, ht=True, ht_passes=3, layers=2, ht_layers=[1, 2], style=TERMALL),
+        "HT with TERMALL, 2 layers: cleanup, then SigProp and MagRef",
+        source=rgb)
+    add("j2kh_lossy_plane2.j2k", j2k_codestream(p, ht=True, ht_drop=2),
+        "HT cleanup at bit-plane 2 (planes 0-1 left out)")
+    add("j2kh_lossy_refined.j2k", j2k_codestream(
+        p, ht=True, ht_passes=3, ht_drop=1),
+        "HT cleanup at plane 2, SigProp and MagRef of plane 1")
+    add("j2kh_irreversible.j2k", j2k_codestream(
+        p, ht=True, ht_passes=3, ht_drop=1, irreversible=True),
+        "HT, 9/7 and ICT, scalar expounded")
+    add("j2kh_vsc_styles.j2k", j2k_codestream(
+        p, ht=True, ht_passes=3, style=0x3F, cblk=(3, 3)),
+        "HT with every other style bit (VSC among them), 8x8 blocks",
+        source=rgb)
+    add("j2kh_cblk_4x4.j2k", j2k_codestream(
+        p, ht=True, ht_passes=3, cblk=(2, 2), levels=1),
+        "HT, 4x4 code-blocks", source=rgb)
+    big = _picture(45, 61, 43, 40)
+    add("j2kh_cblk_64x64.j2k", j2k_codestream(
+        [big[..., c] for c in range(3)], ht=True, ht_passes=3, cblk=(6, 6),
+        levels=0), "HT, one 64x64 code-block over 45x61", source=big)
+    add("j2kh_cblk_8x32.j2k", j2k_codestream(
+        [big[..., c] for c in range(3)], ht=True, ht_passes=3, cblk=(3, 5),
+        levels=3), "HT, 8x32 code-blocks, 3 levels", source=big)
+    add("j2kh_tiles_rpcl.j2k", j2k_codestream(
+        p, ht=True, tile=(11, 9), progression=2, precincts=prc),
+        "HT, 11x9 tiles, precincts, RPCL", source=rgb)
+    add("j2kh_no_cap.j2k", j2k_codestream(p, ht=True, cap=False),
+        "HT without a CAP marker", source=rgb)
+    add("j2kh_cpf.j2k", j2k_codestream(p, ht=True, cpf=True),
+        "HT with a CPF marker", source=rgb)
+    add("j2kh_gray.jp2", jp2_file(j2k_codestream(
+        [p[1]], ht=True, ht_passes=3), colour=17), "HT gray", source=p[1])
+    gray16 = rng.integers(0, 1 << 16, (17, 21))
+    add("j2kh_gray16.jp2", jp2_file(j2k_codestream(
+        [gray16], precision=16, ht=True, ht_passes=3), colour=17),
+        "HT 16-bit gray", source=gray16 >> 8)
+    twelve = [(c.astype(np.int64) << 4) | rng.integers(0, 16, c.shape)
+              for c in p]
+    add("j2kh_rgb12.j2k", j2k_codestream(twelve, precision=12, ht=True,
+                                         ht_passes=3), "HT 12-bit RGB",
+        source=np.stack(twelve, -1) >> 4)
+    add("j2kh_rgba.jp2", jp2_file(j2k_codestream(
+        p + [rng.integers(0, 256, (19, 23))], ht=True, ht_passes=3)),
+        "HT RGBA", source=rgb)
+    add("j2kh_jph.jph", jp2_file(j2k_codestream(p, ht=True, ht_passes=3),
+                                 brand=b"jph "), "JPH file (brand jph)",
+        source=rgb)
+    add("j2kh_empty_refinement.j2k", j2k_codestream(
+        p, ht=True, ht_passes=3, ht_damage="empty_refinement"),
+        "HT, SigProp and MagRef of no bytes: the cleanup alone")
+    add("j2kh_below_plane0.j2k", j2k_codestream(
+        p, ht=True, ht_passes=3, ht_damage="below_plane_0"),
+        "HT, SigProp and MagRef below plane 0: the cleanup alone",
+        source=rgb)
+    add("j2kh_mixed.j2k", j2k_codestream(p, ht=True, style=0x80),
+        "mixed HT code-block style (0x80)", "refused")
+    add("j2kh_roi.j2k", j2k_codestream(p, ht=True, roi=(3, 0.5)),
+        "HT with RGN (ROI)", "refused")
+    add("j2kh_passes4.j2k", j2k_codestream(p, ht=True, ht_passes=4),
+        "HT, 4 coding passes", "refused")
+    add("j2kh_placeholders.j2k", j2k_codestream(
+        p, ht=True, ht_passes=6, layers=2, ht_layers=[3, 3]),
+        "HT, a second set of passes (6) in layer 2", "refused")
+    demo = _picture(480, 640, 44, 3)
+    add("j2kh_480x640.jp2", jp2_file(j2k_codestream(
+        [demo[..., c] for c in range(3)], ht=True, ht_passes=3,
+        cblk=(6, 6), levels=5)), "480x640 HT: cleanup at plane 1, "
+        "SigProp and MagRef, 64x64 blocks")
     return out
