@@ -8,11 +8,11 @@ IMREAD_COLOR)` does (BGR turned to RGB): BMP, PNM (P1-P6), PAM, TIFF
 (every variant cv2 reads: CCITT, BigTIFF, CMYK, YCbCr, CIELab, SGILog and
 ThunderScan among them), WebP, GIF, Sun raster, PFM,
 Radiance HDR, JPEG 2000 (JP2, JPH and raw codestreams, Part 1 and high-
-throughput code-blocks) and the lossless JPEG streams cv2 reads; on the
-card's machine too, which has neither cv2 nor PIL. A file it cannot
-decode raises an error that names it, and for a format cv2 reads that the
-port does not (AVIF) names the format with "not ported"; it never returns
-a blank or substitute image.
+throughput code-blocks), the lossless JPEG streams cv2 reads and lossless
+AVIF (what cv2.imwrite writes at quality 100); on the card's machine too,
+which has neither cv2 nor PIL. A file it cannot decode raises an error
+that names it, and for what cv2 reads that the port does not (lossy AVIF)
+names it with "not ported"; it never returns a blank or substitute image.
 `write_image` encodes by the file's extension as cv2.imwrite does for a
 colour image: JPEG, TIFF, WebP, GIF, Radiance HDR and JPEG 2000 through
 the library, PNG, BMP, PNM, PFM, Sun raster and PAM here; .pgm and .pbm

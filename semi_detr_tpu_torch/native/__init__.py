@@ -34,9 +34,15 @@ step.
   rounds them), JPEG 2000 (`j2k_host.cpp`: JP2, JPH and raw codestreams
   as OpenJPEG 2.5 decodes them for cv2, the 9/7 wavelet in its float32
   order; high-throughput code-blocks in `j2k_ht_host.cpp` with the VLC
-  tables of `j2k_ht_tables.h`) and lossless JPEG of at most 8 bits in RGB
-  or CMYK (`jpeg_host.cpp`). The format cv2 reads and the port does not
-  (AVIF) raises naming the format and "not ported";
+  tables of `j2k_ht_tables.h`), lossless JPEG of at most 8 bits in RGB
+  or CMYK (`jpeg_host.cpp`) and AVIF (`avif_host.cpp`: the ISOBMFF boxes
+  libavif reads for a still image, grids; the primary item's AV1 key frame
+  by the decoder of `av1_obu.cpp`, `av1_entropy.cpp`, `av1_intra.cpp` and
+  `av1_recon.cpp` with the tables of `av1_tables.h`: lossless frames at 8,
+  10 and 12 bits, 4:4:4 or monochrome; `avif_tools()` counts the coding
+  tools it decoded). What cv2 reads and the port does not (lossy AVIF, and
+  the lossless AV1 tools no fixture reaches) raises naming it and "not
+  ported";
   what cv2 refuses too (12-bit JPEG, 16-bit or gray lossless JPEG, TIFF
   orientation 5-8 on a picture that is not square, the TIFF compressions
   cv2's libtiff is built without: LZMA, ZSTD, WebP, old-style JPEG; float
@@ -108,9 +114,11 @@ FIXTURES = os.path.join(_DIR, "fixtures")
 SOURCES = ("host.cpp", "jpeg_host.cpp", "bmp_pnm_host.cpp", "tiff_host.cpp",
            "ccitt_host.cpp", "sgilog_host.cpp", "webp_host.cpp",
            "gif_host.cpp", "raster_host.cpp", "float_host.cpp", "j2k_host.cpp",
-           "j2k_ht_host.cpp", "encode_host.cpp", "j2k_encode_host.cpp")
+           "j2k_ht_host.cpp", "encode_host.cpp", "j2k_encode_host.cpp",
+           "avif_host.cpp", "av1_obu.cpp", "av1_entropy.cpp", "av1_intra.cpp",
+           "av1_recon.cpp")
 HEADERS = ("host.h", "webp_tables.h", "j2k_tables.h", "sgilog_tables.h",
-           "j2k_ht_tables.h")
+           "j2k_ht_tables.h", "av1.h", "av1_state.h", "av1_tables.h")
 JPEG_SOURCES = {"libjpeg": "jpeg_libjpeg.cpp", "nvjpeg": "jpeg_nvjpeg.cpp"}
 # the host decoders' routes, by jpeg_host_kind's answer, on either build
 HOST_KINDS = {0: None, 1: "sequential", 2: "progressive",
@@ -156,7 +164,11 @@ FORMAT_ROUTES = {
                 "it)",
     "webp": "host WebP (VP8L lossless, VP8 lossy key frames with libwebp's "
             "fancy upsampling, the first frame of an animation, EXIF "
-            "orientation)"}
+            "orientation)",
+    "avif": "host AVIF (ISOBMFF items in mdat or idat, grids; lossless AV1 "
+            "key frames at 8, 10 and 12 bits, 4:4:4 or monochrome: every "
+            "intra predictor, palette, intra block copy, the 4x4 Walsh-"
+            "Hadamard transform; libavif's RGB as cv2 reads it)"}
 # the colour handling of the host decoders
 COLOURS = ("gray, YCbCr (libjpeg jdcolor), RGB (none), CMYK and YCCK "
            "(cv2.imread's conversion and EXIF orientation); every sampling "
@@ -320,6 +332,8 @@ _SIGNATURES = {
     "sdt_loader_next": ([_P, _P, _P, _P, _P, _P, ctypes.c_char_p, _I], _I),
     "sdt_loader_copy": ([_P, _P], None),
     "sdt_loader_destroy": ([_P], None),
+    "sdt_avif_tally": ([_P, _I], _I),
+    "sdt_avif_tool_name": ([_I], ctypes.c_char_p),
 }
 _lock = threading.Lock()
 
@@ -347,7 +361,7 @@ def decoders() -> Dict[str, str]:
     `tiff`, `webp`, `gif`, `sun_raster`, `pfm`, `hdr`: the library's own
     decoders of those formats, `jpeg2000` the JPEG 2000 one (its high-
     throughput block decoder of Part 15 too: the only route of an HTJ2K
-    file, on either machine)."""
+    file, on either machine), `avif` the AVIF one (lossless AV1)."""
     backend = _library().sdt_jpeg_backend().decode()
     out = {"png": "zlib inflate + C++ row filters (every bit depth and "
                   "colour type, Adam7)", "jpeg": backend}
@@ -401,11 +415,12 @@ def decode_image(buf: bytes, name: str = "<bytes>") -> np.ndarray:
     """Image bytes -> (H, W, 3) uint8 RGB, the format found by its
     signature: JPEG and PNG as the JAX package's native loader decodes
     them; BMP, PNM, PAM, TIFF, WebP, GIF, Sun raster, PFM, Radiance HDR,
-    JPEG 2000 and lossless JPEG as `cv2.imread(path, IMREAD_COLOR)` does
-    (`decoders()` names each route). Raises ImageDecodeError naming
-    `name` (the file) on anything it cannot decode: damage with the fault,
-    what cv2 refuses with "cv2 refuses it too", a format cv2 reads and the
-    port does not with its name and "not ported"."""
+    JPEG 2000, lossless JPEG and lossless AVIF as `cv2.imread(path,
+    IMREAD_COLOR)` does (`decoders()` names each route). Raises
+    ImageDecodeError naming `name` (the file) on anything it cannot
+    decode: damage with the fault, what cv2 refuses with "cv2 refuses it
+    too", what cv2 reads and the port does not with its name and "not
+    ported"."""
     buf = bytes(buf)
     h, w = image_size(buf, name)
     out = np.empty((h, w, 3), np.uint8)
@@ -414,6 +429,17 @@ def decode_image(buf: bytes, name: str = "<bytes>") -> np.ndarray:
     if st:
         raise _error(st, name, lib.sdt_last_error().decode())
     return out
+
+
+def avif_tools() -> Dict[str, int]:
+    """The AV1 coding tools the AVIF decoder has decoded in this process,
+    by name: how many blocks (or pictures, for the headers, depths and
+    container features) used each."""
+    lib = _library()
+    n = lib.sdt_avif_tally(None, 0)
+    counts = (ctypes.c_long * n)()
+    lib.sdt_avif_tally(counts, n)
+    return {lib.sdt_avif_tool_name(i).decode(): counts[i] for i in range(n)}
 
 
 def png_unfilter(raw: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:

@@ -1,0 +1,245 @@
+// Declarations shared by the host library's AV1 still-picture decoder:
+// av1_obu.cpp (OBU framing, sequence and frame headers), av1_entropy.cpp
+// (the symbol decoder and its CDFs), av1_intra.cpp (partitions, mode info,
+// palette, intra block copy, coefficients), av1_recon.cpp (prediction and
+// the lossless reconstruction) and avif_host.cpp (the AVIF container).
+// Section numbers are those of the AV1 Bitstream & Decoding Process
+// Specification; names follow it.
+//
+// Only lossless key frames are decoded: every tool such a frame may carry
+// that a committed fixture reaches, at 8, 10 and 12 bits, 4:4:4 or
+// monochrome. Lossy frames and the lossless tools no fixture reaches raise
+// "AVIF (cv2 reads it): ... not ported".
+#pragma once
+
+#include <atomic>
+#include <cstdint>
+#include <string>
+#include <vector>
+
+namespace sdt {
+namespace av1 {
+
+// a decode that stops: status is sdt::kCorrupt (damage) or
+// sdt::kUnsupported (a refusal); what() is the message
+struct Failure {
+  int status;
+  std::string msg;
+};
+[[noreturn]] void corrupt(const std::string& msg);
+// a valid stream using `what`, which this decoder refuses
+[[noreturn]] void not_ported(const std::string& what);
+
+// ------------------------------------------------------------ coverage
+
+// The tools the decoder has decoded, counted per process (sdt_avif_tally).
+enum Tool {
+  kToolSb64, kToolSb128, kToolPartitionNone, kToolPartitionHorz,
+  kToolPartitionVert, kToolPartitionSplit, kToolPartitionHorzA,
+  kToolPartitionHorzB, kToolPartitionVertA, kToolPartitionVertB,
+  kToolPartitionHorz4, kToolPartitionVert4, kToolSplitOrHorz,
+  kToolSplitOrVert, kToolSkip, kToolDcPred, kToolVPred, kToolHPred,
+  kToolDirectional, kToolAngleDelta, kToolEdgeFilter, kToolEdgeUpsample,
+  kToolSmooth, kToolSmoothV, kToolSmoothH, kToolPaeth, kToolCfl,
+  kToolFilterIntra, kToolPaletteY, kToolPaletteUV, kToolPaletteCache,
+  kToolPaletteDeltaV, kToolIntrabc, kToolIntrabcDefaultDv,
+  kToolCoefficients, kToolGolomb, kToolDcSign, kToolWht, kToolDepth8,
+  kToolDepth10, kToolDepth12, kToolMonochrome, kToolSeqFull,
+  kToolSeqReduced, kToolFrameEdge, kToolGrid, kToolAlphaItem,
+  kToolCount
+};
+extern const char* const kToolNames[kToolCount];
+extern std::atomic<long> g_tally[kToolCount];
+inline void count(Tool t) { g_tally[t].fetch_add(1, std::memory_order_relaxed); }
+
+// ------------------------------------------------------------ bit reader
+
+// MSB-first reads of the uncompressed headers (4.10)
+class BitReader {
+ public:
+  BitReader(const uint8_t* d, long n) : d_(d), n_(n) {}
+  uint32_t f(int bits);
+  int64_t su(int bits);
+  uint32_t ns(uint32_t n);
+  uint64_t leb128();
+  uint32_t uvlc();
+  void byte_align() { pos_ = (pos_ + 7) & ~7L; }
+  long bytes_read() const { return (pos_ + 7) >> 3; }
+
+ private:
+  const uint8_t* d_;
+  long n_, pos_ = 0;
+};
+
+// ------------------------------------------------------------ headers
+
+struct SequenceHeader {
+  int profile = 0;
+  bool reduced = false;
+  int frame_width_bits = 0, frame_height_bits = 0;
+  int max_width = 0, max_height = 0;
+  bool frame_id_numbers = false;
+  int frame_id_len = 0;
+  bool sb128 = false, filter_intra = false, intra_edge_filter = false;
+  int order_hint_bits = 0;
+  int force_screen_content = 2, force_integer_mv = 2;
+  bool superres = false;
+  int bit_depth = 8;
+  bool mono = false;
+  int matrix = 2;
+  bool full_range = false;
+  int ssx = 0, ssy = 0;
+  bool separate_uv_delta_q = false;
+  bool film_grain = false;
+};
+
+struct FrameHeader {
+  int width = 0, height = 0;
+  int mi_cols = 0, mi_rows = 0;
+  bool disable_cdf_update = false;
+  bool screen_content = false, intrabc = false;
+  int base_q_idx = 0;
+};
+
+// One AV1 still picture of an AVIF item: the OBUs (its av1C config OBUs
+// first, then the item's data) parsed to headers and the tile data.
+struct Picture {
+  SequenceHeader seq;
+  FrameHeader frame;
+  const uint8_t* tile_data = nullptr;  // the tile group's tiles
+  long tile_size = 0;
+};
+// Parse a temporal unit (and the sequence header OBUs of av1C before it);
+// refuses what the decoder does not decode, fails on damage.
+void parse_obus(const uint8_t* config, long config_len, const uint8_t* data,
+                long len, Picture* pic);
+
+// ------------------------------------------------------------ entropy
+
+// 8.2: the multi-symbol arithmetic decoder of one tile
+class SymbolReader {
+ public:
+  void init(const uint8_t* d, long size, bool disable_update);
+  // a symbol of n by the inverted CDF icdf[0..n-1], with icdf[n] its
+  // adaptation counter
+  int symbol(uint16_t* icdf, int n);
+  int boolean();
+  int literal(int bits);
+  int ns(int n);
+  // data read past the tile's end (exit_symbol's requirement)
+  bool overrun() const { return max_bits_ < -14; }
+
+ private:
+  int bit();
+  const uint8_t* d_ = nullptr;
+  long nbits_ = 0, pos_ = 0;
+  uint32_t value_ = 0, range_ = 0;
+  long max_bits_ = 0;
+  bool no_update_ = false;
+};
+
+// The adaptive CDFs of a tile (the defaults of av1_tables.h, the
+// coefficient ones at the frame's quantizer context).
+struct MvCdfs {
+  uint16_t joints[5];
+  struct Comp {
+    uint16_t classes[12];
+    uint16_t class0_fp[2][5];
+    uint16_t fp[5];
+    uint16_t sign[3];
+    uint16_t class0_hp[3];
+    uint16_t hp[3];
+    uint16_t class0[3];
+    uint16_t bits[10][3];
+  } comp[2];
+};
+struct Cdfs {
+  uint16_t kf_y_mode[5][5][14];
+  uint16_t uv_mode_cfl_not_allowed[13][15];
+  uint16_t uv_mode_cfl_allowed[13][15];
+  uint16_t partition[20][11];
+  uint16_t angle_delta[8][8];
+  uint16_t skip[3][3];
+  uint16_t intrabc[3];
+  uint16_t filter_intra[22][3];
+  uint16_t filter_intra_mode[6];
+  uint16_t cfl_sign[9];
+  uint16_t cfl_alpha[6][17];
+  uint16_t palette_y_mode[7][3][3];
+  uint16_t palette_uv_mode[2][3];
+  uint16_t palette_y_size[7][8];
+  uint16_t palette_uv_size[7][8];
+  uint16_t palette_y_color[7][5][9];
+  uint16_t palette_uv_color[7][5][9];
+  MvCdfs mv[2];
+  uint16_t txb_skip[5][13][3];
+  uint16_t eob_extra[5][2][9][3];
+  uint16_t dc_sign[2][3][3];
+  uint16_t eob_pt_16[2][2][6];
+  uint16_t coeff_base_eob[5][2][4][4];
+  uint16_t coeff_base[5][2][42][5];
+  uint16_t coeff_br[5][2][21][5];
+};
+void init_cdfs(Cdfs* c, int base_q_idx);
+
+// ------------------------------------------------------------ decode
+
+// The planes of a decoded picture: 1 (monochrome) or 3 (Y, U, V; for the
+// identity matrix G, B, R) of height x width samples at bit_depth.
+struct Planes {
+  int width = 0, height = 0, bit_depth = 8, count = 3;
+  std::vector<uint16_t> plane[3];
+};
+// Decode the picture's one tile (av1_intra.cpp, with av1_recon.cpp).
+void decode_picture(const Picture& pic, Planes* out);
+
+// ------------------------------------------------------------ constants
+
+enum BlockSize {
+  BLOCK_4X4, BLOCK_4X8, BLOCK_8X4, BLOCK_8X8, BLOCK_8X16, BLOCK_16X8,
+  BLOCK_16X16, BLOCK_16X32, BLOCK_32X16, BLOCK_32X32, BLOCK_32X64,
+  BLOCK_64X32, BLOCK_64X64, BLOCK_64X128, BLOCK_128X64, BLOCK_128X128,
+  BLOCK_4X16, BLOCK_16X4, BLOCK_8X32, BLOCK_32X8, BLOCK_16X64, BLOCK_64X16,
+  BLOCK_INVALID
+};
+enum Partition {
+  PARTITION_NONE, PARTITION_HORZ, PARTITION_VERT, PARTITION_SPLIT,
+  PARTITION_HORZ_A, PARTITION_HORZ_B, PARTITION_VERT_A, PARTITION_VERT_B,
+  PARTITION_HORZ_4, PARTITION_VERT_4
+};
+enum IntraMode {
+  DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED,
+  D203_PRED, D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED,
+  PAETH_PRED, UV_CFL_PRED
+};
+
+inline constexpr int kNum4x4W[22] = {1, 1, 2, 2, 2, 4, 4, 4, 8, 8, 8,
+                                     16, 16, 16, 32, 32, 1, 4, 2, 8, 4, 16};
+inline constexpr int kNum4x4H[22] = {1, 2, 1, 2, 4, 2, 4, 8, 4, 8, 16,
+                                     8, 16, 32, 16, 32, 4, 1, 8, 2, 16, 4};
+inline constexpr int kMiWidthLog2[22] = {0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3,
+                                         4, 4, 4, 5, 5, 0, 2, 1, 3, 2, 4};
+inline constexpr int kMiHeightLog2[22] = {0, 1, 0, 1, 2, 1, 2, 3, 2, 3, 4,
+                                          3, 4, 5, 4, 5, 2, 0, 3, 1, 4, 2};
+// Partition_Subsize[partition][log2 of the square's width in 4x4 units:
+// 4x4, 8, 16, 32, 64, 128]
+inline constexpr int kSubsize[10][6] = {
+    {BLOCK_4X4, BLOCK_8X8, BLOCK_16X16, BLOCK_32X32, BLOCK_64X64, BLOCK_128X128},
+    {BLOCK_INVALID, BLOCK_8X4, BLOCK_16X8, BLOCK_32X16, BLOCK_64X32, BLOCK_128X64},
+    {BLOCK_INVALID, BLOCK_4X8, BLOCK_8X16, BLOCK_16X32, BLOCK_32X64, BLOCK_64X128},
+    {BLOCK_INVALID, BLOCK_4X4, BLOCK_8X8, BLOCK_16X16, BLOCK_32X32, BLOCK_64X64},
+    {BLOCK_INVALID, BLOCK_8X4, BLOCK_16X8, BLOCK_32X16, BLOCK_64X32, BLOCK_128X64},
+    {BLOCK_INVALID, BLOCK_8X4, BLOCK_16X8, BLOCK_32X16, BLOCK_64X32, BLOCK_128X64},
+    {BLOCK_INVALID, BLOCK_4X8, BLOCK_8X16, BLOCK_16X32, BLOCK_32X64, BLOCK_64X128},
+    {BLOCK_INVALID, BLOCK_4X8, BLOCK_8X16, BLOCK_16X32, BLOCK_32X64, BLOCK_64X128},
+    {BLOCK_INVALID, BLOCK_INVALID, BLOCK_16X4, BLOCK_32X8, BLOCK_64X16, BLOCK_INVALID},
+    {BLOCK_INVALID, BLOCK_INVALID, BLOCK_4X16, BLOCK_8X32, BLOCK_16X64, BLOCK_INVALID},
+};
+// Mode_To_Angle, Intra_Mode_Context (5.11.x)
+inline constexpr int kModeToAngle[13] = {0, 90, 180, 45, 135, 113, 157, 203,
+                                         67, 0, 0, 0, 0};
+inline constexpr int kIntraModeContext[13] = {0, 1, 2, 3, 4, 4, 4, 4,
+                                              3, 0, 1, 2, 0};
+
+}  // namespace av1
+}  // namespace sdt

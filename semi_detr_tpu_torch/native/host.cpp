@@ -421,27 +421,10 @@ int sdt_png_decode(const uint8_t* d, long n, uint8_t* out, int h, int w) {
   return kOk;
 }
 
-// The formats cv2.imread reads (and so the JAX loader's fallback) that the
-// library does not, by OpenCV's signature tests: their names, else nullptr.
-static const char* not_ported_format(const uint8_t* d, long n) {
-  if (n >= 16 && std::memcmp(d + 4, "ftyp", 4) == 0) {  // an ISO BMFF box
-    const long box = std::min<long>(be32(d), n);
-    for (long p = 8; p + 4 <= box; p += 4)  // major, version, compatible
-      if (p != 12 && (std::memcmp(d + p, "avif", 4) == 0 ||
-                      std::memcmp(d + p, "avis", 4) == 0))
-        return "AVIF";
-  }
-  return nullptr;
-}
-
-static int unknown_format(const uint8_t* d, long n) {
-  if (const char* f = not_ported_format(d, n)) {
-    set_error(std::string(f) + " (cv2 reads it): not ported");
-    return kUnsupported;
-  }
+static int unknown_format() {
   set_error("neither a JPEG nor a PNG stream, nor BMP, PNM, PAM, TIFF, "
-            "WebP, GIF, Sun raster, PFM, HDR, JPEG 2000 or another format cv2 "
-            "reads");
+            "WebP, GIF, Sun raster, PFM, HDR, JPEG 2000, AVIF or another "
+            "format cv2 reads");
   return kUnknownFormat;
 }
 
@@ -468,7 +451,8 @@ int sdt_image_info(const uint8_t* d, long n, int* h, int* w) {
   if (is_pfm(d, n)) return pfm_info(d, n, h, w);
   if (is_hdr(d, n)) return hdr_info(d, n, h, w);
   if (is_jpeg2000(d, n)) return jpeg2000_info(d, n, h, w);
-  return unknown_format(d, n);
+  if (is_avif(d, n)) return avif_info(d, n, h, w);
+  return unknown_format();
 }
 
 // Decode a stream of (h, w) pixels into out (h, w, 3) RGB. A JPEG stream
@@ -497,7 +481,8 @@ int sdt_decode(const uint8_t* d, long n, uint8_t* out, int h, int w) {
   if (is_pfm(d, n)) return pfm_decode(d, n, out, h, w);
   if (is_hdr(d, n)) return hdr_decode(d, n, out, h, w);
   if (is_jpeg2000(d, n)) return jpeg2000_decode(d, n, out, h, w);
-  return unknown_format(d, n);
+  if (is_avif(d, n)) return avif_decode(d, n, out, h, w);
+  return unknown_format();
 }
 
 int sdt_encode_jpeg(const uint8_t* rgb, int h, int w, uint8_t** out,

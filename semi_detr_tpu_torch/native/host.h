@@ -1,7 +1,8 @@
 // Declarations shared by the host library (host.cpp), its own decoders
 // (jpeg_host.cpp; bmp_pnm_host.cpp, tiff_host.cpp with ccitt_host.cpp and
 // sgilog_host.cpp, webp_host.cpp, gif_host.cpp, raster_host.cpp,
-// float_host.cpp and j2k_host.cpp with j2k_ht_host.cpp for the files the
+// float_host.cpp, j2k_host.cpp with j2k_ht_host.cpp and avif_host.cpp with
+// av1_*.cpp for the files the
 // JAX loader hands to cv2; its encoders are encode_host.cpp and j2k_encode_host.cpp) and its
 // JPEG back end: jpeg_libjpeg.cpp where the machine has libjpeg,
 // jpeg_nvjpeg.cpp where it has only the CUDA toolkit's nvJPEG
@@ -142,6 +143,9 @@ int hdr_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
 bool is_jpeg2000(const uint8_t* d, long n);  // j2k_host.cpp: JP2, .j2k
 int jpeg2000_info(const uint8_t* d, long n, int* h, int* w);
 int jpeg2000_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
+bool is_avif(const uint8_t* d, long n);  // avif_host.cpp: lossless AV1
+int avif_info(const uint8_t* d, long n, int* h, int* w);
+int avif_decode(const uint8_t* d, long n, uint8_t* out, int h, int w);
 
 // One high-throughput code-block of a JPEG 2000 tile (j2k_ht_host.cpp) as
 // OpenJPEG 2.5's opj_t1_ht_decode_cblk decodes it: its data (len bytes,

@@ -1225,6 +1225,7 @@ def fixture_files():
     add("other_gif.gif", _pil(a, "GIF"), "GIF", "Pillow")
     _add_new_formats(add, a, b, big, rs)
     _add_tiff_tail(add)
+    _add_avif(add)
     return out
 
 
@@ -1550,6 +1551,561 @@ def _add_tiff_tail(add):
         rows_per_strip=16), "TIFF", "CIELab, LZW, predictor 2, at 480x640")
 
 
+# ------------------------------------------------------------------- AVIF
+
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def _full(kind: bytes, version: int, flags: int, body: bytes) -> bytes:
+    return _box(kind, struct.pack(">I", (version << 24) | flags) + body)
+
+
+def avif_boxes(data: bytes, start: int = 0, end: int = None):
+    """[(type, body start, body end)] of the boxes in data[start:end]."""
+    end = len(data) if end is None else end
+    out, p = [], start
+    while p < end:
+        size, kind = struct.unpack(">I4s", data[p:p + 8])
+        hdr = 8
+        if size == 1:
+            size, hdr = struct.unpack(">Q", data[p + 8:p + 16])[0], 16
+        elif size == 0:
+            size = end - p
+        out.append((kind, p + hdr, p + size))
+        p += size
+    return out
+
+
+def avif_items(data: bytes):
+    """The still image cv2.imwrite writes, taken apart: {"primary": id,
+    "items": {id: {"type", "data", "props": [property boxes],
+    "essential": [bool]}}, "refs": [(type, from, [to])]}. Item data is
+    read through iloc (version 0-2, file or idat offsets)."""
+    meta = next(b for b in avif_boxes(data) if b[0] == b"meta")
+    boxes = {k: (s, e) for k, s, e in avif_boxes(data, meta[1] + 4, meta[2])}
+    items, props, refs = {}, [], []
+    s, e = boxes[b"pitm"]
+    primary = struct.unpack(">H" if data[s] == 0 else ">I",
+                            data[s + 4:s + (6 if data[s] == 0 else 8)])[0]
+    s, e = boxes[b"iinf"]
+    n_off = 6 if data[s] == 0 else 8
+    for kind, bs, be_ in avif_boxes(data, s + n_off, e):
+        v = data[bs]
+        iid = struct.unpack(">H", data[bs + 4:bs + 6])[0] if v == 2 else \
+            struct.unpack(">I", data[bs + 4:bs + 8])[0]
+        t = data[bs + 8:bs + 12] if v == 2 else data[bs + 10:bs + 14]
+        items[iid] = {"type": t, "props": [], "essential": []}
+    s, e = boxes[b"iprp"]
+    for kind, bs, be_ in avif_boxes(data, s, e):
+        if kind == b"ipco":
+            props = [data[ps - 8:pe] for _, ps, pe in avif_boxes(data, bs, be_)]
+        if kind == b"ipma":
+            v, flags = data[bs], int.from_bytes(data[bs + 1:bs + 4], "big")
+            n = struct.unpack(">I", data[bs + 4:bs + 8])[0]
+            p = bs + 8
+            for _ in range(n):
+                iid = struct.unpack(">H" if v < 1 else ">I", data[p:p + (2 if v < 1 else 4)])[0]
+                p += 2 if v < 1 else 4
+                k = data[p]
+                p += 1
+                for _ in range(k):
+                    if flags & 1:
+                        x = struct.unpack(">H", data[p:p + 2])[0]
+                        p += 2
+                        idx, ess = x & 0x7FFF, bool(x & 0x8000)
+                    else:
+                        idx, ess = data[p] & 0x7F, bool(data[p] & 0x80)
+                        p += 1
+                    items[iid]["props"].append(props[idx - 1])
+                    items[iid]["essential"].append(ess)
+    if b"iref" in boxes:
+        s, e = boxes[b"iref"]
+        v = data[s]
+        for kind, bs, be_ in avif_boxes(data, s + 4, e):
+            w = 2 if v == 0 else 4
+            fr = int.from_bytes(data[bs:bs + w], "big")
+            n = struct.unpack(">H", data[bs + w:bs + w + 2])[0]
+            to = [int.from_bytes(data[bs + w + 2 + w * i:bs + w + 2 + w * (i + 1)], "big")
+                  for i in range(n)]
+            refs.append((kind, fr, to))
+    idat = boxes.get(b"idat")
+    s, e = boxes[b"iloc"]
+    v = data[s]
+    p = s + 4
+    off_size, len_size = data[p] >> 4, data[p] & 15
+    base_size, idx_size = data[p + 1] >> 4, (data[p + 1] & 15) if v else 0
+    p += 2
+    def num(size):
+        nonlocal p
+        x = int.from_bytes(data[p:p + size], "big") if size else 0
+        p += size
+        return x
+    count = num(2 if v < 2 else 4)
+    for _ in range(count):
+        iid = num(2 if v < 2 else 4)
+        method = num(2) & 15 if v else 0
+        num(2)
+        base = num(base_size)
+        chunks = []
+        for _ in range(num(2)):
+            num(idx_size)
+            off, length = num(off_size), num(len_size)
+            src = data if method == 0 else data[idat[0]:idat[1]]
+            chunks.append(src[base + off:base + off + length])
+        items[iid]["data"] = b"".join(chunks)
+    return {"primary": primary, "items": items, "refs": refs,
+            "ftyp": next(data[s - 8:e] for k, s, e in avif_boxes(data) if k == b"ftyp")}
+
+
+def write_avif(items: dict, primary: int, refs=(), ftyp: bytes = None,
+               iloc_version: int = 0, field_size: int = 4, base_size: int = 0,
+               in_idat=(), split_extents=(), pitm_version: int = 0,
+               ipma_large: bool = False, big_mdat: bool = False) -> bytes:
+    """An AVIF file of `items` ({id: {"type", "data", "props",
+    "essential"}}, as avif_items gives them) with the primary item and the
+    references given: iloc of `iloc_version` with offsets and lengths of
+    `field_size` bytes and a base offset of `base_size` (which the extents
+    count from); the items of `in_idat` stored in an idat box
+    (construction method 1), those of `split_extents` as two extents;
+    ipma of 15-bit indices where `ipma_large`; a 64-bit mdat size where
+    `big_mdat`."""
+    ftyp = ftyp or _box(b"ftyp", b"avif" + bytes(4) + b"avifmif1miaf")
+    props = []
+    for it in items.values():
+        for pb in it["props"]:
+            if pb not in props:
+                props.append(pb)
+    ids = sorted(items)
+    w = 2 if pitm_version == 0 else 4
+    hdlr = _full(b"hdlr", 0, 0, bytes(4) + b"pict" + bytes(12) + b"\0")
+    pitm = _full(b"pitm", pitm_version, 0, primary.to_bytes(w, "big"))
+    infes = b"".join(_full(b"infe", 2, 0, struct.pack(">HH", i, 0) + items[i]["type"] + b"\0")
+                     for i in ids)
+    iinf = _full(b"iinf", 0, 0, struct.pack(">H", len(ids)) + infes)
+    iref = b""
+    if refs:
+        iref = _full(b"iref", 0, 0, b"".join(
+            _box(k, struct.pack(">HH", fr, len(to)) + b"".join(struct.pack(">H", t) for t in to))
+            for k, fr, to in refs))
+    ipco = _box(b"ipco", b"".join(props))
+    entries = b""
+    for i in ids:
+        it = items[i]
+        entries += struct.pack(">HB", i, len(it["props"]))
+        for pb, ess in zip(it["props"], it["essential"]):
+            k = props.index(pb) + 1
+            entries += struct.pack(">H", k | (0x8000 if ess else 0)) if ipma_large \
+                else bytes([k | (0x80 if ess else 0)])
+    ipma = _full(b"ipma", 0, 1 if ipma_large else 0, struct.pack(">I", len(ids)) + entries)
+    iprp = _box(b"iprp", ipco + ipma)
+    idat_body = b"".join(items[i]["data"] for i in ids if i in in_idat)
+    idat = _box(b"idat", idat_body) if idat_body else b""
+    mdat_body = b"".join(items[i]["data"] for i in ids if i not in in_idat)
+
+    def iloc(mdat_start):
+        fs = field_size
+        sizes = bytes([(fs << 4) | fs, (base_size << 4)])
+        body = sizes + (struct.pack(">H", len(ids)) if iloc_version < 2
+                        else struct.pack(">I", len(ids)))
+        at_m, at_i = mdat_start, 0
+        for i in ids:
+            d = items[i]["data"]
+            body += i.to_bytes(2 if iloc_version < 2 else 4, "big")
+            if iloc_version:
+                body += struct.pack(">H", 1 if i in in_idat else 0)
+            body += struct.pack(">H", 0)
+            start = at_i if i in in_idat else at_m
+            base = start if base_size else 0
+            if base_size:
+                body += base.to_bytes(base_size, "big")
+            parts = [(start, len(d))]
+            if i in split_extents:
+                half = len(d) // 2
+                parts = [(start, half), (start + half, len(d) - half)]
+            body += struct.pack(">H", len(parts))
+            for off, n in parts:
+                body += (off - base).to_bytes(fs, "big") + n.to_bytes(fs, "big")
+            if i in in_idat:
+                at_i += len(d)
+            else:
+                at_m += len(d)
+        return _full(b"iloc", iloc_version, 0, body)
+
+    def meta(mdat_start):
+        return _full(b"meta", 0, 0, hdlr + pitm + iloc(mdat_start) + iinf +
+                     iref + iprp + idat)
+
+    hdr = 16 if big_mdat else 8
+    start = len(ftyp) + len(meta(0)) + hdr
+    m = meta(start)
+    mdat = (struct.pack(">I4sQ", 1, b"mdat", 16 + len(mdat_body)) if big_mdat
+            else struct.pack(">I4s", 8 + len(mdat_body), b"mdat")) + mdat_body
+    return ftyp + m + mdat
+
+
+def avif_cv2(img: np.ndarray, quality: int = 100, depth: int = 8,
+             speed: int = None) -> bytes:
+    """cv2.imwrite's AVIF of a BGR(A) or gray picture (uint16 at depth 10
+    or 12); at quality 100 a lossless AV1 key frame, 4:4:4 and the
+    identity matrix (or monochrome)."""
+    import cv2
+    params = [cv2.IMWRITE_AVIF_QUALITY, quality, cv2.IMWRITE_AVIF_DEPTH, depth]
+    if speed is not None:
+        params += [cv2.IMWRITE_AVIF_SPEED, speed]
+    ok, buf = cv2.imencode(".avif", img, params)
+    assert ok
+    return buf.tobytes()
+
+
+class _Bits:
+    """MSB-first bit reading and writing of the AV1 headers."""
+
+    def __init__(self, data: bytes = b""):
+        self.bits = "".join(format(x, "08b") for x in data)
+        self.p = 0
+
+    def f(self, n: int) -> int:
+        v = int(self.bits[self.p:self.p + n] or "0", 2) if n else 0
+        self.p += n
+        return v
+
+    def take(self, n: int) -> str:
+        self.p += n
+        return self.bits[self.p - n:self.p]
+
+
+def _leb128(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def av1_obus(data: bytes):
+    """[(type, header byte, payload)] of a temporal unit whose OBUs carry
+    sizes and no extension."""
+    out, p = [], 0
+    while p < len(data):
+        h = data[p]
+        size, k = 0, 0
+        while True:
+            b = data[p + 1 + k]
+            size |= (b & 0x7F) << (7 * k)
+            k += 1
+            if not b & 0x80:
+                break
+        out.append(((h >> 3) & 15, h, data[p + 1 + k:p + 1 + k + size]))
+        p += 1 + k + size
+    return out
+
+
+def av1_join(obus) -> bytes:
+    return b"".join(bytes([h]) + _leb128(len(body)) + body for _, h, body in obus)
+
+
+def _pack(bits: str) -> bytes:
+    bits += "1"  # trailing one bit, then zeros to the byte
+    bits += "0" * (-len(bits) % 8)
+    return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+
+
+def _seq_fields(seq: bytes) -> dict:
+    """The fields of a reduced still picture sequence header that the
+    rewrites need, and its bits cut where the full syntax inserts some."""
+    r = _Bits(seq)
+    f = {"profile": r.f(3), "still": r.f(1), "reduced": r.f(1), "level": r.f(5)}
+    assert f["reduced"] == 1
+    start = r.p
+    wb, hb = r.f(4) + 1, r.f(4) + 1
+    f["width"], f["height"] = r.f(wb) + 1, r.f(hb) + 1
+    f["dims"] = r.bits[start:r.p]
+    f["sb128"] = r.f(1)
+    f["flags"] = r.take(2)  # filter intra, edge filter
+    tail = r.p
+    r.f(3)  # superres, cdef, restoration
+    hbd = r.f(1)
+    profile = f["profile"]
+    depth = (12 if r.f(1) else 10) if profile == 2 and hbd else (10 if hbd else 8)
+    f["mono"] = r.f(1) if profile != 1 else 0
+    cp = tc = mc = 2
+    if r.f(1):
+        cp, tc, mc = r.f(8), r.f(8), r.f(8)
+    f["separate"] = 0
+    if f["mono"]:
+        r.f(1)
+    else:
+        if not (cp == 1 and tc == 13 and mc == 0):
+            r.f(1)
+            if profile == 2 and depth == 12 and r.f(1):
+                r.f(1)
+        f["separate"] = r.f(1)
+    assert not r.f(1)  # film grain
+    f["tail"] = r.bits[tail:r.p]
+    return f
+
+
+def _frame_fields(frame: bytes, seq: dict) -> dict:
+    """Bit positions in a reduced-header lossless key frame's header: its
+    head (before tile info), the tile-column increment bit (or None), the
+    segmentation flag and the header's end; "data" is the tile data."""
+    r = _Bits(frame)
+    f = {"dcu": r.f(1), "sc": r.f(1)}
+    f["fimv"] = r.take(1) if f["sc"] else ""
+    f["rd"] = r.f(1)
+    f["render"] = r.take(32) if f["rd"] else ""
+    f["ibc"] = r.take(1) if f["sc"] else ""
+    f["tile_info"] = r.p
+    sb = 32 if seq["sb128"] else 16
+    mi_cols, mi_rows = 2 * ((seq["width"] + 7) >> 3), 2 * ((seq["height"] + 7) >> 3)
+
+    def log2(target):
+        k = 0
+        while (1 << k) < target:
+            k += 1
+        return k
+    assert r.f(1) == 1  # uniform tile spacing, one tile
+    f["tile_cols_bit"] = None
+    for k, n in enumerate(((mi_cols + sb - 1) // sb, (mi_rows + sb - 1) // sb)):
+        if log2(min(n, 64)):
+            if k == 0:
+                f["tile_cols_bit"] = r.p
+            assert r.f(1) == 0
+    assert r.f(8) == 0  # base_q_idx: lossless
+    if r.f(1):
+        r.f(7)
+    if not seq["mono"]:
+        diff = r.f(1) if seq["separate"] else 0
+        for _ in range(4 if diff else 2):
+            if r.f(1):
+                r.f(7)
+    if r.f(1):  # using_qmatrix
+        r.f(8 + (4 if seq["separate"] else 0))
+    f["segmentation"] = r.p
+    assert r.f(1) == 0
+    r.f(1)  # reduced_tx_set
+    f["end"] = r.p
+    f["bits"] = r.bits
+    f["data"] = frame[(r.p + 7) // 8:]
+    return f
+
+
+def _with_headers(item: bytes, seq_bits: str, frame_bits: str) -> bytes:
+    frame_bits += "0" * (-len(frame_bits) % 8)
+    head = bytes(int(frame_bits[i:i + 8], 2) for i in range(0, len(frame_bits), 8))
+    out = []
+    for t, h, body in av1_obus(item):
+        if t == 1 and seq_bits is not None:
+            body = _pack(seq_bits)
+        elif t == 6:
+            body = head + _frame_fields(body, _seq_fields(
+                next(b for tt, _, b in av1_obus(item) if tt == 1)))["data"]
+        out.append((t, h, body))
+    return av1_join(out)
+
+
+def av1_full_headers(item: bytes) -> bytes:
+    """The AV1 data of a cv2-written lossless item with its reduced still
+    picture sequence header written out in full (timing info, one
+    operating point with an initial display delay, the enable flags) and
+    its frame header as a shown key frame of such a sequence: the same
+    picture through the other header syntax."""
+    obus = av1_obus(item)
+    seq = _seq_fields(next(body for t, _, body in obus if t == 1))
+    fr = _frame_fields(next(body for t, _, body in obus if t == 6), seq)
+    full = (format(seq["profile"], "03b") + format(seq["still"], "01b") + "0" +
+            "1" + format(1, "032b") + format(25, "032b") + "0" + "0" + "1" +
+            format(0, "05b") + format(0, "012b") + format(seq["level"], "05b") +
+            ("0" if seq["level"] > 7 else "") + "1" + format(9, "04b") +
+            seq["dims"] + "0" + format(seq["sb128"], "01b") + seq["flags"] +
+            "00000" + "11" + seq["tail"])
+    frame = ("0" + "00" + "1" + format(fr["dcu"], "01b") + format(fr["sc"], "01b") +
+             fr["fimv"] + "0" + format(fr["rd"], "01b") + fr["render"] + fr["ibc"] +
+             ("" if fr["dcu"] else "1") + fr["bits"][fr["tile_info"]:fr["end"]])
+    return _with_headers(item, full, frame)
+
+
+def av1_header_edit(item: bytes, tiles: bool = False,
+                    segmentation: bool = False) -> bytes:
+    """A cv2-written lossless item's frame header edited: two tile columns
+    (the first tile-column increment set; the picture must be more than
+    one superblock wide), or segmentation on with every feature off (each
+    segment lossless). The tile data is not coded anew, so the headers are
+    all such a file holds of those tools: a test of the refusal, which
+    cv2 refuses too."""
+    obus = av1_obus(item)
+    seq = _seq_fields(next(body for t, _, body in obus if t == 1))
+    fr = _frame_fields(next(body for t, _, body in obus if t == 6), seq)
+    bits = fr["bits"][:fr["end"]]
+    if tiles:
+        p = fr["tile_cols_bit"]
+        bits = bits[:p] + "1" + bits[p + 1:]
+    if segmentation:
+        p = fr["segmentation"]
+        bits = bits[:p] + "1" + "0" * 64 + bits[p + 1:]
+    return _with_headers(item, None, bits)
+
+
+def avif_grid(tiles, rows: int, cols: int, height: int, width: int) -> bytes:
+    """A grid derived image (ImageGrid, 16-bit output size) of cv2-written
+    lossless items of one size, row by row, cropped to height x width."""
+    parts = [avif_items(t) for t in tiles]
+    items, refs = {}, []
+    for k, part in enumerate(parts):
+        it = dict(part["items"][part["primary"]])
+        items[k + 2] = it
+    spe = next(pb for pb in items[2]["props"] if pb[4:8] == b"ispe")
+    grid = bytes([0, 0, rows - 1, cols - 1]) + struct.pack(">HH", width, height)
+    ispe = _full(b"ispe", 0, 0, struct.pack(">II", width, height))
+    items[1] = {"type": b"grid", "data": grid, "props": [ispe],
+                "essential": [False]}
+    del spe
+    refs.append((b"dimg", 1, [k + 2 for k in range(len(parts))]))
+    return write_avif(items, 1, refs, parts[0]["ftyp"])
+
+
+def _avif_picture(h: int, w: int, seed: int, noise: float = 6) -> np.ndarray:
+    """A smooth seeded BGR picture (sines of gradients) with Gaussian noise:
+    every intra predictor finds work in it."""
+    rs = np.random.RandomState(seed)
+    ys, xs = np.mgrid[0:h, 0:w]
+    img = np.stack([(xs * 3 + ys) % 256, (ys * 2 + 40) % 256,
+                    ((xs + ys) * 5) % 256], -1).astype(float)
+    img = 128 + 100 * np.sin(img / 40.0) + rs.normal(0, noise, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _avif_screen(h: int, w: int, seed: int) -> np.ndarray:
+    """Screen content: flat boxes of six colours and two lines of text."""
+    import cv2
+    rs = np.random.RandomState(seed)
+    img = np.full((h, w, 3), 240, np.uint8)
+    cols = rs.randint(0, 256, (6, 3))
+    for k in range(12):
+        y0, x0 = rs.randint(0, h), rs.randint(0, w)
+        img[y0:y0 + rs.randint(4, 30), x0:x0 + rs.randint(4, 60)] = cols[k % 6]
+    for dy in (0, 20):
+        cv2.putText(img, "AVIF 1234 abc", (2, h // 2 + dy),
+                    cv2.FONT_HERSHEY_SIMPLEX, 0.5, (20, 20, 20), 1)
+    return img
+
+
+def _avif_repeats(h: int, w: int, seed: int) -> np.ndarray:
+    """Four colours in 2 x 2 cells repeating every 20 pixels: libaom turns
+    on intra block copy for it."""
+    rs = np.random.RandomState(seed)
+    cols = rs.randint(0, 256, (4, 3)).astype(np.uint8)
+    idx = rs.randint(0, 4, (10, 10))
+    idx = np.tile(idx, (h // 20 + 1, w // 20 + 1))[:(h + 1) // 2, :(w + 1) // 2]
+    return np.ascontiguousarray(cols[idx].repeat(2, 0).repeat(2, 1)[:h, :w])
+
+
+def _avif_edit(data: bytes, props_add=(), props_drop=(), av1=None, **kw):
+    """A cv2-written AVIF rewritten: properties added to (or dropped from)
+    the primary item, its AV1 data replaced, the container written by
+    write_avif with its options."""
+    a = avif_items(data)
+    items = {k: dict(v) for k, v in a["items"].items()}
+    it = items[a["primary"]]
+    keep = [(pb, e) for pb, e in zip(it["props"], it["essential"])
+            if pb[4:8] not in props_drop]
+    keep += [(pb, True) for pb in props_add]
+    it["props"], it["essential"] = [k[0] for k in keep], [k[1] for k in keep]
+    if av1 is not None:
+        it["data"] = av1(it["data"])
+    return write_avif(items, a["primary"], a["refs"], a["ftyp"], **kw)
+
+
+def _add_avif(add):
+    """The AVIF fixtures (cv2.imwrite at quality 100: lossless AV1): each
+    variant names the coding tools or container feature it reaches."""
+    pic = _avif_picture
+    add("avif_rgb8.avif", avif_cv2(pic(48, 64, 1)), "AVIF",
+        "8-bit RGB, speed 6 (cv2's default): DC, smooth, directional with "
+        "the edge filter and upsampling, split partitions at the edges")
+    add("avif_speed0.avif", avif_cv2(pic(64, 96, 0), speed=0), "AVIF",
+        "speed 0: 128x128 superblocks, HORZ_A / HORZ_4 / VERT_4, CfL, "
+        "filter intra, Paeth, smooth V and H, angle deltas")
+    add("avif_speed1.avif", avif_cv2(pic(72, 112, 16, 4), speed=1), "AVIF",
+        "speed 1: VERT_A and HORZ_B partitions")
+    add("avif_speed9.avif", avif_cv2(pic(64, 96, 9), speed=9), "AVIF",
+        "speed 9: the fewest tools")
+    add("avif_rgb10.avif", avif_cv2(pic(48, 64, 5).astype(np.uint16) * 4 + 1,
+                                    depth=10), "AVIF",
+        "10-bit RGB (profile 1), scaled to 8 bits as libavif scales it")
+    add("avif_rgb12.avif", avif_cv2(pic(48, 64, 6).astype(np.uint16) * 16 + 7,
+                                    depth=12), "AVIF",
+        "12-bit RGB (profile 2, 4:4:4)")
+    add("avif_mono8.avif", avif_cv2(pic(48, 64, 7)[..., 0].copy()), "AVIF",
+        "8-bit monochrome")
+    add("avif_mono10.avif", avif_cv2(pic(48, 64, 8)[..., 1].astype(np.uint16) * 4 + 3,
+                                     depth=10), "AVIF",
+        "10-bit monochrome, rounded to even as cv2 scales gray")
+    add("avif_mono12.avif", avif_cv2(pic(48, 64, 8)[..., 0].astype(np.uint16) * 16 + 3,
+                                     depth=12), "AVIF",
+        "12-bit monochrome")
+    add("avif_screen.avif", avif_cv2(_avif_screen(96, 160, 1), speed=0), "AVIF",
+        "screen content: palette of y and uv, the colour cache, delta-coded "
+        "v colours")
+    add("avif_intrabc.avif", avif_cv2(_avif_repeats(256, 256, 5), speed=4),
+        "AVIF", "repeated cells: intra block copy (vector stack and the "
+        "default vector), skip, palette")
+    add("avif_1x40.avif", avif_cv2(pic(1, 40, 3)), "AVIF", "1x40: one row")
+    add("avif_40x1.avif", avif_cv2(pic(40, 1, 3)), "AVIF", "40x1: one column")
+    add("avif_23x37.avif", avif_cv2(pic(23, 37, 4)), "AVIF",
+        "23x37: split_or_horz and split_or_vert at both edges")
+    add("avif_130x150.avif", avif_cv2(pic(130, 150, 3)), "AVIF",
+        "130x150: above 128x128, three superblocks across")
+    bgra = np.dstack([pic(48, 64, 1), (np.arange(48 * 64).reshape(48, 64) % 251)
+                      .astype(np.uint8)])
+    alpha = avif_cv2(bgra)
+    add("avif_alpha.avif", alpha, "AVIF",
+        "an alpha item (auxl, auxC), dropped as IMREAD_COLOR drops it")
+    base = avif_cv2(pic(48, 64, 2))
+    add("avif_iloc1_idat.avif", _avif_edit(base, iloc_version=1,
+                                           in_idat=(1,), field_size=8,
+                                           base_size=4),
+        "AVIF", "iloc version 1, the data in idat, 8-byte offsets and "
+        "lengths, a base offset")
+    add("avif_iloc2.avif", _avif_edit(base, iloc_version=2, split_extents=(1,),
+                                      pitm_version=1, ipma_large=True,
+                                      big_mdat=True),
+        "AVIF", "iloc version 2, two extents, pitm version 1, 15-bit ipma "
+        "indices, a 64-bit mdat size")
+    add("avif_transforms.avif", _avif_edit(base, props_add=(
+        _box(b"irot", b"\x01"), _box(b"imir", b"\x01"),
+        _box(b"clap", struct.pack(">8I", 40, 1, 30, 1, 0, 1, 0, 1)))),
+        "AVIF", "irot, imir and clap, which cv2 leaves unapplied")
+    icc = struct.pack(">I", 132) + b"lcms" + bytes(124)
+    add("avif_icc.avif", _avif_edit(base, props_drop=(b"colr",),
+                                    props_add=(_box(b"colr", b"prof" + icc),)),
+        "AVIF", "an ICC colr property instead of nclx: the sequence "
+        "header's identity matrix")
+    add("avif_full_header.avif", _avif_edit(avif_cv2(_avif_screen(96, 160, 2),
+                                                     speed=0),
+                                            av1=av1_full_headers),
+        "AVIF", "a full sequence header (timing info, an operating point "
+        "with its initial display delay) and the frame header of a shown "
+        "key frame")
+    add("avif_grid.avif", avif_grid([avif_cv2(pic(64, 64, k)) for k in range(4)],
+                                    2, 2, 120, 100), "AVIF",
+        "a 2x2 grid of 64x64 lossless items, cropped to 120x100")
+    add("avif_grid_small.avif", avif_grid([avif_cv2(pic(32, 48, k))
+                                           for k in range(4)], 2, 2, 60, 90),
+        "AVIF", "a grid of tiles under 64x64, which libavif refuses",
+        "refused")
+    add("avif_480x640.avif", avif_cv2(np.ascontiguousarray(
+        picture(480, 640, 7, noise=2)[..., ::-1])), "AVIF",
+        "480x640 RGB, speed 6: the picture phase 7a times and the trainer "
+        "reads")
+    add("avif_lossy_10bit.avif", avif_cv2(pic(48, 64, 5).astype(np.uint16) * 4,
+                                          quality=60, depth=10), "AVIF",
+        "lossy 10-bit (quality 60)", "not ported")
+
+
 def write_fixtures(directory: str, prefixes=None) -> dict:
     """Writes every fixture (or those whose names start with one of
     `prefixes`), and for each one cv2 decodes its pixels as
@@ -1580,7 +2136,7 @@ def write_fixtures(directory: str, prefixes=None) -> dict:
                  "JPEG": "jpeg_lossless", "GIF": "gif", "PAM": "pam",
                  "Sun raster": "sun_raster", "PFM": "pfm",
                  "Radiance HDR": "hdr",
-                 "JPEG 2000 (JP2)": "jpeg2000"}.get(fmt)
+                 "JPEG 2000 (JP2)": "jpeg2000", "AVIF": "avif"}.get(fmt)
         index[name] = {"format": fmt, "variant": variant, "expect": expect,
                        "route": route if expect == "pixels" else None}
     with open(os.path.join(directory, "formats.json"), "w") as f:
@@ -1614,11 +2170,87 @@ def cv2_rgb(data: bytes, tmp_dir: str, name: str = "probe"):
     return None if img is None else np.ascontiguousarray(img[..., ::-1])
 
 
+def load_jax_native(module=None):
+    """The JAX package's `native` module (or `module`, a copy of it) with
+    its host library loaded in this process, so that no reference the tests
+    take from it is a None of a library that failed to load.
+
+    The JAX package builds `libsdt_dataloader.so` at first use straight
+    into its own directory, with no lock between processes: a pytest worker
+    that loads it while another one's g++ is still writing it fails, and
+    the module caches that failure for the life of the process (every
+    decode then returns None). Here every process loads it under one file
+    lock in the temp dir, keyed by the library's path; a missing or stale
+    library is built under a temporary name and renamed into place, and a
+    load that fails is retried on a fresh build. Raises RuntimeError,
+    saying why, when it still does not load."""
+    import fcntl
+    import hashlib
+    import os
+    import subprocess
+    import tempfile
+    if module is None:
+        from semi_detr_tpu import native as module
+    if module._lib:
+        return module
+    so, src = module._SO, module._SRC
+    key = hashlib.sha256(os.path.abspath(so).encode()).hexdigest()[:16]
+    lock = os.path.join(tempfile.gettempdir(), f"sdt_jax_native_{key}.lock")
+    why = []
+    with open(lock, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        for attempt in range(3):
+            stale = not os.path.exists(so) or (
+                os.path.getmtime(so) < os.path.getmtime(src))
+            if attempt or stale:
+                fd, tmp = tempfile.mkstemp(suffix=".so",
+                                           dir=os.path.dirname(so))
+                os.close(fd)
+                cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src,
+                       "-o", tmp, "-ljpeg", "-lpng", "-lpthread"]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode:
+                    os.unlink(tmp)
+                    why.append("g++: " + proc.stderr[-2000:])
+                    continue
+                os.replace(tmp, so)
+            module._lib = None
+            if module._load():
+                return module
+            why.append(f"ctypes could not load {so}")
+    raise RuntimeError("the JAX package's host library does not load: "
+                       + "; ".join(why))
+
+
+class _JaxNative:
+    """`semi_detr_tpu.native` through load_jax_native: every attribute is
+    the module's, taken after its library has loaded."""
+
+    def __getattr__(self, name):
+        return getattr(load_jax_native(), name)
+
+
+jax_native = _JaxNative()
+
+
+def _jax_native_loaded():
+    load_jax_native()
+
+
+def jax_native_fixture():
+    """A module-scoped autouse fixture that loads the JAX package's host
+    library (load_jax_native) before a test file's first test: a test file
+    that reaches it through the JAX loaders binds it as a module global."""
+    import pytest
+    return pytest.fixture(scope="module", autouse=True)(_jax_native_loaded)
+
+
 def jax_load_images(directory: str, names):
     """The JAX package's loader (`CocoDataset.load_image`: its native
     decoder, else cv2.imread) on files of one directory: {name: (H, W, 3)
     RGB, or the exception it raised}."""
     from semi_detr_tpu.data.coco import CocoDataset
+    load_jax_native()
     ann = {"images": [{"id": i + 1, "file_name": n, "width": 1, "height": 1}
                       for i, n in enumerate(names)],
            "annotations": [], "categories": [{"id": 1, "name": "person"}]}

@@ -35,6 +35,11 @@ from semi_detr_tpu_torch.train.loop import SsodTrainer, SupervisedTrainer
 
 HW = (48, 64)
 
+from format_writers import jax_native_fixture
+
+# the JAX package's host library, loaded under the shared lock
+jax_native_loaded = jax_native_fixture()
+
 
 @pytest.fixture(scope="module")
 def coco_set(tmp_path_factory):

@@ -165,7 +165,8 @@ def test_new_modules_import_no_jax():
             "semi_detr_tpu_torch.data.pseudo_coco, "
             "semi_detr_tpu_torch.tools.voc_to_coco, "
             "semi_detr_tpu_torch.tools.semi_coco, "
-            "semi_detr_tpu_torch.tools.image_demo\n"
+            "semi_detr_tpu_torch.tools.image_demo, "
+            "semi_detr_tpu_torch.tools.av1_table\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'semi_detr_tpu', 'cv2', "
             "'PIL')]\n"

@@ -32,6 +32,11 @@ from test_torch_detector import build_pair
 NAMES = ("person", "class1", "class2", "x", "y")
 LAND, PORT = (40, 56), (56, 40)
 
+from format_writers import jax_native_fixture
+
+# the JAX package's host library, loaded under the shared lock
+jax_native_loaded = jax_native_fixture()
+
 
 @pytest.fixture(scope="module")
 def val_set(tmp_path_factory):

@@ -13,7 +13,6 @@ import cv2
 import numpy as np
 import pytest
 
-from semi_detr_tpu import native as jax_native
 from semi_detr_tpu_torch.data import image_io
 
 FILTERS = {"none": cv2.IMWRITE_PNG_FILTER_NONE,
@@ -23,6 +22,11 @@ FILTERS = {"none": cv2.IMWRITE_PNG_FILTER_NONE,
            "paeth": cv2.IMWRITE_PNG_FILTER_PAETH,
            "adaptive": cv2.IMWRITE_PNG_ALL_FILTERS}
 CHANNELS = {"gray": 1, "rgb": 3, "rgba": 4}
+
+from format_writers import jax_native, jax_native_fixture
+
+# the JAX package's host library, loaded under the shared lock
+jax_native_loaded = jax_native_fixture()
 
 
 def _picture(seed, h=23, w=37, channels=3):

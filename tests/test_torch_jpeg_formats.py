@@ -43,7 +43,6 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from semi_detr_tpu import native as jax_native
 from semi_detr_tpu.data.coco import CocoDataset as JaxCocoDataset
 from semi_detr_tpu_torch import native
 from semi_detr_tpu_torch.data import image_io
@@ -60,6 +59,11 @@ DECODERS = {"sequential": native.decode_jpeg_sequential,
             "progressive": native.decode_jpeg_progressive,
             "sequential arithmetic": native.decode_jpeg_arithmetic,
             "progressive arithmetic": native.decode_jpeg_arithmetic}
+
+from format_writers import jax_native, jax_native_fixture
+
+# the JAX package's host library, loaded under the shared lock
+jax_native_loaded = jax_native_fixture()
 
 
 def picture(h, w, seed, channels=3):

@@ -25,7 +25,6 @@ import pytest
 import torch
 from PIL import Image
 
-from semi_detr_tpu import native as jax_native
 from semi_detr_tpu_torch import native
 from semi_detr_tpu_torch.data import augment as A
 from semi_detr_tpu_torch.data import image_io, pipeline
@@ -35,6 +34,11 @@ from semi_detr_tpu_torch.data.pipeline import (make_test_batch,
 from semi_detr_tpu_torch.data.synthetic import write_synthetic_coco
 
 SIZES = ((61, 83), (480, 640))
+
+from format_writers import jax_native, jax_native_fixture
+
+# the JAX package's host library, loaded under the shared lock
+jax_native_loaded = jax_native_fixture()
 
 
 def _picture(h, w, seed, channels=3):
@@ -75,7 +79,7 @@ def test_built_with_png_and_a_jpeg_decoder():
                         "jpeg_progressive_arithmetic", "jpeg_lossless",
                         "jpeg_colour", "jpeg_other", "bmp", "pnm", "pam",
                         "tiff", "webp", "gif", "sun_raster", "pfm", "hdr",
-                        "jpeg2000"}
+                        "jpeg2000", "avif"}
     assert dec["jpeg"] == dec["jpeg_other"] == found["route"]
     # either build decodes every kind libjpeg decodes in the library itself,
     # libjpeg-exact

@@ -24,7 +24,6 @@ import zlib
 import numpy as np
 import pytest
 
-from semi_detr_tpu import native as jax_native
 from semi_detr_tpu_torch import native
 from semi_detr_tpu_torch.data import image_io
 
@@ -33,6 +32,11 @@ LAYOUTS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
            4: (2, (8, 16)), 6: (4, (8, 16))}
 CASES = [(c, d) for c, (_, depths) in LAYOUTS.items() for d in depths]
 SIZES = ((1, 1), (2, 3), (5, 9), (13, 29))
+
+from format_writers import jax_native, jax_native_fixture
+
+# the JAX package's host library, loaded under the shared lock
+jax_native_loaded = jax_native_fixture()
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
