@@ -135,14 +135,18 @@ Phases (any failure exits non-zero):
    LZMA, ZSTD and float TIFF, TIFF predictor 3 on integer samples, ICC
    CIELab, LogLuv without SGILog, RLE Sun raster, signed, sub-sampled or
    offset JPEG 2000, the mixed HT style, ROI or more than 3 passes in an
-   HT code-block, ...) raises saying so, what cv2 reads and the port does
-   not (lossy AVIF) raises naming itself with "not ported"; avif_*:
-   lossless AVIF at 8, 10 and 12 bits, monochrome, speeds 0-9, screen
-   content (palette, intra block copy), edge sizes, the alpha item, iloc
-   versions 0-2 and idat, irot / imir / clap, ICC, a grid, a full sequence
-   header, each at max abs 0, with the AV1 tool tally (every tool reached)
-   and the 480x640 file's decode ms on one core beside the card's name
-   and power limit; and
+   HT code-block, ...) raises saying so; avif_*: lossless AVIF at 8, 10
+   and 12 bits, monochrome, speeds 0-9, screen content (palette, intra
+   block copy), edge sizes, the alpha item, iloc versions 0-2 and idat,
+   irot / imir / clap, ICC, a grid, a full sequence header, and lossy
+   AVIF as cv2.imwrite writes it (avif_lossy_*, other_avif: 4:2:0 BT.601
+   full range and monochrome, 8-12 bits, qualities 0-99, speeds 0-10:
+   quantizer matrices, delta q, every transform size and intra type,
+   deblocking, CDEF, loop restoration, intra block copy with its transform
+   trees, libyuv's bilinear chroma), each at
+   max abs 0, with the AV1 tool tally (every tool reached) and the
+   480x640 lossless and lossy files' decode ms on one core beside the
+   card's name and power limit; and
    damaged copies of each format (an HT file cut in half and one whose
    Scup runs past its cleanup segment among them)
    raise naming the file; the TIFF fixtures of the compressions cv2's
@@ -166,7 +170,7 @@ Phases (any failure exits non-zero):
    data.classes[0]), and phase 7a's fixtures of the other
    kinds (JPEG and PNG, and one BMP, PNM, TIFF, WebP, lossless JPEG, GIF,
    HDR, JP2 (9/7), raw JPEG 2000 codestream (5/3) and 480x640 lossless
-   AVIF of the cv2 formats)
+   and lossy AVIF of the cv2 formats)
    join the unlabelled and val images, without
    boxes, so
    the trainer (load_image) and its evals (the prefetch loader) read them;
@@ -514,15 +518,18 @@ TRAINER_RENAMED, TRAINER_CLASSES_SEED = 16, 16
 # the first image's pseudo labels (the launch counts do not depend on the
 # kept sets, as phase 6's step at score_thr 0 shows)
 TRAINER_SCORE_THR = 0.0
-# the 480x640 lossless AVIF fixture phase 7a times and the trainer reads
+# the 480x640 lossless AVIF fixture and the lossy one (cv2.imwrite's
+# defaults) phase 7a times and the trainer reads
 AVIF_FIXTURE = "avif_480x640.avif"
+AVIF_LOSSY_FIXTURE = "avif_lossy_480x640.avif"
 # one fixture of each format the JAX loader hands to cv2, among phase 7's
 # unlabelled and val images beside the JPEG and PNG ones
 TRAINER_CV2_FIXTURES = ("bmp_rle8.bmp", "pnm_p6_100.ppm",
                         "tiff_jpeg_ycbcr_tables.tif",
                         "webp_lossy_orient6.webp", "jpeg_lossless_p8.jpg",
                         "gif_offset_local_transparent.gif", "hdr_rle.hdr",
-                        "j2k_lossy_layers.jp2", "j2k_raw.j2k", AVIF_FIXTURE)
+                        "j2k_lossy_layers.jp2", "j2k_raw.j2k", AVIF_FIXTURE,
+                        AVIF_LOSSY_FIXTURE)
 # the trainer's steps; warm-up steps 1-3 and Hungarian steps 5-7 are warm
 # (median of each, against phase 6's); eval and render every
 # TRAINER_INTERVAL steps and one checkpoint at the end, so none of them
@@ -1494,8 +1501,9 @@ def cv2_format_fixtures():
     is not square, LZMA, ZSTD and float TIFF, predictor 3 on integer
     samples, ICC CIELab, LogLuv without SGILog, RLE Sun raster, a one-
     channel PFM, old-style run-length HDR, signed, sub-sampled or offset
-    JPEG 2000, ...) raises saying so, and the formats cv2 reads that the
-    port does not (AVIF) raise naming themselves with "not ported"."""
+    JPEG 2000, ...) raises saying so, and what cv2 reads that the port
+    does not would raise naming itself with "not ported" (no committed
+    fixture does now)."""
     with open(os.path.join(native.FIXTURES, "formats.json")) as f:
         index = json.load(f)
     routes = native.decoders()
@@ -1578,31 +1586,42 @@ def cv2_format_fixtures():
 
 def avif_summary(rows):
     """The avif_* fixtures of cv2_format_fixtures' rows: how many decoded
-    at max abs 0 and how many raised as they must (lossy: "not ported";
-    a grid libavif refuses), the AV1 tools the decoder counted (each must
-    have been reached), and the 480x640 lossless file's decode on the
-    calling thread (one core), ms, beside the card's name and power
+    at max abs 0, lossless and lossy, and how many raised as they must (a
+    grid libavif refuses), the AV1 tools the decoder counted (each must
+    have been reached), and the 480x640 lossless and lossy files' decodes
+    on the calling thread (one core), ms, beside the card's name and power
     limit."""
     avif = {n: r for n, r in rows.items() if n.startswith(("avif_", "other_avif"))}
-    small = [r["ms"] for n, r in avif.items()
-             if "ms" in r and n != AVIF_FIXTURE]
+    lossy = [n for n in avif if n.startswith(("avif_lossy_", "other_avif"))]
+    big = (AVIF_FIXTURE, AVIF_LOSSY_FIXTURE)
+    small = [r["ms"] for n, r in avif.items() if "ms" in r and n not in big]
+    small_lossy = [avif[n]["ms"] for n in lossy if n not in big]
     tools = native.avif_tools()
     out = dict(fixtures=len(avif), max_abs_0=sum(
         r.get("max_abs") == 0 for r in avif.values()),
+        lossy=len(lossy), lossy_max_abs_0=sum(
+            avif[n].get("max_abs") == 0 for n in lossy),
         raised=sum("raised" in r for r in avif.values()),
         small_mean_ms=float(np.mean(small)), small_max_ms=float(np.max(small)),
-        ms_480x640=rows[AVIF_FIXTURE]["ms"], tools=tools)
+        small_lossy_mean_ms=float(np.mean(small_lossy)),
+        small_lossy_max_ms=float(np.max(small_lossy)),
+        ms_480x640=rows[AVIF_FIXTURE]["ms"],
+        lossy_ms_480x640=rows[AVIF_LOSSY_FIXTURE]["ms"], tools=tools)
     missed = [t for t, k in tools.items() if not k]
-    if out["max_abs_0"] + out["raised"] != len(avif) or len(avif) < 26 \
+    if out["max_abs_0"] + out["raised"] != len(avif) or len(avif) < 45 \
+            or out["lossy_max_abs_0"] != len(lossy) or len(lossy) < 21 \
             or missed:
         raise AssertionError(f"AVIF fixtures: {out}; tools not reached: "
                              f"{missed}")
     log(f"  AVIF (avif_*): {out['fixtures']} fixtures, {out['max_abs_0']} "
-        f"at max abs 0 (lossless AV1), {out['raised']} raised (lossy: not "
-        f"ported; a grid cv2 refuses); ms per decode "
+        f"at max abs 0 ({out['lossy_max_abs_0']} of them lossy: 4:2:0 "
+        f"BT.601, monochrome, 8-12 bits, speeds 0-10, qualities 0-99), "
+        f"{out['raised']} raised (a grid cv2 refuses); ms per decode "
         f"{out['small_mean_ms']:.3f} mean, {out['small_max_ms']:.3f} max "
-        f"below 480x640; the 480x640 lossless file {out['ms_480x640']:.3f} ms "
-        f"on one core ({card_line()})")
+        f"below 480x640 (lossy {out['small_lossy_mean_ms']:.3f} mean, "
+        f"{out['small_lossy_max_ms']:.3f} max); at 480x640 the lossless "
+        f"file {out['ms_480x640']:.3f} ms, the lossy one (cv2's defaults) "
+        f"{out['lossy_ms_480x640']:.3f} ms, on one core ({card_line()})")
     log("  AV1 tools decoded (blocks, or pictures): " + ", ".join(
         f"{t} {k}" for t, k in tools.items()))
     return out
@@ -1687,7 +1706,7 @@ def damaged_formats():
     inside JPEG), lossless
     JPEG, GIF, Sun raster, PFM, HDR, JPEG 2000 (JP2, a raw codestream,
     PPM headers, high-throughput code-blocks) and AVIF (lossless, intra
-    block copy) cut in half, a codestream
+    block copy, lossy) cut in half, a codestream
     without its EOC and one whose tile-part length runs past its end, an
     HT codestream whose Scup runs past its cleanup segment, a WebP cut in
     half with its RIFF size made consistent (its VP8 chunk then runs past
@@ -1707,7 +1726,7 @@ def damaged_formats():
                  "tiffx_cielab_480x640.tif", "tiffx_cmyk_jpeg.tif",
                  "j2k_480x640_lossless.jp2", "j2k_raw.j2k",
                  "j2kw_ppm.j2k", HT_DEMO_FIXTURE, AVIF_FIXTURE,
-                 "avif_intrabc.avif"):
+                 "avif_intrabc.avif", AVIF_LOSSY_FIXTURE):
         buf = fixture(name)
         stem, ext = name.rsplit(".", 1)
         cases[f"{stem}_truncated.{ext}"] = buf[:len(buf) // 2]

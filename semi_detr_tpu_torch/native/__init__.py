@@ -37,12 +37,17 @@ step.
   tables of `j2k_ht_tables.h`), lossless JPEG of at most 8 bits in RGB
   or CMYK (`jpeg_host.cpp`) and AVIF (`avif_host.cpp`: the ISOBMFF boxes
   libavif reads for a still image, grids; the primary item's AV1 key frame
-  by the decoder of `av1_obu.cpp`, `av1_entropy.cpp`, `av1_intra.cpp` and
-  `av1_recon.cpp` with the tables of `av1_tables.h`: lossless frames at 8,
-  10 and 12 bits, 4:4:4 or monochrome; `avif_tools()` counts the coding
-  tools it decoded). What cv2 reads and the port does not (lossy AVIF, and
-  the lossless AV1 tools no fixture reaches) raises naming it and "not
-  ported";
+  by the decoder of `av1_obu.cpp`, `av1_entropy.cpp`, `av1_intra.cpp`,
+  `av1_recon.cpp`, `av1_transform.cpp`, `av1_loopfilter.cpp`,
+  `av1_cdef.cpp` and `av1_restoration.cpp` with the tables of
+  `av1_tables.h`: lossless frames at 8, 10 and 12 bits, 4:4:4 or
+  monochrome, and lossy ones, 4:2:0 or monochrome, as cv2.imwrite writes
+  them at any quality, speed and depth, turned to RGB as cv2's libavif
+  turns BT.601 full-range YUV with libyuv; `avif_tools()` counts the
+  coding tools it decoded, `avif_planes()` gives the planes of each
+  in-loop filter stage). What cv2 reads and the port does not (AV1
+  segmentation, film grain, superres, several tiles, 4:2:2, other
+  matrices, limited range) raises naming it and "not ported";
   what cv2 refuses too (12-bit JPEG, 16-bit or gray lossless JPEG, TIFF
   orientation 5-8 on a picture that is not square, the TIFF compressions
   cv2's libtiff is built without: LZMA, ZSTD, WebP, old-style JPEG; float
@@ -116,7 +121,8 @@ SOURCES = ("host.cpp", "jpeg_host.cpp", "bmp_pnm_host.cpp", "tiff_host.cpp",
            "gif_host.cpp", "raster_host.cpp", "float_host.cpp", "j2k_host.cpp",
            "j2k_ht_host.cpp", "encode_host.cpp", "j2k_encode_host.cpp",
            "avif_host.cpp", "av1_obu.cpp", "av1_entropy.cpp", "av1_intra.cpp",
-           "av1_recon.cpp")
+           "av1_recon.cpp", "av1_transform.cpp", "av1_loopfilter.cpp",
+           "av1_cdef.cpp", "av1_restoration.cpp")
 HEADERS = ("host.h", "webp_tables.h", "j2k_tables.h", "sgilog_tables.h",
            "j2k_ht_tables.h", "av1.h", "av1_state.h", "av1_tables.h")
 JPEG_SOURCES = {"libjpeg": "jpeg_libjpeg.cpp", "nvjpeg": "jpeg_nvjpeg.cpp"}
@@ -165,10 +171,14 @@ FORMAT_ROUTES = {
     "webp": "host WebP (VP8L lossless, VP8 lossy key frames with libwebp's "
             "fancy upsampling, the first frame of an animation, EXIF "
             "orientation)",
-    "avif": "host AVIF (ISOBMFF items in mdat or idat, grids; lossless AV1 "
-            "key frames at 8, 10 and 12 bits, 4:4:4 or monochrome: every "
-            "intra predictor, palette, intra block copy, the 4x4 Walsh-"
-            "Hadamard transform; libavif's RGB as cv2 reads it)"}
+    "avif": "host AVIF (ISOBMFF items in mdat or idat, grids; AV1 key "
+            "frames at 8, 10 and 12 bits: lossless 4:4:4 or monochrome "
+            "(every intra predictor, palette, intra block copy, the 4x4 "
+            "Walsh-Hadamard transform) and lossy 4:2:0 or monochrome (the "
+            "quantizer with its matrices and delta q, every transform "
+            "size and intra type, deblocking, CDEF, loop restoration); "
+            "libavif's RGB as cv2 reads it, BT.601 through libyuv's "
+            "bilinear chroma)"}
 # the colour handling of the host decoders
 COLOURS = ("gray, YCbCr (libjpeg jdcolor), RGB (none), CMYK and YCCK "
            "(cv2.imread's conversion and EXIF orientation); every sampling "
@@ -334,6 +344,7 @@ _SIGNATURES = {
     "sdt_loader_destroy": ([_P], None),
     "sdt_avif_tally": ([_P, _I], _I),
     "sdt_avif_tool_name": ([_I], ctypes.c_char_p),
+    "sdt_avif_planes": ([_P, _L, _I, _P, _L, _P], _I),
 }
 _lock = threading.Lock()
 
@@ -361,7 +372,8 @@ def decoders() -> Dict[str, str]:
     `tiff`, `webp`, `gif`, `sun_raster`, `pfm`, `hdr`: the library's own
     decoders of those formats, `jpeg2000` the JPEG 2000 one (its high-
     throughput block decoder of Part 15 too: the only route of an HTJ2K
-    file, on either machine), `avif` the AVIF one (lossless AV1)."""
+    file, on either machine), `avif` the AVIF one (lossless and lossy
+    AV1)."""
     backend = _library().sdt_jpeg_backend().decode()
     out = {"png": "zlib inflate + C++ row filters (every bit depth and "
                   "colour type, Adam7)", "jpeg": backend}
@@ -415,7 +427,7 @@ def decode_image(buf: bytes, name: str = "<bytes>") -> np.ndarray:
     """Image bytes -> (H, W, 3) uint8 RGB, the format found by its
     signature: JPEG and PNG as the JAX package's native loader decodes
     them; BMP, PNM, PAM, TIFF, WebP, GIF, Sun raster, PFM, Radiance HDR,
-    JPEG 2000, lossless JPEG and lossless AVIF as `cv2.imread(path,
+    JPEG 2000, lossless JPEG and AVIF as `cv2.imread(path,
     IMREAD_COLOR)` does (`decoders()` names each route). Raises
     ImageDecodeError naming `name` (the file) on anything it cannot
     decode: damage with the fault, what cv2 refuses with "cv2 refuses it
@@ -440,6 +452,38 @@ def avif_tools() -> Dict[str, int]:
     counts = (ctypes.c_long * n)()
     lib.sdt_avif_tally(counts, n)
     return {lib.sdt_avif_tool_name(i).decode(): counts[i] for i in range(n)}
+
+
+# the in-loop filter stages `avif_planes` may apply (av1.h's kFilter*)
+AV1_FILTERS = {"none": 0, "deblock": 1, "deblock_cdef": 3, "all": 7}
+
+
+def avif_planes(buf: bytes, filters: str = "all",
+                name: str = "<bytes>") -> list:
+    """The decoded planes of an AVIF's primary AV1 item, before any YUV to
+    RGB: [Y] or [Y, U, V] (G, B, R for the identity matrix) as uint16
+    arrays, the chroma subsampled as coded, with the in-loop filters of
+    AV1_FILTERS[filters] applied (deblocking, then CDEF, then loop
+    restoration), so that each stage can be held to a conformant AV1
+    decoder's planes. Raises ImageDecodeError as `decode_image` does."""
+    lib = _library()
+    buf = bytes(buf)
+    info = (ctypes.c_int * 6)()
+    mask = AV1_FILTERS[filters]
+    st = lib.sdt_avif_planes(buf, len(buf), mask, None, 0, info)
+    if st:
+        raise _error(st, name, lib.sdt_last_error().decode())
+    w, h, count, ssx, ssy, _ = list(info)
+    shapes = [(h, w)] + [((h + ssy) >> ssy, (w + ssx) >> ssx)] * (count - 1)
+    out = np.empty(sum(a * b for a, b in shapes), np.uint16)
+    st = lib.sdt_avif_planes(buf, len(buf), mask, _ptr(out), out.size, info)
+    if st:
+        raise _error(st, name, lib.sdt_last_error().decode())
+    planes, at = [], 0
+    for a, b in shapes:
+        planes.append(out[at:at + a * b].reshape(a, b))
+        at += a * b
+    return planes
 
 
 def png_unfilter(raw: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:

@@ -1,15 +1,19 @@
 // Declarations shared by the host library's AV1 still-picture decoder:
 // av1_obu.cpp (OBU framing, sequence and frame headers), av1_entropy.cpp
 // (the symbol decoder and its CDFs), av1_intra.cpp (partitions, mode info,
-// palette, intra block copy, coefficients), av1_recon.cpp (prediction and
-// the lossless reconstruction) and avif_host.cpp (the AVIF container).
-// Section numbers are those of the AV1 Bitstream & Decoding Process
-// Specification; names follow it.
+// palette, intra block copy, transform sizes and types, coefficients),
+// av1_recon.cpp (prediction), av1_transform.cpp (dequantisation and the
+// inverse transforms), av1_loopfilter.cpp (deblocking), av1_cdef.cpp
+// (CDEF), av1_restoration.cpp (loop restoration) and avif_host.cpp (the
+// AVIF container). Section numbers are those of the AV1 Bitstream &
+// Decoding Process Specification; names follow it.
 //
-// Only lossless key frames are decoded: every tool such a frame may carry
-// that a committed fixture reaches, at 8, 10 and 12 bits, 4:4:4 or
-// monochrome. Lossy frames and the lossless tools no fixture reaches raise
-// "AVIF (cv2 reads it): ... not ported".
+// Key frames of one tile are decoded, lossless or lossy, at 8, 10 and 12
+// bits: 4:4:4 (lossless) or 4:2:0 (lossy, as cv2 writes it) or
+// monochrome, with intra block copy in either. What no committed fixture
+// reaches (segmentation, film grain, superres, several tiles, delta loop
+// filter levels, 4:2:2, lossy 4:4:4) raises "AVIF (cv2 reads it): ... not
+// ported".
 #pragma once
 
 #include <atomic>
@@ -46,6 +50,15 @@ enum Tool {
   kToolCoefficients, kToolGolomb, kToolDcSign, kToolWht, kToolDepth8,
   kToolDepth10, kToolDepth12, kToolMonochrome, kToolSeqFull,
   kToolSeqReduced, kToolFrameEdge, kToolGrid, kToolAlphaItem,
+  // lossy frames
+  kToolLossy, kToolChroma420, kToolQmatrix, kToolDeltaQ, kToolTxModeSelect,
+  kToolTxModeLargest, kToolTxDepth, kToolTx4, kToolTx8,
+  kToolTx16, kToolTx32, kToolTx64, kToolTxRect, kToolTxRect4, kToolDct,
+  kToolAdst, kToolIdentity, kToolTxTypeSet1, kToolTxTypeSet2,
+  kToolEobLong, kToolDeblock, kToolDeblock14, kToolDeblock6, kToolDeblock8,
+  kToolDeblock4, kToolCdef, kToolLrWiener, kToolLrSgrproj,
+  kToolLrSwitchable, kToolBt601, kToolChromaUpsample, kToolVarTx,
+  kToolTxTypeInter, kToolIntrabcSubpel,
   kToolCount
 };
 extern const char* const kToolNames[kToolCount];
@@ -83,7 +96,7 @@ struct SequenceHeader {
   bool sb128 = false, filter_intra = false, intra_edge_filter = false;
   int order_hint_bits = 0;
   int force_screen_content = 2, force_integer_mv = 2;
-  bool superres = false;
+  bool superres = false, enable_cdef = false, enable_restoration = false;
   int bit_depth = 8;
   bool mono = false;
   int matrix = 2;
@@ -93,12 +106,39 @@ struct SequenceHeader {
   bool film_grain = false;
 };
 
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
+
 struct FrameHeader {
   int width = 0, height = 0;
   int mi_cols = 0, mi_rows = 0;
   bool disable_cdf_update = false;
   bool screen_content = false, intrabc = false;
+  // quantization_params (5.9.12): the deltas y dc, u dc, u ac, v dc, v ac
   int base_q_idx = 0;
+  int delta_q[5] = {0, 0, 0, 0, 0};
+  bool using_qmatrix = false;
+  int qm[3] = {15, 15, 15};
+  bool lossless = true;  // CodedLossless: no segmentation here
+  bool delta_q_present = false;
+  int delta_q_res = 0;
+  // loop_filter_params (5.9.11)
+  int lf_level[4] = {0, 0, 0, 0};
+  int lf_sharpness = 0;
+  bool lf_delta_enabled = false;
+  int lf_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1};
+  int lf_mode_deltas[2] = {0, 0};
+  // cdef_params (5.9.19)
+  int cdef_damping = 3, cdef_bits = 0;
+  int cdef_y_pri[8] = {}, cdef_y_sec[8] = {}, cdef_uv_pri[8] = {},
+      cdef_uv_sec[8] = {};
+  bool cdef = false;  // CDEF runs: enabled, not lossless, no intra bc
+  // lr_params (5.9.20): FrameRestorationType and LoopRestorationSize
+  int lr_type[3] = {RESTORE_NONE, RESTORE_NONE, RESTORE_NONE};
+  int lr_size[3] = {64, 64, 64};
+  bool uses_lr = false;
+  bool tx_mode_select = false;  // read_tx_mode: else TX_MODE_LARGEST (or
+                                // ONLY_4X4 when lossless)
+  bool reduced_tx_set = false;
 };
 
 // One AV1 still picture of an AVIF item: the OBUs (its av1C config OBUs
@@ -179,19 +219,39 @@ struct Cdfs {
   uint16_t coeff_base_eob[5][2][4][4];
   uint16_t coeff_base[5][2][42][5];
   uint16_t coeff_br[5][2][21][5];
+  uint16_t eob_pt_32[2][2][7];
+  uint16_t eob_pt_64[2][2][8];
+  uint16_t eob_pt_128[2][2][9];
+  uint16_t eob_pt_256[2][2][10];
+  uint16_t eob_pt_512[2][2][11];
+  uint16_t eob_pt_1024[2][2][12];
+  uint16_t tx_size[4][3][4];
+  uint16_t delta_q[5];
+  uint16_t intra_ext_tx[3][4][13][17];
+  uint16_t inter_ext_tx[4][4][17];
+  uint16_t txfm_split[21][3];
+  uint16_t switchable_restore[4];
+  uint16_t wiener_restore[3];
+  uint16_t sgrproj_restore[3];
 };
 void init_cdfs(Cdfs* c, int base_q_idx);
 
 // ------------------------------------------------------------ decode
 
 // The planes of a decoded picture: 1 (monochrome) or 3 (Y, U, V; for the
-// identity matrix G, B, R) of height x width samples at bit_depth.
+// identity matrix G, B, R) at bit_depth, luma height x width samples, the
+// chroma planes subsampled by ssx, ssy ((width + ssx) >> ssx wide).
 struct Planes {
-  int width = 0, height = 0, bit_depth = 8, count = 3;
+  int width = 0, height = 0, bit_depth = 8, count = 3, ssx = 0, ssy = 0;
   std::vector<uint16_t> plane[3];
 };
-// Decode the picture's one tile (av1_intra.cpp, with av1_recon.cpp).
-void decode_picture(const Picture& pic, Planes* out);
+// Decode the picture's one tile (av1_intra.cpp, with av1_recon.cpp and
+// av1_transform.cpp), then the in-loop filters: deblocking, CDEF and loop
+// restoration, each of which `filters` (a mask of kFilter*) may leave out
+// (the stages are held apart to a conformant decoder's).
+enum { kFilterDeblock = 1, kFilterCdef = 2, kFilterRestoration = 4,
+       kFiltersAll = 7 };
+void decode_picture(const Picture& pic, Planes* out, int filters = kFiltersAll);
 
 // ------------------------------------------------------------ constants
 
@@ -212,6 +272,20 @@ enum IntraMode {
   D203_PRED, D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED,
   PAETH_PRED, UV_CFL_PRED
 };
+enum TxSize {
+  TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4, TX_8X16,
+  TX_16X8, TX_16X32, TX_32X16, TX_32X64, TX_64X32, TX_4X16, TX_16X4,
+  TX_8X32, TX_32X8, TX_16X64, TX_64X16
+};
+enum TxType {
+  DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST,
+  FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT,
+  V_ADST, H_ADST, V_FLIPADST, H_FLIPADST
+};
+inline constexpr int kTxWidthLog2[19] = {2, 3, 4, 5, 6, 2, 3, 3, 4, 4, 5,
+                                         5, 6, 2, 4, 3, 5, 4, 6};
+inline constexpr int kTxHeightLog2[19] = {2, 3, 4, 5, 6, 3, 2, 4, 3, 5, 4,
+                                          6, 5, 4, 2, 5, 3, 6, 4};
 
 inline constexpr int kNum4x4W[22] = {1, 1, 2, 2, 2, 4, 4, 4, 8, 8, 8,
                                      16, 16, 16, 32, 32, 1, 4, 2, 8, 4, 16};

@@ -22,7 +22,14 @@ const char* const kToolNames[kToolCount] = {
     "intrabc_default_dv", "coefficients", "golomb", "dc_sign", "wht",
     "depth_8", "depth_10", "depth_12", "monochrome",
     "sequence_header_full", "sequence_header_reduced", "frame_edge", "grid",
-    "alpha_item"};
+    "alpha_item", "lossy", "chroma_420", "quantizer_matrix", "delta_q",
+    "tx_mode_select", "tx_mode_largest", "tx_depth",
+    "tx_4", "tx_8", "tx_16", "tx_32", "tx_64", "tx_rect", "tx_rect_4",
+    "dct", "adst", "identity", "tx_type_set_intra_1", "tx_type_set_intra_2",
+    "eob_long", "deblock", "deblock_14", "deblock_6", "deblock_8",
+    "deblock_4", "cdef", "lr_wiener", "lr_sgrproj",
+    "lr_switchable", "bt601", "chroma_upsample", "var_tx", "tx_type_inter",
+    "intrabc_subpel"};
 std::atomic<long> g_tally[kToolCount];
 
 void corrupt(const std::string& msg) { throw Failure{kCorrupt, msg}; }
@@ -195,6 +202,20 @@ void init_cdfs(Cdfs* c, int base_q_idx) {
   COPY(c->coeff_base_eob, kDefaultCoeffBaseEobCdf[q]);
   COPY(c->coeff_base, kDefaultCoeffBaseCdf[q]);
   COPY(c->coeff_br, kDefaultCoeffBrCdf[q]);
+  COPY(c->eob_pt_32, kDefaultEobPt32Cdf[q]);
+  COPY(c->eob_pt_64, kDefaultEobPt64Cdf[q]);
+  COPY(c->eob_pt_128, kDefaultEobPt128Cdf[q]);
+  COPY(c->eob_pt_256, kDefaultEobPt256Cdf[q]);
+  COPY(c->eob_pt_512, kDefaultEobPt512Cdf[q]);
+  COPY(c->eob_pt_1024, kDefaultEobPt1024Cdf[q]);
+  COPY(c->tx_size, kDefaultTxSizeCdf);
+  COPY(c->delta_q, kDefaultDeltaQCdf);
+  COPY(c->intra_ext_tx, kDefaultIntraExtTxCdf);
+  COPY(c->inter_ext_tx, kDefaultInterExtTxCdf);
+  COPY(c->txfm_split, kDefaultTxfmSplitCdf);
+  COPY(c->switchable_restore, kDefaultSwitchableRestoreCdf);
+  COPY(c->wiener_restore, kDefaultWienerRestoreCdf);
+  COPY(c->sgrproj_restore, kDefaultSgrprojRestoreCdf);
 #undef COPY
 }
 

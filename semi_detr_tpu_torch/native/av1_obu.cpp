@@ -1,8 +1,10 @@
 // AV1 OBUs (5.3), the sequence header (5.5) and the uncompressed header of
-// a key frame (5.9) up to the tile group (5.11.1), for one still picture.
-// What a lossless key frame of one tile may not carry (another frame
-// type, superres, film grain, segmentation, several tiles) is refused, and
-// a lossy frame is refused once its quantizer is read.
+// a key frame (5.9) up to the tile group (5.11.1), for one still picture:
+// the quantizer with its matrices and per-superblock deltas, the loop
+// filter, CDEF and loop restoration parameters, the transform mode. What
+// no committed fixture reaches (another frame type, superres, film grain,
+// segmentation, several tiles, delta loop filter levels) is refused, each
+// naming itself.
 #include <algorithm>
 #include <string>
 
@@ -72,8 +74,8 @@ void sequence_header(BitReader& r, SequenceHeader* s) {
     if (order_hint) s->order_hint_bits = r.f(3) + 1;
   }
   s->superres = r.f(1);
-  r.f(1);  // enable_cdef
-  r.f(1);  // enable_restoration
+  s->enable_cdef = r.f(1);
+  s->enable_restoration = r.f(1);
   // color_config (5.5.2)
   const bool high = r.f(1);
   if (s->profile == 2 && high)
@@ -205,7 +207,8 @@ void frame_header(BitReader& r, const SequenceHeader& s, FrameHeader* fh) {
                "x" + std::to_string(tile_rows) + ")");
   // quantization_params (5.9.12)
   fh->base_q_idx = r.f(8);
-  int dq[5] = {read_delta_q(r), 0, 0, 0, 0};  // y dc, u dc, u ac, v dc, v ac
+  int* dq = fh->delta_q;  // y dc, u dc, u ac, v dc, v ac
+  dq[0] = read_delta_q(r);
   if (!s.mono) {
     const bool diff_uv = s.separate_uv_delta_q ? static_cast<bool>(r.f(1)) : false;
     dq[1] = read_delta_q(r);
@@ -218,41 +221,88 @@ void frame_header(BitReader& r, const SequenceHeader& s, FrameHeader* fh) {
       dq[4] = dq[2];
     }
   }
-  if (r.f(1)) {  // using_qmatrix
-    r.f(4);
-    r.f(4);
-    if (s.separate_uv_delta_q) r.f(4);
+  fh->using_qmatrix = r.f(1);
+  if (fh->using_qmatrix) {
+    fh->qm[0] = r.f(4);
+    fh->qm[1] = r.f(4);
+    fh->qm[2] = s.separate_uv_delta_q ? static_cast<int>(r.f(4)) : fh->qm[1];
   }
-  // segmentation_params (5.9.14): a segment whose qindex is 0 is lossless
-  bool lossless = fh->base_q_idx == 0;
-  const bool segmentation = r.f(1);
-  if (segmentation) {
-    static const int kBits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
-    static const bool kSigned[8] = {1, 1, 1, 1, 1, 0, 0, 0};
-    bool any_lossy = false, all_lossy = true;
-    for (int i = 0; i < 8; i++) {
-      int qidx = fh->base_q_idx;
-      for (int j = 0; j < 8; j++) {
-        if (!r.f(1)) continue;
-        int v = kBits[j] ? static_cast<int>(kSigned[j] ? r.su(1 + kBits[j])
-                                                       : r.f(kBits[j]))
-                         : 0;
-        if (j == 0) qidx = std::min(std::max(fh->base_q_idx + v, 0), 255);
-      }
-      if (qidx == 0) all_lossy = false; else any_lossy = true;
+  // segmentation_params (5.9.14)
+  if (r.f(1)) not_ported("AV1 segmentation");
+  // delta_q_params and delta_lf_params (5.9.17, 5.9.18)
+  if (fh->base_q_idx > 0) fh->delta_q_present = r.f(1);
+  if (fh->delta_q_present) {
+    fh->delta_q_res = r.f(2);
+    if (!fh->intrabc && r.f(1)) not_ported("AV1 delta loop filter levels");
+  }
+  fh->lossless = fh->base_q_idx == 0;
+  for (int i = 0; i < 5; i++) fh->lossless = fh->lossless && dq[i] == 0;
+  if (fh->lossless) fh->qm[0] = fh->qm[1] = fh->qm[2] = 15;
+  if (!fh->using_qmatrix) fh->qm[0] = fh->qm[1] = fh->qm[2] = 15;
+  const int planes = s.mono ? 1 : 3;
+  // loop_filter_params (5.9.11): a key frame starts from the default
+  // deltas (INTRA_FRAME 1, GOLDEN and both ALTREFs -1)
+  if (!fh->lossless && !fh->intrabc) {
+    fh->lf_level[0] = r.f(6);
+    fh->lf_level[1] = r.f(6);
+    if (planes > 1 && (fh->lf_level[0] || fh->lf_level[1])) {
+      fh->lf_level[2] = r.f(6);
+      fh->lf_level[3] = r.f(6);
     }
-    lossless = !any_lossy;
-    (void)all_lossy;
+    fh->lf_sharpness = r.f(3);
+    fh->lf_delta_enabled = r.f(1);
+    if (fh->lf_delta_enabled && r.f(1)) {  // loop_filter_delta_update
+      for (int i = 0; i < 8; i++)
+        if (r.f(1)) fh->lf_ref_deltas[i] = static_cast<int>(r.su(7));
+      for (int i = 0; i < 2; i++)
+        if (r.f(1)) fh->lf_mode_deltas[i] = static_cast<int>(r.su(7));
+    }
   }
-  for (int i = 0; i < 5; i++) lossless = lossless && dq[i] == 0;
-  if (!lossless)
-    not_ported("lossy AV1 (base_q_idx " + std::to_string(fh->base_q_idx) +
-               ")");
-  if (segmentation) not_ported("AV1 segmentation");
-  // delta_q_params and delta_lf_params read nothing at base_q_idx 0;
-  // loop_filter_params, cdef_params and lr_params read nothing in a coded
-  // lossless frame; read_tx_mode gives ONLY_4X4
-  r.f(1);  // reduced_tx_set: no transform type is coded in a lossless frame
+  // cdef_params (5.9.19)
+  fh->cdef = !fh->lossless && !fh->intrabc && s.enable_cdef;
+  if (fh->cdef) {
+    fh->cdef_damping = r.f(2) + 3;
+    fh->cdef_bits = r.f(2);
+    for (int i = 0; i < (1 << fh->cdef_bits); i++) {
+      fh->cdef_y_pri[i] = r.f(4);
+      fh->cdef_y_sec[i] = r.f(2);
+      if (fh->cdef_y_sec[i] == 3) fh->cdef_y_sec[i]++;
+      if (planes > 1) {
+        fh->cdef_uv_pri[i] = r.f(4);
+        fh->cdef_uv_sec[i] = r.f(2);
+        if (fh->cdef_uv_sec[i] == 3) fh->cdef_uv_sec[i]++;
+      }
+    }
+  }
+  // lr_params (5.9.20); superres is refused, so AllLossless is
+  // CodedLossless
+  if (!fh->lossless && !fh->intrabc && s.enable_restoration) {
+    static const int kRemap[4] = {RESTORE_NONE, RESTORE_SWITCHABLE,
+                                  RESTORE_WIENER, RESTORE_SGRPROJ};
+    bool chroma = false;
+    for (int i = 0; i < planes; i++) {
+      fh->lr_type[i] = kRemap[r.f(2)];
+      if (fh->lr_type[i] != RESTORE_NONE) {
+        fh->uses_lr = true;
+        if (i > 0) chroma = true;
+      }
+    }
+    if (fh->uses_lr) {
+      int shift;
+      if (s.sb128) {
+        shift = r.f(1) + 1;
+      } else {
+        shift = r.f(1);
+        if (shift) shift += r.f(1);
+      }
+      fh->lr_size[0] = 256 >> (2 - shift);
+      const int uv_shift = s.ssx && s.ssy && chroma ? static_cast<int>(r.f(1)) : 0;
+      fh->lr_size[1] = fh->lr_size[2] = fh->lr_size[0] >> uv_shift;
+    }
+  }
+  // read_tx_mode (5.9.21)
+  if (!fh->lossless) fh->tx_mode_select = r.f(1);
+  fh->reduced_tx_set = r.f(1);
   // global_motion_params: nothing for an intra frame
   if (s.film_grain) {
     if (r.f(1)) not_ported("AV1 film grain");

@@ -1,11 +1,9 @@
-// Prediction and reconstruction of a lossless AV1 key frame: every intra
-// predictor at the 4x4 transform blocks a lossless frame predicts, where
-// the edge filter and upsampling take their 4x4 strengths (7.11.2:
-// DC, the directional modes with the intra edge filter and upsampling,
-// smooth, Paeth, the recursive filter-intra predictor), palette (7.11.4),
-// chroma from luma (7.11.5), the intra block copy (7.11.3 with an integer
-// vector) and the lossless dequantisation and inverse Walsh-Hadamard
-// transform (7.12.3, 7.13.3), at 8, 10 and 12 bits.
+// Prediction in an AV1 key frame: every intra predictor at every
+// transform size to 64x64 (7.11.2: DC, the directional modes with the
+// intra edge filter, its corner and upsampling, smooth, Paeth, the
+// recursive filter-intra predictor), palette (7.11.4), chroma from luma at
+// 4:4:4 and 4:2:0 (7.11.5) and the intra block copy (7.11.3 with an
+// integer vector), at 8, 10 and 12 bits.
 #include <algorithm>
 #include <cstdlib>
 #include <vector>
@@ -23,35 +21,65 @@ inline int round2_signed(int x, int n) {
   return x >= 0 ? round2(x, n) : -round2(-x, n);
 }
 
-bool is_smooth(const MiInfo& m, int plane) {
+bool is_smooth(State& s, int r, int c, int plane) {
+  const MiInfo& m = s.at(r, c);
   const int mode = plane == 0 ? m.y_mode : m.uv_mode;
   return mode == SMOOTH_PRED || mode == SMOOTH_V_PRED || mode == SMOOTH_H_PRED;
 }
 
+// get_filter_type: a smooth neighbour (the chroma one of a 4:2:0 block)
 int filter_type(State& s, int plane) {
   bool above = false, left = false;
-  if (s.avail_u) above = is_smooth(s.at(s.mi_row - 1, s.mi_col), plane);
-  if (s.avail_l) left = is_smooth(s.at(s.mi_row, s.mi_col - 1), plane);
+  if (plane == 0 ? s.avail_u : s.avail_u_chroma) {
+    int r = s.mi_row - 1, c = s.mi_col;
+    if (plane > 0) {
+      if (s.ssx && !(s.mi_col & 1)) c++;
+      if (s.ssy && (s.mi_row & 1)) r--;
+    }
+    above = is_smooth(s, r, c, plane);
+  }
+  if (plane == 0 ? s.avail_l : s.avail_l_chroma) {
+    int r = s.mi_row, c = s.mi_col - 1;
+    if (plane > 0) {
+      if (s.ssx && (s.mi_col & 1)) c--;
+      if (s.ssy && !(s.mi_row & 1)) r++;
+    }
+    left = is_smooth(s, r, c, plane);
+  }
   return above || left;
 }
 
-// 7.11.2.9 and 7.11.2.10 for a 4x4 block (w + h = 8)
-int edge_strength(int filter, int delta) {
-  const int d = std::abs(delta);
-  if (filter == 0) return d >= 56 ? 1 : 0;
-  return d >= 64 ? 2 : d >= 40 ? 1 : 0;
+// 7.11.2.9 intra_edge_filter_strength_selection
+int edge_strength(int w, int h, int filter, int delta) {
+  const int d = std::abs(delta), wh = w + h;
+  int st = 0;
+  if (filter == 0) {
+    if (wh <= 8) { if (d >= 56) st = 1; }
+    else if (wh <= 16) { if (d >= 40) st = 1; }
+    else if (wh <= 24) { if (d >= 8) st = 1; if (d >= 16) st = 2; if (d >= 32) st = 3; }
+    else if (wh <= 32) { if (d >= 1) st = 1; if (d >= 4) st = 2; if (d >= 32) st = 3; }
+    else { if (d >= 1) st = 3; }
+  } else {
+    if (wh <= 8) { if (d >= 40) st = 1; if (d >= 64) st = 2; }
+    else if (wh <= 16) { if (d >= 20) st = 1; if (d >= 48) st = 2; }
+    else if (wh <= 24) { if (d >= 4) st = 3; }
+    else { if (d >= 1) st = 3; }
+  }
+  return st;
 }
 
-bool use_upsample(int delta) {
+// 7.11.2.10 use_intra_edge_upsample
+bool use_upsample(int w, int h, int filter, int delta) {
   const int d = std::abs(delta);
-  return d > 0 && d < 40;
+  if (d <= 0 || d >= 40) return false;
+  return filter ? w + h <= 8 : w + h <= 16;
 }
 
 // 7.11.2.12 on edge[-1 .. sz - 2]
 void filter_edge(int* edge, int sz, int strength) {
   if (!strength) return;
   static const int kKernel[3][5] = {{0, 4, 8, 4, 0}, {0, 5, 6, 5, 0}, {2, 4, 4, 4, 2}};
-  int copy[80];
+  int copy[288];
   for (int i = 0; i < sz; i++) copy[i] = edge[i - 1];
   for (int i = 1; i < sz; i++) {
     int sum = 0;
@@ -65,7 +93,7 @@ void filter_edge(int* edge, int sz, int strength) {
 
 // 7.11.2.11 on buf[-1 .. num_px - 1], into buf[-2 .. 2 * num_px - 2]
 void upsample_edge(int* buf, int num_px, int bd) {
-  int dup[80];
+  int dup[288];
   dup[0] = buf[-1];
   for (int i = -1; i < num_px; i++) dup[i + 2] = buf[i];
   dup[num_px + 2] = buf[num_px - 1];
@@ -81,14 +109,16 @@ void upsample_edge(int* buf, int num_px, int bd) {
 
 }  // namespace
 
+
 void predict_intra(State& s, int plane, int x, int y, bool have_left,
                    bool have_above, bool have_above_rt, bool have_below_lft,
-                   int mode) {
-  constexpr int w = 4, h = 4, log2w = 2, log2h = 2;
+                   int mode, int log2w, int log2h) {
+  const int w = 1 << log2w, h = 1 << log2h;
   const int bd = s.bit_depth;
-  const int max_x = s.mi_cols * 4 - 1, max_y = s.mi_rows * 4 - 1;
+  const int max_x = ((s.mi_cols * 4) >> s.sub_x(plane)) - 1;
+  const int max_y = ((s.mi_rows * 4) >> s.sub_y(plane)) - 1;
   const int mid = 1 << (bd - 1), mx = (1 << bd) - 1;
-  int above_buf[96], left_buf[96];
+  int above_buf[288], left_buf[288];
   int* above = above_buf + 16;
   int* left = left_buf + 16;
   const int n = w + h;
@@ -112,7 +142,8 @@ void predict_intra(State& s, int plane, int x, int y, bool have_left,
   else above[-1] = mid;
   left[-1] = above[-1];
 
-  int pred[4][4];
+  int pred_buf[64 * 64];
+  auto pred = [&](int i, int j) -> int& { return pred_buf[i * w + j]; };
   if (plane == 0 && s.use_filter_intra) {  // 7.11.2.3
     const int mode_fi = s.filter_intra_mode;
     for (int i2 = 0; i2 < (h >> 1); i2++)
@@ -122,16 +153,16 @@ void predict_intra(State& s, int plane, int x, int y, bool have_left,
           if (i < 5) {
             if (i2 == 0) p[i] = above[(j4 << 2) + i - 1];
             else if (j4 == 0 && i == 0) p[i] = left[(i2 << 1) - 1];
-            else p[i] = pred[(i2 << 1) - 1][(j4 << 2) + i - 1];
+            else p[i] = pred((i2 << 1) - 1, (j4 << 2) + i - 1);
           } else {
             if (j4 == 0) p[i] = left[(i2 << 1) + i - 5];
-            else p[i] = pred[(i2 << 1) + i - 5][(j4 << 2) - 1];
+            else p[i] = pred((i2 << 1) + i - 5, (j4 << 2) - 1);
           }
         }
         for (int i = 0; i < 8; i++) {
           int pr = 0;
           for (int j = 0; j < 7; j++) pr += kFilterIntraTaps[mode_fi][i][j] * p[j];
-          pred[(i2 << 1) + (i >> 2)][(j4 << 2) + (i & 3)] =
+          pred((i2 << 1) + (i >> 2), (j4 << 2) + (i & 3)) =
               std::min(std::max(round2_signed(pr, 4), 0), mx);
         }
       }
@@ -147,25 +178,30 @@ void predict_intra(State& s, int plane, int x, int y, bool have_left,
     if (s.seq->intra_edge_filter) {
       const int ft = filter_type(s, plane);
       if (p_angle != 90 && p_angle != 180) {
+        if (p_angle > 90 && p_angle < 180 && w + h >= 24) {
+          // the corner (7.11.2.7)
+          const int c = round2(left[0] * 5 + above[-1] * 6 + above[0] * 5, 4);
+          above[-1] = left[-1] = c;
+        }
         if (have_above) {
-          const int st = edge_strength(ft, p_angle - 90);
+          const int st = edge_strength(w, h, ft, p_angle - 90);
           const int num = std::min(w, max_x - x + 1) + (p_angle < 90 ? h : 0) + 1;
           if (st) count(kToolEdgeFilter);
           filter_edge(above, num, st);
         }
         if (have_left) {
-          const int st = edge_strength(ft, p_angle - 180);
+          const int st = edge_strength(w, h, ft, p_angle - 180);
           const int num = std::min(h, max_y - y + 1) + (p_angle > 180 ? w : 0) + 1;
           if (st) count(kToolEdgeFilter);
           filter_edge(left, num, st);
         }
       }
-      up_above = use_upsample(p_angle - 90);
+      up_above = use_upsample(w, h, ft, p_angle - 90);
       if (up_above) {
         upsample_edge(above, w + (p_angle < 90 ? h : 0), bd);
         count(kToolEdgeUpsample);
       }
-      up_left = use_upsample(p_angle - 180);
+      up_left = use_upsample(w, h, ft, p_angle - 180);
       if (up_left) {
         upsample_edge(left, h + (p_angle > 180 ? w : 0), bd);
         count(kToolEdgeUpsample);
@@ -209,22 +245,23 @@ void predict_intra(State& s, int plane, int x, int y, bool have_left,
           const int shift = ((idx << up_left) >> 1) & 0x1F;
           v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
         }
-        pred[i][j] = v;
+        pred(i, j) = v;
       }
   } else if (mode == SMOOTH_PRED || mode == SMOOTH_V_PRED || mode == SMOOTH_H_PRED) {
-    const uint8_t* wx = kSmoothWeights;  // the weights of size 4
-    const uint8_t* wy = kSmoothWeights;
+    // the weights of each size follow those of the sizes below it
+    const uint8_t* wx = kSmoothWeights + w - 4;
+    const uint8_t* wy = kSmoothWeights + h - 4;
     count(mode == SMOOTH_PRED ? kToolSmooth : mode == SMOOTH_V_PRED ? kToolSmoothV : kToolSmoothH);
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) {
         if (mode == SMOOTH_PRED) {
           const int sum = wy[i] * above[j] + (256 - wy[i]) * left[h - 1] +
                           wx[j] * left[i] + (256 - wx[j]) * above[w - 1];
-          pred[i][j] = round2(sum, 9);
+          pred(i, j) = round2(sum, 9);
         } else if (mode == SMOOTH_V_PRED) {
-          pred[i][j] = round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
+          pred(i, j) = round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
         } else {
-          pred[i][j] = round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
+          pred(i, j) = round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
         }
       }
   } else if (mode == DC_PRED) {
@@ -247,7 +284,7 @@ void predict_intra(State& s, int plane, int x, int y, bool have_left,
       avg = mid;
     }
     for (int i = 0; i < h; i++)
-      for (int j = 0; j < w; j++) pred[i][j] = avg;
+      for (int j = 0; j < w; j++) pred(i, j) = avg;
   } else {  // PAETH_PRED
     count(kToolPaeth);
     for (int i = 0; i < h; i++)
@@ -256,100 +293,94 @@ void predict_intra(State& s, int plane, int x, int y, bool have_left,
         const int p_left = std::abs(base - left[i]);
         const int p_top = std::abs(base - above[j]);
         const int p_top_left = std::abs(base - above[-1]);
-        if (p_left <= p_top && p_left <= p_top_left) pred[i][j] = left[i];
-        else if (p_top <= p_top_left) pred[i][j] = above[j];
-        else pred[i][j] = above[-1];
+        if (p_left <= p_top && p_left <= p_top_left) pred(i, j) = left[i];
+        else if (p_top <= p_top_left) pred(i, j) = above[j];
+        else pred(i, j) = above[-1];
       }
   }
   for (int i = 0; i < h; i++) {
     uint16_t* row = s.px(plane, y + i, x);
-    for (int j = 0; j < w; j++) row[j] = static_cast<uint16_t>(pred[i][j]);
+    for (int j = 0; j < w; j++) row[j] = static_cast<uint16_t>(pred(i, j));
   }
 }
 
-void predict_palette(State& s, int plane, int start_x, int start_y, int x, int y) {
+void predict_palette(State& s, int plane, int start_x, int start_y, int x,
+                     int y, int tx) {
+  const int w = 1 << kTxWidthLog2[tx], h = 1 << kTxHeightLog2[tx];
   const uint16_t* palette = s.palette[plane];
   uint8_t (*map)[64] = plane == 0 ? s.color_map_y : s.color_map_uv;
-  for (int i = 0; i < 4; i++) {
+  for (int i = 0; i < h; i++) {
     uint16_t* row = s.px(plane, start_y + i, start_x);
-    for (int j = 0; j < 4; j++) row[j] = palette[map[y * 4 + i][x * 4 + j]];
+    for (int j = 0; j < w; j++) row[j] = palette[map[y * 4 + i][x * 4 + j]];
   }
 }
 
-void predict_cfl(State& s, int plane, int start_x, int start_y) {
+void predict_cfl(State& s, int plane, int start_x, int start_y, int tx) {
+  const int w = 1 << kTxWidthLog2[tx], h = 1 << kTxHeightLog2[tx];
+  const int subx = s.ssx, suby = s.ssy;
   const int alpha = plane == 1 ? s.cfl_alpha_u : s.cfl_alpha_v;
   const int mx = (1 << s.bit_depth) - 1;
-  int luma[4][4], avg = 0;
-  for (int i = 0; i < 4; i++) {
-    const int ly = std::min(start_y + i, s.max_luma_h - 1);
-    for (int j = 0; j < 4; j++) {
-      const int lx = std::min(start_x + j, s.max_luma_w - 1);
-      luma[i][j] = *s.px(0, ly, lx) << 3;
-      avg += luma[i][j];
+  int luma[32 * 32];  // CfL blocks are 32x32 or less
+  int avg = 0;
+  for (int i = 0; i < h; i++) {
+    const int ly = std::min((start_y + i) << suby, s.max_luma_h - (1 << suby));
+    for (int j = 0; j < w; j++) {
+      const int lx = std::min((start_x + j) << subx, s.max_luma_w - (1 << subx));
+      int t = 0;
+      for (int dy = 0; dy <= suby; dy++)
+        for (int dx = 0; dx <= subx; dx++) t += *s.px(0, ly + dy, lx + dx);
+      const int v = t << (3 - subx - suby);
+      luma[i * w + j] = v;
+      avg += v;
     }
   }
-  avg = round2(avg, 4);
-  for (int i = 0; i < 4; i++) {
+  avg = round2(avg, kTxWidthLog2[tx] + kTxHeightLog2[tx]);
+  for (int i = 0; i < h; i++) {
     uint16_t* row = s.px(plane, start_y + i, start_x);
-    for (int j = 0; j < 4; j++) {
-      const int v = row[j] + round2_signed(alpha * (luma[i][j] - avg), 6);
+    for (int j = 0; j < w; j++) {
+      const int v = row[j] + round2_signed(alpha * (luma[i * w + j] - avg), 6);
       row[j] = static_cast<uint16_t>(std::min(std::max(v, 0), mx));
     }
   }
 }
 
 void predict_intrabc(State& s) {
-  const int bw = kNum4x4W[s.mi_size] * 4, bh = kNum4x4H[s.mi_size] * 4;
-  const int x0 = s.mi_col * 4, y0 = s.mi_row * 4;
-  const int dy = s.mv[0] >> 3, dx = s.mv[1] >> 3;
-  const int last_x = s.fh->width - 1, last_y = s.fh->height - 1;
-  std::vector<uint16_t> tmp(static_cast<size_t>(bw) * bh);
-  for (int plane = 0; plane < s.planes; plane++) {
-    for (int i = 0; i < bh; i++)
-      for (int j = 0; j < bw; j++) {
-        const int yy = std::min(std::max(y0 + i + dy, 0), last_y);
-        const int xx = std::min(std::max(x0 + j + dx, 0), last_x);
-        tmp[i * bw + j] = *s.px(plane, yy, xx);
-      }
-    for (int i = 0; i < bh && y0 + i < s.rows; i++)
-      for (int j = 0; j < bw && x0 + j < s.stride; j++)
-        *s.px(plane, y0 + i, x0 + j) = tmp[i * bw + j];
-  }
-}
-
-void reconstruct(State& s, int plane, int x, int y, const int32_t* quant) {
-  count(kToolWht);
+  // the block inter prediction of 7.11.3.4 with the current frame as the
+  // reference and the bilinear filter: an integer vector copies luma (and
+  // 4:4:4 chroma); 4:2:0 chroma takes half a sample where the vector is
+  // odd. One prediction for the whole chroma block (an intra block copy
+  // counts as intra for 7.11.3.1's someUseIntra).
   const int bd = s.bit_depth, mx = (1 << bd) - 1;
-  const int lim = 1 << (7 + bd);
-  int t[16];
-  for (int k = 0; k < 16; k++) {
-    // dequantisation at qindex 0: 4 for the DC and every AC coefficient
-    int64_t dq = static_cast<int64_t>(std::abs(quant[k])) * 4;
-    dq &= 0xFFFFFF;
-    if (quant[k] < 0) dq = -dq;
-    t[k] = static_cast<int>(std::min<int64_t>(std::max<int64_t>(dq, -lim), lim - 1));
-  }
-  auto wht = [](int* v, int step, int shift) {
-    int a = v[0] >> shift, c = v[step] >> shift, d = v[2 * step] >> shift,
-        b = v[3 * step] >> shift;
-    a += c;
-    d -= b;
-    const int e = (a - d) >> 1;
-    b = e - b;
-    c = e - c;
-    a -= b;
-    d += c;
-    v[0] = a;
-    v[step] = b;
-    v[2 * step] = c;
-    v[3 * step] = d;
-  };
-  for (int i = 0; i < 4; i++) wht(t + 4 * i, 1, 2);  // rows
-  for (int j = 0; j < 4; j++) wht(t + j, 4, 0);      // columns
-  for (int i = 0; i < 4; i++) {
-    uint16_t* row = s.px(plane, y + i, x);
-    for (int j = 0; j < 4; j++)
-      row[j] = static_cast<uint16_t>(std::min(std::max(row[j] + t[4 * i + j], 0), mx));
+  const int round0 = bd == 12 ? 5 : 3, round1 = bd == 12 ? 9 : 11;
+  for (int plane = 0; plane < (s.has_chroma ? s.planes : 1); plane++) {
+    const int subx = s.sub_x(plane), suby = s.sub_y(plane);
+    const int w = std::max(4, (kNum4x4W[s.mi_size] * 4) >> subx);
+    const int h = std::max(4, (kNum4x4H[s.mi_size] * 4) >> suby);
+    const int x0 = (s.mi_col >> subx) * 4, y0 = (s.mi_row >> suby) * 4;
+    const int last_x = ((s.fh->width + subx) >> subx) - 1;
+    const int last_y = ((s.fh->height + suby) >> suby) - 1;
+    // positions in sixteenths of a sample
+    const int dx = (2 * s.mv[1]) >> subx, dy = (2 * s.mv[0]) >> suby;
+    const int fx = dx & 15, fy = dy & 15;
+    const int ix = x0 + (dx >> 4), iy = y0 + (dy >> 4);
+    if (fx || fy) count(kToolIntrabcSubpel);
+    std::vector<int> inter(static_cast<size_t>(h + 1) * w);
+    for (int r = 0; r <= h; r++) {
+      const uint16_t* row = s.px(plane, std::min(std::max(iy + r, 0), last_y), 0);
+      for (int c = 0; c < w; c++) {
+        const int a = row[std::min(std::max(ix + c, 0), last_x)];
+        const int b = row[std::min(std::max(ix + c + 1, 0), last_x)];
+        inter[static_cast<size_t>(r) * w + c] =
+            ((128 - 8 * fx) * a + 8 * fx * b + (1 << (round0 - 1))) >> round0;
+      }
+    }
+    for (int r = 0; r < h; r++)
+      for (int c = 0; c < w; c++) {
+        const int v = ((128 - 8 * fy) * inter[static_cast<size_t>(r) * w + c] +
+                       8 * fy * inter[static_cast<size_t>(r + 1) * w + c] +
+                       (1 << (round1 - 1))) >> round1;
+        *s.px(plane, y0 + r, x0 + c) = static_cast<uint16_t>(std::min(std::max(v, 0), mx));
+      }
   }
 }
 

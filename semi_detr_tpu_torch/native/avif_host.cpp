@@ -284,8 +284,10 @@ Avif parse_file(const uint8_t* d, long n) {
 }
 
 // the colour description libavif uses: the nclx colr box if there is one,
-// else the sequence header's
-void check_colour(const Avif& a, const Item& it, const av1::SequenceHeader& seq) {
+// else the sequence header's. Returns true for the BT.601 matrix of cv2's
+// lossy files (5 or 6, full range), false for the identity matrix (or a
+// monochrome plane).
+bool check_colour(const Avif& a, const Item& it, const av1::SequenceHeader& seq) {
   int matrix = seq.matrix;
   bool full = seq.full_range;
   for (uint32_t i : it.props) {
@@ -296,9 +298,13 @@ void check_colour(const Avif& a, const Item& it, const av1::SequenceHeader& seq)
       full = p.body[10] >> 7;
     }
   }
-  if (!seq.mono && matrix != 0)
-    not_ported("AVIF YUV to RGB (matrix_coefficients " + std::to_string(matrix) + ")");
   if (!full) not_ported("AVIF limited-range samples");
+  if (seq.mono || matrix == 0) return false;
+  if (matrix != 5 && matrix != 6)
+    not_ported("AVIF YUV to RGB (matrix_coefficients " + std::to_string(matrix) + ")");
+  if (!seq.ssx || !seq.ssy)
+    not_ported("AVIF BT.601 YUV to RGB of full-resolution chroma");
+  return true;
 }
 
 // an av01 item's headers, from its av1C config OBUs and its data, which
@@ -315,13 +321,100 @@ void load_item(const Avif& a, const Item& it, std::vector<uint8_t>* data,
                   static_cast<long>(data->size()), pic);
 }
 
-// an av01 item decoded to its planes
-void decode_item(const Avif& a, const Item& it, av1::Planes* out) {
+// an av01 item decoded to its planes; true for BT.601 YUV
+bool decode_item(const Avif& a, const Item& it, av1::Planes* out) {
   std::vector<uint8_t> data;
   av1::Picture pic;
   load_item(a, it, &data, &pic);
-  check_colour(a, it, pic.seq);
+  const bool yuv = check_colour(a, it, pic.seq);
   av1::decode_picture(pic, out);
+  return yuv;
+}
+
+// libyuv's ScaleRowUp2_Linear (the Any form): a chroma row twice as wide,
+// each pair of neighbours weighted 3:1 and 1:3, the ends copied
+void up_linear(const uint8_t* s, int w, uint8_t* d) {
+  const int work = (w - 1) & ~1;
+  d[0] = s[0];
+  for (int x = 0; x < work / 2; x++) {
+    d[2 * x + 1] = static_cast<uint8_t>((s[x] * 3 + s[x + 1] + 2) >> 2);
+    d[2 * x + 2] = static_cast<uint8_t>((s[x] + s[x + 1] * 3 + 2) >> 2);
+  }
+  d[w - 1] = s[(w - 1) / 2];
+}
+
+// libyuv's ScaleRowUp2_Bilinear (the Any form): the two output rows
+// between chroma rows s and t (weighted 3:1 and 1:3), 9-3-3-1 inside, the
+// ends from one column
+void up_bilinear(const uint8_t* s, const uint8_t* t, int w, uint8_t* d, uint8_t* e) {
+  const int work = (w - 1) & ~1;
+  d[0] = static_cast<uint8_t>((3 * s[0] + t[0] + 2) >> 2);
+  e[0] = static_cast<uint8_t>((s[0] + 3 * t[0] + 2) >> 2);
+  for (int x = 0; x < work / 2; x++) {
+    d[2 * x + 1] = static_cast<uint8_t>((s[x] * 9 + s[x + 1] * 3 + t[x] * 3 + t[x + 1] + 8) >> 4);
+    d[2 * x + 2] = static_cast<uint8_t>((s[x] * 3 + s[x + 1] * 9 + t[x] + t[x + 1] * 3 + 8) >> 4);
+    e[2 * x + 1] = static_cast<uint8_t>((s[x] * 3 + s[x + 1] + t[x] * 9 + t[x + 1] * 3 + 8) >> 4);
+    e[2 * x + 2] = static_cast<uint8_t>((s[x] + s[x + 1] * 3 + t[x] * 3 + t[x + 1] * 9 + 8) >> 4);
+  }
+  const int c = (w - 1) / 2;
+  d[w - 1] = static_cast<uint8_t>((3 * s[c] + t[c] + 2) >> 2);
+  e[w - 1] = static_cast<uint8_t>((s[c] + 3 * t[c] + 2) >> 2);
+}
+
+// 8-bit RGB from 4:2:0 BT.601 full-range planes as cv2's libavif makes it
+// with libyuv: samples above 8 bits cut to 8 (Convert16To8Plane), the
+// chroma upsampled bilinearly row pair by row pair
+// (I420ToRGB24MatrixBilinear: the first row, and the last of an even
+// height, from one chroma row), then kYuvJPEGConstants' fixed point
+// (YuvPixel): y * 0x0101 * 16320 >> 16, + 32, the chroma weights 113, 22,
+// 46 and 90 (1.772, 0.34414, 0.71414, 1.402 in 1/64), >> 6
+void yuv420_to_rgb(const av1::Planes& p, uint8_t* out, int stride_px, int x0, int y0) {
+  av1::count(av1::kToolBt601);
+  av1::count(av1::kToolChromaUpsample);
+  const int w = p.width, h = p.height, cw = (w + 1) >> 1, ch = (h + 1) >> 1;
+  const int shift = p.bit_depth - 8;
+  std::vector<uint8_t> u8(static_cast<size_t>(cw) * ch), v8(u8.size());
+  for (size_t i = 0; i < u8.size(); i++) {
+    u8[i] = static_cast<uint8_t>(p.plane[1][i] >> shift);
+    v8[i] = static_cast<uint8_t>(p.plane[2][i] >> shift);
+  }
+  std::vector<uint8_t> ru[2], rv[2];
+  for (int k = 0; k < 2; k++) {
+    ru[k].resize(w);
+    rv[k].resize(w);
+  }
+  auto clamp = [](int v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); };
+  auto emit = [&](int y, const uint8_t* u, const uint8_t* v) {
+    const uint16_t* yr = p.plane[0].data() + static_cast<size_t>(y) * w;
+    uint8_t* o = out + (static_cast<size_t>(y0 + y) * stride_px + x0) * 3;
+    for (int x = 0; x < w; x++) {
+      const uint32_t y32 = static_cast<uint32_t>(yr[x] >> shift) * 0x0101;
+      const int y1 = static_cast<int>((y32 * 16320u) >> 16) + 32;
+      const int ui = u[x] - 128, vi = v[x] - 128;
+      o[3 * x + 0] = clamp((y1 + vi * 90) >> 6);
+      o[3 * x + 1] = clamp((y1 - (ui * 22 + vi * 46)) >> 6);
+      o[3 * x + 2] = clamp((y1 + ui * 113) >> 6);
+    }
+  };
+  const uint8_t* uc = u8.data();
+  const uint8_t* vc = v8.data();
+  up_linear(uc, w, ru[0].data());
+  up_linear(vc, w, rv[0].data());
+  emit(0, ru[0].data(), rv[0].data());
+  int y = 1;
+  for (; y < h - 1; y += 2) {
+    up_bilinear(uc, uc + cw, w, ru[0].data(), ru[1].data());
+    up_bilinear(vc, vc + cw, w, rv[0].data(), rv[1].data());
+    emit(y, ru[0].data(), rv[0].data());
+    emit(y + 1, ru[1].data(), rv[1].data());
+    uc += cw;
+    vc += cw;
+  }
+  if (y == h - 1) {  // an even height: its last row from the last chroma row
+    up_linear(uc, w, ru[0].data());
+    up_linear(vc, w, rv[0].data());
+    emit(y, ru[0].data(), rv[0].data());
+  }
 }
 
 // 8-bit RGB from the planes: 3 planes of the identity matrix are G, B, R;
@@ -454,7 +547,7 @@ int avif_decode(const uint8_t* d, long n, uint8_t* out, int h, int w) {
     int tw = 0, th = 0;
     for (size_t k = 0; k < l.tiles.size(); k++) {
       av1::Planes p;
-      decode_item(a, *l.tiles[k], &p);
+      const bool yuv = decode_item(a, *l.tiles[k], &p);
       if (k == 0) {
         tw = p.width;
         th = p.height;
@@ -464,12 +557,45 @@ int avif_decode(const uint8_t* d, long n, uint8_t* out, int h, int w) {
       } else if (p.width != tw || p.height != th) {
         corrupt("AVIF grid tiles of different sizes");
       }
-      to_rgb(p, canvas.data(), tw * l.cols,
-             static_cast<int>(k % l.cols) * tw, static_cast<int>(k / l.cols) * th);
+      const int cx = static_cast<int>(k % l.cols) * tw, cy = static_cast<int>(k / l.cols) * th;
+      if (yuv)
+        yuv420_to_rgb(p, canvas.data(), tw * l.cols, cx, cy);
+      else
+        to_rgb(p, canvas.data(), tw * l.cols, cx, cy);
     }
     for (int y = 0; y < h; y++)
       std::memcpy(out + static_cast<size_t>(y) * w * 3,
                   canvas.data() + static_cast<size_t>(y) * tw * l.cols * 3, w * 3);
+    return kOk;
+  } catch (const av1::Failure& f) {
+    return fail(f);
+  }
+}
+
+int avif_planes(const uint8_t* d, long n, int filters, uint16_t* out,
+                long cap, int* info) {
+  try {
+    const Avif a = parse_file(d, n);
+    const Item& primary = a.items.at(a.primary);
+    av1::Planes p;
+    std::vector<uint8_t> data;
+    av1::Picture pic;
+    load_item(a, primary, &data, &pic);
+    av1::decode_picture(pic, &p, filters);
+    info[0] = p.width;
+    info[1] = p.height;
+    info[2] = p.count;
+    info[3] = p.ssx;
+    info[4] = p.ssy;
+    info[5] = p.bit_depth;
+    long total = 0;
+    for (int k = 0; k < p.count; k++) total += static_cast<long>(p.plane[k].size());
+    if (out && cap >= total) {
+      for (int k = 0; k < p.count; k++) {
+        std::memcpy(out, p.plane[k].data(), p.plane[k].size() * sizeof(uint16_t));
+        out += p.plane[k].size();
+      }
+    }
     return kOk;
   } catch (const av1::Failure& f) {
     return fail(f);
@@ -490,6 +616,16 @@ int sdt_avif_tally(long* counts, int n) {
 
 const char* sdt_avif_tool_name(int i) {
   return i >= 0 && i < sdt::av1::kToolCount ? sdt::av1::kToolNames[i] : "";
+}
+
+// The decoded planes of an AVIF's primary av01 item, with the in-loop
+// filters of `filters` (av1::kFilter*) applied: info gets width, height,
+// plane count, chroma subsampling x and y and bit depth; out (when cap
+// holds them) every plane's samples one after another, row by row. The
+// stages are held to a conformant decoder's planes by the tests.
+int sdt_avif_planes(const uint8_t* d, long n, int filters, uint16_t* out,
+                    long cap, int* info) {
+  return sdt::avif_planes(d, n, filters, out, cap, info);
 }
 
 }  // extern "C"

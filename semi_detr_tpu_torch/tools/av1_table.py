@@ -31,6 +31,19 @@ non-zero ones falling from 1023 to 3), the filter-intra taps (5 x 8 rows of
 seven taps summing to 16) and the palette colour context (-1 at the hashes
 that cannot occur). Each must be found once, or in copies that agree.
 
+A lossy frame's tables too: the DC and AC quantizer lookups at 8, 10 and
+12 bits (256 non-decreasing int16 from 4, told apart by their first
+steps), the inverse quantizer matrices (15 levels x 2 planes x 3344
+bytes, the square ones symmetric; written by row), the default scans of
+every size below 64 (generated by the specification's rule and each found
+in libaom by column) with the row and column scans, the cosine and ADST4
+sine tables of a cos_bit of 12, and Sgr_Params (16 records of radii and
+scales). The EOB CDFs of 32-1024 come from .rodata like the other
+coefficient CDFs; the transform size, delta q, transform type (intra and
+inter), transform split and restoration CDFs from the frame context. The
+specification's fixed tables (context offsets, CDEF's, the restoration
+ranges) are written as the specification gives them.
+
 It runs only where cv2 is; no module of the port imports it (the port's
 import guard names it):
 
@@ -57,8 +70,9 @@ _MV = [4] + 2 * ([11, 4, 4, 4] + [2] * 14)
 LAYOUT = [
     ("kDefaultTxbSkipCdf0", 65, 2, 3), ("kDefaultEobExtraCdf0", 90, 2, 3),
     ("kDefaultDcSignCdf0", 6, 2, 3), ("kDefaultEobPt16Cdf0", 4, 5, 6),
-    (None, 4, 6, 7), (None, 4, 7, 8), (None, 4, 8, 9), (None, 4, 9, 10),
-    (None, 4, 10, 11), (None, 4, 11, 12),
+    ("kDefaultEobPt32Cdf0", 4, 6, 7), ("kDefaultEobPt64Cdf0", 4, 7, 8),
+    ("kDefaultEobPt128Cdf0", 4, 8, 9), ("kDefaultEobPt256Cdf0", 4, 9, 10),
+    ("kDefaultEobPt512Cdf0", 4, 10, 11), ("kDefaultEobPt1024Cdf0", 4, 11, 12),
     ("kDefaultCoeffBaseEobCdf0", 40, 3, 4), ("kDefaultCoeffBaseCdf0", 420, 4, 5),
     ("kDefaultCoeffBrCdf0", 210, 4, 5),
     (None, 17, 2, 3),     # newmv, zeromv, refmv, drl
@@ -73,7 +87,9 @@ LAYOUT = [
     ("kDefaultPaletteYColorCdf", 35, [n for n in range(2, 9) for _ in range(5)], 9),
     ("kDefaultPaletteUvColorCdf", 35, [n for n in range(2, 9) for _ in range(5)], 9),
     ("kDefaultPaletteYModeCdf", 21, 2, 3), ("kDefaultPaletteUvModeCdf", 2, 2, 3),
-    (None, 5 + 18 + 5 + 9 + 9 + 6 + 21 + 6 + 6 + 3, 2, 3),  # inter refs ..
+    (None, 5 + 18 + 5 + 9 + 9 + 6, 2, 3),  # inter references
+    ("kDefaultTxfmSplitCdf", 21, 2, 3),     # txfm_partition (var-tx)
+    (None, 6 + 6 + 3, 2, 3),  # compound index and group, skip mode
     ("kDefaultSkipCdf", 3, 2, 3),
     (None, 4, 2, 3),      # intra / inter
     (None, len(_MV), _MV, None),          # nmvc
@@ -81,17 +97,22 @@ LAYOUT = [
     ("kDefaultIntrabcCdf", 1, 2, 3),
     (None, 3, 2, 3), (None, 3, 8, 9),     # segmentation
     ("kDefaultFilterIntraCdf", 22, 2, 3), ("kDefaultFilterIntraModeCdf", 1, 5, 6),
-    (None, 1, 3, 4), (None, 2, 2, 3),     # loop restoration
+    ("kDefaultSwitchableRestoreCdf", 1, 3, 4),
+    ("kDefaultWienerRestoreCdf", 1, 2, 3), ("kDefaultSgrprojRestoreCdf", 1, 2, 3),
     (None, 4, 13, 14),                    # y mode of inter frames
     ("kDefaultUvModeCflNotAllowedCdf", 13, 13, 15),
     ("kDefaultUvModeCflAllowedCdf", 13, 14, 15),
     ("kDefaultPartitionCdf", 20, [4] * 4 + [10] * 12 + [8] * 4, 11),
     (None, 16, 3, 4),     # switchable interp
     ("kDefaultKfYModeCdf", 25, 13, 14), ("kDefaultAngleDeltaCdf", 8, 7, 8),
-    (None, 12, [2] * 3 + [3] * 9, 4),     # tx size
-    (None, 6, 4, 5),      # delta q, delta lf
-    (None, 156, [0] * 52 + [7] * 52 + [5] * 52, 17),  # intra ext tx
-    (None, 16, [0] * 4 + [16] * 4 + [12] * 4 + [2] * 4, 17),  # inter ext tx
+    ("kDefaultTxSizeCdf", 12, [2] * 3 + [3] * 9, 4),
+    ("kDefaultDeltaQCdf", 1, 4, 5), (None, 5, 4, 5),  # delta lf (multi, one)
+    # the intra transform types: set 0 (DCT only) unused, TX_SET_INTRA_1
+    # and TX_SET_INTRA_2, by the square transform size and the intra mode
+    ("kDefaultIntraExtTxCdf", 156, [0] * 52 + [7] * 52 + [5] * 52, 17),
+    # the inter transform types (an intra block copy's): set 0 unused,
+    # TX_SET_INTER_1 (16 types), _2 (12), _3 (2), by square size
+    ("kDefaultInterExtTxCdf", 16, [0] * 4 + [16] * 4 + [12] * 4 + [2] * 4, 17),
     ("kDefaultCflSignCdf", 1, 8, 9), ("kDefaultCflAlphaCdf", 6, 16, 17),
 ]
 # the shapes the header gives each table (before the row length)
@@ -105,6 +126,10 @@ SHAPES = {
     "kDefaultPaletteUvModeCdf": [2], "kDefaultPaletteYSizeCdf": [7],
     "kDefaultPaletteUvSizeCdf": [7], "kDefaultPaletteYColorCdf": [7, 5],
     "kDefaultPaletteUvColorCdf": [7, 5],
+    "kDefaultSwitchableRestoreCdf": [], "kDefaultWienerRestoreCdf": [],
+    "kDefaultSgrprojRestoreCdf": [], "kDefaultTxSizeCdf": [4, 3],
+    "kDefaultDeltaQCdf": [], "kDefaultIntraExtTxCdf": [3, 4, 13],
+    "kDefaultTxfmSplitCdf": [21], "kDefaultInterExtTxCdf": [4, 4],
 }
 # the coefficient CDFs of the four quantizer contexts: (name, records of
 # one context, symbols, row length, shape of one context)
@@ -113,6 +138,12 @@ COEFF = [
     ("kDefaultEobExtraCdf", 90, 2, 3, [5, 2, 9]),
     ("kDefaultDcSignCdf", 6, 2, 3, [2, 3]),
     ("kDefaultEobPt16Cdf", 4, 5, 6, [2, 2]),
+    ("kDefaultEobPt32Cdf", 4, 6, 7, [2, 2]),
+    ("kDefaultEobPt64Cdf", 4, 7, 8, [2, 2]),
+    ("kDefaultEobPt128Cdf", 4, 8, 9, [2, 2]),
+    ("kDefaultEobPt256Cdf", 4, 9, 10, [2, 2]),
+    ("kDefaultEobPt512Cdf", 4, 10, 11, [2, 2]),
+    ("kDefaultEobPt1024Cdf", 4, 11, 12, [2, 2]),
     ("kDefaultCoeffBaseEobCdf", 40, 3, 4, [5, 2, 4]),
 ]
 BASE, BR = ("kDefaultCoeffBaseCdf", 420, [5, 2, 42]), ("kDefaultCoeffBrCdf", 210, [5, 2, 21])
@@ -310,7 +341,7 @@ def other_tables(ro: bytes):
         spec += [r * 4 + c for r, c in (cells if d % 2 else cells[::-1])]
     libaom = np.array([(p & 3) * 4 + (p >> 2) for p in spec], "<i2")
     find_once(ro, libaom.tobytes(), "the 4x4 default scan")
-    out["kDefaultScan4x4"] = ("uint8_t", [16], spec)
+    out["kDefaultScan4x4"] = ("uint16_t", [16], spec)
     # smooth weights: the runs of 4, 8, 16, 32, 64 from 255, non-increasing
     found = set()
     for m in re.finditer(re.escape(bytes([255])), ro):
@@ -366,6 +397,119 @@ def other_tables(ro: bytes):
     if len(cands) != 1:
         raise SystemExit(f"palette colour context: {len(cands)} found")
     out["kPaletteColorContext"] = ("int8_t", [9], cands[0])
+    out.update(lossy_tables(ro))
+    return out
+
+
+# the transform sizes below 64 in libaom's TX_SIZES_ALL order (the order of
+# its quantizer matrices), as (width, height)
+QM_SIZES = [(4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16),
+            (16, 8), (16, 32), (32, 16), (4, 16), (16, 4), (8, 32), (32, 8)]
+
+
+def spec_scan(w: int, h: int):
+    """The specification's default scan of a w x h block (positions
+    r * w + c): anti-diagonals, each from its top row down for a block
+    taller than wide, from its bottom row up for one wider than tall; a
+    square's zig-zags (odd diagonals down, even ones up)."""
+    out = []
+    for d in range(w + h - 1):
+        cells = [(r, d - r) for r in range(h) if 0 <= d - r < w]
+        if w > h or (w == h and d % 2 == 0):
+            cells = cells[::-1]
+        out += [r * w + c for r, c in cells]
+    return out
+
+
+def lossy_tables(ro: bytes):
+    """The tables a lossy frame reads: the quantizer lookups, the quantizer
+    matrices, the scans of every transform size, the cosine and sine
+    tables of the inverse transforms."""
+    out = {}
+    s16 = np.frombuffer(ro[:len(ro) & ~1], "<i2")
+    # Dc_Qlookup and Ac_Qlookup at 8, 10 and 12 bits: 256 non-decreasing
+    # int16 from 4, found by the first steps libaom's tables take (at 8,
+    # 10 and 12 bits: 4 then 8, 8 / 9, 10 / 12, 18 for DC and 8, 9 / 9, 11 /
+    # 13, 19 for AC) and their structure
+    for kind, heads in (("Dc", ((8, 8), (9, 10), (12, 18))),
+                        ("Ac", ((8, 9), (9, 11), (13, 19)))):
+        rows = []
+        for v, v2 in heads:
+            at = [i for i in np.nonzero(s16[:-256] == 4)[0]
+                  if s16[i + 1] == v and s16[i + 2] == v2
+                  and (np.diff(s16[i:i + 256]) >= 0).all()
+                  and s16[i + 255] > 1000]
+            if len(at) != 1:
+                raise SystemExit(f"{kind}_Qlookup from (4, {v}, {v2}): "
+                                 f"{len(at)} found")
+            rows.append(s16[at[0]:at[0] + 256].astype(int))
+        out[f"k{kind}Qlookup"] = ("int16_t", [3, 256], np.concatenate(rows))
+    # the inverse quantizer matrices: 15 levels x 2 (luma, chroma) x 3344
+    # bytes of weights, the square ones (4x4, 8x8, 16x16) symmetric;
+    # libaom keeps a rectangle's by column, the tool writes it by row
+    b = np.frombuffer(ro, np.uint8)
+    total = 15 * 2 * 3344
+
+    def symmetric(a, n):
+        m = b[a:a + n * n].reshape(n, n).astype(int)
+        return m.min() >= 16 and (m == m.T).all()
+
+    found = []
+    for a in np.nonzero(b[:len(b) - total] >= 16)[0]:
+        if all(symmetric(a + k * 3344, 4) and symmetric(a + k * 3344 + 16, 8)
+               and symmetric(a + k * 3344 + 80, 16) for k in range(30)):
+            found.append(a)
+            if len(found) > 1:
+                break
+    qm = b[found[0]:found[0] + total].reshape(30, 3344).astype(int)
+    spec = np.zeros_like(qm)
+    at = 0
+    for w, h in QM_SIZES:
+        m = qm[:, at:at + w * h].reshape(30, w, h)  # [col][row]
+        spec[:, at:at + w * h] = m.transpose(0, 2, 1).reshape(30, -1)
+        at += w * h
+    out["kQuantizerMatrix"] = ("uint8_t", [15, 2, 3344], spec.ravel())
+    # the scans: each default scan is in libaom (by column); the row and
+    # column scans of the sizes a one-dimensional transform takes
+    for w, h in QM_SIZES:
+        sc = spec_scan(w, h)
+        lib = np.array([(p % w) * h + p // w for p in sc], "<i2").tobytes()
+        if lib not in ro:
+            raise SystemExit(f"the default scan of {w}x{h} is not libaom's")
+        if (w, h) != (4, 4):
+            out[f"kDefaultScan{w}x{h}"] = ("uint16_t", [w * h], sc)
+        if w <= 16 and h <= 16:
+            out[f"kMrowScan{w}x{h}"] = ("uint16_t", [w * h], list(range(w * h)))
+            out[f"kMcolScan{w}x{h}"] = ("uint16_t", [w * h],
+                                       [r * w + c for c in range(w) for r in range(h)])
+    # cos128 (4096 cos(i pi / 128)) and the ADST4 sines, as libaom keeps
+    # them for a cos_bit of 12
+    cos = [round(4096 * np.cos(i * np.pi / 128)) for i in range(64)]
+    find_once(ro, np.array(cos, "<i4").tobytes(), "the cosine table")
+    out["kCos128"] = ("int16_t", [65], cos + [0])
+    sin = [round(4096 * 2 * np.sqrt(2) / 3 * np.sin(k * np.pi / 9)) for k in range(5)]
+    find_once(ro, np.array(sin, "<i4").tobytes(), "the ADST4 sines")
+    out["kSinpi"] = ("int16_t", [5], sin)
+    # Sgr_Params: libaom's 16 {r0, r1, s0, s1} (int32), the radii 2 / 0
+    # and 1 / 0 (not both 0), a scale of -1 exactly where its radius is 0;
+    # written as the specification's {r0, s0, r1, s1}
+    s32 = np.frombuffer(ro[:len(ro) & ~3], "<i4")
+    found = []
+    for a in np.nonzero(s32[:-64] == 2)[0]:
+        v = s32[a:a + 64].reshape(16, 4)
+        if not (np.isin(v[:, 0], (0, 2)).all() and np.isin(v[:, 1], (0, 1)).all()):
+            continue
+        if ((v[:, 0] == 0) & (v[:, 1] == 0)).any():
+            continue
+        if ((v[:, 2] == -1) == (v[:, 0] == 0)).all() and \
+                ((v[:, 3] == -1) == (v[:, 1] == 0)).all() and \
+                (v[:, 2:][v[:, :2] > 0] > 0).all():
+            found.append(v)
+    if len(found) != 1:
+        raise SystemExit(f"self-guided parameters: {len(found)} found")
+    v = found[0]
+    out["kSgrParams"] = ("int16_t", [16, 4],
+                         np.stack([v[:, 0], v[:, 2], v[:, 1], v[:, 3]], 1).ravel())
     return out
 
 
@@ -373,9 +517,11 @@ def header(tables, others, src: str) -> str:
     lines = [
         "// The constant tables of the AV1 decoder (av1_*.cpp): libaom",
         "// 3.14.1's default CDFs, inverted (32768 - the CDF) with each",
-        "// record's counter slot, and the specification's scan, smooth",
-        "// weights, directional derivatives, filter-intra taps and palette",
-        "// colour context. Written by semi_detr_tpu_torch/tools/av1_table.py",
+        "// record's counter slot, and the specification's scans, smooth",
+        "// weights, directional derivatives, filter-intra taps, palette",
+        "// colour context, quantizer lookups and matrices, cosines and",
+        "// self-guided parameters. Written by",
+        "// semi_detr_tpu_torch/tools/av1_table.py",
         f"// from cv2's {src}.",
         "#pragma once", "", "#include <cstdint>", "",
         "namespace sdt {", "namespace av1 {", ""]
@@ -386,12 +532,51 @@ def header(tables, others, src: str) -> str:
         for k in range(0, len(vals), 12):
             lines.append("    " + ", ".join(vals[k:k + 12]) + ",")
         lines.append("};")
-    lines += ["// Palette_Color_Hash_Multipliers and Coeff_Base_Ctx_Offset at 4x4",
-              "inline constexpr uint8_t kPaletteColorHashMultipliers[3] = {1, 2, 2};",
-              "inline constexpr uint8_t kCoeffBaseCtxOffset4x4[4][4] = {",
-              "    {0, 1, 6, 6}, {1, 6, 6, 21}, {6, 6, 21, 21}, {6, 21, 21, 21}};",
-              "", "}  // namespace av1", "}  // namespace sdt", ""]
+    lines += SPEC_TABLES + ["", "}  // namespace av1", "}  // namespace sdt", ""]
     return "\n".join(lines)
+
+
+# the specification's fixed tables the decoder reads beside libaom's
+SPEC_TABLES = """\
+// From the AV1 specification: Palette_Color_Hash_Multipliers;
+// Coeff_Base_Ctx_Offset by the transform's shape (square, wider than tall,
+// taller than wide), Coeff_Base_Pos_Ctx_Offset, Sig_Ref_Diff_Offset and
+// Mag_Ref_Offset_With_Tx_Class by transform class (two-dimensional,
+// horizontal, vertical); Max_Tx_Depth by block size; Transform_Row_Shift
+// by transform size; CDEF's Div_Table, Cdef_Pri_Taps, Cdef_Sec_Taps and
+// Cdef_Directions; the Wiener taps' and self-guided weights' ranges
+inline constexpr uint8_t kPaletteColorHashMultipliers[3] = {1, 2, 2};
+inline constexpr uint8_t kCoeffBaseCtxOffset[3][5][5] = {
+    {{0, 1, 6, 6, 21}, {1, 6, 6, 21, 21}, {6, 6, 21, 21, 21},
+     {6, 21, 21, 21, 21}, {21, 21, 21, 21, 21}},
+    {{0, 16, 6, 6, 21}, {16, 16, 6, 21, 21}, {16, 16, 21, 21, 21},
+     {16, 16, 21, 21, 21}, {16, 16, 21, 21, 21}},
+    {{0, 11, 11, 11, 11}, {11, 11, 11, 11, 11}, {6, 6, 21, 21, 21},
+     {6, 21, 21, 21, 21}, {21, 21, 21, 21, 21}}};
+inline constexpr uint8_t kCoeffBasePosCtxOffset[3] = {26, 31, 36};
+inline constexpr int8_t kSigRefDiffOffset[3][5][2] = {
+    {{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}},
+    {{0, 1}, {1, 0}, {0, 2}, {0, 3}, {0, 4}},
+    {{0, 1}, {1, 0}, {2, 0}, {3, 0}, {4, 0}}};
+inline constexpr int8_t kMagRefOffset[3][3][2] = {
+    {{0, 1}, {1, 0}, {1, 1}}, {{0, 1}, {1, 0}, {0, 2}}, {{0, 1}, {1, 0}, {2, 0}}};
+inline constexpr uint8_t kMaxTxDepth[22] = {0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4,
+                                            4, 4, 4, 4, 4, 2, 2, 3, 3, 4, 4};
+inline constexpr uint8_t kTransformRowShift[19] = {0, 1, 2, 2, 2, 0, 0, 1, 1, 1,
+                                                   1, 1, 1, 1, 1, 2, 2, 2, 2};
+inline constexpr int16_t kCdefDivTable[9] = {0, 840, 420, 280, 210, 168, 140, 120, 105};
+inline constexpr uint8_t kCdefPriTaps[2][2] = {{4, 2}, {3, 3}};
+inline constexpr uint8_t kCdefSecTaps[2][2] = {{2, 1}, {2, 1}};
+inline constexpr int8_t kCdefDirections[8][2][2] = {
+    {{-1, 1}, {-2, 2}}, {{0, 1}, {-1, 2}}, {{0, 1}, {0, 2}}, {{0, 1}, {1, 2}},
+    {{1, 1}, {2, 2}},   {{1, 0}, {2, 1}},  {{1, 0}, {2, 0}}, {{1, 0}, {2, -1}}};
+inline constexpr int8_t kWienerTapsMin[3] = {-5, -23, -17};
+inline constexpr int8_t kWienerTapsMax[3] = {10, 8, 46};
+inline constexpr int8_t kWienerTapsK[3] = {1, 2, 3};
+inline constexpr int8_t kWienerTapsMid[3] = {3, -7, 15};
+inline constexpr int8_t kSgrprojXqdMin[2] = {-96, -32};
+inline constexpr int8_t kSgrprojXqdMax[2] = {31, 95};
+inline constexpr int8_t kSgrprojXqdMid[2] = {-32, 31};""".split("\n")
 
 
 def main(argv=None):
@@ -427,9 +612,7 @@ def main(argv=None):
                for k in first):
             raise SystemExit("the decoder's frame contexts differ")
     # the context's coefficient tables are those of quantizer context 0
-    for name in ("kDefaultTxbSkipCdf", "kDefaultEobExtraCdf", "kDefaultDcSignCdf",
-                 "kDefaultEobPt16Cdf", "kDefaultCoeffBaseEobCdf",
-                 "kDefaultCoeffBaseCdf", "kDefaultCoeffBrCdf"):
+    for name in [c[0] for c in COEFF] + [BASE[0], BR[0]]:
         ctx0 = np.concatenate(first[name + "0"])
         if not np.array_equal(ctx0, coeff[name][0][:len(ctx0)]):
             raise SystemExit(f"{name}: .rodata and the frame context differ")
@@ -438,7 +621,7 @@ def main(argv=None):
         tables[name] = ("uint16_t", shape, flat)
     for name, shape in SHAPES.items():
         rows = first[name]
-        tables[name] = ("uint16_t", shape + [len(rows[0])], np.concatenate(rows))
+        tables[name] = ("uint16_t", shape + [len(rows[-1])], np.concatenate(rows))
     mv = np.concatenate(first["kDefaultMvCdf"])
     tables["kDefaultMvCdf"] = ("uint16_t", [len(mv)], mv)
     text = header(tables, other_tables(ro), os.path.basename(so))

@@ -1220,8 +1220,7 @@ def fixture_files():
         src = bgr.astype(np.float32) / 255 if ext in (".hdr", ".pfm") \
             else bgr
         add("other" + ext.replace(".", "_") + ext,
-            cv2.imencode(ext, src)[1].tobytes(), fmt, "cv2.imencode",
-            "not ported" if ext == ".avif" else "pixels")
+            cv2.imencode(ext, src)[1].tobytes(), fmt, "cv2.imencode")
     add("other_gif.gif", _pil(a, "GIF"), "GIF", "Pillow")
     _add_new_formats(add, a, b, big, rs)
     _add_tiff_tail(add)
@@ -2003,6 +2002,16 @@ def _avif_repeats(h: int, w: int, seed: int) -> np.ndarray:
     return np.ascontiguousarray(cols[idx].repeat(2, 0).repeat(2, 1)[:h, :w])
 
 
+def _avif_mixed(seed: int) -> np.ndarray:
+    """256x256: blurred noise over screen content (boxes and text); libaom
+    turns on intra block copy in a lossy frame for it (speeds 0-6)."""
+    import cv2
+    rs = np.random.RandomState(seed)
+    top = cv2.GaussianBlur(rs.randint(0, 256, (128, 256, 3)).astype(np.uint8),
+                           (0, 0), 2)
+    return np.concatenate([top, _avif_screen(128, 256, 3)], 0)
+
+
 def _avif_edit(data: bytes, props_add=(), props_drop=(), av1=None, **kw):
     """A cv2-written AVIF rewritten: properties added to (or dropped from)
     the primary item, its AV1 data replaced, the container written by
@@ -2101,9 +2110,52 @@ def _add_avif(add):
         picture(480, 640, 7, noise=2)[..., ::-1])), "AVIF",
         "480x640 RGB, speed 6: the picture phase 7a times and the trainer "
         "reads")
+    _add_avif_lossy(add)
+
+
+def _add_avif_lossy(add):
+    """The lossy AVIF fixtures (cv2.imwrite below quality 100: 4:2:0 BT.601
+    full range, or monochrome): each variant names the tools it reaches."""
+    pic = _avif_picture
+    big = np.ascontiguousarray(picture(480, 640, 7, noise=2)[..., ::-1])
+    add("avif_lossy_480x640.avif", avif_cv2(big, quality=95), "AVIF",
+        "480x640, cv2's defaults (quality 95, speed 9): quantizer matrices, "
+        "delta q, TX_MODE_SELECT, deblocking, CDEF; the picture phase 7a "
+        "times and the trainer reads")
+    for h, w in ((1, 40), (40, 1), (23, 37), (53, 37)):
+        add(f"avif_lossy_{h}x{w}.avif", avif_cv2(pic(h, w, 4), quality=95),
+            "AVIF", f"{h}x{w} at quality 95: odd chroma sizes, frame edges")
+    for q in (0, 30, 60, 99):
+        add(f"avif_lossy_q{q}.avif", avif_cv2(pic(64, 96, 11), quality=q),
+            "AVIF", f"quality {q}")
+    add("avif_lossy_speed0.avif", avif_cv2(np.ascontiguousarray(big[:256, :256]),
+                                           quality=95, speed=0), "AVIF",
+        "speed 0: loop restoration, switchable (Wiener and self-guided "
+        "units)")
+    for sp in (4, 5, 8, 10):
+        add(f"avif_lossy_speed{sp}.avif", avif_cv2(pic(96, 128, 3), quality=60,
+                                                   speed=sp), "AVIF",
+            f"speed {sp} at quality 60" + (": self-guided restoration"
+                                            if sp == 4 else ""))
     add("avif_lossy_10bit.avif", avif_cv2(pic(48, 64, 5).astype(np.uint16) * 4,
                                           quality=60, depth=10), "AVIF",
-        "lossy 10-bit (quality 60)", "not ported")
+        "10-bit (quality 60): cut to 8 bits before libyuv's conversion")
+    add("avif_lossy_12bit.avif", avif_cv2(pic(48, 64, 6).astype(np.uint16) * 16 + 5,
+                                          quality=60, depth=12), "AVIF",
+        "12-bit (profile 2, 4:2:0, quality 60)")
+    add("avif_lossy_mono.avif", avif_cv2(pic(48, 64, 7)[..., 0].copy(), quality=80),
+        "AVIF", "monochrome (quality 80)")
+    add("avif_lossy_mono10.avif", avif_cv2(pic(48, 64, 8)[..., 1].astype(np.uint16) * 4 + 3,
+                                           quality=80, depth=10), "AVIF",
+        "10-bit monochrome (quality 80), rounded to even as cv2 scales gray")
+    add("avif_lossy_screen.avif", avif_cv2(_avif_screen(96, 160, 1), quality=90,
+                                           speed=2), "AVIF",
+        "screen content (quality 90, speed 2): palette at 4:2:0 (the chroma "
+        "map of a 16x4 block), identity and one-dimensional transforms")
+    add("avif_lossy_intrabc.avif", avif_cv2(_avif_mixed(5), quality=30, speed=4),
+        "AVIF", "photo over screen content (quality 30, speed 4): intra block "
+        "copy in a lossy frame (its transform trees and inter transform "
+        "types, half-sample chroma), the in-loop filters off")
 
 
 def write_fixtures(directory: str, prefixes=None) -> dict:

@@ -7,9 +7,10 @@ AV1 key frame (4:4:4 with the identity matrix, or monochrome), and those
 decode here to cv2.imread's pixels at max abs 0: every committed `avif_*`
 fixture (8, 10 and 12 bits, monochrome, speeds 0-9, screen content with
 palette and intra block copy, edge sizes, the alpha item, the container
-edits, a grid, a full sequence header), and pictures written afresh. The
-tool tally (`native.avif_tools`) shows each coding tool reached; lossy
-frames and the lossless tools no fixture reaches raise "AVIF ... not
+edits, a grid, a full sequence header; and the lossy `avif_lossy_*` ones,
+which tests/test_torch_avif_lossy.py holds stage by stage), and pictures
+written afresh. The tool tally (`native.avif_tools`) shows each coding
+tool reached; the lossless tools no fixture reaches raise "AVIF ... not
 ported"; damaged files raise naming the file. `tools.av1_table` rewrites
 `native/av1_tables.h` from cv2's libaom as it is committed.
 """
@@ -83,18 +84,16 @@ def _refused(data: bytes, name: str, *words):
 
 
 def test_avif_refusals():
-    """Lossy AV1 (cv2's default and other qualities and depths) and the
-    lossless tools no fixture reaches (several tiles, segmentation: header
-    edits of a committed fixture) raise naming the tool; `image_size`
-    refuses as the decode does."""
-    _refused(read("other_avif.avif"), "other_avif.avif", "lossy AV1")
-    lossy = fw.avif_cv2(fw._avif_picture(32, 32, 3), quality=80)
-    _refused(lossy, "q80.avif", "lossy AV1")
-    with pytest.raises(native.ImageDecodeError, match="lossy AV1"):
-        native.image_size(lossy, "q80.avif")
+    """The lossless tools no fixture reaches (several tiles, segmentation:
+    header edits of a committed fixture) raise naming the tool;
+    `image_size` refuses as the decode does. (cv2's lossy files, which
+    raised "lossy AV1" here before, now read to cv2's pixels:
+    test_torch_avif_lossy.py.)"""
     tiles = fw._avif_edit(read("avif_130x150.avif"), av1=lambda d:
                           fw.av1_header_edit(d, tiles=True))
     _refused(tiles, "tiles.avif", "several tiles")
+    with pytest.raises(native.ImageDecodeError, match="several tiles"):
+        native.image_size(tiles, "tiles.avif")
     seg = fw._avif_edit(read("avif_rgb8.avif"), av1=lambda d:
                         fw.av1_header_edit(d, segmentation=True))
     _refused(seg, "segmentation.avif", "segmentation")

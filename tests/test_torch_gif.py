@@ -4,9 +4,8 @@ IMREAD_COLOR)` (OpenCV 5.0's GifDecoder).
 
 The committed fixtures (`gif_*`, `other_gif.gif`, with `formats.json`)
 decode to their stored cv2 pixels and to the JAX loader's at max abs 0
-(`other_jp2.jp2`, which the JAX loader reads through cv2, to its cv2
-pixels too, and `other_avif.avif` raises naming its format and "not
-ported").
+(`other_jp2.jp2` and `other_avif.avif`, which the JAX loader reads
+through cv2, to their cv2 pixels too).
 Seeded files of `format_writers.write_gif` cover LZW at every minimum code
 size cv2 reads (2-11), clear codes, a full table with no clear (a deferred
 clear), an end code inside the stream, interlaced rows, local and global
