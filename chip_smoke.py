@@ -149,7 +149,9 @@ Phases (any failure exits non-zero):
    card's name and power limit; and
    damaged copies of each format (an HT file cut in half and one whose
    Scup runs past its cleanup segment among them)
-   raise naming the file; the TIFF fixtures of the compressions cv2's
+   raise naming the file, but a TIFF of LZW codes garbled inside a strip,
+   which cv2 reads to a picture (libtiff's RGBA reader goes on with what
+   the codec wrote) and so does the library; the TIFF fixtures of the compressions cv2's
    libtiff cannot decode (Pixar, NeXT, JPEG 2000 inside TIFF) read as the
    one-colour picture of zero samples, as cv2 reads them. The library's
    JPEG 2000 encoder (OpenJPEG 2.5.3's reversible encoder at cv2's rate 4)
@@ -157,7 +159,15 @@ Phases (any failure exits non-zero):
    (native/fixtures/jp2w_*.png) against cv2's committed .jp2 files, and
    480x640 and 800x1344 pictures against the length and sha256 of cv2's
    files (jp2_writes.json), with encode and decode ms; below 32 pixels
-   it refuses as cv2 does, leaving cv2's 77 bytes. Every
+   it refuses as cv2 does, leaving cv2's 77 bytes. The library's AVIF
+   encoder (cv2.imwrite's defaults: cv2's boxes, sequence header and
+   quantizer, the library's own tile) writes, on this machine's compiler,
+   the bytes the sandbox's compiler wrote for each picture of
+   avif_writes.json (host_picture at 480x640, 800x1344, 1x1, 2x3, 45x61
+   and 65x129, the jp2w_*.png pictures, a render.json render: length and
+   sha256), each read back by the library's decoder to the committed
+   decode's sha256; encode ms of each (the 480x640 and 800x1344 ones
+   printed beside the card's name and power limit). Every
    op equals its numpy plain version bit for bit on this host: a 480x640
    source resized to all 11 COCO scales, the six warps (translate x / y,
    rotate +-30, shear x / y) at 800x1066, the 81 colour op x magnitude
@@ -216,15 +226,19 @@ Phases (any failure exits non-zero):
    exactly; then the
    image demo (`tools.image_demo.main`, --score-thr 0) on JPEG, BMP, PPM,
    TIFF (LZW RGB and a 480x640 CIELab file), WebP, PGM, PFM, Sun raster,
-   PAM, HDR, GIF and JPEG 2000 (a 480x640 .jp2, and a 480x640 .jp2 of
-   high-throughput code-blocks) fixtures with phase 7's SSOD checkpoint:
+   PAM, HDR, GIF, JPEG 2000 (a 480x640 .jp2, and a 480x640 .jp2 of
+   high-throughput code-blocks) and AVIF (the 480x640 lossless and lossy
+   fixtures) with phase 7's SSOD checkpoint:
    each render
    under its input's name in its input's format (no file for the .pgm, as
    cv2 writes none), reading back to the pixels drawn (the JPEG, HDR, GIF
    and JPEG 2000: the library's encode of them, HDR within HDR_READBACK
    levels, GIF on its table's steps, JPEG 2000 through the library's
-   decoder at the render's size), 12 forward MSDA launches per image
-   (168 in all, 14 inputs) and no backward
+   decoder at the render's size; the two .avif renders, written at
+   cv2.imwrite's defaults, the library's encode of them read back at the
+   render's size, their PSNR against the render printed), 12 forward MSDA
+   launches per image
+   (192 in all, 16 inputs) and no backward
    (the `demo` path). Printed: ms per image (save_result, draw and PNG
    write), ms per label and ms per label by route, the fallback font's
    inflate-and-parse ms and the rasterisation ms of the glyphs the cases
@@ -547,18 +561,25 @@ RENDER_DEMO_INPUTS = ("colour_420.jpg", "bmp_24.bmp", "pnm_p6_100.ppm",
                       "pnm_p2_100.pgm", "other_pfm.pfm", "ras_pal8.ras",
                       "pam_rgb16.pam", "hdr_rle.hdr", "other_gif.gif",
                       "j2k_480x640_lossless.jp2", "tiffx_cielab_480x640.tif",
-                      HT_DEMO_FIXTURE)
+                      HT_DEMO_FIXTURE, "avif_480x640.avif",
+                      "avif_lossy_480x640.avif")
 RENDER_SIGNATURES = {"jpg": b"\xff\xd8", "bmp": b"BM", "ppm": b"P6",
                      "tif": b"II*\0", "webp": b"RIFF", "pfm": b"PF",
                      "ras": b"\x59\xa6\x6a\x95", "pam": b"P7",
                      "hdr": b"#?RADIANCE", "gif": b"GIF89a",
-                     "jp2": b"\0\0\0\x0cjP  \r\n\x87\n"}
-# the library's encoders whose files are cv2's bytes, lossy: the demo's
+                     "jp2": b"\0\0\0\x0cjP  \r\n\x87\n",
+                     "avif": b"\0\0\0\x20ftypavif"}
+# the library's encoders whose files are cv2's bytes, or (AVIF) of cv2's
+# headers and quantizer with the library's own tile, lossy: the demo's
 # file must be the encoder's bytes for its render (and read back to a
 # picture of the render's size: HDR within HDR_READBACK levels, GIF on the
-# 3-3-2 table's steps, JPEG 2000 through the library's decoder)
+# 3-3-2 table's steps, JPEG 2000 and AVIF through the library's decoder,
+# an AVIF's RGB PSNR against its render printed; the CPU tests hold the
+# AVIF encoder to within 0.5 dB of cv2's own round trip, and phase 7a's
+# avif_writes this machine's encoder to the sandbox's bytes)
 RENDER_LOSSY = {"jpg": native.encode_jpeg, "hdr": native.encode_hdr,
-                "gif": native.encode_gif, "jp2": native.encode_jp2}
+                "gif": native.encode_gif, "jp2": native.encode_jp2,
+                "avif": native.encode_avif}
 HDR_READBACK = 2
 TRAINER_WARM = {"warm_up": (1, 2, 3), "hungarian": (5, 6, 7)}
 # then the trainer's steps on its next batches, built beforehand (no
@@ -1380,6 +1401,7 @@ def host_library_phase(host_build_s):
     cv2_formats = cv2_format_fixtures()
     blank_tiffs = blank_tiff_fixtures()
     jp2 = jp2_writes()
+    avif = avif_writes()
     round_trip = jpeg_round_trips(route)
     damaged = damaged_jpegs()
     damaged.update(damaged_formats())
@@ -1408,7 +1430,7 @@ def host_library_phase(host_build_s):
     return dict(probe=found, decoders=native.decoders(),
                 build_s=host_build_s, fixtures=fixtures, formats=formats,
                 cv2_formats=cv2_formats, blank_tiffs=blank_tiffs,
-                jp2_writes=jp2, ops=ops,
+                jp2_writes=jp2, avif_writes=avif, ops=ops,
                 colour_ops=colour, codecs=codec, round_trip=round_trip,
                 damaged=damaged)
 
@@ -1700,6 +1722,49 @@ def jp2_writes():
     return dict(files=rows, refusal=refusal)
 
 
+def avif_writes():
+    """The library's AVIF encoder (cv2.imwrite's defaults, the library's
+    own tile: `native.encode_avif`) on this machine's compiler: each
+    picture of native/fixtures/avif_writes.json (host_picture at 480x640,
+    800x1344 and the edge sizes 1x1, 2x3, 45x61, 65x129; the jp2w_*.png
+    pictures; a render.json render) encoded once, held to the committed
+    length and sha256 the sandbox's compiler wrote, and read back through
+    the library's decoder to the committed decode's sha256; encode ms of
+    each (decode ms at the two photo sizes)."""
+    with open(os.path.join(native.FIXTURES, "avif_writes.json")) as f:
+        spec = json.load(f)
+    rows, failures = {}, []
+    for want in spec["pictures"]:
+        name = want["name"]
+        if name.startswith("host_picture_"):
+            img = host_picture(want["h"], want["w"], 0)
+        else:
+            img = image_io.read_image(os.path.join(native.FIXTURES, name))
+        t0 = time.perf_counter()
+        got = native.encode_avif(img)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        back = native.decode_image(got, name)
+        row = rows[name] = dict(
+            hw=list(img.shape[:2]), bytes=len(got), encode_ms=encode_ms,
+            equal=(len(got), hashlib.sha256(got).hexdigest()) == (
+                want["bytes"], want["sha256"]),
+            decode_equal=hashlib.sha256(back.tobytes()).hexdigest() ==
+            want["decode_sha256"])
+        if img.shape[0] * img.shape[1] >= 480 * 640:
+            row["decode_ms"] = best_ms(lambda: native.decode_image(got))
+        log(f"  avif write {name} {img.shape[0]}x{img.shape[1]}: "
+            f"{len(got)} bytes, the sandbox's {row['equal']}, decode the "
+            f"committed one {row['decode_equal']}; encode "
+            f"{encode_ms:.1f} ms" + (f", decode {row['decode_ms']:.2f} ms"
+                                     if "decode_ms" in row else ""))
+        if not (row["equal"] and row["decode_equal"]):
+            failures.append(name)
+    if failures:
+        raise AssertionError(f"avif write: not the sandbox's bytes or "
+                             f"decode: {failures}")
+    return rows
+
+
 def damaged_formats():
     """Damaged copies of the cv2-format fixtures, each decoded under its
     own file name: BMP, PNM, PAM, TIFF (LZW, Group 4, BigTIFF, CIELab, CMYK
@@ -1711,10 +1776,11 @@ def damaged_formats():
     HT codestream whose Scup runs past its cleanup segment, a WebP cut in
     half with its RIFF size made consistent (its VP8 chunk then runs past
     the file), a
-    VP8L one with its codes overwritten, an LZW strip of codes past its
-    table, a GIF of LZW codes past its table and a Group 4 strip of EOLs
-    where its 2-D codes belong. Each must raise ImageDecodeError naming the
-    file."""
+    VP8L one with its codes overwritten, a GIF of LZW codes past its table
+    and a Group 4 strip of EOLs where its 2-D codes belong. Each must raise
+    ImageDecodeError naming the file. An LZW strip of codes past its table
+    must read to a picture of the file's size, as cv2 reads it (its pixels
+    held to cv2's by the CPU tests)."""
     def fixture(name):
         with open(os.path.join(native.FIXTURES, name), "rb") as f:
             return f.read()
@@ -1737,9 +1803,6 @@ def damaged_formats():
     vp8l = bytearray(fixture("webp_lossless.webp"))
     vp8l[40:60] = b"\xff" * 20
     cases["webp_lossless_bad_codes.webp"] = bytes(vp8l)
-    lzw = bytearray(fixture("tiff_lzw_predictor.tif"))
-    lzw[8:40] = b"\xff" * 32
-    cases["tiff_bad_lzw.tif"] = bytes(lzw)
     gif = bytearray(fixture("gif_480x640.gif"))
     gif[-2000:-1980] = b"\xff" * 20
     cases["gif_bad_codes.gif"] = bytes(gif)
@@ -1772,6 +1835,20 @@ def damaged_formats():
             log(f"  {name} copy raises: {err}")
             continue
         raise AssertionError(f"{name}: decoded without an error")
+    # LZW codes garbled inside a strip: cv2 reads a picture (libtiff's RGBA
+    # reader goes on with what the codec wrote), and so does the library;
+    # the CPU tests hold its pixels to cv2's
+    lzw = bytearray(fixture("tiff_lzw_predictor.tif"))
+    lzw[8:40] = b"\xff" * 32
+    garbled = native.decode_image(bytes(lzw), "tiff_bad_lzw.tif")
+    want = native.decode_image(fixture("tiff_lzw_predictor.tif"))
+    if garbled.shape != want.shape:
+        raise AssertionError(f"tiff_bad_lzw.tif: {garbled.shape}, not "
+                             f"{want.shape}")
+    out["tiff_bad_lzw.tif"] = (f"reads as cv2 reads it: {garbled.shape}, "
+                               f"{int((garbled != want).any(-1).sum())} "
+                               "pixels off the intact file's")
+    log(f"  tiff_bad_lzw.tif copy {out['tiff_bad_lzw.tif']}")
     return out
 
 
@@ -2300,6 +2377,12 @@ def render_phase(card, trainer_dir):
                 card=card)
 
 
+def psnr_db(a, b):
+    """RGB PSNR of a against b (8-bit)."""
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
 def label_route(label):
     """The route of a label: "box" if any character takes it, else
     "fallback" if any does, else "rubik" (line breaks and what follows
@@ -2312,10 +2395,12 @@ def demo_run(trainer_dir, tmp, failures):
     """The image demo (`tools.image_demo.main`) at --score-thr 0 on
     RENDER_DEMO_INPUTS with the SSOD checkpoint phase 7 wrote: each render
     under its input's name, in its format (none for .pgm), reading back
-    to the pixels it drew (the JPEG, HDR, GIF and JPEG 2000: the library's
-    encode of them, cv2's bytes by the CPU tests; HDR reading back within
-    HDR_READBACK levels, GIF on its table's steps, JPEG 2000 at the
-    render's size); 12 forward MSDA launches per image."""
+    to the pixels it drew (the JPEG, HDR, GIF, JPEG 2000 and AVIF: the
+    library's encode of them, cv2's bytes, or an AVIF's headers and
+    quantizer, by the CPU tests; HDR reading back within HDR_READBACK
+    levels, GIF on its table's steps, JPEG 2000 and AVIF at the render's
+    size, an AVIF's PSNR against the render printed); 12 forward MSDA
+    launches per image."""
     src = os.path.join(tmp, "in")
     out = os.path.join(tmp, "out")
     os.makedirs(src)
@@ -2381,6 +2466,8 @@ def demo_run(trainer_dir, tmp, failures):
             failures.append(f"demo: {name} does not read back to its render")
         files[name] = dict(bytes=len(buf), hw=img.shape[:2],
                            reads_back=same)
+        if ext == "avif":
+            files[name]["psnr_db"] = round(psnr_db(back, img), 4)
     log(f"  image demo on {len(RENDER_DEMO_INPUTS)} inputs with phase 7's "
         f"checkpoint in {demo_s:.2f} s ({fwd} forward launches): {files}")
     return dict(s=demo_s, launches_fwd=fwd, files=files)

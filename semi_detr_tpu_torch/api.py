@@ -139,7 +139,8 @@ def save_result(image: np.ndarray, result, class_names, out_file: str,
     (`utils.logging.draw_rect`, cv2.rectangle's pixels), then
     `f"{class_names[label]}:{score:.2f}"` at (x0, max(y0 - 4, 0)) as
     cv2.putText draws it (`utils.text`). The file is encoded by its
-    extension as cv2.imwrite encodes it (`data.image_io.write_image`);
+    extension as cv2.imwrite encodes it (`data.image_io.write_image`; an
+    .avif at cv2's defaults, which write what its AVIF quality 50 writes);
     where cv2 writes nothing (.pgm and .pbm take no colour image) nothing
     is written and the path is still returned, as the JAX function's
     is."""

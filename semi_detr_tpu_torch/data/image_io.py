@@ -306,9 +306,8 @@ ENCODERS = {"jpg": native.encode_jpeg, "jpeg": native.encode_jpeg,
             "pfm": encode_pfm, "ras": encode_sun_raster,
             "sr": encode_sun_raster, "pam": encode_pam,
             "hdr": native.encode_hdr, "pic": native.encode_hdr,
-            "gif": native.encode_gif, "jp2": native.encode_jp2}
-# extensions cv2.imwrite writes a colour image to that the port does not
-NOT_PORTED = {"avif": "AVIF"}
+            "gif": native.encode_gif, "jp2": native.encode_jp2,
+            "avif": native.encode_avif}
 
 
 def write_image(path: str, img: np.ndarray) -> Optional[str]:
@@ -326,18 +325,18 @@ def write_image(path: str, img: np.ndarray) -> Optional[str]:
     written, its reason goes to stderr and None comes back, as cv2 returns
     False. Below 32 pixels on a side cv2 refuses a .jp2 too, but leaves
     the 77 bytes of its JP2 boxes: those are written, the reason goes to
-    stderr and None comes back. .avif raises naming the format, "not
-    ported"; any other extension raises."""
+    stderr and None comes back. .avif by the host library as cv2.imwrite
+    writes it with no parameters (what its IMWRITE_AVIF_QUALITY 50
+    writes, not 95: 4:2:0 at base_q_idx 148 with cv2's chroma delta q,
+    quantizer matrices, deblocking and CDEF): cv2's boxes and sequence
+    header, a tile of the library's own encoder that cv2 reads to the
+    port's pixels. Any other extension raises."""
     ext = path.lower().rsplit(".", 1)[-1] if "." in os.path.basename(
         path) else ""
     if ext in REFUSED:
         print(f"write_image({path!r}): nothing written: {REFUSED[ext]} "
               "(as cv2.imwrite refuses a colour image)", file=sys.stderr)
         return None
-    if ext in NOT_PORTED:
-        raise ValueError(f"{path}: no encoder for .{ext}: "
-                         f"{NOT_PORTED[ext]} (cv2.imwrite writes it) is not "
-                         "ported")
     if ext not in ENCODERS:
         raise ValueError(f"{path}: no encoder for .{ext}; the port writes "
                          f"{', '.join('.' + e for e in ENCODERS)}")

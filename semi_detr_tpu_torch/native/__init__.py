@@ -79,7 +79,13 @@ step.
   the library's own encoders (`encode_host.cpp`), which read back to the
   same pixels by cv2 and by the decoders here; GIF (cv2's 3-3-2 table and
   Floyd-Steinberg dithering) and Radiance HDR (RGBE, run-length
-  scanlines) there too, cv2's bytes.
+  scanlines) there too, cv2's bytes. AVIF as cv2.imwrite writes it with
+  no parameters (what its quality 50 writes: 4:2:0 at base_q_idx 148 with
+  cv2's chroma delta q, quantizer matrices, deblocking and CDEF;
+  `av1_encode.cpp`, `avif_encode_host.cpp`): cv2's boxes and sequence
+  header, a tile of the library's own (modes by SATD, partitions by rate
+  and distortion) written through the AV1 decoder's own syntax, which cv2
+  reads to the decoder's pixels.
 * Pixels: `resize_bilinear` (half-pixel centres, the formula of the JAX
   package's `sdt_resize_bilinear`), `warp_affine`, and the colour ops'
   `histogram`, `apply_lut`, `gray`, `blend`, `smooth`, `solarize`,
@@ -122,7 +128,8 @@ SOURCES = ("host.cpp", "jpeg_host.cpp", "bmp_pnm_host.cpp", "tiff_host.cpp",
            "j2k_ht_host.cpp", "encode_host.cpp", "j2k_encode_host.cpp",
            "avif_host.cpp", "av1_obu.cpp", "av1_entropy.cpp", "av1_intra.cpp",
            "av1_recon.cpp", "av1_transform.cpp", "av1_loopfilter.cpp",
-           "av1_cdef.cpp", "av1_restoration.cpp")
+           "av1_cdef.cpp", "av1_restoration.cpp", "av1_encode.cpp",
+           "avif_encode_host.cpp")
 HEADERS = ("host.h", "webp_tables.h", "j2k_tables.h", "sgilog_tables.h",
            "j2k_ht_tables.h", "av1.h", "av1_state.h", "av1_tables.h")
 JPEG_SOURCES = {"libjpeg": "jpeg_libjpeg.cpp", "nvjpeg": "jpeg_nvjpeg.cpp"}
@@ -318,6 +325,8 @@ _SIGNATURES = {
     "sdt_encode_gif": ([_P, _I, _I, _P, _P], _I),
     "sdt_encode_hdr": ([_P, _I, _I, _P, _P], _I),
     "sdt_encode_jp2": ([_P, _I, _I, _P, _P], _I),
+    "sdt_encode_avif": ([_P, _I, _I, _P, _P, _P], _I),
+    "sdt_av1_symbols": ([_P, _P, _P, _I, _P, _L, _P, _P], _I),
     "sdt_free": ([_P], None),
     "sdt_jpeg_check": ([_P, _L], _I),
     "sdt_jpeg_host_kind": ([_P, _L], _I),
@@ -637,6 +646,65 @@ def encode_jp2(img: np.ndarray) -> bytes:
         raise EncodeRefused(f"OpenJPEG2000: {lib.sdt_last_error().decode()}",
                             out)
     return out
+
+
+def encode_avif(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> the .avif cv2.imwrite writes at its defaults
+    (libavif over libaom: 4:2:0, BT.601 full range, base_q_idx 148 with
+    cv2's chroma delta q, quantizer matrices, deblocking and CDEF); the
+    boxes and the sequence header are cv2's, the tile the library's own
+    (`av1_encode.cpp`, `avif_encode_host.cpp`)."""
+    return _encode_avif(img, False)[0]
+
+
+def avif_encode_planes(img: np.ndarray) -> Tuple[bytes, list]:
+    """encode_avif, and the encoder's reconstruction of the picture: its
+    Y (H, W), U and V ((H + 1) // 2, (W + 1) // 2) planes, uint16."""
+    return _encode_avif(img, True)
+
+
+def _encode_avif(img: np.ndarray, planes: bool) -> Tuple[bytes, list]:
+    img = _image(img)
+    if img.shape[2] != 3:
+        raise ValueError(f"AVIF encode takes RGB, got {img.shape}")
+    h, w = img.shape[:2]
+    ch, cw = (h + 1) // 2, (w + 1) // 2
+    recon = np.empty(h * w + 2 * ch * cw if planes else 0, np.uint16)
+    lib = _library()
+    buf, size = ctypes.c_void_p(), ctypes.c_long()
+    st = lib.sdt_encode_avif(_ptr(img), h, w, ctypes.byref(buf),
+                             ctypes.byref(size),
+                             _ptr(recon) if planes else None)
+    if st:
+        raise RuntimeError(f"AVIF encode: {lib.sdt_last_error().decode()}")
+    try:
+        data = ctypes.string_at(buf.value, size.value)
+    finally:
+        lib.sdt_free(buf)
+    if not planes:
+        return data, []
+    return data, [recon[:h * w].reshape(h, w),
+                  recon[h * w:h * w + ch * cw].reshape(ch, cw),
+                  recon[h * w + ch * cw:].reshape(ch, cw)]
+
+
+def av1_symbol_round_trip(kinds, ns, values) -> Tuple[bytes, np.ndarray,
+                                                     bool]:
+    """The AVIF encoder's symbol writer against the decoder's reader
+    (`sdt_av1_symbols`): items of kinds (0 a symbol of an adaptive CDF of
+    ns symbols, 1 a boolean, 2 a literal of ns bits, 3 ns(ns)) and values
+    written, then read back. Returns (the tile's bytes, the values read,
+    whether the reader ran past the tile's end)."""
+    kinds, ns, values = (np.ascontiguousarray(a, np.int32)
+                         for a in (kinds, ns, values))
+    count = len(kinds)
+    out = np.empty(8 * count + 64, np.uint8)
+    decoded = np.empty(count, np.int32)
+    size = ctypes.c_long()
+    over = _library().sdt_av1_symbols(_ptr(kinds), _ptr(ns), _ptr(values),
+                                      count, _ptr(out), out.size,
+                                      ctypes.byref(size), _ptr(decoded))
+    return out[:size.value].tobytes(), decoded, bool(over)
 
 
 def rgb_to_ycc420(img: np.ndarray) -> Tuple[np.ndarray, np.ndarray,

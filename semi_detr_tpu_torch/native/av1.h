@@ -5,8 +5,10 @@
 // av1_recon.cpp (prediction), av1_transform.cpp (dequantisation and the
 // inverse transforms), av1_loopfilter.cpp (deblocking), av1_cdef.cpp
 // (CDEF), av1_restoration.cpp (loop restoration) and avif_host.cpp (the
-// AVIF container). Section numbers are those of the AV1 Bitstream &
-// Decoding Process Specification; names follow it.
+// AVIF container), and the encoder that writes a key frame through the
+// same syntax (av1_encode.cpp, with avif_encode_host.cpp). Section numbers
+// are those of the AV1 Bitstream & Decoding Process Specification; names
+// follow it.
 //
 // Key frames of one tile are decoded, lossless or lossy, at 8, 10 and 12
 // bits: 4:4:4 (lossless) or 4:2:0 (lossy, as cv2 writes it) or
@@ -63,7 +65,12 @@ enum Tool {
 };
 extern const char* const kToolNames[kToolCount];
 extern std::atomic<long> g_tally[kToolCount];
-inline void count(Tool t) { g_tally[t].fetch_add(1, std::memory_order_relaxed); }
+// off on a thread while it encodes: the encoder runs the decoder's code,
+// which counts nothing then
+extern thread_local bool t_tally;
+inline void count(Tool t) {
+  if (t_tally) g_tally[t].fetch_add(1, std::memory_order_relaxed);
+}
 
 // ------------------------------------------------------------ bit reader
 
@@ -178,6 +185,37 @@ class SymbolReader {
   bool no_update_ = false;
 };
 
+// The inverse of SymbolReader (libaom's od_ec encoder): the same symbols,
+// booleans and literals, the same CDF adaptation, and the end of the tile
+// padded as libaom pads it (od_ec_enc_done). Counting, it writes nothing
+// and leaves the CDFs as they are: cost() is the bits the symbols would
+// take at the CDFs' present probabilities, in 1/256 bit.
+class SymbolWriter {
+ public:
+  void init(bool disable_update, bool counting);
+  void symbol(uint16_t* icdf, int n, int s);
+  void boolean(int b);
+  void literal(int bits, int v);
+  void ns(int n, int v);
+  // the tile's bytes (writing)
+  std::vector<uint8_t> finish();
+  int64_t cost() const { return cost_; }
+  void reset_cost() { cost_ = 0; }
+
+ private:
+  void encode(unsigned fl, unsigned fh, int s, int n);
+  void normalize(uint64_t low, unsigned rng);
+  std::vector<uint16_t> pre_;  // precarry_buf: bytes before the carries
+  uint64_t low_ = 0;
+  unsigned rng_ = 0x8000;
+  int cnt_ = -9;
+  bool no_update_ = false, counting_ = false;
+  int64_t cost_ = 0;
+};
+
+// The cost in 1/256 bit of a symbol of probability p / 32768
+int symbol_cost(int p);
+
 // The adaptive CDFs of a tile (the defaults of av1_tables.h, the
 // coefficient ones at the frame's quantizer context).
 struct MvCdfs {
@@ -252,6 +290,12 @@ struct Planes {
 enum { kFilterDeblock = 1, kFilterCdef = 2, kFilterRestoration = 4,
        kFiltersAll = 7 };
 void decode_picture(const Picture& pic, Planes* out, int filters = kFiltersAll);
+// av1_encode.cpp: (h, w, 3) RGB -> the temporal unit of a key frame as
+// cv2.imwrite's libavif writes one at its defaults (temporal delimiter,
+// sequence header and frame OBUs), and the reconstruction (the decoder's
+// planes of it) where recon is given
+void encode_picture(const uint8_t* rgb, int h, int w, std::vector<uint8_t>* obus,
+                    Planes* recon);
 
 // ------------------------------------------------------------ constants
 

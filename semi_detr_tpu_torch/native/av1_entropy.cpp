@@ -1,6 +1,8 @@
-// The AV1 symbol decoder (8.2) and the default CDFs it starts each tile
-// from (av1_tables.h, libaom 3.14.1's, which cv2's libavif decodes with);
-// the decoder's errors and its per-process tally of the tools it decoded.
+// The AV1 symbol decoder (8.2), its inverse (the encoder libaom writes
+// tiles with) and the default CDFs both start each tile from
+// (av1_tables.h, libaom 3.14.1's, which cv2's libavif decodes with); the
+// decoder's errors and its per-process tally of the tools it decoded.
+#include <algorithm>
 #include <cstring>
 
 #include "av1.h"
@@ -31,6 +33,7 @@ const char* const kToolNames[kToolCount] = {
     "lr_switchable", "bt601", "chroma_upsample", "var_tx", "tx_type_inter",
     "intrabc_subpel"};
 std::atomic<long> g_tally[kToolCount];
+thread_local bool t_tally = true;
 
 void corrupt(const std::string& msg) { throw Failure{kCorrupt, msg}; }
 
@@ -165,6 +168,167 @@ int SymbolReader::ns(int n) {
   const int v = literal(w - 1);
   if (v < m) return v;
   return (v << 1) - m + literal(1);
+}
+
+// ------------------------------------------------------------ writer
+
+namespace {
+
+int ilog_nz(unsigned x) {  // OD_ILOG_NZ: 1 + floor(log2 x)
+  int n = 0;
+  while (x) {
+    n++;
+    x >>= 1;
+  }
+  return n;
+}
+
+// 256 * (15 - log2 p) for p in 1 .. 32768, log2 by repeated squaring in
+// integers (the same bits on every machine)
+struct CostTable {
+  int v[32769];
+  CostTable() {
+    v[0] = 15 << 8;
+    for (int p = 1; p <= 32768; p++) {
+      const int k = ilog_nz(static_cast<unsigned>(p)) - 1;
+      uint64_t x = static_cast<uint64_t>(p) << (16 - k);  // [1, 2) in Q16
+      int frac = 0;
+      for (int i = 0; i < 8; i++) {
+        x = (x * x) >> 16;
+        frac <<= 1;
+        if (x >= (1u << 17)) {
+          x >>= 1;
+          frac |= 1;
+        }
+      }
+      v[p] = (15 << 8) - ((k << 8) | frac);
+    }
+  }
+};
+
+}  // namespace
+
+int symbol_cost(int p) {
+  static const CostTable table;
+  return table.v[std::min(std::max(p, 1), 32768)];
+}
+
+void SymbolWriter::init(bool disable_update, bool counting) {
+  pre_.clear();
+  low_ = 0;
+  rng_ = 0x8000;
+  cnt_ = -9;
+  no_update_ = disable_update;
+  counting_ = counting;
+  cost_ = 0;
+}
+
+// od_ec_enc_normalize
+void SymbolWriter::normalize(uint64_t low, unsigned rng) {
+  const int d = 16 - ilog_nz(rng);
+  int c = cnt_;
+  int s = c + d;
+  if (s >= 0) {
+    c += 16;
+    uint64_t m = (uint64_t{1} << c) - 1;
+    if (s >= 8) {
+      pre_.push_back(static_cast<uint16_t>(low >> c));
+      low &= m;
+      c -= 8;
+      m >>= 8;
+    }
+    pre_.push_back(static_cast<uint16_t>(low >> c));
+    s = c + d - 24;
+    low &= m;
+  }
+  low_ = low << d;
+  rng_ = rng << d;
+  cnt_ = s;
+}
+
+// od_ec_encode_q15: fl and fh the inverted CDF at the symbol's ends
+void SymbolWriter::encode(unsigned fl, unsigned fh, int s, int n) {
+  uint64_t l = low_;
+  unsigned r = rng_;
+  const int last = n - 1;
+  if (fl < 32768) {
+    const unsigned u = ((r >> 8) * (fl >> 6) >> 1) + 4 * (last - (s - 1));
+    const unsigned v = ((r >> 8) * (fh >> 6) >> 1) + 4 * (last - s);
+    l += r - u;
+    r = u - v;
+  } else {
+    r -= ((r >> 8) * (fh >> 6) >> 1) + 4 * (last - s);
+  }
+  normalize(l, r);
+}
+
+void SymbolWriter::symbol(uint16_t* icdf, int n, int s) {
+  const unsigned fl = s > 0 ? icdf[s - 1] : 32768u, fh = icdf[s];
+  if (counting_) {
+    cost_ += symbol_cost(static_cast<int>(fl - fh));
+    return;
+  }
+  encode(fl, fh, s, n);
+  if (!no_update_) {  // as SymbolReader::symbol adapts
+    const int rate = 3 + (icdf[n] > 15) + (icdf[n] > 31) + (n > 3 ? 2 : 1);
+    for (int i = 0; i < n - 1; i++) {
+      if (i < s)
+        icdf[i] += (32768 - icdf[i]) >> rate;
+      else
+        icdf[i] -= icdf[i] >> rate;
+    }
+    icdf[n] += icdf[n] < 32;
+  }
+}
+
+void SymbolWriter::boolean(int b) {
+  if (counting_) {
+    cost_ += 256;
+    return;
+  }
+  encode(b ? 1u << 14 : 32768u, b ? 0u : 1u << 14, b, 2);
+}
+
+void SymbolWriter::literal(int bits, int v) {
+  for (int i = bits - 1; i >= 0; i--) boolean((v >> i) & 1);
+}
+
+void SymbolWriter::ns(int n, int v) {
+  int w = 0;
+  for (int x = n; x; x >>= 1) w++;
+  const int m = (1 << w) - n;
+  if (v < m) {
+    literal(w - 1, v);
+  } else {
+    literal(w - 1, (v + m) >> 1);
+    literal(1, (v + m) & 1);
+  }
+}
+
+// od_ec_enc_done: the fewest bits that decode to the symbols whatever
+// follows, then the carries propagated
+std::vector<uint8_t> SymbolWriter::finish() {
+  uint64_t e = ((low_ + 0x3FFF) & ~uint64_t{0x3FFF}) | 0x4000;
+  int c = cnt_;
+  int s = 10 + c;
+  if (s > 0) {
+    uint64_t m = (uint64_t{1} << (c + 16)) - 1;
+    do {
+      pre_.push_back(static_cast<uint16_t>(e >> (c + 16)));
+      e &= m;
+      s -= 8;
+      c -= 8;
+      m >>= 8;
+    } while (s > 0);
+  }
+  std::vector<uint8_t> out(pre_.size());
+  unsigned carry = 0;
+  for (size_t i = pre_.size(); i-- > 0;) {
+    carry += pre_[i];
+    out[i] = static_cast<uint8_t>(carry);
+    carry >>= 8;
+  }
+  return out;
 }
 
 // ------------------------------------------------------------ CDFs

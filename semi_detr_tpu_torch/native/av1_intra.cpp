@@ -23,6 +23,18 @@ namespace {
 
 inline bool directional(int mode) { return mode >= V_PRED && mode <= D67_PRED; }
 
+// a symbol (literal) of the tile: read, or v written when encoding
+inline int sym(State& s, uint16_t* cdf, int n, int v) {
+  if (!s.sw) return s.sr.symbol(cdf, n);
+  s.sw->symbol(cdf, n, v);
+  return v;
+}
+inline int lit(State& s, int bits, int v) {
+  if (!s.sw) return s.sr.literal(bits);
+  s.sw->literal(bits, v);
+  return v;
+}
+
 // ------------------------------------------------------------ palette
 
 int palette_cache(State& s, int plane, uint16_t* cache) {
@@ -391,6 +403,8 @@ int plane_size(const State& s, int bsize, int plane) {
   return block_of(wl, hl);
 }
 
+}  // namespace
+
 // get_tx_size: the transform size of a plane (chroma at most 32 wide and
 // high)
 int plane_tx_size(const State& s, int plane) {
@@ -403,6 +417,8 @@ int plane_tx_size(const State& s, int plane) {
   }
   return uv;
 }
+
+namespace {
 
 int tx_sqr(int tx) { return std::min(kTxWidthLog2[tx], kTxHeightLog2[tx]) - 2; }
 int tx_sqr_up(int tx) { return std::max(kTxWidthLog2[tx], kTxHeightLog2[tx]) - 2; }
@@ -465,7 +481,7 @@ void read_cdef(State& s) {
   if (s.skip || !s.fh->cdef) return;
   const int r = s.mi_row & ~15, c = s.mi_col & ~15;
   int8_t& idx = s.cdef_idx[static_cast<size_t>(r >> 4) * s.cdef_cols + (c >> 4)];
-  if (idx == -1) idx = static_cast<int8_t>(s.sr.literal(s.fh->cdef_bits));
+  if (idx == -1) idx = static_cast<int8_t>(lit(s, s.fh->cdef_bits, 0));
   // a 128x128 block sets the indices of every 64x64 it covers
   const int w4 = kNum4x4W[s.mi_size], h4 = kNum4x4H[s.mi_size];
   for (int y = r; y < r + h4; y += 16)
@@ -474,18 +490,26 @@ void read_cdef(State& s) {
         s.cdef_idx[static_cast<size_t>(y >> 4) * s.cdef_cols + (x >> 4)] = idx;
 }
 
-// read_delta_qindex (5.11.11)
+// read_delta_qindex (5.11.11); encoding, the delta to the encoder's
+// qindex of the superblock
 void read_delta_qindex(State& s) {
   if (s.mi_size == s.sb_size && s.skip) return;
   if (!s.read_deltas) return;
-  SymbolReader& sr = s.sr;
-  int abs = sr.symbol(s.cdf.delta_q, 4);
+  int want = 0;
+  if (s.sw) {
+    const int r = s.mi_row & ~(s.sb4 - 1), c = s.mi_col & ~(s.sb4 - 1);
+    want = (s.enc->superblock_qindex(s, r, c) - s.current_qindex) >> s.fh->delta_q_res;
+  }
+  const int want_abs = std::abs(want);
+  int abs = sym(s, s.cdf.delta_q, 4, std::min(want_abs, 3));
   if (abs == 3) {  // DELTA_Q_SMALL
-    const int rem_bits = sr.literal(3) + 1;
-    abs = sr.literal(rem_bits) + (1 << rem_bits) + 1;
+    int rem = 1;  // encoding: abs - 1 in rem bits past its top one
+    while (((want_abs - 1) >> (rem + 1)) > 0) rem++;
+    const int rem_bits = lit(s, 3, rem - 1) + 1;
+    abs = lit(s, rem_bits, (want_abs - 1) - (1 << rem_bits)) + (1 << rem_bits) + 1;
   }
   if (abs) {
-    const int reduced = sr.literal(1) ? -abs : abs;
+    const int reduced = lit(s, 1, want < 0) ? -abs : abs;
     s.current_qindex = std::min(std::max(
         s.current_qindex + (reduced << s.fh->delta_q_res), 1), 255);
     count(kToolDeltaQ);
@@ -493,20 +517,23 @@ void read_delta_qindex(State& s) {
 }
 
 void intra_frame_mode_info(State& s) {
-  SymbolReader& sr = s.sr;
+  const bool enc = s.sw != nullptr;
+  if (enc) s.enc->mode_info(s);  // the encoder's choices, written below
   Cdfs& cdf = s.cdf;
   const int r = s.mi_row, c = s.mi_col;
   const int skip_ctx = (s.avail_u ? s.at(r - 1, c).skip : 0) +
                        (s.avail_l ? s.at(r, c - 1).skip : 0);
-  s.skip = sr.symbol(cdf.skip[skip_ctx], 2);
+  s.skip = sym(s, cdf.skip[skip_ctx], 2, s.skip);
   if (s.skip) count(kToolSkip);
   read_cdef(s);
   if (s.fh->delta_q_present) read_delta_qindex(s);
   s.read_deltas = false;
-  s.is_inter = s.fh->intrabc && sr.symbol(cdf.intrabc, 2);
+  s.is_inter = s.fh->intrabc && sym(s, cdf.intrabc, 2, 0);
   s.palette_size_y = s.palette_size_uv = 0;
-  s.use_filter_intra = false;
-  s.angle_y = s.angle_uv = 0;
+  if (!enc) {
+    s.use_filter_intra = false;
+    s.angle_y = s.angle_uv = 0;
+  }
   if (s.is_inter) {  // use_intrabc
     count(kToolIntrabc);
     s.y_mode = s.uv_mode = DC_PRED;
@@ -515,20 +542,21 @@ void intra_frame_mode_info(State& s) {
   }
   const int above = s.avail_u ? s.at(r - 1, c).y_mode : DC_PRED;
   const int left = s.avail_l ? s.at(r, c - 1).y_mode : DC_PRED;
-  s.y_mode = sr.symbol(
-      cdf.kf_y_mode[kIntraModeContext[above]][kIntraModeContext[left]], 13);
+  s.y_mode = sym(s, cdf.kf_y_mode[kIntraModeContext[above]][kIntraModeContext[left]],
+                 13, s.y_mode);
   if (s.mi_size >= BLOCK_8X8 && directional(s.y_mode))
-    s.angle_y = sr.symbol(cdf.angle_delta[s.y_mode - V_PRED], 7) - 3;
+    s.angle_y = sym(s, cdf.angle_delta[s.y_mode - V_PRED], 7, s.angle_y + 3) - 3;
   const int bw = kNum4x4W[s.mi_size] * 4, bh = kNum4x4H[s.mi_size] * 4;
   if (s.has_chroma) {
     const bool cfl_allowed =
         s.fh->lossless ? plane_size(s, s.mi_size, 1) == BLOCK_4X4
                        : std::max(bw, bh) <= 32;
     if (cfl_allowed)
-      s.uv_mode = sr.symbol(cdf.uv_mode_cfl_allowed[s.y_mode], 14);
+      s.uv_mode = sym(s, cdf.uv_mode_cfl_allowed[s.y_mode], 14, s.uv_mode);
     else
-      s.uv_mode = sr.symbol(cdf.uv_mode_cfl_not_allowed[s.y_mode], 13);
-    if (s.uv_mode == UV_CFL_PRED) {
+      s.uv_mode = sym(s, cdf.uv_mode_cfl_not_allowed[s.y_mode], 13, s.uv_mode);
+    if (s.uv_mode == UV_CFL_PRED) {  // decoding only: the encoder takes no CFL
+      SymbolReader& sr = s.sr;
       const int signs = sr.symbol(cdf.cfl_sign, 8);
       const int sign_u = (signs + 1) / 3, sign_v = (signs + 1) % 3;
       s.cfl_alpha_u = s.cfl_alpha_v = 0;
@@ -543,7 +571,7 @@ void intra_frame_mode_info(State& s) {
       count(kToolCfl);
     }
     if (s.mi_size >= BLOCK_8X8 && directional(s.uv_mode))
-      s.angle_uv = sr.symbol(cdf.angle_delta[s.uv_mode - V_PRED], 7) - 3;
+      s.angle_uv = sym(s, cdf.angle_delta[s.uv_mode - V_PRED], 7, s.angle_uv + 3) - 3;
   } else {
     s.uv_mode = DC_PRED;
   }
@@ -552,11 +580,13 @@ void intra_frame_mode_info(State& s) {
     palette_mode_info(s);
   if (s.seq->filter_intra && s.y_mode == DC_PRED && s.palette_size_y == 0 &&
       std::max(bw, bh) <= 32) {
-    s.use_filter_intra = sr.symbol(cdf.filter_intra[s.mi_size], 2);
+    s.use_filter_intra = sym(s, cdf.filter_intra[s.mi_size], 2, s.use_filter_intra);
     if (s.use_filter_intra) {
-      s.filter_intra_mode = sr.symbol(cdf.filter_intra_mode, 5);
+      s.filter_intra_mode = sym(s, cdf.filter_intra_mode, 5, s.filter_intra_mode);
       count(kToolFilterIntra);
     }
+  } else if (enc) {
+    s.use_filter_intra = false;
   }
 }
 
@@ -690,11 +720,20 @@ const uint16_t* scan_of(int tx, int type) {
   }
 }
 
+// the index of a type in an inverse set
+int set_index(const int* inv, int n, int type) {
+  for (int i = 0; i < n; i++)
+    if (inv[i] == type) return i;
+  return 0;
+}
+
 // transform_type (5.11.47) of a luma transform block, kept in TxTypes
-void read_tx_type(State& s, int x4, int y4, int tx) {
+// (encoding: `type` written where the set codes one)
+void read_tx_type(State& s, int x4, int y4, int tx, int type) {
   const int set = tx_set(s, tx);
-  int type = DCT_DCT;
+  if (!s.sw) type = DCT_DCT;
   if (set > 0 && s.fh->base_q_idx > 0 && s.is_inter) {
+    // an intra block copy's: decoding only (the encoder takes none)
     uint16_t* cdf = s.cdf.inter_ext_tx[set][tx_sqr(tx)];
     if (set == 1) type = kTxTypeInterInvSet1[s.sr.symbol(cdf, 16)];
     else if (set == 2) type = kTxTypeInterInvSet2[s.sr.symbol(cdf, 12)];
@@ -706,12 +745,14 @@ void read_tx_type(State& s, int x4, int y4, int tx) {
                         : s.y_mode;
     uint16_t* cdf = s.cdf.intra_ext_tx[set][tx_sqr(tx)][dir];
     if (set == 1) {
-      type = kTxTypeIntraInvSet1[s.sr.symbol(cdf, 7)];
+      type = kTxTypeIntraInvSet1[sym(s, cdf, 7, set_index(kTxTypeIntraInvSet1, 7, type))];
       count(kToolTxTypeSet1);
     } else {
-      type = kTxTypeIntraInvSet2[s.sr.symbol(cdf, 5)];
+      type = kTxTypeIntraInvSet2[sym(s, cdf, 5, set_index(kTxTypeIntraInvSet2, 5, type))];
       count(kToolTxTypeSet2);
     }
+  } else {
+    type = DCT_DCT;
   }
   const int cols = s.lf_cols[0];
   for (int i = 0; i < tx_h(tx) >> 2; i++)
@@ -734,16 +775,29 @@ int compute_tx_type(State& s, int plane, int tx, int x4, int y4) {
 }
 
 // 5.11.39: the coefficients of one transform block; returns eob, leaves
-// the coefficients in quant (positions row * min(32, width) + column)
+// the coefficients in quant (positions row * min(32, width) + column).
+// Encoding, the Encoder's quantized coefficients are written and left in
+// quant as the decoder reads them.
 int coeffs(State& s, int plane, int start_x, int start_y, int tx, int32_t* quant) {
-  SymbolReader& sr = s.sr;
   Cdfs& cdf = s.cdf;
+  const bool enc = s.sw != nullptr;
   const int x4 = start_x >> 2, y4 = start_y >> 2;
   const int w4 = tx_w(tx) >> 2, h4 = tx_h(tx) >> 2;
   const int tx_ctx = (tx_sqr(tx) + tx_sqr_up(tx) + 1) >> 1;
   const int ptype = plane > 0;
   const int seg_eob = (tx == TX_16X64 || tx == TX_64X16)
                           ? 512 : std::min(1024, tx_w(tx) * tx_h(tx));
+  // encoding: the coefficients to write, their type and end of block
+  int32_t coef[1024];
+  int enc_type = DCT_DCT, enc_eob = 0;
+  if (enc) {
+    const int given = plane == 0 ? -1 : compute_tx_type(s, plane, tx, x4, y4);
+    std::memset(coef, 0, seg_eob * sizeof(int32_t));
+    enc_type = s.enc->quantize(s, plane, start_x, start_y, tx, given, coef);
+    const uint16_t* scan = s.fh->lossless ? kDefaultScan4x4 : scan_of(tx, enc_type);
+    for (int c = 0; c < seg_eob; c++)
+      if (coef[scan[c]]) enc_eob = c + 1;
+  }
   std::memset(quant, 0, seg_eob * sizeof(int32_t));
   const int max_x4 = s.mi_cols >> s.sub_x(plane), max_y4 = s.mi_rows >> s.sub_y(plane);
   const int bsize = plane_size(s, s.mi_size, plane);
@@ -771,37 +825,41 @@ int coeffs(State& s, int plane, int start_x, int start_y, int tx, int32_t* quant
     if (bw * bh > tx_w(tx) * tx_h(tx)) ctx += 3;
   }
   int eob = 0, cul_level = 0, dc_category = 0;
-  if (sr.symbol(cdf.txb_skip[tx_ctx][ctx], 2)) {
+  if (sym(s, cdf.txb_skip[tx_ctx][ctx], 2, enc_eob == 0)) {
     if (plane == 0)
       for (int i = 0; i < h4; i++)
         for (int j = 0; j < w4; j++)
           s.tx_types[static_cast<size_t>(y4 + i) * s.lf_cols[0] + x4 + j] = DCT_DCT;
   } else {
     count(kToolCoefficients);
-    if (plane == 0) read_tx_type(s, x4, y4, tx);
+    if (plane == 0) read_tx_type(s, x4, y4, tx, enc_type);
     const int type = s.plane_tx_type = compute_tx_type(s, plane, tx, x4, y4);
     const int cls = tx_class(type);
     const uint16_t* scan = s.fh->lossless ? kDefaultScan4x4 : scan_of(tx, type);
     const int multisize = std::min(kTxWidthLog2[tx], 5) + std::min(kTxHeightLog2[tx], 5) - 4;
     const int ectx = cls == 0 ? 0 : 1;
+    // encoding: eob_pt from the end of block, 1 + the bits of eob - 1
+    int enc_pt = 0;
+    for (int e = enc_eob - 1; e > 0; e >>= 1) enc_pt++;
     int eob_pt;
     switch (multisize) {
-      case 0: eob_pt = sr.symbol(cdf.eob_pt_16[ptype][ectx], 5); break;
-      case 1: eob_pt = sr.symbol(cdf.eob_pt_32[ptype][ectx], 6); break;
-      case 2: eob_pt = sr.symbol(cdf.eob_pt_64[ptype][ectx], 7); break;
-      case 3: eob_pt = sr.symbol(cdf.eob_pt_128[ptype][ectx], 8); break;
-      case 4: eob_pt = sr.symbol(cdf.eob_pt_256[ptype][ectx], 9); break;
-      case 5: eob_pt = sr.symbol(cdf.eob_pt_512[ptype][0], 10); break;
-      default: eob_pt = sr.symbol(cdf.eob_pt_1024[ptype][0], 11); break;
+      case 0: eob_pt = sym(s, cdf.eob_pt_16[ptype][ectx], 5, enc_pt); break;
+      case 1: eob_pt = sym(s, cdf.eob_pt_32[ptype][ectx], 6, enc_pt); break;
+      case 2: eob_pt = sym(s, cdf.eob_pt_64[ptype][ectx], 7, enc_pt); break;
+      case 3: eob_pt = sym(s, cdf.eob_pt_128[ptype][ectx], 8, enc_pt); break;
+      case 4: eob_pt = sym(s, cdf.eob_pt_256[ptype][ectx], 9, enc_pt); break;
+      case 5: eob_pt = sym(s, cdf.eob_pt_512[ptype][0], 10, enc_pt); break;
+      default: eob_pt = sym(s, cdf.eob_pt_1024[ptype][0], 11, enc_pt); break;
     }
     eob_pt += 1;
     if (eob_pt > 6) count(kToolEobLong);
     eob = eob_pt < 2 ? eob_pt : (1 << (eob_pt - 2)) + 1;
     if (eob_pt >= 3) {
-      if (sr.symbol(cdf.eob_extra[tx_ctx][ptype][eob_pt - 3], 2))
+      const int rest = enc_eob - eob;  // the offset to write
+      if (sym(s, cdf.eob_extra[tx_ctx][ptype][eob_pt - 3], 2, (rest >> (eob_pt - 3)) & 1))
         eob += 1 << (eob_pt - 3);
       for (int i = 1; i < eob_pt - 2; i++)
-        if (sr.literal(1)) eob += 1 << (eob_pt - 3 - i);
+        if (lit(s, 1, (rest >> (eob_pt - 3 - i)) & 1)) eob += 1 << (eob_pt - 3 - i);
     }
     // Adjusted_Tx_Size: the coefficients of a 64 side lie in 32
     const int bwl = std::min(kTxWidthLog2[tx], 5);
@@ -812,10 +870,12 @@ int coeffs(State& s, int plane, int start_x, int start_y, int tx, int32_t* quant
     for (int c = eob - 1; c >= 0; c--) {
       const int pos = scan[c];
       const int row = pos >> bwl, col = pos - (row << bwl);
+      // encoding: the level to write, its base (to 3) and range coded
+      const int want = enc ? std::min(std::abs(coef[pos]), 15) : 0;
       int level;
       if (c == eob - 1) {
         const int e = c == 0 ? 0 : c <= area / 8 ? 1 : c <= area / 4 ? 2 : 3;
-        level = sr.symbol(cdf.coeff_base_eob[tx_ctx][ptype][e], 3) + 1;
+        level = sym(s, cdf.coeff_base_eob[tx_ctx][ptype][e], 3, std::min(want, 3) - 1) + 1;
       } else {
         int mag = 0;
         for (int k = 0; k < 5; k++) {
@@ -832,7 +892,7 @@ int coeffs(State& s, int plane, int start_x, int start_y, int tx, int32_t* quant
           const int idx = cls == 2 ? row : col;
           bctx += kCoeffBasePosCtxOffset[std::min(idx, 2)];
         }
-        level = sr.symbol(cdf.coeff_base[tx_ctx][ptype][bctx], 4);
+        level = sym(s, cdf.coeff_base[tx_ctx][ptype][bctx], 4, std::min(want, 3));
       }
       if (level > 2) {
         int mag = 0;
@@ -848,7 +908,8 @@ int coeffs(State& s, int plane, int start_x, int start_y, int tx, int32_t* quant
         else if (cls == 1) brctx = col == 0 ? mag + 7 : mag + 14;
         else brctx = row == 0 ? mag + 7 : mag + 14;
         for (int idx = 0; idx < 4; idx++) {
-          const int br = sr.symbol(cdf.coeff_br[std::min(tx_ctx, 3)][ptype][brctx], 4);
+          const int br = sym(s, cdf.coeff_br[std::min(tx_ctx, 3)][ptype][brctx], 4,
+                             std::min(want - level, 3));
           level += br;
           if (br < 3) break;
         }
@@ -857,6 +918,7 @@ int coeffs(State& s, int plane, int start_x, int start_y, int tx, int32_t* quant
     }
     for (int c = 0; c < eob; c++) {
       const int pos = scan[c];
+      const int neg = enc && coef[pos] < 0;
       int sign = 0;
       if (quant[pos] != 0) {
         if (c == 0) {
@@ -872,22 +934,33 @@ int coeffs(State& s, int plane, int start_x, int start_y, int tx, int32_t* quant
               dc_sign += l == 1 ? -1 : l == 2 ? 1 : 0;
             }
           const int sctx = dc_sign < 0 ? 1 : dc_sign > 0 ? 2 : 0;
-          sign = sr.symbol(cdf.dc_sign[ptype][sctx], 2);
+          sign = sym(s, cdf.dc_sign[ptype][sctx], 2, neg);
           count(kToolDcSign);
         } else {
-          sign = sr.literal(1);
+          sign = lit(s, 1, neg);
         }
       }
       if (quant[pos] > 14) {
-        int length = 0, bit;
-        do {
-          length++;
-          bit = sr.literal(1);
-          if (length > 20) corrupt("AV1 coefficient Golomb code longer than 20");
-        } while (!bit);
-        int x = 1;
-        for (int i = length - 2; i >= 0; i--) x = (x << 1) | sr.literal(1);
-        quant[pos] = x + 14;
+        if (enc) {  // the Golomb code of |coef| - 14: its length in zeros,
+                    // a one, then its bits below the top one
+          const int x = std::abs(coef[pos]) - 14;
+          int length = 0;
+          for (int v = x; v; v >>= 1) length++;
+          lit(s, length - 1, 0);
+          lit(s, 1, 1);
+          lit(s, length - 1, x);
+          quant[pos] = x + 14;
+        } else {
+          int length = 0, bit;
+          do {
+            length++;
+            bit = s.sr.literal(1);
+            if (length > 20) corrupt("AV1 coefficient Golomb code longer than 20");
+          } while (!bit);
+          int x = 1;
+          for (int i = length - 2; i >= 0; i--) x = (x << 1) | s.sr.literal(1);
+          quant[pos] = x + 14;
+        }
         count(kToolGolomb);
       }
       if (pos == 0 && quant[pos] > 0) dc_category = sign ? 1 : 2;
@@ -908,6 +981,23 @@ int coeffs(State& s, int plane, int start_x, int start_y, int tx, int32_t* quant
   return eob;
 }
 
+// the intra prediction of a transform block (5.11.35) by `mode` (the
+// block's mode, or DC_PRED under CFL), its edges as BlockDecoded has them
+void predict_tx(State& s, int plane, int start_x, int start_y, int tx, int x,
+                int y, int mode) {
+  const int subx = s.sub_x(plane), suby = s.sub_y(plane);
+  const int row = (start_y << suby) >> 2, col = (start_x << subx) >> 2;
+  const int sb_mask = s.sb4 - 1;
+  const int sub_row = (row & sb_mask) >> suby, sub_col = (col & sb_mask) >> subx;
+  const int step_x = tx_w(tx) >> 2, step_y = tx_h(tx) >> 2;
+  predict_intra(s, plane, start_x, start_y,
+                (plane == 0 ? s.avail_l : s.avail_l_chroma) || x > 0,
+                (plane == 0 ? s.avail_u : s.avail_u_chroma) || y > 0,
+                s.decoded(plane, sub_row - 1, sub_col + step_x),
+                s.decoded(plane, sub_row + step_y, sub_col - 1), mode,
+                kTxWidthLog2[tx], kTxHeightLog2[tx]);
+}
+
 // transform_block (5.11.35): x, y the block's 4x4 index in its (plane)
 // block
 void transform_block(State& s, int plane, int base_x, int base_y, int tx,
@@ -926,13 +1016,8 @@ void transform_block(State& s, int plane, int base_x, int base_y, int tx,
       predict_palette(s, plane, start_x, start_y, x, y, tx);
     } else {
       const bool cfl = plane > 0 && s.uv_mode == UV_CFL_PRED;
-      const int mode = plane == 0 ? s.y_mode : cfl ? DC_PRED : s.uv_mode;
-      predict_intra(s, plane, start_x, start_y,
-                    (plane == 0 ? s.avail_l : s.avail_l_chroma) || x > 0,
-                    (plane == 0 ? s.avail_u : s.avail_u_chroma) || y > 0,
-                    s.decoded(plane, sub_row - 1, sub_col + step_x),
-                    s.decoded(plane, sub_row + step_y, sub_col - 1), mode,
-                    kTxWidthLog2[tx], kTxHeightLog2[tx]);
+      predict_tx(s, plane, start_x, start_y, tx, x, y,
+                 plane == 0 ? s.y_mode : cfl ? DC_PRED : s.uv_mode);
       if (cfl) predict_cfl(s, plane, start_x, start_y, tx);
     }
     if (plane == 0) {
@@ -1086,7 +1171,9 @@ void read_lr(State& s, int r, int c) {
 
 // ------------------------------------------------------------ blocks
 
-void decode_block(State& s, int r, int c, int size) {
+}  // namespace
+
+void setup_block(State& s, int r, int c, int size) {
   s.mi_row = r;
   s.mi_col = c;
   s.mi_size = size;
@@ -1102,6 +1189,28 @@ void decode_block(State& s, int r, int c, int size) {
     if (s.ssy && bh4 == 1) s.avail_u_chroma = s.inside(r - 2, c);
     if (s.ssx && bw4 == 1) s.avail_l_chroma = s.inside(r, c - 2);
   }
+}
+
+uint16_t* partition_cdf(State& s, int r, int c, int bsize, int* n) {
+  const bool avail_u = s.inside(r - 1, c), avail_l = s.inside(r, c - 1);
+  const int bsl = kMiWidthLog2[bsize];
+  const int above = avail_u && kMiWidthLog2[s.at(r - 1, c).size] < bsl;
+  const int left = avail_l && kMiHeightLog2[s.at(r, c - 1).size] < bsl;
+  *n = bsl == 1 ? 4 : bsl == 5 ? 8 : 10;
+  return s.cdf.partition[(bsl - 1) * 4 + left * 2 + above];
+}
+
+void predict_transform_block(State& s, int plane, int tx, int mode) {
+  const int subx = s.sub_x(plane), suby = s.sub_y(plane);
+  predict_tx(s, plane, (s.mi_col >> subx) * 4, (s.mi_row >> suby) * 4, tx, 0, 0,
+             mode);
+}
+
+namespace {
+
+void decode_block(State& s, int r, int c, int size) {
+  setup_block(s, r, c, size);
+  const int bw4 = kNum4x4W[size], bh4 = kNum4x4H[size];
   intra_frame_mode_info(s);
   palette_tokens(s);
   read_block_tx_size(s);
@@ -1135,9 +1244,10 @@ void decode_block(State& s, int r, int c, int size) {
   residual(s);
 }
 
-void decode_partition(State& s, int r, int c, int bsize) {
+}  // namespace
+
+void code_partition(State& s, int r, int c, int bsize) {
   if (r >= s.mi_rows || c >= s.mi_cols) return;
-  const bool avail_u = s.inside(r - 1, c), avail_l = s.inside(r, c - 1);
   const int num4 = kNum4x4W[bsize], half = num4 >> 1, quarter = half >> 1;
   const bool has_rows = (r + half) < s.mi_rows, has_cols = (c + half) < s.mi_cols;
   const int bsl = kMiWidthLog2[bsize];
@@ -1145,20 +1255,20 @@ void decode_partition(State& s, int r, int c, int bsize) {
   if (bsize < BLOCK_8X8) {
     partition = PARTITION_NONE;
   } else {
-    const int above = avail_u && kMiWidthLog2[s.at(r - 1, c).size] < bsl;
-    const int left = avail_l && kMiHeightLog2[s.at(r, c - 1).size] < bsl;
-    uint16_t* cdf = s.cdf.partition[(bsl - 1) * 4 + left * 2 + above];
-    const int n = bsl == 1 ? 4 : bsl == 5 ? 8 : 10;
+    int n;
+    uint16_t* cdf = partition_cdf(s, r, c, bsize, &n);
+    const int want = s.sw ? s.enc->partition(s, r, c, bsize) : 0;
     auto prob = [cdf](int e) { return (e > 0 ? cdf[e - 1] : 32768) - cdf[e]; };
     if (has_rows && has_cols) {
-      partition = s.sr.symbol(cdf, n);
+      partition = sym(s, cdf, n, want);
     } else if (has_cols) {  // split_or_horz
       int psum = prob(PARTITION_VERT) + prob(PARTITION_SPLIT) +
                  prob(PARTITION_HORZ_A) + prob(PARTITION_VERT_A) +
                  prob(PARTITION_VERT_B);
       if (bsize != BLOCK_128X128) psum += prob(PARTITION_VERT_4);
       uint16_t tmp[3] = {static_cast<uint16_t>(psum), 0, 0};
-      partition = s.sr.symbol(tmp, 2) ? PARTITION_SPLIT : PARTITION_HORZ;
+      partition = sym(s, tmp, 2, want == PARTITION_SPLIT) ? PARTITION_SPLIT
+                                                            : PARTITION_HORZ;
       count(kToolSplitOrHorz);
     } else if (has_rows) {  // split_or_vert
       int psum = prob(PARTITION_HORZ) + prob(PARTITION_SPLIT) +
@@ -1166,7 +1276,8 @@ void decode_partition(State& s, int r, int c, int bsize) {
                  prob(PARTITION_VERT_A);
       if (bsize != BLOCK_128X128) psum += prob(PARTITION_HORZ_4);
       uint16_t tmp[3] = {static_cast<uint16_t>(psum), 0, 0};
-      partition = s.sr.symbol(tmp, 2) ? PARTITION_SPLIT : PARTITION_VERT;
+      partition = sym(s, tmp, 2, want == PARTITION_SPLIT) ? PARTITION_SPLIT
+                                                            : PARTITION_VERT;
       count(kToolSplitOrVert);
     } else {
       partition = PARTITION_SPLIT;
@@ -1189,10 +1300,10 @@ void decode_partition(State& s, int r, int c, int bsize) {
       if (has_cols) decode_block(s, r, c + half, sub);
       break;
     case PARTITION_SPLIT:
-      decode_partition(s, r, c, sub);
-      decode_partition(s, r, c + half, sub);
-      decode_partition(s, r + half, c, sub);
-      decode_partition(s, r + half, c + half, sub);
+      code_partition(s, r, c, sub);
+      code_partition(s, r, c + half, sub);
+      code_partition(s, r + half, c, sub);
+      code_partition(s, r + half, c + half, sub);
       break;
     case PARTITION_HORZ_A:
       decode_block(s, r, c, split);
@@ -1227,6 +1338,8 @@ void decode_partition(State& s, int r, int c, int bsize) {
   }
 }
 
+namespace {
+
 void clear_block_decoded(State& s, int r, int c) {
   for (int plane = 0; plane < s.planes; plane++) {
     const int subx = s.sub_x(plane), suby = s.sub_y(plane);
@@ -1244,17 +1357,7 @@ void clear_block_decoded(State& s, int r, int c) {
 
 }  // namespace
 
-void decode_picture(const Picture& pic, Planes* out, int filters) {
-  const SequenceHeader& seq = pic.seq;
-  const FrameHeader& fh = pic.frame;
-  if (!seq.mono && seq.ssx != seq.ssy)
-    not_ported("AV1 with 4:2:2 chroma");
-  if (!seq.mono && fh.lossless && seq.ssx)
-    not_ported("lossless AV1 with subsampled chroma (4:2:0)");
-  if (!seq.mono && !fh.lossless && !seq.ssx)
-    not_ported("lossy AV1 with full-resolution chroma (4:4:4)");
-  std::unique_ptr<State> owner(new State());
-  State& s = *owner;
+void init_tile(State& s, const SequenceHeader& seq, const FrameHeader& fh) {
   s.seq = &seq;
   s.fh = &fh;
   s.mi_rows = fh.mi_rows;
@@ -1308,29 +1411,34 @@ void decode_picture(const Picture& pic, Planes* out, int filters) {
   s.mi_col_end = s.mi_cols;
   s.current_qindex = fh.base_q_idx;
   init_cdfs(&s.cdf, fh.base_q_idx);
-  s.sr.init(pic.tile_data, pic.tile_size, fh.disable_cdf_update);
-  for (int r = 0; r < s.mi_rows; r += s.sb4) {
-    for (int p = 0; p < s.planes; p++) {
-      std::fill(s.left_level[p].begin(), s.left_level[p].end(), 0);
-      std::fill(s.left_dc[p].begin(), s.left_dc[p].end(), 0);
-    }
-    for (int c = 0; c < s.mi_cols; c += s.sb4) {
-      clear_block_decoded(s, r, c);
-      s.read_deltas = fh.delta_q_present;
-      read_lr(s, r, c);
-      decode_partition(s, r, c, s.sb_size);
-      if (s.sr.overrun())
-        corrupt("AV1 tile data ends before its last superblock");
-    }
+}
+
+void start_sb_row(State& s) {
+  for (int p = 0; p < s.planes; p++) {
+    std::fill(s.left_level[p].begin(), s.left_level[p].end(), 0);
+    std::fill(s.left_dc[p].begin(), s.left_dc[p].end(), 0);
   }
+}
+
+void start_superblock(State& s, int r, int c) {
+  clear_block_decoded(s, r, c);
+  s.read_deltas = s.fh->delta_q_present;
+}
+
+void filter_frame(State& s, int filters) {
   // the in-loop filters (7.14, 7.15, 7.17); loop restoration reads the
   // deblocked frame above and below each stripe of 64 rows
+  const FrameHeader& fh = *s.fh;
   if (filters & kFilterDeblock) deblock_frame(s);
   std::vector<uint16_t> deblocked[3];
   if (fh.uses_lr && (filters & kFilterRestoration))
     for (int p = 0; p < s.planes; p++) deblocked[p] = s.frame[p];
   if (fh.cdef && (filters & kFilterCdef)) cdef_frame(s);
   if (fh.uses_lr && (filters & kFilterRestoration)) restore_frame(s, deblocked);
+}
+
+void take_planes(State& s, Planes* out) {
+  const FrameHeader& fh = *s.fh;
   out->width = fh.width;
   out->height = fh.height;
   out->bit_depth = s.bit_depth;
@@ -1345,6 +1453,33 @@ void decode_picture(const Picture& pic, Planes* out, int filters) {
       std::memcpy(out->plane[p].data() + static_cast<size_t>(y) * w,
                   s.px(p, y, 0), w * sizeof(uint16_t));
   }
+}
+
+void decode_picture(const Picture& pic, Planes* out, int filters) {
+  const SequenceHeader& seq = pic.seq;
+  const FrameHeader& fh = pic.frame;
+  if (!seq.mono && seq.ssx != seq.ssy)
+    not_ported("AV1 with 4:2:2 chroma");
+  if (!seq.mono && fh.lossless && seq.ssx)
+    not_ported("lossless AV1 with subsampled chroma (4:2:0)");
+  if (!seq.mono && !fh.lossless && !seq.ssx)
+    not_ported("lossy AV1 with full-resolution chroma (4:4:4)");
+  std::unique_ptr<State> owner(new State());
+  State& s = *owner;
+  init_tile(s, seq, fh);
+  s.sr.init(pic.tile_data, pic.tile_size, fh.disable_cdf_update);
+  for (int r = 0; r < s.mi_rows; r += s.sb4) {
+    start_sb_row(s);
+    for (int c = 0; c < s.mi_cols; c += s.sb4) {
+      start_superblock(s, r, c);
+      read_lr(s, r, c);
+      code_partition(s, r, c, s.sb_size);
+      if (s.sr.overrun())
+        corrupt("AV1 tile data ends before its last superblock");
+    }
+  }
+  filter_frame(s, filters);
+  take_planes(s, out);
 }
 
 }  // namespace av1

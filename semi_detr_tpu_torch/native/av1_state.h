@@ -2,7 +2,10 @@
 // partitions, mode info, palette, intra block copy, transform sizes and
 // types, coefficients), av1_recon.cpp (prediction), av1_transform.cpp
 // (dequantisation and the inverse transforms) and the in-loop filters
-// (av1_loopfilter.cpp, av1_cdef.cpp, av1_restoration.cpp).
+// (av1_loopfilter.cpp, av1_cdef.cpp, av1_restoration.cpp). The encoder
+// (av1_encode.cpp) runs the same tile syntax with a SymbolWriter in place
+// of the reader and its decisions given by an Encoder, so that what it
+// reconstructs is the decoder's reconstruction.
 #pragma once
 
 #include <cstdint>
@@ -29,6 +32,27 @@ struct LrUnit {
   int wiener[2][3] = {};  // vertical, horizontal taps 0-2
   int sgr_set = 0;
   int sgr_xqd[2] = {};
+};
+
+struct State;
+
+// The encoder's decisions, asked for where the decoder reads them.
+struct Encoder {
+  virtual ~Encoder() = default;
+  // the partition of the square block at (r, c) (PARTITION_SPLIT where
+  // neither half lies in the frame)
+  virtual int partition(State& s, int r, int c, int bsize) = 0;
+  // the block's mode info, into s: skip, y_mode, angle_y, uv_mode (no
+  // CFL), angle_uv, use_filter_intra and filter_intra_mode
+  virtual void mode_info(State& s) = 0;
+  // the quantized coefficients (positions of the specification) of a
+  // transform block from the source less the prediction in s.frame, of
+  // type `type` (a chroma block's), or of the type it returns (luma, -1)
+  virtual int quantize(State& s, int plane, int x, int y, int tx, int type,
+                       int32_t* coef) = 0;
+  // the qindex of the superblock at (r, c), a multiple of 2^delta_q_res
+  // from base_q_idx
+  virtual int superblock_qindex(State& s, int r, int c) = 0;
 };
 
 struct State {
@@ -73,6 +97,9 @@ struct State {
 
   SymbolReader sr;
   Cdfs cdf;
+  // encoding: the symbols written (or counted) and the decisions
+  SymbolWriter* sw = nullptr;
+  Encoder* enc = nullptr;
 
   // the block being decoded
   int mi_row = 0, mi_col = 0, mi_size = 0;
@@ -115,7 +142,39 @@ void predict_cfl(State& s, int plane, int start_x, int start_y, int tx);
 // 7.11.3 for an intra block copy: the block copied from the current frame
 void predict_intrabc(State& s);
 
+// av1_intra.cpp: the tile syntax, for the encoder too
+// the state of a tile of the frame the headers describe, before its first
+// superblock (the CDFs at the frame's quantizer)
+void init_tile(State& s, const SequenceHeader& seq, const FrameHeader& fh);
+// a row of superblocks starts (the left contexts cleared), a superblock
+// starts (its BlockDecoded), and one is coded whole
+void start_sb_row(State& s);
+void start_superblock(State& s, int r, int c);
+void code_partition(State& s, int r, int c, int bsize);
+// the in-loop filters of kFilter* over the frame, and its planes
+void filter_frame(State& s, int filters);
+void take_planes(State& s, Planes* out);
+// the block state decode_block sets before its mode info (position, size,
+// chroma, availability), and a transform block's intra prediction of
+// `mode` as transform_block makes it (luma or chroma at 4:2:0, the one
+// transform block of each plane of a block of TX_MODE_LARGEST)
+void setup_block(State& s, int r, int c, int size);
+void predict_transform_block(State& s, int plane, int tx, int mode);
+// the transform size of a block's plane (get_tx_size), the CDF of the
+// partition symbol of a square block with both halves in the frame (its
+// symbol count in *n)
+int plane_tx_size(const State& s, int plane);
+uint16_t* partition_cdf(State& s, int r, int c, int bsize, int* n);
+
 // av1_transform.cpp
+// the one-dimensional inverse transform of n points (0 DCT, 1 ADST, 3
+// identity) as reconstruct runs it
+void inverse_1d(int kind, const int32_t* in, int32_t* out, int n);
+// the dequantiser of a transform block (7.12.3): each coefficient
+// position's quantizer (the matrix weight applied) in steps (min(32, w) x
+// min(32, h)), and the shift of the product
+void quantizer_steps(const State& s, int plane, int tx, int type, int* steps,
+                     int* shift);
 // 7.12.3 and 7.13.3: the coefficients of a transform block (positions of
 // the specification: row * min(32, width) + column) dequantised, turned
 // back by the block's inverse transform and added to the prediction; the

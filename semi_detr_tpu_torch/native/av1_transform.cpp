@@ -47,10 +47,24 @@ int log2i(int n) {
 
 // the first-rotation angle of pair p of the odd half of m points (the DCT
 // of 2m points): 64 - k * 64 / (2m), k the pair's input index
-int odd_angle(int m, int p) {
+int odd_angle_of(int m, int p) {
   if (m == 1) return 32;
   const int k = brev(log2i(2 * m), m + p);
   return 64 - k * 64 / (2 * m);
+}
+
+// odd_angle_of for m of 1 to 32, tabled
+struct OddAngles {
+  int8_t v[6][32];
+  OddAngles() {
+    for (int l = 0; l < 6; l++)
+      for (int p = 0; p < (1 << l); p++) v[l][p] = static_cast<int8_t>(odd_angle_of(1 << l, p));
+  }
+};
+
+int odd_angle(int m, int p) {
+  static const OddAngles t;
+  return t.v[log2i(m)][p];
 }
 
 // the odd half y[0 .. m-1] of a DCT of 2m points (inputs in bit-reversed
@@ -272,6 +286,40 @@ void reconstruct_lossless(State& s, int plane, int x, int y, const int32_t* quan
 
 }  // namespace
 
+void inverse_1d(int kind, const int32_t* in, int32_t* out, int n) {
+  if (kind == 3) iidentity(in, out, n);
+  else if (kind == 0) idct(in, out, n);
+  else if (n == 4) iadst4(in, out);
+  else iadst_n(in, out, n);
+}
+
+void quantizer_steps(const State& s, int plane, int tx, int type, int* steps,
+                     int* shift) {
+  const int w = 1 << kTxWidthLog2[tx], h = 1 << kTxHeightLog2[tx];
+  const int tw = std::min(w, 32), th = std::min(h, 32);
+  // the quantizers of the block's qindex, the matrix of the plane's level
+  // (two-dimensional types only)
+  const int qidx = s.current_qindex;
+  const int* dq = s.fh->delta_q;
+  const int dc_delta = plane == 0 ? dq[0] : plane == 1 ? dq[1] : dq[3];
+  const int ac_delta = plane == 0 ? 0 : plane == 1 ? dq[2] : dq[4];
+  const int depth_row = (s.bit_depth - 8) >> 1;
+  const int dc_q = kDcQlookup[depth_row][std::min(std::max(qidx + dc_delta, 0), 255)];
+  const int ac_q = kAcQlookup[depth_row][std::min(std::max(qidx + ac_delta, 0), 255)];
+  const int level = s.fh->qm[plane];
+  const uint8_t* qm = level < 15 && type < IDTX
+                          ? kQuantizerMatrix[level][plane > 0] + qm_offset(tw, th)
+                          : nullptr;
+  for (int i = 0; i < th; i++)
+    for (int j = 0; j < tw; j++) {
+      int q = (i == 0 && j == 0) ? dc_q : ac_q;
+      if (qm) q = (q * qm[i * tw + j] + 16) >> 5;
+      steps[i * tw + j] = q;
+    }
+  const int area = w * h;
+  *shift = (area > 256) + (area > 1024);
+}
+
 void reconstruct(State& s, int plane, int x, int y, int tx, int32_t* quant) {
   if (s.fh->lossless) {
     reconstruct_lossless(s, plane, x, y, quant);
@@ -282,21 +330,8 @@ void reconstruct(State& s, int plane, int x, int y, int tx, int32_t* quant) {
   const int w = 1 << log2w, h = 1 << log2h;
   const int tw = std::min(w, 32), th = std::min(h, 32);
   const int type = s.plane_tx_type;
-  // 7.12.3: the quantizers of the block's qindex, the matrix of the
-  // plane's level (two-dimensional types only)
-  const int qidx = s.current_qindex;
-  const int* dq = s.fh->delta_q;
-  const int dc_delta = plane == 0 ? dq[0] : plane == 1 ? dq[1] : dq[3];
-  const int ac_delta = plane == 0 ? 0 : plane == 1 ? dq[2] : dq[4];
-  const int depth_row = (bd - 8) >> 1;
-  const int dc_q = kDcQlookup[depth_row][std::min(std::max(qidx + dc_delta, 0), 255)];
-  const int ac_q = kAcQlookup[depth_row][std::min(std::max(qidx + ac_delta, 0), 255)];
-  const int level = s.fh->qm[plane];
-  const uint8_t* qm = level < 15 && type < IDTX
-                          ? kQuantizerMatrix[level][plane > 0] + qm_offset(tw, th)
-                          : nullptr;
-  const int area = w * h;
-  const int dq_shift = (area > 256) + (area > 1024);
+  int steps[32 * 32], dq_shift;
+  quantizer_steps(s, plane, tx, type, steps, &dq_shift);
   const int64_t lim = int64_t(1) << (7 + bd);
   int32_t buf[64 * 64];
   std::fill(buf, buf + w * h, 0);
@@ -304,9 +339,7 @@ void reconstruct(State& s, int plane, int x, int y, int tx, int32_t* quant) {
     for (int j = 0; j < tw; j++) {
       const int32_t v = quant[i * tw + j];
       if (!v) continue;
-      int q = (i == 0 && j == 0) ? dc_q : ac_q;
-      if (qm) q = (q * qm[i * tw + j] + 16) >> 5;
-      int64_t d = (static_cast<int64_t>(std::abs(v)) * q) & 0xFFFFFF;
+      int64_t d = (static_cast<int64_t>(std::abs(v)) * steps[i * tw + j]) & 0xFFFFFF;
       d >>= dq_shift;
       if (v < 0) d = -d;
       buf[i * w + j] = static_cast<int32_t>(std::min(std::max(d, -lim), lim - 1));

@@ -64,7 +64,20 @@
 //   tag, a single strip's count of 0 (uncompressed: past the file's end or
 //   short of the picture too) and uncompressed counts whose first two differ
 //   are estimated anew (EstimateStripByteCounts); a count of 0 left, or one
-//   past the file, raises, as does a strip the data then runs short of.
+//   past the file, raises, as does an uncompressed tile the data then runs
+//   short of.
+// * Damaged strips and tiles as cv2 reads them: each TIFFReadRGBAStrip or
+//   TIFFReadRGBATile call starts from a buffer of zeros, and where the
+//   codec fails after that buffer is allocated (LZW: a first code that is
+//   not a clear code, a code not yet in the table, data or an end code
+//   before the segment is full; Deflate data zlib fails on; PackBits data
+//   cut short, a literal it cuts not copied at all; an uncompressed strip
+//   short of its rows, of which nothing is copied) the reader goes on with
+//   the bytes the codec wrote and the rest 0, neither summed by the
+//   predictor nor byte-swapped; ThunderScan and SGILog likewise (a row of
+//   too few or too many ThunderScan pixels cleared from where it failed;
+//   SGILog's rows up to the one its data runs short of). CCITT and JPEG
+//   strips that fail still raise.
 //
 // * Pixar (32908), NeXT (32947) and JPEG 2000 (34712) compression, which
 //   cv2's libtiff knows but cannot decode ("Compression scheme N strip
@@ -86,7 +99,8 @@
 // in planes or with a fourth sample, photometric 4, 9, 10, 32803, 34892 and
 // the rest, LogL or LogLuv without SGILog compression (and SGILog under any
 // other photometric), no PhotometricInterpretation, orientation 5-8 on a
-// picture that is not square. Damage raises naming it.
+// picture that is not square. Damage cv2 reads no picture of raises naming
+// it.
 
 #include <zlib.h>
 
@@ -107,6 +121,14 @@ int bad(const std::string& what) {
   set_error("TIFF: damaged data: " + what);
   return kCorrupt;
 }
+
+// a strip or tile whose codec failed after libtiff's RGBA reader had
+// allocated its buffer (TIFFReadRGBAStrip and TIFFReadRGBATile start each
+// call with a buffer of zeros): the reader goes on with the bytes the codec
+// wrote, the rest left 0, neither predictor nor byte swap applied
+constexpr int kSegmentFailed = 100;
+
+int failed() { return kSegmentFailed; }
 
 int refused(const std::string& what) {
   set_error("TIFF: " + what + " (cv2 refuses it too)");
@@ -525,13 +547,15 @@ int parse(const uint8_t* d, long n, Tiff* t) {
 
 // libtiff's LZWDecode (or LZWDecodeCompat for the old style): the codes of
 // src into out, until out is full or the end code
+constexpr int kLzwTable = 4096 + 1024;  // CSIZE of tif_lzw.c
+
 int lzw_decode(const uint8_t* src, long len, uint8_t* out, long want) {
   const bool old = len >= 2 && src[0] == 0 && (src[1] & 1);
   struct Entry {
     int prefix, length;
     uint8_t first, last;
   };
-  std::vector<Entry> tab(4096);
+  std::vector<Entry> tab(kLzwTable);
   for (int i = 0; i < 256; ++i) tab[i] = {-1, 1, uint8_t(i), uint8_t(i)};
   int nbits = 9, free_ent = 258, old_code = -1;
   long pos = 0, filled = 0;
@@ -571,23 +595,22 @@ int lzw_decode(const uint8_t* src, long len, uint8_t* out, long want) {
   };
   while (filled < want) {
     const int code = next();
-    if (code < 0) return bad("LZW data ends before the strip does");
+    if (code < 0) return failed();
     if (code == 257) break;
     if (code == 256) {
       nbits = 9;
       free_ent = 258;
       int c;
       do c = next(); while (c == 256);
-      if (c < 0) return bad("LZW data ends before the strip does");
+      if (c < 0) return failed();
       if (c == 257) break;
-      if (c > 255) return bad("corrupted LZW table");
+      if (c > 255) return failed();
       emit(c);
       old_code = c;
       continue;
     }
-    if (old_code < 0) return bad("LZW data does not start with a clear code");
-    if (code > free_ent || free_ent >= 4096)
-      return bad("corrupted LZW table");
+    if (old_code < 0) return failed();
+    if (code > free_ent || free_ent >= kLzwTable) return failed();
     const int base = code == free_ent ? old_code : code;
     tab[free_ent] = {old_code, tab[old_code].length + 1, tab[old_code].first,
                      tab[base].first};
@@ -597,7 +620,7 @@ int lzw_decode(const uint8_t* src, long len, uint8_t* out, long want) {
     const int limit = (1 << nbits) - (old ? 0 : 1);
     if (free_ent >= limit && nbits < 12) ++nbits;
   }
-  if (filled < want) return bad("LZW data ends before the strip does");
+  if (filled < want) return failed();
   return kOk;
 }
 
@@ -614,8 +637,8 @@ int inflate_segment(const uint8_t* src, long len, uint8_t* out, long want) {
   const long got = want - z.avail_out;
   inflateEnd(&z);
   if (st != Z_OK && st != Z_STREAM_END && !(st == Z_BUF_ERROR && got == want))
-    return bad("Deflate data: " + std::string(z.msg ? z.msg : "zlib error"));
-  if (got < want) return bad("Deflate data ends before the strip does");
+    return failed();
+  if (got < want) return failed();
   return kOk;
 }
 
@@ -630,13 +653,15 @@ int packbits_decode(const uint8_t* src, long len, uint8_t* out, long want) {
       std::memset(out + o, src[p++], run);
       o += run;
     } else {
-      const long run = std::min<long>(std::min<long>(c + 1, len - p), want - o);
+      // a literal the data cuts short is not copied at all
+      const long run = std::min<long>(c + 1, want - o);
+      if (len - p < run) break;
       std::memcpy(out + o, src + p, run);
       p += c + 1;
       o += run;
     }
   }
-  if (o < want) return bad("PackBits data ends before the strip does");
+  if (o < want) return failed();
   return kOk;
 }
 
@@ -644,7 +669,8 @@ int packbits_decode(const uint8_t* src, long len, uint8_t* out, long want) {
 // picture's width `scanline` bytes apart, each coded as bytes of a 2-bit
 // code and 6 bits of data: a run of the last pixel (its count in the data),
 // three 2-bit or two 3-bit deltas from the last pixel (a skip code for
-// none), or a raw pixel. A row of too few or too many pixels fails.
+// none), or a raw pixel. A row of too few or too many pixels fails the
+// segment, the rest of that row cleared.
 int thunder_decode(const uint8_t* src, long len, long width, long scanline,
                    long want, uint8_t* out) {
   static const int kDelta2[4] = {0, 1, 0, -1};
@@ -701,10 +727,11 @@ int thunder_decode(const uint8_t* src, long len, long width, long scanline,
         default: set(static_cast<unsigned>(n)); break;  // a raw pixel
       }
     }
-    if (npixels != width)
-      return bad(std::string("ThunderScan: ") +
-                 (npixels < width ? "not enough" : "too much") +
-                 " data in a row");
+    if (npixels != width) {  // the rest of the row cleared, the strip failed
+      uint8_t* end = out + r0 + (width + 1) / 2;
+      if (op < end) std::memset(op, 0, end - op);
+      return failed();
+    }
   }
   return kOk;
 }
@@ -792,9 +819,12 @@ int read_segment(const uint8_t* d, long n, const Tiff& t, long seg, int plane,
   // ThunderScan tiles (tif_thunder.c decodes strips only)
   if (!blank_compression(t.compression) &&
       !(t.compression == 32809 && t.tiled)) switch (t.compression) {
-    case 1:
-      if (cnt < asked) return bad("a strip or tile shorter than its rows");
-      std::memcpy(buf.data(), src.data(), asked);
+    case 1:  // a short tile fails before the buffer is allocated (cv2
+             // reads no picture); DumpModeDecode copies nothing of a short
+             // strip
+      if (cnt < asked && t.tiled) return bad("a tile shorter than its rows");
+      if (cnt < asked) st = failed();
+      else std::memcpy(buf.data(), src.data(), asked);
       break;
     case 5: st = lzw_decode(src.data(), cnt, buf.data(), asked); break;
     case 8: case 32946:
@@ -809,22 +839,26 @@ int read_segment(const uint8_t* d, long n, const Tiff& t, long seg, int plane,
                           static_cast<long>(scanline_size(t)), asked,
                           buf.data());
       break;
-    case 34676: case 34677:
+    case 34676: case 34677:  // the rows before the one the data runs
+                             // short of are kept
       st = sgilog_decode(src.data(), cnt, t.sgilog, seg_w, raw_rows,
                          buf.data());
+      if (st == kCorrupt) st = failed();
       break;
     default: st = packbits_decode(src.data(), cnt, buf.data(), asked);
   }
+  const bool whole = st != kSegmentFailed;
+  if (!whole) st = kOk;
   if (st) return st;
   const long nsamp = seg_w * per;
-  if (t.bits == 16) {  // to native (little-endian) order, as libtiff swaps
+  if (t.bits == 16 && whole) {  // to native (little-endian) order, as libtiff swaps
     for (long i = 0; i < raw_rows * nsamp; ++i) {
       uint8_t* b = buf.data() + 2 * i;
       if (!t.le) std::swap(b[0], b[1]);
     }
   }
-  if (t.predictor == 2 && (t.compression == 5 || t.compression == 8 ||
-                           t.compression == 32946)) {
+  if (whole && t.predictor == 2 &&
+      (t.compression == 5 || t.compression == 8 || t.compression == 32946)) {
     // tif_predict.c's PredictorDecodeTile: the decoded bytes in rows of
     // libtiff's row size (the scanline size in strips, a row of tile
     // samples in tiles, whatever YCbCr's data units), each row summed with

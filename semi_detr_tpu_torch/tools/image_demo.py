@@ -3,16 +3,19 @@ demo/image_demo.py, the reference's demo/image_demo.py).
 
 Rides the high-level API (`init_detector` -> `inference_detector` ->
 `save_result`): every file is read by the host library (JPEG, PNG, BMP,
-PNM, PAM, TIFF, WebP, GIF, Sun raster, PFM, HDR, JPEG 2000:
+PNM, PAM, TIFF, WebP, GIF, Sun raster, PFM, HDR, JPEG 2000, AVIF:
 `data.image_io.read_image`), served by the `Predictor` on the card (or
 `--device cpu`), and written under its own name into `--output-dir` with
 the JAX demo's render (green box outlines and `class:score` labels, to
 cv2's pixels), encoded by its extension as cv2.imwrite encodes it
 (`data.image_io.write_image`): a BMP, PNM, TIFF, WebP, PFM, Sun raster,
-PAM, HDR, GIF or JPEG 2000 (.jp2) input gives a file of its own format
-(cv2's bytes for all but WebP; a .jp2 below 32 pixels on a side is cv2's
-77-byte file, as cv2 refuses it), and a .pgm or .pbm one gives none, as
-cv2 refuses to write a colour image there.
+PAM, HDR, GIF, JPEG 2000 (.jp2) or AVIF input gives a file of its own
+format (cv2's bytes for all but WebP and AVIF; a .jp2 below 32 pixels on
+a side is cv2's 77-byte file, as cv2 refuses it; an .avif at cv2's
+defaults, which write what its AVIF quality 50 writes: cv2's boxes and
+sequence header, the port's own tile, read back by cv2 to the port's
+pixels), and a .pgm or .pbm one gives none, as cv2 refuses to write a
+colour image there.
 
     python -m semi_detr_tpu_torch.tools.image_demo "images/*.jpg" CONFIG \
         --checkpoint CKPT.pth --output-dir viz/

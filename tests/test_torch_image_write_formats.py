@@ -9,7 +9,7 @@ against cv2.imwrite's bytes for the same colour picture.
   of cv2's file;
 * Sun raster: cv2's bytes, but for a picture of odd width the last row's
   pad byte, which cv2 takes from past its buffer;
-* .avif raises naming the format, "not ported" (.jp2, which the port
+* .avif is written by the host library's encoder (.jp2, which the port
   writes to cv2's bytes: test_torch_jp2_write.py).
 
 The demo's renders of inputs of these formats: test_torch_image_write.py.
@@ -79,6 +79,15 @@ def test_gif_full_table_and_ties(tmp_path):
 
 @pytest.mark.parametrize("name,fmt", [("a.AVIF", "AVIF")])
 def test_jp2_and_avif_not_ported(tmp_path, name, fmt):
-    with pytest.raises(ValueError, match=f"{fmt}.*not ported"):
-        image_io.write_image(str(tmp_path / name), picture("flat_1x1"))
-    assert not os.path.exists(str(tmp_path / name))
+    """.avif is written (the host library's encoder, cv2.imwrite's
+    defaults) and reads back through the port's decoder and cv2 to the
+    same pixels (test_torch_avif_write.py holds the rest)."""
+    path = str(tmp_path / name)
+    img = picture("flat_1x1")
+    assert image_io.write_image(path, img) == path
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data[4:12] == b"ftypavif", data[:16]
+    got = image_io.read_image(path)
+    ref = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    assert got.shape == img.shape and np.array_equal(got, ref[..., ::-1])

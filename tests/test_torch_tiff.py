@@ -13,8 +13,8 @@ libtiff's stride in clipped gray tiles; each is held to cv2.imread at max
 abs 0. Orientation 5-8 on a picture that is not square and layouts cv2
 refuses raise, as the JAX loader does; the variants once left out now
 decode (CCITT, CMYK, CIELab) or raise saying cv2 refuses them too (LZMA,
-ZSTD, WebP, old-style JPEG, float samples); damaged copies raise naming the
-file. The rest of the variants are in test_torch_tiff_variants.py and
+ZSTD, WebP, old-style JPEG, float samples); damaged copies cv2 refuses
+raise naming the file, and garbled strips cv2 reads read to its picture. The rest of the variants are in test_torch_tiff_variants.py and
 test_torch_tiff_tail.py.
 """
 import cv2
@@ -208,15 +208,19 @@ def test_not_ported_raise_naming_themselves(tag, value, what, expect,
     assert "cv2 refuses it too" in msg, msg
 
 
-def test_damaged_copies_raise_naming_the_file():
+def test_damaged_copies_raise_naming_the_file(tmp_path):
+    """Copies cv2 refuses raise naming the file; LZW and Deflate data
+    garbled inside a strip or tile, which cv2 reads (libtiff's RGBA reader
+    goes on with what the codec wrote), read to cv2's picture
+    (test_torch_tiff_damaged.py holds the rest)."""
     lzw = read("tiff_lzw_predictor.tif")
     check_damaged(lzw[:len(lzw) // 2], "tiff_truncated.tif", "TIFF")
     garbled = bytearray(lzw)
     garbled[8:40] = b"\xff" * 32  # codes past the table
-    check_damaged(bytes(garbled), "tiff_bad_lzw.tif", "LZW")
+    assert check_against_cv2(bytes(garbled), tmp_path, "tiff_bad_lzw.tif")
     deflate = bytearray(read("tiff_deflate_tiles.tif"))
     deflate[10:20] = b"\0" * 10
-    check_damaged(bytes(deflate), "tiff_bad_deflate.tif", "Deflate")
+    assert check_against_cv2(bytes(deflate), tmp_path, "tiff_bad_deflate.tif")
     jpeg = read("tiff_jpeg_ycbcr_tables.tif")
     check_damaged(jpeg[:200], "tiff_jpeg_cut.tif", "TIFF")
     check_damaged(b"II*\0\xff\xff\0\0", "tiff_bad_ifd.tif", "IFD")
