@@ -143,10 +143,15 @@ Phases (any failure exits non-zero):
    full range and monochrome, 8-12 bits, qualities 0-99, speeds 0-10:
    quantizer matrices, delta q, every transform size and intra type,
    deblocking, CDEF, loop restoration, intra block copy with its transform
-   trees, libyuv's bilinear chroma), each at
+   trees, libyuv's bilinear chroma), and what other writers and sizes give
+   (avif_tiles_*: Pillow's 2x2 tiles, cv2's 2x1 at 300x4200 and 256x4104;
+   avif_layout_*: Pillow's lossy 4:4:4 and 4:2:2 with CDEF, loop
+   restoration, palette and intra block copy, lossless 4:2:0 and 4:2:2;
+   avif_colr_*: limited range, BT.709, BT.2020, unspecified and
+   chromaticity-derived matrices), each at
    max abs 0, with the AV1 tool tally (every tool reached) and the
-   480x640 lossless and lossy files' decode ms on one core beside the
-   card's name and power limit; and
+   480x640 lossless and lossy files' and the several-tile files' decode ms
+   on one core beside the card's name and power limit; and
    damaged copies of each format (an HT file cut in half and one whose
    Scup runs past its cleanup segment among them)
    raise naming the file, but a TIFF of LZW codes garbled inside a strip,
@@ -167,7 +172,9 @@ Phases (any failure exits non-zero):
    and 65x129, the jp2w_*.png pictures, a render.json render: length and
    sha256), each read back by the library's decoder to the committed
    decode's sha256; encode ms of each (the 480x640 and 800x1344 ones
-   printed beside the card's name and power limit). Every
+   printed beside the card's name and power limit); and a 256x4104
+   picture, written in 2x1 tiles, read back to the encoder's
+   reconstruction, with its encode and decode ms. Every
    op equals its numpy plain version bit for bit on this host: a 480x640
    source resized to all 11 COCO scales, the six warps (translate x / y,
    rotate +-30, shear x / y) at 800x1066, the 81 colour op x magnitude
@@ -228,7 +235,8 @@ Phases (any failure exits non-zero):
    TIFF (LZW RGB and a 480x640 CIELab file), WebP, PGM, PFM, Sun raster,
    PAM, HDR, GIF, JPEG 2000 (a 480x640 .jp2, and a 480x640 .jp2 of
    high-throughput code-blocks) and AVIF (the 480x640 lossless and lossy
-   fixtures) with phase 7's SSOD checkpoint:
+   fixtures, and cv2's 256x4104 file of 2x1 tiles) with phase 7's SSOD
+   checkpoint:
    each render
    under its input's name in its input's format (no file for the .pgm, as
    cv2 writes none), reading back to the pixels drawn (the JPEG, HDR, GIF
@@ -236,9 +244,9 @@ Phases (any failure exits non-zero):
    levels, GIF on its table's steps, JPEG 2000 through the library's
    decoder at the render's size; the two .avif renders, written at
    cv2.imwrite's defaults, the library's encode of them read back at the
-   render's size, their PSNR against the render printed), 12 forward MSDA
-   launches per image
-   (192 in all, 16 inputs) and no backward
+   render's size, their PSNR against the render printed; the 256x4104
+   one's render in 2x1 tiles), 12 forward MSDA launches per image
+   (204 in all, 17 inputs) and no backward
    (the `demo` path). Printed: ms per image (save_result, draw and PNG
    write), ms per label and ms per label by route, the fallback font's
    inflate-and-parse ms and the rasterisation ms of the glyphs the cases
@@ -536,6 +544,13 @@ TRAINER_SCORE_THR = 0.0
 # defaults) phase 7a times and the trainer reads
 AVIF_FIXTURE = "avif_480x640.avif"
 AVIF_LOSSY_FIXTURE = "avif_lossy_480x640.avif"
+# the AVIF fixtures of other writers' chroma layouts and colour
+# descriptions and of several tiles; cv2's several-tile files (2x1 tiles,
+# wider than 4096), whose decodes phase 7a times, the second of which the
+# demo reads; the several-tile picture phase 7a's writer codes (2x1 tiles)
+AVIF_OTHER_PREFIXES = ("avif_tiles_", "avif_layout_", "avif_colr_")
+AVIF_TILE_FIXTURES = ("avif_tiles_300x4200.avif", "avif_tiles_256x4104.avif")
+AVIF_TILE_WRITE = (256, 4104)
 # one fixture of each format the JAX loader hands to cv2, among phase 7's
 # unlabelled and val images beside the JPEG and PNG ones
 TRAINER_CV2_FIXTURES = ("bmp_rle8.bmp", "pnm_p6_100.ppm",
@@ -562,7 +577,7 @@ RENDER_DEMO_INPUTS = ("colour_420.jpg", "bmp_24.bmp", "pnm_p6_100.ppm",
                       "pam_rgb16.pam", "hdr_rle.hdr", "other_gif.gif",
                       "j2k_480x640_lossless.jp2", "tiffx_cielab_480x640.tif",
                       HT_DEMO_FIXTURE, "avif_480x640.avif",
-                      "avif_lossy_480x640.avif")
+                      "avif_lossy_480x640.avif", AVIF_TILE_FIXTURES[1])
 RENDER_SIGNATURES = {"jpg": b"\xff\xd8", "bmp": b"BM", "ppm": b"P6",
                      "tif": b"II*\0", "webp": b"RIFF", "pfm": b"PF",
                      "ras": b"\x59\xa6\x6a\x95", "pam": b"P7",
@@ -1615,7 +1630,9 @@ def avif_summary(rows):
     limit."""
     avif = {n: r for n, r in rows.items() if n.startswith(("avif_", "other_avif"))}
     lossy = [n for n in avif if n.startswith(("avif_lossy_", "other_avif"))]
-    big = (AVIF_FIXTURE, AVIF_LOSSY_FIXTURE)
+    # several tiles, other writers' chroma layouts and colour descriptions
+    others = [n for n in avif if n.startswith(AVIF_OTHER_PREFIXES)]
+    big = (AVIF_FIXTURE, AVIF_LOSSY_FIXTURE) + AVIF_TILE_FIXTURES
     small = [r["ms"] for n, r in avif.items() if "ms" in r and n not in big]
     small_lossy = [avif[n]["ms"] for n in lossy if n not in big]
     tools = native.avif_tools()
@@ -1623,27 +1640,36 @@ def avif_summary(rows):
         r.get("max_abs") == 0 for r in avif.values()),
         lossy=len(lossy), lossy_max_abs_0=sum(
             avif[n].get("max_abs") == 0 for n in lossy),
+        others=len(others), others_max_abs_0=sum(
+            avif[n].get("max_abs") == 0 for n in others),
         raised=sum("raised" in r for r in avif.values()),
         small_mean_ms=float(np.mean(small)), small_max_ms=float(np.max(small)),
         small_lossy_mean_ms=float(np.mean(small_lossy)),
         small_lossy_max_ms=float(np.max(small_lossy)),
         ms_480x640=rows[AVIF_FIXTURE]["ms"],
-        lossy_ms_480x640=rows[AVIF_LOSSY_FIXTURE]["ms"], tools=tools)
+        lossy_ms_480x640=rows[AVIF_LOSSY_FIXTURE]["ms"],
+        tiles_ms={n: rows[n]["ms"] for n in AVIF_TILE_FIXTURES}, tools=tools)
     missed = [t for t, k in tools.items() if not k]
-    if out["max_abs_0"] + out["raised"] != len(avif) or len(avif) < 45 \
+    if out["max_abs_0"] + out["raised"] != len(avif) or len(avif) < 69 \
             or out["lossy_max_abs_0"] != len(lossy) or len(lossy) < 21 \
+            or out["others_max_abs_0"] != len(others) or len(others) < 24 \
             or missed:
         raise AssertionError(f"AVIF fixtures: {out}; tools not reached: "
                              f"{missed}")
     log(f"  AVIF (avif_*): {out['fixtures']} fixtures, {out['max_abs_0']} "
-        f"at max abs 0 ({out['lossy_max_abs_0']} of them lossy: 4:2:0 "
-        f"BT.601, monochrome, 8-12 bits, speeds 0-10, qualities 0-99), "
+        f"at max abs 0 ({out['lossy_max_abs_0']} of them cv2's lossy: "
+        f"4:2:0 BT.601, monochrome, 8-12 bits, speeds 0-10, qualities "
+        f"0-99; {out['others_max_abs_0']} of several tiles, lossy 4:4:4 and "
+        f"4:2:2, lossless 4:2:0 and 4:2:2, limited range, BT.709, BT.2020 "
+        f"and the matrices libavif maps to them), "
         f"{out['raised']} raised (a grid cv2 refuses); ms per decode "
         f"{out['small_mean_ms']:.3f} mean, {out['small_max_ms']:.3f} max "
         f"below 480x640 (lossy {out['small_lossy_mean_ms']:.3f} mean, "
         f"{out['small_lossy_max_ms']:.3f} max); at 480x640 the lossless "
         f"file {out['ms_480x640']:.3f} ms, the lossy one (cv2's defaults) "
-        f"{out['lossy_ms_480x640']:.3f} ms, on one core ({card_line()})")
+        f"{out['lossy_ms_480x640']:.3f} ms; several tiles " + ", ".join(
+            f"{n} {ms:.3f} ms" for n, ms in out["tiles_ms"].items()) +
+        f", on one core ({card_line()})")
     log("  AV1 tools decoded (blocks, or pictures): " + ", ".join(
         f"{t} {k}" for t, k in tools.items()))
     return out
@@ -1730,7 +1756,9 @@ def avif_writes():
     pictures; a render.json render) encoded once, held to the committed
     length and sha256 the sandbox's compiler wrote, and read back through
     the library's decoder to the committed decode's sha256; encode ms of
-    each (decode ms at the two photo sizes)."""
+    each (decode ms at the two photo sizes); and a picture wider than 4096
+    (AVIF_TILE_WRITE, 2x1 tiles), read back to the encoder's reconstruction,
+    its encode and decode ms."""
     with open(os.path.join(native.FIXTURES, "avif_writes.json")) as f:
         spec = json.load(f)
     rows, failures = {}, []
@@ -1759,6 +1787,27 @@ def avif_writes():
                                      if "decode_ms" in row else ""))
         if not (row["equal"] and row["decode_equal"]):
             failures.append(name)
+    # several tiles: the encoder's file read back to its reconstruction
+    # (the decoder's planes, counted as several tiles by the tally)
+    h, w = AVIF_TILE_WRITE
+    img = host_picture(h, w, 0)
+    t0 = time.perf_counter()
+    got, recon = native.avif_encode_planes(img)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    before = native.avif_tools()["tiles"]
+    t0 = time.perf_counter()
+    planes = native.avif_planes(got, "all")
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    row = rows[f"host_picture_{h}x{w}_tiles"] = dict(
+        hw=[h, w], bytes=len(got), encode_ms=encode_ms, decode_ms=decode_ms,
+        several_tiles=native.avif_tools()["tiles"] > before,
+        reads_back=all(np.array_equal(a, b) for a, b in zip(recon, planes)))
+    log(f"  avif write host_picture {h}x{w} (several tiles): {len(got)} "
+        f"bytes, several tiles {row['several_tiles']}, reads back to the "
+        f"encoder's reconstruction {row['reads_back']}; encode "
+        f"{encode_ms:.1f} ms, decode {decode_ms:.2f} ms ({card_line()})")
+    if not (row["several_tiles"] and row["reads_back"]):
+        failures.append(f"host_picture_{h}x{w}_tiles")
     if failures:
         raise AssertionError(f"avif write: not the sandbox's bytes or "
                              f"decode: {failures}")
@@ -2449,7 +2498,9 @@ def demo_run(trainer_dir, tmp, failures):
         img = drawn[name]
         if not buf.startswith(RENDER_SIGNATURES[ext]):
             failures.append(f"demo: {name} starts {buf[:4]!r}")
+        tiles_before = native.avif_tools()["tiles"]
         back = image_io.read_image(path)
+        several_tiles = native.avif_tools()["tiles"] > tiles_before
         if ext in RENDER_LOSSY:
             same = buf == RENDER_LOSSY[ext](img) and back.shape == img.shape
             if ext == "hdr":
@@ -2468,6 +2519,11 @@ def demo_run(trainer_dir, tmp, failures):
                            reads_back=same)
         if ext == "avif":
             files[name]["psnr_db"] = round(psnr_db(back, img), 4)
+            files[name]["several_tiles"] = several_tiles
+            if several_tiles != (name == AVIF_TILE_FIXTURES[1]):
+                failures.append(f"demo: {name}'s render of "
+                                f"{img.shape[1]} wide, several tiles "
+                                f"{several_tiles}")
     log(f"  image demo on {len(RENDER_DEMO_INPUTS)} inputs with phase 7's "
         f"checkpoint in {demo_s:.2f} s ({fwd} forward launches): {files}")
     return dict(s=demo_s, launches_fwd=fwd, files=files)

@@ -40,14 +40,16 @@ step.
   by the decoder of `av1_obu.cpp`, `av1_entropy.cpp`, `av1_intra.cpp`,
   `av1_recon.cpp`, `av1_transform.cpp`, `av1_loopfilter.cpp`,
   `av1_cdef.cpp` and `av1_restoration.cpp` with the tables of
-  `av1_tables.h`: lossless frames at 8, 10 and 12 bits, 4:4:4 or
-  monochrome, and lossy ones, 4:2:0 or monochrome, as cv2.imwrite writes
-  them at any quality, speed and depth, turned to RGB as cv2's libavif
-  turns BT.601 full-range YUV with libyuv; `avif_tools()` counts the
-  coding tools it decoded, `avif_planes()` gives the planes of each
-  in-loop filter stage). What cv2 reads and the port does not (AV1
-  segmentation, film grain, superres, several tiles, 4:2:2, other
-  matrices, limited range) raises naming it and "not ported";
+  `av1_tables.h`: lossless and lossy frames at 8, 10 and 12 bits, 4:4:4,
+  4:2:2, 4:2:0 or monochrome, of one tile or several, as cv2.imwrite
+  writes them at any quality, speed, depth and size and as other writers
+  such as Pillow write them, turned to RGB as cv2's libavif turns YUV with
+  libyuv: BT.601, BT.709, BT.2020 and the matrices libavif maps to them,
+  full or limited range; `avif_tools()` counts the coding tools it
+  decoded, `avif_planes()` gives the planes of each in-loop filter
+  stage). What cv2 reads and the port does not (AV1 segmentation, film
+  grain, superres, delta loop filter levels, the matrices libavif
+  converts without libyuv) raises naming it and "not ported";
   what cv2 refuses too (12-bit JPEG, 16-bit or gray lossless JPEG, TIFF
   orientation 5-8 on a picture that is not square, the TIFF compressions
   cv2's libtiff is built without: LZMA, ZSTD, WebP, old-style JPEG; float
@@ -82,10 +84,11 @@ step.
   scanlines) there too, cv2's bytes. AVIF as cv2.imwrite writes it with
   no parameters (what its quality 50 writes: 4:2:0 at base_q_idx 148 with
   cv2's chroma delta q, quantizer matrices, deblocking and CDEF;
-  `av1_encode.cpp`, `avif_encode_host.cpp`): cv2's boxes and sequence
-  header, a tile of the library's own (modes by SATD, partitions by rate
-  and distortion) written through the AV1 decoder's own syntax, which cv2
-  reads to the decoder's pixels.
+  `av1_encode.cpp`, `avif_encode_host.cpp`): cv2's boxes, sequence
+  header and tile layout (several tiles above 4096 wide or 2304
+  superblocks), tiles of the library's own (modes by SATD, partitions by
+  rate and distortion) written through the AV1 decoder's own syntax, which
+  cv2 reads to the decoder's pixels.
 * Pixels: `resize_bilinear` (half-pixel centres, the formula of the JAX
   package's `sdt_resize_bilinear`), `warp_affine`, and the colour ops'
   `histogram`, `apply_lut`, `gray`, `blend`, `smooth`, `solarize`,
@@ -179,13 +182,14 @@ FORMAT_ROUTES = {
             "fancy upsampling, the first frame of an animation, EXIF "
             "orientation)",
     "avif": "host AVIF (ISOBMFF items in mdat or idat, grids; AV1 key "
-            "frames at 8, 10 and 12 bits: lossless 4:4:4 or monochrome "
-            "(every intra predictor, palette, intra block copy, the 4x4 "
-            "Walsh-Hadamard transform) and lossy 4:2:0 or monochrome (the "
-            "quantizer with its matrices and delta q, every transform "
-            "size and intra type, deblocking, CDEF, loop restoration); "
-            "libavif's RGB as cv2 reads it, BT.601 through libyuv's "
-            "bilinear chroma)"}
+            "frames at 8, 10 and 12 bits, 4:4:4, 4:2:2, 4:2:0 or "
+            "monochrome, of one tile or several: lossless (every intra "
+            "predictor, palette, intra block copy, the 4x4 Walsh-Hadamard "
+            "transform) and lossy (the quantizer with its matrices and "
+            "delta q, every transform size and intra type, deblocking, "
+            "CDEF, loop restoration); libavif's RGB as cv2 reads it, "
+            "BT.601, BT.709 and BT.2020 at full or limited range through "
+            "libyuv's constants and chroma filters)"}
 # the colour handling of the host decoders
 COLOURS = ("gray, YCbCr (libjpeg jdcolor), RGB (none), CMYK and YCCK "
            "(cv2.imread's conversion and EXIF orientation); every sampling "

@@ -10,12 +10,11 @@
 // are those of the AV1 Bitstream & Decoding Process Specification; names
 // follow it.
 //
-// Key frames of one tile are decoded, lossless or lossy, at 8, 10 and 12
-// bits: 4:4:4 (lossless) or 4:2:0 (lossy, as cv2 writes it) or
-// monochrome, with intra block copy in either. What no committed fixture
-// reaches (segmentation, film grain, superres, several tiles, delta loop
-// filter levels, 4:2:2, lossy 4:4:4) raises "AVIF (cv2 reads it): ... not
-// ported".
+// Key frames of one tile or several are decoded, lossless or lossy, at 8,
+// 10 and 12 bits: 4:4:4, 4:2:2, 4:2:0 or monochrome, with intra block copy
+// in any of them. What no committed fixture reaches (segmentation, film
+// grain, superres, delta loop filter levels) raises "AVIF (cv2 reads it):
+// ... not ported".
 #pragma once
 
 #include <atomic>
@@ -61,6 +60,9 @@ enum Tool {
   kToolDeblock4, kToolCdef, kToolLrWiener, kToolLrSgrproj,
   kToolLrSwitchable, kToolBt601, kToolChromaUpsample, kToolVarTx,
   kToolTxTypeInter, kToolIntrabcSubpel,
+  // several tiles, the other chroma layouts and colour descriptions
+  kToolTiles, kToolChroma422, kToolLossy444, kToolLosslessSubsampled,
+  kToolLimitedRange, kToolBt709, kToolBt2020,
   kToolCount
 };
 extern const char* const kToolNames[kToolCount];
@@ -106,7 +108,7 @@ struct SequenceHeader {
   bool superres = false, enable_cdef = false, enable_restoration = false;
   int bit_depth = 8;
   bool mono = false;
-  int matrix = 2;
+  int primaries = 2, matrix = 2;
   bool full_range = false;
   int ssx = 0, ssy = 0;
   bool separate_uv_delta_q = false;
@@ -146,15 +148,27 @@ struct FrameHeader {
   bool tx_mode_select = false;  // read_tx_mode: else TX_MODE_LARGEST (or
                                 // ONLY_4X4 when lossless)
   bool reduced_tx_set = false;
+  // tile_info (5.9.15): TileCols, TileRows and their log2, MiColStarts and
+  // MiRowStarts (each with the frame's end last), context_update_tile_id
+  // and TileSizeBytes
+  int tile_cols = 1, tile_rows = 1, tile_cols_log2 = 0, tile_rows_log2 = 0;
+  std::vector<int> mi_col_starts, mi_row_starts;
+  int context_update_tile_id = 0, tile_size_bytes = 4;
+};
+
+// the bytes of one tile (5.11.1)
+struct Tile {
+  const uint8_t* data = nullptr;
+  long size = 0;
 };
 
 // One AV1 still picture of an AVIF item: the OBUs (its av1C config OBUs
-// first, then the item's data) parsed to headers and the tile data.
+// first, then the item's data) parsed to headers and each tile's data, in
+// tile order (raster order of the tile grid).
 struct Picture {
   SequenceHeader seq;
   FrameHeader frame;
-  const uint8_t* tile_data = nullptr;  // the tile group's tiles
-  long tile_size = 0;
+  std::vector<Tile> tiles;
 };
 // Parse a temporal unit (and the sequence header OBUs of av1C before it);
 // refuses what the decoder does not decode, fails on damage.
@@ -283,8 +297,8 @@ struct Planes {
   int width = 0, height = 0, bit_depth = 8, count = 3, ssx = 0, ssy = 0;
   std::vector<uint16_t> plane[3];
 };
-// Decode the picture's one tile (av1_intra.cpp, with av1_recon.cpp and
-// av1_transform.cpp), then the in-loop filters: deblocking, CDEF and loop
+// Decode the picture's tiles (av1_intra.cpp, with av1_recon.cpp and
+// av1_transform.cpp), then the in-loop filters over the whole frame: deblocking, CDEF and loop
 // restoration, each of which `filters` (a mask of kFilter*) may leave out
 // (the stages are held apart to a conformant decoder's).
 enum { kFilterDeblock = 1, kFilterCdef = 2, kFilterRestoration = 4,

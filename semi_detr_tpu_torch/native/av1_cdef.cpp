@@ -73,6 +73,11 @@ void direction(const std::vector<uint16_t>& src, int stride, int x0, int y0,
   *var = (best - cost[(best_dir + 4) & 7]) >> 10;
 }
 
+// Cdef_Uv_Dir: the chroma direction of a luma one, by subsampling x and y
+constexpr int kCdefUvDir[2][2][8] = {
+    {{0, 1, 2, 3, 4, 5, 6, 7}, {1, 2, 2, 2, 3, 4, 6, 0}},
+    {{7, 0, 2, 4, 5, 6, 6, 6}, {0, 1, 2, 3, 4, 5, 6, 7}}};
+
 int constrain(int diff, int threshold, int damping) {
   if (!threshold) return 0;
   const int adj = std::max(0, damping - floor_log2(threshold));
@@ -148,7 +153,7 @@ void cdef_frame(State& s) {
       if (s.planes > 1) {
         pri = fh.cdef_uv_pri[idx] << shift;
         sec = fh.cdef_uv_sec[idx] << shift;
-        dir = pri ? y_dir : 0;  // Cdef_Uv_Dir keeps it at 4:2:0
+        dir = pri ? kCdefUvDir[s.ssx][s.ssy][y_dir] : 0;
         damping = fh.cdef_damping + shift - 1;
         if (pri || sec)
           for (int p = 1; p < 3; p++) filter_block(s, src[p], p, r, c, pri, sec, damping, dir);

@@ -16,7 +16,13 @@
 //   1) and CDEF of one strength (damping 5, luma 2 / 1, chroma 0 / 0), as
 //   cv2 writes them; TX_MODE_LARGEST; delta q per superblock in steps of
 //   4, each superblock's qindex by libaom's variance boost.
-// * The tile: partitions from 64x64 down to 8x8 (split at the frame's
+// * Tiles as libaom lays them out: uniform spacing, the fewest the limits
+//   allow (at most 64 superblocks across and 2304 in all: 2x1 above 4096
+//   wide, 1x2 for a 12 MP photo), one frame OBU of one tile group;
+//   context_update_tile_id the largest tile, TileSizeBytes the fewest that
+//   hold its size (as cv2's files show). Each tile is searched and written
+//   from its own start (CDFs, contexts, qindex), as the decoder reads it.
+// * Each tile: partitions from 64x64 down to 8x8 (split at the frame's
 //   edges), each block's luma mode, then its chroma mode, the one of least
 //   SATD plus the symbol's cost, DCT_DCT throughout; a block coded whole
 //   is held against its four quarters by rate (the symbols' costs at the
@@ -598,7 +604,14 @@ class Av1Encoder : public Encoder {
 
 // ------------------------------------------------------------ headers
 
-// cv2's frame: its quantizer, loop filter and CDEF (see the file's head)
+int tile_log2(int blk, int target) {
+  int k = 0;
+  while ((blk << k) < target) k++;
+  return k;
+}
+
+// cv2's frame: its quantizer, loop filter, CDEF and tiles (see the file's
+// head)
 void frame_params(int w, int h, FrameHeader* fh) {
   fh->width = w;
   fh->height = h;
@@ -624,6 +637,23 @@ void frame_params(int w, int h, FrameHeader* fh) {
   fh->cdef_uv_sec[0] = 0;
   fh->tx_mode_select = false;
   fh->reduced_tx_set = false;
+  // tile_info as libaom writes it: uniform spacing, the fewest tiles
+  // MaxTileWidthSb (64) and MaxTileAreaSb (2304) allow
+  const int sb_cols = (fh->mi_cols + 15) >> 4, sb_rows = (fh->mi_rows + 15) >> 4;
+  const int min_cols = tile_log2(64, sb_cols);
+  const int min_tiles = std::max(min_cols, tile_log2(2304, sb_rows * sb_cols));
+  fh->tile_cols_log2 = min_cols;
+  fh->tile_rows_log2 = std::max(min_tiles - min_cols, 0);
+  const int tw = (sb_cols + (1 << fh->tile_cols_log2) - 1) >> fh->tile_cols_log2;
+  const int th = (sb_rows + (1 << fh->tile_rows_log2) - 1) >> fh->tile_rows_log2;
+  fh->mi_col_starts.clear();
+  fh->mi_row_starts.clear();
+  for (int start = 0; start < sb_cols; start += tw) fh->mi_col_starts.push_back(start << 4);
+  for (int start = 0; start < sb_rows; start += th) fh->mi_row_starts.push_back(start << 4);
+  fh->tile_cols = static_cast<int>(fh->mi_col_starts.size());
+  fh->tile_rows = static_cast<int>(fh->mi_row_starts.size());
+  fh->mi_col_starts.push_back(fh->mi_cols);
+  fh->mi_row_starts.push_back(fh->mi_rows);
 }
 
 void sequence_params(int w, int h, SequenceHeader* s) {
@@ -675,28 +705,22 @@ std::vector<uint8_t> sequence_header(const SequenceHeader& s) {
   return b.out;
 }
 
-int tile_log2(int blk, int target) {
-  int k = 0;
-  while ((blk << k) < target) k++;
-  return k;
-}
-
 // the uncompressed header of the key frame, byte-aligned (a frame OBU's
-// header, its one tile following)
+// header, its tile group following)
 std::vector<uint8_t> frame_header(const FrameHeader& fh) {
   BitWriter b;
   b.f(1, 0);  // disable_cdf_update
   b.f(1, 0);  // allow_screen_content_tools
   b.f(1, 0);  // render_and_frame_size_different
-  // tile_info: uniform spacing, the fewest tiles (one)
+  // tile_info: uniform spacing at frame_params' log2 sizes, no increment
   const int sb_cols = (fh.mi_cols + 15) >> 4, sb_rows = (fh.mi_rows + 15) >> 4;
   b.f(1, 1);
-  const int min_cols = tile_log2(64, sb_cols);
-  const int max_cols = tile_log2(1, std::min(sb_cols, 64));
-  if (min_cols < max_cols) b.f(1, 0);
-  const int min_tiles = std::max(min_cols, tile_log2(4096 * 2304 >> 12, sb_rows * sb_cols));
-  const int rows_log2 = std::max(min_tiles - min_cols, 0);
-  if (rows_log2 < tile_log2(1, std::min(sb_rows, 64))) b.f(1, 0);
+  if (fh.tile_cols_log2 < tile_log2(1, std::min(sb_cols, 64))) b.f(1, 0);
+  if (fh.tile_rows_log2 < tile_log2(1, std::min(sb_rows, 64))) b.f(1, 0);
+  if (fh.tile_cols_log2 || fh.tile_rows_log2) {
+    b.f(fh.tile_cols_log2 + fh.tile_rows_log2, fh.context_update_tile_id);
+    b.f(2, fh.tile_size_bytes - 1);
+  }
   b.f(8, fh.base_q_idx);
   b.f(1, 0);  // DeltaQYDc
   for (int i = 1; i < 3; i++) {  // DeltaQUDc, DeltaQUAc
@@ -730,13 +754,6 @@ std::vector<uint8_t> frame_header(const FrameHeader& fh) {
 
 void encode_picture(const uint8_t* rgb, int h, int w, std::vector<uint8_t>* obus,
                     Planes* recon) {
-  // one tile: at most 64 superblocks across (MaxTileWidthSb) and 2304 in
-  // all (MaxTileAreaSb), as frame_header's tile_info counts them
-  const long sb_cols = (w + 63) >> 6, sb_rows = (h + 63) >> 6;
-  if (sb_cols > 64 || sb_cols * sb_rows > 2304)
-    throw Failure{kUnsupported,
-                  "AVIF encode of a picture wider than 4096 or of more than 2304 "
-                  "superblocks of 64x64 (several tiles): not ported"};
   struct TallyOff {  // the decoder's code counts nothing while it encodes
     bool was = t_tally;
     TallyOff() { t_tally = false; }
@@ -748,48 +765,75 @@ void encode_picture(const uint8_t* rgb, int h, int w, std::vector<uint8_t>* obus
   frame_params(w, h, &fh);
   std::unique_ptr<State> owner(new State());
   State& s = *owner;
-  init_tile(s, seq, fh);
+  init_frame(s, seq, fh);
   Source src;
   to_yuv(rgb, h, w, s, &src);
   Av1Encoder enc(s, src);
-  // the search, counting, leaves its decisions in enc
+  const int num_tiles = fh.tile_cols * fh.tile_rows;
+  // the search, counting, leaves its decisions in enc; each tile from its
+  // own start, as the decoder takes it
   SymbolWriter counter;
   counter.init(false, true);
   s.sw = &counter;
   s.enc = &enc;
-  for (int r = 0; r < s.mi_rows; r += s.sb4) {
-    start_sb_row(s);
-    for (int c = 0; c < s.mi_cols; c += s.sb4) {
-      start_superblock(s, r, c);
-      enc.start(r, c);
-      enc.search_superblock(r, c);
+  for (int tile = 0; tile < num_tiles; tile++) {
+    start_tile(s, tile);
+    for (int r = s.mi_row_start; r < s.mi_row_end; r += s.sb4) {
+      start_sb_row(s);
+      for (int c = s.mi_col_start; c < s.mi_col_end; c += s.sb4) {
+        start_superblock(s, r, c);
+        enc.start(r, c);
+        enc.search_superblock(r, c);
+      }
     }
   }
-  // the tile written from a fresh state by the same decisions
+  // each tile written from a fresh state by the same decisions, with its
+  // own symbol writer
   std::unique_ptr<State> fresh(new State());
   State& t = *fresh;
-  init_tile(t, seq, fh);
-  SymbolWriter writer;
-  writer.init(fh.disable_cdf_update, false);
-  t.sw = &writer;
+  init_frame(t, seq, fh);
   t.enc = &enc;
-  for (int r = 0; r < t.mi_rows; r += t.sb4) {
-    start_sb_row(t);
-    for (int c = 0; c < t.mi_cols; c += t.sb4) {
-      start_superblock(t, r, c);
-      code_partition(t, r, c, t.sb_size);
+  std::vector<std::vector<uint8_t>> tiles(num_tiles);
+  for (int tile = 0; tile < num_tiles; tile++) {
+    start_tile(t, tile);
+    SymbolWriter writer;
+    writer.init(fh.disable_cdf_update, false);
+    t.sw = &writer;
+    for (int r = t.mi_row_start; r < t.mi_row_end; r += t.sb4) {
+      start_sb_row(t);
+      for (int c = t.mi_col_start; c < t.mi_col_end; c += t.sb4) {
+        start_superblock(t, r, c);
+        code_partition(t, r, c, t.sb_size);
+      }
     }
+    tiles[tile] = writer.finish();
   }
-  std::vector<uint8_t> tile = writer.finish();
   t.sw = nullptr;
   t.enc = nullptr;
   filter_frame(t, kFiltersAll);
   if (recon) take_planes(t, recon);
+  // libaom's tile sizes: context_update_tile_id the (first) largest tile,
+  // TileSizeBytes the fewest bytes that hold the largest tile's size
+  size_t largest = 0;
+  for (int tile = 0; tile < num_tiles; tile++)
+    if (tiles[tile].size() > largest) {
+      largest = tiles[tile].size();
+      fh.context_update_tile_id = tile;
+    }
+  fh.tile_size_bytes = largest >> 24 ? 4 : largest >> 16 ? 3 : largest >> 8 ? 2 : 1;
   obus->clear();
   obu(obus, 2, {});  // temporal delimiter
   obu(obus, 1, sequence_header(seq));
   std::vector<uint8_t> frame = frame_header(fh);
-  frame.insert(frame.end(), tile.begin(), tile.end());
+  if (num_tiles > 1) {  // tile_start_and_end_present_flag 0, byte-aligned
+    frame.push_back(0);
+  }
+  for (int tile = 0; tile < num_tiles; tile++) {
+    if (tile != num_tiles - 1)
+      for (int i = 0; i < fh.tile_size_bytes; i++)
+        frame.push_back(static_cast<uint8_t>((tiles[tile].size() - 1) >> (8 * i)));
+    frame.insert(frame.end(), tiles[tile].begin(), tiles[tile].end());
+  }
   obu(obus, 6, frame);
 }
 

@@ -31,7 +31,8 @@ const char* const kToolNames[kToolCount] = {
     "eob_long", "deblock", "deblock_14", "deblock_6", "deblock_8",
     "deblock_4", "cdef", "lr_wiener", "lr_sgrproj",
     "lr_switchable", "bt601", "chroma_upsample", "var_tx", "tx_type_inter",
-    "intrabc_subpel"};
+    "intrabc_subpel", "tiles", "chroma_422", "lossy_444",
+    "lossless_subsampled", "limited_range", "bt709", "bt2020"};
 std::atomic<long> g_tally[kToolCount];
 thread_local bool t_tally = true;
 

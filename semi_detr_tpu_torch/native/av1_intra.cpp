@@ -1357,7 +1357,7 @@ void clear_block_decoded(State& s, int r, int c) {
 
 }  // namespace
 
-void init_tile(State& s, const SequenceHeader& seq, const FrameHeader& fh) {
+void init_frame(State& s, const SequenceHeader& seq, const FrameHeader& fh) {
   s.seq = &seq;
   s.fh = &fh;
   s.mi_rows = fh.mi_rows;
@@ -1372,7 +1372,10 @@ void init_tile(State& s, const SequenceHeader& seq, const FrameHeader& fh) {
   count(seq.bit_depth == 8 ? kToolDepth8 : seq.bit_depth == 10 ? kToolDepth10 : kToolDepth12);
   if (seq.mono) count(kToolMonochrome);
   if (!fh.lossless) count(kToolLossy);
-  if (s.ssx) count(kToolChroma420);
+  if (s.ssx && s.ssy) count(kToolChroma420);
+  if (s.ssx && !s.ssy) count(kToolChroma422);
+  if (s.planes > 1 && !s.ssx && !fh.lossless) count(kToolLossy444);
+  if (s.ssx && fh.lossless) count(kToolLosslessSubsampled);
   if (fh.using_qmatrix && !fh.lossless) count(kToolQmatrix);
   const int sb_px = s.sb4 * 4;
   const int luma_stride = (s.mi_cols * 4 + sb_px - 1) / sb_px * sb_px;
@@ -1399,16 +1402,28 @@ void init_tile(State& s, const SequenceHeader& seq, const FrameHeader& fh) {
     s.lr_rows[p] = lr_units(unit, ph);
     s.lr_cols[p] = lr_units(unit, pw);
     s.lr[p].assign(static_cast<size_t>(s.lr_rows[p]) * s.lr_cols[p], LrUnit());
+  }
+  s.mi.assign(static_cast<size_t>(s.mi_rows) * s.mi_cols, MiInfo());
+}
+
+void start_tile(State& s, int tile) {
+  const FrameHeader& fh = *s.fh;
+  const int row = tile / fh.tile_cols, col = tile % fh.tile_cols;
+  s.mi_row_start = fh.mi_row_starts[row];
+  s.mi_row_end = fh.mi_row_starts[row + 1];
+  s.mi_col_start = fh.mi_col_starts[col];
+  s.mi_col_end = fh.mi_col_starts[col + 1];
+  // decode_tile: the above contexts cleared, the loop restoration
+  // references at their middles; init_symbol: the frame's CDFs;
+  // CurrentQIndex at the frame's
+  for (int p = 0; p < s.planes; p++) {
+    std::fill(s.above_level[p].begin(), s.above_level[p].end(), 0);
+    std::fill(s.above_dc[p].begin(), s.above_dc[p].end(), 0);
     for (int pass = 0; pass < 2; pass++)
       for (int j = 0; j < 3; j++) s.ref_lr_wiener[p][pass][j] = kWienerTapsMid[j];
     s.ref_sgr_xqd[p][0] = kSgrprojXqdMid[0];
     s.ref_sgr_xqd[p][1] = kSgrprojXqdMid[1];
   }
-  s.mi.assign(static_cast<size_t>(s.mi_rows) * s.mi_cols, MiInfo());
-  s.mi_row_start = 0;
-  s.mi_row_end = s.mi_rows;
-  s.mi_col_start = 0;
-  s.mi_col_end = s.mi_cols;
   s.current_qindex = fh.base_q_idx;
   init_cdfs(&s.cdf, fh.base_q_idx);
 }
@@ -1458,24 +1473,21 @@ void take_planes(State& s, Planes* out) {
 void decode_picture(const Picture& pic, Planes* out, int filters) {
   const SequenceHeader& seq = pic.seq;
   const FrameHeader& fh = pic.frame;
-  if (!seq.mono && seq.ssx != seq.ssy)
-    not_ported("AV1 with 4:2:2 chroma");
-  if (!seq.mono && fh.lossless && seq.ssx)
-    not_ported("lossless AV1 with subsampled chroma (4:2:0)");
-  if (!seq.mono && !fh.lossless && !seq.ssx)
-    not_ported("lossy AV1 with full-resolution chroma (4:4:4)");
   std::unique_ptr<State> owner(new State());
   State& s = *owner;
-  init_tile(s, seq, fh);
-  s.sr.init(pic.tile_data, pic.tile_size, fh.disable_cdf_update);
-  for (int r = 0; r < s.mi_rows; r += s.sb4) {
-    start_sb_row(s);
-    for (int c = 0; c < s.mi_cols; c += s.sb4) {
-      start_superblock(s, r, c);
-      read_lr(s, r, c);
-      code_partition(s, r, c, s.sb_size);
-      if (s.sr.overrun())
-        corrupt("AV1 tile data ends before its last superblock");
+  init_frame(s, seq, fh);
+  for (size_t t = 0; t < pic.tiles.size(); t++) {
+    start_tile(s, static_cast<int>(t));
+    s.sr.init(pic.tiles[t].data, pic.tiles[t].size, fh.disable_cdf_update);
+    for (int r = s.mi_row_start; r < s.mi_row_end; r += s.sb4) {
+      start_sb_row(s);
+      for (int c = s.mi_col_start; c < s.mi_col_end; c += s.sb4) {
+        start_superblock(s, r, c);
+        read_lr(s, r, c);
+        code_partition(s, r, c, s.sb_size);
+        if (s.sr.overrun())
+          corrupt("AV1 tile " + std::to_string(t) + " data ends before its last superblock");
+      }
     }
   }
   filter_frame(s, filters);

@@ -3,10 +3,12 @@
 // the quantizer with its matrices and per-superblock deltas, the loop
 // filter, CDEF and loop restoration parameters, the transform mode. What
 // no committed fixture reaches (another frame type, superres, film grain,
-// segmentation, several tiles, delta loop filter levels) is refused, each
-// naming itself.
+// segmentation, delta loop filter levels) is refused, each naming itself.
+// The tile groups of a frame OBU, or of tile group OBUs after a frame
+// header OBU, give each tile's data.
 #include <algorithm>
 #include <string>
+#include <vector>
 
 #include "av1.h"
 
@@ -83,7 +85,8 @@ void sequence_header(BitReader& r, SequenceHeader* s) {
   else
     s->bit_depth = high ? 10 : 8;
   s->mono = s->profile == 1 ? false : static_cast<bool>(r.f(1));
-  int primaries = 2, transfer = 2;
+  int& primaries = s->primaries;
+  int transfer = 2;
   if (r.f(1)) {
     primaries = r.f(8);
     transfer = r.f(8);
@@ -165,7 +168,7 @@ void frame_header(BitReader& r, const SequenceHeader& s, FrameHeader* fh) {
   if (fh->screen_content) fh->intrabc = r.f(1);  // UpscaledWidth == FrameWidth
   // disable_frame_end_update_cdf, when read, changes nothing of one frame
   if (!s.reduced && !fh->disable_cdf_update) r.f(1);
-  // tile_info (5.9.15): one tile is decoded
+  // tile_info (5.9.15)
   const int sb_shift = s.sb128 ? 5 : 4;
   const int sb_cols = s.sb128 ? (fh->mi_cols + 31) >> 5 : (fh->mi_cols + 15) >> 4;
   const int sb_rows = s.sb128 ? (fh->mi_rows + 31) >> 5 : (fh->mi_rows + 15) >> 4;
@@ -177,19 +180,23 @@ void frame_header(BitReader& r, const SequenceHeader& s, FrameHeader* fh) {
   const int max_log2_rows = tile_log2(1, std::min(sb_rows, 64));
   const int min_log2_tiles =
       std::max(min_log2_cols, tile_log2(max_tile_area_sb, sb_rows * sb_cols));
-  int tile_cols = 0, tile_rows = 0;
+  std::vector<int>& cols = fh->mi_col_starts;
+  std::vector<int>& rows = fh->mi_row_starts;
   if (r.f(1)) {  // uniform_tile_spacing_flag
     int cols_log2 = min_log2_cols;
     while (cols_log2 < max_log2_cols && r.f(1)) cols_log2++;
     const int w = (sb_cols + (1 << cols_log2) - 1) >> cols_log2;
-    tile_cols = (sb_cols + w - 1) / w;
+    for (int start = 0; start < sb_cols; start += w) cols.push_back(start << sb_shift);
     int rows_log2 = std::max(min_log2_tiles - cols_log2, 0);
     while (rows_log2 < max_log2_rows && r.f(1)) rows_log2++;
     const int h = (sb_rows + (1 << rows_log2) - 1) >> rows_log2;
-    tile_rows = (sb_rows + h - 1) / h;
+    for (int start = 0; start < sb_rows; start += h) rows.push_back(start << sb_shift);
+    fh->tile_cols_log2 = cols_log2;
+    fh->tile_rows_log2 = rows_log2;
   } else {
     int widest = 0;
-    for (int start = 0; start < sb_cols; tile_cols++) {
+    for (int start = 0; start < sb_cols;) {
+      cols.push_back(start << sb_shift);
       const int size =
           static_cast<int>(r.ns(std::min(sb_cols - start, max_tile_width_sb))) + 1;
       widest = std::max(widest, size);
@@ -199,12 +206,24 @@ void frame_header(BitReader& r, const SequenceHeader& s, FrameHeader* fh) {
                            ? (sb_rows * sb_cols) >> (min_log2_tiles + 1)
                            : sb_rows * sb_cols;
     const int max_h = std::max(max_tile_area_sb / widest, 1);
-    for (int start = 0; start < sb_rows; tile_rows++)
+    for (int start = 0; start < sb_rows;) {
+      rows.push_back(start << sb_shift);
       start += static_cast<int>(r.ns(std::min(sb_rows - start, max_h))) + 1;
+    }
+    fh->tile_cols_log2 = tile_log2(1, static_cast<int>(cols.size()));
+    fh->tile_rows_log2 = tile_log2(1, static_cast<int>(rows.size()));
   }
-  if (tile_cols * tile_rows > 1)
-    not_ported("AV1 frames of several tiles (" + std::to_string(tile_cols) +
-               "x" + std::to_string(tile_rows) + ")");
+  fh->tile_cols = static_cast<int>(cols.size());
+  fh->tile_rows = static_cast<int>(rows.size());
+  cols.push_back(fh->mi_cols);
+  rows.push_back(fh->mi_rows);
+  if (fh->tile_cols_log2 > 0 || fh->tile_rows_log2 > 0) {
+    fh->context_update_tile_id = r.f(fh->tile_rows_log2 + fh->tile_cols_log2);
+    fh->tile_size_bytes = r.f(2) + 1;
+    if (fh->context_update_tile_id >= fh->tile_cols * fh->tile_rows)
+      corrupt("AV1 context_update_tile_id " + std::to_string(fh->context_update_tile_id) +
+              " of " + std::to_string(fh->tile_cols * fh->tile_rows) + " tiles");
+  }
   // quantization_params (5.9.12)
   fh->base_q_idx = r.f(8);
   int* dq = fh->delta_q;  // y dc, u dc, u ac, v dc, v ac
@@ -311,6 +330,47 @@ void frame_header(BitReader& r, const SequenceHeader& s, FrameHeader* fh) {
 
 }  // namespace
 
+namespace {
+
+// tile_group_obu (5.11.1): the tiles of the group, each at its tile
+// number in pic->tiles
+void tile_group(const uint8_t* d, long n, Picture* pic) {
+  const FrameHeader& fh = pic->frame;
+  const int num_tiles = fh.tile_cols * fh.tile_rows;
+  BitReader r(d, n);
+  int start = 0, end = num_tiles - 1;
+  if (num_tiles > 1 && r.f(1)) {  // tile_start_and_end_present_flag
+    const int bits = fh.tile_cols_log2 + fh.tile_rows_log2;
+    start = r.f(bits);
+    end = r.f(bits);
+  }
+  r.byte_align();
+  long p = r.bytes_read();
+  if (start > end || end >= num_tiles)
+    corrupt("AV1 tile group of tiles " + std::to_string(start) + " to " +
+            std::to_string(end) + " of " + std::to_string(num_tiles));
+  for (int t = start; t <= end; t++) {
+    if (pic->tiles[t].data) corrupt("AV1 tile " + std::to_string(t) + " given twice");
+    long size = n - p;
+    if (t != end) {
+      if (n - p < fh.tile_size_bytes)
+        corrupt("AV1 tile group ends in tile " + std::to_string(t) + "'s size");
+      size = 0;
+      for (int i = 0; i < fh.tile_size_bytes; i++) size |= long{d[p + i]} << (8 * i);
+      size += 1;
+      p += fh.tile_size_bytes;
+      if (size > n - p)
+        corrupt("AV1 tile " + std::to_string(t) + " of " + std::to_string(size) +
+                " bytes runs past its tile group (" + std::to_string(n - p) + " left)");
+    }
+    if (size <= 0) corrupt("AV1 tile " + std::to_string(t) + " of no bytes");
+    pic->tiles[t] = Tile{d + p, size};
+    p += size;
+  }
+}
+
+}  // namespace
+
 void parse_obus(const uint8_t* config, long config_len, const uint8_t* data,
                 long len, Picture* pic) {
   bool have_seq = false, have_frame = false;
@@ -353,17 +413,14 @@ void parse_obus(const uint8_t* config, long config_len, const uint8_t* data,
         BitReader r(body, static_cast<long>(size));
         frame_header(r, pic->seq, &pic->frame);
         have_frame = true;
+        pic->tiles.assign(pic->frame.tile_cols * pic->frame.tile_rows, Tile());
         if (type == 6) {
           r.byte_align();
-          pic->tile_data = body + r.bytes_read();
-          pic->tile_size = static_cast<long>(size) - r.bytes_read();
+          tile_group(body + r.bytes_read(), static_cast<long>(size) - r.bytes_read(), pic);
         }
       } else if (type == 4) {
-        if (!have_frame || pic->tile_data)
-          corrupt("AV1 tile group without its frame header");
-        // one tile: no tile_start_and_end_present_flag, no alignment bits
-        pic->tile_data = body;
-        pic->tile_size = static_cast<long>(size);
+        if (!have_frame) corrupt("AV1 tile group without its frame header");
+        tile_group(body, static_cast<long>(size), pic);
       } else if (type == 2 || type == 5 || type == 15) {
         // temporal delimiter, metadata, padding
       } else if (type == 7) {
@@ -374,8 +431,12 @@ void parse_obus(const uint8_t* config, long config_len, const uint8_t* data,
     }
   }
   if (!have_seq) corrupt("AV1 item without a sequence header");
-  if (!pic->tile_data) corrupt("AV1 item without tile data");
-  if (pic->tile_size <= 0) corrupt("AV1 tile group of no bytes");
+  if (!have_frame) corrupt("AV1 item without tile data");
+  for (size_t t = 0; t < pic->tiles.size(); t++)
+    if (!pic->tiles[t].data)
+      corrupt("AV1 item without tile " + std::to_string(t) + " of " +
+              std::to_string(pic->tiles.size()));
+  if (pic->tiles.size() > 1) count(kToolTiles);
 }
 
 }  // namespace av1

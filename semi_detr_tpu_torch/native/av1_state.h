@@ -1,4 +1,4 @@
-// The state of one tile's decode, shared by av1_intra.cpp (the syntax:
+// The state of a frame's decode, tile by tile, shared by av1_intra.cpp (the syntax:
 // partitions, mode info, palette, intra block copy, transform sizes and
 // types, coefficients), av1_recon.cpp (prediction), av1_transform.cpp
 // (dequantisation and the inverse transforms) and the in-loop filters
@@ -143,9 +143,11 @@ void predict_cfl(State& s, int plane, int start_x, int start_y, int tx);
 void predict_intrabc(State& s);
 
 // av1_intra.cpp: the tile syntax, for the encoder too
-// the state of a tile of the frame the headers describe, before its first
-// superblock (the CDFs at the frame's quantizer)
-void init_tile(State& s, const SequenceHeader& seq, const FrameHeader& fh);
+// the state of the frame the headers describe, before its first tile;
+// then the tile of that number (raster order) starts: its bounds, the
+// CDFs at the frame's quantizer, the above contexts cleared
+void init_frame(State& s, const SequenceHeader& seq, const FrameHeader& fh);
+void start_tile(State& s, int tile);
 // a row of superblocks starts (the left contexts cleared), a superblock
 // starts (its BlockDecoded), and one is coded whole
 void start_sb_row(State& s);

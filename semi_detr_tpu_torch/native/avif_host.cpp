@@ -5,9 +5,11 @@
 // and ipma; the properties ispe, pixi, av1C with its config OBUs, colr
 // nclx and ICC, auxC), the primary item decoded by the AV1 decoder of
 // av1_*.cpp (an av01 item, or a grid of them), and the planes turned into
-// 8-bit RGB as cv2 turns them: the identity matrix's planes G, B, R; a
-// monochrome plane repeated; 10 and 12 bits scaled as libavif (colour) and
-// cv2 (gray) scale them. The alpha item is not decoded: IMREAD_COLOR drops
+// 8-bit RGB as cv2 turns them: YUV through libyuv's constants and chroma
+// filters (BT.601, BT.709 and BT.2020, full or limited range, at 4:4:4,
+// 4:2:2 and 4:2:0); the identity matrix's planes G, B, R; a monochrome
+// plane repeated; 10 and 12 bits scaled as libavif (colour) and cv2 (gray)
+// scale them. The alpha item is not decoded: IMREAD_COLOR drops
 // it.
 #include <algorithm>
 #include <cstring>
@@ -283,28 +285,68 @@ Avif parse_file(const uint8_t* d, long n) {
   return a;
 }
 
+// libyuv's YuvConstants (row_common.cc, named as there) of a matrix and
+// range: the luma scale and bias (yg, yb) and the chroma weights (ub, ug,
+// vg, vr) in 1/64: JPEG and I601 BT.601 full and limited range, F709 and
+// H709 BT.709, V2020 and 2020 BT.2020. The limited-range ub is cut to 128
+// (libyuv built without LIBYUV_UNLIMITED_DATA, as cv2's is).
+struct YuvConstants {
+  int yg, yb, ub, ug, vg, vr;
+};
+constexpr YuvConstants kYuvJPEG = {16320, 32, 113, 22, 46, 90};
+constexpr YuvConstants kYuvI601 = {18997, -1160, 128, 25, 52, 102};
+constexpr YuvConstants kYuvF709 = {16320, 32, 119, 12, 30, 101};
+constexpr YuvConstants kYuvH709 = {18997, -1160, 128, 14, 34, 115};
+constexpr YuvConstants kYuvV2020 = {16320, 32, 120, 11, 37, 94};
+constexpr YuvConstants kYuv2020 = {19003, -1160, 128, 12, 42, 107};
+
 // the colour description libavif uses: the nclx colr box if there is one,
-// else the sequence header's. Returns true for the BT.601 matrix of cv2's
-// lossy files (5 or 6, full range), false for the identity matrix (or a
-// monochrome plane).
-bool check_colour(const Avif& a, const Item& it, const av1::SequenceHeader& seq) {
-  int matrix = seq.matrix;
+// else the sequence header's. libavif hands BT.601 (5, 6, and 2,
+// unspecified), BT.709 (1) and BT.2020 NCL (9), full or limited range, to
+// libyuv, and chromaticity-derived NCL (12) by its primaries; a monochrome
+// plane reaches cv2 as gray, whatever its range. Returns the constants of
+// the YUV conversion, or null for the identity matrix's planes G, B, R or a
+// monochrome plane.
+const YuvConstants* check_colour(const Avif& a, const Item& it, const av1::SequenceHeader& seq) {
+  int matrix = seq.matrix, primaries = seq.primaries;
   bool full = seq.full_range;
   for (uint32_t i : it.props) {
     if (i < 1 || i > a.props.size()) continue;
     const Property& p = a.props[i - 1];
     if (p.type == fourcc("colr") && p.size >= 11 && be(p.body, 4) == fourcc("nclx")) {
+      primaries = be(p.body + 4, 2);
       matrix = be(p.body + 8, 2);
       full = p.body[10] >> 7;
     }
   }
-  if (!full) not_ported("AVIF limited-range samples");
-  if (seq.mono || matrix == 0) return false;
-  if (matrix != 5 && matrix != 6)
-    not_ported("AVIF YUV to RGB (matrix_coefficients " + std::to_string(matrix) + ")");
-  if (!seq.ssx || !seq.ssy)
-    not_ported("AVIF BT.601 YUV to RGB of full-resolution chroma");
-  return true;
+  if (seq.mono) return nullptr;
+  if (!full) av1::count(av1::kToolLimitedRange);
+  if (matrix == 0) {
+    if (!full) not_ported("AVIF limited-range samples of the identity matrix");
+    return nullptr;
+  }
+  if (matrix == 12) {  // by the primaries, as libavif picks libyuv's
+    if (primaries == 1 || primaries == 2) matrix = 1;
+    else if (primaries == 5 || primaries == 6) matrix = 6;
+    else if (primaries == 9) matrix = 9;
+  }
+  const YuvConstants* yuv = nullptr;
+  if (matrix == 2 || matrix == 5 || matrix == 6) {
+    yuv = full ? &kYuvJPEG : &kYuvI601;
+    av1::count(av1::kToolBt601);
+  } else if (matrix == 1) {
+    yuv = full ? &kYuvF709 : &kYuvH709;
+    av1::count(av1::kToolBt709);
+  } else if (matrix == 9) {
+    yuv = full ? &kYuvV2020 : &kYuv2020;
+    av1::count(av1::kToolBt2020);
+  } else {
+    not_ported("AVIF YUV to RGB (matrix_coefficients " + std::to_string(matrix) +
+               ", which libavif converts without libyuv)");
+  }
+  if (seq.ssy && !seq.ssx)
+    not_ported("AVIF YUV 4:4:0, which libavif converts without libyuv");
+  return yuv;
 }
 
 // an av01 item's headers, from its av1C config OBUs and its data, which
@@ -321,12 +363,12 @@ void load_item(const Avif& a, const Item& it, std::vector<uint8_t>* data,
                   static_cast<long>(data->size()), pic);
 }
 
-// an av01 item decoded to its planes; true for BT.601 YUV
-bool decode_item(const Avif& a, const Item& it, av1::Planes* out) {
+// an av01 item decoded to its planes; returns check_colour's constants
+const YuvConstants* decode_item(const Avif& a, const Item& it, av1::Planes* out) {
   std::vector<uint8_t> data;
   av1::Picture pic;
   load_item(a, it, &data, &pic);
-  const bool yuv = check_colour(a, it, pic.seq);
+  const YuvConstants* yuv = check_colour(a, it, pic.seq);
   av1::decode_picture(pic, out);
   return yuv;
 }
@@ -361,17 +403,17 @@ void up_bilinear(const uint8_t* s, const uint8_t* t, int w, uint8_t* d, uint8_t*
   e[w - 1] = static_cast<uint8_t>((s[c] + 3 * t[c] + 2) >> 2);
 }
 
-// 8-bit RGB from 4:2:0 BT.601 full-range planes as cv2's libavif makes it
-// with libyuv: samples above 8 bits cut to 8 (Convert16To8Plane), the
-// chroma upsampled bilinearly row pair by row pair
-// (I420ToRGB24MatrixBilinear: the first row, and the last of an even
-// height, from one chroma row), then kYuvJPEGConstants' fixed point
-// (YuvPixel): y * 0x0101 * 16320 >> 16, + 32, the chroma weights 113, 22,
-// 46 and 90 (1.772, 0.34414, 0.71414, 1.402 in 1/64), >> 6
-void yuv420_to_rgb(const av1::Planes& p, uint8_t* out, int stride_px, int x0, int y0) {
-  av1::count(av1::kToolBt601);
-  av1::count(av1::kToolChromaUpsample);
-  const int w = p.width, h = p.height, cw = (w + 1) >> 1, ch = (h + 1) >> 1;
+// 8-bit RGB from YUV planes as cv2's libavif makes it with libyuv:
+// samples above 8 bits cut to 8 (Convert16To8Plane); 4:2:0 chroma
+// upsampled bilinearly row pair by row pair (I420ToRGB24MatrixFilter: the
+// first row, and the last of an even height, from one chroma row), 4:2:2
+// chroma linearly along each row (I422ToRGB24MatrixFilter), 4:4:4 taken as
+// it is (I444ToRGB24Matrix); then YuvPixel's fixed point: y * 0x0101 * yg
+// >> 16, + yb, the chroma weights times (u - 128) and (v - 128), >> 6
+void yuv_to_rgb(const av1::Planes& p, const YuvConstants& k, uint8_t* out,
+                int stride_px, int x0, int y0) {
+  const int w = p.width, h = p.height;
+  const int cw = (w + p.ssx) >> p.ssx, ch = (h + p.ssy) >> p.ssy;
   const int shift = p.bit_depth - 8;
   std::vector<uint8_t> u8(static_cast<size_t>(cw) * ch), v8(u8.size());
   for (size_t i = 0; i < u8.size(); i++) {
@@ -379,9 +421,9 @@ void yuv420_to_rgb(const av1::Planes& p, uint8_t* out, int stride_px, int x0, in
     v8[i] = static_cast<uint8_t>(p.plane[2][i] >> shift);
   }
   std::vector<uint8_t> ru[2], rv[2];
-  for (int k = 0; k < 2; k++) {
-    ru[k].resize(w);
-    rv[k].resize(w);
+  for (int j = 0; j < 2; j++) {
+    ru[j].resize(w);
+    rv[j].resize(w);
   }
   auto clamp = [](int v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); };
   auto emit = [&](int y, const uint8_t* u, const uint8_t* v) {
@@ -389,15 +431,29 @@ void yuv420_to_rgb(const av1::Planes& p, uint8_t* out, int stride_px, int x0, in
     uint8_t* o = out + (static_cast<size_t>(y0 + y) * stride_px + x0) * 3;
     for (int x = 0; x < w; x++) {
       const uint32_t y32 = static_cast<uint32_t>(yr[x] >> shift) * 0x0101;
-      const int y1 = static_cast<int>((y32 * 16320u) >> 16) + 32;
+      const int y1 = static_cast<int>((y32 * static_cast<uint32_t>(k.yg)) >> 16) + k.yb;
       const int ui = u[x] - 128, vi = v[x] - 128;
-      o[3 * x + 0] = clamp((y1 + vi * 90) >> 6);
-      o[3 * x + 1] = clamp((y1 - (ui * 22 + vi * 46)) >> 6);
-      o[3 * x + 2] = clamp((y1 + ui * 113) >> 6);
+      o[3 * x + 0] = clamp((y1 + vi * k.vr) >> 6);
+      o[3 * x + 1] = clamp((y1 - (ui * k.ug + vi * k.vg)) >> 6);
+      o[3 * x + 2] = clamp((y1 + ui * k.ub) >> 6);
     }
   };
   const uint8_t* uc = u8.data();
   const uint8_t* vc = v8.data();
+  if (!p.ssx) {
+    for (int y = 0; y < h; y++)
+      emit(y, uc + static_cast<size_t>(y) * cw, vc + static_cast<size_t>(y) * cw);
+    return;
+  }
+  av1::count(av1::kToolChromaUpsample);
+  if (!p.ssy) {
+    for (int y = 0; y < h; y++) {
+      up_linear(uc + static_cast<size_t>(y) * cw, w, ru[0].data());
+      up_linear(vc + static_cast<size_t>(y) * cw, w, rv[0].data());
+      emit(y, ru[0].data(), rv[0].data());
+    }
+    return;
+  }
   up_linear(uc, w, ru[0].data());
   up_linear(vc, w, rv[0].data());
   emit(0, ru[0].data(), rv[0].data());
@@ -547,7 +603,7 @@ int avif_decode(const uint8_t* d, long n, uint8_t* out, int h, int w) {
     int tw = 0, th = 0;
     for (size_t k = 0; k < l.tiles.size(); k++) {
       av1::Planes p;
-      const bool yuv = decode_item(a, *l.tiles[k], &p);
+      const YuvConstants* yuv = decode_item(a, *l.tiles[k], &p);
       if (k == 0) {
         tw = p.width;
         th = p.height;
@@ -559,7 +615,7 @@ int avif_decode(const uint8_t* d, long n, uint8_t* out, int h, int w) {
       }
       const int cx = static_cast<int>(k % l.cols) * tw, cy = static_cast<int>(k / l.cols) * th;
       if (yuv)
-        yuv420_to_rgb(p, canvas.data(), tw * l.cols, cx, cy);
+        yuv_to_rgb(p, *yuv, canvas.data(), tw * l.cols, cx, cy);
       else
         to_rgb(p, canvas.data(), tw * l.cols, cx, cy);
     }

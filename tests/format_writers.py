@@ -1773,6 +1773,10 @@ class _Bits:
         self.p += n
         return self.bits[self.p - n:self.p]
 
+    def su(self, n: int) -> int:
+        v = self.f(n)
+        return v - (1 << n) if v >> (n - 1) else v
+
 
 def _leb128(v: int) -> bytes:
     out = bytearray()
@@ -1849,8 +1853,8 @@ def _seq_fields(seq: bytes) -> dict:
 
 def _frame_fields(frame: bytes, seq: dict) -> dict:
     """Bit positions in a reduced-header lossless key frame's header: its
-    head (before tile info), the tile-column increment bit (or None), the
-    segmentation flag and the header's end; "data" is the tile data."""
+    head (before tile info), the segmentation flag and the header's end;
+    "data" is the tile data."""
     r = _Bits(frame)
     f = {"dcu": r.f(1), "sc": r.f(1)}
     f["fimv"] = r.take(1) if f["sc"] else ""
@@ -1867,11 +1871,8 @@ def _frame_fields(frame: bytes, seq: dict) -> dict:
             k += 1
         return k
     assert r.f(1) == 1  # uniform tile spacing, one tile
-    f["tile_cols_bit"] = None
-    for k, n in enumerate(((mi_cols + sb - 1) // sb, (mi_rows + sb - 1) // sb)):
+    for n in ((mi_cols + sb - 1) // sb, (mi_rows + sb - 1) // sb):
         if log2(min(n, 64)):
-            if k == 0:
-                f["tile_cols_bit"] = r.p
             assert r.f(1) == 0
     assert r.f(8) == 0  # base_q_idx: lossless
     if r.f(1):
@@ -1927,25 +1928,203 @@ def av1_full_headers(item: bytes) -> bytes:
     return _with_headers(item, full, frame)
 
 
-def av1_header_edit(item: bytes, tiles: bool = False,
-                    segmentation: bool = False) -> bytes:
-    """A cv2-written lossless item's frame header edited: two tile columns
-    (the first tile-column increment set; the picture must be more than
-    one superblock wide), or segmentation on with every feature off (each
-    segment lossless). The tile data is not coded anew, so the headers are
-    all such a file holds of those tools: a test of the refusal, which
-    cv2 refuses too."""
+def av1_header_edit(item: bytes, segmentation: bool = False) -> bytes:
+    """A cv2-written lossless item's frame header edited: segmentation on
+    with every feature off (each segment lossless). The tile data is not
+    coded anew, so the header is all such a file holds of the tool: a test
+    of the refusal, which cv2 refuses too."""
     obus = av1_obus(item)
     seq = _seq_fields(next(body for t, _, body in obus if t == 1))
     fr = _frame_fields(next(body for t, _, body in obus if t == 6), seq)
     bits = fr["bits"][:fr["end"]]
-    if tiles:
-        p = fr["tile_cols_bit"]
-        bits = bits[:p] + "1" + bits[p + 1:]
     if segmentation:
         p = fr["segmentation"]
         bits = bits[:p] + "1" + "0" * 64 + bits[p + 1:]
     return _with_headers(item, None, bits)
+
+
+def _tile_log2(blk: int, target: int) -> int:
+    k = 0
+    while (blk << k) < target:
+        k += 1
+    return k
+
+
+def av1_seq_info(seq: bytes) -> dict:
+    """The fields of a reduced still picture sequence header (as libaom
+    writes it for libavif) that a key frame's header and tiles depend on."""
+    r = _Bits(seq)
+    f = {"profile": r.f(3), "still": r.f(1), "reduced": r.f(1)}
+    assert f["reduced"] == 1
+    r.f(5)  # seq_level_idx
+    wb, hb = r.f(4) + 1, r.f(4) + 1
+    f["width"], f["height"] = r.f(wb) + 1, r.f(hb) + 1
+    f["sb128"], f["filter_intra"], f["edge_filter"] = r.f(1), r.f(1), r.f(1)
+    f["superres"], f["cdef"], f["restoration"] = r.f(1), r.f(1), r.f(1)
+    hbd = r.f(1)
+    profile = f["profile"]
+    f["depth"] = (12 if r.f(1) else 10) if profile == 2 and hbd else (
+        10 if hbd else 8)
+    f["mono"] = r.f(1) if profile != 1 else 0
+    f["primaries"] = f["transfer"] = f["matrix"] = 2
+    if r.f(1):
+        f["primaries"], f["transfer"], f["matrix"] = r.f(8), r.f(8), r.f(8)
+    f["ssx"] = f["ssy"] = 1
+    f["separate"] = 0
+    if f["mono"]:
+        f["full_range"] = r.f(1)
+    elif (f["primaries"], f["transfer"], f["matrix"]) == (1, 13, 0):
+        f["full_range"], f["ssx"], f["ssy"] = 1, 0, 0
+    else:
+        f["full_range"] = r.f(1)
+        if profile == 1:
+            f["ssx"] = f["ssy"] = 0
+        elif profile == 2:
+            f["ssx"], f["ssy"] = 1, 0
+            if f["depth"] == 12:
+                f["ssx"] = r.f(1)
+                f["ssy"] = r.f(1) if f["ssx"] else 0
+        if f["ssx"] and f["ssy"]:
+            r.f(2)  # chroma_sample_position
+    if not f["mono"]:
+        f["separate"] = r.f(1)
+    f["film_grain"] = r.f(1)
+    return f
+
+
+def av1_frame_info(item: bytes) -> dict:
+    """The tile layout of a key frame written under a reduced still picture
+    sequence header, in one frame OBU: its uncompressed header parsed to
+    tile_info (uniform, the log2 sizes, TileCols and TileRows, MiColStarts
+    and MiRowStarts with the frame's end last, context_update_tile_id and
+    TileSizeBytes), base_q_idx, whether it is lossless and the header's
+    end, then its tile group
+    (tile_start_and_end_present_flag and each tile's size in bytes), and
+    the bit where delta_lf_present is read (None where it is not)."""
+    obus = av1_obus(item)
+    seq = av1_seq_info(next(b for t, _, b in obus if t == 1))
+    frame = next(b for t, _, b in obus if t == 6)
+    r = _Bits(frame)
+    out = {"seq": seq}
+    r.f(1)  # disable_cdf_update
+    sc = r.f(1)
+    if sc:
+        r.f(1)  # force_integer_mv
+    if seq["superres"]:
+        assert r.f(1) == 0
+    if r.f(1):  # render_and_frame_size_different
+        r.f(32)
+    ibc = r.f(1) if sc else 0
+    sh = 5 if seq["sb128"] else 4
+    mi_cols = 2 * ((seq["width"] + 7) >> 3)
+    mi_rows = 2 * ((seq["height"] + 7) >> 3)
+    sb_cols = (mi_cols + (1 << sh) - 1) >> sh
+    sb_rows = (mi_rows + (1 << sh) - 1) >> sh
+    max_w = 4096 >> (sh + 2)
+    area = (4096 * 2304) >> (2 * (sh + 2))
+    min_cols = _tile_log2(max_w, sb_cols)
+    max_cols = _tile_log2(1, min(sb_cols, 64))
+    max_rows = _tile_log2(1, min(sb_rows, 64))
+    min_tiles = max(min_cols, _tile_log2(area, sb_rows * sb_cols))
+    out["uniform"] = r.f(1)
+    if out["uniform"]:
+        cl = min_cols
+        while cl < max_cols and r.f(1):
+            cl += 1
+        w = (sb_cols + (1 << cl) - 1) >> cl
+        cols = [s << sh for s in range(0, sb_cols, w)]
+        rl = max(min_tiles - cl, 0)
+        while rl < max_rows and r.f(1):
+            rl += 1
+        h = (sb_rows + (1 << rl) - 1) >> rl
+        rows = [s << sh for s in range(0, sb_rows, h)]
+    else:
+        def ns(n):
+            w = n.bit_length()
+            m = (1 << w) - n
+            v = r.f(w - 1)
+            return v if v < m else (v << 1) - m + r.f(1)
+        cols, start, widest = [], 0, 0
+        while start < sb_cols:
+            cols.append(start << sh)
+            size = ns(min(sb_cols - start, max_w)) + 1
+            widest, start = max(widest, size), start + size
+        area = (sb_rows * sb_cols) >> (min_tiles + 1) if min_tiles else \
+            sb_rows * sb_cols
+        rows, start = [], 0
+        while start < sb_rows:
+            rows.append(start << sh)
+            start += ns(min(sb_rows - start, max(area // widest, 1))) + 1
+        cl, rl = _tile_log2(1, len(cols)), _tile_log2(1, len(rows))
+    out.update(cols_log2=cl, rows_log2=rl, tile_cols=len(cols),
+               tile_rows=len(rows), mi_col_starts=cols + [mi_cols],
+               mi_row_starts=rows + [mi_rows], context_update_tile_id=0,
+               tile_size_bytes=4)
+    if cl or rl:
+        out["context_update_tile_id"] = r.f(cl + rl)
+        out["tile_size_bytes"] = r.f(2) + 1
+    out["base_q_idx"] = q = r.f(8)
+    dq = [r.su(7) if r.f(1) else 0]
+    if not seq["mono"]:
+        diff = r.f(1) if seq["separate"] else 0
+        dq += [r.su(7) if r.f(1) else 0 for _ in range(2)]
+        dq += [r.su(7) if r.f(1) else 0 for _ in range(2)] if diff else dq[1:]
+    if r.f(1):  # using_qmatrix
+        r.f(8 + (4 if seq["separate"] else 0))
+    assert r.f(1) == 0  # segmentation_enabled
+    out["delta_lf_at"] = None
+    if q > 0 and r.f(1):  # delta_q_present
+        r.f(2)
+        if not ibc:
+            out["delta_lf_at"] = r.p
+            if r.f(1):  # delta_lf_present
+                r.f(3)
+    out["lossless"] = lossless = q == 0 and not any(dq)
+    planes = 1 if seq["mono"] else 3
+    if not lossless and not ibc:
+        lf = [r.f(6), r.f(6)]
+        if planes > 1 and any(lf):
+            r.f(12)
+        r.f(3)  # sharpness
+        if r.f(1) and r.f(1):  # loop_filter_delta_enabled, _update
+            for _ in range(10):
+                if r.f(1):
+                    r.f(7)
+        if seq["cdef"]:
+            r.f(2)
+            r.f((1 << r.f(2)) * (6 if planes == 1 else 12))
+        if seq["restoration"]:
+            types = [r.f(2) for _ in range(planes)]
+            if any(types):
+                if seq["sb128"]:
+                    r.f(1)
+                elif r.f(1):
+                    r.f(1)
+                if seq["ssx"] and seq["ssy"] and any(types[1:]):
+                    r.f(1)
+        r.f(1)  # tx_mode_select
+    r.f(1)  # reduced_tx_set
+    assert not seq["film_grain"]
+    out["header_end"] = r.p
+    # the tile group
+    p = (r.p + 7) // 8
+    n_tiles = out["tile_cols"] * out["tile_rows"]
+    out["start_and_end_present"] = 0
+    if n_tiles > 1:
+        out["start_and_end_present"] = frame[p] >> 7
+        assert not out["start_and_end_present"]
+        p += 1
+    sizes = []
+    for t in range(n_tiles):
+        if t == n_tiles - 1:
+            sizes.append(len(frame) - p)
+        else:
+            k = out["tile_size_bytes"]
+            size = int.from_bytes(frame[p:p + k], "little") + 1
+            sizes.append(size)
+            p += k + size
+    out["tile_sizes"] = sizes
+    return out
 
 
 def avif_grid(tiles, rows: int, cols: int, height: int, width: int) -> bytes:
@@ -2111,6 +2290,8 @@ def _add_avif(add):
         "480x640 RGB, speed 6: the picture phase 7a times and the trainer "
         "reads")
     _add_avif_lossy(add)
+    _add_avif_tiles(add)
+    _add_avif_layouts(add)
 
 
 def _add_avif_lossy(add):
@@ -2156,6 +2337,117 @@ def _add_avif_lossy(add):
         "AVIF", "photo over screen content (quality 30, speed 4): intra block "
         "copy in a lossy frame (its transform trees and inter transform "
         "types, half-sample chroma), the in-loop filters off")
+
+
+def avif_pil(img: np.ndarray, **kw) -> bytes:
+    """Pillow's AVIF (its libavif over libaom) of a BGR picture, with the
+    plugin's options (subsampling, quality, speed, range, tile_rows and
+    tile_cols as log2, autotiling, advanced: libaom's own)."""
+    import io
+    from PIL import Image
+    b = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(img[..., ::-1])).save(b, "AVIF", **kw)
+    return b.getvalue()
+
+
+def avif_banner(h: int, w: int, seed: int) -> np.ndarray:
+    """A wide BGR picture of flat seeded boxes on a flat ground: its
+    decoded pixels stay small as PNG."""
+    rs = np.random.RandomState(seed)
+    img = np.zeros((h, w, 3), np.uint8)
+    img[:] = (200, 180, 150)
+    for _ in range(40):
+        y0, x0 = rs.randint(0, h), rs.randint(0, w)
+        img[y0:y0 + rs.randint(20, 160), x0:x0 + rs.randint(40, 600)] = \
+            rs.randint(0, 256, 3)
+    return img
+
+
+def avif_colr(data: bytes, matrix: int = None, full: int = None,
+              primaries: int = None) -> bytes:
+    """An AVIF with its primary item's nclx colr box edited: the matrix,
+    the range flag or the primaries (the samples stay as coded)."""
+    a = avif_items(data)
+    items = {k: dict(v) for k, v in a["items"].items()}
+    it = items[a["primary"]]
+    props = []
+    for pb in it["props"]:
+        if pb[4:8] == b"colr" and pb[8:12] == b"nclx":
+            b = bytearray(pb)
+            if primaries is not None:
+                b[12:14] = primaries.to_bytes(2, "big")
+            if matrix is not None:
+                b[16:18] = matrix.to_bytes(2, "big")
+            if full is not None:
+                b[18] = (b[18] & 0x7F) | (0x80 if full else 0)
+            pb = bytes(b)
+        props.append(pb)
+    it["props"] = props
+    return write_avif(items, a["primary"], a["refs"], a["ftyp"])
+
+
+def _add_avif_tiles(add):
+    """AVIF of several tiles: Pillow's forced 2x2 and cv2.imwrite's files
+    wider than 4096 (2x1 at its defaults)."""
+    add("avif_tiles_2x2.avif", avif_pil(_avif_picture(240, 320, 31),
+                                        tile_rows=1, tile_cols=1), "AVIF",
+        "240x320, Pillow's 2x2 tiles (tile_rows and tile_cols 1)")
+    for h, w, seed in ((300, 4200, 5), (256, 4104, 6)):
+        ok, buf = __import__("cv2").imencode(".avif", avif_banner(h, w, seed))
+        assert ok
+        add(f"avif_tiles_{h}x{w}.avif", buf.tobytes(), "AVIF",
+            f"{h}x{w} at cv2's defaults: 2x1 tiles (over 64 superblocks "
+            "across)")
+
+
+def _add_avif_layouts(add):
+    """Pillow's AVIF of the chroma layouts cv2 never writes (lossy 4:4:4
+    and 4:2:2, lossless 4:2:0 and 4:2:2, all BT.601) and colour
+    descriptions other writers give (limited range; BT.709, BT.2020 NCL,
+    unspecified and chromaticity-derived matrices: colr edits of a lossy
+    file)."""
+    pic, scr = _avif_picture, _avif_screen
+    for sub, tag in (("4:4:4", "444"), ("4:2:2", "422")):
+        add(f"avif_layout_{tag}.avif", avif_pil(pic(96, 136, 32), subsampling=sub,
+                                                speed=0), "AVIF",
+            f"lossy {sub}, speed 0: CfL, filter intra, loop restoration")
+        add(f"avif_layout_{tag}_23x37.avif", avif_pil(pic(23, 37, 33),
+                                                      subsampling=sub), "AVIF",
+            f"lossy {sub}, 23x37: odd chroma sizes, frame edges")
+        add(f"avif_layout_{tag}_screen.avif", avif_pil(
+            scr(96, 160, 34), subsampling=sub, speed=2, quality=90), "AVIF",
+            f"screen content at {sub}: the chroma palette")
+        add(f"avif_layout_{tag}_cdef.avif", avif_pil(
+            pic(96, 136, 35), subsampling=sub, speed=4, quality=40,
+            advanced={"enable-cdef": "1"}), "AVIF",
+            f"lossy {sub} with CDEF (libaom's enable-cdef): Cdef_Uv_Dir")
+    add("avif_layout_422_intrabc.avif", avif_pil(
+        _avif_mixed(5), subsampling="4:2:2", quality=30, speed=4), "AVIF",
+        "intra block copy at 4:2:2 (half-sample chroma across)")
+    for sub, tag in (("4:2:0", "420"), ("4:2:2", "422")):
+        add(f"avif_layout_lossless_{tag}.avif", avif_pil(
+            pic(64, 96, 36), quality=100, subsampling=sub), "AVIF",
+            f"lossless {sub} (Pillow's quality 100), BT.601")
+        add(f"avif_layout_lossless_{tag}_23x37.avif", avif_pil(
+            pic(23, 37, 37), quality=100, subsampling=sub), "AVIF",
+            f"lossless {sub}, 23x37")
+    add("avif_layout_lossless_420_screen.avif", avif_pil(
+        scr(96, 160, 38), quality=100, speed=0), "AVIF",
+        "lossless 4:2:0 screen content: palette, CfL of 4x4 chroma")
+    base = pic(64, 96, 39)
+    add("avif_colr_limited.avif", avif_pil(base, range="limited"), "AVIF",
+        "limited range, BT.601 (Pillow's range='limited')")
+    lossy = avif_pil(base)
+    for name, m, full, prim, what in (
+            ("bt709", 1, 1, None, "BT.709"),
+            ("bt709_limited", 1, 0, None, "BT.709, limited range"),
+            ("bt2020", 9, 1, None, "BT.2020 NCL"),
+            ("bt2020_limited", 9, 0, None, "BT.2020 NCL, limited range"),
+            ("unspecified", 2, 1, None, "matrix 2 (unspecified: BT.601)"),
+            ("cdncl", 12, 1, 9, "chromaticity-derived NCL of BT.2020 "
+                                "primaries")):
+        add(f"avif_colr_{name}.avif", avif_colr(lossy, m, full, prim), "AVIF",
+            f"colr nclx {what} over BT.601 samples")
 
 
 def write_fixtures(directory: str, prefixes=None) -> dict:

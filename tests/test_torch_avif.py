@@ -84,19 +84,15 @@ def _refused(data: bytes, name: str, *words):
 
 
 def test_avif_refusals():
-    """The lossless tools no fixture reaches (several tiles, segmentation:
-    header edits of a committed fixture) raise naming the tool;
-    `image_size` refuses as the decode does. (cv2's lossy files, which
-    raised "lossy AV1" here before, now read to cv2's pixels:
-    test_torch_avif_lossy.py.)"""
-    tiles = fw._avif_edit(read("avif_130x150.avif"), av1=lambda d:
-                          fw.av1_header_edit(d, tiles=True))
-    _refused(tiles, "tiles.avif", "several tiles")
-    with pytest.raises(native.ImageDecodeError, match="several tiles"):
-        native.image_size(tiles, "tiles.avif")
+    """A lossless tool no fixture reaches (segmentation: a header edit of a
+    committed fixture) raises naming the tool; `image_size` refuses as the
+    decode does. (cv2's lossy files now read to cv2's pixels:
+    test_torch_avif_lossy.py; several tiles too: test_torch_avif_tiles.py.)"""
     seg = fw._avif_edit(read("avif_rgb8.avif"), av1=lambda d:
                         fw.av1_header_edit(d, segmentation=True))
     _refused(seg, "segmentation.avif", "segmentation")
+    with pytest.raises(native.ImageDecodeError, match="segmentation"):
+        native.image_size(seg, "segmentation.avif")
 
 
 def _cut_tile(item: bytes) -> bytes:

@@ -17,8 +17,10 @@ frame with `native/av1_*.cpp` and converts it as cv2 does:
   cv2.imread's pixels and to the JAX loader's (`CocoDataset.load_image`:
   its cv2 fallback) at max abs 0.
 * What cv2 reads and the port still does not (segmentation, film grain,
-  superres, several tiles, another matrix, limited range: header edits of
-  a committed fixture) raises "not ported" naming the tool.
+  superres: header edits of a committed fixture) raises "not ported"
+  naming the tool. (Several tiles, other matrices and limited range now
+  read to cv2's pixels: test_torch_avif_tiles.py and
+  test_torch_avif_layouts.py.)
 """
 import numpy as np
 import pytest
@@ -144,8 +146,8 @@ def _seq_positions(body: bytes) -> dict:
 
 def _frame_positions(seq: dict, frame: bytes) -> dict:
     """Bit positions in a reduced-header lossy key frame's header: where
-    use_superres would be read, the tile-column increment bit (or None),
-    segmentation_enabled, and the header's end (after reduced_tx_set)."""
+    use_superres would be read, segmentation_enabled, and the header's end
+    (after reduced_tx_set)."""
     r = fw._Bits(frame)
     out = {}
     r.f(1)  # disable_cdf_update
@@ -165,11 +167,8 @@ def _frame_positions(seq: dict, frame: bytes) -> dict:
             k += 1
         return k
     assert r.f(1) == 1  # uniform tile spacing, one tile
-    out["tile_cols_bit"] = None
-    for k, n in enumerate(((mi_cols + sb - 1) // sb, (mi_rows + sb - 1) // sb)):
+    for n in ((mi_cols + sb - 1) // sb, (mi_rows + sb - 1) // sb):
         if log2(min(n, 64)):
-            if k == 0:
-                out["tile_cols_bit"] = r.p
             assert r.f(1) == 0
     assert r.f(8) > 0  # base_q_idx: lossy
     planes = 1 if seq["mono"] else 3
@@ -218,22 +217,6 @@ def _frame_positions(seq: dict, frame: bytes) -> dict:
 def _edit(data: bytes, what: str) -> bytes:
     """A committed lossy file with one header edited to use `what`; the
     tile data stays (the refusal comes before it is read)."""
-    if what in ("matrix", "limited_range"):
-        def colr(pb):
-            if pb[4:8] != b"colr" or pb[8:12] != b"nclx":
-                return pb
-            b = bytearray(pb)
-            if what == "matrix":
-                b[16:18] = (1).to_bytes(2, "big")  # BT.709
-            else:
-                b[18] &= 0x7F
-            return bytes(b)
-        a = fw.avif_items(data)
-        items = {k: dict(v) for k, v in a["items"].items()}
-        it = items[a["primary"]]
-        it["props"] = [colr(pb) for pb in it["props"]]
-        return fw.write_avif(items, a["primary"], a["refs"], a["ftyp"])
-
     def av1(item):
         obus = fw.av1_obus(item)
         seq = _seq_positions(next(b for t, _, b in obus if t == 1))
@@ -244,9 +227,6 @@ def _edit(data: bytes, what: str) -> bytes:
         if what == "segmentation":
             p = fr["segmentation"]
             bits = bits[:p] + "1" + "0" * 64 + bits[p + 1:]
-        elif what == "tiles":
-            p = fr["tile_cols_bit"]
-            bits = bits[:p] + "1" + bits[p + 1:]
         elif what == "superres":
             p = seq["superres_at"]
             seq_bits = seq_bits[:p] + "1" + seq_bits[p + 1:]
@@ -271,9 +251,7 @@ def _edit(data: bytes, what: str) -> bytes:
 
 
 REFUSALS = {"segmentation": "segmentation", "film_grain": "film grain",
-            "superres": "superres", "tiles": "several tiles",
-            "matrix": "matrix_coefficients 1",
-            "limited_range": "limited-range"}
+            "superres": "superres"}
 
 
 @pytest.mark.parametrize("what", sorted(REFUSALS))

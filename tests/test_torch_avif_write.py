@@ -391,18 +391,6 @@ def test_write_image_avif(tmp_path):
         assert f.read() == encoded("host_picture_65x129")[3]
 
 
-@pytest.mark.parametrize("h, w", [(2400, 3900), (2340, 4000), (8, 4097)])
-def test_several_tiles_not_ported(tmp_path, h, w):
-    """A picture AV1 codes in several tiles (over 64 superblocks of 64x64
-    across, or over 2304 in all, as the frame header counts them; the first
-    two hold fewer than 4096 x 2304 pixels) raises "not ported" through
-    write_image, before any search, and leaves no file."""
-    path = str(tmp_path / "a.avif")
-    with pytest.raises(RuntimeError, match="several tiles.*not ported"):
-        image_io.write_image(path, np.zeros((h, w, 3), np.uint8))
-    assert not os.path.exists(path)
-
-
 def test_demo_writes_avif_renders(tmp_path):
     """The image demo on the two committed AVIF fixtures with a tiny
     seeded detector: each render written as .avif under its input's name,
